@@ -1,0 +1,45 @@
+"""The port stands alone: no module of `taxoexpan_torch` and not
+`chip_smoke.py` imports JAX, jaxlib, optax or the JAX package, and every
+entry point refuses to run on CUDA where there is none instead of falling
+back to the CPU."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "optax", "taxoexpan_tpu"}
+
+
+def _port_files():
+    return sorted((REPO / "taxoexpan_torch").rglob("*.py")) + \
+        [REPO / "chip_smoke.py"]
+
+
+def test_no_jax_imports():
+    offenders = []
+    files = _port_files()
+    assert len(files) > 20
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
+                          for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not offenders, offenders
+
+
+def test_cuda_default_raises_without_cuda(monkeypatch):
+    from taxoexpan_torch.device import resolve_device
+    from taxoexpan_torch.test_fast import parse_args
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert parse_args(["-r", "x.ckpt"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    assert resolve_device("cpu").type == "cpu"
