@@ -1,15 +1,18 @@
 """Factory functions assembling the port's components from a config tree
-(port of the serving parts of `taxoexpan_tpu/builders.py`): the same config
-keys and value semantics, so a JAX run's `config.json` drives the port.
+(port of `taxoexpan_tpu/builders.py`): the same config keys and value
+semantics, so a JAX run's `config.json` drives the port.
 
-Settings the port does not have yet raise instead of being ignored; the
-training-only ones (dropout rates, optimizer, kernel choice) are not read.
+Settings the port does not have yet raise instead of being ignored
+(bf16, pos_mode="concat", auxiliary MTL heads); the JAX kernel choice
+(`kernel`) and the GCN-only dropout rates are not read.
 """
 from __future__ import annotations
 
+from .data.loader import GroupBatchLoader
 from .data.sampler import MaskedGraphSampler
 from .data.taxonomy import Taxonomy
 from .models import TaxoExpan
+from .training.optim import Optimizer, PlateauScheduler
 
 
 def build_taxonomy(data_path: str) -> Taxonomy:
@@ -39,7 +42,9 @@ def build_model(arch_cfg: dict, *, max_parents: int,
     for key, ported in (("compute_dtype", "float32"), ("pos_mode", "bias")):
         if a.get(key, ported) != ported:
             raise ValueError(f"{key}={a[key]!r} is not ported yet; the "
-                             f"port serves {key}={ported!r}")
+                             f"port runs {key}={ported!r}")
+    if a.get("aux_heads"):
+        raise ValueError("auxiliary MTL heads (aux_heads) are not ported yet")
     return TaxoExpan(
         a.get("propagation_method", "PGAT"),
         a.get("readout_method", "WMR"),
@@ -50,6 +55,46 @@ def build_model(arch_cfg: dict, *, max_parents: int,
         pos_dim=a.get("pos_dim", 0),
         num_layers=a.get("num_layers", 1),
         heads=a.get("heads"),
+        feat_drop=a.get("feat_drop", 0.1),
+        attn_drop=a.get("attn_drop", 0.1),
         max_parents=max_parents,
         expand_factor=expand_factor,
         raw_channel=a.get("raw_channel", False))
+
+
+def build_loader(sampler: MaskedGraphSampler, loader_cfg: dict,
+                 seed: int = 0) -> GroupBatchLoader:
+    return GroupBatchLoader(
+        sampler,
+        batch_size=loader_cfg.get("batch_size", 32),
+        shuffle=loader_cfg.get("shuffle", True),
+        seed=seed,
+        prefetch=min(int(loader_cfg.get("num_workers", 2)) or 0, 4))
+
+
+def build_optimizer_from_config(opt_cfg: dict,
+                                trainer_cfg: dict | None = None) -> Optimizer:
+    """From `optimizer` + `trainer.grad_clip`."""
+    args = opt_cfg.get("args", {})
+    return Optimizer(opt_type=opt_cfg.get("type", "Adam"),
+                     lr=args.get("lr", 1e-3),
+                     weight_decay=args.get("weight_decay", 0.0),
+                     amsgrad=args.get("amsgrad", False),
+                     grad_clip=(trainer_cfg or {}).get("grad_clip", -1))
+
+
+def build_scheduler(sched_cfg: dict | None) -> PlateauScheduler | None:
+    """From `lr_scheduler`; only ReduceLROnPlateau, as in the JAX package."""
+    if not sched_cfg:
+        return None
+    if sched_cfg.get("type") != "ReduceLROnPlateau":
+        raise ValueError(
+            f"unsupported lr_scheduler type {sched_cfg.get('type')!r}; "
+            "use ReduceLROnPlateau or omit")
+    a = sched_cfg.get("args", {})
+    return PlateauScheduler(mode=a.get("mode", "min"),
+                            factor=a.get("factor", 0.1),
+                            patience=a.get("patience", 10),
+                            threshold=a.get("threshold", 1e-4),
+                            min_lr=a.get("min_lr", 0.0),
+                            verbose=a.get("verbose", False))

@@ -55,6 +55,15 @@ class TaxonomyRanker:
         self._query_cache = None
         self._table = torch.from_numpy(self.feature_table).to(self.device)
 
+    def refresh(self, params: dict) -> None:
+        """Re-point the ranker at fresh parameters (per-epoch full-catalog
+        validation, training/trainer.py). Drops the encoded anchors (they
+        depend on params) and keeps every params-independent cache: the
+        anchor egonet arrays, the device feature table and the evaluate()
+        host-side prep."""
+        self.params = params_to(params, self.device)
+        self._hg = None
+
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 

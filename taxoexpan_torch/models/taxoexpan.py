@@ -1,12 +1,13 @@
-"""The TaxoExpan composite model, serving form: propagate -> readout -> match
-(port of `taxoexpan_tpu/models/taxoexpan.py`).
+"""The TaxoExpan composite model: propagate -> readout -> match (port of
+`taxoexpan_tpu/models/taxoexpan.py`).
 
 The model object holds static configuration; parameters are a plain dict
 tree with the JAX package's keys and layouts (see weights.py). Ported so
-far: GAT/PGAT propagation with pos_mode="bias" in float32, the MR/WMR/CR/SUM
-readouts, every matcher, the raw-feature channel and its structure-prior
-init. GCN/PGCN, MAX/PATR readouts, auxiliary heads, bf16 and training wait
-for later work (ROADMAP.md).
+far: GAT/PGAT propagation with pos_mode="bias" in float32, eval and train
+(dropout) forms, the MR/WMR/CR/SUM readouts, every matcher, the raw-feature
+channel and its structure-prior init, and the training forward
+(`forward`: GroupBatch -> scores [G, C]). GCN/PGCN, MAX/PATR readouts,
+auxiliary heads and bf16 wait for later work (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ class TaxoExpan:
                  pos_dim: int = 0,
                  num_layers: int = 1,
                  heads: list[int] | None = None,
+                 feat_drop: float = 0.1,
+                 attn_drop: float = 0.1,
                  max_parents: int = 8,
                  expand_factor: int = 50,
                  raw_channel: bool = False):
@@ -50,7 +53,8 @@ class TaxoExpan:
         self.num_slots = max_parents + 1 + expand_factor
         pos_dim_eff = pos_dim if propagation_method == "PGAT" else 0
         self.propagate = GAT(in_dim, hidden_dim, out_dim, num_layers, heads,
-                             pos_dim=pos_dim_eff)
+                             pos_dim=pos_dim_eff, feat_drop=feat_drop,
+                             attn_drop=attn_drop)
         self.readout = Readout(readout_method, out_dim)
         # optional raw-feature channel: the unit-normalised anchor+sibling
         # mean of the untransformed features appended to every summary
@@ -80,14 +84,15 @@ class TaxoExpan:
 
     # ------------------------------------------------------------------ stages
     def encode(self, params: dict, feats: torch.Tensor, ngp: torch.Tensor,
-               nsib: torch.Tensor) -> torch.Tensor:
+               nsib: torch.Tensor, *, gen: torch.Generator | None = None,
+               train: bool = False) -> torch.Tensor:
         """Egonet features [B, N, D] -> graph embeddings [B, l_dim].
 
         The final layer emits the readout class pools directly (head mean
         and masked class sums inside the kernel); the readout is a small
-        epilogue on them."""
+        epilogue on them. train=True turns dropout on, seeds from `gen`."""
         pools = self.propagate.apply(params["propagate"], feats, ngp, nsib,
-                                     self.max_parents)
+                                     self.max_parents, gen=gen, train=train)
         hg = self.readout.apply_pools(params["readout"], pools, ngp, nsib)
         return self._append_raw(hg, feats, ngp, nsib)
 
@@ -114,3 +119,19 @@ class TaxoExpan:
         feats = feature_table[node_ids]
         mask = star.node_mask(ngp, nsib, self.max_parents, node_ids.shape[1])
         return feats * mask[..., None].to(feats.dtype)
+
+    def forward(self, params: dict, batch, feature_table: torch.Tensor, *,
+                gen: torch.Generator | None = None,
+                train: bool = False) -> torch.Tensor:
+        """GroupBatch (tensors on the model's device) -> scores [G, C], in
+        the per-group layout the losses take."""
+        ego = batch.ego
+        feats = self.gather_feats(feature_table, ego.node_ids.long(),
+                                  ego.ngp, ego.nsib)
+        qf = (batch.query_feats if batch.query_feats is not None
+              else feature_table[batch.query_ids.long()])
+        g, c = batch.labels.shape
+        hg = self.encode(params, feats, ego.ngp, ego.nsib, gen=gen,
+                         train=train)
+        scores = self.match(params, hg, qf.repeat_interleave(c, dim=0))
+        return scores.reshape(g, c)

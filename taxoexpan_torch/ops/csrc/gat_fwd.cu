@@ -1,10 +1,12 @@
-// Star-GAT layer forward kernels for Hopper (sm_90a), float32, eval form.
+// Star-GAT layer forward kernels for Hopper (sm_90a), float32, in eval form
+// (serving) and train form (dropout).
 //
 // Replace the forward Pallas kernels of taxoexpan_tpu/ops/pallas_gat.py:
-//   gat_layer_fwd        <- fused_gat_layer        (_fused_fwd, _fwd_kernel)
-//   gat_layer_pooled_fwd <- fused_gat_layer_pooled (_fused_pooled_fwd,
-//                                                  _fwd_pool_kernel)
-// with dropout off (serving). Per egonet b, head h:
+//   gat_layer_fwd[_train]        <- fused_gat_layer        (_fused_fwd,
+//                                                           _fwd_kernel)
+//   gat_layer_pooled_fwd[_train] <- fused_gat_layer_pooled (_fused_pooled_fwd,
+//                                                           _fwd_pool_kernel)
+// Per egonet b, head h:
 //   ft  = x[b] @ fc[:, h*Dh:(h+1)*Dh] + bias_ft[:, h*Dh:(h+1)*Dh]   [N, Dh]
 //   a1  = x[b] @ wa1[:, h] + bias_a1[:, h]; a2 likewise             [N]
 //   star softmax of leaky(a1[src] + a2[dst], alpha) per destination:
@@ -15,12 +17,17 @@
 //   gat_layer_fwd:        optional leaky(out, out_alpha); writes [B, N, H*Dh]
 //   gat_layer_pooled_fwd: head mean, then per class (valid gp sum, anchor,
 //                         valid sib sum); writes [B, 3, Dh] only.
+// The train forms (kTrain) mask x as it is staged, add the masked pe rows
+// as extra K columns and multiply the attention weights by their masks
+// (gat_common.cuh); the dropout bits are a pure function of the element's
+// indices, so the backward kernels (gat_bwd.cu) replay them exactly.
 //
-// What bounds it on an H100: the x @ fc product. At the serving shapes
-// (config.mag.json, N = 64) layer 0 does 2*B*64*250*2008 flop and writes
-// B*64*2000 floats; the final layer does 2*B*64*2000*502 flop and writes
-// only the pools. Both sit above the float32 ridge point, so the bound is
-// the float32 FMA rate (the tensor cores' TF32 would break f32 parity).
+// What bounds it on an H100: the x @ fc product. At the config.mag.json
+// shapes (N = 64) layer 0 does 2*B*64*(250 [+50])*2008 flop and writes
+// B*64*2000 floats; the final layer does 2*B*64*(2000 [+50])*502 flop and
+// writes only the pools. Both sit above the float32 ridge point, so the
+// bound is the float32 FMA rate (the tensor cores' TF32 would break f32
+// parity). The train form adds one 32-bit hash per staged x element.
 //
 // Design (simple first): one block of 256 threads per (egonet, head, 128-
 // column tile of the head) for the per-slot kernel and per (egonet, column
@@ -34,178 +41,15 @@
 // repeated reads of x[b] are served from L2. N is taken as given (no slot
 // padding); rows beyond N and columns beyond Dh are masked.
 
-#include <cuda_runtime.h>
+#include "gat_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerChunk = 64;            // 16 row groups x 4 rows
-constexpr int kTileCols = 128;               // 16 col groups x (4 + 4)
-constexpr int kTileK = 16;
-constexpr int kXsStride = kRowsPerChunk + 4;  // padded: fewer bank conflicts
-constexpr int kStaticFloats =
-    kTileK * kXsStride + kTileK * kTileCols + 2 * kTileK;
+using namespace gat;
 
-__device__ __forceinline__ float leaky(float v, float a) {
-  return v >= 0.f ? v : a * v;
-}
-
-struct Smem {
-  float* xs;           // [kTileK][kXsStride]  x tile, k-major
-  float* ws;           // [kTileK][kTileCols]  fc tile
-  float* was;          // [2][kTileK]          wa1 / wa2 tile of the head
-  float* ft;           // [n][kTileCols]       ft tile incl. slot bias
-  float* a1;           // [n]
-  float* a2;           // [n]
-  float* w_self;       // [n] weight of a row's own ft
-  float* w_anchor;     // [n] weight of the anchor's ft (sibling rows)
-  float* w_to_anchor;  // [n] weight of gp row j in the anchor's output
-};
-
-__device__ __forceinline__ Smem carve(float* base, int n) {
-  Smem s;
-  s.xs = base;
-  s.ws = s.xs + kTileK * kXsStride;
-  s.was = s.ws + kTileK * kTileCols;
-  s.ft = s.was + 2 * kTileK;
-  s.a1 = s.ft + (size_t)n * kTileCols;
-  s.a2 = s.a1 + n;
-  s.w_self = s.a2 + n;
-  s.w_anchor = s.w_self + n;
-  s.w_to_anchor = s.w_anchor + n;
-  return s;
-}
-
-// ft tile and a1/a2 of head h for every row of egonet xb ([n, din]):
-// s.ft[r][c] = x[r] . fc[:, col0 + c] + bias_ft[r, col0 + c] (0 for c >= ncols)
-// s.a1[r]    = x[r] . wa1[:, h] + bias_a1[r, h]; s.a2 likewise.
-__device__ void head_tile(const float* __restrict__ xb,
-                          const float* __restrict__ fc,
-                          const float* __restrict__ wa1,
-                          const float* __restrict__ wa2,
-                          const float* __restrict__ bias_ft,
-                          const float* __restrict__ bias_a1,
-                          const float* __restrict__ bias_a2, int n, int din,
-                          int hd, int heads, int h, int col0, int ncols,
-                          const Smem& s) {
-  const int t = threadIdx.x;
-  const int tx = t & 15, ty = t >> 4;
-  for (int row0 = 0; row0 < n; row0 += kRowsPerChunk) {
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    float a_acc = 0.f;  // threads t < 128: row t/2, a1 (even) or a2 (odd)
-    for (int k0 = 0; k0 < din; k0 += kTileK) {
-#pragma unroll
-      for (int q = 0; q < kRowsPerChunk * kTileK / kThreads; ++q) {
-        const int e = t + q * kThreads;
-        const int r = e / kTileK, kk = e % kTileK;
-        const int gr = row0 + r, gk = k0 + kk;
-        s.xs[kk * kXsStride + r] =
-            (gr < n && gk < din) ? xb[(size_t)gr * din + gk] : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < kTileK * kTileCols / kThreads; ++q) {
-        const int e = t + q * kThreads;
-        const int kk = e / kTileCols, c = e % kTileCols;
-        const int gk = k0 + kk;
-        s.ws[kk * kTileCols + c] =
-            (gk < din && c < ncols) ? fc[(size_t)gk * hd + col0 + c] : 0.f;
-      }
-      if (t < 2 * kTileK) {
-        const int gk = k0 + (t % kTileK);
-        const float* wa = (t < kTileK) ? wa1 : wa2;
-        s.was[t] = gk < din ? wa[(size_t)gk * heads + h] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kTileK; ++kk) {
-        const float4 xv =
-            *reinterpret_cast<const float4*>(&s.xs[kk * kXsStride + ty * 4]);
-        const float4 w0 =
-            *reinterpret_cast<const float4*>(&s.ws[kk * kTileCols + tx * 4]);
-        const float4 w1 = *reinterpret_cast<const float4*>(
-            &s.ws[kk * kTileCols + 64 + tx * 4]);
-        const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-        const float wc[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xr[i], wc[j], acc[i][j]);
-      }
-      if (t < 2 * kRowsPerChunk) {
-        const int r = t >> 1;
-        const float* wa = s.was + (t & 1) * kTileK;
-#pragma unroll
-        for (int kk = 0; kk < kTileK; ++kk)
-          a_acc = fmaf(s.xs[kk * kXsStride + r], wa[kk], a_acc);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty * 4 + i;
-      if (r >= n) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-        s.ft[r * kTileCols + c] =
-            c < ncols ? acc[i][j] + bias_ft[(size_t)r * hd + col0 + c] : 0.f;
-      }
-    }
-    if (t < 2 * kRowsPerChunk) {
-      const int r = row0 + (t >> 1);
-      if (r < n) {
-        if (t & 1)
-          s.a2[r] = a_acc + bias_a2[(size_t)r * heads + h];
-        else
-          s.a1[r] = a_acc + bias_a1[(size_t)r * heads + h];
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Star softmax weights of one head from s.a1 / s.a2 (see file header).
-__device__ void attention_weights(int n, int p, int ngp, float alpha,
-                                  const Smem& s) {
-  for (int r = threadIdx.x; r < n; r += kThreads) {
-    if (r < p) {
-      s.w_self[r] = 1.f;
-      s.w_anchor[r] = 0.f;
-    } else if (r > p) {
-      const float l0 = leaky(s.a1[p] + s.a2[r], alpha);
-      const float l1 = leaky(s.a1[r] + s.a2[r], alpha);
-      const float m = fmaxf(l0, l1);
-      const float e0 = expf(l0 - m), e1 = expf(l1 - m);
-      const float den = e0 + e1;
-      s.w_anchor[r] = e0 / den;
-      s.w_self[r] = e1 / den;
-    } else {
-      const float a2p = s.a2[p];
-      const float lself = leaky(s.a1[p] + a2p, alpha);
-      float m = lself;
-      for (int j = 0; j < ngp; ++j)
-        m = fmaxf(m, leaky(s.a1[j] + a2p, alpha));
-      float den = 0.f;
-      for (int j = 0; j < ngp; ++j)
-        den += expf(leaky(s.a1[j] + a2p, alpha) - m);
-      const float eself = expf(lself - m);
-      den += eself;
-      for (int j = 0; j < p; ++j)
-        s.w_to_anchor[j] =
-            j < ngp ? expf(leaky(s.a1[j] + a2p, alpha) - m) / den : 0.f;
-      s.w_self[p] = eself / den;
-      s.w_anchor[p] = 0.f;
-    }
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-gat_layer_fwd_kernel(const float* __restrict__ x, const float* __restrict__ fc,
+template <bool kTrain>
+__device__ __forceinline__ void
+fwd_body(const float* __restrict__ x, const float* __restrict__ fc,
                      const float* __restrict__ wa1,
                      const float* __restrict__ wa2,
                      const float* __restrict__ bias_ft,
@@ -214,9 +58,11 @@ gat_layer_fwd_kernel(const float* __restrict__ x, const float* __restrict__ fc,
                      const int* __restrict__ ngp_arr,
                      const int* __restrict__ nsib_arr, float* __restrict__ out,
                      int n, int din, int heads, int dh, int p, float alpha,
-                     float out_alpha, int has_out_alpha, int ntiles) {
+                     float out_alpha, int has_out_alpha, int ntiles,
+                     TrainArgs ta) {
   extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4), n);
+  const Smem s = carve(reinterpret_cast<float*>(smem4), n,
+                       kTrain ? kTrainLayout : kEvalLayout);
   const int per_ego = heads * ntiles;
   const long long b = blockIdx.x / per_ego;
   const int rem = blockIdx.x % per_ego;
@@ -229,9 +75,10 @@ gat_layer_fwd_kernel(const float* __restrict__ x, const float* __restrict__ fc,
   (void)nsib_arr;  // invalid sibling slots keep their formula value, as in
                    // the TPU kernel (callers mask them downstream)
 
-  head_tile(x + b * n * din, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, n, din,
-            hd, heads, h, col0, ncols, s);
-  attention_weights(n, p, ngp, alpha, s);
+  if (kTrain) setup_row_keys(ta, b, n, s);
+  head_tile<kTrain>(x + b * n * din, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
+                    n, din, hd, heads, h, col0, ncols, s, ta);
+  attention_weights<kTrain, false>(n, p, ngp, alpha, s, ta, b, h);
 
   float* outb = out + b * n * hd;
   const float* fa = s.ft + p * kTileCols;
@@ -241,6 +88,7 @@ gat_layer_fwd_kernel(const float* __restrict__ x, const float* __restrict__ fc,
     float v;
     if (r < p) {
       v = s.ft[r * kTileCols + c];
+      if (kTrain) v *= s.w_self[r];  // the dropped gp self-loop
     } else if (r > p) {
       v = s.w_anchor[r] * fa[c] + s.w_self[r] * s.ft[r * kTileCols + c];
     } else {
@@ -254,8 +102,9 @@ gat_layer_fwd_kernel(const float* __restrict__ x, const float* __restrict__ fc,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-gat_layer_pooled_fwd_kernel(const float* __restrict__ x,
+template <bool kTrain>
+__device__ __forceinline__ void
+pooled_body(const float* __restrict__ x,
                             const float* __restrict__ fc,
                             const float* __restrict__ wa1,
                             const float* __restrict__ wa2,
@@ -266,9 +115,10 @@ gat_layer_pooled_fwd_kernel(const float* __restrict__ x,
                             const int* __restrict__ nsib_arr,
                             float* __restrict__ pools, int n, int din,
                             int heads, int dh, int p, float alpha,
-                            int ntiles) {
+                            int ntiles, TrainArgs ta) {
   extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4), n);
+  const Smem s = carve(reinterpret_cast<float*>(smem4), n,
+                       kTrain ? kTrainLayout : kEvalLayout);
   const long long b = blockIdx.x / ntiles;
   const int c0 = (blockIdx.x % ntiles) * kTileCols;
   const int ncols = min(kTileCols, dh - c0);
@@ -279,15 +129,17 @@ gat_layer_pooled_fwd_kernel(const float* __restrict__ x,
   const float* fa = s.ft + p * kTileCols;
   float pool_gp = 0.f, pool_anchor = 0.f, pool_sib = 0.f;
 
+  if (kTrain) setup_row_keys(ta, b, n, s);
   for (int h = 0; h < heads; ++h) {
-    head_tile(x + b * n * din, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, n,
-              din, hd, heads, h, h * dh + c0, ncols, s);
-    attention_weights(n, p, ngp, alpha, s);
+    head_tile<kTrain>(x + b * n * din, fc, wa1, wa2, bias_ft, bias_a1,
+                      bias_a2, n, din, hd, heads, h, h * dh + c0, ncols, s,
+                      ta);
+    attention_weights<kTrain, false>(n, p, ngp, alpha, s, ta, b, h);
     if (c < ncols) {
       float sg = 0.f, anc = 0.f, ss = 0.f;
       for (int j = 0; j < ngp; ++j) {
         const float v = s.ft[j * kTileCols + c];
-        sg += v;
+        sg += kTrain ? s.w_self[j] * v : v;
         anc += s.w_to_anchor[j] * v;
       }
       anc += s.w_self[p] * fa[c];
@@ -310,17 +162,110 @@ gat_layer_pooled_fwd_kernel(const float* __restrict__ x,
   }
 }
 
-size_t smem_bytes(int n) {
-  return sizeof(float) * ((size_t)kStaticFloats + (size_t)n * kTileCols +
-                          5 * (size_t)n);
+// The kernels. The train forms ask for two resident blocks an SM (at most
+// 128 registers a thread: 157 without the bound left one block an SM);
+// the eval forms keep the serving kernels' bounds.
+#define GAT_FWD_PARAMS                                                     \
+  const float *__restrict__ x, const float *__restrict__ fc,               \
+      const float *__restrict__ wa1, const float *__restrict__ wa2,        \
+      const float *__restrict__ bias_ft, const float *__restrict__ bias_a1, \
+      const float *__restrict__ bias_a2, const int *__restrict__ ngp_arr,  \
+      const int *__restrict__ nsib_arr
+#define GAT_FWD_ARGS \
+  x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp_arr, nsib_arr
+
+__global__ void __launch_bounds__(kThreads)
+gat_layer_fwd_kernel(GAT_FWD_PARAMS, float* __restrict__ out, int n, int din,
+                     int heads, int dh, int p, float alpha, float out_alpha,
+                     int has_out_alpha, int ntiles, TrainArgs ta) {
+  fwd_body<false>(GAT_FWD_ARGS, out, n, din, heads, dh, p, alpha, out_alpha,
+                  has_out_alpha, ntiles, ta);
 }
 
-cudaError_t prepare(const void* kernel, size_t smem) {
-  if (smem > 48 * 1024)
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
-  return cudaSuccess;
+__global__ void __launch_bounds__(kThreads, 2)
+gat_layer_fwd_train_kernel(GAT_FWD_PARAMS, float* __restrict__ out, int n,
+                           int din, int heads, int dh, int p, float alpha,
+                           float out_alpha, int has_out_alpha, int ntiles,
+                           TrainArgs ta) {
+  fwd_body<true>(GAT_FWD_ARGS, out, n, din, heads, dh, p, alpha, out_alpha,
+                 has_out_alpha, ntiles, ta);
+}
+
+__global__ void __launch_bounds__(kThreads)
+gat_layer_pooled_fwd_kernel(GAT_FWD_PARAMS, float* __restrict__ pools, int n,
+                            int din, int heads, int dh, int p, float alpha,
+                            int ntiles, TrainArgs ta) {
+  pooled_body<false>(GAT_FWD_ARGS, pools, n, din, heads, dh, p, alpha, ntiles,
+                     ta);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+gat_layer_pooled_fwd_train_kernel(GAT_FWD_PARAMS, float* __restrict__ pools,
+                                  int n, int din, int heads, int dh, int p,
+                                  float alpha, int ntiles, TrainArgs ta) {
+  pooled_body<true>(GAT_FWD_ARGS, pools, n, din, heads, dh, p, alpha, ntiles,
+                    ta);
+}
+
+// The dropout generator alone, for checking it against ops/dropout.py.
+__global__ void dropout_bits_kernel(unsigned seed, unsigned stream,
+                                    const unsigned* __restrict__ rows,
+                                    const unsigned* __restrict__ cols,
+                                    unsigned* __restrict__ out,
+                                    long long count) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < count)
+    out[i] = drop_bits(row_key(stream_key(seed, stream), rows[i]), cols[i]);
+}
+
+template <bool kTrain>
+cudaError_t launch_fwd(const float* x, const float* fc, const float* wa1,
+                       const float* wa2, const float* bias_ft,
+                       const float* bias_a1, const float* bias_a2,
+                       const int* ngp, const int* nsib, float* out, int b,
+                       int n, int din, int heads, int dh, int p, float alpha,
+                       float out_alpha, int has_out_alpha,
+                       const TrainArgs& ta, void* stream) {
+  const size_t smem = smem_bytes(n, kTrain ? kTrainLayout : kEvalLayout);
+  const void* kernel = kTrain ? (const void*)gat_layer_fwd_train_kernel
+                              : (const void*)gat_layer_fwd_kernel;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (dh + kTileCols - 1) / kTileCols;
+  const long long blocks = (long long)b * heads * ntiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (blocks > 0)
+    (kTrain ? gat_layer_fwd_train_kernel
+            : gat_layer_fwd_kernel)<<<(unsigned)blocks, kThreads, smem,
+                                      (cudaStream_t)stream>>>(
+        x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, out, n, din,
+        heads, dh, p, alpha, out_alpha, has_out_alpha, ntiles, ta);
+  return cudaGetLastError();
+}
+
+template <bool kTrain>
+cudaError_t launch_pooled(const float* x, const float* fc, const float* wa1,
+                          const float* wa2, const float* bias_ft,
+                          const float* bias_a1, const float* bias_a2,
+                          const int* ngp, const int* nsib, float* pools,
+                          int b, int n, int din, int heads, int dh, int p,
+                          float alpha, const TrainArgs& ta, void* stream) {
+  const size_t smem = smem_bytes(n, kTrain ? kTrainLayout : kEvalLayout);
+  const void* kernel = kTrain
+                           ? (const void*)gat_layer_pooled_fwd_train_kernel
+                           : (const void*)gat_layer_pooled_fwd_kernel;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (dh + kTileCols - 1) / kTileCols;
+  const long long blocks = (long long)b * ntiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (blocks > 0)
+    (kTrain ? gat_layer_pooled_fwd_train_kernel
+            : gat_layer_pooled_fwd_kernel)<<<(unsigned)blocks, kThreads, smem,
+                                             (cudaStream_t)stream>>>(
+        x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, pools, n, din,
+        heads, dh, p, alpha, ntiles, ta);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -341,18 +286,10 @@ int gat_layer_fwd_f32(const float* x, const float* fc, const float* wa1,
                       const int* ngp, const int* nsib, float* out, int b,
                       int n, int din, int heads, int dh, int p, float alpha,
                       float out_alpha, int has_out_alpha, void* stream) {
-  const size_t smem = smem_bytes(n);
-  cudaError_t err = prepare((const void*)gat_layer_fwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int ntiles = (dh + kTileCols - 1) / kTileCols;
-  const long long blocks = (long long)b * heads * ntiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (blocks > 0)
-    gat_layer_fwd_kernel<<<(unsigned)blocks, kThreads, smem,
-                           (cudaStream_t)stream>>>(
-        x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, out, n, din,
-        heads, dh, p, alpha, out_alpha, has_out_alpha, ntiles);
-  return cudaGetLastError();
+  const TrainArgs none = {};
+  return launch_fwd<false>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
+                           nsib, out, b, n, din, heads, dh, p, alpha,
+                           out_alpha, has_out_alpha, none, stream);
 }
 
 // As gat_layer_fwd_f32, but writes pools [b, 3, dh] (gp, anchor, sib).
@@ -363,17 +300,47 @@ int gat_layer_pooled_fwd_f32(const float* x, const float* fc,
                              const int* nsib, float* pools, int b, int n,
                              int din, int heads, int dh, int p, float alpha,
                              void* stream) {
-  const size_t smem = smem_bytes(n);
-  cudaError_t err = prepare((const void*)gat_layer_pooled_fwd_kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int ntiles = (dh + kTileCols - 1) / kTileCols;
-  const long long blocks = (long long)b * ntiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (blocks > 0)
-    gat_layer_pooled_fwd_kernel<<<(unsigned)blocks, kThreads, smem,
-                                  (cudaStream_t)stream>>>(
-        x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, pools, n,
-        din, heads, dh, p, alpha, ntiles);
+  const TrainArgs none = {};
+  return launch_pooled<false>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
+                              ngp, nsib, pools, b, n, din, heads, dh, p,
+                              alpha, none, stream);
+}
+
+// Train forms: as above, with dropout and the pe path described by *ta.
+int gat_layer_fwd_train_f32(const float* x, const float* fc,
+                            const float* wa1, const float* wa2,
+                            const float* bias_ft, const float* bias_a1,
+                            const float* bias_a2, const int* ngp,
+                            const int* nsib, float* out, int b, int n,
+                            int din, int heads, int dh, int p, float alpha,
+                            float out_alpha, int has_out_alpha,
+                            const TrainArgs* ta, void* stream) {
+  return launch_fwd<true>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
+                          nsib, out, b, n, din, heads, dh, p, alpha,
+                          out_alpha, has_out_alpha, *ta, stream);
+}
+
+int gat_layer_pooled_fwd_train_f32(const float* x, const float* fc,
+                                   const float* wa1, const float* wa2,
+                                   const float* bias_ft, const float* bias_a1,
+                                   const float* bias_a2, const int* ngp,
+                                   const int* nsib, float* pools, int b,
+                                   int n, int din, int heads, int dh, int p,
+                                   float alpha, const TrainArgs* ta,
+                                   void* stream) {
+  return launch_pooled<true>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
+                             nsib, pools, b, n, din, heads, dh, p, alpha,
+                             *ta, stream);
+}
+
+// out[i] = dropout bits of (rows[i], cols[i]) in `stream` (uint32 arrays).
+int dropout_bits_u32(unsigned seed, unsigned stream_id, const unsigned* rows,
+                     const unsigned* cols, unsigned* out, long long count,
+                     void* stream) {
+  if (count > 0)
+    dropout_bits_kernel<<<(unsigned)((count + 255) / 256), 256, 0,
+                          (cudaStream_t)stream>>>(seed, stream_id, rows, cols,
+                                                  out, count);
   return cudaGetLastError();
 }
 

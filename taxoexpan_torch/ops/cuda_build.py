@@ -2,9 +2,9 @@
 plain C interface, loaded with ctypes.
 
 Each source under `ops/csrc/` becomes one library, built at first use into
-`ops/_build/` (listed in .gitignore) and named by a hash of its source and
-compiler flags, so an edited source rebuilds and an unchanged one loads the
-existing file. Nothing here runs at import time: the CPU tests import every
+`ops/_build/` (listed in .gitignore) and named by a hash of its source, the
+shared headers (`csrc/*.cuh`) and the compiler flags, so an edited source or
+header rebuilds and an unchanged one loads the existing file. Nothing here runs at import time: the CPU tests import every
 module on a machine without nvcc.
 """
 from __future__ import annotations
@@ -18,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("gat_fwd",)
+SOURCES = ("gat_fwd", "gat_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,9 +39,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

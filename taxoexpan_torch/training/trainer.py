@@ -1,0 +1,409 @@
+"""Training runtime, single device (port of `taxoexpan_tpu/train/trainer.py`).
+
+One train step is model.forward (PGAT in train mode: the K1/K3 train-form
+kernels, K2/K4 in the backward) -> loss -> torch.autograd.grad -> the
+optimizer's update, with a torch.Generator derived from (seed, epoch,
+batch) for the dropout seeds (trainer.py:266, :370). Epoch-level semantics
+follow the JAX trainer: mean loss over batches, sampled validation
+(metrics averaged over validation batches) or full-catalog validation
+through the ranker every `full_validation_every` epochs, ReduceLROnPlateau
+on validation metric 0 (mode min) or 2 (mode max), "min val_macro_mr"
+style monitoring with early stop, periodic checkpoints plus model_best,
+and resume.
+
+Not ported (the builders and the CLI refuse them): the device mesh and
+multi-process data parallelism, the partitioned feature table, the MTL
+heads, the profiler window. Checkpoints are written in the foreground.
+"""
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import metrics as metrics_mod
+from ..data.egobatch import EgoBatch, GroupBatch
+from ..losses import get_loss
+from ..tree import tree_leaves, tree_map, tree_unflatten
+from ..weights import params_to
+from ..writer import TensorboardWriter
+from . import checkpoint as ckpt_mod
+from .optim import PlateauScheduler, get_lr
+
+STEP_STRIDE = 1_000_003   # step index = epoch * STEP_STRIDE + batch
+
+
+def step_generator(seed: int, step_idx: int) -> torch.Generator:
+    """The per-step generator of the dropout seeds: a pure function of
+    (seed, step index), like the JAX trainer's fold_in(key(seed), step)."""
+    return torch.Generator().manual_seed(
+        ((seed & 0xFFFFFFFF) << 32) | (step_idx & 0xFFFFFFFF))
+
+
+def batch_to(batch: GroupBatch, device: torch.device) -> GroupBatch:
+    """The batch's arrays as tensors on `device` (pinned, asynchronous
+    copies on CUDA)."""
+    def put(a):
+        if a is None:
+            return None
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t
+    ego = batch.ego
+    return GroupBatch(ego=EgoBatch(node_ids=put(ego.node_ids),
+                                   ngp=put(ego.ngp), nsib=put(ego.nsib)),
+                      query_ids=put(batch.query_ids),
+                      query_feats=put(batch.query_feats),
+                      labels=put(batch.labels),
+                      cand_mask=put(batch.cand_mask))
+
+
+class _DeviceFeed:
+    """Stage batches on the device from a background thread, with the
+    host-side batch statistics (egonet and edge counts). Yields
+    (host_batch, device_batch, n_egonets, n_edges)."""
+
+    def __init__(self, loader, device: torch.device, depth: int = 2):
+        self.loader = loader
+        self.device = device
+        self.depth = depth
+
+    def __iter__(self):
+        q: queue.Queue = queue.Queue(maxsize=self.depth)
+        sentinel = object()
+        err: list[BaseException] = []
+
+        def producer():
+            try:
+                for batch in self.loader:
+                    n_egonets = int(np.asarray(batch.cand_mask).sum())
+                    ngp = np.asarray(batch.ego.ngp)
+                    nsib = np.asarray(batch.ego.nsib)
+                    n_edges = int(ngp.sum() + nsib.sum()
+                                  + (ngp + 1 + nsib).sum())
+                    q.put((batch, batch_to(batch, self.device), n_egonets,
+                           n_edges))
+            except BaseException as e:  # surface in the consumer
+                err.append(e)
+            finally:
+                q.put(sentinel)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is sentinel:
+                break
+            yield item
+        t.join()
+        if err:
+            raise err[0]
+
+
+class Trainer:
+    def __init__(self, model, params: dict, optimizer, opt_state: dict, *,
+                 loss_name: str,
+                 metric_names: list[str],
+                 feature_table,
+                 train_loader,
+                 valid_loader=None,
+                 config: dict | None = None,
+                 lr_scheduler: PlateauScheduler | None = None,
+                 save_dir: str | Path = "saved/run",
+                 log_dir: str | Path | None = None,
+                 rng_seed: int = 0,
+                 start_epoch: int = 1,
+                 monitor_best: float | None = None,
+                 full_valid_sampler=None,
+                 device: torch.device | str = "cuda",
+                 encode_chunk: int = 4096):
+        self.device = torch.device(device)
+        self.model = model
+        self.params = params_to(params, self.device)
+        self.optimizer = optimizer
+        self.opt_state = params_to(opt_state, self.device)
+        self.loss_name = loss_name
+        self.loss_fn = get_loss(loss_name)
+        self.metric_names = list(metric_names)
+        self.metric_fns = [metrics_mod.get_metric(m) for m in metric_names]
+        self.rank_mode = 1 if loss_name.startswith("info_nce") else 0
+        self.train_loader = train_loader
+        self.valid_loader = valid_loader
+        self.lr_scheduler = lr_scheduler
+        self.config = config or {}
+        self.logger = logging.getLogger("trainer")
+        self.encode_chunk = encode_chunk
+
+        cfg_t = self.config.get("trainer", {})
+        self.epochs = cfg_t.get("epochs", 10)
+        self.save_period = cfg_t.get("save_period", 1)
+        self.monitor = cfg_t.get("monitor", "off")
+        # the port's own key: synchronise after each step and log the step
+        # times (a device wait per step; off by default)
+        self.step_timing = bool(cfg_t.get("step_timing", False))
+        if self.monitor == "off":
+            self.mnt_mode, self.mnt_metric = "off", None
+            self.mnt_best = 0.0
+            self.early_stop = float("inf")
+        else:
+            self.mnt_mode, self.mnt_metric = self.monitor.split()
+            assert self.mnt_mode in ("min", "max")
+            self.mnt_best = float("inf") if self.mnt_mode == "min" \
+                else float("-inf")
+            self.early_stop = cfg_t.get("early_stop", float("inf"))
+        if monitor_best is not None:
+            self.mnt_best = monitor_best
+        self.start_epoch = start_epoch
+
+        # full-catalog validation every K epochs; monitor, plateau and early
+        # stop act only on those epochs when K > 1
+        self.full_valid_sampler = full_valid_sampler
+        self.full_validation_every = int(
+            cfg_t.get("full_validation_every", 0) or 0)
+        if self.full_validation_every > 0 and full_valid_sampler is None:
+            raise ValueError("trainer.full_validation_every is set but no "
+                             "full_valid_sampler was provided")
+        self._full_ranker = None
+
+        self.checkpoint_dir = Path(save_dir)
+        self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
+        self.writer = TensorboardWriter(
+            log_dir or self.checkpoint_dir,
+            enabled=cfg_t.get("tensorboardX", False))
+        self.rng_seed = rng_seed
+        self.feature_table = torch.from_numpy(
+            np.asarray(feature_table, dtype=np.float32)).to(self.device)
+
+    # ------------------------------------------------------------ one step
+    def train_step(self, batch: GroupBatch, step_idx: int,
+                   return_grads: bool = False):
+        """Loss, grads and the optimizer's update for one device batch;
+        returns the loss (a device scalar, not read back), and with
+        `return_grads` also the grads (a tree like the params)."""
+        gen = step_generator(self.rng_seed, step_idx)
+        params = tree_map(lambda x: x.detach().requires_grad_(True),
+                          self.params)
+        leaves = tree_leaves(params)
+        with torch.enable_grad():
+            scores = self.model.forward(params, batch, self.feature_table,
+                                        gen=gen, train=True)
+            loss = self.loss_fn(scores, batch.labels, batch.cand_mask)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        grads = tree_unflatten(params, grads)
+        self.params, self.opt_state = self.optimizer.update(
+            grads, self.opt_state, tree_map(lambda x: x.detach(), params))
+        if return_grads:
+            return loss.detach(), grads
+        return loss.detach()
+
+    # ----------------------------------------------------------- epochs
+    def _train_epoch(self, epoch: int) -> dict:
+        n_batches = n_egonets = n_edges = 0
+        losses, step_s = [], []
+        t_wait = t_step = 0.0
+        t_epoch = time.time()
+        full_epoch = (self.full_validation_every > 0
+                      and epoch % self.full_validation_every == 0)
+        t0 = time.time()
+        for batch_idx, (_host, dev_batch, b_egonets, b_edges) in enumerate(
+                _DeviceFeed(self.train_loader, self.device)):
+            t1 = time.time()
+            losses.append(self.train_step(dev_batch,
+                                          epoch * STEP_STRIDE + batch_idx))
+            if self.step_timing:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                step_s.append(time.time() - t1)
+            n_egonets += b_egonets
+            n_edges += b_edges
+            n_batches += 1
+            t2 = time.time()
+            t_wait += t1 - t0
+            t_step += t2 - t1
+            t0 = t2
+        # one readback of the epoch's losses
+        t_s = time.time()
+        loss_vals = (torch.stack(losses).double().cpu().numpy() if losses
+                     else np.zeros(0))
+        t_sync = time.time() - t_s
+        dt = max(time.time() - t_epoch, 1e-9)
+        for i, lv in enumerate(loss_vals):
+            self.writer.set_step((epoch - 1) * len(self.train_loader) + i)
+            self.writer.add_scalar("loss", float(lv))
+        log = {"loss": float(loss_vals.sum()) / max(n_batches, 1),
+               "egonets_per_sec": round(n_egonets / dt, 1),
+               "edges_per_sec": round(n_edges / dt, 1),
+               "timing": {"wait_s": round(t_wait, 2),
+                          "step_s": round(t_step, 2),
+                          "sync_s": round(t_sync, 2)}}
+        if step_s:
+            log["step_ms"] = [round(1e3 * s, 3) for s in step_s]
+        self.writer.add_scalar("edges_per_sec", n_edges / dt)
+
+        if self.valid_loader is not None and not full_epoch:
+            t_v = time.time()
+            log.update(self._valid_epoch(epoch))
+            log["timing"]["valid_s"] = round(time.time() - t_v, 2)
+            if self.full_validation_every > 0:
+                # off-epoch of a K > 1 schedule: sampled metrics are logged
+                # but must not reach the monitor or the plateau
+                log["val_sampled_metrics"] = log.pop("val_metrics")
+                log["_monitor_eligible"] = False
+        if full_epoch:
+            t_v = time.time()
+            log.update(self._full_valid(epoch))
+            log["timing"]["valid_s"] = round(time.time() - t_v, 2)
+            log["full_validation"] = True
+
+        if self.lr_scheduler is not None and "val_metrics" in log:
+            idx = 0 if self.lr_scheduler.mode == "min" else 2
+            self.opt_state, _ = self.lr_scheduler.step(
+                log["val_metrics"][idx], self.opt_state)
+        log["lr"] = get_lr(self.opt_state)
+        return log
+
+    @torch.no_grad()
+    def eval_scores(self, batch: GroupBatch) -> torch.Tensor:
+        """Eval-mode scores [G, C] of a device batch, its egonets encoded in
+        chunks of `encode_chunk` (a validation batch at config.mag.json
+        holds over 32k egonets)."""
+        ego = batch.ego
+        model, params = self.model, self.params
+        hg = []
+        for s in range(0, ego.node_ids.shape[0], self.encode_chunk):
+            sl = slice(s, s + self.encode_chunk)
+            feats = model.gather_feats(self.feature_table,
+                                       ego.node_ids[sl].long(), ego.ngp[sl],
+                                       ego.nsib[sl])
+            hg.append(model.encode(params, feats, ego.ngp[sl], ego.nsib[sl]))
+        g, c = batch.labels.shape
+        qf = self.feature_table[batch.query_ids.long()]
+        return model.match(params, torch.cat(hg),
+                           qf.repeat_interleave(c, dim=0)).reshape(g, c)
+
+    def _valid_epoch(self, epoch: int) -> dict:
+        """Sampled validation: metrics averaged over validation batches."""
+        totals = np.zeros(len(self.metric_fns))
+        n_batches = 0
+        for batch_idx, (host, dev_batch, _ne, _ee) in enumerate(
+                _DeviceFeed(self.valid_loader, self.device)):
+            scores = self.eval_scores(dev_batch).cpu().numpy()
+            all_ranks = metrics_mod.ranks_from_groups(
+                scores, host.labels, host.cand_mask, mode=self.rank_mode)
+            self.writer.set_step((epoch - 1) * len(self.valid_loader)
+                                 + batch_idx, "valid")
+            for i, fn in enumerate(self.metric_fns):
+                val = fn(all_ranks)
+                totals[i] += val
+                self.writer.add_scalar(self.metric_names[i], val)
+            n_batches += 1
+        return {"val_metrics": (totals / max(n_batches, 1)).tolist()}
+
+    def _full_valid(self, epoch: int) -> dict:
+        """Full-catalog validation: every validation query ranked against
+        all candidate positions by the TaxonomyRanker (the test_fast
+        engine on the validation split), re-pointed at the current params
+        with `refresh`."""
+        from ..evaluation.ranker import TaxonomyRanker
+        if self._full_ranker is None:
+            s = self.full_valid_sampler
+            self._full_ranker = TaxonomyRanker(
+                self.model, self.params, s, s.node_features,
+                encode_chunk=self.encode_chunk, device=self.device)
+        else:
+            self._full_ranker.refresh(self.params)
+        result, _ = self._full_ranker.evaluate(self.metric_names,
+                                               self.rank_mode)
+        vals = [float(result[m]) for m in self.metric_names]
+        self.writer.set_step(epoch, "valid")
+        for name, v in zip(self.metric_names, vals):
+            self.writer.add_scalar("full_" + name, v)
+        return {"val_metrics": vals}
+
+    # ------------------------------------------------------------ train
+    def train(self) -> dict:
+        """The epoch loop with monitoring, early stop and checkpoints."""
+        not_improved_count = 0
+        final_log: dict = {}
+        for epoch in range(self.start_epoch, self.epochs + 1):
+            t0 = time.time()
+            result = self._train_epoch(epoch)
+            monitor_eligible = result.pop("_monitor_eligible", True)
+            log = {"epoch": epoch,
+                   "epoch_seconds": round(time.time() - t0, 2)}
+            for key, value in result.items():
+                if key == "val_metrics":
+                    log.update({"val_" + m: value[i]
+                                for i, m in enumerate(self.metric_names)})
+                elif key == "val_sampled_metrics":
+                    log.update({"val_sampled_" + m: value[i]
+                                for i, m in enumerate(self.metric_names)})
+                else:
+                    log[key] = value
+            for key, value in log.items():
+                self.logger.info("    %-15s: %s", key, value)
+            final_log = log
+
+            best = False
+            if self.mnt_mode != "off" and monitor_eligible:
+                if self.mnt_metric not in log:
+                    self.logger.warning(
+                        "Warning: Metric '%s' not found; disabling model "
+                        "performance monitoring.", self.mnt_metric)
+                    self.mnt_mode = "off"
+                else:
+                    value = log[self.mnt_metric]
+                    improved = (value <= self.mnt_best
+                                if self.mnt_mode == "min"
+                                else value >= self.mnt_best)
+                    if improved:
+                        self.mnt_best = value
+                        not_improved_count = 0
+                        best = True
+                    else:
+                        not_improved_count += 1
+                    if not_improved_count > self.early_stop:
+                        self.logger.info(
+                            "Validation performance didn't improve for %s "
+                            "epochs. Training stops.", self.early_stop)
+                        break
+            if epoch % self.save_period == 0:
+                self._save_checkpoint(epoch, save_best=best)
+        self.writer.close()
+        return final_log
+
+    # ------------------------------------------------------ checkpoints
+    def _save_checkpoint(self, epoch: int, save_best: bool = False) -> None:
+        sched = self.lr_scheduler.state_dict() if self.lr_scheduler else None
+        kw = dict(params=self.params, opt_state=self.opt_state, epoch=epoch,
+                  monitor_best=self.mnt_best, config=self.config,
+                  scheduler_state=sched)
+        path = self.checkpoint_dir / f"checkpoint-epoch{epoch}.ckpt"
+        self.logger.info("Saving checkpoint: %s ...", path)
+        ckpt_mod.save_checkpoint(path, **kw)
+        if save_best:
+            self.logger.info("Saving current best: model_best.ckpt ...")
+            ckpt_mod.save_checkpoint(self.checkpoint_dir / "model_best.ckpt",
+                                     **kw)
+
+    def resume(self, path: str | Path) -> None:
+        """Restore params, optimizer state, epoch, monitor best and the
+        scheduler from a checkpoint of either package."""
+        state = ckpt_mod.load_checkpoint(path)
+        self.params, self.opt_state = ckpt_mod.restore_into(
+            state, model=self.model, optimizer=self.optimizer,
+            config=self.config, device=self.device)
+        self.start_epoch = state["epoch"] + 1
+        self.mnt_best = state["monitor_best"]
+        if self.lr_scheduler is not None and state.get("scheduler"):
+            self.lr_scheduler.load_state_dict(state["scheduler"])
+        self.logger.info("Checkpoint loaded. Resume training from epoch %s",
+                         self.start_epoch)

@@ -13,6 +13,11 @@ classes for the optimizer state, and a restricted unpickler maps those to
 neutral tuple stand-ins. Serving needs only `state["params"]`.
 `save_jax_checkpoint` writes the same payload format (without optimizer
 state), so a port-made model can be served through the same reader.
+
+`opt_state_from_jax` maps a JAX checkpoint's optimizer state (optax's
+`inject_hyperparams` over Adam, AMSGrad or SGD with momentum, read as
+`OpaqueState` tuples) onto the port's optimizer state, so a JAX run
+resumes in the port (training/checkpoint.py).
 """
 from __future__ import annotations
 
@@ -75,11 +80,11 @@ def load_jax_checkpoint(path: str | Path) -> dict:
         return _CheckpointUnpickler(fin).load()
 
 
-def _to_numpy(tree):
+def to_numpy(tree):
     if isinstance(tree, dict):
-        return {k: _to_numpy(v) for k, v in tree.items()}
+        return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_to_numpy(v) for v in tree]
+        return [to_numpy(v) for v in tree]
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
@@ -95,7 +100,7 @@ def save_jax_checkpoint(path: str | Path, params: dict,
         "arch": config.get("arch", {}),
         "optimizer": config.get("optimizer", {}),
         "epoch": 0,
-        "params": _to_numpy(params),
+        "params": to_numpy(params),
         "opt_state": None,
         "monitor_best": float("inf"),
         "scheduler": {},
@@ -169,9 +174,54 @@ def restore_params(state: dict, model) -> dict:
 
 
 def params_to(params, device: torch.device):
-    """The same tree with every tensor on `device`."""
+    """The same tree with every tensor on `device` (other leaves, such as an
+    optimizer state's step count, as they are)."""
     if isinstance(params, dict):
         return {k: params_to(v, device) for k, v in params.items()}
     if isinstance(params, list):
         return [params_to(v, device) for v in params]
-    return params.to(device)
+    return params.to(device) if isinstance(params, torch.Tensor) else params
+
+
+def _find_states(node, found: list) -> list:
+    """Every OpaqueState in a nested optimizer state, depth first."""
+    if isinstance(node, OpaqueState):
+        found.append(node)
+    if isinstance(node, (tuple, list)):
+        for child in node:
+            _find_states(child, found)
+    elif isinstance(node, dict):
+        for child in node.values():
+            _find_states(child, found)
+    return found
+
+
+def opt_state_from_jax(saved, params: dict) -> dict:
+    """The port's optimizer state (training/optim.py) from a JAX
+    checkpoint's opt_state: InjectStatefulHyperparamsState(count,
+    hyperparams, ...) around ScaleByAmsgradState(count, mu, nu, nu_max),
+    ScaleByAdamState(count, mu, nu) or TraceState(trace). Moment trees are
+    mapped by key path onto `params`' structure, like the params."""
+    states = _find_states(saved, [])
+    by_name = {s.qualname.rsplit(".", 1)[-1]: s for s in states}
+    inject = by_name.get("InjectStatefulHyperparamsState",
+                         by_name.get("InjectHyperparamsState"))
+    if inject is None:
+        raise ValueError("the checkpoint's optimizer state has no injected "
+                         "learning rate (optax.inject_hyperparams)")
+    out = {"lr": float(np.float32(inject[1]["learning_rate"]))}
+    tree = lambda t: params_from_jax(t, params)  # noqa: E731
+    if "ScaleByAmsgradState" in by_name:
+        count, mu, nu, nu_max = by_name["ScaleByAmsgradState"]
+        out.update(count=int(count), mu=tree(mu), nu=tree(nu),
+                   nu_max=tree(nu_max))
+    elif "ScaleByAdamState" in by_name:
+        count, mu, nu = by_name["ScaleByAdamState"]
+        out.update(count=int(count), mu=tree(mu), nu=tree(nu))
+    elif "TraceState" in by_name:
+        (trace,) = by_name["TraceState"]
+        out.update(count=int(inject[0]), trace=tree(trace))
+    else:
+        raise ValueError(f"no optimizer state the port knows among "
+                         f"{sorted(by_name)}")
+    return out

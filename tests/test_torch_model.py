@@ -27,6 +27,17 @@ D = 12
 B = 10
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests move small tensors; on a machine shared by parallel test
+    workers torch's default of one intra-op thread a core oversubscribes
+    it, so the module runs on one thread and restores the setting after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _models(**kw):
     arch = dict(in_dim=D, hidden_dim=8, out_dim=6, pos_dim=4, num_layers=1,
                 heads=[2, 1], max_parents=P, expand_factor=S)

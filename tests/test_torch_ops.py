@@ -24,6 +24,17 @@ HEADS, DH, DIN = 2, 4, 6
 B = 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests move small tensors; on a machine shared by parallel test
+    workers torch's default of one intra-op thread a core oversubscribes
+    it, so the module runs on one thread and restores the setting after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _counts(rng):
     ngp = rng.integers(0, P + 1, (B,)).astype(np.int32)
     nsib = rng.integers(0, S + 1, (B,)).astype(np.int32)

@@ -30,6 +30,17 @@ ARCH = {"propagation_method": "PGAT", "readout_method": "WMR",
 METRICS = ["macro_mr", "micro_mr", "hit_at_1", "hit_at_3", "mrr_scaled_10"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests move small tensors; on a machine shared by parallel test
+    workers torch's default of one intra-op thread a core oversubscribes
+    it, so the module runs on one thread and restores the setting after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def taxonomies():
     jt = j_synth(num_nodes=100, dim=16, seed=4)

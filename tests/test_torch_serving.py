@@ -10,6 +10,7 @@ import jax
 import numpy as np
 import optax
 import pytest
+import torch
 
 from taxoexpan_torch import infer as t_infer
 from taxoexpan_torch import test_fast as t_test_fast
@@ -26,6 +27,17 @@ ARCH = {"type": "TaxoExpan", "args": {
     "matching_method": "BIM", "in_dim": 16, "hidden_dim": 8, "out_dim": 8,
     "pos_dim": 4, "num_layers": 1, "heads": [2, 1]}}
 METRICS = ["macro_mr", "hit_at_1", "mrr_scaled_10"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests move small tensors; on a machine shared by parallel test
+    workers torch's default of one intra-op thread a core oversubscribes
+    it, so the module runs on one thread and restores the setting after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
