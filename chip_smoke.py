@@ -13,44 +13,47 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               plain torch generator (ops/dropout.py): the pinned golden
               vector and 2**20 random (row, column) pairs, bit for bit.
 4. kernels  - each kernel against its plain PyTorch version on the card at
-              the shapes of configs/config.mag.json (PGAT, in 250,
-              hidden/out 500, pos 50, heads [4, 1]; 13 grandparent and 50
-              sibling slots, N = 64) for 4096 egonets (one encode chunk,
-              one train step), with random ngp/nsib including empty and
-              full egonets: K1 and K3 in eval form, K1 and K3 in train
-              form (feature, pe and attention dropout at the config's 0.1,
-              the pe path), K2 (layer 0's backward, need_dx off) and K4
-              (the final layer's backward, need_dx on) with every gradient
-              compared, the masks regenerated by the plain versions; times
-              of the kernel, its plain version and one torch.matmul as a
-              yardstick (`matmul_ms`: x @ W for a forward, the dW product
-              x^T @ D for a backward; not the layer, so the `library_ms` of
-              the kernels line is null), beside the least time the card
-              could take.
-5. serving  - the port's serving path end to end through its entry
-              points: a run directory with a synthetic taxonomy (4000
-              nodes, dim 250), config.mag.json and the model from random
-              weights (seeded) in the JAX checkpoint format; then
-              `taxoexpan_torch.test_fast` (TaxonomyRanker.evaluate, the
-              test_fast metrics) and `taxoexpan_torch.infer`
+              the shapes of configs/config.mag.json (in 250, hidden/out
+              500, pos 50; 13 grandparent and 50 sibling slots, N = 64) for
+              4096 egonets (one encode chunk, one train step), with random
+              ngp/nsib including empty and full egonets. PGAT (heads
+              [4, 1]): K1 and K3 in eval form, K1 and K3 in train form
+              (feature, pe and attention dropout at the config's 0.1, the
+              pe path), K2 (layer 0's backward, need_dx off) and K4 (the
+              final layer's backward, need_dx on). PGCN (the same config
+              with propagation_method "PGCN"): K5f eval and train form of
+              layer 0 (leaky_relu 0.01) and of the final layer, K5b of
+              both (need_dx off / on). Every gradient compared, the masks
+              regenerated by the plain versions; times of the kernel, its
+              plain version and one torch.matmul as a yardstick
+              (`matmul_ms`: x @ W for a forward, the dW product x^T @ D for
+              a backward; not the layer, so the `library_ms` of the kernels
+              line is null), beside the least time the card could take.
+5. serving  - for PGAT, then PGCN: the port's serving path end to end
+              through its entry points: a run directory with a synthetic
+              taxonomy (4000 nodes, dim 250), config.mag.json and the model
+              from random weights (seeded) in the JAX checkpoint format;
+              then `taxoexpan_torch.test_fast` (TaxonomyRanker.evaluate,
+              the test_fast metrics) and `taxoexpan_torch.infer`
               (predict_parents for 8 novel terms), with the launch counters
               set to 0 just before and read just after. The card's graph
               embeddings are checked against the CPU plain path.
-6. training - `python -m taxoexpan_torch.train` (its main, in this
-              process) on a run directory with a synthetic taxonomy (800
-              nodes, dim 250: five full steps and one padded step of 128
-              groups x 32 candidates = 4096 egonets an epoch) and
-              config.mag.json at full width with full-catalog validation
-              every epoch, for two epochs, the launch counters set to 0
-              just before and read just after; checks a finite loss,
-              changed params, the checkpoints, launches of K1/K3 train,
-              K2 and K4; serves the best checkpoint through
+6. training - for PGAT, then PGCN: `python -m taxoexpan_torch.train` (its
+              main, in this process) on a run directory with a synthetic
+              taxonomy (800 nodes, dim 250: five full steps and one padded
+              step of 128 groups x 32 candidates = 4096 egonets an epoch)
+              and config.mag.json at full width with full-catalog
+              validation every epoch, for two epochs, the launch counters
+              set to 0 just before and read just after; checks a finite
+              loss, changed params, the checkpoints, launches of the train
+              forms and the backwards; serves the best checkpoint through
               `taxoexpan_torch.test_fast`; and holds one train step on the
               card against the same step on the CPU plain path (same
               params, seeds and dropout; 4 groups at full width).
-7. a `{"kernels": [...]}` line (K1/K3 eval launches from the serving
-   phase, the train-path kernels' from the training phase), then the
-   card's nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+7. a `{"kernels": [...]}` line (eval-form launches from the serving phase
+   of the kernel's propagation, the train-path kernels' from its training
+   phase), then the card's nvidia-smi line, and last `{"ok": true,
+   "device": {...}}`.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -89,7 +92,11 @@ REPLACES = {
     "gat_layer_pooled_fwd_train": "taxoexpan_tpu/ops/pallas_gat.py:1105",
     "gat_layer_bwd": "taxoexpan_tpu/ops/pallas_gat.py:991",
     "gat_layer_pooled_bwd": "taxoexpan_tpu/ops/pallas_gat.py:1188",
+    "gcn_layer_fwd": "taxoexpan_tpu/ops/pallas_gcn.py:241",
+    "gcn_layer_fwd_train": "taxoexpan_tpu/ops/pallas_gcn.py:241",
+    "gcn_layer_bwd": "taxoexpan_tpu/ops/pallas_gcn.py:304",
 }
+PROPAGATIONS = ("PGAT", "PGCN")
 
 
 def emit(phase: str, **fields) -> None:
@@ -164,12 +171,38 @@ def phase_build() -> None:
          ptxas=ptxas)
 
 
-def mag_model():
+def mag_model(propagation: str = "PGAT"):
+    """configs/config.mag.json with `arch.args.propagation_method` set to
+    `propagation` (PGAT as published; PGCN the paper's other propagation
+    family at the same widths), and the port's model of it."""
     from taxoexpan_torch import builders
     cfg = json.loads((REPO / "configs" / "config.mag.json").read_text())
+    cfg["arch"]["args"]["propagation_method"] = propagation
     model = builders.build_model(cfg["arch"], max_parents=MAG_P,
                                  expand_factor=MAG_S)
     return cfg, model
+
+
+def _eval_wrappers(propagation: str) -> dict:
+    """The eval-form kernel wrappers a serving run of `propagation` goes
+    through."""
+    from taxoexpan_torch.ops import gat_kernels as gk
+    from taxoexpan_torch.ops import gcn_kernels as ck
+    if propagation in ("GCN", "PGCN"):
+        return {"gcn_layer_fwd": ck.gcn_layer_fwd}
+    return {"gat_layer_fwd": gk.gat_layer_fwd,
+            "gat_layer_pooled_fwd": gk.gat_layer_pooled_fwd}
+
+
+def _train_wrappers(propagation: str) -> tuple[dict, tuple]:
+    """Every wrapper of `propagation`'s kernel module, and the names a
+    training run must launch."""
+    from taxoexpan_torch.ops import gat_kernels as gk
+    from taxoexpan_torch.ops import gcn_kernels as ck
+    if propagation in ("GCN", "PGCN"):
+        return ck.WRAPPERS, ("gcn_layer_fwd_train", "gcn_layer_bwd")
+    return gk.WRAPPERS, ("gat_layer_fwd_train", "gat_layer_pooled_fwd_train",
+                         "gat_layer_bwd", "gat_layer_pooled_bwd")
 
 
 def random_egonets(gen, b: int, din: int, device):
@@ -237,6 +270,35 @@ def bwd_work(x, ops, pe_pack, g, grads: dict, ngp, nsib, heads: int):
     return nbytes, flops
 
 
+def gcn_fwd_work(x, ops, pe_pack, ngp, nsib, out_elems: int):
+    """(bytes, operations) a K5 forward needs on these inputs: each input
+    read once and the output written once; the [x | pe] @ [W_h; W_p]
+    product over the valid slots (an invalid slot's output is the bias
+    alone) plus about 5 operations a (valid slot, column) for the norms,
+    the star sum, the bias and the activation."""
+    din, dout = x.shape[2], ops[0].shape[1]
+    kx = din + (pe_pack[0].shape[1] if pe_pack else 0)
+    nbytes = _nbytes(x, *ops, ngp, nsib, *(pe_pack or ())) + out_elems * 4
+    rows = float((ngp + 1 + nsib).double().sum())
+    return nbytes, 2.0 * rows * kx * dout + 5.0 * rows * dout
+
+
+def gcn_bwd_work(x, ops, pe_pack, g, grads: dict, ngp, nsib, alpha):
+    """(bytes, operations) a K5 backward needs on these inputs: inputs and
+    the incoming grad read once, the grads written once; over the valid
+    slots (dz is 0 on the others), the recompute of [x | pe] @ W where the
+    layer has an activation, the dW product, the dx / dpe product and about
+    8 operations a (slot, column) for the aggregation's backward."""
+    din, dout = x.shape[2], ops[0].shape[1]
+    pos = pe_pack[0].shape[1] if pe_pack else 0
+    nbytes = _nbytes(x, *ops, ngp, nsib, *(pe_pack or ()), g,
+                     *grads.values())
+    rows = float((ngp + 1 + nsib).double().sum())
+    dx_cols = (din if grads.get("x") is not None else 0) + pos
+    products = (2 if alpha is not None else 1) * (din + pos) + dx_cols
+    return nbytes, 2.0 * rows * dout * products + 8.0 * rows * dout
+
+
 def _bound(nbytes: float, flops: float) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
@@ -258,6 +320,24 @@ def compare_grads(name: str, got: dict, want: dict) -> dict:
             worst[k] = max(worst[k], res[k])
     return {**worst, "rtol": GRAD_RTOL, "atol": f"{GRAD_ATOL_REL} x max|grad|",
             "grads": sorted(k for k, v in got.items() if v is not None)}
+
+
+def measure(name: str, kernel, plain, backward: bool, matmul) -> tuple:
+    """The kernel once against its plain version, then the device times of
+    the kernel, the plain version and the torch.matmul yardstick. Returns
+    (the kernel's result, the record's numbers)."""
+    import torch
+    with torch.no_grad():
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        err = (compare_grads(name, got, want) if backward
+               else compare(name, got, want))
+        del want
+        times = {"ms": time_ms(kernel, 5 if backward else 10),
+                 "plain_ms": time_ms(plain, 3),
+                 "matmul_ms": time_ms(matmul, 5 if backward else 10)}
+    return got, {**err, **times}
 
 
 def phase_masks(device) -> dict:
@@ -373,43 +453,34 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
         backward = name.endswith("_bwd")
         x2 = x.reshape(-1, x.shape[-1])
         fc = ops[0]
-        with torch.no_grad():
-            got = kernel()
-            torch.cuda.synchronize()
-            want = plain()
-            if backward:
-                err = compare_grads(name, got, want)
-            else:
-                err = compare(name, got, want)
-            del want
-            ms = time_ms(kernel, 5 if backward else 10)
-            plain_ms = time_ms(plain, 3)
-            if backward:
-                d = torch.randn((x2.shape[0], fc.shape[1] + 2 * heads),
-                                device=device)
-                matmul_ms = time_ms(lambda: x2.T @ d, 5)
-                call = "torch.matmul(x.reshape(-1, Din).T, D [B*N, H*Dh+2H])"
-                del d
-                nbytes, flops = bwd_work(x, ops, pe_pack,
-                                         g1 if pooled else g0, got, ngp,
-                                         nsib, heads)
-            else:
-                matmul_ms = time_ms(lambda: x2 @ fc, 10)
-                call = "torch.matmul(x.reshape(-1, Din), fc)"
-                nbytes, flops = fwd_work(pooled, x, ops, pe_pack, ngp, nsib,
-                                         heads, got.numel())
-        rec = {"name": name, "route": "cuda", "source": source,
+        if backward:
+            d = torch.randn((x2.shape[0], fc.shape[1] + 2 * heads),
+                            device=device)
+            matmul = lambda: x2.T @ d  # noqa: E731
+            call = "torch.matmul(x.reshape(-1, Din).T, D [B*N, H*Dh+2H])"
+        else:
+            matmul = lambda: x2 @ fc  # noqa: E731
+            call = "torch.matmul(x.reshape(-1, Din), fc)"
+        got, nums = measure(name, kernel, plain, backward, matmul)
+        if backward:
+            del d
+            nbytes, flops = bwd_work(x, ops, pe_pack, g1 if pooled else g0,
+                                     got, ngp, nsib, heads)
+        else:
+            nbytes, flops = fwd_work(pooled, x, ops, pe_pack, ngp, nsib,
+                                     heads, got.numel())
+        rec = {"name": name, "wrapper": name, "propagation": "PGAT",
+               "route": "cuda", "source": source,
                "replaces": REPLACES[name], "batch": batch,
                "x_shape": list(x.shape), "fc_shape": list(fc.shape),
                "pe": pe_pack is not None,
                **({"near_kink_share": near_kink_share}
                   if name == "gat_layer_bwd" else {}),
-               "dropout": drop if pe_pack is not None else 0.0,
-               **err, "ms": ms, "plain_ms": plain_ms,
+               "dropout": drop if pe_pack is not None else 0.0, **nums,
                # no single PyTorch call computes the star-GAT layer or its
                # backward; one product alone is timed as a yardstick
-               "library_ms": None, "matmul_ms": matmul_ms,
-               "matmul_call": call, **_bound(nbytes, flops)}
+               "library_ms": None, "matmul_call": call,
+               **_bound(nbytes, flops)}
         emit("kernel", **rec)
         records.append(rec)
         del got
@@ -417,7 +488,132 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
     return records
 
 
-def phase_serving(device, num_nodes: int, n_novel: int, seed: int) -> dict:
+def phase_gcn_kernels(batch: int, device) -> list[dict]:
+    """K5 against its plain versions at the PGCN shapes of config.mag.json
+    (layer 0: 250 + 50 -> 500 with leaky_relu 0.01; the final layer:
+    500 + 50 -> 500, no activation), 4096 egonets: the eval forward of both
+    layers (pe term as z_bias), the train forward of both (feature and pe
+    dropout at the config's feat_drop / out_drop, the pe path), and K5b of
+    both (layer 0: need_dx off; the final layer: need_dx on)."""
+    import torch
+    from taxoexpan_torch.models.propagation import (gcn_layer_operands,
+                                                    slot_embeddings)
+    from taxoexpan_torch.ops import gcn_kernels as ck
+    from taxoexpan_torch.ops import star
+    from taxoexpan_torch.weights import params_to
+    _cfg, model = mag_model("PGCN")
+    gen = torch.Generator().manual_seed(SEED)
+    prop = model.propagate
+    params = params_to(model.init(gen), device)["propagate"]
+    (din0, _, a0, drop0), (din1, _, a1, drop1) = [
+        (spec[0] - prop.pos_dim, *spec[1:]) for spec in prop.layer_specs]
+    x0, ngp, nsib = random_egonets(gen, batch, din0, device)
+    n = x0.shape[1]
+
+    def operands(l, din, pe_dropout):
+        pe = slot_embeddings(params["pos_emb"][l]["emb"], MAG_P, n)
+        return gcn_layer_operands(params["layers"][l], pe, din, n,
+                                  pe_dropout=pe_dropout)
+
+    ops0, _ = operands(0, din0, False)
+    ops1, _ = operands(1, din1, False)
+    tops0, pe0 = operands(0, din0, True)
+    tops1, pe1 = operands(1, din1, True)
+    tkw0 = dict(pe_pack=pe0, seed=21, drop=drop0, alpha=a0)
+    tkw1 = dict(pe_pack=pe1, seed=22, drop=drop1, alpha=a1)
+    with torch.no_grad():
+        x1 = ck.gcn_layer_fwd_plain(x0, *ops0, ngp, nsib, MAG_P, a0)
+        x1t = ck.gcn_layer_train_plain(x0, *tops0, ngp, nsib, MAG_P, **tkw0)
+        # layer 0's leaky' jumps 100x at 0: the incoming grad is 0 within
+        # 1e-5 of the kink, as for gat_layer_bwd
+        pre = ck.gcn_layer_train_plain(x0, *tops0, ngp, nsib, MAG_P,
+                                       **dict(tkw0, alpha=None))
+        away = pre.abs() > 1e-5
+        near_kink_share = 1.0 - float(away.double().mean())
+        del pre
+    # incoming grads live on the valid slots: layer 1's dx and the
+    # readout's grad are zero elsewhere
+    valid = star.node_mask(ngp, nsib, MAG_P, n)[..., None]
+    g0 = (torch.randn(x1t.shape, generator=gen).to(device) * 1e-3) * valid \
+        * away
+    del away
+    g1 = (torch.randn(x1t.shape[:2] + (prop.out_dim,), generator=gen)
+          .to(device) * 1e-2) * valid
+    args = (ngp, nsib, MAG_P)
+    cases = [
+        ("gcn_layer_fwd", "layer0", x0, ops0, None, a0,
+         lambda: ck.gcn_layer_fwd(x0, *ops0, *args, a0),
+         lambda: ck.gcn_layer_fwd_plain(x0, *ops0, *args, a0)),
+        ("gcn_layer_fwd", "final", x1, ops1, None, a1,
+         lambda: ck.gcn_layer_fwd(x1, *ops1, *args, a1),
+         lambda: ck.gcn_layer_fwd_plain(x1, *ops1, *args, a1)),
+        ("gcn_layer_fwd_train", "layer0", x0, tops0, pe0, a0,
+         lambda: ck.gcn_layer_fwd_train(x0, *tops0, *args, **tkw0),
+         lambda: ck.gcn_layer_train_plain(x0, *tops0, *args, **tkw0)),
+        ("gcn_layer_fwd_train", "final", x1t, tops1, pe1, a1,
+         lambda: ck.gcn_layer_fwd_train(x1t, *tops1, *args, **tkw1),
+         lambda: ck.gcn_layer_train_plain(x1t, *tops1, *args, **tkw1)),
+        # the train step's backwards: layer 0 without dx (fixed input
+        # features), neither needs d z_bias (zero on the pe path)
+        ("gcn_layer_bwd", "layer0", x0, tops0, pe0, a0,
+         lambda: ck.gcn_layer_bwd(g0, x0, *tops0, *args, need_dx=False,
+                                  need_dzb=False, **tkw0),
+         lambda: ck.gcn_layer_bwd_plain(g0, x0, *tops0, *args,
+                                        need_dx=False, need_dzb=False,
+                                        **tkw0)),
+        ("gcn_layer_bwd", "final", x1t, tops1, pe1, a1,
+         lambda: ck.gcn_layer_bwd(g1, x1t, *tops1, *args, need_dx=True,
+                                  need_dzb=False, **tkw1),
+         lambda: ck.gcn_layer_bwd_plain(g1, x1t, *tops1, *args,
+                                        need_dx=True, need_dzb=False,
+                                        **tkw1)),
+    ]
+    source = "taxoexpan_torch/ops/csrc/gcn.cu"
+    records = []
+    for wrapper, layer, x, ops, pe_pack, alpha, kernel, plain in cases:
+        name = f"{wrapper}[{layer}]"
+        backward = wrapper == "gcn_layer_bwd"
+        x2 = x.reshape(-1, x.shape[-1])
+        w = ops[0]
+        if backward:
+            d = torch.randn((x2.shape[0], w.shape[1]), device=device)
+            matmul = lambda: x2.T @ d  # noqa: E731
+            call = "torch.matmul(x.reshape(-1, Din).T, dz [B*N, Dout])"
+        else:
+            matmul = lambda: x2 @ w  # noqa: E731
+            call = "torch.matmul(x.reshape(-1, Din), W_h)"
+        got, nums = measure(name, kernel, plain, backward, matmul)
+        if backward:
+            del d
+            nbytes, flops = gcn_bwd_work(x, ops, pe_pack,
+                                         g0 if layer == "layer0" else g1,
+                                         got, ngp, nsib, alpha)
+        else:
+            nbytes, flops = gcn_fwd_work(x, ops, pe_pack, ngp, nsib,
+                                         got.numel())
+        rec = {"name": name, "wrapper": wrapper, "propagation": "PGCN",
+               "route": "cuda", "source": source,
+               "replaces": REPLACES[wrapper], "batch": batch,
+               "x_shape": list(x.shape), "w_shape": list(w.shape),
+               "alpha": alpha, "pe": pe_pack is not None,
+               **({"near_kink_share": near_kink_share}
+                  if name == "gcn_layer_bwd[layer0]" else {}),
+               "dropout": ((tkw0 if layer == "layer0" else tkw1)["drop"]
+                           if pe_pack is not None else 0.0),
+               **nums,
+               # no single PyTorch call computes the star-GCN layer or its
+               # backward; one product alone is timed as a yardstick
+               "library_ms": None, "matmul_call": call,
+               **_bound(nbytes, flops)}
+        emit("kernel", **rec)
+        records.append(rec)
+        del got
+        torch.cuda.empty_cache()
+    return records
+
+
+def phase_serving(device, num_nodes: int, n_novel: int, seed: int,
+                  propagation: str = "PGAT") -> dict:
     """The user's entry points, `python -m taxoexpan_torch.test_fast` and
     `python -m taxoexpan_torch.infer` (their main functions, in this
     process), on a run directory as the JAX train.py leaves it: dataset
@@ -429,11 +625,11 @@ def phase_serving(device, num_nodes: int, n_novel: int, seed: int) -> dict:
     from taxoexpan_torch import test_fast as test_fast_cli
     from taxoexpan_torch.data.synthetic import synthetic_taxonomy
     from taxoexpan_torch.evaluation.ranker import TaxonomyRanker
-    from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.weights import (load_jax_checkpoint,
                                          restore_params, save_jax_checkpoint)
 
-    cfg, model = mag_model()
+    cfg, model = mag_model(propagation)
+    wrappers = _eval_wrappers(propagation)
     in_dim = cfg["arch"]["args"]["in_dim"]
     taxonomy = synthetic_taxonomy(num_nodes=num_nodes, dim=in_dim, seed=seed)
     rng = np.random.default_rng(seed)
@@ -457,8 +653,8 @@ def phase_serving(device, num_nodes: int, n_novel: int, seed: int) -> dict:
                 fout.write(f"novel term {i}\t{' '.join(map(str, row))}\n")
 
         # ---- the main path, with the launch counters around it
-        gk.gat_layer_fwd.launches = 0
-        gk.gat_layer_pooled_fwd.launches = 0
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
         t0 = time.time()
         metrics = test_fast_cli.main(test_fast_cli.parse_args(
             ["-r", ckpt, "-c", str(run / "case.tsv")]))
@@ -468,8 +664,7 @@ def phase_serving(device, num_nodes: int, n_novel: int, seed: int) -> dict:
              "-s", str(run / "predictions.tsv")]))
         torch.cuda.synchronize()
         t2 = time.time()
-        launches = {"gat_layer_fwd": gk.gat_layer_fwd.launches,
-                    "gat_layer_pooled_fwd": gk.gat_layer_pooled_fwd.launches}
+        launches = {name: w.launches for name, w in wrappers.items()}
 
         # ---- checks
         for name, count in launches.items():
@@ -511,7 +706,8 @@ def phase_serving(device, num_nodes: int, n_novel: int, seed: int) -> dict:
         want = model.encode(params, feats, ngp_t, nsib_t)
     hg_check = compare("hg (card vs CPU plain path, first 256 anchors)",
                        hg[:256].cpu(), want)
-    res = {"nodes": taxonomy.num_nodes, "dim": in_dim,
+    res = {"propagation": propagation, "nodes": taxonomy.num_nodes,
+           "dim": in_dim,
            "candidates": len(ranker.candidates),
            "queries": len(sampler.node_list),
            "encode_chunk": ranker.encode_chunk, "metrics": metrics,
@@ -596,7 +792,8 @@ def compare_train_step(device, cfg: dict, taxonomy, params: dict,
             "near_zero_grad_share": n_tiny / max(n_all, 1)}
 
 
-def phase_training(device, num_nodes: int, epochs: int, seed: int) -> dict:
+def phase_training(device, num_nodes: int, epochs: int, seed: int,
+                   propagation: str = "PGAT") -> dict:
     """`python -m taxoexpan_torch.train` (its main, in this process) on a
     synthetic run directory at config.mag.json's full width."""
     import numpy as np
@@ -604,11 +801,11 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int) -> dict:
     from taxoexpan_torch import test_fast as test_fast_cli
     from taxoexpan_torch import train as train_cli
     from taxoexpan_torch.data.synthetic import synthetic_taxonomy
-    from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.tree import tree_leaves
     from taxoexpan_torch.weights import load_jax_checkpoint, restore_params
 
-    cfg, model = mag_model()
+    cfg, model = mag_model(propagation)
+    wrappers, required = _train_wrappers(propagation)
     in_dim = cfg["arch"]["args"]["in_dim"]
     taxonomy = synthetic_taxonomy(num_nodes=num_nodes, dim=in_dim, seed=seed)
     with tempfile.TemporaryDirectory() as tmp:
@@ -626,17 +823,16 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int) -> dict:
         config = train_cli.parse_args(["-c", str(run / "config.json")])
 
         # ---- the main path, with the launch counters around it
-        for wrapper in gk.WRAPPERS.values():
+        for wrapper in wrappers.values():
             wrapper.launches = 0
         t0 = time.time()
         log = train_cli.main(config)
         torch.cuda.synchronize()
         train_s = time.time() - t0
-        launches = {name: w.launches for name, w in gk.WRAPPERS.items()}
+        launches = {name: w.launches for name, w in wrappers.items()}
 
         # ---- checks
-        for name in ("gat_layer_fwd_train", "gat_layer_pooled_fwd_train",
-                     "gat_layer_bwd", "gat_layer_pooled_bwd"):
+        for name in required:
             if launches[name] <= 0:
                 raise AssertionError(f"training never launched {name}")
         if not np.isfinite(log["loss"]):
@@ -665,7 +861,8 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int) -> dict:
                         * (1 + cfg["train_data_loader"]["args"]
                            ["negative_size"]))
     median_ms = float(np.median(step_ms)) if step_ms else float("nan")
-    res = {"card": nvidia_smi_line(), "nodes": taxonomy.num_nodes,
+    res = {"propagation": propagation, "card": nvidia_smi_line(),
+           "nodes": taxonomy.num_nodes,
            "dim": in_dim, "epochs": epochs,
            "steps_last_epoch": len(step_ms),
            "egonets_per_step": egonets_per_step,
@@ -698,31 +895,42 @@ def main() -> int:
     setup_logging()          # the CLIs' stage timings, on stderr
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-
     info = phase_device()
     phase_build()
     phase_masks(device)
-    cfg, _ = mag_model()
-    drop = cfg["arch"]["args"]["feat_drop"]
-    records = phase_kernels(BATCH, device, drop)
-    serving = phase_serving(device, NODES, N_NOVEL, SEED)
-    training = phase_training(device, TRAIN_NODES, TRAIN_EPOCHS, SEED)
-    kernels = []
-    for rec in records:
-        # eval forms: the serving path's launches; train forms and the
-        # backwards: the training path's
-        phase = serving if rec["name"] in serving["launches"] else training
-        kernels.append({k: rec[k] for k in (
-            "name", "route", "source", "replaces")} | {
-            "launches": phase["launches"][rec["name"]],
-            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}})
+    kernels = run_paths(device)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(info["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def run_paths(device) -> list[dict]:
+    """The kernel, serving and training phases; returns the entries of the
+    kernels line."""
+    cfg, _ = mag_model()
+    records = phase_kernels(BATCH, device, cfg["arch"]["args"]["feat_drop"])
+    records += phase_gcn_kernels(BATCH, device)
+    serving = {prop: phase_serving(device, NODES, N_NOVEL, SEED, prop)
+               for prop in PROPAGATIONS}
+    training = {prop: phase_training(device, TRAIN_NODES, TRAIN_EPOCHS, SEED,
+                                     prop)
+                for prop in PROPAGATIONS}
+    kernels = []
+    for rec in records:
+        # eval forms: the serving path's launches; train forms and the
+        # backwards: the training path's (of the record's propagation)
+        prop, wrapper = rec["propagation"], rec["wrapper"]
+        phase = serving[prop] if wrapper in serving[prop]["launches"] \
+            else training[prop]
+        kernels.append({k: rec[k] for k in (
+            "name", "route", "source", "replaces")} | {
+            "launches": phase["launches"][wrapper],
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
+    return kernels
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@
 semantics, so a JAX run's `config.json` drives the port.
 
 Settings the port does not have yet raise instead of being ignored
-(bf16, pos_mode="concat", auxiliary MTL heads); the JAX kernel choice
-(`kernel`) and the GCN-only dropout rates are not read.
+(bf16, pos_mode="concat", auxiliary MTL heads, the MAX/PATR readouts);
+the JAX kernel choice (`kernel`) is not read: the port runs its kernels on
+CUDA and their plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -57,6 +58,8 @@ def build_model(arch_cfg: dict, *, max_parents: int,
         heads=a.get("heads"),
         feat_drop=a.get("feat_drop", 0.1),
         attn_drop=a.get("attn_drop", 0.1),
+        hidden_drop=a.get("hidden_drop", 0.1),
+        out_drop=a.get("out_drop", 0.1),
         max_parents=max_parents,
         expand_factor=expand_factor,
         raw_channel=a.get("raw_channel", False))

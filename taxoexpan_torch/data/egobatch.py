@@ -75,3 +75,52 @@ def make_ego_batch(egonets: Sequence[Egonet], max_parents: int,
         ngp[i] = g
         nsib[i] = s
     return EgoBatch(node_ids=node_ids, ngp=ngp, nsib=nsib)
+
+
+def slot_mask(ngp: np.ndarray, nsib: np.ndarray, max_parents: int,
+              expand_factor: int) -> np.ndarray:
+    """[B, N] validity mask from the per-egonet gp / sibling counts."""
+    n = max_parents + 1 + expand_factor
+    slots = np.arange(n, dtype=np.int32)[None, :]
+    gp_ok = slots < np.asarray(ngp)[:, None]
+    anchor_ok = slots == max_parents
+    sib_ok = (slots > max_parents) & (
+        slots < max_parents + 1 + np.asarray(nsib)[:, None])
+    return gp_ok | anchor_ok | sib_ok
+
+
+def ego_batch_edges(batch: EgoBatch, max_parents: int, expand_factor: int
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The (src, dst, edge_mask) arrays of the batched star graphs over the
+    flattened [B * N] node space, the generic sparse view (models/
+    generic.py). Edge slots per egonet (E = N + P + S), in the edge order
+    of the reference's dataset (data_loader/dataset.py:431-435):
+        e in [0, P)        : gp_e -> anchor           (valid iff e < ngp)
+        e in [P, P+S)      : anchor -> sibling_(e-P)  (valid iff e-P < nsib)
+        e in [P+S, P+S+N)  : self-loops               (valid iff node valid)
+    """
+    b = batch.node_ids.shape[0]
+    p, s = max_parents, expand_factor
+    n = p + 1 + s
+    ngp = np.asarray(batch.ngp)
+    nsib = np.asarray(batch.nsib)
+    src = np.zeros((b, p + s + n), dtype=np.int32)
+    dst = np.zeros((b, p + s + n), dtype=np.int32)
+    mask = np.zeros((b, p + s + n), dtype=bool)
+
+    gp_slots = np.arange(p, dtype=np.int32)
+    src[:, :p] = gp_slots[None, :]
+    dst[:, :p] = p
+    mask[:, :p] = gp_slots[None, :] < ngp[:, None]
+
+    src[:, p:p + s] = p
+    dst[:, p:p + s] = np.arange(s, dtype=np.int32)[None, :] + p + 1
+    mask[:, p:p + s] = np.arange(s)[None, :] < nsib[:, None]
+
+    src[:, p + s:] = np.arange(n, dtype=np.int32)[None, :]
+    dst[:, p + s:] = np.arange(n, dtype=np.int32)[None, :]
+    mask[:, p + s:] = slot_mask(ngp, nsib, p, s)
+
+    offset = (np.arange(b, dtype=np.int32) * n)[:, None]
+    return ((src + offset).reshape(-1), (dst + offset).reshape(-1),
+            mask.reshape(-1))

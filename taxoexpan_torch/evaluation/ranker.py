@@ -3,7 +3,9 @@
 
 Phase 1 (encode): build every candidate anchor's egonet once and encode them
 through propagate + readout in chunks of `encode_chunk` egonets; on CUDA
-each chunk runs the two star-GAT kernels of `ops/gat_kernels.py`.
+each chunk runs the model's eval kernels: the two star-GAT forwards of
+`ops/gat_kernels.py` (GAT/PGAT) or the star-GCN forward of
+`ops/gcn_kernels.py` once a layer (GCN/PGCN).
 
 Phase 2 (score): score all queries against all candidates with the
 matcher's all-pairs form (for BIM one (hg @ W) @ qf^T product), then count

@@ -1,35 +1,43 @@
-"""PGAT / GAT graph propagation (port of the GAT parts of
-`taxoexpan_tpu/models/propagation.py`, :206-333 and :509-573).
+"""Graph propagation: the PGAT / GAT and PGCN / GCN stacks (port of
+`taxoexpan_tpu/models/propagation.py`: GAT :206-333 and :509-573, GCN
+:40-86 and :338-449).
 
-Every layer runs through the star-GAT kernels of `ops/gat_kernels.py`:
-hidden layers with the stack's leaky_relu (slope 0.01) fused in, the final
-layer in its pooled form, which emits the readout class pools
-[B, 3, out_dim]. Parameters keep the JAX layout: `fc` is [in, H*Dh] with
-head-major columns and, for PGAT, the position embedding rows as its tail
-rows `fc[din_h:]`; `attn_l`/`attn_r` are [H, Dh].
+Every layer runs through the star kernels: the GAT layers through
+`ops/gat_kernels.py` (hidden layers with the stack's leaky_relu, slope
+0.01, fused in; the final layer in its pooled form, which emits the readout
+class pools [B, 3, out_dim]), the GCN layers through `ops/gcn_kernels.py`
+(hidden layers with leaky_relu 0.01 fused in; the final layer per slot,
+[B, N, out_dim], with no activation). Parameters keep the JAX layout: GAT's
+`fc` is [in, H*Dh] with head-major columns, `attn_l`/`attn_r` [H, Dh];
+GCN's `w` is [in, out] and `b` [out]; with positions the embedding rows of
+the weight are its tail rows `[din_h:]`.
 
 Position bias (pos_mode="bias"): [h, pe] @ W = h @ W_h + pe @ W_p. Without
 input dropout the pe term is a per-slot constant and enters the kernels as
-slot biases bias_ft [N, H*Dh] and bias_a1/bias_a2 [N, H]. In train mode
-with feat_drop > 0 the reference drops the concatenated input, pe columns
-included, so the layer gets the raw pe rows and W_p tail rows instead
-(`pe_pack`) and the kernel masks them per node (propagation.py:274-279).
+slot biases (GAT: bias_ft [N, H*Dh], bias_a1/bias_a2 [N, H]; GCN: z_bias
+[N, out]). In train mode with input dropout the reference drops the
+concatenated input, pe columns included, so the layer gets the raw pe rows
+and the W_p tail rows instead (`pe_pack`) and the kernel masks them per
+node (propagation.py:274-279, :430-435).
 
 Eval (no autograd) calls the forward wrappers; train mode, or any call
-under autograd, the differentiable layers (`gat_layer`, whose backward is
-K2 / K4), with one seed per layer drawn from the caller's torch.Generator.
-Layer 0's input is the fixed feature tensor: its dx is never computed.
-The grads of pos_emb, the fc tail rows and attn_l / attn_r flow through
-the slicing and the einsum fold outside the kernels, by autograd.
+under autograd, the differentiable layers (`gat_layer`, `gcn_layer`), with
+one seed per layer drawn from the caller's torch.Generator. Layer 0's input
+is the fixed feature tensor: its dx is never computed. The grads of the
+pos_emb rows, the weights' tail rows and attn_l / attn_r flow through the
+slicing and the einsum fold outside the kernels, by autograd.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from ..ops.gat_kernels import (gat_layer, gat_layer_fwd, gat_layer_pooled,
                                gat_layer_pooled_fwd)
-from .init import embedding_params, xavier_normal
+from ..ops.gcn_kernels import gcn_layer, gcn_layer_fwd
+from .init import embedding_params, uniform, xavier_normal
 
 HIDDEN_ALPHA = 0.01   # the stack's F.leaky_relu between layers; the
                       # attention logits use 0.2 (ops/gat_kernels.py)
@@ -41,6 +49,18 @@ def star_slot_positions(p_slots: int, n: int) -> np.ndarray:
     pos[:p_slots] = 0
     pos[p_slots] = 1
     return pos
+
+
+def slot_embeddings(emb: torch.Tensor, p_slots: int, n: int) -> torch.Tensor:
+    """The position embedding row of every slot: emb [3, pos] -> [N, pos]."""
+    return emb[torch.as_tensor(star_slot_positions(p_slots, n),
+                               device=emb.device)]
+
+
+def _layer_seed(gen: torch.Generator | None, train: bool) -> int:
+    if not train:
+        return 0
+    return int(torch.randint(0, 2_147_483_647, (1,), generator=gen))
 
 
 def init_gat_layer(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -132,9 +152,7 @@ class GAT:
         fc = params["layers"][l]["fc"]
         pe = None
         if self.pos_dim:
-            slot_pos = torch.as_tensor(star_slot_positions(p_slots, n),
-                                       device=fc.device)
-            pe = params["pos_emb"][l]["emb"][slot_pos]        # [N, pos_dim]
+            pe = slot_embeddings(params["pos_emb"][l]["emb"], p_slots, n)
         return layer_operands(params["layers"][l], pe, self.layer_specs[l][2],
                               fc.shape[0] - self.pos_dim, n,
                               pe_dropout=pe_dropout)
@@ -163,15 +181,105 @@ class GAT:
                     h = gat_layer_pooled_fwd(h, *ops, ngp, nsib, p_slots,
                                              heads)
                 continue
-            seed = 0
-            if train:
-                seed = int(torch.randint(0, 2_147_483_647, (1,),
-                                         generator=gen))
-            kw = dict(pe_pack=pe_pack, seed=seed, feat_drop=feat_drop,
-                      attn_drop=attn_drop, need_dx=l > 0)
+            kw = dict(pe_pack=pe_pack, seed=_layer_seed(gen, train),
+                      feat_drop=feat_drop, attn_drop=attn_drop,
+                      need_dx=l > 0)
             if l < last:
                 h = gat_layer(h, *ops, ngp, nsib, p_slots, heads,
                               out_alpha=HIDDEN_ALPHA, **kw)
             else:
                 h = gat_layer_pooled(h, *ops, ngp, nsib, p_slots, heads, **kw)
+        return h
+
+
+# ----------------------------------------------------------------- GCN
+
+def init_gcn_layer(gen: torch.Generator, in_f: int, out_f: int) -> dict:
+    """U(-stdv, stdv), stdv = 1/sqrt(out_f), for w and b."""
+    stdv = 1.0 / math.sqrt(out_f)
+    return {"w": uniform(gen, (in_f, out_f), stdv),
+            "b": uniform(gen, (out_f,), stdv)}
+
+
+def gcn_layer_operands(lp: dict, pe: torch.Tensor | None, din_h: int, n: int,
+                       pe_dropout: bool = False):
+    """Kernel operands of one GCN layer: ((w_h, b, z_bias), pe_pack), all
+    contiguous float32. With a position embedding `pe` [N, pos] the tail
+    rows W_p of w give z_bias = pe @ W_p or, with `pe_dropout`, pe_pack =
+    (pe, W_p) beside a zero z_bias."""
+    w = lp["w"]
+    zeros = w.new_zeros((n, w.shape[1]))
+    if pe is None:
+        return (w.contiguous(), lp["b"].contiguous(), zeros), None
+    w_h, w_p = w[:din_h].contiguous(), w[din_h:].contiguous()
+    if pe_dropout:
+        return (w_h, lp["b"].contiguous(), zeros), (pe.contiguous(), w_p)
+    return (w_h, lp["b"].contiguous(), (pe @ w_p).contiguous()), None
+
+
+def apply_gcn_layer(lp: dict, h: torch.Tensor, ngp: torch.Tensor,
+                    nsib: torch.Tensor, p_slots: int, *, alpha, drop: float,
+                    seed: int, pos_emb: torch.Tensor | None = None,
+                    differentiable: bool = False,
+                    need_dx: bool = True) -> torch.Tensor:
+    """One GCN layer (model_zoo.py:34-50) on h [B, N, Din]: dropout at rate
+    `drop` (0 in eval), [h, pe] @ W, the degree-normalised star sum, bias
+    and leaky_relu(alpha) (None: no activation). Runs the K5 wrappers:
+    the kernel on CUDA, its plain composition
+    (ops/gcn_kernels.py:gcn_layer_train_plain) on the CPU; the eval
+    forward alone unless the layer is `differentiable` or drops."""
+    ops, pe_pack = gcn_layer_operands(lp, pos_emb, h.shape[-1], h.shape[1],
+                                      pe_dropout=drop > 0)
+    if not differentiable and drop == 0:
+        return gcn_layer_fwd(h, *ops, ngp, nsib, p_slots, alpha=alpha)
+    return gcn_layer(h, *ops, ngp, nsib, p_slots, pe_pack=pe_pack,
+                     seed=seed, drop=drop, alpha=alpha, need_dx=need_dx)
+
+
+class GCN:
+    """GCN stack; PGCN when pos_dim > 0. Layer specs (din, dout, alpha,
+    dropout rate): layer 0 at in_dropout, the middle layers at
+    hidden_dropout, the final layer at output_dropout and without
+    activation."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_layers: int, pos_dim: int = 0,
+                 position_vocab_size: int = 3, in_dropout: float = 0.1,
+                 hidden_dropout: float = 0.1, output_dropout: float = 0.0):
+        self.pos_dim = pos_dim
+        self.position_vocab_size = position_vocab_size
+        self.out_dim = out_dim
+        self.layer_specs = (
+            [(in_dim + pos_dim, hidden_dim, HIDDEN_ALPHA, in_dropout)] +
+            [(hidden_dim + pos_dim, hidden_dim, HIDDEN_ALPHA, hidden_dropout)
+             for _ in range(num_layers - 1)] +
+            [(hidden_dim + pos_dim, out_dim, None, output_dropout)])
+
+    def init(self, gen: torch.Generator) -> dict:
+        params = {"layers": [], "pos_emb": []}
+        for din, dout, _alpha, _rate in self.layer_specs:
+            params["layers"].append(init_gcn_layer(gen, din, dout))
+            if self.pos_dim:
+                params["pos_emb"].append(embedding_params(
+                    gen, self.position_vocab_size, self.pos_dim))
+        return params
+
+    def apply(self, params: dict, h: torch.Tensor, ngp: torch.Tensor,
+              nsib: torch.Tensor, p_slots: int, *,
+              gen: torch.Generator | None = None,
+              train: bool = False) -> torch.Tensor:
+        """Egonet features [B, N, in_dim] -> per-slot activations
+        [B, N, out_dim]. train=True turns dropout on, one seed per layer
+        from `gen`."""
+        n = h.shape[1]
+        differentiable = train or torch.is_grad_enabled()
+        for i, (_din, _dout, alpha, rate) in enumerate(self.layer_specs):
+            pe = None
+            if self.pos_dim:
+                pe = slot_embeddings(params["pos_emb"][i]["emb"], p_slots, n)
+            h = apply_gcn_layer(params["layers"][i], h, ngp, nsib, p_slots,
+                                alpha=alpha, drop=rate if train else 0.0,
+                                seed=_layer_seed(gen, train), pos_emb=pe,
+                                differentiable=differentiable,
+                                need_dx=i > 0)
         return h

@@ -1,9 +1,12 @@
-"""Graph readouts MR / WMR / CR / SUM from the pooled final layer (port of
+"""Graph readouts MR / WMR / CR / SUM (port of
 `taxoexpan_tpu/models/readout.py`).
 
-The port's final GAT layer emits per-position-class pools, so every readout
-is a small epilogue on them (ops/star.py:readout_from_pools). MAX and PATR
-need the per-slot activation and are not ported yet (see ROADMAP.md).
+The port's final GAT layer emits per-position-class pools, so for GAT/PGAT
+every readout is a small epilogue on them (`apply_pools`,
+ops/star.py:readout_from_pools). GCN/PGCN has no pooled final kernel: its
+final layer writes the per-slot activation [B, N, out], which `apply`
+reduces (ops/star.py:readout). MAX and PATR are not ported yet (see
+ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -36,3 +39,10 @@ class Readout:
         pw = params["emb"] if self.kind == "WMR" else None
         return star.readout_from_pools(pools, ngp, nsib, kind=self.kind,
                                        position_weights=pw)
+
+    def apply(self, params: dict, h: torch.Tensor, ngp: torch.Tensor,
+              nsib: torch.Tensor, p_slots: int) -> torch.Tensor:
+        """Readout of the per-slot activation h [B, N, out_dim]."""
+        pw = params["emb"] if self.kind == "WMR" else None
+        return star.readout(h, ngp, nsib, p_slots, kind=self.kind,
+                            position_weights=pw)

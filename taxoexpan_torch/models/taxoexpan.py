@@ -3,11 +3,12 @@
 
 The model object holds static configuration; parameters are a plain dict
 tree with the JAX package's keys and layouts (see weights.py). Ported so
-far: GAT/PGAT propagation with pos_mode="bias" in float32, eval and train
-(dropout) forms, the MR/WMR/CR/SUM readouts, every matcher, the raw-feature
-channel and its structure-prior init, and the training forward
-(`forward`: GroupBatch -> scores [G, C]). GCN/PGCN, MAX/PATR readouts,
-auxiliary heads and bf16 wait for later work (ROADMAP.md).
+far: every propagation method (GCN, PGCN, GAT, PGAT) with pos_mode="bias"
+in float32, eval and train (dropout) forms, the MR/WMR/CR/SUM readouts,
+every matcher, the raw-feature channel and its structure-prior init, and
+the training forward (`forward`: GroupBatch -> scores [G, C]). MAX/PATR
+readouts, auxiliary heads, pos_mode="concat" and bf16 wait for later work
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -15,10 +16,10 @@ import torch
 
 from ..ops import star
 from .matching import Matcher
-from .propagation import GAT
+from .propagation import GAT, GCN
 from .readout import Readout
 
-PROPAGATION_KINDS = ("GAT", "PGAT")
+PROPAGATION_KINDS = ("GCN", "PGCN", "GAT", "PGAT")
 
 
 class TaxoExpan:
@@ -35,6 +36,8 @@ class TaxoExpan:
                  heads: list[int] | None = None,
                  feat_drop: float = 0.1,
                  attn_drop: float = 0.1,
+                 hidden_drop: float = 0.1,
+                 out_drop: float = 0.1,
                  max_parents: int = 8,
                  expand_factor: int = 50,
                  raw_channel: bool = False):
@@ -42,8 +45,6 @@ class TaxoExpan:
             raise ValueError(
                 f"Unacceptable or not yet ported propagation method "
                 f"{propagation_method!r}; the port has {PROPAGATION_KINDS}")
-        if heads is None:
-            raise ValueError("GAT/PGAT require a heads list")
         self.propagation_method = propagation_method
         self.readout_method = readout_method
         self.matching_method = matching_method
@@ -51,10 +52,19 @@ class TaxoExpan:
         self.max_parents = max_parents
         self.expand_factor = expand_factor
         self.num_slots = max_parents + 1 + expand_factor
-        pos_dim_eff = pos_dim if propagation_method == "PGAT" else 0
-        self.propagate = GAT(in_dim, hidden_dim, out_dim, num_layers, heads,
-                             pos_dim=pos_dim_eff, feat_drop=feat_drop,
-                             attn_drop=attn_drop)
+        pos_dim_eff = pos_dim if propagation_method in ("PGCN", "PGAT") \
+            else 0
+        if propagation_method in ("GCN", "PGCN"):
+            self.propagate = GCN(in_dim, hidden_dim, out_dim, num_layers,
+                                 pos_dim=pos_dim_eff, in_dropout=feat_drop,
+                                 hidden_dropout=hidden_drop,
+                                 output_dropout=out_drop)
+        else:
+            if heads is None:
+                raise ValueError("GAT/PGAT require a heads list")
+            self.propagate = GAT(in_dim, hidden_dim, out_dim, num_layers,
+                                 heads, pos_dim=pos_dim_eff,
+                                 feat_drop=feat_drop, attn_drop=attn_drop)
         self.readout = Readout(readout_method, out_dim)
         # optional raw-feature channel: the unit-normalised anchor+sibling
         # mean of the untransformed features appended to every summary
@@ -88,12 +98,18 @@ class TaxoExpan:
                train: bool = False) -> torch.Tensor:
         """Egonet features [B, N, D] -> graph embeddings [B, l_dim].
 
-        The final layer emits the readout class pools directly (head mean
-        and masked class sums inside the kernel); the readout is a small
-        epilogue on them. train=True turns dropout on, seeds from `gen`."""
-        pools = self.propagate.apply(params["propagate"], feats, ngp, nsib,
-                                     self.max_parents, gen=gen, train=train)
-        hg = self.readout.apply_pools(params["readout"], pools, ngp, nsib)
+        GAT/PGAT: the final layer emits the readout class pools directly
+        (head mean and masked class sums inside the kernel) and the readout
+        is a small epilogue on them. GCN/PGCN: the final layer writes the
+        per-slot activation and the readout reduces it. train=True turns
+        dropout on, seeds from `gen`."""
+        out = self.propagate.apply(params["propagate"], feats, ngp, nsib,
+                                   self.max_parents, gen=gen, train=train)
+        if isinstance(self.propagate, GAT):
+            hg = self.readout.apply_pools(params["readout"], out, ngp, nsib)
+        else:
+            hg = self.readout.apply(params["readout"], out, ngp, nsib,
+                                    self.max_parents)
         return self._append_raw(hg, feats, ngp, nsib)
 
     def _append_raw(self, hg: torch.Tensor, feats: torch.Tensor,

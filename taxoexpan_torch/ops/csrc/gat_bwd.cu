@@ -9,7 +9,8 @@
 // stored) and replay the forward's dropout masks: the bits are a pure
 // function of (seed, stream, row, column), gat_common.cuh.
 //
-// Passes, one C entry point (gat_layer_bwd_f32) launching them in order:
+// Passes, one C entry point (gat_layer_bwd_f32) launching them in order
+// (the products and sums of 2-4 are bwd_common.cuh's, shared with gcn.cu):
 //  1. head core, one block per (egonet, head): a1/a2 and the softmax once,
 //     then per 128-column tile of the head the ft tile (the forward's
 //     register-tiled product), the incoming grad tile (K2: g, chained
@@ -43,7 +44,7 @@
 // K tiles of 16 in shared memory) like the forward's; tensor cores, TMA and
 // wgmma are later work.
 
-#include "gat_common.cuh"
+#include "bwd_common.cuh"
 
 // Mirrored field by field by gat_kernels._BwdArgs.
 struct BwdArgs {
@@ -255,235 +256,6 @@ gat_bwd_head_kernel(BwdArgs a, TrainArgs ta) {
   }
 }
 
-// Element (m, k) of [x*m | pe*m_pe] (k < din + pos).
-__device__ __forceinline__ float xcat(const BwdArgs& a, const TrainArgs& ta,
-                                      long long m, int k, unsigned rkf,
-                                      unsigned rkp) {
-  if (k < a.din) {
-    float v = a.x[(size_t)m * a.din + k];
-    if (ta.feat_on)
-      v *= keep(drop_bits(rkf, (unsigned)k), ta.feat_thresh, ta.feat_scale);
-    return v;
-  }
-  const int kp = k - a.din;
-  float v = ta.pe[(size_t)(m % a.n) * ta.pos + kp];
-  if (ta.feat_on)
-    v *= keep(drop_bits(rkp, (unsigned)kp), ta.feat_thresh, ta.feat_scale);
-  return v;
-}
-
-// Element (k, j) of [fc | wa1 | wa2; wp | wpa1 | wpa2], [din+pos, wd].
-__device__ __forceinline__ float wcat(const BwdArgs& a, const TrainArgs& ta,
-                                      int k, int j) {
-  const int hd = a.heads * a.dh, heads = a.heads;
-  const float *w, *w1, *w2;
-  int kk = k;
-  if (k < a.din) {
-    w = a.fc, w1 = a.wa1, w2 = a.wa2;
-  } else {
-    w = ta.wp, w1 = ta.wpa1, w2 = ta.wpa2;
-    kk = k - a.din;
-  }
-  if (j < hd) return w[(size_t)kk * hd + j];
-  if (j < hd + heads) return w1[(size_t)kk * heads + j - hd];
-  return w2[(size_t)kk * heads + j - hd - heads];
-}
-
-// ------------------------------------------- 2. dW, split-K partial sums
-// part_w[split][k][j] = sum over rows m of the split of xcat(m, k) Dcat[m][j]
-__global__ void __launch_bounds__(kThreads)
-xt_d_splitk_kernel(BwdArgs a, TrainArgs ta, int kx, int wd,
-                   long long m_total, long long chunk) {
-  __shared__ __align__(16) float xs[kTileK][kXsStride];
-  __shared__ __align__(16) float ds[kTileK][kTileCols];
-  __shared__ unsigned rkf[kTileK], rkp[kTileK];
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const int j0 = blockIdx.x * kTileCols, k0 = blockIdx.y * kRowsPerChunk;
-  const long long m_beg = blockIdx.z * chunk;
-  const long long m_end = min(m_total, m_beg + chunk);
-  const unsigned kf = stream_key(ta.seed, kStreamFeat);
-  const unsigned kp = stream_key(ta.seed, kStreamPe);
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (long long m0 = m_beg; m0 < m_end; m0 += kTileK) {
-    if (t < kTileK) {
-      rkf[t] = row_key(kf, (unsigned)(m0 + t));
-      rkp[t] = row_key(kp, (unsigned)(m0 + t));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kTileK * kRowsPerChunk / kThreads; ++q) {
-      const int e = t + q * kThreads;
-      const int mm = e / kRowsPerChunk, kk = e % kRowsPerChunk;
-      const long long m = m0 + mm;
-      const int k = k0 + kk;
-      xs[mm][kk] = (m < m_end && k < kx) ? xcat(a, ta, m, k, rkf[mm], rkp[mm])
-                                         : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < kTileK * kTileCols / kThreads; ++q) {
-      const int e = t + q * kThreads;
-      const int mm = e / kTileCols, jj = e % kTileCols;
-      const long long m = m0 + mm;
-      const int j = j0 + jj;
-      ds[mm][jj] = (m < m_end && j < wd) ? a.dcat[(size_t)m * wd + j] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int mm = 0; mm < kTileK; ++mm) {
-      const float4 xv = *reinterpret_cast<const float4*>(&xs[mm][ty * 4]);
-      const float4 d0 = *reinterpret_cast<const float4*>(&ds[mm][tx * 4]);
-      const float4 d1 = *reinterpret_cast<const float4*>(&ds[mm][64 + tx * 4]);
-      const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-      const float dc[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xr[i], dc[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* out = a.part_w + (size_t)blockIdx.z * kx * wd;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= kx) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = j0 + ((j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (c < wd) out[(size_t)k * wd + c] = acc[i][j];
-    }
-  }
-}
-
-// ------------------------------------------------ 4. dx and the pe rows
-// out(m, k) = sum_j Dcat[m][j] wcat(k, j) for k in [kbeg, din + pos):
-// k < din -> dx (times the feature mask), else pe_rows (times the pe mask)
-__global__ void __launch_bounds__(kThreads)
-d_wt_kernel(BwdArgs a, TrainArgs ta, int kbeg, int kx, int wd,
-            long long m_total) {
-  __shared__ __align__(16) float ds[kTileK][kXsStride];
-  __shared__ __align__(16) float ws[kTileK][kTileCols];
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const int k0 = kbeg + blockIdx.x * kTileCols;
-  const long long m0 = (long long)blockIdx.y * kRowsPerChunk;
-  float acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  for (int j0 = 0; j0 < wd; j0 += kTileK) {
-#pragma unroll
-    for (int q = 0; q < kRowsPerChunk * kTileK / kThreads; ++q) {
-      const int e = t + q * kThreads;
-      const int mm = e / kTileK, jj = e % kTileK;
-      const long long m = m0 + mm;
-      const int j = j0 + jj;
-      ds[jj][mm] = (m < m_total && j < wd) ? a.dcat[(size_t)m * wd + j] : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < kTileK * kTileCols / kThreads; ++q) {
-      const int e = t + q * kThreads;
-      const int kk = e / kTileK, jj = e % kTileK;
-      const int k = k0 + kk, j = j0 + jj;
-      ws[jj][kk] = (k < kx && j < wd) ? wcat(a, ta, k, j) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int jj = 0; jj < kTileK; ++jj) {
-      const float4 dv = *reinterpret_cast<const float4*>(&ds[jj][ty * 4]);
-      const float4 w0 = *reinterpret_cast<const float4*>(&ws[jj][tx * 4]);
-      const float4 w1 = *reinterpret_cast<const float4*>(&ws[jj][64 + tx * 4]);
-      const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
-      const float wc[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(dr[i], wc[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  const unsigned kf = stream_key(ta.seed, kStreamFeat);
-  const unsigned kp = stream_key(ta.seed, kStreamPe);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty * 4 + i;
-    if (m >= m_total) continue;
-    const unsigned rkf = row_key(kf, (unsigned)m);
-    const unsigned rkp = row_key(kp, (unsigned)m);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = k0 + ((j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (k >= kx) continue;
-      float v = acc[i][j];
-      if (k < a.din) {
-        if (ta.feat_on)
-          v *= keep(drop_bits(rkf, (unsigned)k), ta.feat_thresh,
-                    ta.feat_scale);
-        a.dx[(size_t)m * a.din + k] = v;
-      } else {
-        const int kpe = k - a.din;
-        if (ta.feat_on)
-          v *= keep(drop_bits(rkp, (unsigned)kpe), ta.feat_thresh,
-                    ta.feat_scale);
-        a.pe_rows[(size_t)m * ta.pos + kpe] = v;
-      }
-    }
-  }
-}
-
-// ------------------------------------- 3. sums over egonets, in chunks
-// part[c][i] = sum over egonets of chunk c of src[b][i], i < rw
-__global__ void colsum_partial_kernel(const float* __restrict__ src,
-                                      long long nb, long long rw,
-                                      long long chunk_b,
-                                      float* __restrict__ part) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rw) return;
-  const long long b0 = blockIdx.y * chunk_b;
-  const long long b1 = min(nb, b0 + chunk_b);
-  float sum = 0.f;
-  for (long long bb = b0; bb < b1; ++bb) sum += src[bb * rw + i];
-  part[blockIdx.y * rw + i] = sum;
-}
-
-// Adds nsplit partial [rows, cols] matrices in split order and scatters the
-// result into up to six outputs: row blocks [0, row_split) and
-// [row_split, rows), column blocks [0, c1), [c1, c2), [c2, cols).
-__global__ void reduce_scatter_kernel(const float* __restrict__ part,
-                                      int nsplit, long long rows, int cols,
-                                      int row_split, int c1, int c2,
-                                      float* o0, float* o1, float* o2,
-                                      float* o3, float* o4, float* o5) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = rows * cols;
-  if (i >= total) return;
-  float sum = 0.f;
-  for (int s = 0; s < nsplit; ++s) sum += part[(size_t)s * total + i];
-  const long long r = i / cols;
-  const int c = (int)(i % cols);
-  const bool lower = r >= row_split;
-  const long long rr = lower ? r - row_split : r;
-  float* outs[6] = {o0, o1, o2, o3, o4, o5};
-  int blk, cc, width;
-  if (c < c1) {
-    blk = 0, cc = c, width = c1;
-  } else if (c < c2) {
-    blk = 1, cc = c - c1, width = c2 - c1;
-  } else {
-    blk = 2, cc = c - c2, width = cols - c2;
-  }
-  float* o = outs[blk + (lower ? 3 : 0)];
-  if (o != nullptr) o[rr * width + cc] = sum;
-}
-
-unsigned blocks_for(long long count) {
-  return (unsigned)((count + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 extern "C" {
@@ -503,7 +275,6 @@ int gat_layer_bwd_f32(const BwdArgs* ap, const TrainArgs* tap, void* stream) {
   const long long m = (long long)a.b * a.n;
   if (m == 0) return cudaSuccess;
   const int hd = a.heads * a.dh, wd = hd + 2 * a.heads;
-  const int kx = a.din + ta.pos;
 
   const size_t smem = smem_bytes(a.n, kBwdLayout);
   const void* head = a.pooled ? (const void*)gat_bwd_head_kernel<true>
@@ -520,19 +291,9 @@ int gat_layer_bwd_f32(const BwdArgs* ap, const TrainArgs* tap, void* stream) {
         a, ta);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const long long chunk = (m + a.splits - 1) / a.splits;
-  const dim3 wgrid((wd + kTileCols - 1) / kTileCols,
-                   (kx + kRowsPerChunk - 1) / kRowsPerChunk, a.splits);
-  xt_d_splitk_kernel<<<wgrid, kThreads, 0, st>>>(a, ta, kx, wd, m, chunk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  reduce_scatter_kernel<<<blocks_for((long long)kx * wd), kThreads, 0, st>>>(
-      a.part_w, a.splits, kx, wd, a.din, hd, hd + a.heads, a.dfc, a.dwa1,
-      a.dwa2, a.dwp, a.dwpa1, a.dwpa2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  const long long chunk_b = (a.b + a.chunks - 1) / a.chunks;
   if (a.need_dbias) {
     const long long rw = (long long)a.n * wd;
+    const long long chunk_b = (a.b + a.chunks - 1) / a.chunks;
     colsum_partial_kernel<<<dim3(blocks_for(rw), a.chunks), kThreads, 0,
                             st>>>(a.dcat, a.b, rw, chunk_b, a.part_b);
     reduce_scatter_kernel<<<blocks_for(rw), kThreads, 0, st>>>(
@@ -541,24 +302,12 @@ int gat_layer_bwd_f32(const BwdArgs* ap, const TrainArgs* tap, void* stream) {
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
 
-  const int kbeg = a.need_dx ? 0 : a.din;
-  if (kx > kbeg) {
-    const long long mtiles = (m + kRowsPerChunk - 1) / kRowsPerChunk;
-    if (mtiles > 65535) return cudaErrorInvalidValue;
-    const dim3 xgrid((kx - kbeg + kTileCols - 1) / kTileCols,
-                     (unsigned)mtiles);
-    d_wt_kernel<<<xgrid, kThreads, 0, st>>>(a, ta, kbeg, kx, wd, m);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  if (ta.pos > 0) {
-    const long long rw = (long long)a.n * ta.pos;
-    colsum_partial_kernel<<<dim3(blocks_for(rw), a.chunks), kThreads, 0,
-                            st>>>(a.pe_rows, a.b, rw, chunk_b, a.part_pe);
-    reduce_scatter_kernel<<<blocks_for(rw), kThreads, 0, st>>>(
-        a.part_pe, a.chunks, a.n, ta.pos, a.n, ta.pos, ta.pos, a.dpe,
-        nullptr, nullptr, nullptr, nullptr, nullptr);
-  }
-  return cudaGetLastError();
+  const Operand op = {a.x, {a.fc, a.wa1, a.wa2}, {ta.wp, ta.wpa1, ta.wpa2},
+                      a.n, a.din, hd, hd + a.heads, wd};
+  float* const dw[3] = {a.dfc, a.dwa1, a.dwa2};
+  float* const dwp[3] = {a.dwp, a.dwpa1, a.dwpa2};
+  return product_grads(op, ta, a.dcat, m, a.splits, a.chunks, a.part_w, dw,
+                       dwp, a.need_dx, a.dx, a.pe_rows, a.part_pe, a.dpe, st);
 }
 
 }  // extern "C"

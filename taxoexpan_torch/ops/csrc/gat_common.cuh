@@ -182,7 +182,9 @@ __device__ __forceinline__ void setup_row_keys(const TrainArgs& ta,
 // s.ft[r][c] = x[r] . fc[:, col0 + c] + bias_ft[r, col0 + c] (0 for c >= ncols)
 // s.a1[r]    = x[r] . wa1[:, h] + bias_a1[r, h]; s.a2 likewise.
 // Train form: x masked as staged, and the pe rows as `pos` extra K columns.
-template <bool kTrain>
+// kAttn = false (the GCN layer): the ft tile alone; wa1, wa2, bias_a1,
+// bias_a2, ta.wpa1 and ta.wpa2 are not read and s.a1 / s.a2 not written.
+template <bool kTrain, bool kAttn = true>
 __device__ void head_tile(const float* __restrict__ xb,
                           const float* __restrict__ fc,
                           const float* __restrict__ wa1,
@@ -242,7 +244,7 @@ __device__ void head_tile(const float* __restrict__ xb,
         }
         s.ws[kk * kTileCols + c] = w;
       }
-      if (t < 2 * kTileK) {
+      if (kAttn && t < 2 * kTileK) {
         const int gk = k0 + (t % kTileK);
         float w = 0.f;
         if (gk < din)
@@ -268,7 +270,7 @@ __device__ void head_tile(const float* __restrict__ xb,
 #pragma unroll
           for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xr[i], wc[j], acc[i][j]);
       }
-      if (t < 2 * kRowsPerChunk) {
+      if (kAttn && t < 2 * kRowsPerChunk) {
         const int r = t >> 1;
         const float* wa = s.was + (t & 1) * kTileK;
 #pragma unroll
@@ -288,7 +290,7 @@ __device__ void head_tile(const float* __restrict__ xb,
             c < ncols ? acc[i][j] + bias_ft[(size_t)r * hd + col0 + c] : 0.f;
       }
     }
-    if (t < 2 * kRowsPerChunk) {
+    if (kAttn && t < 2 * kRowsPerChunk) {
       const int r = row0 + (t >> 1);
       if (r < n) {
         if (t & 1)

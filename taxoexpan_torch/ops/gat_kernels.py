@@ -35,22 +35,12 @@ from dataclasses import dataclass
 import torch
 
 from . import cuda_build, dropout, star
+from .launch import (F as _F, I as _I, P as _P, TrainArgs as _TrainArgs,
+                     check_operands, check_star, on_cuda, product_splits,
+                     raise_on, stream, train_args)
 
 LEAKY_ALPHA = 0.2   # attention logits (GATLayer default); the inter-layer
                     # activation fused through `out_alpha` is 0.01
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-
-
-class _TrainArgs(ctypes.Structure):
-    """gat::TrainArgs of ops/csrc/gat_common.cuh, field by field."""
-    _fields_ = [("pe", _P), ("wp", _P), ("wpa1", _P), ("wpa2", _P),
-                ("pos", _I), ("seed", ctypes.c_uint),
-                ("feat_thresh", ctypes.c_uint), ("feat_scale", _F),
-                ("feat_on", _I), ("attn_thresh", ctypes.c_uint),
-                ("attn_scale", _F), ("attn_on", _I)]
 
 
 _BWD_POINTERS = ("x", "fc", "wa1", "wa2", "bias_ft", "bias_a1", "bias_a2",
@@ -283,64 +273,11 @@ def _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
                        "wpa1": (wpa1, (pos, heads)),
                        "wpa2": (wpa2, (pos, heads))})
     shapes.update(dict(extra))
-    for name, (t, want) in [("x", (x, (b, n, din)))] + list(shapes.items()):
-        if tuple(t.shape) != want:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {want}")
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        want_dtype = torch.int32 if name in ("ngp", "nsib") else torch.float32
-        if t.dtype != want_dtype:
-            raise TypeError(f"{name} is {t.dtype}; the kernel takes "
-                            f"{want_dtype} only")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-    if not 0 <= p < n:
-        raise ValueError(f"anchor slot p={p} outside [0, {n})")
-    if b * n >= 1 << 32:
-        raise ValueError("B * N must stay below 2**32 (32-bit dropout rows)")
+    check_operands(x, shapes)
+    check_star(x, p)
     # a launch whose shared memory (gat::smem_bytes, about 0.5 KB a slot;
     # about 1 KB in the backward) exceeds the device's limit comes back as
     # an error and raises
-
-
-def _train_args(pe_pack, seed: int, feat_drop: float,
-                attn_drop: float) -> _TrainArgs:
-    if pe_pack is not None and feat_drop <= 0:
-        raise ValueError("pe_pack requires feat_drop > 0 — with no input "
-                         "dropout precompute the exact per-slot biases")
-    ta = _TrainArgs()
-    if pe_pack is not None:
-        ta.pe, ta.wp, ta.wpa1, ta.wpa2 = (t.data_ptr() for t in pe_pack)
-        ta.pos = pe_pack[0].shape[1]
-    ta.seed = seed & dropout.MASK32
-    if feat_drop > 0:
-        ta.feat_thresh = dropout.keep_threshold(feat_drop)
-        ta.feat_scale = dropout.keep_scale(feat_drop)
-        ta.feat_on = 1
-    if attn_drop > 0:
-        ta.attn_thresh = dropout.keep_threshold(attn_drop)
-        ta.attn_scale = dropout.keep_scale(attn_drop)
-        ta.attn_on = 1
-    return ta
-
-
-def _raise_on(lib, rc: int, what: str, err_fn: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {rc} "
-                           f"({getattr(lib, err_fn)(rc).decode()})")
-
-
-def _on_cuda(x, what: str) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {x.device}")
-    return True
-
-
-def _stream(x) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 # ----------------------------------------------------------------- forwards
@@ -352,7 +289,7 @@ def _fwd_cuda(what: str, pooled: bool, x, fc, wa1, wa2, bias_ft, bias_a1,
     pe_pack = train[0] if train is not None else None
     _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
            pe_pack)
-    ta = _train_args(*train) if train is not None else None
+    ta = train_args(*train) if train is not None else None
     lib = _lib()
     b, n, din = x.shape
     dh = fc.shape[1] // heads
@@ -371,8 +308,8 @@ def _fwd_cuda(what: str, pooled: bool, x, fc, wa1, wa2, bias_ft, bias_a1,
     fn = getattr(lib, f"{'gat_layer_pooled_fwd' if pooled else 'gat_layer_fwd'}"
                       f"{'_train' if train is not None else ''}_f32")
     with torch.cuda.device(x.device):
-        rc = fn(*args, _stream(x))
-    _raise_on(lib, rc, what, "gat_fwd_error_string")
+        rc = fn(*args, stream(x))
+    raise_on(lib, rc, what, "gat_fwd_error_string")
     return out
 
 
@@ -385,7 +322,7 @@ def gat_layer_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
     bias_a1/bias_a2 [N, H]; ngp/nsib [B] int32; p = anchor slot;
     out_alpha: fused leaky_relu slope of the output, or None."""
     ops = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads)
-    if not _on_cuda(x, "gat_layer_fwd"):
+    if not on_cuda(x, "gat_layer_fwd"):
         return gat_layer_fwd_plain(*ops, out_alpha)
     out = _fwd_cuda("gat_layer_fwd", False, *ops, out_alpha=out_alpha)
     if x.shape[0]:
@@ -399,7 +336,7 @@ def gat_layer_pooled_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
     pools fused in: returns pools [B, 3, Dh] (float32) and never writes the
     [B, N, H*Dh] activation. Arguments as `gat_layer_fwd`."""
     ops = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads)
-    if not _on_cuda(x, "gat_layer_pooled_fwd"):
+    if not on_cuda(x, "gat_layer_pooled_fwd"):
         return gat_layer_pooled_fwd_plain(*ops)
     out = _fwd_cuda("gat_layer_pooled_fwd", True, *ops)
     if x.shape[0]:
@@ -416,7 +353,7 @@ def gat_layer_fwd_train(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
     attention dropout (attn_drop) and the pe path (pe_pack, see
     `gat_layer_train_plain`), masks drawn from `seed`."""
     ops = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads)
-    if not _on_cuda(x, "gat_layer_fwd_train"):
+    if not on_cuda(x, "gat_layer_fwd_train"):
         return gat_layer_train_plain(*ops, pe_pack=pe_pack, seed=seed,
                                      feat_drop=feat_drop,
                                      attn_drop=attn_drop, out_alpha=out_alpha)
@@ -434,7 +371,7 @@ def gat_layer_pooled_fwd_train(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
                                attn_drop: float = 0.0) -> torch.Tensor:
     """Train form of `gat_layer_pooled_fwd` (see `gat_layer_fwd_train`)."""
     ops = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads)
-    if not _on_cuda(x, "gat_layer_pooled_fwd_train"):
+    if not on_cuda(x, "gat_layer_pooled_fwd_train"):
         return gat_layer_train_plain(*ops, pe_pack=pe_pack, seed=seed,
                                      feat_drop=feat_drop,
                                      attn_drop=attn_drop, pooled=True)
@@ -456,7 +393,7 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
     g_shape = (b, 3, dh) if pooled else (b, n, hd)
     _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
            pe_pack, extra=[("g", (g, g_shape))])
-    ta = _train_args(pe_pack, seed, feat_drop, attn_drop)
+    ta = train_args(pe_pack, seed, feat_drop, attn_drop)
     pos = ta.pos
     dev = x.device
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa
@@ -482,9 +419,7 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
         raise ValueError(f"B * N = {m} rows exceed the dx grid (4,194,240)")
     wd = hd + 2 * heads
     kx = din + pos
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    tiles = -(-wd // 128) * -(-kx // 64)
-    splits = max(1, min(-(-4 * sms // tiles), -(-m // 1024)))
+    splits = product_splits(x, m, kx, wd)
     chunks = min(b, 64)
     work = {"dcat": empty(m, wd), "part_w": empty(splits, kx, wd),
             "part_b": empty(chunks, n, wd) if need_dbias else None,
@@ -513,9 +448,9 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
     lib = _bwd_lib()
     with torch.cuda.device(dev):
         rc = lib.gat_layer_bwd_f32(ctypes.byref(args), ctypes.byref(ta),
-                                   _stream(x))
+                                   stream(x))
     what = "gat_layer_pooled_bwd" if pooled else "gat_layer_bwd"
-    _raise_on(lib, rc, what, "gat_bwd_error_string")
+    raise_on(lib, rc, what, "gat_bwd_error_string")
     return grads
 
 
@@ -527,7 +462,7 @@ def gat_layer_bwd(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
     """Backward of `gat_layer_fwd[_train]` for the incoming grad g
     [B, N, H*Dh]: {x (need_dx), fc, wa1, wa2, bias_ft, bias_a1, bias_a2
     (need_dbias), and with pe_pack pe, wp, wpa1, wpa2}."""
-    if not _on_cuda(x, "gat_layer_bwd"):
+    if not on_cuda(x, "gat_layer_bwd"):
         return gat_layer_bwd_plain(
             g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p,
             heads, pe_pack=pe_pack, seed=seed, feat_drop=feat_drop,
@@ -547,7 +482,7 @@ def gat_layer_pooled_bwd(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                          need_dbias: bool = True) -> dict:
     """Backward of `gat_layer_pooled_fwd[_train]` for the pool grads g
     [B, 3, Dh]; returns as `gat_layer_bwd`."""
-    if not _on_cuda(x, "gat_layer_pooled_bwd"):
+    if not on_cuda(x, "gat_layer_pooled_bwd"):
         return gat_layer_bwd_plain(
             g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p,
             heads, pe_pack=pe_pack, seed=seed, feat_drop=feat_drop,

@@ -9,8 +9,9 @@ siblings, so the incoming-edge set of each node is known in closed form:
     sib_j   <- {sib_j, anchor}
 
 and SDDMM, edge softmax and SpMM collapse into dense masked reductions over
-[B, N, ...] tensors. These functions are also the plain versions that the
-CUDA kernels of `ops/gat_kernels.py` are held against.
+[B, N, ...] tensors. These functions are also the building blocks of the
+plain versions that the CUDA kernels of `ops/gat_kernels.py` and
+`ops/gcn_kernels.py` are held against.
 """
 from __future__ import annotations
 
@@ -35,6 +36,39 @@ def node_mask(ngp: torch.Tensor, nsib: torch.Tensor, p: int,
                         device=ngp.device)
     return torch.cat([_gp_mask(ngp, p), anchor, _sib_mask(nsib, n - p - 1)],
                      dim=1)
+
+
+def in_degrees(ngp: torch.Tensor, nsib: torch.Tensor, p: int,
+               n: int) -> torch.Tensor:
+    """[B, N] float32 in-degree, self-loops included: gp 1, anchor 1 + ngp,
+    sib 2; 0 on invalid slots."""
+    b = ngp.shape[0]
+    deg = torch.cat([torch.ones((b, p), device=ngp.device),
+                     (1.0 + ngp.to(torch.float32))[:, None],
+                     torch.full((b, n - p - 1), 2.0, device=ngp.device)],
+                    dim=1)
+    return deg * node_mask(ngp, nsib, p, n)
+
+
+def gcn_norm(ngp: torch.Tensor, nsib: torch.Tensor, p: int,
+             n: int) -> torch.Tensor:
+    """[B, N, 1] rsqrt(in-degree), 0 where the degree is 0 (invalid
+    slots): the GCN layer's normalisation at both ends of an edge."""
+    deg = in_degrees(ngp, nsib, p, n)
+    return torch.where(deg > 0, torch.rsqrt(deg.clamp(min=1e-12)),
+                       torch.zeros_like(deg))[..., None]
+
+
+def copy_src_sum(x: torch.Tensor, ngp: torch.Tensor, nsib: torch.Tensor,
+                 p: int) -> torch.Tensor:
+    """out[d] = sum over the in-edges (s, d) of x[s], the star SpMM; x
+    [B, N, D]. Invalid grandparents send nothing; invalid destinations
+    keep their formula value (callers mask them if needed)."""
+    gp = x[:, :p]
+    anchor = x[:, p]
+    gp_valid = gp * _gp_mask(ngp, p)[..., None].to(x.dtype)
+    return torch.cat([gp, (anchor + gp_valid.sum(dim=1))[:, None],
+                      x[:, p + 1:] + anchor[:, None]], dim=1)
 
 
 def _leaky(v: torch.Tensor, alpha: float) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Training runtime, single device (port of `taxoexpan_tpu/train/trainer.py`).
 
-One train step is model.forward (PGAT in train mode: the K1/K3 train-form
-kernels, K2/K4 in the backward) -> loss -> torch.autograd.grad -> the
-optimizer's update, with a torch.Generator derived from (seed, epoch,
-batch) for the dropout seeds (trainer.py:266, :370). Epoch-level semantics
+One train step is model.forward (in train mode: for GAT/PGAT the K1/K3
+train-form kernels, K2/K4 in the backward; for GCN/PGCN the K5 train form
+and K5b) -> loss -> torch.autograd.grad -> the optimizer's update, with a
+torch.Generator derived from (seed, epoch, batch) for the dropout seeds
+(trainer.py:266, :370). Epoch-level semantics
 follow the JAX trainer: mean loss over batches, sampled validation
 (metrics averaged over validation batches) or full-catalog validation
 through the ranker every `full_validation_every` epochs, ReduceLROnPlateau

@@ -4,7 +4,10 @@ chunks (N > 64), a partial one, ragged head widths (Dh not a multiple of
 128) and input depths, heads 1 and 4, empty and full egonets, an empty
 batch, and the wrapper's refusals; for the train path the K1/K3 train
 forms, K2/K4 with need_dx both ways, the pe path, and the dropout
-generator's golden bits.
+generator's golden bits; for the GCN layer K5f (eval and train form) and
+K5b at N 12 and Dout 200 (not multiples of the tiles) and at the
+config.mag.json PGCN shapes, empty and full egonets, need_dx both ways,
+with and without the activation and the pe path.
 
 Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the card:
 
@@ -23,6 +26,7 @@ import torch
 
 from taxoexpan_torch.ops import dropout
 from taxoexpan_torch.ops import gat_kernels as gk
+from taxoexpan_torch.ops import gcn_kernels as ck
 from taxoexpan_torch.ops import star
 
 pytestmark = pytest.mark.cuda
@@ -251,3 +255,107 @@ def test_golden_bits_on_card(dev):
     cols = torch.randint(0, 2 ** 32, (4096,), dtype=torch.int64)
     got = dropout.bits(keys[5][0], 7, rows.to(dev), cols.to(dev)).cpu()
     assert torch.equal(got, dropout.bits_plain(keys[5][0], 7, rows, cols))
+
+
+# ------------------------------------------------------------ the GCN layer
+
+def _gcn_inputs(dev, b, p, s, din, dout, pos, seed=0):
+    """x (unit-scale rows, invalid slots zeroed, an empty and a full
+    egonet first), W_h, b, a non-zero z_bias, ngp, nsib, and pe_pack = (pe,
+    W_p) when pos > 0."""
+    t = _inputs(dev, b, p, s, din, 1, dout, seed)
+    x, w, ngp, nsib = t[0], t[1], t[7], t[8]
+    rng = np.random.default_rng(seed + 1)
+    n = p + 1 + s
+    extra = [rng.normal(size=(dout,)) * 0.1, rng.normal(size=(n, dout)) * 0.1]
+    if pos:
+        extra += [rng.normal(size=(n, pos)),
+                  rng.normal(size=(pos, dout)) / np.sqrt(din + pos)]
+    bias, zb, *pe_pack = [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+                          for a in extra]
+    return (x, w, bias, zb, ngp, nsib), tuple(pe_pack) or None
+
+
+GCN_SHAPES = [
+    # b, p, s, din, dout, pos
+    (16, 2, 9, 16, 200, 7),        # N = 12, Dout not a multiple of 128
+    (37, 5, 64, 33, 130, 0),       # N = 70: two row chunks, no pe
+    (9, 13, 50, 250, 500, 50),     # the config.mag.json PGCN layer 0
+]
+
+
+@pytest.mark.parametrize("b,p,s,din,dout,pos", GCN_SHAPES)
+@pytest.mark.parametrize("alpha", [0.01, None])
+@pytest.mark.parametrize("train", [False, True])
+def test_gcn_layer_fwd_matches_plain(dev, b, p, s, din, dout, pos, alpha,
+                                     train):
+    ops, pe_pack = _gcn_inputs(dev, b, p, s, din, dout, pos)
+    if train:
+        kw = dict(pe_pack=pe_pack, seed=3, drop=0.1 if pos else 0.3,
+                  alpha=alpha)
+        wrapper, plain = ck.gcn_layer_fwd_train, ck.gcn_layer_train_plain
+    else:
+        kw = dict(alpha=alpha)
+        wrapper, plain = ck.gcn_layer_fwd, ck.gcn_layer_train_plain
+    before = wrapper.launches
+    got = wrapper(*ops, p, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = plain(*ops, p, **kw)
+    torch.testing.assert_close(got, want, **TOL)
+    # invalid slots carry leaky(b) (or b): the formula value, not 0
+    mask = star.node_mask(ops[4], ops[5], p, p + 1 + s)
+    bias = ops[2] if alpha is None else torch.where(ops[2] >= 0, ops[2],
+                                                    alpha * ops[2])
+    torch.testing.assert_close(got[~mask], bias.expand_as(got[~mask]),
+                               **TOL)
+
+
+@pytest.mark.parametrize("b,p,s,din,dout,pos", GCN_SHAPES + [
+    (97, 3, 30, 40, 24, 5),        # 3298 rows: several split-K splits
+])
+@pytest.mark.parametrize("alpha", [0.01, None])
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("drop", [True, False])
+def test_gcn_layer_bwd_matches_plain(dev, b, p, s, din, dout, pos, alpha,
+                                     need_dx, drop):
+    ops, pe_pack = _gcn_inputs(dev, b, p, s, din, dout, pos)
+    n = p + 1 + s
+    g = torch.randn((b, n, dout), device=dev,
+                    generator=torch.Generator(dev).manual_seed(5))
+    kw = dict(pe_pack=pe_pack if drop else None, seed=6,
+              drop=0.1 if drop else 0.0, alpha=alpha, need_dx=need_dx,
+              need_dzb=not drop)
+    before = ck.gcn_layer_bwd.launches
+    got = ck.gcn_layer_bwd(g, *ops, p, **kw)
+    torch.cuda.synchronize()
+    assert ck.gcn_layer_bwd.launches == before + 1
+    _assert_grads(got, ck.gcn_layer_bwd_plain(g, *ops, p, **kw))
+
+
+def test_gcn_empty_batch_launches_nothing(dev):
+    ops, _ = _gcn_inputs(dev, 0, 3, 8, 6, 5, 0)
+    before = {k: w.launches for k, w in ck.WRAPPERS.items()}
+    assert ck.gcn_layer_fwd(*ops, 3, alpha=0.01).shape == (0, 12, 5)
+    got = ck.gcn_layer_bwd(torch.zeros((0, 12, 5), device=dev), *ops, 3)
+    assert float(got["w"].abs().sum()) == 0.0
+    assert {k: w.launches for k, w in ck.WRAPPERS.items()} == before
+
+
+def test_gcn_layer_function_on_card_matches_cpu(dev):
+    """The differentiable layer end to end: card forward + K5b against the
+    CPU Function (plain versions) on the same inputs and seed."""
+    ops, pe_pack = _gcn_inputs(dev, 12, 4, 20, 24, 36, 5)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        leaves = [a.to(d).clone().requires_grad_(True)
+                  for a in (*ops[:4], *pe_pack)]
+        y = ck.gcn_layer(*leaves[:4], ops[4].to(d), ops[5].to(d), 4,
+                         pe_pack=tuple(leaves[4:]), seed=9, drop=0.1,
+                         alpha=0.01)
+        grads = torch.autograd.grad(y.square().sum(), leaves,
+                                    allow_unused=True)
+        out[d.type] = [y.detach().cpu()] + [
+            x.cpu() for x in grads if x is not None]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, **GTOL)

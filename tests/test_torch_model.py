@@ -8,7 +8,6 @@ model-level outputs through two layers and a matcher)."""
 import functools
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -18,7 +17,6 @@ from taxoexpan_torch.models.matching import Matcher as TorchMatcher
 from taxoexpan_torch.weights import params_from_jax
 from taxoexpan_tpu.models import TaxoExpan as JaxTaxoExpan
 from taxoexpan_tpu.models.matching import Matcher as JaxMatcher
-from taxoexpan_tpu.ops import star as jstar
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 P, S = 3, 6
@@ -38,10 +36,11 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _models(**kw):
+@functools.lru_cache(maxsize=None)
+def _cached_models(items):
     arch = dict(in_dim=D, hidden_dim=8, out_dim=6, pos_dim=4, num_layers=1,
                 heads=[2, 1], max_parents=P, expand_factor=S)
-    arch.update(kw)
+    arch.update(items)
     methods = (arch.pop("propagation_method", "PGAT"),
                arch.pop("readout_method", "WMR"),
                arch.pop("matching_method", "BIM"))
@@ -53,13 +52,21 @@ def _models(**kw):
     return jm, jp, tm, tp
 
 
+def _models(**kw):
+    """Both models and the JAX init carried over, built once per
+    architecture for the whole module (the tests only read them)."""
+    return _cached_models(tuple(sorted(
+        (k, tuple(v) if isinstance(v, list) else v) for k, v in kw.items())))
+
+
 def _egonets(rng):
     ngp = rng.integers(0, P + 1, (B,)).astype(np.int32)
     nsib = rng.integers(0, S + 1, (B,)).astype(np.int32)
     ngp[0] = nsib[0] = 0
     x = rng.normal(size=(B, N, D)).astype(np.float32)
-    x *= np.asarray(jstar.node_mask(jnp.asarray(ngp), jnp.asarray(nsib),
-                                    P, N))[..., None]
+    x *= np.concatenate([np.arange(P)[None] < ngp[:, None],
+                         np.ones((B, 1), bool),
+                         np.arange(S)[None] < nsib[:, None]], 1)[..., None]
     return x, ngp, nsib
 
 
@@ -73,20 +80,25 @@ def test_encode_and_match_all(rng, kw):
     jm, jp, tm, tp = _models(**kw)
     x, ngp, nsib = _egonets(rng)
     qf = rng.normal(size=(5, D)).astype(np.float32)
-    encode = jax.jit(functools.partial(jm.encode, rng=jax.random.PRNGKey(0),
-                                       train=False))
-    want = encode(jp, jnp.asarray(x), jnp.asarray(ngp), jnp.asarray(nsib))
+    qb = qf[np.arange(B) % 5]
+
+    @jax.jit
+    def jax_side(params, x, ngp, nsib, qf, qb):
+        hg = jm.encode(params, x, ngp, nsib, rng=jax.random.PRNGKey(0),
+                       train=False)
+        return hg, jm.match_all(params, hg, qf), jm.match(params, hg, qb)
+
+    want = jax_side(jp, x, ngp, nsib, qf, qb)
     t = [torch.from_numpy(a) for a in (x, ngp, nsib)]
     with torch.no_grad():
         got = tm.encode(tp, *t)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want[0]), **TOL)
         np.testing.assert_allclose(
             tm.match_all(tp, got, torch.from_numpy(qf)).numpy(),
-            np.asarray(jm.match_all(jp, want, jnp.asarray(qf))), **TOL)
-        qb = qf[np.arange(B) % 5]
+            np.asarray(want[1]), **TOL)
         np.testing.assert_allclose(
             tm.match(tp, got, torch.from_numpy(qb)).numpy(),
-            np.asarray(jm.match(jp, want, jnp.asarray(qb))), **TOL)
+            np.asarray(want[2]), **TOL)
 
 
 def test_structure_prior_init():
@@ -112,14 +124,12 @@ def test_matchers(rng, kind):
     hg = (rng.normal(size=(4, 7)) * scale).astype(np.float32)
     qf = (rng.normal(size=(3, 5)) * scale).astype(np.float32)
     th, tq = torch.from_numpy(hg), torch.from_numpy(qf)
-    np.testing.assert_allclose(
-        tmat.apply_all(tp, th, tq).numpy(),
-        np.asarray(jmat.apply_all(jp, jnp.asarray(hg), jnp.asarray(qf))),
-        **TOL)
-    np.testing.assert_allclose(
-        tmat.apply(tp, th[:3], tq).numpy(),
-        np.asarray(jmat.apply(jp, jnp.asarray(hg[:3]), jnp.asarray(qf))),
-        **TOL)
+    want_all, want = jax.jit(lambda p, h, q: (
+        jmat.apply_all(p, h, q), jmat.apply(p, h[:3], q)))(jp, hg, qf)
+    np.testing.assert_allclose(tmat.apply_all(tp, th, tq).numpy(),
+                               np.asarray(want_all), **TOL)
+    np.testing.assert_allclose(tmat.apply(tp, th[:3], tq).numpy(),
+                               np.asarray(want), **TOL)
 
 
 def test_params_from_jax_goes_by_key_path():

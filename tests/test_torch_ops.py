@@ -3,8 +3,12 @@ taxoexpan_tpu.ops.star, and the plain versions of the two CUDA kernels
 (taxoexpan_torch.ops.gat_kernels) against the Pallas kernels they replace,
 run in interpret mode on the CPU.
 
-Inputs are made with numpy from a seed and handed to both sides. Tolerance
+Inputs are made with numpy from a seed and handed to both sides; the JAX
+side is jitted (eager JAX compiles each operation on its own). Tolerance
 1e-5 (float32, sums taken in another order)."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,6 +47,20 @@ def _counts(rng):
     return ngp, nsib
 
 
+def _valid(ngp, nsib):
+    """[B, N] validity mask, in numpy."""
+    return np.concatenate([np.arange(P)[None] < ngp[:, None],
+                           np.ones((len(ngp), 1), bool),
+                           np.arange(S)[None] < nsib[:, None]], axis=1)
+
+
+@functools.partial(jax.jit, static_argnames="kind")
+def _jax_readouts(h, ngp, nsib, pw, pools, kind):
+    return (jstar.readout(h, ngp, nsib, P, kind=kind, position_weights=pw),
+            jstar.readout_from_pools(pools, ngp, nsib, kind=kind,
+                                     position_weights=pw))
+
+
 def _both(*arrays):
     return ([jnp.asarray(a) for a in arrays],
             [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays])
@@ -57,10 +75,12 @@ def test_node_mask_and_raw_channel(rng):
     ngp, nsib = _counts(rng)
     feats = rng.normal(size=(B, N, DIN)).astype(np.float32)
     (jf, jg, js), (tf, tg, ts) = _both(feats, ngp, nsib)
+    mask, raw = jax.jit(lambda f, g, s: (jstar.node_mask(g, s, P, N),
+                                         jstar.raw_star_channel(f, g, s, P)))(
+        jf, jg, js)
     np.testing.assert_array_equal(tstar.node_mask(tg, ts, P, N).numpy(),
-                                  np.asarray(jstar.node_mask(jg, js, P, N)))
-    _close(tstar.raw_star_channel(tf, tg, ts, P),
-           jstar.raw_star_channel(jf, jg, js, P))
+                                  np.asarray(mask))
+    _close(tstar.raw_star_channel(tf, tg, ts, P), raw)
 
 
 @pytest.mark.parametrize("kind", ["MR", "WMR", "CR", "SUM"])
@@ -68,19 +88,16 @@ def test_readouts(rng, kind):
     ngp, nsib = _counts(rng)
     h = rng.normal(size=(B, N, DH)).astype(np.float32)
     pw = rng.normal(size=(3, 1)).astype(np.float32)
-    (jh, jg, js, jw), (th, tg, ts, tw) = _both(h, ngp, nsib, pw)
-    want = jstar.readout(jh, jg, js, P, kind=kind, position_weights=jw)
+    # the pooled form of the same readout, from per-class masked sums
+    hm = h * _valid(ngp, nsib)[..., None]
+    pools = np.stack([hm[:, :P].sum(1), hm[:, P], hm[:, P + 1:].sum(1)], 1)
+    (jh, jg, js, jw, jp), (th, tg, ts, tw, tp) = _both(h, ngp, nsib, pw,
+                                                       pools)
+    want, want_pools = _jax_readouts(jh, jg, js, jw, jp, kind)
     _close(tstar.readout(th, tg, ts, P, kind=kind, position_weights=tw),
            want)
-    # the pooled form of the same readout, from per-class masked sums
-    mask = np.asarray(jstar.node_mask(jg, js, P, N))[..., None]
-    hm = h * mask
-    pools = np.stack([hm[:, :P].sum(1), hm[:, P], hm[:, P + 1:].sum(1)], 1)
-    (jp,), (tp,) = _both(pools)
     _close(tstar.readout_from_pools(tp, tg, ts, kind=kind,
-                                    position_weights=tw),
-           jstar.readout_from_pools(jp, jg, js, kind=kind,
-                                    position_weights=jw))
+                                    position_weights=tw), want_pools)
     _close(tstar.readout_from_pools(tp, tg, ts, kind=kind,
                                     position_weights=tw), want)
 
@@ -93,10 +110,11 @@ def test_gat_attention_aggregate(rng, mask_output):
     a2 = rng.normal(size=(B, N, HEADS)).astype(np.float32)
     (jft, ja1, ja2, jg, js), (tft, ta1, ta2, tg, ts) = _both(
         ft, a1, a2, ngp, nsib)
+    want = jax.jit(functools.partial(jstar.gat_attention_aggregate, p=P,
+                                     mask_output=mask_output))(
+        jft, ja1, ja2, jg, js)
     _close(tstar.gat_attention_aggregate(tft, ta1, ta2, tg, ts, P,
-                                         mask_output=mask_output),
-           jstar.gat_attention_aggregate(jft, ja1, ja2, jg, js, P,
-                                         mask_output=mask_output))
+                                         mask_output=mask_output), want)
 
 
 def _layer_inputs(rng):
@@ -104,8 +122,7 @@ def _layer_inputs(rng):
     attention weights and non-zero slot biases (the pos-bias split)."""
     ngp, nsib = _counts(rng)
     x = rng.normal(size=(B, N, DIN)).astype(np.float32)
-    x *= np.asarray(jstar.node_mask(jnp.asarray(ngp), jnp.asarray(nsib),
-                                    P, N))[..., None]
+    x *= _valid(ngp, nsib)[..., None]
     fc = (rng.normal(size=(DIN, HEADS * DH)) * 0.3).astype(np.float32)
     wa1 = (rng.normal(size=(DIN, HEADS)) * 0.3).astype(np.float32)
     wa2 = (rng.normal(size=(DIN, HEADS)) * 0.3).astype(np.float32)
@@ -121,8 +138,9 @@ def test_plain_k1_matches_fused_gat_layer(rng, out_alpha):
     (no output mask)."""
     arrays = _layer_inputs(rng)
     j, t = _both(*arrays)
-    want = fused_gat_layer(*j[:7], None, (j[7], j[8], 0), P, HEADS, 0.2,
-                           0.0, 0.0, out_alpha, True)
+    want = jax.jit(lambda *a: fused_gat_layer(
+        *a[:7], None, (a[7], a[8], 0), P, HEADS, 0.2, 0.0, 0.0, out_alpha,
+        True))(*j)
     _close(gk.gat_layer_fwd_plain(*t, P, HEADS, out_alpha=out_alpha), want)
     # on a CPU tensor the wrapper is the plain version
     _close(gk.gat_layer_fwd(*t, P, HEADS, out_alpha=out_alpha), want)
@@ -131,8 +149,8 @@ def test_plain_k1_matches_fused_gat_layer(rng, out_alpha):
 def test_plain_k3_matches_fused_gat_layer_pooled(rng):
     arrays = _layer_inputs(rng)
     j, t = _both(*arrays)
-    want = fused_gat_layer_pooled(*j[:7], None, (j[7], j[8], 0), P, HEADS,
-                                  0.2, 0.0, 0.0, True)
+    want = jax.jit(lambda *a: fused_gat_layer_pooled(
+        *a[:7], None, (a[7], a[8], 0), P, HEADS, 0.2, 0.0, 0.0, True))(*j)
     _close(gk.gat_layer_pooled_fwd_plain(*t, P, HEADS), want)
     _close(gk.gat_layer_pooled_fwd(*t, P, HEADS), want)
 
