@@ -11,7 +11,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               nvcc for sm_90a (one nvcc per source, started together).
 3. masks    - the kernels' dropout generator on the card against the
               plain torch generator (ops/dropout.py): the pinned golden
-              vector and 2**20 random (row, column) pairs, bit for bit.
+              vectors and 2**20 random (row, column) pairs, bit for bit, for
+              the 32-bit words and the 8-bit mode's bytes.
 4. kernels  - each kernel against its plain PyTorch version on the card at
               the shapes of configs/config.mag.json (in 250, hidden/out
               500, pos 50; 13 grandparent and 50 sibling slots, N = 64) for
@@ -23,43 +24,63 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               final layer's backward, need_dx on). PGCN (the same config
               with propagation_method "PGCN"): K5f eval and train form of
               layer 0 (leaky_relu 0.01) and of the final layer, K5b of
-              both (need_dx off / on). Every gradient compared, the masks
+              both (need_dx off / on). K7a at the same PGAT shapes: the store
+              forms of the K1 and K3 train forms and the stored K2 and K4,
+              fed the store forms' softmax weights; their grads also held to
+              the recompute backward's on the card (1e-6 of each grad's
+              largest value). The SemEval-Verb MTL configuration
+              (configs/config.semeval_verb_mtl.json: in 300, hidden 4 x 900,
+              out 600, pos 100) at the same B and N: layer 0 (300 + 100 ->
+              4 x 900, leaky_relu 0.01) and the per-slot final layer
+              (3600 + 100 -> 1 x 600), each as K1 eval, the K1 train store
+              form and the stored K2 (need_dx off / on), the train forms
+              with 8-bit dropout thresholds (K7b). Every gradient compared,
+              the masks
               regenerated by the plain versions; times of the kernel, its
               plain version and one torch.matmul as a yardstick
               (`matmul_ms`: x @ W for a forward, the dW product x^T @ D for
               a backward; not the layer, so the `library_ms` of the kernels
               line is null), beside the least time the card could take.
-5. serving  - for PGAT, then PGCN: the port's serving path end to end
+5. serving  - for PGAT, PGCN, then MTL: the port's serving path end to end
               through its entry points: a run directory with a synthetic
-              taxonomy (4000 nodes, dim 250), config.mag.json and the model
-              from random weights (seeded) in the JAX checkpoint format;
+              taxonomy (4000 nodes, dim 250; dim 300 for MTL), the
+              configuration and the model from random weights (seeded; the
+              MTL model's with its auxiliary head's `aux`) in the JAX
+              checkpoint format;
               then `taxoexpan_torch.test_fast` (TaxonomyRanker.evaluate,
               the test_fast metrics) and `taxoexpan_torch.infer`
               (predict_parents for 8 novel terms), with the launch counters
               set to 0 just before and read just after. The card's graph
               embeddings are checked against the CPU plain path.
-6. training - for PGAT, then PGCN: `python -m taxoexpan_torch.train` (its
-              main, in this process) on a run directory with a synthetic
-              taxonomy (800 nodes, dim 250: five full steps and one padded
-              step of 128 groups x 32 candidates = 4096 egonets an epoch)
-              and config.mag.json at full width with full-catalog
-              validation every epoch, for two epochs, the launch counters
-              set to 0 just before and read just after; checks a finite
-              loss, changed params, the checkpoints, launches of the train
-              forms and the backwards; serves the best checkpoint through
-              `taxoexpan_torch.test_fast`; and holds one train step on the
-              card against the same step on the CPU plain path (same
-              params, seeds and dropout; 4 groups at full width).
+6. training - for PGAT, PGCN, PGAT-stored, then MTL: `python -m
+              taxoexpan_torch.train` (its main, in this process) on a run
+              directory with a synthetic taxonomy (800 nodes, dim 250: five
+              full steps and one padded step of 128 groups x 32 candidates
+              = 4096 egonets an epoch; MTL: dim 300, the config's 64 groups
+              x 31 candidates) and the configuration at full width with
+              full-catalog validation every epoch, for two epochs (one for
+              PGAT-stored), the launch counters set to 0 just before and
+              read just after. PGAT-stored is PGAT with
+              TAXOEXPAN_STORED_ATTN=1; MTL runs with TAXOEXPAN_STORED_ATTN=1
+              and TAXOEXPAN_DROPOUT_BITS=8. Checks a finite loss, changed
+              params, the checkpoints (MTL: with `aux`), launches of the
+              path's train forms and backwards; serves the best checkpoint
+              through `taxoexpan_torch.test_fast`; and holds one train step
+              on the card against the same step on the CPU plain path (same
+              params, seeds, dropout and switches; 4 groups at full width, 2
+              for MTL).
 7. a `{"kernels": [...]}` line (eval-form launches from the serving phase
-   of the kernel's propagation, the train-path kernels' from its training
-   phase), then the card's nvidia-smi line, and last `{"ok": true,
-   "device": {...}}`.
+   of the entry's path, the train-path kernels' from its training phase),
+   then the card's nvidia-smi line, and last `{"ok": true, "device":
+   {...}}`.
 
 Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -84,7 +105,7 @@ GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-3
 MAG_P, MAG_S = 13, 50          # max_parents, expand_factor -> N = 64
 BATCH = 4096                   # egonets per kernel call: one encode_chunk
 NODES, N_NOVEL, SEED = 4000, 8, 0
-TRAIN_NODES, TRAIN_EPOCHS = 800, 2
+TRAIN_NODES = 800
 REPLACES = {
     "gat_layer_fwd": "taxoexpan_tpu/ops/pallas_gat.py:838",
     "gat_layer_pooled_fwd": "taxoexpan_tpu/ops/pallas_gat.py:1105",
@@ -95,8 +116,26 @@ REPLACES = {
     "gcn_layer_fwd": "taxoexpan_tpu/ops/pallas_gcn.py:241",
     "gcn_layer_fwd_train": "taxoexpan_tpu/ops/pallas_gcn.py:241",
     "gcn_layer_bwd": "taxoexpan_tpu/ops/pallas_gcn.py:304",
+    # K7a: the stored attention's write and read
+    "gat_layer_fwd_train_store": "taxoexpan_tpu/ops/pallas_gat.py:231",
+    "gat_layer_pooled_fwd_train_store": "taxoexpan_tpu/ops/pallas_gat.py:231",
+    "gat_layer_bwd_stored": "taxoexpan_tpu/ops/pallas_gat.py:240",
+    "gat_layer_pooled_bwd_stored": "taxoexpan_tpu/ops/pallas_gat.py:240",
 }
-PROPAGATIONS = ("PGAT", "PGCN")
+K7B = "taxoexpan_tpu/ops/pallas_gat.py:73"     # the 8-bit thresholds
+STORED, BITS = "TAXOEXPAN_STORED_ATTN", "TAXOEXPAN_DROPOUT_BITS"
+# the paths the smoke drives: configuration file, propagation, switches
+PATHS = {
+    "PGAT": ("config.mag.json", "PGAT", {}),
+    "PGCN": ("config.mag.json", "PGCN", {}),
+    "PGAT-stored": ("config.mag.json", "PGAT", {STORED: "1"}),
+    "MTL": ("config.semeval_verb_mtl.json", "PGAT", {STORED: "1", BITS: "8"}),
+}
+SERVING_PATHS = ("PGAT", "PGCN", "MTL")
+TRAINING_PATHS = {"PGAT": 2, "PGCN": 2, "PGAT-stored": 1, "MTL": 2}
+# stored and recompute backwards on the card: the same expressions of
+# gat_common.cuh in two translation units; equal bits expected
+STORED_REL = 1e-6
 
 
 def emit(phase: str, **fields) -> None:
@@ -171,36 +210,68 @@ def phase_build() -> None:
          ptxas=ptxas)
 
 
-def mag_model(propagation: str = "PGAT"):
-    """configs/config.mag.json with `arch.args.propagation_method` set to
-    `propagation` (PGAT as published; PGCN the paper's other propagation
-    family at the same widths), and the port's model of it."""
+def load_config(name: str) -> dict:
+    return json.loads((REPO / "configs" / name).read_text())
+
+
+def path_model(path: str = "PGAT"):
+    """The configuration of a path (configs/config.mag.json with
+    `arch.args.propagation_method` set: PGAT as published, PGCN the
+    paper's other propagation family at the same widths;
+    configs/config.semeval_verb_mtl.json as published), and the port's
+    model of it."""
     from taxoexpan_torch import builders
-    cfg = json.loads((REPO / "configs" / "config.mag.json").read_text())
+    name, propagation, _env = PATHS[path]
+    cfg = load_config(name)
     cfg["arch"]["args"]["propagation_method"] = propagation
     model = builders.build_model(cfg["arch"], max_parents=MAG_P,
                                  expand_factor=MAG_S)
     return cfg, model
 
 
-def _eval_wrappers(propagation: str) -> dict:
-    """The eval-form kernel wrappers a serving run of `propagation` goes
-    through."""
+@contextlib.contextmanager
+def switches(env: dict):
+    """The path's environment switches, set for the block only."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _eval_wrappers(path: str) -> dict:
+    """The eval-form kernel wrappers a serving run of `path` goes through
+    (MTL's PATR readout takes the per-slot final layer)."""
     from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.ops import gcn_kernels as ck
-    if propagation in ("GCN", "PGCN"):
+    if PATHS[path][1] in ("GCN", "PGCN"):
         return {"gcn_layer_fwd": ck.gcn_layer_fwd}
+    if path == "MTL":
+        return {"gat_layer_fwd": gk.gat_layer_fwd}
     return {"gat_layer_fwd": gk.gat_layer_fwd,
             "gat_layer_pooled_fwd": gk.gat_layer_pooled_fwd}
 
 
-def _train_wrappers(propagation: str) -> tuple[dict, tuple]:
-    """Every wrapper of `propagation`'s kernel module, and the names a
-    training run must launch."""
+def _train_wrappers(path: str) -> tuple[dict, tuple]:
+    """Every wrapper of the path's kernel module, and the names a training
+    run must launch."""
     from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.ops import gcn_kernels as ck
-    if propagation in ("GCN", "PGCN"):
+    if PATHS[path][1] in ("GCN", "PGCN"):
         return ck.WRAPPERS, ("gcn_layer_fwd_train", "gcn_layer_bwd")
+    if path == "PGAT-stored":
+        return gk.WRAPPERS, ("gat_layer_fwd_train_store",
+                             "gat_layer_pooled_fwd_train_store",
+                             "gat_layer_bwd_stored",
+                             "gat_layer_pooled_bwd_stored")
+    if path == "MTL":
+        return gk.WRAPPERS, ("gat_layer_fwd_train_store",
+                             "gat_layer_bwd_stored")
     return gk.WRAPPERS, ("gat_layer_fwd_train", "gat_layer_pooled_fwd_train",
                          "gat_layer_bwd", "gat_layer_pooled_bwd")
 
@@ -251,18 +322,19 @@ def fwd_work(pooled: bool, x, ops, pe_pack, ngp, nsib, heads: int,
     return nbytes, flops
 
 
-def bwd_work(x, ops, pe_pack, g, grads: dict, ngp, nsib, heads: int):
+def bwd_work(x, ops, pe_pack, g, grads: dict, ngp, nsib, heads: int,
+             attn=None):
     """(bytes, operations) a backward needs on these inputs: inputs (x,
-    weights, pe operands, the incoming grad) read once, the grads written
-    once; over the rows the grads depend on (the valid slots: the incoming
-    grad is zero on the others), the recompute of [x | pe] @ W, the dW
-    product, the dx / dpe product and about 8 operations a (row, column)
-    for the aggregation's backward."""
+    weights, pe operands, the incoming grad, the stored softmax weights)
+    read once, the grads written once; over the rows the grads depend on
+    (the valid slots: the incoming grad is zero on the others), the
+    recompute of [x | pe] @ W, the dW product, the dx / dpe product and
+    about 8 operations a (row, column) for the aggregation's backward."""
     b, n, din = x.shape
     hd = ops[0].shape[1]
     pos = pe_pack[0].shape[1] if pe_pack else 0
     wd, kx = hd + 2 * heads, din + pos
-    nbytes = _nbytes(x, *ops, ngp, nsib, *(pe_pack or ()), g,
+    nbytes = _nbytes(x, *ops, ngp, nsib, *(pe_pack or ()), g, attn,
                      *grads.values())
     rows = float((ngp + 1 + nsib).double().sum())
     dx_cols = (din if grads.get("x") is not None else 0) + pos
@@ -322,6 +394,34 @@ def compare_grads(name: str, got: dict, want: dict) -> dict:
             "grads": sorted(k for k, v in got.items() if v is not None)}
 
 
+def compare_outputs(name: str, got, want) -> dict:
+    """A forward's output, or each of (output, stored softmax weights) of a
+    store form, against the plain version's."""
+    if not isinstance(got, tuple):
+        return compare(name, got, want)
+    res = [compare(f"{name} {part}", a, b)
+           for part, a, b in zip(("out", "attn"), got, want)]
+    return {**res[0], **{k: max(r[k] for r in res)
+                         for k in ("max_abs_err", "max_rel_err")},
+            "outputs": ["out", "attn"]}
+
+
+def stored_vs_recompute(name: str, stored: dict, recompute: dict) -> float:
+    """Largest difference between a stored backward's grads and the
+    recompute backward's on the same inputs, relative to each grad's
+    largest value; raises above STORED_REL."""
+    worst = 0.0
+    for key, g in stored.items():
+        if g is None:
+            continue
+        scale = max(float(recompute[key].abs().max()), 1e-30)
+        worst = max(worst, float((g - recompute[key]).abs().max()) / scale)
+    if worst > STORED_REL:
+        raise AssertionError(f"{name}: stored and recompute grads differ by "
+                             f"{worst} of the grad's largest value")
+    return worst
+
+
 def measure(name: str, kernel, plain, backward: bool, matmul) -> tuple:
     """The kernel once against its plain version, then the device times of
     the kernel, the plain version and the torch.matmul yardstick. Returns
@@ -332,7 +432,7 @@ def measure(name: str, kernel, plain, backward: bool, matmul) -> tuple:
         torch.cuda.synchronize()
         want = plain()
         err = (compare_grads(name, got, want) if backward
-               else compare(name, got, want))
+               else compare_outputs(name, got, want))
         del want
         times = {"ms": time_ms(kernel, 5 if backward else 10),
                  "plain_ms": time_ms(plain, 3),
@@ -360,8 +460,22 @@ def phase_masks(device) -> dict:
     if mismatched:
         raise AssertionError(f"{mismatched} of 2**20 bits differ between "
                              "the card and the plain generator")
+    for (seed, stream, row, col), want in dropout.GOLDEN_BYTES8:
+        got = dropout.bits(seed, stream, torch.tensor([row], device=device),
+                           torch.tensor([col], device=device), width=8)
+        if int(got[0]) != want:
+            key = (seed, stream, row, col)
+            raise AssertionError(f"golden 8-bit byte of {key}: card "
+                                 f"{int(got[0])}, pinned {want}")
+    got = dropout.bits(7, 3, rows.to(device), cols.to(device), width=8).cpu()
+    mismatched8 = int((got != dropout.bytes8_plain(7, 3, rows, cols)).sum())
+    if mismatched8:
+        raise AssertionError(f"{mismatched8} of 2**20 8-bit bytes differ "
+                             "between the card and the plain generator")
     res = {"golden": len(dropout.GOLDEN_BITS), "random_pairs": 1 << 20,
-           "mismatched": mismatched}
+           "mismatched": mismatched,
+           "golden_bytes8": len(dropout.GOLDEN_BYTES8),
+           "random_pairs_bytes8": 1 << 20, "mismatched_bytes8": mismatched8}
     emit("masks", **res)
     return res
 
@@ -371,7 +485,7 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
     from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.ops import star
     from taxoexpan_torch.weights import params_to
-    _cfg, model = mag_model()
+    _cfg, model = path_model("PGAT")
     gen = torch.Generator().manual_seed(SEED)
     prop = model.propagate
     params = params_to(model.init(gen), device)["propagate"]
@@ -469,7 +583,7 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
         else:
             nbytes, flops = fwd_work(pooled, x, ops, pe_pack, ngp, nsib,
                                      heads, got.numel())
-        rec = {"name": name, "wrapper": name, "propagation": "PGAT",
+        rec = {"name": name, "wrapper": name, "path": "PGAT",
                "route": "cuda", "source": source,
                "replaces": REPLACES[name], "batch": batch,
                "x_shape": list(x.shape), "fc_shape": list(fc.shape),
@@ -485,7 +599,166 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
         records.append(rec)
         del got
         torch.cuda.empty_cache()
+    # K7a: the store forms of both train forwards, same seeds, and the
+    # stored backwards fed their weights
+    args = (ngp, nsib, MAG_P)
+    records += store_entries("", "PGAT-stored", False, x0, tops0, pe0, h0,
+                             g0, tkw0, 0.01, False, args)
+    records += store_entries("", "PGAT-stored", True, x1t, tops1, pe1, h1,
+                             g1, tkw1, None, True, args)
     return records
+
+
+def gat_record(name: str, wrapper: str, path: str, backward: bool, x, fc,
+               pe_pack, nums: dict, work: tuple, replaces: str,
+               **extra) -> dict:
+    """Emit and return the record of one star-GAT kernel entry."""
+    rec = {"name": name, "wrapper": wrapper, "path": path, "route": "cuda",
+           "source": "taxoexpan_torch/ops/csrc/"
+           + ("gat_bwd.cu" if backward else "gat_fwd.cu"),
+           "replaces": replaces, "batch": x.shape[0],
+           "x_shape": list(x.shape), "fc_shape": list(fc.shape),
+           "pe": pe_pack is not None, **extra, **nums,
+           # no single PyTorch call computes the star-GAT layer or its
+           # backward; one product alone is timed as a yardstick
+           "library_ms": None,
+           "matmul_call": ("torch.matmul(x.reshape(-1, Din).T, "
+                           "D [B*N, H*Dh+2H])" if backward else
+                           "torch.matmul(x.reshape(-1, Din), fc)"),
+           **_bound(*work)}
+    emit("kernel", **rec)
+    return rec
+
+
+def store_entries(tag: str, path: str, pooled: bool, x, ops, pe_pack,
+                  heads: int, g, train_kw: dict, out_alpha, need_dx: bool,
+                  args, replaces: str | None = None) -> list[dict]:
+    """The store form of a train forward (output and softmax weights
+    against the plain version) and the stored backward fed its weights
+    (grads against the plain version given the same weights, and against
+    the recompute backward on the card: `stored_vs_recompute_rel`)."""
+    import torch
+    from taxoexpan_torch.ops import gat_kernels as gk
+    ngp, nsib, _p = args
+    fwd_w = (gk.gat_layer_pooled_fwd_train_store if pooled
+             else gk.gat_layer_fwd_train_store)
+    bwd_w = gk.gat_layer_pooled_bwd_stored if pooled \
+        else gk.gat_layer_bwd_stored
+    recompute_w = gk.gat_layer_pooled_bwd if pooled else gk.gat_layer_bwd
+    akw = {} if pooled else {"out_alpha": out_alpha}
+    ops_all = (x, *ops, *args, heads)
+    bkw = dict(train_kw, need_dx=need_dx, **akw)
+    x2 = x.reshape(-1, x.shape[-1])
+    fc = ops[0]
+    common = {"dropout": train_kw["feat_drop"],
+              "dropout_bits": train_kw.get("dropout_bits", 32)}
+
+    name = fwd_w.__name__
+    (out, attn), nums = measure(
+        name + tag, lambda: fwd_w(*ops_all, **train_kw, **akw),
+        lambda: gk.gat_layer_train_plain(*ops_all, pooled=pooled,
+                                         store_attn=True, **train_kw, **akw),
+        False, lambda: x2 @ fc)
+    records = [gat_record(
+        name + tag, name, path, False, x, fc, pe_pack, nums,
+        fwd_work(pooled, x, ops, pe_pack, ngp, nsib, heads,
+                 out.numel() + attn.numel()),
+        replaces or REPLACES[name], **common)]
+    del out
+
+    name = bwd_w.__name__
+    d = torch.randn((x2.shape[0], fc.shape[1] + 2 * heads), device=x.device)
+    grads, nums = measure(
+        name + tag, lambda: bwd_w(g, *ops_all, attn, need_dbias=False, **bkw),
+        lambda: gk.gat_layer_bwd_plain(g, *ops_all, pooled=pooled,
+                                       stored_attn=attn, **bkw),
+        True, lambda: x2.T @ d)
+    del d
+    rel = stored_vs_recompute(name + tag, grads, recompute_w(
+        g, *ops_all, need_dbias=False, **bkw))
+    records.append(gat_record(
+        name + tag, name, path, True, x, fc, pe_pack, nums,
+        bwd_work(x, ops, pe_pack, g, grads, ngp, nsib, heads, attn),
+        replaces or REPLACES[name], need_dx=need_dx,
+        stored_vs_recompute_rel=rel, **common))
+    del grads, attn
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_mtl_kernels(batch: int, device, drop: float) -> list[dict]:
+    """Both GAT layers of the SemEval-Verb MTL configuration at B egonets,
+    with the config's dropout and 8-bit thresholds in the train forms.
+    Layer 0 (300 + pe 100 -> 4 x 900, leaky_relu 0.01): K1 eval, the K1
+    train store form and the stored K2 (need_dx off). The per-slot final
+    layer (3600 + pe 100 -> 1 x 600, no activation), fed layer 0's eval
+    output: K1 eval, the K1 train store form and the stored K2 (need_dx
+    on)."""
+    import torch
+    from taxoexpan_torch.ops import gat_kernels as gk
+    from taxoexpan_torch.ops import star
+    from taxoexpan_torch.weights import params_to
+    _cfg, model = path_model("MTL")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    prop = model.propagate
+    params = params_to(model.init(gen), device)["propagate"]
+    x0, ngp, nsib = random_egonets(gen, batch, prop.layer_specs[0][0]
+                                   - prop.pos_dim, device)
+    n = x0.shape[1]
+    args = (ngp, nsib, MAG_P)
+    h0, h1 = prop.layer_specs[0][2], prop.layer_specs[1][2]
+    ops0, _ = prop.operands(params, 0, n, MAG_P)
+    ops1, _ = prop.operands(params, 1, n, MAG_P)
+    tops0, pe0 = prop.operands(params, 0, n, MAG_P, pe_dropout=True)
+    tops1, pe1 = prop.operands(params, 1, n, MAG_P, pe_dropout=True)
+    tkw0 = dict(pe_pack=pe0, seed=30, feat_drop=drop, attn_drop=drop,
+                dropout_bits=8)
+    tkw1 = dict(pe_pack=pe1, seed=31, feat_drop=drop, attn_drop=drop,
+                dropout_bits=8)
+    valid = star.node_mask(ngp, nsib, MAG_P, n)[..., None]
+
+    def eval_entry(tag, x, ops, heads, out_alpha):
+        name = "gat_layer_fwd"
+        x2 = x.reshape(-1, x.shape[-1])
+        got, nums = measure(
+            f"{name}{tag}",
+            lambda: gk.gat_layer_fwd(x, *ops, *args, heads,
+                                     out_alpha=out_alpha),
+            lambda: gk.gat_layer_fwd_plain(x, *ops, *args, heads, out_alpha),
+            False, lambda: x2 @ ops[0])
+        return got, gat_record(
+            f"{name}{tag}", name, "MTL", False, x, ops[0], None, nums,
+            fwd_work(False, x, ops, None, ngp, nsib, heads, got.numel()),
+            REPLACES[name], dropout=0.0)
+
+    # layer 0; its eval output is the final layer's input
+    x1, rec = eval_entry("[mtl layer 0]", x0, ops0, h0, 0.01)
+    records = [rec]
+    # the incoming grad as in phase_kernels: zero on invalid slots and
+    # where the pre-activation lies within 1e-5 of leaky_relu's kink
+    with torch.no_grad():
+        pre = gk.gat_layer_train_plain(x0, *tops0, *args, h0, **tkw0)
+        away = pre.abs() > 1e-5
+        del pre
+    g0 = (torch.randn(x1.shape, generator=gen).to(device) * 1e-3) * valid \
+        * away
+    del away
+    records += store_entries("[mtl layer 0, 8-bit]", "MTL", False, x0, tops0,
+                             pe0, h0, g0, tkw0, 0.01, False, args,
+                             replaces=K7B)
+    del x0, g0
+    torch.cuda.empty_cache()
+
+    # the per-slot final layer; the readouts' grad reaches the valid slots
+    g1 = (torch.randn((batch, n, prop.out_dim), generator=gen).to(device)
+          * 1e-2) * valid
+    got, rec = eval_entry("[mtl final]", x1, ops1, h1, None)
+    records.append(rec)
+    del got
+    torch.cuda.empty_cache()
+    return records + store_entries("[mtl final, 8-bit]", "MTL", False, x1,
+                                   tops1, pe1, h1, g1, tkw1, None, True, args,
+                                   replaces=K7B)
 
 
 def phase_gcn_kernels(batch: int, device) -> list[dict]:
@@ -501,7 +774,7 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
     from taxoexpan_torch.ops import gcn_kernels as ck
     from taxoexpan_torch.ops import star
     from taxoexpan_torch.weights import params_to
-    _cfg, model = mag_model("PGCN")
+    _cfg, model = path_model("PGCN")
     gen = torch.Generator().manual_seed(SEED)
     prop = model.propagate
     params = params_to(model.init(gen), device)["propagate"]
@@ -591,7 +864,7 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
         else:
             nbytes, flops = gcn_fwd_work(x, ops, pe_pack, ngp, nsib,
                                          got.numel())
-        rec = {"name": name, "wrapper": wrapper, "propagation": "PGCN",
+        rec = {"name": name, "wrapper": wrapper, "path": "PGCN",
                "route": "cuda", "source": source,
                "replaces": REPLACES[wrapper], "batch": batch,
                "x_shape": list(x.shape), "w_shape": list(w.shape),
@@ -613,7 +886,7 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
 
 
 def phase_serving(device, num_nodes: int, n_novel: int, seed: int,
-                  propagation: str = "PGAT") -> dict:
+                  path: str = "PGAT") -> dict:
     """The user's entry points, `python -m taxoexpan_torch.test_fast` and
     `python -m taxoexpan_torch.infer` (their main functions, in this
     process), on a run directory as the JAX train.py leaves it: dataset
@@ -628,8 +901,8 @@ def phase_serving(device, num_nodes: int, n_novel: int, seed: int,
     from taxoexpan_torch.weights import (load_jax_checkpoint,
                                          restore_params, save_jax_checkpoint)
 
-    cfg, model = mag_model(propagation)
-    wrappers = _eval_wrappers(propagation)
+    cfg, model = path_model(path)
+    wrappers = _eval_wrappers(path)
     in_dim = cfg["arch"]["args"]["in_dim"]
     taxonomy = synthetic_taxonomy(num_nodes=num_nodes, dim=in_dim, seed=seed)
     rng = np.random.default_rng(seed)
@@ -653,8 +926,7 @@ def phase_serving(device, num_nodes: int, n_novel: int, seed: int,
                 fout.write(f"novel term {i}\t{' '.join(map(str, row))}\n")
 
         # ---- the main path, with the launch counters around it
-        for wrapper in wrappers.values():
-            wrapper.launches = 0
+        reset_counters()
         t0 = time.time()
         metrics = test_fast_cli.main(test_fast_cli.parse_args(
             ["-r", ckpt, "-c", str(run / "case.tsv")]))
@@ -706,8 +978,9 @@ def phase_serving(device, num_nodes: int, n_novel: int, seed: int,
         want = model.encode(params, feats, ngp_t, nsib_t)
     hg_check = compare("hg (card vs CPU plain path, first 256 anchors)",
                        hg[:256].cpu(), want)
-    res = {"propagation": propagation, "nodes": taxonomy.num_nodes,
-           "dim": in_dim,
+    if model.aux_heads and "aux" not in state["params"]:
+        raise AssertionError("the MTL checkpoint has no aux params")
+    res = {"path": path, "nodes": taxonomy.num_nodes, "dim": in_dim,
            "candidates": len(ranker.candidates),
            "queries": len(sampler.node_list),
            "encode_chunk": ranker.encode_chunk, "metrics": metrics,
@@ -722,7 +995,7 @@ def compare_train_step(device, cfg: dict, taxonomy, params: dict,
                        groups: int = 4) -> dict:
     """One train step (forward, loss, grads, AMSGrad update) on the card
     against the same step on the CPU plain path: same params, batch, step
-    index (so the same dropout seeds and masks), full width.
+    index (so the same dropout seeds and masks) and switches, full width.
 
     Tolerances: loss 1e-4 relative; each grad to 1e-3 of its leaf's largest
     value plus 1e-6 of the step's largest grad (float32 through two layers,
@@ -793,9 +1066,9 @@ def compare_train_step(device, cfg: dict, taxonomy, params: dict,
 
 
 def phase_training(device, num_nodes: int, epochs: int, seed: int,
-                   propagation: str = "PGAT") -> dict:
+                   path: str = "PGAT") -> dict:
     """`python -m taxoexpan_torch.train` (its main, in this process) on a
-    synthetic run directory at config.mag.json's full width."""
+    synthetic run directory at the path's full width, with its switches."""
     import numpy as np
     import torch
     from taxoexpan_torch import test_fast as test_fast_cli
@@ -804,8 +1077,9 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
     from taxoexpan_torch.tree import tree_leaves
     from taxoexpan_torch.weights import load_jax_checkpoint, restore_params
 
-    cfg, model = mag_model(propagation)
-    wrappers, required = _train_wrappers(propagation)
+    cfg, model = path_model(path)
+    wrappers, required = _train_wrappers(path)
+    env = PATHS[path][2]
     in_dim = cfg["arch"]["args"]["in_dim"]
     taxonomy = synthetic_taxonomy(num_nodes=num_nodes, dim=in_dim, seed=seed)
     with tempfile.TemporaryDirectory() as tmp:
@@ -823,10 +1097,10 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
         config = train_cli.parse_args(["-c", str(run / "config.json")])
 
         # ---- the main path, with the launch counters around it
-        for wrapper in wrappers.values():
-            wrapper.launches = 0
+        reset_counters()
         t0 = time.time()
-        log = train_cli.main(config)
+        with switches(env):
+            log = train_cli.main(config)
         torch.cuda.synchronize()
         train_s = time.time() - t0
         launches = {name: w.launches for name, w in wrappers.items()}
@@ -842,6 +1116,8 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
         if not (best.exists() and last.exists()):
             raise AssertionError(f"checkpoints missing in {config.save_dir}")
         state = load_jax_checkpoint(last)
+        if model.aux_heads and "aux" not in state["params"]:
+            raise AssertionError("the MTL checkpoint has no aux params")
         trained = restore_params(state, model)
         init = model.init(torch.Generator().manual_seed(cfg.get("seed", 0)))
         changed = max(float((a - b).abs().max()) for a, b in zip(
@@ -861,7 +1137,10 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
                         * (1 + cfg["train_data_loader"]["args"]
                            ["negative_size"]))
     median_ms = float(np.median(step_ms)) if step_ms else float("nan")
-    res = {"propagation": propagation, "card": nvidia_smi_line(),
+    with switches(env):
+        step_vs_cpu = compare_train_step(device, cfg, taxonomy, trained,
+                                         2 if model.aux_heads else 4)
+    res = {"path": path, "switches": env, "card": nvidia_smi_line(),
            "nodes": taxonomy.num_nodes,
            "dim": in_dim, "epochs": epochs,
            "steps_last_epoch": len(step_ms),
@@ -874,8 +1153,7 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
                                       if k.startswith("val_")},
            "train_s": train_s, "max_param_change": changed,
            "launches": launches, "served_metrics": metrics,
-           "serve_s": serve_s,
-           "step_vs_cpu": compare_train_step(device, cfg, taxonomy, trained)}
+           "serve_s": serve_s, "step_vs_cpu": step_vs_cpu}
     emit("training", **res)
     return res
 
@@ -907,24 +1185,34 @@ def main() -> int:
     return 0
 
 
+def reset_counters() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from taxoexpan_torch.ops import gat_kernels as gk
+    from taxoexpan_torch.ops import gcn_kernels as ck
+    for wrapper in (*gk.WRAPPERS.values(), *ck.WRAPPERS.values()):
+        wrapper.launches = 0
+
+
 def run_paths(device) -> list[dict]:
     """The kernel, serving and training phases; returns the entries of the
     kernels line."""
-    cfg, _ = mag_model()
+    cfg, _ = path_model("PGAT")
     records = phase_kernels(BATCH, device, cfg["arch"]["args"]["feat_drop"])
     records += phase_gcn_kernels(BATCH, device)
-    serving = {prop: phase_serving(device, NODES, N_NOVEL, SEED, prop)
-               for prop in PROPAGATIONS}
-    training = {prop: phase_training(device, TRAIN_NODES, TRAIN_EPOCHS, SEED,
-                                     prop)
-                for prop in PROPAGATIONS}
+    mtl_cfg, _ = path_model("MTL")
+    records += phase_mtl_kernels(BATCH, device,
+                                 mtl_cfg["arch"]["args"]["feat_drop"])
+    serving = {path: phase_serving(device, NODES, N_NOVEL, SEED, path)
+               for path in SERVING_PATHS}
+    training = {path: phase_training(device, TRAIN_NODES, epochs, SEED, path)
+                for path, epochs in TRAINING_PATHS.items()}
     kernels = []
     for rec in records:
         # eval forms: the serving path's launches; train forms and the
-        # backwards: the training path's (of the record's propagation)
-        prop, wrapper = rec["propagation"], rec["wrapper"]
-        phase = serving[prop] if wrapper in serving[prop]["launches"] \
-            else training[prop]
+        # backwards: the training path's (of the record's path)
+        path, wrapper = rec["path"], rec["wrapper"]
+        phase = serving[path] if path in serving and \
+            wrapper in serving[path]["launches"] else training[path]
         kernels.append({k: rec[k] for k in (
             "name", "route", "source", "replaces")} | {
             "launches": phase["launches"][wrapper],

@@ -3,9 +3,8 @@
 semantics, so a JAX run's `config.json` drives the port.
 
 Settings the port does not have yet raise instead of being ignored
-(bf16, pos_mode="concat", auxiliary MTL heads, the MAX/PATR readouts);
-the JAX kernel choice (`kernel`) is not read: the port runs its kernels on
-CUDA and their plain versions on the CPU.
+(bf16, pos_mode="concat"); the JAX kernel choice (`kernel`) is not read:
+the port runs its kernels on CUDA and their plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -44,8 +43,6 @@ def build_model(arch_cfg: dict, *, max_parents: int,
         if a.get(key, ported) != ported:
             raise ValueError(f"{key}={a[key]!r} is not ported yet; the "
                              f"port runs {key}={ported!r}")
-    if a.get("aux_heads"):
-        raise ValueError("auxiliary MTL heads (aux_heads) are not ported yet")
     return TaxoExpan(
         a.get("propagation_method", "PGAT"),
         a.get("readout_method", "WMR"),
@@ -62,6 +59,8 @@ def build_model(arch_cfg: dict, *, max_parents: int,
         out_drop=a.get("out_drop", 0.1),
         max_parents=max_parents,
         expand_factor=expand_factor,
+        attention_dim=a.get("attention_dim", 100),
+        aux_heads=a.get("aux_heads"),
         raw_channel=a.get("raw_channel", False))
 
 

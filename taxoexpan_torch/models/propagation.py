@@ -5,9 +5,11 @@
 Every layer runs through the star kernels: the GAT layers through
 `ops/gat_kernels.py` (hidden layers with the stack's leaky_relu, slope
 0.01, fused in; the final layer in its pooled form, which emits the readout
-class pools [B, 3, out_dim]), the GCN layers through `ops/gcn_kernels.py`
-(hidden layers with leaky_relu 0.01 fused in; the final layer per slot,
-[B, N, out_dim], with no activation). Parameters keep the JAX layout: GAT's
+class pools [B, 3, out_dim], or per slot, [B, N, out_dim] after the mean
+over heads, for the readouts that are no linear pool), the GCN layers
+through `ops/gcn_kernels.py` (hidden layers with leaky_relu 0.01 fused in;
+the final layer per slot, [B, N, out_dim], with no activation).
+Parameters keep the JAX layout: GAT's
 `fc` is [in, H*Dh] with head-major columns, `attn_l`/`attn_r` [H, Dh];
 GCN's `w` is [in, out] and `b` [out]; with positions the embedding rows of
 the weight are its tail rows `[din_h:]`.
@@ -159,12 +161,15 @@ class GAT:
 
     def apply(self, params: dict, h: torch.Tensor, ngp: torch.Tensor,
               nsib: torch.Tensor, p_slots: int, *,
-              gen: torch.Generator | None = None,
-              train: bool = False) -> torch.Tensor:
+              gen: torch.Generator | None = None, train: bool = False,
+              pool_readout: bool = True) -> torch.Tensor:
         """Egonet features [B, N, in_dim] -> readout class pools
-        [B, 3, out_dim] (grandparents, anchor, siblings; head-averaged).
+        [B, 3, out_dim] (grandparents, anchor, siblings; head-averaged) or,
+        with pool_readout=False, the per-slot activation [B, N, out_dim]
+        (the mean over heads of the final layer, which has no activation;
+        invalid slots keep their formula value, the readouts mask them).
         train=True turns dropout on, one seed per layer from `gen`."""
-        n = h.shape[1]
+        b, n = h.shape[:2]
         feat_drop = self.feat_drop if train else 0.0
         attn_drop = self.attn_drop if train else 0.0
         differentiable = train or torch.is_grad_enabled()
@@ -173,23 +178,28 @@ class GAT:
             heads = self.layer_specs[l][2]
             ops, pe_pack = self.operands(params, l, n, p_slots,
                                          pe_dropout=feat_drop > 0)
+            pooled = l == last and pool_readout
+            # hidden layers: flat [B, N, H*Dh] = the flatten-heads step
+            out_alpha = HIDDEN_ALPHA if l < last else None
             if not differentiable:
-                if l < last:   # flat [B, N, H*Dh] = the flatten-heads step
-                    h = gat_layer_fwd(h, *ops, ngp, nsib, p_slots, heads,
-                                      out_alpha=HIDDEN_ALPHA)
-                else:
+                if pooled:
                     h = gat_layer_pooled_fwd(h, *ops, ngp, nsib, p_slots,
                                              heads)
+                else:
+                    h = gat_layer_fwd(h, *ops, ngp, nsib, p_slots, heads,
+                                      out_alpha=out_alpha)
                 continue
             kw = dict(pe_pack=pe_pack, seed=_layer_seed(gen, train),
                       feat_drop=feat_drop, attn_drop=attn_drop,
                       need_dx=l > 0)
-            if l < last:
-                h = gat_layer(h, *ops, ngp, nsib, p_slots, heads,
-                              out_alpha=HIDDEN_ALPHA, **kw)
-            else:
+            if pooled:
                 h = gat_layer_pooled(h, *ops, ngp, nsib, p_slots, heads, **kw)
-        return h
+            else:
+                h = gat_layer(h, *ops, ngp, nsib, p_slots, heads,
+                              out_alpha=out_alpha, **kw)
+        if pool_readout:
+            return h
+        return h.reshape(b, n, self.layer_specs[last][2], -1).mean(dim=2)
 
 
 # ----------------------------------------------------------------- GCN

@@ -40,13 +40,13 @@ __device__ __forceinline__ float xcat(const Operand& op, const TrainArgs& ta,
   if (k < op.din) {
     float v = op.x[(size_t)m * op.din + k];
     if (ta.feat_on)
-      v *= keep(drop_bits(rkf, (unsigned)k), ta.feat_thresh, ta.feat_scale);
+      v *= keep_at(ta, rkf, (unsigned)k, ta.feat_thresh, ta.feat_scale);
     return v;
   }
   const int kp = k - op.din;
   float v = ta.pe[(size_t)(m % op.n) * ta.pos + kp];
   if (ta.feat_on)
-    v *= keep(drop_bits(rkp, (unsigned)kp), ta.feat_thresh, ta.feat_scale);
+    v *= keep_at(ta, rkp, (unsigned)kp, ta.feat_thresh, ta.feat_scale);
   return v;
 }
 
@@ -196,14 +196,13 @@ d_wt_kernel(Operand op, TrainArgs ta, const float* __restrict__ d,
       float v = acc[i][j];
       if (k < op.din) {
         if (ta.feat_on)
-          v *= keep(drop_bits(rkf, (unsigned)k), ta.feat_thresh,
-                    ta.feat_scale);
+          v *= keep_at(ta, rkf, (unsigned)k, ta.feat_thresh, ta.feat_scale);
         dx[(size_t)m * op.din + k] = v;
       } else {
         const int kpe = k - op.din;
         if (ta.feat_on)
-          v *= keep(drop_bits(rkp, (unsigned)kpe), ta.feat_thresh,
-                    ta.feat_scale);
+          v *= keep_at(ta, rkp, (unsigned)kpe, ta.feat_thresh,
+                       ta.feat_scale);
         pe_rows[(size_t)m * ta.pos + kpe] = v;
       }
     }

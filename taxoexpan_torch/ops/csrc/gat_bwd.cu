@@ -7,7 +7,11 @@
 //                                (_fused_pooled_bwd, _bwd_pool_kernel)
 // Both recompute ft and the attention from the layer input (ft is never
 // stored) and replay the forward's dropout masks: the bits are a pure
-// function of (seed, stream, row, column), gat_common.cuh.
+// function of (seed, stream, row, column), gat_common.cuh. The stored form
+// (a.attn not null, TAXOEXPAN_STORED_ATTN=1; pallas_gat.py:240, :567) reads
+// the forward's softmax weights instead of recomputing the softmax; it still
+// recomputes ft and a1/a2, which d(attention) and leaky' of the logits need
+// (pallas_gat.py:482-490).
 //
 // Passes, one C entry point (gat_layer_bwd_f32) launching them in order
 // (the products and sums of 2-4 are bwd_common.cuh's, shared with gcn.cu):
@@ -58,6 +62,7 @@ struct BwdArgs {
   const int* ngp;        // [b]
   const int* nsib;
   const float* g;        // K2 [b, n, heads*dh]; K4 [b, 3, dh]
+  const float* attn;     // stored softmax [b, heads, 2n - p - 1], or null
   float* dcat;           // workspace [b*n, wd], wd = heads*dh + 2*heads
   float* part_w;         // workspace [splits, din+pos, wd]
   float* part_b;         // workspace [chunks, n, wd] (need_dbias)
@@ -122,7 +127,15 @@ gat_bwd_head_kernel(BwdArgs a, TrainArgs ta) {
     head_tile<true>(a.x + b * n * din, a.fc, a.wa1, a.wa2, a.bias_ft,
                     a.bias_a1, a.bias_a2, n, din, hd, heads, h, col0, ncols,
                     s, ta);
-    if (t == 0) attention_weights<true, true>(n, p, ngp, a.alpha, s, ta, b, h);
+    if (t == 0) {
+      if (a.attn != nullptr)
+        attention_weights<true, true, true>(
+            n, p, ngp, a.alpha, s, ta, b, h,
+            const_cast<float*>(a.attn) +
+                ((size_t)b * heads + h) * attn_row(n, p));
+      else
+        attention_weights<true, true>(n, p, ngp, a.alpha, s, ta, b, h);
+    }
     const float* fa = s.ft + p * kTileCols;
 
     // incoming grad tile

@@ -11,6 +11,19 @@
 //     dropout over the concatenated layer input (pallas_gat.py:847-853);
 //   - the five attention masks, multiplied into the softmax weights after
 //     the softmax (pallas_gat.py:150-159).
+// Every mask compares either the element's 32-bit word or, with
+// TrainArgs::bits8 (TAXOEXPAN_DROPOUT_BITS=8), byte col % 4 of the word of
+// column col / 4 with its threshold (drop_value; ops/dropout.py).
+//
+// Stored attention (TAXOEXPAN_STORED_ATTN=1, pallas_gat.py:191-263): the
+// train forwards can write each (egonet, head)'s softmax weights before
+// dropout to a row of attn_row(n, p) = 2n - p - 1 floats, [b, heads, row],
+// and the backward reads them instead of recomputing the softmax
+// (attention_weights' kLoad):
+//   [j] gp j -> anchor (j < p; 0 for j >= ngp), [p] anchor self,
+//   [r] anchor -> sib r, [r + n - p - 1] sib r self (p < r < n).
+// The TPU kernel's 128-lane segment padding was a Mosaic constraint and has
+// no counterpart here.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,6 +58,7 @@ struct TrainArgs {
   unsigned attn_thresh;
   float attn_scale;
   int attn_on;
+  int bits8;          // 8-bit thresholds (feat_thresh, attn_thresh are t8)
 };
 
 __host__ __device__ __forceinline__ unsigned fmix32(unsigned h) {
@@ -71,17 +85,27 @@ __host__ __device__ __forceinline__ unsigned drop_bits(unsigned rkey,
   return fmix32(rkey + (col + 1u) * 0x165667B1u);
 }
 
-__device__ __forceinline__ float keep(unsigned bits, unsigned thresh,
-                                      float scale) {
-  return bits < thresh ? scale : 0.f;
+// The value an element compares with its keep threshold: its 32-bit word,
+// or with bits8 byte col % 4 of the word of column col / 4.
+__host__ __device__ __forceinline__ unsigned drop_value(unsigned rkey,
+                                                        unsigned col,
+                                                        int bits8) {
+  return bits8 ? (drop_bits(rkey, col >> 2) >> ((col & 3u) << 3)) & 0xFFu
+               : drop_bits(rkey, col);
+}
+
+__device__ __forceinline__ float keep_at(const TrainArgs& ta, unsigned rkey,
+                                         unsigned col, unsigned thresh,
+                                         float scale) {
+  return drop_value(rkey, col, ta.bits8) < thresh ? scale : 0.f;
 }
 
 __device__ __forceinline__ float attn_mask(const TrainArgs& ta, int h,
                                            unsigned kind, long long b,
                                            int j) {
   const unsigned sk = stream_key(ta.seed, 2u + kAttnKinds * h + kind);
-  return keep(drop_bits(row_key(sk, (unsigned)b), (unsigned)j),
-              ta.attn_thresh, ta.attn_scale);
+  return keep_at(ta, row_key(sk, (unsigned)b), (unsigned)j, ta.attn_thresh,
+                 ta.attn_scale);
 }
 
 __device__ __forceinline__ float leaky(float v, float a) {
@@ -218,14 +242,14 @@ __device__ void head_tile(const float* __restrict__ xb,
           if (gr < n && gk < din) {
             v = xb[(size_t)gr * din + gk];
             if (ta.feat_on)
-              v *= keep(drop_bits(s.rk_feat[gr], (unsigned)gk),
-                        ta.feat_thresh, ta.feat_scale);
+              v *= keep_at(ta, s.rk_feat[gr], (unsigned)gk, ta.feat_thresh,
+                           ta.feat_scale);
           } else if (gr < n && gk < kdim) {
             const int kp = gk - din;
             v = ta.pe[(size_t)gr * ta.pos + kp];
             if (ta.feat_on)
-              v *= keep(drop_bits(s.rk_pe[gr], (unsigned)kp),
-                        ta.feat_thresh, ta.feat_scale);
+              v *= keep_at(ta, s.rk_pe[gr], (unsigned)kp, ta.feat_thresh,
+                           ta.feat_scale);
           }
           s.xs[kk * kXsStride + r] = v;
         }
@@ -303,17 +327,27 @@ __device__ void head_tile(const float* __restrict__ xb,
   __syncthreads();
 }
 
+// Floats of one (egonet, head)'s stored softmax row.
+__host__ __device__ __forceinline__ int attn_row(int n, int p) {
+  return 2 * n - p - 1;
+}
+
 // Star softmax weights of head h from s.a1 / s.a2:
 //   gp rows    <- self only (weight 1; train: times the gp-self mask)
 //   anchor     <- valid grandparents (j < ngp) and self
 //   sib rows   <- anchor and self
 // Train form: each weight times its attention mask after the softmax.
 // kBwd also keeps the softmax weights before dropout and the masks.
-template <bool kTrain, bool kBwd>
+// `stored` is egonet b's row of head h (layout at the top of this file), or
+// null: kLoad takes the weights from it and leaves s.a1 / s.a2 unread;
+// otherwise they are computed and, when it is not null, also written there.
+template <bool kTrain, bool kBwd, bool kLoad = false>
 __device__ void attention_weights(int n, int p, int ngp, float alpha,
                                   const Smem& s, const TrainArgs& ta,
-                                  long long b, int h) {
+                                  long long b, int h,
+                                  float* stored = nullptr) {
   const bool drop = kTrain && ta.attn_on;
+  const int nsl = n - p - 1;  // sibling slots
   for (int r = threadIdx.x; r < n; r += kThreads) {
     if (r < p) {
       const float m = drop ? attn_mask(ta, h, 4, b, r) : 1.f;
@@ -325,12 +359,23 @@ __device__ void attention_weights(int n, int p, int ngp, float alpha,
         s.sm_anchor[r] = s.m_anchor[r] = 0.f;
       }
     } else if (r > p) {
-      const float l0 = leaky(s.a1[p] + s.a2[r], alpha);
-      const float l1 = leaky(s.a1[r] + s.a2[r], alpha);
-      const float m = fmaxf(l0, l1);
-      const float e0 = expf(l0 - m), e1 = expf(l1 - m);
-      const float den = e0 + e1;
-      const float sa = e0 / den, ss = e1 / den;
+      float sa, ss;
+      if (kLoad) {
+        sa = stored[r];
+        ss = stored[r + nsl];
+      } else {
+        const float l0 = leaky(s.a1[p] + s.a2[r], alpha);
+        const float l1 = leaky(s.a1[r] + s.a2[r], alpha);
+        const float m = fmaxf(l0, l1);
+        const float e0 = expf(l0 - m), e1 = expf(l1 - m);
+        const float den = e0 + e1;
+        sa = e0 / den;
+        ss = e1 / den;
+        if (stored != nullptr) {
+          stored[r] = sa;
+          stored[r + nsl] = ss;
+        }
+      }
       if (drop) {
         const float ma = attn_mask(ta, h, 2, b, r - p - 1);
         const float ms = attn_mask(ta, h, 3, b, r - p - 1);
@@ -350,19 +395,30 @@ __device__ void attention_weights(int n, int p, int ngp, float alpha,
         s.sm_self[r] = ss;
       }
     } else {
-      const float a2p = s.a2[p];
-      const float lself = leaky(s.a1[p] + a2p, alpha);
-      float m = lself;
-      for (int j = 0; j < ngp; ++j)
-        m = fmaxf(m, leaky(s.a1[j] + a2p, alpha));
-      float den = 0.f;
-      for (int j = 0; j < ngp; ++j)
-        den += expf(leaky(s.a1[j] + a2p, alpha) - m);
-      const float eself = expf(lself - m);
-      den += eself;
+      float m = 0.f, den = 1.f, sself;
+      const float a2p = kLoad ? 0.f : s.a2[p];
+      if (kLoad) {
+        sself = stored[p];
+      } else {
+        const float lself = leaky(s.a1[p] + a2p, alpha);
+        m = lself;
+        for (int j = 0; j < ngp; ++j)
+          m = fmaxf(m, leaky(s.a1[j] + a2p, alpha));
+        den = 0.f;
+        for (int j = 0; j < ngp; ++j)
+          den += expf(leaky(s.a1[j] + a2p, alpha) - m);
+        const float eself = expf(lself - m);
+        den += eself;
+        sself = eself / den;
+      }
       for (int j = 0; j < p; ++j) {
-        const float sm =
-            j < ngp ? expf(leaky(s.a1[j] + a2p, alpha) - m) / den : 0.f;
+        float sm;
+        if (kLoad) {
+          sm = stored[j];
+        } else {
+          sm = j < ngp ? expf(leaky(s.a1[j] + a2p, alpha) - m) / den : 0.f;
+          if (stored != nullptr) stored[j] = sm;
+        }
         const float mj = drop ? attn_mask(ta, h, 0, b, j) : 1.f;
         s.w_to_anchor[j] = drop ? sm * mj : sm;
         if (kBwd) {
@@ -370,7 +426,7 @@ __device__ void attention_weights(int n, int p, int ngp, float alpha,
           s.m_to_anchor[j] = mj;
         }
       }
-      const float sself = eself / den;
+      if (stored != nullptr) stored[p] = sself;
       const float ms = drop ? attn_mask(ta, h, 1, b, 0) : 1.f;
       s.w_self[p] = drop ? sself * ms : sself;
       s.w_anchor[p] = 0.f;

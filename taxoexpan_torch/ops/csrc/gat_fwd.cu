@@ -20,7 +20,11 @@
 // The train forms (kTrain) mask x as it is staged, add the masked pe rows
 // as extra K columns and multiply the attention weights by their masks
 // (gat_common.cuh); the dropout bits are a pure function of the element's
-// indices, so the backward kernels (gat_bwd.cu) replay them exactly.
+// indices, so the backward kernels (gat_bwd.cu) replay them exactly. Given
+// an attn pointer (the store form, TAXOEXPAN_STORED_ATTN=1) they also write
+// the softmax weights before dropout, [B, H, 2N - P - 1] (layout in
+// gat_common.cuh), for the stored-attention backward: the blocks of column
+// tile 0 write them, so each weight is written once (pallas_gat.py:231).
 //
 // What bounds it on an H100: the x @ fc product. At the config.mag.json
 // shapes (N = 64) layer 0 does 2*B*64*(250 [+50])*2008 flop and writes
@@ -28,6 +32,10 @@
 // writes only the pools. Both sit above the float32 ridge point, so the
 // bound is the float32 FMA rate (the tensor cores' TF32 would break f32
 // parity). The train form adds one 32-bit hash per staged x element.
+// The per-slot kernel repeats the whole K loop (and a1/a2) for each
+// 128-column tile of a head, so a wide head reads x several times: the MTL
+// configuration's per-slot final layer (Din 3600 + pe 100, Dh 600) runs 5
+// tiles, and there the kernel is slower than its plain version (PERF.md).
 //
 // Design (simple first): one block of 256 threads per (egonet, head, 128-
 // column tile of the head) for the per-slot kernel and per (egonet, column
@@ -59,7 +67,7 @@ fwd_body(const float* __restrict__ x, const float* __restrict__ fc,
                      const int* __restrict__ nsib_arr, float* __restrict__ out,
                      int n, int din, int heads, int dh, int p, float alpha,
                      float out_alpha, int has_out_alpha, int ntiles,
-                     TrainArgs ta) {
+                     TrainArgs ta, float* __restrict__ attn) {
   extern __shared__ float4 smem4[];
   const Smem s = carve(reinterpret_cast<float*>(smem4), n,
                        kTrain ? kTrainLayout : kEvalLayout);
@@ -78,7 +86,10 @@ fwd_body(const float* __restrict__ x, const float* __restrict__ fc,
   if (kTrain) setup_row_keys(ta, b, n, s);
   head_tile<kTrain>(x + b * n * din, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
                     n, din, hd, heads, h, col0, ncols, s, ta);
-  attention_weights<kTrain, false>(n, p, ngp, alpha, s, ta, b, h);
+  float* stored = (attn != nullptr && c0 == 0)
+                      ? attn + ((size_t)b * heads + h) * attn_row(n, p)
+                      : nullptr;
+  attention_weights<kTrain, false>(n, p, ngp, alpha, s, ta, b, h, stored);
 
   float* outb = out + b * n * hd;
   const float* fa = s.ft + p * kTileCols;
@@ -115,7 +126,8 @@ pooled_body(const float* __restrict__ x,
                             const int* __restrict__ nsib_arr,
                             float* __restrict__ pools, int n, int din,
                             int heads, int dh, int p, float alpha,
-                            int ntiles, TrainArgs ta) {
+                            int ntiles, TrainArgs ta,
+                            float* __restrict__ attn) {
   extern __shared__ float4 smem4[];
   const Smem s = carve(reinterpret_cast<float*>(smem4), n,
                        kTrain ? kTrainLayout : kEvalLayout);
@@ -134,7 +146,10 @@ pooled_body(const float* __restrict__ x,
     head_tile<kTrain>(x + b * n * din, fc, wa1, wa2, bias_ft, bias_a1,
                       bias_a2, n, din, hd, heads, h, h * dh + c0, ncols, s,
                       ta);
-    attention_weights<kTrain, false>(n, p, ngp, alpha, s, ta, b, h);
+    float* stored = (attn != nullptr && c0 == 0)
+                        ? attn + ((size_t)b * heads + h) * attn_row(n, p)
+                        : nullptr;
+    attention_weights<kTrain, false>(n, p, ngp, alpha, s, ta, b, h, stored);
     if (c < ncols) {
       float sg = 0.f, anc = 0.f, ss = 0.f;
       for (int j = 0; j < ngp; ++j) {
@@ -164,7 +179,8 @@ pooled_body(const float* __restrict__ x,
 
 // The kernels. The train forms ask for two resident blocks an SM (at most
 // 128 registers a thread: 157 without the bound left one block an SM);
-// the eval forms keep the serving kernels' bounds.
+// the eval forms keep the serving kernels' bounds. attn, of the train
+// forms only, is null or receives the softmax weights (the store form).
 #define GAT_FWD_PARAMS                                                     \
   const float *__restrict__ x, const float *__restrict__ fc,               \
       const float *__restrict__ wa1, const float *__restrict__ wa2,        \
@@ -179,16 +195,16 @@ gat_layer_fwd_kernel(GAT_FWD_PARAMS, float* __restrict__ out, int n, int din,
                      int heads, int dh, int p, float alpha, float out_alpha,
                      int has_out_alpha, int ntiles, TrainArgs ta) {
   fwd_body<false>(GAT_FWD_ARGS, out, n, din, heads, dh, p, alpha, out_alpha,
-                  has_out_alpha, ntiles, ta);
+                  has_out_alpha, ntiles, ta, nullptr);
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
 gat_layer_fwd_train_kernel(GAT_FWD_PARAMS, float* __restrict__ out, int n,
                            int din, int heads, int dh, int p, float alpha,
                            float out_alpha, int has_out_alpha, int ntiles,
-                           TrainArgs ta) {
+                           TrainArgs ta, float* __restrict__ attn) {
   fwd_body<true>(GAT_FWD_ARGS, out, n, din, heads, dh, p, alpha, out_alpha,
-                 has_out_alpha, ntiles, ta);
+                 has_out_alpha, ntiles, ta, attn);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -196,26 +212,29 @@ gat_layer_pooled_fwd_kernel(GAT_FWD_PARAMS, float* __restrict__ pools, int n,
                             int din, int heads, int dh, int p, float alpha,
                             int ntiles, TrainArgs ta) {
   pooled_body<false>(GAT_FWD_ARGS, pools, n, din, heads, dh, p, alpha, ntiles,
-                     ta);
+                     ta, nullptr);
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
 gat_layer_pooled_fwd_train_kernel(GAT_FWD_PARAMS, float* __restrict__ pools,
                                   int n, int din, int heads, int dh, int p,
-                                  float alpha, int ntiles, TrainArgs ta) {
+                                  float alpha, int ntiles, TrainArgs ta,
+                                  float* __restrict__ attn) {
   pooled_body<true>(GAT_FWD_ARGS, pools, n, din, heads, dh, p, alpha, ntiles,
-                    ta);
+                    ta, attn);
 }
 
-// The dropout generator alone, for checking it against ops/dropout.py.
+// The dropout generator alone (words, or the 8-bit mode's bytes), for
+// checking it against ops/dropout.py.
 __global__ void dropout_bits_kernel(unsigned seed, unsigned stream,
                                     const unsigned* __restrict__ rows,
                                     const unsigned* __restrict__ cols,
                                     unsigned* __restrict__ out,
-                                    long long count) {
+                                    long long count, int bits8) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < count)
-    out[i] = drop_bits(row_key(stream_key(seed, stream), rows[i]), cols[i]);
+    out[i] = drop_value(row_key(stream_key(seed, stream), rows[i]), cols[i],
+                        bits8);
 }
 
 template <bool kTrain>
@@ -225,19 +244,23 @@ cudaError_t launch_fwd(const float* x, const float* fc, const float* wa1,
                        const int* ngp, const int* nsib, float* out, int b,
                        int n, int din, int heads, int dh, int p, float alpha,
                        float out_alpha, int has_out_alpha,
-                       const TrainArgs& ta, void* stream) {
+                       const TrainArgs& ta, float* attn, void* stream) {
   const size_t smem = smem_bytes(n, kTrain ? kTrainLayout : kEvalLayout);
-  const void* kernel = kTrain ? (const void*)gat_layer_fwd_train_kernel
-                              : (const void*)gat_layer_fwd_kernel;
-  cudaError_t err = prepare(kernel, smem);
+  cudaError_t err = prepare(kTrain ? (const void*)gat_layer_fwd_train_kernel
+                                   : (const void*)gat_layer_fwd_kernel,
+                            smem);
   if (err != cudaSuccess) return err;
   const int ntiles = (dh + kTileCols - 1) / kTileCols;
   const long long blocks = (long long)b * heads * ntiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (blocks > 0)
-    (kTrain ? gat_layer_fwd_train_kernel
-            : gat_layer_fwd_kernel)<<<(unsigned)blocks, kThreads, smem,
-                                      (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)blocks);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (blocks > 0 && kTrain)
+    gat_layer_fwd_train_kernel<<<grid, kThreads, smem, st>>>(
+        x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, out, n, din,
+        heads, dh, p, alpha, out_alpha, has_out_alpha, ntiles, ta, attn);
+  else if (blocks > 0)
+    gat_layer_fwd_kernel<<<grid, kThreads, smem, st>>>(
         x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, out, n, din,
         heads, dh, p, alpha, out_alpha, has_out_alpha, ntiles, ta);
   return cudaGetLastError();
@@ -249,20 +272,25 @@ cudaError_t launch_pooled(const float* x, const float* fc, const float* wa1,
                           const float* bias_a1, const float* bias_a2,
                           const int* ngp, const int* nsib, float* pools,
                           int b, int n, int din, int heads, int dh, int p,
-                          float alpha, const TrainArgs& ta, void* stream) {
+                          float alpha, const TrainArgs& ta, float* attn,
+                          void* stream) {
   const size_t smem = smem_bytes(n, kTrain ? kTrainLayout : kEvalLayout);
-  const void* kernel = kTrain
-                           ? (const void*)gat_layer_pooled_fwd_train_kernel
-                           : (const void*)gat_layer_pooled_fwd_kernel;
-  cudaError_t err = prepare(kernel, smem);
+  cudaError_t err =
+      prepare(kTrain ? (const void*)gat_layer_pooled_fwd_train_kernel
+                     : (const void*)gat_layer_pooled_fwd_kernel,
+              smem);
   if (err != cudaSuccess) return err;
   const int ntiles = (dh + kTileCols - 1) / kTileCols;
   const long long blocks = (long long)b * ntiles;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (blocks > 0)
-    (kTrain ? gat_layer_pooled_fwd_train_kernel
-            : gat_layer_pooled_fwd_kernel)<<<(unsigned)blocks, kThreads, smem,
-                                             (cudaStream_t)stream>>>(
+  const dim3 grid((unsigned)blocks);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (blocks > 0 && kTrain)
+    gat_layer_pooled_fwd_train_kernel<<<grid, kThreads, smem, st>>>(
+        x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, pools, n, din,
+        heads, dh, p, alpha, ntiles, ta, attn);
+  else if (blocks > 0)
+    gat_layer_pooled_fwd_kernel<<<grid, kThreads, smem, st>>>(
         x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, pools, n, din,
         heads, dh, p, alpha, ntiles, ta);
   return cudaGetLastError();
@@ -289,7 +317,7 @@ int gat_layer_fwd_f32(const float* x, const float* fc, const float* wa1,
   const TrainArgs none = {};
   return launch_fwd<false>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                            nsib, out, b, n, din, heads, dh, p, alpha,
-                           out_alpha, has_out_alpha, none, stream);
+                           out_alpha, has_out_alpha, none, nullptr, stream);
 }
 
 // As gat_layer_fwd_f32, but writes pools [b, 3, dh] (gp, anchor, sib).
@@ -303,10 +331,12 @@ int gat_layer_pooled_fwd_f32(const float* x, const float* fc,
   const TrainArgs none = {};
   return launch_pooled<false>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
                               ngp, nsib, pools, b, n, din, heads, dh, p,
-                              alpha, none, stream);
+                              alpha, none, nullptr, stream);
 }
 
-// Train forms: as above, with dropout and the pe path described by *ta.
+// Train forms: as above, with dropout and the pe path described by *ta;
+// attn [b, heads, 2n - p - 1] receives the softmax weights before dropout
+// when it is not null (the store form).
 int gat_layer_fwd_train_f32(const float* x, const float* fc,
                             const float* wa1, const float* wa2,
                             const float* bias_ft, const float* bias_a1,
@@ -314,10 +344,10 @@ int gat_layer_fwd_train_f32(const float* x, const float* fc,
                             const int* nsib, float* out, int b, int n,
                             int din, int heads, int dh, int p, float alpha,
                             float out_alpha, int has_out_alpha,
-                            const TrainArgs* ta, void* stream) {
+                            const TrainArgs* ta, float* attn, void* stream) {
   return launch_fwd<true>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                           nsib, out, b, n, din, heads, dh, p, alpha,
-                          out_alpha, has_out_alpha, *ta, stream);
+                          out_alpha, has_out_alpha, *ta, attn, stream);
 }
 
 int gat_layer_pooled_fwd_train_f32(const float* x, const float* fc,
@@ -327,20 +357,21 @@ int gat_layer_pooled_fwd_train_f32(const float* x, const float* fc,
                                    const int* nsib, float* pools, int b,
                                    int n, int din, int heads, int dh, int p,
                                    float alpha, const TrainArgs* ta,
-                                   void* stream) {
+                                   float* attn, void* stream) {
   return launch_pooled<true>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                              nsib, pools, b, n, din, heads, dh, p, alpha,
-                             *ta, stream);
+                             *ta, attn, stream);
 }
 
-// out[i] = dropout bits of (rows[i], cols[i]) in `stream` (uint32 arrays).
+// out[i] = dropout bits of (rows[i], cols[i]) in `stream` (uint32 arrays):
+// the 32-bit words, or with bits8 the 8-bit mode's bytes.
 int dropout_bits_u32(unsigned seed, unsigned stream_id, const unsigned* rows,
                      const unsigned* cols, unsigned* out, long long count,
-                     void* stream) {
+                     int bits8, void* stream) {
   if (count > 0)
     dropout_bits_kernel<<<(unsigned)((count + 255) / 256), 256, 0,
                           (cudaStream_t)stream>>>(seed, stream_id, rows, cols,
-                                                  out, count);
+                                                  out, count, bits8);
   return cudaGetLastError();
 }
 

@@ -10,11 +10,17 @@ counters and the autograd Functions around them.
     gat_layer_bwd               K2: fused_gat_layer bwd (:991, _bwd_kernel :507)
     gat_layer_pooled_bwd        K4: fused_gat_layer_pooled bwd (:1188,
                                 _bwd_pool_kernel :680)
+    gat_layer_fwd_train_store,  K7a, the train forms that also write the
+    gat_layer_pooled_fwd_train_store  softmax weights (_store_attn :231)
+    gat_layer_bwd_stored,       K7a, the backwards that read them
+    gat_layer_pooled_bwd_stored       (_attn_from_stored :240)
 
 The forwards are `ops/csrc/gat_fwd.cu`, the backwards `ops/csrc/gat_bwd.cu`;
 their headers state what bounds them on an H100 and what the design does
 about it. Dropout bits come from `ops/dropout.py`, whose generator the
-kernels share, so a plain version regenerates the kernels' masks exactly.
+kernels share, so a plain version regenerates the kernels' masks exactly;
+every train form and backward takes `dropout_bits` (32, or 8 for the 8-bit
+thresholds of K7b, pallas_gat.py:73-97).
 
 Dispatch is by the device of the tensors: on the CPU a wrapper runs its
 plain version; on CUDA it launches the kernel or raises. There is no
@@ -25,11 +31,18 @@ fallback from one to the other. Each wrapper counts its launches in
 counterparts of the JAX custom_vjp functions): their forward runs a forward
 wrapper, their backward the matching backward wrapper, on either device.
 The backward saves the layer inputs and the seed, and recomputes ft and the
-attention (never stores ft), as the TPU kernel does.
+attention (never stores ft), as the TPU kernel does. Two switches of the JAX
+package, read from the environment when the layer's forward runs and kept
+for its backward (so the replay cannot desynchronise): TAXOEXPAN_DROPOUT_BITS
+=8 selects the 8-bit masks; TAXOEXPAN_STORED_ATTN=1 makes the forward, when
+a gradient is needed, run the store form and the backward the stored form,
+which reads the softmax weights instead of recomputing them (the inference
+path never writes them, pallas_gat.py:1295-1299).
 """
 from __future__ import annotations
 
 import ctypes
+import os
 from dataclasses import dataclass
 
 import torch
@@ -44,8 +57,8 @@ LEAKY_ALPHA = 0.2   # attention logits (GATLayer default); the inter-layer
 
 
 _BWD_POINTERS = ("x", "fc", "wa1", "wa2", "bias_ft", "bias_a1", "bias_a2",
-                 "ngp", "nsib", "g", "dcat", "part_w", "part_b", "pe_rows",
-                 "part_pe", "dx", "dfc", "dwa1", "dwa2", "dbias_ft",
+                 "ngp", "nsib", "g", "attn", "dcat", "part_w", "part_b",
+                 "pe_rows", "part_pe", "dx", "dfc", "dwa1", "dwa2", "dbias_ft",
                  "dbias_a1", "dbias_a2", "dpe", "dwp", "dwpa1", "dwpa2")
 _BWD_INTS = ("b", "n", "din", "heads", "dh", "p", "pooled", "need_dx",
              "need_dbias", "has_out_alpha", "splits", "chunks")
@@ -60,16 +73,16 @@ class _BwdArgs(ctypes.Structure):
 
 # C signatures of ops/csrc/gat_fwd.cu: 10 pointers (x, fc, wa1, wa2,
 # bias_ft, bias_a1, bias_a2, ngp, nsib, out), b, n, din, heads, dh, p,
-# alpha, ...
+# alpha, ... (the train forms: ..., TrainArgs*, attn or null, stream)
 _COMMON = [_P] * 10 + [_I] * 6 + [_F]
 _TA = ctypes.POINTER(_TrainArgs)
 FWD_SIGNATURES = {
     "gat_layer_fwd_f32": (_COMMON + [_F, _I, _P], _I),
     "gat_layer_pooled_fwd_f32": (_COMMON + [_P], _I),
-    "gat_layer_fwd_train_f32": (_COMMON + [_F, _I, _TA, _P], _I),
-    "gat_layer_pooled_fwd_train_f32": (_COMMON + [_TA, _P], _I),
+    "gat_layer_fwd_train_f32": (_COMMON + [_F, _I, _TA, _P, _P], _I),
+    "gat_layer_pooled_fwd_train_f32": (_COMMON + [_TA, _P, _P], _I),
     "dropout_bits_u32": ([ctypes.c_uint, ctypes.c_uint, _P, _P, _P,
-                          ctypes.c_longlong, _P], _I),
+                          ctypes.c_longlong, _I, _P], _I),
     "gat_fwd_error_string": ([_I], ctypes.c_char_p),
 }
 BWD_SIGNATURES = {
@@ -135,29 +148,70 @@ def _leaky(v, alpha):
     return torch.where(v >= 0, v, alpha * v)
 
 
-def _star_attention_train(ft, a1, a2, ngp, p, masks):
+def attn_row(n: int, p: int) -> int:
+    """Floats of one (egonet, head)'s stored softmax weights: P gp -> anchor,
+    the anchor's self-loop, S anchor -> sib and S sib self-loops."""
+    return 2 * n - p - 1
+
+
+class _StoredSoftmax(torch.autograd.Function):
+    """softmax(logits, dim) whose value is the forward's stored weights `sm`
+    and whose backward is the softmax's Jacobian at them, sm * (g - sum(sm *
+    g)): the plain version of the stored-attention backward
+    (_attn_from_stored, pallas_gat.py:240, and the Jacobian :474-480)."""
+
+    @staticmethod
+    def forward(ctx, logits, sm, dim):
+        ctx.save_for_backward(sm)
+        ctx.dim = dim
+        return sm.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (sm,) = ctx.saved_tensors
+        return sm * (g - (sm * g).sum(ctx.dim, keepdim=True)), None, None
+
+
+def _star_attention_train(ft, a1, a2, ngp, p, masks, stored=None):
     """The star attention of `_tile_attention` (pallas_gat.py:118-162) with
     the attention masks multiplied in after the softmax. ft [B, N, H, Dh],
-    a1/a2 [B, N, H]; masks as dropout.attention_masks, or None.
+    a1/a2 [B, N, H]; masks as dropout.attention_masks, or None; stored: the
+    softmax weights [B, H, 2N - P - 1] to use instead of recomputing them.
     Returns (out_gp [B, P, H, Dh], out_anchor [B, H, Dh], out_sib
-    [B, S, H, Dh], gp_mask [B, P, 1])."""
+    [B, S, H, Dh], gp_mask [B, P, 1], the softmax weights before dropout
+    [B, H, 2N - P - 1])."""
     gp_mask = (torch.arange(p, device=ngp.device)[None, :]
                < ngp[:, None].long())[..., None]
     lg_gp = _leaky(a1[:, :p] + a2[:, p:p + 1], LEAKY_ALPHA)        # [B,P,H]
     lg_gp = torch.where(gp_mask, lg_gp, torch.full_like(lg_gp, star.NEG_INF))
     lg_self = _leaky(a1[:, p:p + 1] + a2[:, p:p + 1], LEAKY_ALPHA)  # [B,1,H]
-    m = lg_self
-    if p:
-        m = torch.maximum(lg_gp.max(dim=1, keepdim=True).values, lg_self)
-    e_gp = torch.where(gp_mask, torch.exp(lg_gp - m), torch.zeros_like(lg_gp))
-    e_self = torch.exp(lg_self - m)
-    den = e_gp.sum(dim=1, keepdim=True) + e_self
-    w_gp2a, w_selfa = e_gp / den, e_self / den
     l0 = _leaky(a1[:, p:p + 1] + a2[:, p + 1:], LEAKY_ALPHA)       # [B,S,H]
     l1 = _leaky(a1[:, p + 1:] + a2[:, p + 1:], LEAKY_ALPHA)
-    m2 = torch.maximum(l0, l1)
-    e0, e1 = torch.exp(l0 - m2), torch.exp(l1 - m2)
-    w_s0, w_s1 = e0 / (e0 + e1), e1 / (e0 + e1)
+    if stored is None:
+        m = lg_self
+        if p:
+            m = torch.maximum(lg_gp.max(dim=1, keepdim=True).values, lg_self)
+        e_gp = torch.where(gp_mask, torch.exp(lg_gp - m),
+                           torch.zeros_like(lg_gp))
+        e_self = torch.exp(lg_self - m)
+        den = e_gp.sum(dim=1, keepdim=True) + e_self
+        w_gp2a, w_selfa = e_gp / den, e_self / den
+        m2 = torch.maximum(l0, l1)
+        e0, e1 = torch.exp(l0 - m2), torch.exp(l1 - m2)
+        w_s0, w_s1 = e0 / (e0 + e1), e1 / (e0 + e1)
+    else:
+        s = l0.shape[1]
+        st = stored.permute(0, 2, 1)                              # [B, K, H]
+        sm_a = _StoredSoftmax.apply(torch.cat([lg_gp, lg_self], dim=1),
+                                    st[:, :p + 1], 1)
+        sm_s = _StoredSoftmax.apply(
+            torch.stack([l0, l1], dim=-1),
+            torch.stack([st[:, p + 1:p + 1 + s], st[:, p + 1 + s:]], dim=-1),
+            -1)
+        w_gp2a, w_selfa = sm_a[:, :p], sm_a[:, p:]
+        w_s0, w_s1 = sm_s[..., 0], sm_s[..., 1]
+    sm = torch.cat([w_gp2a, w_selfa, w_s0, w_s1], dim=1).detach().permute(
+        0, 2, 1).contiguous()
     if masks is not None:
         d_gp2a, d_selfa, d_s0, d_s1, d_gp = masks
         w_gp2a, w_selfa = w_gp2a * d_gp2a, w_selfa * d_selfa
@@ -170,27 +224,31 @@ def _star_attention_train(ft, a1, a2, ngp, p, masks):
                   + w_selfa[:, 0, :, None] * ft_anchor)
     out_sib = w_s0[..., None] * ft_anchor[:, None] + w_s1[..., None] * \
         ft[:, p + 1:]
-    return out_gp, out_anchor, out_sib, gp_mask
+    return out_gp, out_anchor, out_sib, gp_mask, sm
 
 
 def gat_layer_train_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                           nsib, p: int, heads: int, *, pe_pack=None,
                           seed: int = 0, feat_drop: float = 0.0,
                           attn_drop: float = 0.0, out_alpha=None,
-                          pooled: bool = False) -> torch.Tensor:
+                          pooled: bool = False, dropout_bits: int = 32,
+                          store_attn: bool = False, stored_attn=None):
     """Plain PyTorch version of the train forms (and, at rates 0, of the
     eval forms), differentiable by autograd: per-slot output [B, N, H*Dh]
     or, with `pooled`, pools [B, 3, Dh]. The masks come from
-    ops/dropout.py, exactly the kernels' bits.
+    ops/dropout.py, exactly the kernels' bits (`dropout_bits` 32 or 8).
 
     pe_pack = (pe [N, pos], wp [pos, H*Dh], wpa1 [pos, H], wpa2 [pos, H]):
-    the pe path, [x*m | pe*m_pe] @ [W_h; W_p] (requires feat_drop > 0)."""
+    the pe path, [x*m | pe*m_pe] @ [W_h; W_p] (requires feat_drop > 0).
+    store_attn: return (output, softmax weights [B, H, 2N - P - 1]) as the
+    store forms do; stored_attn: such weights, used instead of the softmax
+    (their backward is the stored form's)."""
     b, n, din = x.shape
     hd = fc.shape[1]
     dev = x.device
     if feat_drop > 0:
         x = x * dropout.slot_mask(seed, dropout.STREAM_FEAT, b, n, din,
-                                  feat_drop, dev)
+                                  feat_drop, dev, dropout_bits)
     ft = (x.reshape(b * n, din) @ fc).reshape(b, n, hd) + bias_ft[None]
     a1 = x @ wa1 + bias_a1[None]
     a2 = x @ wa2 + bias_a2[None]
@@ -198,27 +256,29 @@ def gat_layer_train_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
         pe, wp, wpa1, wpa2 = pe_pack
         pos = pe.shape[1]
         pm = pe[None] * dropout.slot_mask(seed, dropout.STREAM_PE, b, n, pos,
-                                          feat_drop, dev)
+                                          feat_drop, dev, dropout_bits)
         ft = ft + (pm.reshape(b * n, pos) @ wp).reshape(b, n, hd)
         a1 = a1 + pm @ wpa1
         a2 = a2 + pm @ wpa2
     masks = None
     if attn_drop > 0:
         masks = dropout.attention_masks(seed, b, p, n - p - 1, heads,
-                                        attn_drop, dev)
-    out_gp, out_anchor, out_sib, gp_mask = _star_attention_train(
-        ft.reshape(b, n, heads, hd // heads), a1, a2, ngp, p, masks)
+                                        attn_drop, dev, dropout_bits)
+    out_gp, out_anchor, out_sib, gp_mask, sm = _star_attention_train(
+        ft.reshape(b, n, heads, hd // heads), a1, a2, ngp, p, masks,
+        stored_attn)
     if pooled:
         sib_mask = (torch.arange(n - p - 1, device=dev)[None, :]
                     < nsib[:, None].long())[..., None, None]
         pool_gp = (out_gp * gp_mask[..., None]).sum(dim=1).mean(dim=1)
         pool_sib = (out_sib * sib_mask).sum(dim=1).mean(dim=1)
-        return torch.stack([pool_gp, out_anchor.mean(dim=1), pool_sib], dim=1)
-    out = torch.cat([out_gp, out_anchor[:, None], out_sib], dim=1).reshape(
-        b, n, hd)
-    if out_alpha is not None:
-        out = _leaky(out, out_alpha)
-    return out
+        out = torch.stack([pool_gp, out_anchor.mean(dim=1), pool_sib], dim=1)
+    else:
+        out = torch.cat([out_gp, out_anchor[:, None], out_sib],
+                        dim=1).reshape(b, n, hd)
+        if out_alpha is not None:
+            out = _leaky(out, out_alpha)
+    return (out, sm) if store_attn else out
 
 
 _GRAD_NAMES = ("x", "fc", "wa1", "wa2", "bias_ft", "bias_a1", "bias_a2")
@@ -229,11 +289,13 @@ def gat_layer_bwd_plain(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                         nsib, p: int, heads: int, *, pe_pack=None,
                         seed: int = 0, feat_drop: float = 0.0,
                         attn_drop: float = 0.0, out_alpha=None,
-                        pooled: bool = False, need_dx: bool = True) -> dict:
+                        pooled: bool = False, need_dx: bool = True,
+                        dropout_bits: int = 32, stored_attn=None) -> dict:
     """Plain backward: torch.autograd.grad through `gat_layer_train_plain`
-    with the same seed, so the same masks. Returns {name: grad} for x
-    (None unless need_dx), fc, wa1, wa2, the slot biases and, on the pe
-    path, pe, wp, wpa1, wpa2."""
+    with the same seed, so the same masks (and, given `stored_attn`, the
+    stored form's softmax weights). Returns {name: grad} for x (None unless
+    need_dx), fc, wa1, wa2, the slot biases and, on the pe path, pe, wp,
+    wpa1, wpa2."""
     tensors = [x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2]
     names = list(_GRAD_NAMES)
     if pe_pack is not None:
@@ -245,7 +307,8 @@ def gat_layer_bwd_plain(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
             *leaves[:7], ngp, nsib, p, heads,
             pe_pack=tuple(leaves[7:]) if pe_pack is not None else None,
             seed=seed, feat_drop=feat_drop, attn_drop=attn_drop,
-            out_alpha=out_alpha, pooled=pooled)
+            out_alpha=out_alpha, pooled=pooled, dropout_bits=dropout_bits,
+            stored_attn=stored_attn)
         grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
     res = dict(zip(names, grads))
     if not need_dx:
@@ -283,9 +346,11 @@ def _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
 # ----------------------------------------------------------------- forwards
 
 def _fwd_cuda(what: str, pooled: bool, x, fc, wa1, wa2, bias_ft, bias_a1,
-              bias_a2, ngp, nsib, p, heads, out_alpha=None, train=None):
+              bias_a2, ngp, nsib, p, heads, out_alpha=None, train=None,
+              store: bool = False):
     """Check, allocate and launch one forward kernel; `train` = (pe_pack,
-    seed, feat_drop, attn_drop) selects the train form."""
+    seed, feat_drop, attn_drop, dropout_bits) selects the train form, and
+    `store` its store form, which returns (out, attn)."""
     pe_pack = train[0] if train is not None else None
     _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
            pe_pack)
@@ -295,8 +360,10 @@ def _fwd_cuda(what: str, pooled: bool, x, fc, wa1, wa2, bias_ft, bias_a1,
     dh = fc.shape[1] // heads
     shape = (b, 3, dh) if pooled else (b, n, heads * dh)
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    attn = (torch.empty((b, heads, attn_row(n, p)), dtype=torch.float32,
+                        device=x.device) if store else None)
     if b == 0:
-        return out
+        return (out, attn) if store else out
     args = [t.data_ptr() for t in (x, fc, wa1, wa2, bias_ft, bias_a1,
                                    bias_a2, ngp, nsib, out)]
     args += [b, n, din, heads, dh, p, LEAKY_ALPHA]
@@ -304,13 +371,18 @@ def _fwd_cuda(what: str, pooled: bool, x, fc, wa1, wa2, bias_ft, bias_a1,
         args += [0.0 if out_alpha is None else float(out_alpha),
                  0 if out_alpha is None else 1]
     if ta is not None:
-        args.append(ctypes.byref(ta))
+        args += [ctypes.byref(ta), attn.data_ptr() if store else None]
     fn = getattr(lib, f"{'gat_layer_pooled_fwd' if pooled else 'gat_layer_fwd'}"
                       f"{'_train' if train is not None else ''}_f32")
     with torch.cuda.device(x.device):
         rc = fn(*args, stream(x))
     raise_on(lib, rc, what, "gat_fwd_error_string")
-    return out
+    return (out, attn) if store else out
+
+
+def _count(wrapper, x) -> None:
+    if x.shape[0]:
+        wrapper.launches += 1
 
 
 def gat_layer_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
@@ -325,8 +397,7 @@ def gat_layer_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
     if not on_cuda(x, "gat_layer_fwd"):
         return gat_layer_fwd_plain(*ops, out_alpha)
     out = _fwd_cuda("gat_layer_fwd", False, *ops, out_alpha=out_alpha)
-    if x.shape[0]:
-        gat_layer_fwd.launches += 1
+    _count(gat_layer_fwd, x)
     return out
 
 
@@ -339,61 +410,98 @@ def gat_layer_pooled_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
     if not on_cuda(x, "gat_layer_pooled_fwd"):
         return gat_layer_pooled_fwd_plain(*ops)
     out = _fwd_cuda("gat_layer_pooled_fwd", True, *ops)
-    if x.shape[0]:
-        gat_layer_pooled_fwd.launches += 1
+    _count(gat_layer_pooled_fwd, x)
+    return out
+
+
+def _train_fwd(wrapper, pooled: bool, store: bool, ops, out_alpha, pe_pack,
+               seed, feat_drop, attn_drop, dropout_bits):
+    """A train-form forward wrapper's body: the plain version on the CPU,
+    the kernel (counted on `wrapper`) on CUDA."""
+    what = wrapper.__name__
+    if not on_cuda(ops[0], what):
+        return gat_layer_train_plain(
+            *ops, pe_pack=pe_pack, seed=seed, feat_drop=feat_drop,
+            attn_drop=attn_drop, out_alpha=out_alpha, pooled=pooled,
+            dropout_bits=dropout_bits, store_attn=store)
+    out = _fwd_cuda(what, pooled, *ops, out_alpha=out_alpha,
+                    train=(pe_pack, seed, feat_drop, attn_drop, dropout_bits),
+                    store=store)
+    _count(wrapper, ops[0])
     return out
 
 
 def gat_layer_fwd_train(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                         nsib, p: int, heads: int, *, pe_pack=None,
                         seed: int = 0, feat_drop: float = 0.0,
-                        attn_drop: float = 0.0,
-                        out_alpha=None) -> torch.Tensor:
+                        attn_drop: float = 0.0, out_alpha=None,
+                        dropout_bits: int = 32) -> torch.Tensor:
     """Train form of `gat_layer_fwd`: input-feature dropout (feat_drop),
     attention dropout (attn_drop) and the pe path (pe_pack, see
-    `gat_layer_train_plain`), masks drawn from `seed`."""
-    ops = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads)
-    if not on_cuda(x, "gat_layer_fwd_train"):
-        return gat_layer_train_plain(*ops, pe_pack=pe_pack, seed=seed,
-                                     feat_drop=feat_drop,
-                                     attn_drop=attn_drop, out_alpha=out_alpha)
-    out = _fwd_cuda("gat_layer_fwd_train", False, *ops, out_alpha=out_alpha,
-                    train=(pe_pack, seed, feat_drop, attn_drop))
-    if x.shape[0]:
-        gat_layer_fwd_train.launches += 1
-    return out
+    `gat_layer_train_plain`), masks drawn from `seed` with `dropout_bits`
+    thresholds."""
+    return _train_fwd(gat_layer_fwd_train, False, False,
+                      (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
+                       p, heads), out_alpha, pe_pack, seed, feat_drop,
+                      attn_drop, dropout_bits)
 
 
 def gat_layer_pooled_fwd_train(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
                                ngp, nsib, p: int, heads: int, *,
                                pe_pack=None, seed: int = 0,
                                feat_drop: float = 0.0,
-                               attn_drop: float = 0.0) -> torch.Tensor:
+                               attn_drop: float = 0.0,
+                               dropout_bits: int = 32) -> torch.Tensor:
     """Train form of `gat_layer_pooled_fwd` (see `gat_layer_fwd_train`)."""
-    ops = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads)
-    if not on_cuda(x, "gat_layer_pooled_fwd_train"):
-        return gat_layer_train_plain(*ops, pe_pack=pe_pack, seed=seed,
-                                     feat_drop=feat_drop,
-                                     attn_drop=attn_drop, pooled=True)
-    out = _fwd_cuda("gat_layer_pooled_fwd_train", True, *ops,
-                    train=(pe_pack, seed, feat_drop, attn_drop))
-    if x.shape[0]:
-        gat_layer_pooled_fwd_train.launches += 1
-    return out
+    return _train_fwd(gat_layer_pooled_fwd_train, True, False,
+                      (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
+                       p, heads), None, pe_pack, seed, feat_drop, attn_drop,
+                      dropout_bits)
+
+
+def gat_layer_fwd_train_store(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
+                              ngp, nsib, p: int, heads: int, *, pe_pack=None,
+                              seed: int = 0, feat_drop: float = 0.0,
+                              attn_drop: float = 0.0, out_alpha=None,
+                              dropout_bits: int = 32):
+    """Store form of `gat_layer_fwd_train`: returns (out, attn), attn
+    [B, H, 2N - P - 1] the softmax weights before dropout, for
+    `gat_layer_bwd_stored`."""
+    return _train_fwd(gat_layer_fwd_train_store, False, True,
+                      (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
+                       p, heads), out_alpha, pe_pack, seed, feat_drop,
+                      attn_drop, dropout_bits)
+
+
+def gat_layer_pooled_fwd_train_store(x, fc, wa1, wa2, bias_ft, bias_a1,
+                                     bias_a2, ngp, nsib, p: int, heads: int,
+                                     *, pe_pack=None, seed: int = 0,
+                                     feat_drop: float = 0.0,
+                                     attn_drop: float = 0.0,
+                                     dropout_bits: int = 32):
+    """Store form of `gat_layer_pooled_fwd_train`: returns (pools, attn)."""
+    return _train_fwd(gat_layer_pooled_fwd_train_store, True, True,
+                      (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
+                       p, heads), None, pe_pack, seed, feat_drop, attn_drop,
+                      dropout_bits)
 
 
 # ---------------------------------------------------------------- backwards
 
 def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
               ngp, nsib, p, heads, pe_pack, seed, feat_drop, attn_drop,
-              out_alpha, need_dx, need_dbias) -> dict:
+              out_alpha, need_dx, need_dbias, dropout_bits=32,
+              attn=None) -> dict:
     b, n, din = x.shape
     hd = fc.shape[1]
     dh = hd // heads
     g_shape = (b, 3, dh) if pooled else (b, n, hd)
+    extra = [("g", (g, g_shape))]
+    if attn is not None:
+        extra.append(("attn", (attn, (b, heads, attn_row(n, p)))))
     _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
-           pe_pack, extra=[("g", (g, g_shape))])
-    ta = train_args(pe_pack, seed, feat_drop, attn_drop)
+           pe_pack, extra=extra)
+    ta = train_args(pe_pack, seed, feat_drop, attn_drop, dropout_bits)
     pos = ta.pos
     dev = x.device
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa
@@ -428,7 +536,7 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
     args = _BwdArgs()
     ptrs = {"x": x, "fc": fc, "wa1": wa1, "wa2": wa2, "bias_ft": bias_ft,
             "bias_a1": bias_a1, "bias_a2": bias_a2, "ngp": ngp,
-            "nsib": nsib, "g": g, **work, "dx": grads["x"],
+            "nsib": nsib, "g": g, "attn": attn, **work, "dx": grads["x"],
             "dfc": grads["fc"], "dwa1": grads["wa1"], "dwa2": grads["wa2"],
             "dbias_ft": grads["bias_ft"], "dbias_a1": grads["bias_a1"],
             "dbias_a2": grads["bias_a2"], "dpe": grads.get("pe"),
@@ -454,56 +562,96 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
     return grads
 
 
+def _bwd(wrapper, pooled: bool, g, ops, out_alpha, attn, pe_pack, seed,
+         feat_drop, attn_drop, need_dx, need_dbias, dropout_bits) -> dict:
+    """A backward wrapper's body: the plain version on the CPU, the kernels
+    (counted on `wrapper`) on CUDA."""
+    x = ops[0]
+    if not on_cuda(x, wrapper.__name__):
+        return gat_layer_bwd_plain(
+            g, *ops, pe_pack=pe_pack, seed=seed, feat_drop=feat_drop,
+            attn_drop=attn_drop, out_alpha=out_alpha, pooled=pooled,
+            need_dx=need_dx, dropout_bits=dropout_bits, stored_attn=attn)
+    res = _bwd_cuda(pooled, g, *ops, pe_pack, seed, feat_drop, attn_drop,
+                    out_alpha, need_dx, need_dbias, dropout_bits, attn)
+    _count(wrapper, x)
+    return res
+
+
 def gat_layer_bwd(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
                   p: int, heads: int, *, pe_pack=None, seed: int = 0,
                   feat_drop: float = 0.0, attn_drop: float = 0.0,
                   out_alpha=None, need_dx: bool = True,
-                  need_dbias: bool = True) -> dict:
+                  need_dbias: bool = True, dropout_bits: int = 32) -> dict:
     """Backward of `gat_layer_fwd[_train]` for the incoming grad g
     [B, N, H*Dh]: {x (need_dx), fc, wa1, wa2, bias_ft, bias_a1, bias_a2
     (need_dbias), and with pe_pack pe, wp, wpa1, wpa2}."""
-    if not on_cuda(x, "gat_layer_bwd"):
-        return gat_layer_bwd_plain(
-            g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p,
-            heads, pe_pack=pe_pack, seed=seed, feat_drop=feat_drop,
-            attn_drop=attn_drop, out_alpha=out_alpha, need_dx=need_dx)
-    res = _bwd_cuda(False, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
-                    ngp, nsib, p, heads, pe_pack, seed, feat_drop,
-                    attn_drop, out_alpha, need_dx, need_dbias)
-    if x.shape[0]:
-        gat_layer_bwd.launches += 1
-    return res
+    return _bwd(gat_layer_bwd, False, g,
+                (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p,
+                 heads), out_alpha, None, pe_pack, seed, feat_drop,
+                attn_drop, need_dx, need_dbias, dropout_bits)
 
 
 def gat_layer_pooled_bwd(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                          nsib, p: int, heads: int, *, pe_pack=None,
                          seed: int = 0, feat_drop: float = 0.0,
                          attn_drop: float = 0.0, need_dx: bool = True,
-                         need_dbias: bool = True) -> dict:
+                         need_dbias: bool = True,
+                         dropout_bits: int = 32) -> dict:
     """Backward of `gat_layer_pooled_fwd[_train]` for the pool grads g
     [B, 3, Dh]; returns as `gat_layer_bwd`."""
-    if not on_cuda(x, "gat_layer_pooled_bwd"):
-        return gat_layer_bwd_plain(
-            g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p,
-            heads, pe_pack=pe_pack, seed=seed, feat_drop=feat_drop,
-            attn_drop=attn_drop, pooled=True, need_dx=need_dx)
-    res = _bwd_cuda(True, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
-                    ngp, nsib, p, heads, pe_pack, seed, feat_drop,
-                    attn_drop, None, need_dx, need_dbias)
-    if x.shape[0]:
-        gat_layer_pooled_bwd.launches += 1
-    return res
+    return _bwd(gat_layer_pooled_bwd, True, g,
+                (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p,
+                 heads), None, None, pe_pack, seed, feat_drop, attn_drop,
+                need_dx, need_dbias, dropout_bits)
 
 
-for _w in (gat_layer_fwd, gat_layer_pooled_fwd, gat_layer_fwd_train,
-           gat_layer_pooled_fwd_train, gat_layer_bwd, gat_layer_pooled_bwd):
-    _w.launches = 0
+def gat_layer_bwd_stored(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
+                         nsib, p: int, heads: int, attn, *, pe_pack=None,
+                         seed: int = 0, feat_drop: float = 0.0,
+                         attn_drop: float = 0.0, out_alpha=None,
+                         need_dx: bool = True, need_dbias: bool = True,
+                         dropout_bits: int = 32) -> dict:
+    """Stored form of `gat_layer_bwd`: the softmax weights come from `attn`
+    [B, H, 2N - P - 1] (of `gat_layer_fwd_train_store`, same seed) instead
+    of a recompute."""
+    return _bwd(gat_layer_bwd_stored, False, g,
+                (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p,
+                 heads), out_alpha, attn, pe_pack, seed, feat_drop,
+                attn_drop, need_dx, need_dbias, dropout_bits)
+
+
+def gat_layer_pooled_bwd_stored(g, x, fc, wa1, wa2, bias_ft, bias_a1,
+                                bias_a2, ngp, nsib, p: int, heads: int, attn,
+                                *, pe_pack=None, seed: int = 0,
+                                feat_drop: float = 0.0,
+                                attn_drop: float = 0.0,
+                                need_dx: bool = True,
+                                need_dbias: bool = True,
+                                dropout_bits: int = 32) -> dict:
+    """Stored form of `gat_layer_pooled_bwd` (see `gat_layer_bwd_stored`)."""
+    return _bwd(gat_layer_pooled_bwd_stored, True, g,
+                (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p,
+                 heads), None, attn, pe_pack, seed, feat_drop, attn_drop,
+                need_dx, need_dbias, dropout_bits)
+
+
 WRAPPERS = {w.__name__: w for w in (
     gat_layer_fwd, gat_layer_pooled_fwd, gat_layer_fwd_train,
-    gat_layer_pooled_fwd_train, gat_layer_bwd, gat_layer_pooled_bwd)}
+    gat_layer_pooled_fwd_train, gat_layer_fwd_train_store,
+    gat_layer_pooled_fwd_train_store, gat_layer_bwd, gat_layer_pooled_bwd,
+    gat_layer_bwd_stored, gat_layer_pooled_bwd_stored)}
+for _w in WRAPPERS.values():
+    _w.launches = 0
 
 
 # --------------------------------------------------- differentiable layers
+
+def stored_attn_enabled() -> bool:
+    """TAXOEXPAN_STORED_ATTN as the JAX package reads it
+    (pallas_gat.py:208)."""
+    return os.environ.get("TAXOEXPAN_STORED_ATTN", "0") == "1"
+
 
 @dataclass(frozen=True)
 class _LayerCfg:
@@ -515,11 +663,15 @@ class _LayerCfg:
     out_alpha: float | None
     need_dx: bool
     pooled: bool
+    dropout_bits: int
+    store: bool
 
 
 class _GatLayerFn(torch.autograd.Function):
-    """Forward: the train-form kernel (or the eval kernel when no dropout is
-    on); backward: K2 / K4. On CPU tensors both are the plain versions."""
+    """Forward: the train-form kernel (its store form with cfg.store; the
+    eval kernel when no dropout is on and nothing is stored); backward: K2 /
+    K4 (their stored forms with cfg.store). On CPU tensors both are the
+    plain versions."""
 
     @staticmethod
     def forward(ctx, cfg, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
@@ -530,16 +682,22 @@ class _GatLayerFn(torch.autograd.Function):
                               ngp, nsib, *(pe_pack or ()))
         ops = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
                cfg.p, cfg.heads)
-        dropping = cfg.feat_drop > 0 or cfg.attn_drop > 0
         train_kw = dict(pe_pack=pe_pack, seed=cfg.seed,
-                        feat_drop=cfg.feat_drop, attn_drop=cfg.attn_drop)
+                        feat_drop=cfg.feat_drop, attn_drop=cfg.attn_drop,
+                        dropout_bits=cfg.dropout_bits)
+        if not cfg.pooled:
+            train_kw["out_alpha"] = cfg.out_alpha
+        if cfg.store:
+            fwd = (gat_layer_pooled_fwd_train_store if cfg.pooled
+                   else gat_layer_fwd_train_store)
+            out, ctx.attn = fwd(*ops, **train_kw)
+            return out
+        if cfg.feat_drop > 0 or cfg.attn_drop > 0:
+            fwd = (gat_layer_pooled_fwd_train if cfg.pooled
+                   else gat_layer_fwd_train)
+            return fwd(*ops, **train_kw)
         if cfg.pooled:
-            if dropping:
-                return gat_layer_pooled_fwd_train(*ops, **train_kw)
             return gat_layer_pooled_fwd(*ops)
-        if dropping:
-            return gat_layer_fwd_train(*ops, out_alpha=cfg.out_alpha,
-                                       **train_kw)
         return gat_layer_fwd(*ops, out_alpha=cfg.out_alpha)
 
     @staticmethod
@@ -551,17 +709,34 @@ class _GatLayerFn(torch.autograd.Function):
         kw = dict(pe_pack=pe_pack, seed=cfg.seed, feat_drop=cfg.feat_drop,
                   attn_drop=cfg.attn_drop,
                   need_dx=cfg.need_dx and needs[1],
-                  need_dbias=any(needs[5:8]))
-        if cfg.pooled:
-            grads = gat_layer_pooled_bwd(g.contiguous(), *saved[:9], cfg.p,
-                                         cfg.heads, **kw)
+                  need_dbias=any(needs[5:8]),
+                  dropout_bits=cfg.dropout_bits)
+        if not cfg.pooled:
+            kw["out_alpha"] = cfg.out_alpha
+        args = (g.contiguous(), *saved[:9], cfg.p, cfg.heads)
+        if cfg.store:
+            bwd = (gat_layer_pooled_bwd_stored if cfg.pooled
+                   else gat_layer_bwd_stored)
+            grads = bwd(*args, ctx.attn, **kw)
         else:
-            grads = gat_layer_bwd(g.contiguous(), *saved[:9], cfg.p,
-                                  cfg.heads, out_alpha=cfg.out_alpha, **kw)
+            bwd = gat_layer_pooled_bwd if cfg.pooled else gat_layer_bwd
+            grads = bwd(*args, **kw)
         out = [None] + [grads[k] for k in _GRAD_NAMES] + [None, None]
         if pe_pack is not None:
             out += [grads[k] for k in _PE_NAMES]
         return tuple(out)
+
+
+def _layer_cfg(p, heads, seed, feat_drop, attn_drop, out_alpha, need_dx,
+               pooled, tensors) -> _LayerCfg:
+    """The layer's static configuration, with the two switches read now,
+    at forward time: the dropout bits, and the stored attention when a
+    gradient is needed."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    return _LayerCfg(p, heads, int(seed), float(feat_drop), float(attn_drop),
+                     None if out_alpha is None else float(out_alpha),
+                     bool(need_dx), pooled, dropout.env_bits(),
+                     grad and stored_attn_enabled())
 
 
 def gat_layer(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p: int,
@@ -572,11 +747,10 @@ def gat_layer(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p: int,
     `fused_gat_layer` custom_vjp). need_dx=False: the caller guarantees x's
     grad is never used (layer 0's fixed input features) and the backward
     skips the dx product."""
-    cfg = _LayerCfg(p, heads, int(seed), float(feat_drop), float(attn_drop),
-                    None if out_alpha is None else float(out_alpha),
-                    bool(need_dx), False)
-    return _GatLayerFn.apply(cfg, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
-                             ngp, nsib, *(pe_pack or ()))
+    tensors = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, *(pe_pack or ()))
+    cfg = _layer_cfg(p, heads, seed, feat_drop, attn_drop, out_alpha,
+                     need_dx, False, tensors)
+    return _GatLayerFn.apply(cfg, *tensors[:7], ngp, nsib, *tensors[7:])
 
 
 def gat_layer_pooled(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
@@ -585,7 +759,7 @@ def gat_layer_pooled(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
                      need_dx: bool = True) -> torch.Tensor:
     """Differentiable final star-GAT layer with the pools fused in,
     [B, 3, Dh] (the port of `fused_gat_layer_pooled`)."""
-    cfg = _LayerCfg(p, heads, int(seed), float(feat_drop), float(attn_drop),
-                    None, bool(need_dx), True)
-    return _GatLayerFn.apply(cfg, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
-                             ngp, nsib, *(pe_pack or ()))
+    tensors = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, *(pe_pack or ()))
+    cfg = _layer_cfg(p, heads, seed, feat_drop, attn_drop, None, need_dx,
+                     True, tensors)
+    return _GatLayerFn.apply(cfg, *tensors[:7], ngp, nsib, *tensors[7:])

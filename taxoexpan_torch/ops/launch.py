@@ -20,14 +20,15 @@ class TrainArgs(ctypes.Structure):
                 ("pos", I), ("seed", ctypes.c_uint),
                 ("feat_thresh", ctypes.c_uint), ("feat_scale", F),
                 ("feat_on", I), ("attn_thresh", ctypes.c_uint),
-                ("attn_scale", F), ("attn_on", I)]
+                ("attn_scale", F), ("attn_on", I), ("bits8", I)]
 
 
-def train_args(pe_pack, seed: int, feat_drop: float,
-               attn_drop: float = 0.0) -> TrainArgs:
+def train_args(pe_pack, seed: int, feat_drop: float, attn_drop: float = 0.0,
+               bits: int = 32) -> TrainArgs:
     """The TrainArgs of a train-form launch. pe_pack: the pe rows and their
     weight rows, (pe, wp, wpa1, wpa2) for the GAT layers, (pe, wp) for the
-    GCN layer, or None."""
+    GCN layer, or None. bits: the dropout thresholds' width, 32 or 8
+    (ops/dropout.py)."""
     if pe_pack is not None and feat_drop <= 0:
         raise ValueError("pe_pack requires feat_drop > 0 — with no input "
                          "dropout precompute the exact per-slot biases")
@@ -37,13 +38,14 @@ def train_args(pe_pack, seed: int, feat_drop: float,
             setattr(ta, name, t.data_ptr())
         ta.pos = pe_pack[0].shape[1]
     ta.seed = seed & dropout.MASK32
+    ta.bits8 = int(dropout.check_bits(bits) == 8)
     if feat_drop > 0:
-        ta.feat_thresh = dropout.keep_threshold(feat_drop)
-        ta.feat_scale = dropout.keep_scale(feat_drop)
+        ta.feat_thresh = dropout.keep_threshold(feat_drop, bits)
+        ta.feat_scale = dropout.keep_scale(feat_drop, bits)
         ta.feat_on = 1
     if attn_drop > 0:
-        ta.attn_thresh = dropout.keep_threshold(attn_drop)
-        ta.attn_scale = dropout.keep_scale(attn_drop)
+        ta.attn_thresh = dropout.keep_threshold(attn_drop, bits)
+        ta.attn_scale = dropout.keep_scale(attn_drop, bits)
         ta.attn_on = 1
     return ta
 

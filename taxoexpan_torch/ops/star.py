@@ -127,7 +127,8 @@ def readout(h: torch.Tensor, ngp: torch.Tensor, nsib: torch.Tensor, p: int,
 
     DGL readout semantics: weighted features are summed, then divided by the
     node count of each graph (MR mean, WMR softplus position weights, CR
-    concat of per-class sums, SUM plain sum)."""
+    concat of per-class sums, SUM plain sum); MAX is the largest value of
+    each feature over the valid slots."""
     b, n, _ = h.shape
     mask = node_mask(ngp, nsib, p, n)[..., None].to(h.dtype)
     counts = (ngp + 1 + nsib).to(h.dtype)[:, None]
@@ -146,7 +147,33 @@ def readout(h: torch.Tensor, ngp: torch.Tensor, nsib: torch.Tensor, p: int,
                           hm[:, p + 1:].sum(dim=1)], dim=1) / counts
     if kind == "SUM":
         return hm.sum(dim=1)
+    if kind == "MAX":
+        # amax splits the gradient among tied maxima, as jnp.max does
+        return torch.where(mask.bool(), h,
+                           torch.full_like(h, NEG_INF)).amax(dim=1)
     raise ValueError(f"unsupported readout kind {kind!r}")
+
+
+def readout_attention(h: torch.Tensor, ngp: torch.Tensor, nsib: torch.Tensor,
+                      p: int, gate_params: dict) -> torch.Tensor:
+    """PATR, the position-aware attention readout, h [B, N, D] -> [B, D]:
+
+        z_i = w2 . tanh(h_i @ w1 + b1 + class_emb[class(i)])
+        out = sum_i softmax over the valid slots(z)_i * h_i
+
+    with class 0 for grandparent slots, 1 for the anchor, 2 for siblings
+    (port of taxoexpan_tpu/ops/star.py:readout_attention)."""
+    b, n, _ = h.shape
+    slot_class = torch.full((n,), 2, dtype=torch.long, device=h.device)
+    slot_class[:p] = 0
+    slot_class[p] = 1
+    gate_in = torch.tanh(h @ gate_params["w1"] + gate_params["b1"]
+                         + gate_params["class_emb"][slot_class][None])
+    logits = (gate_in @ gate_params["w2"])[..., 0]                  # [B, N]
+    valid = node_mask(ngp, nsib, p, n)
+    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    attn = torch.softmax(logits, dim=1)
+    return torch.einsum("bn,bnd->bd", attn, h)
 
 
 def readout_from_pools(pools: torch.Tensor, ngp: torch.Tensor,

@@ -2,7 +2,9 @@
 
 One train step is model.forward (in train mode: for GAT/PGAT the K1/K3
 train-form kernels, K2/K4 in the backward; for GCN/PGCN the K5 train form
-and K5b) -> loss -> torch.autograd.grad -> the optimizer's update, with a
+and K5b) -> loss -> torch.autograd.grad -> the optimizer's update (a model
+with auxiliary MTL heads: model.forward_heads and the mean of the per-head
+losses, trainer.py:257-283; evaluation uses the primary head), with a
 torch.Generator derived from (seed, epoch, batch) for the dropout seeds
 (trainer.py:266, :370). Epoch-level semantics
 follow the JAX trainer: mean loss over batches, sampled validation
@@ -13,8 +15,8 @@ style monitoring with early stop, periodic checkpoints plus model_best,
 and resume.
 
 Not ported (the builders and the CLI refuse them): the device mesh and
-multi-process data parallelism, the partitioned feature table, the MTL
-heads, the profiler window. Checkpoints are written in the foreground.
+multi-process data parallelism, the partitioned feature table, the
+profiler window. Checkpoints are written in the foreground.
 """
 from __future__ import annotations
 
@@ -192,9 +194,16 @@ class Trainer:
                           self.params)
         leaves = tree_leaves(params)
         with torch.enable_grad():
-            scores = self.model.forward(params, batch, self.feature_table,
-                                        gen=gen, train=True)
-            loss = self.loss_fn(scores, batch.labels, batch.cand_mask)
+            if self.model.aux_heads:
+                all_scores = self.model.forward_heads(
+                    params, batch, self.feature_table, gen=gen, train=True)
+                loss = torch.stack([
+                    self.loss_fn(s, batch.labels, batch.cand_mask)
+                    for s in all_scores]).mean()
+            else:
+                scores = self.model.forward(params, batch, self.feature_table,
+                                            gen=gen, train=True)
+                loss = self.loss_fn(scores, batch.labels, batch.cand_mask)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]

@@ -3,9 +3,10 @@
 `params_from_jax` maps a JAX params tree (nested dicts and lists of numpy
 arrays, as `taxoexpan_tpu/train/checkpoint.py` saves them) onto the port's
 parameter dict by key path: `propagate.layers[i].{fc,attn_l,attn_r}`,
-`propagate.pos_emb[i].emb`, `readout.emb`, `match.*` and, when present,
-`aux`. Layouts stay the JAX ones (`fc` [in, H*Dh] head-major, `attn_*`
-[H, Dh]); nothing is transposed.
+`propagate.pos_emb[i].emb`, `readout.*`, `match.*` and, for a model with
+auxiliary MTL heads, `aux[i].{readout,match}.*`. Layouts stay the JAX
+ones (`fc` [in, H*Dh] head-major, `attn_*` [H, Dh]); nothing is
+transposed.
 
 `load_jax_checkpoint` reads a checkpoint that the JAX `train.py` wrote
 without importing optax or JAX: its pickle references optax's NamedTuple
@@ -143,27 +144,15 @@ def _convert(template, saved, path: str):
     return torch.from_numpy(arr)
 
 
-def _leaves_to_torch(tree):
-    if isinstance(tree, dict):
-        return {k: _leaves_to_torch(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_leaves_to_torch(v) for v in tree]
-    return torch.from_numpy(np.array(tree, dtype=np.float32))
-
-
 def params_from_jax(tree: dict, template: dict) -> dict:
     """JAX params tree -> the port's parameter dict (float32 CPU tensors).
 
     `template` is the port model's `init(...)` output; every key path of it
     must exist in `tree` with the same shape, and `tree` may hold no other
-    key except `aux` (auxiliary MTL heads, carried along unchecked: serving
-    uses the primary head only)."""
-    tree = dict(tree)
-    aux = tree.pop("aux", None)
-    params = _convert(template, tree, "")
-    if aux is not None:
-        params["aux"] = _leaves_to_torch(aux)
-    return params
+    key: the auxiliary heads' `aux` list is checked like every other
+    subtree, so a checkpoint with heads the model lacks (or without heads
+    it has) is an architecture mismatch."""
+    return _convert(template, tree, "")
 
 
 def restore_params(state: dict, model) -> dict:

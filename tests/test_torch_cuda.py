@@ -7,7 +7,11 @@ forms, K2/K4 with need_dx both ways, the pe path, and the dropout
 generator's golden bits; for the GCN layer K5f (eval and train form) and
 K5b at N 12 and Dout 200 (not multiples of the tiles) and at the
 config.mag.json PGCN shapes, empty and full egonets, need_dx both ways,
-with and without the activation and the pe path.
+with and without the activation and the pe path; for K7 the store forms
+of K1/K3 and the stored K2/K4 (also at the MTL per-slot final layer's
+widths, Din 3600 and Dh 600) with 32- and 8-bit masks, held to the
+recompute backward on the card within 1e-6 of each grad's largest value,
+the 8-bit golden bytes, and the differentiable layer with both switches.
 
 Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the card:
 
@@ -357,5 +361,88 @@ def test_gcn_layer_function_on_card_matches_cpu(dev):
                                     allow_unused=True)
         out[d.type] = [y.detach().cpu()] + [
             x.cpu() for x in grads if x is not None]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a, b, **GTOL)
+
+
+# ------------------------------------------- K7: stored attention, 8-bit
+
+STORE_SHAPES = [
+    # b, p, s, din, heads, dh, pos
+    (37, 5, 64, 33, 3, 130, 7),    # N = 70, ragged widths, pe path
+    (16, 2, 9, 16, 1, 4, 0),       # N = 12, one head, no pe
+    (9, 13, 50, 3600, 1, 600, 100),  # the MTL per-slot final layer
+]
+
+
+@pytest.mark.parametrize("b,p,s,din,heads,dh,pos", STORE_SHAPES)
+@pytest.mark.parametrize("pooled", [False, True])
+@pytest.mark.parametrize("bits", [32, 8])
+def test_store_forms_and_stored_backwards(dev, b, p, s, din, heads, dh, pos,
+                                          pooled, bits):
+    """The store forms (output and softmax weights) against the plain
+    version; the stored backwards fed those weights against the plain
+    version and against the recompute backward on the card."""
+    t = _inputs(dev, b, p, s, din, heads, dh)
+    n = p + 1 + s
+    kw = dict(pe_pack=_pe_pack(dev, n, pos, heads, dh), seed=13,
+              feat_drop=0.1 if pos else 0.0, attn_drop=0.2,
+              dropout_bits=bits)
+    akw = {} if pooled else {"out_alpha": 0.01}
+    fwd = gk.gat_layer_pooled_fwd_train_store if pooled \
+        else gk.gat_layer_fwd_train_store
+    bwd = gk.gat_layer_pooled_bwd_stored if pooled else gk.gat_layer_bwd_stored
+    recompute = gk.gat_layer_pooled_bwd if pooled else gk.gat_layer_bwd
+    before = (fwd.launches, bwd.launches)
+    out, attn = fwd(*t, p, heads, **kw, **akw)
+    torch.cuda.synchronize()
+    assert attn.shape == (b, heads, 2 * n - p - 1)
+    want_out, want_attn = gk.gat_layer_train_plain(
+        *t, p, heads, pooled=pooled, store_attn=True, **kw, **akw)
+    torch.testing.assert_close(out, want_out, **TOL)
+    torch.testing.assert_close(attn, want_attn, **TOL)
+    torch.testing.assert_close(out, (gk.gat_layer_pooled_fwd_train if pooled
+                                     else gk.gat_layer_fwd_train)(
+        *t, p, heads, **kw, **akw), rtol=0, atol=0)
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(14))
+    got = bwd(g, *t, p, heads, attn, **kw, **akw)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    _assert_grads(got, gk.gat_layer_bwd_plain(
+        g, *t, p, heads, pooled=pooled, stored_attn=attn, **kw, **akw))
+    ref = recompute(g, *t, p, heads, **kw, **akw)
+    for name, a in got.items():
+        if a is not None:
+            scale = float(ref[name].abs().max()) or 1.0
+            assert float((a - ref[name]).abs().max()) <= 1e-6 * scale, name
+
+
+def test_golden_bytes8_on_card(dev):
+    for (seed, stream, row, col), want in dropout.GOLDEN_BYTES8:
+        got = dropout.bits(seed, stream, torch.tensor([row], device=dev),
+                           torch.tensor([col], device=dev), width=8)
+        assert int(got[0]) == want
+    rows = torch.randint(0, 2 ** 32, (4096,), dtype=torch.int64)
+    cols = torch.randint(0, 2 ** 32, (4096,), dtype=torch.int64)
+    got = dropout.bits(3, 7, rows.to(dev), cols.to(dev), width=8).cpu()
+    assert torch.equal(got, dropout.bytes8_plain(3, 7, rows, cols))
+
+
+def test_stored_layer_function_on_card_matches_cpu(dev, monkeypatch):
+    """gat_layer with both switches set: the store form and the stored
+    backward on the card against the CPU Function (plain versions)."""
+    monkeypatch.setenv("TAXOEXPAN_STORED_ATTN", "1")
+    monkeypatch.setenv("TAXOEXPAN_DROPOUT_BITS", "8")
+    t = _inputs(dev, 12, 4, 20, 24, 2, 36)
+    kw = dict(seed=9, feat_drop=0.1, attn_drop=0.1, out_alpha=0.01)
+    before = gk.gat_layer_bwd_stored.launches
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        leaves = [a.to(d).clone().requires_grad_(True) for a in t[:7]]
+        y = gk.gat_layer(*leaves, t[7].to(d), t[8].to(d), 4, 2, **kw)
+        grads = torch.autograd.grad(y.square().sum(), leaves)
+        out[d.type] = [y.detach().cpu()] + [x.cpu() for x in grads]
+    assert gk.gat_layer_bwd_stored.launches == before + 1
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, **GTOL)

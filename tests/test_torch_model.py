@@ -149,7 +149,9 @@ def test_params_from_jax_goes_by_key_path():
     bad = dict(tree, match={"w": tree["match"]["w"].T})
     with pytest.raises(ValueError, match="shape"):
         params_from_jax(bad, template)
-    # aux heads are carried along
+    # aux heads are checked like the rest: a model without auxiliary heads
+    # refuses a checkpoint that has them (tests/test_torch_variants.py holds
+    # a model with heads)
     aux = [{"readout": {}, "match": {"w": np.ones((2, 2), np.float32)}}]
-    got = params_from_jax(dict(tree, aux=aux), template)
-    assert got["aux"][0]["match"]["w"].shape == (2, 2)
+    with pytest.raises(ValueError, match="extra.*aux"):
+        params_from_jax(dict(tree, aux=aux), template)
