@@ -41,6 +41,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (`matmul_ms`: x @ W for a forward, the dW product x^T @ D for
               a backward; not the layer, so the `library_ms` of the kernels
               line is null), beside the least time the card could take.
+              K6 (the halo gather, ops/csrc/halo.cu) in one process
+              holding all shards of an 800 x 250 table, at the data-parallel
+              path's shapes for P = 2 and P = 4 (one rank's request for its
+              share of 4096 egonets x 64 slots, about half the slots past
+              the shard), held to its plain version exactly, beside one
+              torch.index_select of the same rows (`library_ms`).
 5. serving  - for PGAT, PGCN, then MTL: the port's serving path end to end
               through its entry points: a run directory with a synthetic
               taxonomy (4000 nodes, dim 250; dim 300 for MTL), the
@@ -69,8 +75,20 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               on the card against the same step on the CPU plain path (same
               params, seeds, dropout and switches; 4 groups at full width, 2
               for MTL).
+              Then the data-parallel path: `python -m taxoexpan_torch.train`
+              as 2 rank processes sharing the card (--coordinator, gloo), at
+              config.mag.json's full width on the 800-node taxonomy, 128
+              groups a step (64 a rank), one epoch, once with the feature
+              table replicated and once row-partitioned with
+              TAXOEXPAN_HALO=ring (K6 through CUDA IPC): equal epoch loss
+              and final params, bit for bit; each rank reports its launch
+              counts (from 0 at its start); rank 0's checkpoint serves
+              through test_fast; the 2-rank median step beside the
+              single-process PGAT step (two contexts time-slicing one card,
+              not a scaling figure).
 7. a `{"kernels": [...]}` line (eval-form launches from the serving phase
-   of the entry's path, the train-path kernels' from its training phase),
+   of the entry's path, the train-path kernels' from its training phase,
+   K6's from the partitioned 2-rank run, over both ranks),
    then the card's nvidia-smi line, and last `{"ok": true, "device":
    {...}}`.
 
@@ -121,6 +139,8 @@ REPLACES = {
     "gat_layer_pooled_fwd_train_store": "taxoexpan_tpu/ops/pallas_gat.py:231",
     "gat_layer_bwd_stored": "taxoexpan_tpu/ops/pallas_gat.py:240",
     "gat_layer_pooled_bwd_stored": "taxoexpan_tpu/ops/pallas_gat.py:240",
+    # K6: the ring halo exchange of the row-partitioned feature table
+    "halo_gather": "taxoexpan_tpu/parallel/halo.py:195",
 }
 K7B = "taxoexpan_tpu/ops/pallas_gat.py:73"     # the 8-bit thresholds
 STORED, BITS = "TAXOEXPAN_STORED_ATTN", "TAXOEXPAN_DROPOUT_BITS"
@@ -136,6 +156,10 @@ TRAINING_PATHS = {"PGAT": 2, "PGCN": 2, "PGAT-stored": 1, "MTL": 2}
 # stored and recompute backwards on the card: the same expressions of
 # gat_common.cuh in two translation units; equal bits expected
 STORED_REL = 1e-6
+# the data-parallel path: 2 rank processes sharing the card, config.mag.json
+# at full width, its 128 groups a step split 64 a rank; the halo exchange
+# of its partitioned run (ring: K6 through CUDA IPC)
+DP_RANKS, DP_HALO, DP_TIMEOUT_S = 2, "ring", 600
 
 
 def emit(phase: str, **fields) -> None:
@@ -885,6 +909,81 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
     return records
 
 
+def phase_halo_kernels(device, num_nodes: int, batch: int,
+                       dim: int) -> list[dict]:
+    """K6 against its plain version on the card, in one process holding
+    all P shards, at the data-parallel path's shapes and data: a
+    [num_nodes, dim] float32 table row-partitioned over P = 2 and P = 4
+    ranks, and one rank's request [P, cap] as `partition.plan_requests`
+    makes it from its share of `batch` egonets x 64 node ids (n = batch *
+    64 / P ids, cap = bucket_capacity(n, P)): each distinct id once in its
+    owner's bucket, the dedup padding slots routed by position (most of
+    them past the shard), the buckets' unused tail slot 0. A gather is
+    exact: held to 0. The bound counts each distinct in-range (bucket,
+    slot) row once, with ans and req. `library_ms`: one
+    torch.index_select of the same rows from the unpartitioned table
+    (ans [P * cap, D]; the out-of-range slots read row 0 there)."""
+    import numpy as np
+    import torch
+    from taxoexpan_torch.ops import halo_kernels as hk
+    from taxoexpan_torch.parallel.partition import (bucket_capacity,
+                                                    plan_requests,
+                                                    shard_table)
+    gen = np.random.default_rng(SEED)
+    table = gen.normal(size=(num_nodes, dim)).astype(np.float32)
+    full = torch.from_numpy(table).to(device)
+    records = []
+    for p in (2, 4):
+        shards = [torch.from_numpy(s).to(device)
+                  for s in shard_table(table, p)]
+        rows = shards[0].shape[0]
+        ids = gen.integers(0, num_nodes,
+                           size=(batch // p, MAG_P + 1 + MAG_S))
+        n = ids.size
+        cap = bucket_capacity(n, p)
+        req = plan_requests(torch.from_numpy(ids).to(device), p).req
+        req_np = req.cpu().numpy()
+        in_range = (req_np >= 0) & (req_np < rows)
+        distinct = sum(np.unique(req_np[j][in_range[j]]).size
+                       for j in range(p))
+        gids = torch.from_numpy(np.where(
+            in_range, req_np.astype(np.int64) * p
+            + np.arange(p)[:, None], 0).reshape(-1)).to(device)
+        table_ptrs = hk.local_shards(shards)
+        got = hk.halo_gather(table_ptrs, req)
+        torch.cuda.synchronize()
+        want = hk.halo_gather_plain(shards, req)
+        err = float((got - want).abs().max())
+        if err != 0.0 or not torch.isfinite(got).all():
+            raise AssertionError(f"halo_gather P={p} differs from its plain "
+                                 f"version by {err}")
+        times = {"ms": time_ms(lambda: hk.halo_gather(table_ptrs, req), 20),
+                 "plain_ms": time_ms(
+                     lambda: hk.halo_gather_plain(shards, req), 5),
+                 "library_ms": time_ms(
+                     lambda: torch.index_select(full, 0, gids), 20)}
+        n_in = int(in_range.sum())
+        # each distinct row is read once; its repeats come from cache
+        nbytes = distinct * dim * 4 + got.numel() * 4 + req.numel() * 4
+        rec = {"name": f"halo_gather[P={p}]", "wrapper": "halo_gather",
+               "path": "PGAT-dp", "route": "cuda",
+               "source": "taxoexpan_torch/ops/csrc/halo.cu",
+               "replaces": REPLACES["halo_gather"], "shards": p,
+               "rows_per_shard": rows, "dim": dim, "ids_per_rank": n,
+               "cap": cap, "in_range_slots": n_in,
+               "distinct_in_range_rows": distinct,
+               "out_of_range_slots": req.numel() - n_in,
+               "max_abs_err": err, "atol": 0.0, **times,
+               "library_call": "torch.index_select(table [V, D], 0, ids "
+                               "[P * cap])",
+               **_bound(nbytes, 0.0)}
+        emit("kernel", **rec)
+        records.append(rec)
+        del got, want, shards, table_ptrs
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_serving(device, num_nodes: int, n_novel: int, seed: int,
                   path: str = "PGAT") -> dict:
     """The user's entry points, `python -m taxoexpan_torch.test_fast` and
@@ -1158,6 +1257,183 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
     return res
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(run: Path, device, env: dict) -> list[dict]:
+    """`python -m taxoexpan_torch.train -c run/config.json` as DP_RANKS
+    rank processes (--coordinator / --num_processes / --process_id) on
+    `device`'s type; returns each rank's report (report-rank<r>.json in the
+    shared run directory). A rank that fails or outlives DP_TIMEOUT_S fails
+    the phase; every rank is stopped before it returns."""
+    coord = f"127.0.0.1:{_free_port()}"
+    env = dict(os.environ, PYTHONPATH=str(REPO), **env)
+    cmd = [sys.executable, "-m", "taxoexpan_torch.train", "-c",
+           str(run / "config.json"), "-d", device.type, "--coordinator",
+           coord, "--num_processes", str(DP_RANKS)]
+    logs = [open(run / f"rank{r}.log", "w+") for r in range(DP_RANKS)]
+    procs = [subprocess.Popen(cmd + ["--process_id", str(r)], cwd=REPO,
+                              env=env, stdout=logs[r],
+                              stderr=subprocess.STDOUT)
+             for r in range(DP_RANKS)]
+    try:
+        # poll them all: a rank that fails early fails the phase at once,
+        # with its own log, while its peer would wait in a collective
+        deadline = time.time() + DP_TIMEOUT_S
+        while any(proc.poll() is None for proc in procs):
+            for r, proc in enumerate(procs):
+                if proc.poll() not in (None, 0):
+                    logs[r].seek(0)
+                    raise AssertionError(f"rank {r} exited with "
+                                         f"{proc.returncode}:\n"
+                                         f"{logs[r].read()[-4000:]}")
+            if time.time() > deadline:
+                late = [r for r, proc in enumerate(procs)
+                        if proc.poll() is None]
+                raise AssertionError(f"ranks {late} did not finish in "
+                                     f"{DP_TIMEOUT_S} s")
+            time.sleep(0.2)
+        for r, proc in enumerate(procs):
+            if proc.returncode != 0:
+                logs[r].seek(0)
+                raise AssertionError(f"rank {r} exited with "
+                                     f"{proc.returncode}:\n"
+                                     f"{logs[r].read()[-4000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    runs = list((run / "saved" / "models").glob("*/*/"))
+    if len(runs) != 1:
+        raise AssertionError(f"expected one shared run directory, got "
+                             f"{runs}")
+    return [json.loads((runs[0] / f"report-rank{r}.json").read_text())
+            | {"run_dir": str(runs[0])} for r in range(DP_RANKS)]
+
+
+def phase_dp_training(device, num_nodes: int, seed: int,
+                      single_step_ms: float) -> dict:
+    """The data-parallel path: `python -m taxoexpan_torch.train` as 2 rank
+    processes on the card (two contexts sharing it, gloo between them) at
+    config.mag.json's full width on the synthetic training taxonomy, 128
+    groups x 32 candidates a step (64 groups a rank), one epoch with
+    full-catalog validation (the ranker's data-parallel encode), twice:
+    with the feature table replicated, and row-partitioned with
+    TAXOEXPAN_HALO=ring (K6 reading the peer's shard through CUDA IPC).
+    Both runs feed the kernels equal rows, so their epoch loss and final
+    params must be equal bits: the check that the exchange moved the right
+    rows. Rank 0's best checkpoint of the partitioned run serves through
+    `taxoexpan_torch.test_fast`. The rank processes start with their launch
+    counters at 0 and report them when training ends."""
+    import numpy as np
+    import torch
+    from taxoexpan_torch import test_fast as test_fast_cli
+    from taxoexpan_torch.data.synthetic import synthetic_taxonomy
+    from taxoexpan_torch.training.checkpoint import load_checkpoint
+    from taxoexpan_torch.tree import tree_leaves
+
+    cfg, _model = path_model("PGAT")
+    in_dim = cfg["arch"]["args"]["in_dim"]
+    taxonomy = synthetic_taxonomy(num_nodes=num_nodes, dim=in_dim, seed=seed)
+    torch.cuda.empty_cache()
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "synthetic.pickle.bin"
+        taxonomy.save(str(data))
+        for mode, env in (("replicated", {}),
+                          ("partitioned", {"TAXOEXPAN_HALO": DP_HALO})):
+            run = Path(tmp) / mode
+            run.mkdir()
+            for loader in ("train_data_loader", "validation_data_loader",
+                           "test_data_loader"):
+                cfg[loader]["args"].update(data_path=str(data),
+                                           max_parents=MAG_P,
+                                           expand_factor=MAG_S)
+            cfg["trainer"].update(epochs=1, save_dir=str(run / "saved"),
+                                  full_validation_every=1,
+                                  tensorboardX=False, step_timing=True)
+            cfg["parallel"] = {"dp": DP_RANKS, "feature_mode": mode}
+            (run / "config.json").write_text(json.dumps(cfg))
+            t0 = time.time()
+            reports = run_ranks(run, device, env)
+            wall_s = time.time() - t0
+            ckpt = Path(reports[0]["run_dir"]) / "checkpoint-epoch1.ckpt"
+            params = [np.asarray(a) for a in
+                      tree_leaves(load_checkpoint(ckpt)["params"])]
+            served = None
+            if mode == "partitioned":
+                best = Path(reports[0]["run_dir"]) / "model_best.ckpt"
+                served = test_fast_cli.main(test_fast_cli.parse_args(
+                    ["-r", str(best), "-d", device.type]))
+                bad = {k: v for k, v in served.items()
+                       if not np.isfinite(v)}
+                if bad:
+                    raise AssertionError(f"non-finite metrics of the 2-rank "
+                                         f"checkpoint {bad}")
+            results[mode] = {"reports": reports, "params": params,
+                             "wall_s": wall_s, "served": served}
+
+    rep, par = results["replicated"], results["partitioned"]
+    losses = {m: [r["log"]["loss"] for r in results[m]["reports"]]
+              for m in results}
+    for m, ls in losses.items():
+        if not np.isfinite(ls[0]) or len(set(ls)) != 1:
+            raise AssertionError(f"{m}: the ranks' epoch losses {ls}")
+    if losses["replicated"][0] != losses["partitioned"][0]:
+        raise AssertionError(f"epoch loss: replicated {losses['replicated']}"
+                             f", partitioned {losses['partitioned']}")
+    unequal = sum(not np.array_equal(a, b)
+                  for a, b in zip(rep["params"], par["params"]))
+    if unequal:
+        raise AssertionError(f"{unequal} param leaves differ between the "
+                             "replicated and the partitioned run")
+    launches = {m: [r["launches"] for r in results[m]["reports"]]
+                for m in results}
+    # (the rank processes of a CPU rehearsal run the plain versions and
+    # count nothing)
+    for m in results if device.type == "cuda" else ():
+        for r, counts in enumerate(launches[m]):
+            for name in ("gat_layer_fwd_train", "gat_layer_pooled_fwd_train",
+                         "gat_layer_bwd", "gat_layer_pooled_bwd"):
+                if counts[name] <= 0:
+                    raise AssertionError(f"{m} rank {r} never launched "
+                                         f"{name}")
+    halo = [c["halo_gather"] for c in launches["partitioned"]]
+    if device.type == "cuda" and DP_HALO == "ring" and min(halo) <= 0:
+        raise AssertionError(f"the partitioned run's ranks launched K6 "
+                             f"{halo} times")
+    step_ms = {m: results[m]["reports"][0]["log"].get("step_ms", [])
+               for m in results}
+    median = {m: float(np.median(v)) if v else float("nan")
+              for m, v in step_ms.items()}
+    res = {"ranks": DP_RANKS, "halo": DP_HALO, "card": nvidia_smi_line(),
+           "nodes": taxonomy.num_nodes, "dim": in_dim,
+           "groups_per_step": cfg["train_data_loader"]["args"]["batch_size"],
+           "loss": losses, "params_equal_bits": True,
+           "param_leaves": len(rep["params"]),
+           "step_ms_rank0": step_ms, "median_step_ms_2rank": median,
+           "single_process_median_step_ms": single_step_ms,
+           "note": "two rank processes sharing one card (two contexts "
+                   "time-slicing it): not a scaling figure",
+           "wall_s": {m: results[m]["wall_s"] for m in results},
+           "launches_per_rank": launches,
+           "val_macro_mr": {m: results[m]["reports"][0]["log"].get(
+               "val_macro_mr") for m in results},
+           "served_metrics": par["served"],
+           # the kernels line's count: K6 over both ranks of the
+           # partitioned run
+           "launches": {"halo_gather": sum(halo)}}
+    emit("dp_training", **res)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1189,7 +1465,9 @@ def reset_counters() -> None:
     """Every kernel wrapper's launch count to 0."""
     from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.ops import gcn_kernels as ck
-    for wrapper in (*gk.WRAPPERS.values(), *ck.WRAPPERS.values()):
+    from taxoexpan_torch.ops import halo_kernels as hk
+    for wrapper in (*gk.WRAPPERS.values(), *ck.WRAPPERS.values(),
+                    *hk.WRAPPERS.values()):
         wrapper.launches = 0
 
 
@@ -1202,10 +1480,14 @@ def run_paths(device) -> list[dict]:
     mtl_cfg, _ = path_model("MTL")
     records += phase_mtl_kernels(BATCH, device,
                                  mtl_cfg["arch"]["args"]["feat_drop"])
+    records += phase_halo_kernels(device, TRAIN_NODES, BATCH,
+                                  cfg["arch"]["args"]["in_dim"])
     serving = {path: phase_serving(device, NODES, N_NOVEL, SEED, path)
                for path in SERVING_PATHS}
     training = {path: phase_training(device, TRAIN_NODES, epochs, SEED, path)
                 for path, epochs in TRAINING_PATHS.items()}
+    training["PGAT-dp"] = phase_dp_training(
+        device, TRAIN_NODES, SEED, training["PGAT"]["median_step_ms"])
     kernels = []
     for rec in records:
         # eval forms: the serving path's launches; train forms and the

@@ -5,7 +5,9 @@ JAX or the JAX package. Ported so far, for the `configs/config.mag.json`
 model: the serving path (PGAT encode, WMR readout, BIM all-pairs ranking)
 behind `python -m taxoexpan_torch.test_fast` and `python -m
 taxoexpan_torch.infer`, and the training path (PGAT with dropout, InfoNCE,
-AMSGrad, the trainer) behind `python -m taxoexpan_torch.train`, on
-hand-written CUDA kernels for the GAT layers' forwards and backwards.
+AMSGrad, the trainer) behind `python -m taxoexpan_torch.train`, also as
+several data-parallel processes with the row-partitioned feature table
+(`parallel/`), on hand-written CUDA kernels for the GAT and GCN layers'
+forwards and backwards and for the halo gather.
 Entry points run on CUDA unless the caller asks for the CPU.
 """

@@ -65,9 +65,13 @@ class CustomArg:
 
 class ConfigParser:
     def __init__(self, args, options: list[CustomArg] = (),
-                 timestamp: bool = True):
+                 timestamp: bool = True, run_id: str | None = None,
+                 primary: bool = True):
         """`args`: the parsed argparse namespace (config, resume, and one
-        attribute per option's dest)."""
+        attribute per option's dest). `run_id`: the run directories' name
+        in place of the timestamp (the ranks of a multi-process run agree
+        on rank 0's); `primary`: this process writes the config snapshot
+        and info.log (rank 0), else it logs to the console only."""
         self.args = args
         self.resume = None
         if getattr(args, "resume", None):
@@ -90,14 +94,16 @@ class ConfigParser:
         save_root = Path(self._config.get("trainer", {}).get("save_dir",
                                                              "saved/"))
         exper_name = self._config.get("name", "run")
-        ts = datetime.now().strftime(r"%m%d_%H%M%S") if timestamp else ""
+        ts = run_id if run_id is not None else (
+            datetime.now().strftime(r"%m%d_%H%M%S") if timestamp else "")
         self._save_dir = save_root / "models" / exper_name / ts
         self._log_dir = save_root / "log" / exper_name / ts
         self._save_dir.mkdir(parents=True, exist_ok=True)
         self._log_dir.mkdir(parents=True, exist_ok=True)
-        with open(self._save_dir / "config.json", "w") as fout:
-            json.dump(self._config, fout, indent=4)
-        setup_logging(self._log_dir)
+        if primary:
+            with open(self._save_dir / "config.json", "w") as fout:
+                json.dump(self._config, fout, indent=4)
+        setup_logging(self._log_dir if primary else None)
 
     def __getitem__(self, name):
         return self._config[name]

@@ -1,5 +1,5 @@
 """Two-phase candidate ranking engine, the core of test_fast and infer
-(port of `taxoexpan_tpu/evaluation/ranker.py`, single device, no mesh).
+(port of `taxoexpan_tpu/evaluation/ranker.py`).
 
 Phase 1 (encode): build every candidate anchor's egonet once and encode them
 through propagate + readout in chunks of `encode_chunk` egonets; on CUDA
@@ -12,6 +12,12 @@ matcher's all-pairs form (for BIM one (hg @ W) @ qf^T product), then count
 ranks on the device, in query chunks. The dense work here (the matcher
 product, the cosine prefilter, rank counting) stays plain torch, run in full
 float32 (TF32 off, `device.resolve_device`).
+
+Data parallelism (`dp`, the trainer's full-catalog validation in a
+multi-process run; ranker.py:33-64): the candidate egonets are padded to a
+multiple of the data-parallel size with empty egonets, each rank encodes
+its contiguous share in chunks, and the ranks all-gather hg, so every rank
+scores and ranks the whole catalog as a single process would.
 
 Differences from the JAX engine, none of them visible in the results: the
 encode loop does not pad the candidate list to a whole number of chunks
@@ -31,6 +37,7 @@ import torch
 from .. import metrics as metrics_mod
 from ..data.sampler import MaskedGraphSampler
 from ..device import resolve_device
+from ..parallel import distributed
 from ..weights import params_to
 
 logger = logging.getLogger(__name__)
@@ -40,8 +47,9 @@ class TaxonomyRanker:
     def __init__(self, model, params: dict, sampler: MaskedGraphSampler,
                  feature_table, *, encode_chunk: int = 4096,
                  query_chunk: int = 256, anchors: list[int] | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", dp=None):
         self.device = resolve_device(device)
+        self.dp = dp if dp is not None and dp.size > 1 else None
         self.model = model
         self.params = params_to(params, self.device)
         self.sampler = sampler
@@ -87,6 +95,16 @@ class TaxonomyRanker:
             return self._hg
         t0 = time.time()
         node_ids, ngp, nsib = self._anchor_arrays()
+        n = len(node_ids)
+        if self.dp is not None:
+            # this rank's share of the candidates padded with empty egonets
+            size, rank = self.dp.size, self.dp.rank
+            share = -(-n // size)
+            pad = share * size - n
+            node_ids, ngp, nsib = (
+                np.concatenate([a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+                [rank * share:(rank + 1) * share]
+                for a in (node_ids, ngp, nsib))
         out = []
         for start in range(0, len(node_ids), self.encode_chunk):
             sl = slice(start, start + self.encode_chunk)
@@ -98,6 +116,8 @@ class TaxonomyRanker:
             out.append(self.model.encode(self.params, feats, ngp_c, nsib_c))
         self._hg = (torch.cat(out) if out else
                     torch.zeros((0, 1), device=self.device))
+        if self.dp is not None:
+            self._hg = distributed.all_gather_cat(self._hg, self.dp)[:n]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         logger.info("Encoded %d candidate positions in %.2fs",

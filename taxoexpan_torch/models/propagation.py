@@ -25,9 +25,11 @@ node (propagation.py:274-279, :430-435).
 Eval (no autograd) calls the forward wrappers; train mode, or any call
 under autograd, the differentiable layers (`gat_layer`, `gcn_layer`), with
 one seed per layer drawn from the caller's torch.Generator. Layer 0's input
-is the fixed feature tensor: its dx is never computed. The grads of the
-pos_emb rows, the weights' tail rows and attn_l / attn_r flow through the
-slicing and the einsum fold outside the kernels, by autograd.
+is the fixed feature tensor: its dx is never computed. Under data
+parallelism each layer's seed has the stack's `rank` folded in
+(`fold_rank`). The grads of the pos_emb rows, the weights' tail rows and
+attn_l / attn_r flow through the slicing and the einsum fold outside the
+kernels, by autograd.
 """
 from __future__ import annotations
 
@@ -59,10 +61,24 @@ def slot_embeddings(emb: torch.Tensor, p_slots: int, n: int) -> torch.Tensor:
                                device=emb.device)]
 
 
-def _layer_seed(gen: torch.Generator | None, train: bool) -> int:
+RANK_SEED_STRIDE = 1_000_003
+
+
+def fold_rank(seed: int, rank: int) -> int:
+    """A layer's dropout seed on data-parallel rank `rank`: seed + rank *
+    1_000_003 in int32 wraparound, as the JAX package folds the device's
+    'dp' index in (propagation.py:138 for GAT, :173 for GCN), so the ranks'
+    shares of a batch draw independent masks."""
+    s = (seed + rank * RANK_SEED_STRIDE) & 0xFFFFFFFF
+    return s - (1 << 32) if s >= 1 << 31 else s
+
+
+def _layer_seed(gen: torch.Generator | None, train: bool,
+                rank: int = 0) -> int:
     if not train:
         return 0
-    return int(torch.randint(0, 2_147_483_647, (1,), generator=gen))
+    return fold_rank(int(torch.randint(0, 2_147_483_647, (1,),
+                                       generator=gen)), rank)
 
 
 def init_gat_layer(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -131,6 +147,9 @@ class GAT:
         self.out_dim = out_dim
         self.feat_drop = feat_drop
         self.attn_drop = attn_drop
+        # this process's data-parallel rank, folded into the dropout seeds
+        # (set by the trainer)
+        self.rank = 0
         specs = [(in_dim + pos_dim, hidden_dim, heads[0])]
         for l in range(1, num_layers):
             specs.append((hidden_dim * heads[l - 1] + pos_dim, hidden_dim,
@@ -189,7 +208,8 @@ class GAT:
                     h = gat_layer_fwd(h, *ops, ngp, nsib, p_slots, heads,
                                       out_alpha=out_alpha)
                 continue
-            kw = dict(pe_pack=pe_pack, seed=_layer_seed(gen, train),
+            kw = dict(pe_pack=pe_pack,
+                      seed=_layer_seed(gen, train, self.rank),
                       feat_drop=feat_drop, attn_drop=attn_drop,
                       need_dx=l > 0)
             if pooled:
@@ -259,6 +279,7 @@ class GCN:
         self.pos_dim = pos_dim
         self.position_vocab_size = position_vocab_size
         self.out_dim = out_dim
+        self.rank = 0    # data-parallel rank, as GAT.rank
         self.layer_specs = (
             [(in_dim + pos_dim, hidden_dim, HIDDEN_ALPHA, in_dropout)] +
             [(hidden_dim + pos_dim, hidden_dim, HIDDEN_ALPHA, hidden_dropout)
@@ -289,7 +310,8 @@ class GCN:
                 pe = slot_embeddings(params["pos_emb"][i]["emb"], p_slots, n)
             h = apply_gcn_layer(params["layers"][i], h, ngp, nsib, p_slots,
                                 alpha=alpha, drop=rate if train else 0.0,
-                                seed=_layer_seed(gen, train), pos_emb=pe,
+                                seed=_layer_seed(gen, train, self.rank),
+                                pos_emb=pe,
                                 differentiable=differentiable,
                                 need_dx=i > 0)
         return h

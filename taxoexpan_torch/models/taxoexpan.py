@@ -7,7 +7,9 @@ far: every propagation method (GCN, PGCN, GAT, PGAT) with pos_mode="bias"
 in float32, eval and train (dropout) forms, every readout (MR, WMR, CR,
 SUM, MAX, PATR), every matcher, the raw-feature channel and its
 structure-prior init, the training forward (`forward`: GroupBatch -> scores
-[G, C]) and the auxiliary MTL heads (`aux_heads`, `forward_heads`).
+[G, C]; `forward_with_feats` from features the caller gathered, the
+partitioned feature table's path) and the auxiliary MTL heads
+(`aux_heads`, `forward_heads[_with_feats]`).
 pos_mode="concat", residual GAT layers and bf16 wait for later work
 (ROADMAP.md).
 """
@@ -172,23 +174,34 @@ class TaxoExpan:
         return feats * mask[..., None].to(feats.dtype)
 
     def _batch_inputs(self, batch, feature_table):
-        """(egonet features, per-egonet query features) of a GroupBatch."""
+        """(egonet features, query features [G, D]) of a GroupBatch."""
         ego = batch.ego
         feats = self.gather_feats(feature_table, ego.node_ids.long(),
                                   ego.ngp, ego.nsib)
         qf = (batch.query_feats if batch.query_feats is not None
               else feature_table[batch.query_ids.long()])
-        return feats, qf.repeat_interleave(batch.labels.shape[1], dim=0)
+        return feats, qf
 
     def forward(self, params: dict, batch, feature_table: torch.Tensor, *,
                 gen: torch.Generator | None = None,
                 train: bool = False) -> torch.Tensor:
         """GroupBatch (tensors on the model's device) -> scores [G, C], in
         the per-group layout the losses take."""
-        ego = batch.ego
         feats, qf = self._batch_inputs(batch, feature_table)
-        hg = self.encode(params, feats, ego.ngp, ego.nsib, gen=gen,
+        return self.forward_with_feats(params, batch, feats, qf, gen=gen,
+                                       train=train)
+
+    def forward_with_feats(self, params: dict, batch, ego_feats, qf, *,
+                           gen: torch.Generator | None = None,
+                           train: bool = False) -> torch.Tensor:
+        """`forward` from features gathered by the caller: egonet features
+        [B, N, D] (invalid slots zeroed) and query features [G, D], as the
+        partitioned feature table gives them
+        (taxoexpan_tpu/models/taxoexpan.py:242)."""
+        ego = batch.ego
+        hg = self.encode(params, ego_feats, ego.ngp, ego.nsib, gen=gen,
                          train=train)
+        qf = qf.repeat_interleave(batch.labels.shape[1], dim=0)
         return self.match(params, hg, qf).reshape(batch.labels.shape)
 
     def forward_heads(self, params: dict, batch,
@@ -199,9 +212,18 @@ class TaxoExpan:
         [1 + len(aux_heads), G, C], row 0 the primary readout and matcher
         (taxoexpan_tpu/models/taxoexpan.py:254-290): the MTL training
         path, whose loss is the mean of the per-head losses."""
-        ego = batch.ego
         feats, qf = self._batch_inputs(batch, feature_table)
-        h = self._trunk(params, feats, ego.ngp, ego.nsib, gen, train)
+        return self.forward_heads_with_feats(params, batch, feats, qf,
+                                             gen=gen, train=train)
+
+    def forward_heads_with_feats(self, params: dict, batch, ego_feats, qf,
+                                 *, gen: torch.Generator | None = None,
+                                 train: bool = False) -> torch.Tensor:
+        """`forward_heads` from features gathered by the caller, as
+        `forward_with_feats` (taxoexpan_tpu/models/taxoexpan.py:266)."""
+        ego = batch.ego
+        h = self._trunk(params, ego_feats, ego.ngp, ego.nsib, gen, train)
+        qf = qf.repeat_interleave(batch.labels.shape[1], dim=0)
         heads = [(self.readout, self.matcher, params["readout"],
                   params["match"])]
         heads += [(rd, mt, hp["readout"], hp["match"])
@@ -210,6 +232,6 @@ class TaxoExpan:
         scores = []
         for rd, mt, rp, mp in heads:
             hg = rd.apply(rp, h, ego.ngp, ego.nsib, self.max_parents)
-            hg = self._append_raw(hg, feats, ego.ngp, ego.nsib)
+            hg = self._append_raw(hg, ego_feats, ego.ngp, ego.nsib)
             scores.append(mt.apply(mp, hg, qf).reshape(batch.labels.shape))
         return torch.stack(scores)

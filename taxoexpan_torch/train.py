@@ -3,23 +3,32 @@
     python -m taxoexpan_torch.train -c configs/config.mag.json
     python -m taxoexpan_torch.train -c ... --lr 1e-3 --ep 20 -d cpu
     python -m taxoexpan_torch.train -r saved/models/<name>/<ts>/checkpoint-epoch3.ckpt
+    # data parallel, one process a rank (here 2 ranks on this host):
+    python -m taxoexpan_torch.train -c ... --coordinator 127.0.0.1:29500 \
+        --num_processes 2 --process_id 0   # and --process_id 1
 
-The JAX `train.py`'s config files and override flags, minus its
-multi-process ones; runs on CUDA unless `-d cpu` is given. Checkpoints hold
-the JAX package's payload keys: the JAX package and the port's test_fast
-serve them, and --resume takes a checkpoint of either package.
+The JAX `train.py`'s config files, override flags and multi-process flags
+(also read from TAXOEXPAN_COORDINATOR / TAXOEXPAN_NUM_PROCESSES /
+TAXOEXPAN_PROCESS_ID); runs on CUDA unless `-d cpu` is given, rank r on card
+r % device_count. `parallel.feature_mode: "partitioned"` row-partitions the
+feature table across the ranks, with the halo exchange TAXOEXPAN_HALO
+selects (all_to_all, or ring: K6 on the card). `parallel.mp > 1` (head
+tensor parallelism) is not ported and raises. Checkpoints hold the JAX
+package's payload keys: the JAX package and the port's test_fast serve
+them, and --resume takes a checkpoint of either package.
 """
 from __future__ import annotations
 
 import argparse
 import logging
 import time
+from datetime import datetime
 
 import torch
 
 from . import builders
 from .config import ConfigParser, CustomArg
-from .device import resolve_device
+from .parallel import data_parallel, distributed
 from .training import Trainer
 from .tree import tree_leaves
 
@@ -73,19 +82,22 @@ OPTIONS = [
 ]
 
 
-def _refuse_unported(config) -> None:
+def _parallel(config):
+    """(data-parallel group or None, feature mode) from the config's
+    `parallel` block (the JAX train.py:69-106): dp defaults to the number
+    of processes; mp > 1 raises (not ported); with one process the table
+    is replicated."""
     par = config.get("parallel", {}) or {}
-    if int(par.get("dp", 1) or 1) > 1 or int(par.get("mp", 1) or 1) > 1 \
-            or par.get("feature_mode", "replicated") != "replicated":
-        raise ValueError(f"parallel={par!r}: the device mesh, tensor "
-                         "parallelism and the partitioned feature table are "
-                         "not ported yet; the port trains on one device")
+    dp = data_parallel(int(par["dp"]) if par.get("dp") else None,
+                       int(par.get("mp", 1) or 1))
+    feature_mode = par.get("feature_mode", "replicated")
+    return dp, feature_mode if dp is not None else "replicated"
 
 
 def main(config: ConfigParser) -> dict:
     """Train as the config says; returns the last epoch's log."""
-    device = resolve_device(config.args.device)
-    _refuse_unported(config)
+    device = distributed.rank_device(config.args.device)
+    dp, feature_mode = _parallel(config)
     taxonomy = builders.build_taxonomy(
         config["train_data_loader"]["args"]["data_path"])
     train_cfg = config["train_data_loader"]["args"]
@@ -127,7 +139,7 @@ def main(config: ConfigParser) -> dict:
                       log_dir=config.log_dir,
                       rng_seed=config.get("seed", 0),
                       full_valid_sampler=full_valid_sampler,
-                      device=device)
+                      device=device, dp=dp, feature_mode=feature_mode)
     if config.resume is not None:
         trainer.resume(config.resume)
     start = time.time()
@@ -147,10 +159,28 @@ def parse_args(argv=None) -> ConfigParser:
                     help="torch device (cuda | cuda:N | cpu)")
     ap.add_argument("-s", "--suffix", default="", type=str,
                     help="suffix indicating this run")
+    # multi-process data parallelism, see parallel/distributed.py
+    ap.add_argument("--coordinator", default=None, type=str,
+                    help="process-group rendezvous address host:port")
+    ap.add_argument("--num_processes", default=None, type=int,
+                    help="total process count (data-parallel ranks)")
+    ap.add_argument("--process_id", default=None, type=int,
+                    help="this process's rank in [0, num_processes)")
     for opt in OPTIONS:
         ap.add_argument(*opt.flags, default=None, type=opt.type)
-    return ConfigParser(ap.parse_args(argv), OPTIONS)
+    args = ap.parse_args(argv)
+    # the process group comes first: the ranks share rank 0's run directory
+    if distributed.maybe_initialize(args.coordinator, args.num_processes,
+                                    args.process_id, args.device):
+        run_id = distributed.broadcast_object(
+            datetime.now().strftime(r"%m%d_%H%M%S"))
+        return ConfigParser(args, OPTIONS, run_id=run_id,
+                            primary=distributed.rank() == 0)
+    return ConfigParser(args, OPTIONS)
 
 
 if __name__ == "__main__":
-    main(parse_args())
+    try:
+        main(parse_args())
+    finally:
+        distributed.shutdown()

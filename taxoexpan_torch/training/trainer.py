@@ -1,4 +1,4 @@
-"""Training runtime, single device (port of `taxoexpan_tpu/train/trainer.py`).
+"""Training runtime (port of `taxoexpan_tpu/train/trainer.py`).
 
 One train step is model.forward (in train mode: for GAT/PGAT the K1/K3
 train-form kernels, K2/K4 in the backward; for GCN/PGCN the K5 train form
@@ -14,12 +14,29 @@ on validation metric 0 (mode min) or 2 (mode max), "min val_macro_mr"
 style monitoring with early stop, periodic checkpoints plus model_best,
 and resume.
 
-Not ported (the builders and the CLI refuse them): the device mesh and
-multi-process data parallelism, the partitioned feature table, the
+Data parallelism (`dp`, one process a rank; trainer.py:180-235): every
+rank samples the same host-global batch and trains on its contiguous share
+of groups, with the rank folded into the dropout seeds (models/
+propagation.py:fold_rank). The losses are sums over groups, so the step's
+gradient is the SUM of the ranks' gradients: one all-reduce a step, before
+the optimizer's update (an average, as DistributedDataParallel takes it,
+would divide the gradient by the number of ranks). The feature table is
+replicated on every rank (`feature_mode="replicated"`) or row-partitioned
+across them (`"partitioned"`): then egonet and query features come through
+`parallel/partition.py:partitioned_gather` and the exchange that
+TAXOEXPAN_HALO selects (all_to_all, or ring on K6). The epoch's losses,
+summed over the ranks, and the count of overflowed halo requests come back
+in one readback an epoch; sampled validation scores each rank's share and
+all-gathers the scores; full-catalog validation runs the ranker's
+data-parallel encode. Checkpoints and the tensorboard writer are rank 0's;
+every rank resumes from the same checkpoint.
+
+Not ported: head tensor parallelism over 'mp' (the CLI refuses it), the
 profiler window. Checkpoints are written in the foreground.
 """
 from __future__ import annotations
 
+import json
 import logging
 import queue
 import threading
@@ -32,6 +49,10 @@ import torch
 from .. import metrics as metrics_mod
 from ..data.egobatch import EgoBatch, GroupBatch
 from ..losses import get_loss
+from ..ops import star
+from ..parallel import distributed
+from ..parallel.partition import (halo_impl, make_exchange,
+                                  partitioned_gather, shard_table)
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from ..weights import params_to
 from ..writer import TensorboardWriter
@@ -70,12 +91,16 @@ def batch_to(batch: GroupBatch, device: torch.device) -> GroupBatch:
 class _DeviceFeed:
     """Stage batches on the device from a background thread, with the
     host-side batch statistics (egonet and edge counts). Yields
-    (host_batch, device_batch, n_egonets, n_edges)."""
+    (host_batch, device_batch, n_egonets, n_edges); with `dp` the device
+    batch is this rank's share of the host batch, the counts the whole
+    batch's."""
 
-    def __init__(self, loader, device: torch.device, depth: int = 2):
+    def __init__(self, loader, device: torch.device, depth: int = 2,
+                 dp=None):
         self.loader = loader
         self.device = device
         self.depth = depth
+        self.dp = dp
 
     def __iter__(self):
         q: queue.Queue = queue.Queue(maxsize=self.depth)
@@ -90,7 +115,10 @@ class _DeviceFeed:
                     nsib = np.asarray(batch.ego.nsib)
                     n_edges = int(ngp.sum() + nsib.sum()
                                   + (ngp + 1 + nsib).sum())
-                    q.put((batch, batch_to(batch, self.device), n_egonets,
+                    share = batch if self.dp is None else \
+                        distributed.rank_share(batch, self.dp.rank,
+                                               self.dp.size)
+                    q.put((batch, batch_to(share, self.device), n_egonets,
                            n_edges))
             except BaseException as e:  # surface in the consumer
                 err.append(e)
@@ -125,9 +153,20 @@ class Trainer:
                  monitor_best: float | None = None,
                  full_valid_sampler=None,
                  device: torch.device | str = "cuda",
-                 encode_chunk: int = 4096):
+                 encode_chunk: int = 4096,
+                 dp=None,
+                 feature_mode: str = "replicated"):
         self.device = torch.device(device)
+        if feature_mode not in ("replicated", "partitioned"):
+            raise ValueError(f"unknown feature_mode {feature_mode!r}")
+        if feature_mode == "partitioned" and dp is None:
+            raise ValueError("feature_mode='partitioned' requires data "
+                             "parallelism (a run of several processes)")
+        self.dp = dp
+        self.feature_mode = feature_mode
         self.model = model
+        # the rank's dropout seeds (models/propagation.py:fold_rank)
+        model.propagate.rank = dp.rank if dp is not None else 0
         self.params = params_to(params, self.device)
         self.optimizer = optimizer
         self.opt_state = params_to(opt_state, self.device)
@@ -178,35 +217,86 @@ class Trainer:
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         self.writer = TensorboardWriter(
             log_dir or self.checkpoint_dir,
-            enabled=cfg_t.get("tensorboardX", False))
+            enabled=cfg_t.get("tensorboardX", False) and self._primary)
         self.rng_seed = rng_seed
-        self.feature_table = torch.from_numpy(
-            np.asarray(feature_table, dtype=np.float32)).to(self.device)
+        table = np.asarray(feature_table, dtype=np.float32)
+        self.feature_table = self.exchange = None
+        if feature_mode == "partitioned":
+            self.halo = halo_impl()
+            self.exchange = make_exchange(
+                torch.from_numpy(shard_table(table, dp.size)[dp.rank]), dp,
+                self.device, self.halo)
+            # overflowed halo requests, read back once an epoch
+            self._overflow = torch.zeros((), dtype=torch.int64,
+                                         device=self.device)
+        else:
+            self.halo = None
+            self.feature_table = torch.from_numpy(table).to(self.device)
+
+    @property
+    def _primary(self) -> bool:
+        """Rank 0 (or the single process): the one that writes."""
+        return self.dp is None or self.dp.rank == 0
+
+    # ---------------------------------------------------- model inputs
+    def _ego_feats(self, ids, ngp, nsib) -> torch.Tensor:
+        """Egonet features [B, N, D] of device ids [B, N], invalid slots
+        zeroed: from the replicated table, or through the halo exchange of
+        the row-partitioned one (trainer.py:217-235)."""
+        if self.feature_mode == "replicated":
+            return self.model.gather_feats(self.feature_table, ids.long(),
+                                           ngp, nsib)
+        feats = partitioned_gather(ids, self.exchange, self.dp.size,
+                                   overflow=self._overflow)
+        mask = star.node_mask(ngp, nsib, self.model.max_parents,
+                              ids.shape[1])
+        return feats * mask[..., None].to(feats.dtype)
+
+    def _query_feats(self, batch: GroupBatch) -> torch.Tensor:
+        """Query features [G, D]; the loader gives query ids, which go
+        through the exchange like the egonets' on the partitioned table."""
+        if batch.query_feats is not None:
+            return batch.query_feats
+        if self.feature_mode == "replicated":
+            return self.feature_table[batch.query_ids.long()]
+        return partitioned_gather(batch.query_ids, self.exchange,
+                                  self.dp.size, overflow=self._overflow)
 
     # ------------------------------------------------------------ one step
     def train_step(self, batch: GroupBatch, step_idx: int,
                    return_grads: bool = False):
         """Loss, grads and the optimizer's update for one device batch;
-        returns the loss (a device scalar, not read back), and with
-        `return_grads` also the grads (a tree like the params)."""
+        returns the loss (a device scalar, not read back; with `dp` this
+        rank's share of it), and with `return_grads` also the grads (a tree
+        like the params; with `dp` summed over the ranks)."""
         gen = step_generator(self.rng_seed, step_idx)
         params = tree_map(lambda x: x.detach().requires_grad_(True),
                           self.params)
         leaves = tree_leaves(params)
+        ego = batch.ego
         with torch.enable_grad():
+            feats = self._ego_feats(ego.node_ids, ego.ngp, ego.nsib)
+            qf = self._query_feats(batch)
             if self.model.aux_heads:
-                all_scores = self.model.forward_heads(
-                    params, batch, self.feature_table, gen=gen, train=True)
+                all_scores = self.model.forward_heads_with_feats(
+                    params, batch, feats, qf, gen=gen, train=True)
                 loss = torch.stack([
                     self.loss_fn(s, batch.labels, batch.cand_mask)
                     for s in all_scores]).mean()
             else:
-                scores = self.model.forward(params, batch, self.feature_table,
-                                            gen=gen, train=True)
+                scores = self.model.forward_with_feats(
+                    params, batch, feats, qf, gen=gen, train=True)
                 loss = self.loss_fn(scores, batch.labels, batch.cand_mask)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
+        if self.dp is not None:
+            # the global batch's gradient: the sum over the ranks, in one
+            # all-reduce of the flattened grads
+            flat = distributed.all_reduce_sum(
+                torch.cat([g.reshape(-1) for g in grads]), self.dp)
+            grads = [part.view_as(g) for part, g in zip(
+                flat.split([g.numel() for g in grads]), grads)]
         grads = tree_unflatten(params, grads)
         self.params, self.opt_state = self.optimizer.update(
             grads, self.opt_state, tree_map(lambda x: x.detach(), params))
@@ -224,7 +314,7 @@ class Trainer:
                       and epoch % self.full_validation_every == 0)
         t0 = time.time()
         for batch_idx, (_host, dev_batch, b_egonets, b_edges) in enumerate(
-                _DeviceFeed(self.train_loader, self.device)):
+                _DeviceFeed(self.train_loader, self.device, dp=self.dp)):
             t1 = time.time()
             losses.append(self.train_step(dev_batch,
                                           epoch * STEP_STRIDE + batch_idx))
@@ -239,10 +329,24 @@ class Trainer:
             t_wait += t1 - t0
             t_step += t2 - t1
             t0 = t2
-        # one readback of the epoch's losses
+        # one readback of the epoch's losses (with dp summed over the
+        # ranks, the overflowed halo requests riding along)
         t_s = time.time()
-        loss_vals = (torch.stack(losses).double().cpu().numpy() if losses
-                     else np.zeros(0))
+        vals = torch.stack(losses).double() if losses else \
+            torch.zeros(0, dtype=torch.float64, device=self.device)
+        if self.feature_mode == "partitioned":
+            vals = torch.cat([vals, self._overflow.double()[None]])
+            self._overflow.zero_()
+        if self.dp is not None:
+            vals = distributed.all_reduce_sum(vals, self.dp)
+        loss_vals = vals.cpu().numpy()
+        if self.feature_mode == "partitioned":
+            loss_vals, overflowed = loss_vals[:-1], int(loss_vals[-1])
+            if overflowed:
+                self.logger.warning(
+                    "partitioned_gather: %d requests overflowed their halo "
+                    "buckets this epoch and were poisoned with NaN; raise "
+                    "capacity_factor", overflowed)
         t_sync = time.time() - t_s
         dt = max(time.time() - t_epoch, 1e-9)
         for i, lv in enumerate(loss_vals):
@@ -284,27 +388,30 @@ class Trainer:
     def eval_scores(self, batch: GroupBatch) -> torch.Tensor:
         """Eval-mode scores [G, C] of a device batch, its egonets encoded in
         chunks of `encode_chunk` (a validation batch at config.mag.json
-        holds over 32k egonets)."""
+        holds over 32k egonets). With `dp` the batch is this rank's share
+        and the scores of every rank's share come back, in rank order."""
         ego = batch.ego
         model, params = self.model, self.params
         hg = []
         for s in range(0, ego.node_ids.shape[0], self.encode_chunk):
             sl = slice(s, s + self.encode_chunk)
-            feats = model.gather_feats(self.feature_table,
-                                       ego.node_ids[sl].long(), ego.ngp[sl],
-                                       ego.nsib[sl])
+            feats = self._ego_feats(ego.node_ids[sl], ego.ngp[sl],
+                                    ego.nsib[sl])
             hg.append(model.encode(params, feats, ego.ngp[sl], ego.nsib[sl]))
         g, c = batch.labels.shape
-        qf = self.feature_table[batch.query_ids.long()]
-        return model.match(params, torch.cat(hg),
-                           qf.repeat_interleave(c, dim=0)).reshape(g, c)
+        qf = self._query_feats(batch)
+        scores = model.match(params, torch.cat(hg),
+                             qf.repeat_interleave(c, dim=0)).reshape(g, c)
+        if self.dp is not None:
+            scores = distributed.all_gather_cat(scores, self.dp)
+        return scores
 
     def _valid_epoch(self, epoch: int) -> dict:
         """Sampled validation: metrics averaged over validation batches."""
         totals = np.zeros(len(self.metric_fns))
         n_batches = 0
         for batch_idx, (host, dev_batch, _ne, _ee) in enumerate(
-                _DeviceFeed(self.valid_loader, self.device)):
+                _DeviceFeed(self.valid_loader, self.device, dp=self.dp)):
             scores = self.eval_scores(dev_batch).cpu().numpy()
             all_ranks = metrics_mod.ranks_from_groups(
                 scores, host.labels, host.cand_mask, mode=self.rank_mode)
@@ -327,7 +434,8 @@ class Trainer:
             s = self.full_valid_sampler
             self._full_ranker = TaxonomyRanker(
                 self.model, self.params, s, s.node_features,
-                encode_chunk=self.encode_chunk, device=self.device)
+                encode_chunk=self.encode_chunk, device=self.device,
+                dp=self.dp)
         else:
             self._full_ranker.refresh(self.params)
         result, _ = self._full_ranker.evaluate(self.metric_names,
@@ -340,7 +448,34 @@ class Trainer:
 
     # ------------------------------------------------------------ train
     def train(self) -> dict:
-        """The epoch loop with monitoring, early stop and checkpoints."""
+        """The epoch loop with monitoring, early stop and checkpoints; under
+        data parallelism, then each rank's report file. The halo exchange
+        is closed when the loop ends normally (its tear-down is
+        collective); after an exception the process exit releases it."""
+        final_log = self._train_loop()
+        if self.exchange is not None:
+            self.exchange.close()
+        if self.dp is not None:
+            self._write_report(final_log)
+        return final_log
+
+    def _write_report(self, log: dict) -> None:
+        """Rank r's last epoch log and kernel launch counts, as
+        report-rank<r>.json in the run directory (the rank processes' only
+        record: the log and checkpoints are rank 0's)."""
+        from ..ops import gat_kernels, gcn_kernels, halo_kernels
+        launches = {name: w.launches for mod in (
+            gat_kernels, gcn_kernels, halo_kernels)
+            for name, w in mod.WRAPPERS.items()}
+        rank = self.dp.rank
+        report = {"rank": rank, "world_size": self.dp.size,
+                  "device": str(self.device),
+                  "feature_mode": self.feature_mode, "halo": self.halo,
+                  "log": log, "launches": launches}
+        path = self.checkpoint_dir / f"report-rank{rank}.json"
+        path.write_text(json.dumps(report, indent=1))
+
+    def _train_loop(self) -> dict:
         not_improved_count = 0
         final_log: dict = {}
         for epoch in range(self.start_epoch, self.epochs + 1):
@@ -392,6 +527,8 @@ class Trainer:
 
     # ------------------------------------------------------ checkpoints
     def _save_checkpoint(self, epoch: int, save_best: bool = False) -> None:
+        if not self._primary:
+            return           # every rank holds the same params; rank 0 writes
         sched = self.lr_scheduler.state_dict() if self.lr_scheduler else None
         kw = dict(params=self.params, opt_state=self.opt_state, epoch=epoch,
                   monitor_best=self.mnt_best, config=self.config,

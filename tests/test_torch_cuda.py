@@ -11,7 +11,9 @@ with and without the activation and the pe path; for K7 the store forms
 of K1/K3 and the stored K2/K4 (also at the MTL per-slot final layer's
 widths, Din 3600 and Dh 600) with 32- and 8-bit masks, held to the
 recompute backward on the card within 1e-6 of each grad's largest value,
-the 8-bit golden bytes, and the differentiable layer with both switches.
+the 8-bit golden bytes, and the differentiable layer with both switches;
+for K6 the halo gather at P = 1 to 4 in float32 and bf16 (exact), empty
+buckets, and two rank processes sharing the card through CUDA IPC.
 
 Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the card:
 
@@ -31,6 +33,7 @@ import torch
 from taxoexpan_torch.ops import dropout
 from taxoexpan_torch.ops import gat_kernels as gk
 from taxoexpan_torch.ops import gcn_kernels as ck
+from taxoexpan_torch.ops import halo_kernels
 from taxoexpan_torch.ops import star
 
 pytestmark = pytest.mark.cuda
@@ -446,3 +449,86 @@ def test_stored_layer_function_on_card_matches_cpu(dev, monkeypatch):
     assert gk.gat_layer_bwd_stored.launches == before + 1
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, **GTOL)
+
+
+# ------------------------------------------------------------------- K6
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [250, 7])
+def test_halo_gather_matches_plain(dev, p, dtype, d):
+    """K6 on P shards of this process against its plain version, exactly:
+    in-range slots, slots past the shard and negative ones (zero rows), a
+    bucket with no slot in range, D a multiple of 2 (vector loads) and odd
+    (scalar)."""
+    rng = np.random.default_rng(p)
+    rows, cap = 37, 53
+    shards = [torch.from_numpy(rng.normal(size=(rows, d)).astype(
+        np.float32)).to(dev, dtype) for _ in range(p)]
+    req = rng.integers(-3, 2 * rows, size=(p, cap)).astype(np.int32)
+    req[-1] = rng.integers(rows, 10 * rows, size=cap)   # nothing in range
+    req = torch.from_numpy(req).to(dev)
+    before = halo_kernels.halo_gather.launches
+    got = halo_kernels.halo_gather(shards, req)
+    torch.cuda.synchronize()
+    assert halo_kernels.halo_gather.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (p, cap, d)
+    assert torch.equal(got, halo_kernels.halo_gather_plain(shards, req))
+    assert not got[-1].any()
+
+
+def test_halo_gather_empty_buckets_launch_nothing(dev):
+    shards = [torch.ones((5, 4), device=dev) for _ in range(2)]
+    before = halo_kernels.halo_gather.launches
+    got = halo_kernels.halo_gather(shards, torch.zeros(
+        (2, 0), dtype=torch.int32, device=dev))
+    assert got.shape == (2, 0, 4)
+    assert halo_kernels.halo_gather.launches == before
+    with pytest.raises(TypeError):
+        halo_kernels.halo_gather(shards, torch.zeros((2, 3), device=dev))
+    with pytest.raises(ValueError):
+        halo_kernels.halo_gather(shards, torch.zeros(
+            (3, 3), dtype=torch.int32, device=dev))
+
+
+def _ring_rank(rank: int, coord: str, world: int) -> None:
+    """One rank of the IPC test: its shard through RingExchange (K6 reading
+    the peer's shard through a CUDA IPC mapping), partitioned_gather of
+    this rank's ids, against the dense table."""
+    import torch.distributed as tdist
+    from taxoexpan_torch.parallel import distributed, partition
+    from taxoexpan_torch.parallel.halo import RingExchange
+    from taxoexpan_torch.parallel.mesh import DataParallel
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo", init_method=f"tcp://{coord}",
+                             world_size=world, rank=rank)
+    try:
+        dev = torch.device("cuda", 0)
+        rng = np.random.default_rng(0)
+        table = rng.normal(size=(301, 250)).astype(np.float32)
+        ids = rng.integers(0, 301, size=(world, 512, 64))[rank]
+        dp = DataParallel(size=world, rank=rank, backend="gloo")
+        ring = RingExchange(torch.from_numpy(
+            partition.shard_table(table, world)[rank]), dp, dev)
+        got = partition.partitioned_gather(
+            torch.from_numpy(ids).to(dev), ring, world)
+        torch.cuda.synchronize()
+        assert halo_kernels.halo_gather.launches == 1
+        want = torch.from_numpy(table[ids]).to(dev)
+        assert torch.equal(got, want), float((got - want).abs().max())
+        ring.close()
+        distributed.barrier(dp)
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_ring_exchange_two_processes_on_one_card(dev):
+    """Two rank processes share the card: each exchanges through K6 and the
+    peer's IPC-mapped shard, and gets the dense gather's rows exactly."""
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    mp.spawn(_ring_rank, args=(coord, 2), nprocs=2, join=True)
