@@ -40,7 +40,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               plain version and one torch.matmul as a yardstick
               (`matmul_ms`: x @ W for a forward, the dW product x^T @ D for
               a backward; not the layer, so the `library_ms` of the kernels
-              line is null), beside the least time the card could take.
+              line is null), beside the least time the card could take
+              (`bound_ms`, at the float32 rate; where the form's products
+              run on the tensor cores in 3xTF32, also `bound_3xtf32_ms`
+              at a third of the dense TF32 rate). The per-slot forwards
+              (K1) and the backwards (K2, K4, K5b) also give their time
+              by pass (`passes_ms`, CUDA events the kernel library records
+              between its launches: staging and packing, the projection,
+              the star pass; the head core, the slot-bias sums, dW, dx).
               K6 (the halo gather, ops/csrc/halo.cu) in one process
               holding all shards of an 800 x 250 table, at the data-parallel
               path's shapes for P = 2 and P = 4 (one rank's request for its
@@ -109,9 +116,13 @@ REPO = Path(__file__).resolve().parent
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # HBM bandwidth and float32 outside the tensor cores (the kernels compute
-# in full float32; TF32 would break parity with the plain versions)
+# at float32 accuracy; plain TF32 would break parity with the plain
+# versions); the forms whose products run on the tensor cores in 3xTF32
+# (three TF32 products a float32 one) also get a bound at a third of the
+# dense TF32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_3XTF32_FLOP_PER_S = 495e12 / 3
 
 # kernel vs plain version on the card: both float32, sums taken in another
 # order (tiled K loop vs cuBLAS), so agreement is to rounding, not bits
@@ -395,12 +406,33 @@ def gcn_bwd_work(x, ops, pe_pack, g, grads: dict, ngp, nsib, alpha):
     return nbytes, 2.0 * rows * dout * products + 8.0 * rows * dout
 
 
-def _bound(nbytes: float, flops: float) -> dict:
+def _bound(nbytes: float, flops: float, tensor_cores: bool = False) -> dict:
+    """The least time for the work at the float32 rate (`bound_ms`) and,
+    for a form whose products run on the tensor cores, at 3xTF32's
+    (`bound_3xtf32_ms`, all its operations counted at that rate)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
-    return {"bytes": nbytes, "operations": flops,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    res = {"bytes": nbytes, "operations": flops,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if tensor_cores:
+        res["bound_3xtf32_ms"] = max(
+            t_bytes, flops / PEAK_3XTF32_FLOP_PER_S * 1e3)
+    return res
+
+
+def pass_split(kernel, which: str, calls: int = 3) -> dict:
+    """Mean device ms of each pass of `kernel` (one wrapper call) over
+    `calls` calls, from CUDA events the kernel library records between its
+    launches: which = "gat_fwd" (the per-slot forward: stage and pack,
+    projection, star pass), "gat_bwd" (K2 / K4: stage and pack, projection,
+    head core, slot-bias sums, dW, dx) or "gcn_bwd" (K5b: dW, dx)."""
+    from taxoexpan_torch.ops import gat_kernels as gk
+    from taxoexpan_torch.ops import gcn_kernels as ck
+    fn = {"gat_fwd": gk.fwd_pass_ms, "gat_bwd": gk.bwd_pass_ms,
+          "gcn_bwd": ck.bwd_pass_ms}[which]
+    runs = [fn(kernel) for _ in range(calls)]
+    return {k: sum(r[k] for r in runs) / calls for k in runs[0]}
 
 
 def compare_grads(name: str, got: dict, want: dict) -> dict:
@@ -446,10 +478,12 @@ def stored_vs_recompute(name: str, stored: dict, recompute: dict) -> float:
     return worst
 
 
-def measure(name: str, kernel, plain, backward: bool, matmul) -> tuple:
+def measure(name: str, kernel, plain, backward: bool, matmul,
+            passes: str | None = None) -> tuple:
     """The kernel once against its plain version, then the device times of
-    the kernel, the plain version and the torch.matmul yardstick. Returns
-    (the kernel's result, the record's numbers)."""
+    the kernel, the plain version and the torch.matmul yardstick, and with
+    `passes` the split of the kernel's time by pass (`pass_split`).
+    Returns (the kernel's result, the record's numbers)."""
     import torch
     with torch.no_grad():
         got = kernel()
@@ -461,6 +495,8 @@ def measure(name: str, kernel, plain, backward: bool, matmul) -> tuple:
         times = {"ms": time_ms(kernel, 5 if backward else 10),
                  "plain_ms": time_ms(plain, 3),
                  "matmul_ms": time_ms(matmul, 5 if backward else 10)}
+        if passes is not None:
+            times["passes_ms"] = pass_split(kernel, passes)
     return got, {**err, **times}
 
 
@@ -599,7 +635,12 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
         else:
             matmul = lambda: x2 @ fc  # noqa: E731
             call = "torch.matmul(x.reshape(-1, Din), fc)"
-        got, nums = measure(name, kernel, plain, backward, matmul)
+        # the per-slot forwards and both backwards run their products on
+        # the tensor cores (K4's first pass does not)
+        tc = backward or not pooled
+        got, nums = measure(name, kernel, plain, backward, matmul,
+                            ("gat_bwd" if backward else "gat_fwd")
+                            if tc else None)
         if backward:
             del d
             nbytes, flops = bwd_work(x, ops, pe_pack, g1 if pooled else g0,
@@ -618,7 +659,7 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
                # no single PyTorch call computes the star-GAT layer or its
                # backward; one product alone is timed as a yardstick
                "library_ms": None, "matmul_call": call,
-               **_bound(nbytes, flops)}
+               **_bound(nbytes, flops, tc)}
         emit("kernel", **rec)
         records.append(rec)
         del got
@@ -635,7 +676,7 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
 
 def gat_record(name: str, wrapper: str, path: str, backward: bool, x, fc,
                pe_pack, nums: dict, work: tuple, replaces: str,
-               **extra) -> dict:
+               tensor_cores: bool = True, **extra) -> dict:
     """Emit and return the record of one star-GAT kernel entry."""
     rec = {"name": name, "wrapper": wrapper, "path": path, "route": "cuda",
            "source": "taxoexpan_torch/ops/csrc/"
@@ -649,7 +690,7 @@ def gat_record(name: str, wrapper: str, path: str, backward: bool, x, fc,
            "matmul_call": ("torch.matmul(x.reshape(-1, Din).T, "
                            "D [B*N, H*Dh+2H])" if backward else
                            "torch.matmul(x.reshape(-1, Din), fc)"),
-           **_bound(*work)}
+           **_bound(*work, tensor_cores)}
     emit("kernel", **rec)
     return rec
 
@@ -682,12 +723,12 @@ def store_entries(tag: str, path: str, pooled: bool, x, ops, pe_pack,
         name + tag, lambda: fwd_w(*ops_all, **train_kw, **akw),
         lambda: gk.gat_layer_train_plain(*ops_all, pooled=pooled,
                                          store_attn=True, **train_kw, **akw),
-        False, lambda: x2 @ fc)
+        False, lambda: x2 @ fc, None if pooled else "gat_fwd")
     records = [gat_record(
         name + tag, name, path, False, x, fc, pe_pack, nums,
         fwd_work(pooled, x, ops, pe_pack, ngp, nsib, heads,
                  out.numel() + attn.numel()),
-        replaces or REPLACES[name], **common)]
+        replaces or REPLACES[name], not pooled, **common)]
     del out
 
     name = bwd_w.__name__
@@ -696,7 +737,7 @@ def store_entries(tag: str, path: str, pooled: bool, x, ops, pe_pack,
         name + tag, lambda: bwd_w(g, *ops_all, attn, need_dbias=False, **bkw),
         lambda: gk.gat_layer_bwd_plain(g, *ops_all, pooled=pooled,
                                        stored_attn=attn, **bkw),
-        True, lambda: x2.T @ d)
+        True, lambda: x2.T @ d, "gat_bwd")
     del d
     rel = stored_vs_recompute(name + tag, grads, recompute_w(
         g, *ops_all, need_dbias=False, **bkw))
@@ -749,7 +790,7 @@ def phase_mtl_kernels(batch: int, device, drop: float) -> list[dict]:
             lambda: gk.gat_layer_fwd(x, *ops, *args, heads,
                                      out_alpha=out_alpha),
             lambda: gk.gat_layer_fwd_plain(x, *ops, *args, heads, out_alpha),
-            False, lambda: x2 @ ops[0])
+            False, lambda: x2 @ ops[0], "gat_fwd")
         return got, gat_record(
             f"{name}{tag}", name, "MTL", False, x, ops[0], None, nums,
             fwd_work(False, x, ops, None, ngp, nsib, heads, got.numel()),
@@ -879,7 +920,8 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
         else:
             matmul = lambda: x2 @ w  # noqa: E731
             call = "torch.matmul(x.reshape(-1, Din), W_h)"
-        got, nums = measure(name, kernel, plain, backward, matmul)
+        got, nums = measure(name, kernel, plain, backward, matmul,
+                            "gcn_bwd" if backward else None)
         if backward:
             del d
             nbytes, flops = gcn_bwd_work(x, ops, pe_pack,
@@ -901,7 +943,7 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
                # no single PyTorch call computes the star-GCN layer or its
                # backward; one product alone is timed as a yardstick
                "library_ms": None, "matmul_call": call,
-               **_bound(nbytes, flops)}
+               **_bound(nbytes, flops, backward)}
         emit("kernel", **rec)
         records.append(rec)
         del got

@@ -17,99 +17,121 @@
 //   gat_layer_fwd:        optional leaky(out, out_alpha); writes [B, N, H*Dh]
 //   gat_layer_pooled_fwd: head mean, then per class (valid gp sum, anchor,
 //                         valid sib sum); writes [B, 3, Dh] only.
-// The train forms (kTrain) mask x as it is staged, add the masked pe rows
-// as extra K columns and multiply the attention weights by their masks
-// (gat_common.cuh); the dropout bits are a pure function of the element's
-// indices, so the backward kernels (gat_bwd.cu) replay them exactly. Given
-// an attn pointer (the store form, TAXOEXPAN_STORED_ATTN=1) they also write
-// the softmax weights before dropout, [B, H, 2N - P - 1] (layout in
-// gat_common.cuh), for the stored-attention backward: the blocks of column
-// tile 0 write them, so each weight is written once (pallas_gat.py:231).
+// The train forms mask x, add the masked pe rows as extra K columns and
+// multiply the attention weights by their masks (gat_common.cuh); the
+// dropout bits are a pure function of the element's indices, so the
+// backward kernels (gat_bwd.cu) replay them exactly. Given an attn pointer
+// (the store form, TAXOEXPAN_STORED_ATTN=1) they also write the softmax
+// weights before dropout, [B, H, 2N - P - 1] (layout in gat_common.cuh),
+// for the stored-attention backward (pallas_gat.py:231).
 //
 // What bounds it on an H100: the x @ fc product. At the config.mag.json
 // shapes (N = 64) layer 0 does 2*B*64*(250 [+50])*2008 flop and writes
 // B*64*2000 floats; the final layer does 2*B*64*(2000 [+50])*502 flop and
-// writes only the pools. Both sit above the float32 ridge point, so the
-// bound is the float32 FMA rate (the tensor cores' TF32 would break f32
-// parity). The train form adds one 32-bit hash per staged x element.
-// The per-slot kernel repeats the whole K loop (and a1/a2) for each
-// 128-column tile of a head, so a wide head reads x several times: the MTL
-// configuration's per-slot final layer (Din 3600 + pe 100, Dh 600) runs 5
-// tiles, and there the kernel is slower than its plain version (PERF.md).
+// writes only the pools. Both sit far above the float32 ridge point.
 //
-// Design (simple first): one block of 256 threads per (egonet, head, 128-
-// column tile of the head) for the per-slot kernel and per (egonet, column
-// tile) for the pooled one, which loops over heads so that the head mean
-// and class sums stay in registers. Each block runs a register-tiled SIMT
+// Per-slot layer (gat_layer_fwd[_train]): two launches (and two small
+// preparations).
+//  1. The projection P = X @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot
+//     biases over all B*N rows, [B*N, wdp] (wdp = H*Dh + 2H rounded up to
+//     4), on the tensor cores in 3xTF32 (gemm_tf32.cuh): one product a
+//     layer, W's tiles reused across 128 rows (two egonets) a block. X is
+//     x itself, or, where the layer has masks or a pe path or x's rows are
+//     not 16-byte multiples, x staged once into a workspace with each mask
+//     bit hashed once (gemm_tf32.cuh:stage_input_kernel). The backward
+//     (gat_bwd.cu) runs the same product on the same inputs, so its a1/a2
+//     and softmax are these bits.
+//  2. The star pass, one block per (egonet, head): a1/a2 from P, the star
+//     softmax once (with attention dropout, and the stored weights written
+//     where attn is not null), then the aggregation, the optional
+//     out_alpha leaky and the output, each thread a column of the head:
+//     bound by bytes (P read and the output written once).
+// The workspace P is 4 * B*N*wdp bytes: 2.1 GB for config.mag.json's layer
+// 0 at B = 4096, 3.8 GB for the MTL configuration's layer 0.
+//
+// Pooled layer (gat_layer_pooled_fwd[_train], simple first): one block of
+// 256 threads per (egonet, 128-column tile), looping over heads so that
+// the head mean and class sums stay in registers; a register-tiled SIMT
 // product (4 rows x 8 columns per thread, K tiles of 16 staged in shared
-// memory), folds a1/a2 of its head into the same K loop, keeps the ft tile
-// [N, 128] in shared memory, computes the star softmax there and writes
-// the aggregated tile (or the pools) directly: ft never reaches device
-// memory. The blocks of one egonet are adjacent in the grid, so the
-// repeated reads of x[b] are served from L2. N is taken as given (no slot
-// padding); rows beyond N and columns beyond Dh are masked.
+// memory) with a1/a2 folded into the same K loop, the ft tile [N, 128] in
+// shared memory, the pools written directly: ft never reaches device
+// memory. Moving it onto the projection is later work.
 
-#include "gat_common.cuh"
+#include "bwd_common.cuh"
+
+// Workspaces of the per-slot forward, allocated by the caller; mirrored
+// field by field by gat_kernels._FwdWork.
+struct FwdWork {
+  float* proj;     // [b*n, wdp] the projection P
+  float* xm;       // [b*n, kxp] X staged, or null (the product reads x)
+  float* wcat;     // [kxp, wdp] W
+  float* biascat;  // [n, wdp] the slot biases
+  int kxp, wdp;
+};
 
 namespace {
 
 using namespace gat;
 
-template <bool kTrain>
-__device__ __forceinline__ void
-fwd_body(const float* __restrict__ x, const float* __restrict__ fc,
-                     const float* __restrict__ wa1,
-                     const float* __restrict__ wa2,
-                     const float* __restrict__ bias_ft,
-                     const float* __restrict__ bias_a1,
-                     const float* __restrict__ bias_a2,
-                     const int* __restrict__ ngp_arr,
-                     const int* __restrict__ nsib_arr, float* __restrict__ out,
-                     int n, int din, int heads, int dh, int p, float alpha,
-                     float out_alpha, int has_out_alpha, int ntiles,
-                     TrainArgs ta, float* __restrict__ attn) {
-  extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4), n,
-                       kTrain ? kTrainLayout : kEvalLayout);
-  const int per_ego = heads * ntiles;
-  const long long b = blockIdx.x / per_ego;
-  const int rem = blockIdx.x % per_ego;
-  const int h = rem / ntiles;
-  const int c0 = (rem % ntiles) * kTileCols;
-  const int ncols = min(kTileCols, dh - c0);
-  const int hd = heads * dh;
-  const int col0 = h * dh + c0;
-  const int ngp = min(max(ngp_arr[b], 0), p);
-  (void)nsib_arr;  // invalid sibling slots keep their formula value, as in
-                   // the TPU kernel (callers mask them downstream)
+PassMarks g_marks;
 
-  if (kTrain) setup_row_keys(ta, b, n, s);
-  head_tile<kTrain>(x + b * n * din, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
-                    n, din, hd, heads, h, col0, ncols, s, ta);
-  float* stored = (attn != nullptr && c0 == 0)
-                      ? attn + ((size_t)b * heads + h) * attn_row(n, p)
+// 2. the star pass of the per-slot layer over the projection P [b*n, ldp]
+template <bool kTrain>
+__global__ void __launch_bounds__(kThreads)
+gat_star_fwd_kernel(const float* __restrict__ proj, int ldp,
+                    const int* __restrict__ ngp_arr, float* __restrict__ out,
+                    int n, int heads, int dh, int p, float alpha,
+                    float out_alpha, int has_out_alpha, TrainArgs ta,
+                    float* __restrict__ attn) {
+  extern __shared__ float4 smem4[];
+  float* base = reinterpret_cast<float*>(smem4);
+  Smem s = {};
+  s.a1 = base;
+  s.a2 = base + n;
+  s.w_self = base + 2 * n;
+  s.w_anchor = base + 3 * n;
+  s.w_to_anchor = base + 4 * n;
+  const long long b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const int hd = heads * dh;
+  const int ngp = min(max(ngp_arr[b], 0), p);
+  // invalid sibling slots keep their formula value, as in the TPU kernel
+  // (callers mask them downstream)
+  const float* pb = proj + (size_t)b * n * ldp;
+  for (int r = threadIdx.x; r < n; r += kThreads) {
+    s.a1[r] = pb[(size_t)r * ldp + hd + h];
+    s.a2[r] = pb[(size_t)r * ldp + hd + heads + h];
+  }
+  __syncthreads();
+  float* stored =
+      attn != nullptr ? attn + ((size_t)b * heads + h) * attn_row(n, p)
                       : nullptr;
   attention_weights<kTrain, false>(n, p, ngp, alpha, s, ta, b, h, stored);
 
-  float* outb = out + b * n * hd;
-  const float* fa = s.ft + p * kTileCols;
-  for (int e = threadIdx.x; e < n * kTileCols; e += kThreads) {
-    const int r = e / kTileCols, c = e % kTileCols;
-    if (c >= ncols) continue;
-    float v;
-    if (r < p) {
-      v = s.ft[r * kTileCols + c];
-      if (kTrain) v *= s.w_self[r];  // the dropped gp self-loop
-    } else if (r > p) {
-      v = s.w_anchor[r] * fa[c] + s.w_self[r] * s.ft[r * kTileCols + c];
-    } else {
-      float acc = 0.f;
-      for (int j = 0; j < ngp; ++j)
-        acc += s.w_to_anchor[j] * s.ft[j * kTileCols + c];
-      v = acc + s.w_self[p] * fa[c];
+  const float* fb = pb + (size_t)h * dh;
+  float* ob = out + (size_t)b * n * hd + (size_t)h * dh;
+  // each thread a column; the row loops unrolled so that several rows'
+  // loads are in flight at once
+  for (int c = threadIdx.x; c < dh; c += kThreads) {
+    const float fa = fb[(size_t)p * ldp + c];
+    float acc = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < p; ++r) {  // gp rows: their own ft
+      const float f = fb[(size_t)r * ldp + c];
+      if (r < ngp) acc += s.w_to_anchor[r] * f;
+      float v = kTrain ? f * s.w_self[r] : f;  // the dropped gp self-loop
+      if (has_out_alpha) v = leaky(v, out_alpha);
+      ob[(size_t)r * hd + c] = v;
     }
-    if (has_out_alpha) v = leaky(v, out_alpha);
-    outb[(size_t)r * hd + col0 + c] = v;
+    float va = acc + s.w_self[p] * fa;  // anchor: valid gps and self
+    if (has_out_alpha) va = leaky(va, out_alpha);
+    ob[(size_t)p * hd + c] = va;
+#pragma unroll 4
+    for (int r = p + 1; r < n; ++r) {  // sib rows: anchor and self
+      float v = s.w_anchor[r] * fa + s.w_self[r] * fb[(size_t)r * ldp + c];
+      if (has_out_alpha) v = leaky(v, out_alpha);
+      ob[(size_t)r * hd + c] = v;
+    }
   }
 }
 
@@ -177,10 +199,10 @@ pooled_body(const float* __restrict__ x,
   }
 }
 
-// The kernels. The train forms ask for two resident blocks an SM (at most
-// 128 registers a thread: 157 without the bound left one block an SM);
-// the eval forms keep the serving kernels' bounds. attn, of the train
-// forms only, is null or receives the softmax weights (the store form).
+// The pooled kernels. The train form asks for two resident blocks an SM
+// (at most 128 registers a thread: 157 without the bound left one block an
+// SM); the eval form keeps the serving kernel's bounds. attn, of the train
+// form only, is null or receives the softmax weights (the store form).
 #define GAT_FWD_PARAMS                                                     \
   const float *__restrict__ x, const float *__restrict__ fc,               \
       const float *__restrict__ wa1, const float *__restrict__ wa2,        \
@@ -189,23 +211,6 @@ pooled_body(const float* __restrict__ x,
       const int *__restrict__ nsib_arr
 #define GAT_FWD_ARGS \
   x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp_arr, nsib_arr
-
-__global__ void __launch_bounds__(kThreads)
-gat_layer_fwd_kernel(GAT_FWD_PARAMS, float* __restrict__ out, int n, int din,
-                     int heads, int dh, int p, float alpha, float out_alpha,
-                     int has_out_alpha, int ntiles, TrainArgs ta) {
-  fwd_body<false>(GAT_FWD_ARGS, out, n, din, heads, dh, p, alpha, out_alpha,
-                  has_out_alpha, ntiles, ta, nullptr);
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-gat_layer_fwd_train_kernel(GAT_FWD_PARAMS, float* __restrict__ out, int n,
-                           int din, int heads, int dh, int p, float alpha,
-                           float out_alpha, int has_out_alpha, int ntiles,
-                           TrainArgs ta, float* __restrict__ attn) {
-  fwd_body<true>(GAT_FWD_ARGS, out, n, din, heads, dh, p, alpha, out_alpha,
-                 has_out_alpha, ntiles, ta, attn);
-}
 
 __global__ void __launch_bounds__(kThreads)
 gat_layer_pooled_fwd_kernel(GAT_FWD_PARAMS, float* __restrict__ pools, int n,
@@ -237,33 +242,49 @@ __global__ void dropout_bits_kernel(unsigned seed, unsigned stream,
                         bits8);
 }
 
+// 1. the projection, with X staged and W packed first (pass marks before,
+// between and after)
+cudaError_t project(const Operand& op, const TrainArgs& ta, long long m,
+                    const FwdWork& w, const float* bias_ft,
+                    const float* bias_a1, const float* bias_a2,
+                    cudaStream_t st) {
+  const ProductWork work = {w.xm, nullptr, nullptr, w.kxp, w.wdp, 0, 1};
+  mark(g_marks, st);
+  cudaError_t err = stage_and_pack(op, ta, m, work, 0, w.wcat, st);
+  if (err != cudaSuccess) return err;
+  mark(g_marks, st);
+  err = gat_projection(op, w.xm, w.kxp, w.wcat, w.wdp, bias_ft, bias_a1,
+                       bias_a2, w.biascat, w.proj, m, st);
+  mark(g_marks, st);
+  return err;
+}
+
 template <bool kTrain>
 cudaError_t launch_fwd(const float* x, const float* fc, const float* wa1,
                        const float* wa2, const float* bias_ft,
                        const float* bias_a1, const float* bias_a2,
-                       const int* ngp, const int* nsib, float* out, int b,
-                       int n, int din, int heads, int dh, int p, float alpha,
-                       float out_alpha, int has_out_alpha,
-                       const TrainArgs& ta, float* attn, void* stream) {
-  const size_t smem = smem_bytes(n, kTrain ? kTrainLayout : kEvalLayout);
-  cudaError_t err = prepare(kTrain ? (const void*)gat_layer_fwd_train_kernel
-                                   : (const void*)gat_layer_fwd_kernel,
-                            smem);
-  if (err != cudaSuccess) return err;
-  const int ntiles = (dh + kTileCols - 1) / kTileCols;
-  const long long blocks = (long long)b * heads * ntiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks);
+                       const int* ngp, float* out, int b, int n, int din,
+                       int heads, int dh, int p, float alpha, float out_alpha,
+                       int has_out_alpha, const TrainArgs& ta, float* attn,
+                       const FwdWork& w, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (blocks > 0 && kTrain)
-    gat_layer_fwd_train_kernel<<<grid, kThreads, smem, st>>>(
-        x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, out, n, din,
-        heads, dh, p, alpha, out_alpha, has_out_alpha, ntiles, ta, attn);
-  else if (blocks > 0)
-    gat_layer_fwd_kernel<<<grid, kThreads, smem, st>>>(
-        x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, out, n, din,
-        heads, dh, p, alpha, out_alpha, has_out_alpha, ntiles, ta);
-  return cudaGetLastError();
+  const long long m = (long long)b * n;
+  if (m == 0) return cudaSuccess;
+  const int hd = heads * dh, wd = hd + 2 * heads;
+  const Operand op = {x, {fc, wa1, wa2}, {ta.wp, ta.wpa1, ta.wpa2}, n, din,
+                      hd, hd + heads, wd};
+  cudaError_t err = project(op, ta, m, w, bias_ft, bias_a1, bias_a2, st);
+  if (err != cudaSuccess) return err;
+
+  const size_t smem = 5 * sizeof(float) * (size_t)n;  // 2. the star pass
+  const long long blocks = (long long)b * heads;
+  if (blocks > 0x7fffffffLL || smem > 48 * 1024) return cudaErrorInvalidValue;
+  gat_star_fwd_kernel<kTrain><<<(unsigned)blocks, kThreads, smem, st>>>(
+      w.proj, w.wdp, ngp, out, n, heads, dh, p, alpha, out_alpha,
+      has_out_alpha, ta, attn);
+  err = cudaGetLastError();
+  mark(g_marks, st);
+  return err;
 }
 
 template <bool kTrain>
@@ -307,17 +328,20 @@ const char* gat_fwd_error_string(int code) {
 // All pointers are device pointers to contiguous row-major arrays:
 // x [b, n, din], fc [din, heads*dh], wa1/wa2 [din, heads],
 // bias_ft [n, heads*dh], bias_a1/bias_a2 [n, heads], ngp/nsib [b] int32,
-// out [b, n, heads*dh]. Returns cudaGetLastError() after the launch.
+// out [b, n, heads*dh]; *w the workspaces. Returns the first CUDA error of
+// a launch, or 0.
 int gat_layer_fwd_f32(const float* x, const float* fc, const float* wa1,
                       const float* wa2, const float* bias_ft,
                       const float* bias_a1, const float* bias_a2,
                       const int* ngp, const int* nsib, float* out, int b,
                       int n, int din, int heads, int dh, int p, float alpha,
-                      float out_alpha, int has_out_alpha, void* stream) {
+                      float out_alpha, int has_out_alpha, const FwdWork* w,
+                      void* stream) {
+  (void)nsib;  // invalid sibling slots keep their formula value
   const TrainArgs none = {};
   return launch_fwd<false>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
-                           nsib, out, b, n, din, heads, dh, p, alpha,
-                           out_alpha, has_out_alpha, none, nullptr, stream);
+                           out, b, n, din, heads, dh, p, alpha, out_alpha,
+                           has_out_alpha, none, nullptr, *w, stream);
 }
 
 // As gat_layer_fwd_f32, but writes pools [b, 3, dh] (gp, anchor, sib).
@@ -344,10 +368,12 @@ int gat_layer_fwd_train_f32(const float* x, const float* fc,
                             const int* nsib, float* out, int b, int n,
                             int din, int heads, int dh, int p, float alpha,
                             float out_alpha, int has_out_alpha,
-                            const TrainArgs* ta, float* attn, void* stream) {
+                            const TrainArgs* ta, float* attn,
+                            const FwdWork* w, void* stream) {
+  (void)nsib;
   return launch_fwd<true>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
-                          nsib, out, b, n, din, heads, dh, p, alpha,
-                          out_alpha, has_out_alpha, *ta, attn, stream);
+                          out, b, n, din, heads, dh, p, alpha, out_alpha,
+                          has_out_alpha, *ta, attn, *w, stream);
 }
 
 int gat_layer_pooled_fwd_train_f32(const float* x, const float* fc,
@@ -362,6 +388,32 @@ int gat_layer_pooled_fwd_train_f32(const float* x, const float* fc,
                              nsib, pools, b, n, din, heads, dh, p, alpha,
                              *ta, attn, stream);
 }
+
+// The projection alone, P = [x*m | pe*m_pe] @ [fc | wa1 | wa2; wp | wpa1 |
+// wpa2] + the slot biases into w->proj [b*n, wdp] (the train form's masks
+// and pe rows as *ta describes; eval form: a zeroed TrainArgs).
+int gat_projection_f32(const float* x, const float* fc, const float* wa1,
+                       const float* wa2, const float* bias_ft,
+                       const float* bias_a1, const float* bias_a2, int b,
+                       int n, int din, int heads, int dh, const TrainArgs* ta,
+                       const FwdWork* w, void* stream) {
+  const long long m = (long long)b * n;
+  if (m == 0) return cudaSuccess;
+  const int hd = heads * dh;
+  const Operand op = {x,   {fc, wa1, wa2}, {ta->wp, ta->wpa1, ta->wpa2},
+                      n,   din,            hd,
+                      hd + heads, hd + 2 * heads};
+  return project(op, *ta, m, *w, bias_ft, bias_a1, bias_a2,
+                 (cudaStream_t)stream);
+}
+
+// Launch timing of the per-slot forward: with `on`, the next call records
+// device events around its launches; gat_fwd_pass_ms then gives their
+// milliseconds (stage and pack, projection, star pass) into out[3] and
+// returns their count.
+int gat_fwd_set_timing(int on) { return set_timing(g_marks, on); }
+
+int gat_fwd_pass_ms(float* out) { return pass_ms(g_marks, out); }
 
 // out[i] = dropout bits of (rows[i], cols[i]) in `stream` (uint32 arrays):
 // the 32-bit words, or with bits8 the 8-bit mode's bytes.

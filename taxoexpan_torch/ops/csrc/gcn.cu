@@ -28,16 +28,17 @@
 //  2. db and d z_bias: sums over egonets, chunked partial sums then a
 //     fixed-order reduction (bwd_common.cuh).
 //  3. dW = [x*m | pe*m_pe]^T @ dz split-K, dx = (dz @ W_h^T) * m (need_dx)
-//     and dpe = sum over egonets of (dz @ W_p^T) * m_pe (bwd_common.cuh).
+//     and dpe = sum over egonets of (dz @ W_p^T) * m_pe: the tensor-core
+//     products of bwd_common.cuh (3xTF32), the layer input staged once.
 // Deterministic: no atomics.
 //
 // What bounds it on an H100: the products. At config.mag.json's PGCN
 // shapes (N = 64, 4096 egonets) layer 0's forward does 2*B*64*300*500 =
 // 78.6 GFLOP against 0.79 GB of x and out (1.17 ms at 67 TFLOP/s float32
 // outside the tensor cores, 0.23 ms at 3.35 TB/s); the backwards add the
-// dW and dx products of the same size. Float32 SIMT FMAs (TF32 would break
-// parity with the plain versions); tensor cores, TMA and wgmma are later
-// work.
+// dW and dx products of the same size. The forward's product is float32
+// SIMT FMAs; the backward's dW and dx products run on the tensor cores in
+// 3xTF32, which keeps float32 accuracy (bwd_common.cuh).
 //
 // Design (simple first): the forward's block computes the egonet's whole
 // z tile [n, 128] in shared memory with the register-tiled product of
@@ -58,7 +59,7 @@ struct GcnArgs {
   const int* nsib;      // [b]
   const float* g;       // backward: incoming grad [b, n, dout]
   float* out;           // forward: [b, n, dout]
-  float* dz;            // backward workspaces: [b*n, dout]
+  float* dz;            // backward workspaces: [b*n, ldd]
   float* g2sum;         // [b, dout]
   float* part_w;        // [splits, din+pos, dout]
   float* part_b;        // [chunks, n*dout]
@@ -70,13 +71,18 @@ struct GcnArgs {
   float* dzb;           // [n, dout] (need_dzb)
   float* dpe;           // [n, pos] (pos > 0)
   float* dwp;           // [pos, dout] (pos > 0)
+  float* xm;            // [b*n, kxp] the layer input staged, or null
+  float* wt;            // [ldd, ntp] W^T over the dx product's columns
   int b, n, din, dout, p, has_alpha, need_dx, need_dzb, splits, chunks;
+  int kxp, ldd, ntp;    // ldd: dz's row stride, dout rounded up to 4
   float alpha;
 };
 
 namespace {
 
 using namespace gat;
+
+PassMarks g_marks;
 
 // rsqrt(in-degree) of every slot of one egonet, 0 on invalid slots.
 __device__ __forceinline__ void star_norms(int n, int p, int ngp, int nsib,
@@ -210,8 +216,12 @@ gcn_bwd_dz_kernel(GcnArgs a, TrainArgs ta) {
     for (int r = 0; r < n; ++r) sum += gt[r * kTileCols + c];
     a.g2sum[b * dout + c0 + c] = sum;
   }
-  // dz = norm * copy_src_sum^T(norm * g2)
-  float* dzb = a.dz + b * n * dout;
+  // dz = norm * copy_src_sum^T(norm * g2), zero in the padding columns
+  float* dzb = a.dz + b * n * a.ldd;
+  if (c0 == 0)
+    for (int e = threadIdx.x; e < n * (a.ldd - dout); e += kThreads)
+      dzb[(size_t)(e / (a.ldd - dout)) * a.ldd + dout +
+          e % (a.ldd - dout)] = 0.f;
   for (int e = threadIdx.x; e < n * kTileCols; e += kThreads) {
     const int r = e / kTileCols, c = e % kTileCols;
     if (c >= ncols) continue;
@@ -226,7 +236,7 @@ gcn_bwd_dz_kernel(GcnArgs a, TrainArgs ta) {
     } else {
       v = gt[e] * norm[r] * norm[r];
     }
-    dzb[(size_t)r * dout + c0 + c] = v;
+    dzb[(size_t)r * a.ldd + c0 + c] = v;
   }
 }
 
@@ -290,19 +300,31 @@ int gcn_layer_bwd_f32(const GcnArgs* ap, const TrainArgs* tap, void* stream) {
     gcn_bwd_dz_kernel<false><<<(unsigned)blocks, kThreads, smem, st>>>(a, ta);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  err = sum_over_egonets(a.g2sum, a.b, a.dout, a.chunks, a.part_b, a.db, st);
+  err = sum_over_egonets(a.g2sum, a.b, 1, a.dout, a.dout, a.chunks,
+                         a.part_b, a.db, st);
   if (err != cudaSuccess) return err;
   if (a.need_dzb) {
-    err = sum_over_egonets(a.dz, a.b, (long long)a.n * a.dout, a.chunks,
+    err = sum_over_egonets(a.dz, a.b, a.n, a.ldd, a.dout, a.chunks,
                            a.part_b, a.dzb, st);
     if (err != cudaSuccess) return err;
   }
   const Operand op = {a.x, {a.w, nullptr, nullptr}, {ta.wp, nullptr, nullptr},
                       a.n, a.din, a.dout, a.dout, a.dout};
+  const ProductWork work = {a.xm, a.wt, a.part_w, a.kxp, a.ldd, a.ntp,
+                            a.splits};
+  err = stage_and_pack(op, ta, m, work, a.need_dx ? 0 : a.din, nullptr, st);
+  if (err != cudaSuccess) return err;
   float* const dw[3] = {a.dw, nullptr, nullptr};
   float* const dwp[3] = {a.dwp, nullptr, nullptr};
-  return product_grads(op, ta, a.dz, m, a.splits, a.chunks, a.part_w, dw,
-                       dwp, a.need_dx, a.dx, a.pe_rows, a.part_pe, a.dpe, st);
+  return product_grads(op, ta, a.dz, a.ldd, m, work, a.chunks, dw, dwp,
+                       a.need_dx, a.dx, a.pe_rows, a.part_pe, a.dpe, g_marks,
+                       st);
 }
+
+// Pass timing of the backward, as gat_bwd.cu's: the dW and dx passes
+// (marks after each) into out[2].
+int gcn_bwd_set_timing(int on) { return set_timing(g_marks, on); }
+
+int gcn_bwd_pass_ms(float* out) { return pass_ms(g_marks, out); }
 
 }  // extern "C"

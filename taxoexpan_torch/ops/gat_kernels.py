@@ -17,7 +17,12 @@ counters and the autograd Functions around them.
 
 The forwards are `ops/csrc/gat_fwd.cu`, the backwards `ops/csrc/gat_bwd.cu`;
 their headers state what bounds them on an H100 and what the design does
-about it. Dropout bits come from `ops/dropout.py`, whose generator the
+about it. The per-slot forward (K1) and K2 compute the layer's product once
+for all B*N rows, the projection [ft | a1 | a2] = [x*m | pe*m_pe] @
+[fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot biases, on the tensor cores
+in 3xTF32 (`ops/csrc/gemm_tf32.cuh`), into a workspace that the star pass
+(K1) or the head core (K2) reads; `gat_projection` runs it alone, for
+tests. `fwd_pass_ms` / `bwd_pass_ms` time one call's passes. Dropout bits come from `ops/dropout.py`, whose generator the
 kernels share, so a plain version regenerates the kernels' masks exactly;
 every train form and backward takes `dropout_bits` (32, or 8 for the 8-bit
 thresholds of K7b, pallas_gat.py:73-97).
@@ -49,8 +54,9 @@ import torch
 
 from . import cuda_build, dropout, star
 from .launch import (F as _F, I as _I, P as _P, TrainArgs as _TrainArgs,
-                     check_operands, check_star, on_cuda, product_splits,
-                     raise_on, stream, train_args)
+                     check_operands, check_star, needs_staging, on_cuda,
+                     pass_times, product_splits, product_work, raise_on,
+                     round4, stream, train_args)
 
 LEAKY_ALPHA = 0.2   # attention logits (GATLayer default); the inter-layer
                     # activation fused through `out_alpha` is 0.01
@@ -59,9 +65,11 @@ LEAKY_ALPHA = 0.2   # attention logits (GATLayer default); the inter-layer
 _BWD_POINTERS = ("x", "fc", "wa1", "wa2", "bias_ft", "bias_a1", "bias_a2",
                  "ngp", "nsib", "g", "attn", "dcat", "part_w", "part_b",
                  "pe_rows", "part_pe", "dx", "dfc", "dwa1", "dwa2", "dbias_ft",
-                 "dbias_a1", "dbias_a2", "dpe", "dwp", "dwpa1", "dwpa2")
+                 "dbias_a1", "dbias_a2", "dpe", "dwp", "dwpa1", "dwpa2", "xm",
+                 "wcat", "wt", "biascat")
 _BWD_INTS = ("b", "n", "din", "heads", "dh", "p", "pooled", "need_dx",
-             "need_dbias", "has_out_alpha", "splits", "chunks")
+             "need_dbias", "has_out_alpha", "splits", "chunks", "kxp", "wdp",
+             "ntp")
 
 
 class _BwdArgs(ctypes.Structure):
@@ -71,24 +79,41 @@ class _BwdArgs(ctypes.Structure):
                 [("alpha", _F), ("out_alpha", _F)])
 
 
+class _FwdWork(ctypes.Structure):
+    """FwdWork of ops/csrc/gat_fwd.cu, field by field: the per-slot
+    forward's workspaces."""
+    _fields_ = [("proj", _P), ("xm", _P), ("wcat", _P), ("biascat", _P),
+                ("kxp", _I), ("wdp", _I)]
+
+
 # C signatures of ops/csrc/gat_fwd.cu: 10 pointers (x, fc, wa1, wa2,
 # bias_ft, bias_a1, bias_a2, ngp, nsib, out), b, n, din, heads, dh, p,
-# alpha, ... (the train forms: ..., TrainArgs*, attn or null, stream)
+# alpha, ... (the train forms: ..., TrainArgs*, attn or null; the per-slot
+# forms: ..., FwdWork*; then the stream)
 _COMMON = [_P] * 10 + [_I] * 6 + [_F]
 _TA = ctypes.POINTER(_TrainArgs)
+_FW = ctypes.POINTER(_FwdWork)
 FWD_SIGNATURES = {
-    "gat_layer_fwd_f32": (_COMMON + [_F, _I, _P], _I),
+    "gat_layer_fwd_f32": (_COMMON + [_F, _I, _FW, _P], _I),
     "gat_layer_pooled_fwd_f32": (_COMMON + [_P], _I),
-    "gat_layer_fwd_train_f32": (_COMMON + [_F, _I, _TA, _P, _P], _I),
+    "gat_layer_fwd_train_f32": (_COMMON + [_F, _I, _TA, _P, _FW, _P], _I),
     "gat_layer_pooled_fwd_train_f32": (_COMMON + [_TA, _P, _P], _I),
     "dropout_bits_u32": ([ctypes.c_uint, ctypes.c_uint, _P, _P, _P,
                           ctypes.c_longlong, _I, _P], _I),
+    "gat_projection_f32": ([_P] * 7 + [_I] * 5 + [_TA, _FW, _P], _I),
+    "gat_fwd_set_timing": ([_I], _I),
+    "gat_fwd_pass_ms": ([_P], _I),
     "gat_fwd_error_string": ([_I], ctypes.c_char_p),
 }
 BWD_SIGNATURES = {
     "gat_layer_bwd_f32": ([ctypes.POINTER(_BwdArgs), _TA, _P], _I),
+    "gat_bwd_set_timing": ([_I], _I),
+    "gat_bwd_pass_ms": ([_P], _I),
     "gat_bwd_error_string": ([_I], ctypes.c_char_p),
 }
+# what the pass times of `pass_times` measure, in order
+FWD_PASSES = ("stage_pack", "projection", "star")
+BWD_PASSES = ("stage_pack", "projection", "head", "dbias", "dw", "dx")
 
 
 def _lib() -> ctypes.CDLL:
@@ -227,22 +252,10 @@ def _star_attention_train(ft, a1, a2, ngp, p, masks, stored=None):
     return out_gp, out_anchor, out_sib, gp_mask, sm
 
 
-def gat_layer_train_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
-                          nsib, p: int, heads: int, *, pe_pack=None,
-                          seed: int = 0, feat_drop: float = 0.0,
-                          attn_drop: float = 0.0, out_alpha=None,
-                          pooled: bool = False, dropout_bits: int = 32,
-                          store_attn: bool = False, stored_attn=None):
-    """Plain PyTorch version of the train forms (and, at rates 0, of the
-    eval forms), differentiable by autograd: per-slot output [B, N, H*Dh]
-    or, with `pooled`, pools [B, 3, Dh]. The masks come from
-    ops/dropout.py, exactly the kernels' bits (`dropout_bits` 32 or 8).
-
-    pe_pack = (pe [N, pos], wp [pos, H*Dh], wpa1 [pos, H], wpa2 [pos, H]):
-    the pe path, [x*m | pe*m_pe] @ [W_h; W_p] (requires feat_drop > 0).
-    store_attn: return (output, softmax weights [B, H, 2N - P - 1]) as the
-    store forms do; stored_attn: such weights, used instead of the softmax
-    (their backward is the stored form's)."""
+def _projection_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, pe_pack,
+                      seed, feat_drop, dropout_bits):
+    """ft [B, N, H*Dh], a1, a2 [B, N, H] of the layer input [x*m | pe*m_pe]
+    (the masks of ops/dropout.py when feat_drop > 0)."""
     b, n, din = x.shape
     hd = fc.shape[1]
     dev = x.device
@@ -260,6 +273,41 @@ def gat_layer_train_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
         ft = ft + (pm.reshape(b * n, pos) @ wp).reshape(b, n, hd)
         a1 = a1 + pm @ wpa1
         a2 = a2 + pm @ wpa2
+    return ft, a1, a2
+
+
+def gat_projection_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, *,
+                         pe_pack=None, seed: int = 0, feat_drop: float = 0.0,
+                         dropout_bits: int = 32) -> torch.Tensor:
+    """Plain version of `gat_projection`: [ft | a1 | a2], [B, N, H*Dh +
+    2H]."""
+    return torch.cat(_projection_plain(x, fc, wa1, wa2, bias_ft, bias_a1,
+                                       bias_a2, pe_pack, seed, feat_drop,
+                                       dropout_bits), dim=-1)
+
+
+def gat_layer_train_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
+                          nsib, p: int, heads: int, *, pe_pack=None,
+                          seed: int = 0, feat_drop: float = 0.0,
+                          attn_drop: float = 0.0, out_alpha=None,
+                          pooled: bool = False, dropout_bits: int = 32,
+                          store_attn: bool = False, stored_attn=None):
+    """Plain PyTorch version of the train forms (and, at rates 0, of the
+    eval forms), differentiable by autograd: per-slot output [B, N, H*Dh]
+    or, with `pooled`, pools [B, 3, Dh]. The masks come from
+    ops/dropout.py, exactly the kernels' bits (`dropout_bits` 32 or 8).
+
+    pe_pack = (pe [N, pos], wp [pos, H*Dh], wpa1 [pos, H], wpa2 [pos, H]):
+    the pe path, [x*m | pe*m_pe] @ [W_h; W_p] (requires feat_drop > 0).
+    store_attn: return (output, softmax weights [B, H, 2N - P - 1]) as the
+    store forms do; stored_attn: such weights, used instead of the softmax
+    (their backward is the stored form's)."""
+    b, n, _ = x.shape
+    hd = fc.shape[1]
+    dev = x.device
+    ft, a1, a2 = _projection_plain(x, fc, wa1, wa2, bias_ft, bias_a1,
+                                   bias_a2, pe_pack, seed, feat_drop,
+                                   dropout_bits)
     masks = None
     if attn_drop > 0:
         masks = dropout.attention_masks(seed, b, p, n - p - 1, heads,
@@ -320,6 +368,8 @@ def gat_layer_bwd_plain(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
 
 def _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
            pe_pack=None, extra=()):
+    """Shapes, device, dtype and layout of the operands; ngp, nsib and p
+    None for the projection alone."""
     b, n, din = x.shape
     hd = fc.shape[1]
     if hd % heads:
@@ -327,8 +377,9 @@ def _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
     shapes = {"fc": (fc, (din, hd)), "wa1": (wa1, (din, heads)),
               "wa2": (wa2, (din, heads)), "bias_ft": (bias_ft, (n, hd)),
               "bias_a1": (bias_a1, (n, heads)),
-              "bias_a2": (bias_a2, (n, heads)), "ngp": (ngp, (b,)),
-              "nsib": (nsib, (b,))}
+              "bias_a2": (bias_a2, (n, heads))}
+    if p is not None:
+        shapes.update(ngp=(ngp, (b,)), nsib=(nsib, (b,)))
     if pe_pack is not None:
         pe, wp, wpa1, wpa2 = pe_pack
         pos = pe.shape[-1]
@@ -337,7 +388,7 @@ def _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
                        "wpa2": (wpa2, (pos, heads))})
     shapes.update(dict(extra))
     check_operands(x, shapes)
-    check_star(x, p)
+    check_star(x, 0 if p is None else p)
     # a launch whose shared memory (gat::smem_bytes, about 0.5 KB a slot;
     # about 1 KB in the backward) exceeds the device's limit comes back as
     # an error and raises
@@ -372,12 +423,42 @@ def _fwd_cuda(what: str, pooled: bool, x, fc, wa1, wa2, bias_ft, bias_a1,
                  0 if out_alpha is None else 1]
     if ta is not None:
         args += [ctypes.byref(ta), attn.data_ptr() if store else None]
+    if not pooled:
+        work = _fwd_work(x, heads * dh + 2 * heads,
+                         train[2] if train is not None else 0.0, ta)
+        args.append(ctypes.byref(work.args))
     fn = getattr(lib, f"{'gat_layer_pooled_fwd' if pooled else 'gat_layer_fwd'}"
                       f"{'_train' if train is not None else ''}_f32")
     with torch.cuda.device(x.device):
         rc = fn(*args, stream(x))
     raise_on(lib, rc, what, "gat_fwd_error_string")
     return (out, attn) if store else out
+
+
+@dataclass
+class _Work:
+    """ctypes arguments and the tensors they point into (kept alive until
+    the launch has been enqueued)."""
+    args: ctypes.Structure
+    tensors: list
+
+
+def _fwd_work(x, wd: int, feat_drop: float, ta) -> _Work:
+    """The per-slot forward's workspaces (gat_fwd.cu:FwdWork): the
+    projection P [B*N, wdp], X staged where needed, W and the slot biases
+    in the projection's layouts."""
+    b, n, din = x.shape
+    pos = ta.pos if ta is not None else 0
+    kx, wdp = din + pos, round4(wd)
+    staged = needs_staging(x, feat_drop, pos)
+    kxp = round4(kx) if staged else kx
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa
+                                       device=x.device)
+    tensors = [empty(b * n, wdp), empty(b * n, kxp) if staged else None,
+               empty(kxp, wdp), empty(n, wdp)]
+    args = _FwdWork(*[t.data_ptr() if t is not None else None
+                      for t in tensors], kxp, wdp)
+    return _Work(args, tensors)
 
 
 def _count(wrapper, x) -> None:
@@ -523,16 +604,21 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
                 t.zero_()
         return grads
     m = b * n
-    if (m + 63) // 64 > 65535:
-        raise ValueError(f"B * N = {m} rows exceed the dx grid (4,194,240)")
     wd = hd + 2 * heads
     kx = din + pos
     splits = product_splits(x, m, kx, wd)
     chunks = min(b, 64)
-    work = {"dcat": empty(m, wd), "part_w": empty(splits, kx, wd),
-            "part_b": empty(chunks, n, wd) if need_dbias else None,
+    pw = product_work(x, m, kx, wd, needs_staging(x, feat_drop, pos),
+                      0 if need_dx else din, splits)
+    wdp = pw["wdp"]
+    work = {"dcat": empty(m, wdp), "part_w": pw["part_w"],
+            "part_b": empty(chunks, n, wdp) if need_dbias else None,
             "pe_rows": empty(m, pos) if pos else None,
-            "part_pe": empty(chunks, n, pos) if pos else None}
+            "part_pe": empty(chunks, n, pos) if pos else None,
+            "xm": pw["xm"], "wt": pw["wt"],
+            # the projection's W and slot biases (K2 only)
+            "wcat": None if pooled else empty(pw["kxp"], wdp),
+            "biascat": None if pooled else empty(n, wdp)}
     args = _BwdArgs()
     ptrs = {"x": x, "fc": fc, "wa1": wa1, "wa2": wa2, "bias_ft": bias_ft,
             "bias_a1": bias_a1, "bias_a2": bias_a2, "ngp": ngp,
@@ -549,7 +635,8 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
                     ("need_dx", int(need_dx)),
                     ("need_dbias", int(need_dbias)),
                     ("has_out_alpha", int(out_alpha is not None)),
-                    ("splits", splits), ("chunks", chunks)):
+                    ("splits", splits), ("chunks", chunks),
+                    ("kxp", pw["kxp"]), ("wdp", wdp), ("ntp", pw["ntp"])):
         setattr(args, name, v)
     args.alpha = LEAKY_ALPHA
     args.out_alpha = 0.0 if out_alpha is None else float(out_alpha)
@@ -634,6 +721,56 @@ def gat_layer_pooled_bwd_stored(g, x, fc, wa1, wa2, bias_ft, bias_a1,
                 (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p,
                  heads), None, attn, pe_pack, seed, feat_drop, attn_drop,
                 need_dx, need_dbias, dropout_bits)
+
+
+def gat_projection(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, *,
+                   pe_pack=None, seed: int = 0, feat_drop: float = 0.0,
+                   dropout_bits: int = 32) -> torch.Tensor:
+    """The projection of the per-slot layer alone, [ft | a1 | a2] =
+    [x*m | pe*m_pe] @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot biases,
+    [B, N, H*Dh + 2H]: the first launch of `gat_layer_fwd[_train]` and of
+    `gat_layer_bwd`, exposed for testing it on its own (the plain version
+    on the CPU; on the card the kernel, counted in
+    `gat_projection.launches`)."""
+    kw = dict(pe_pack=pe_pack, seed=seed, feat_drop=feat_drop,
+              dropout_bits=dropout_bits)
+    if not on_cuda(x, "gat_projection"):
+        return gat_projection_plain(x, fc, wa1, wa2, bias_ft, bias_a1,
+                                    bias_a2, **kw)
+    heads = wa1.shape[1]
+    _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, None, None, None,
+           heads, pe_pack)
+    b, n, din = x.shape
+    hd = fc.shape[1]
+    wd = hd + 2 * heads
+    ta = train_args(pe_pack, seed, feat_drop, 0.0, dropout_bits)
+    work = _fwd_work(x, wd, feat_drop, ta)
+    lib = _lib()
+    with torch.cuda.device(x.device):
+        rc = lib.gat_projection_f32(
+            *[t.data_ptr() for t in (x, fc, wa1, wa2, bias_ft, bias_a1,
+                                     bias_a2)],
+            b, n, din, heads, hd // heads, ctypes.byref(ta),
+            ctypes.byref(work.args), stream(x))
+    raise_on(lib, rc, "gat_projection", "gat_fwd_error_string")
+    if b:
+        gat_projection.launches += 1
+    return work.tensors[0].reshape(b, n, -1)[..., :wd]
+
+
+gat_projection.launches = 0
+
+
+def fwd_pass_ms(call) -> dict:
+    """Device ms of the per-slot forward's launches in one `call` of
+    gat_layer_fwd[_train[_store]] on the card, by FWD_PASSES."""
+    return dict(zip(FWD_PASSES, pass_times(_lib(), "gat_fwd", call)))
+
+
+def bwd_pass_ms(call) -> dict:
+    """Device ms of the backward's passes in one `call` of a backward
+    wrapper on the card, by BWD_PASSES (K4: no projection, ~0 ms)."""
+    return dict(zip(BWD_PASSES, pass_times(_bwd_lib(), "gat_bwd", call)))
 
 
 WRAPPERS = {w.__name__: w for w in (

@@ -35,14 +35,15 @@ from dataclasses import dataclass
 import torch
 
 from . import cuda_build, dropout, star
-from .launch import (F, I, P, TrainArgs, check_operands, check_star, on_cuda,
-                     product_splits, raise_on, stream, train_args)
+from .launch import (F, I, P, TrainArgs, check_operands, check_star,
+                     needs_staging, on_cuda, pass_times, product_splits,
+                     product_work, raise_on, stream, train_args)
 
 _POINTERS = ("x", "w", "bias", "z_bias", "ngp", "nsib", "g", "out", "dz",
              "g2sum", "part_w", "part_b", "pe_rows", "part_pe", "dx", "dw",
-             "db", "dzb", "dpe", "dwp")
+             "db", "dzb", "dpe", "dwp", "xm", "wt")
 _INTS = ("b", "n", "din", "dout", "p", "has_alpha", "need_dx", "need_dzb",
-         "splits", "chunks")
+         "splits", "chunks", "kxp", "ldd", "ntp")
 
 
 class _GcnArgs(ctypes.Structure):
@@ -56,8 +57,11 @@ _TA = ctypes.POINTER(TrainArgs)
 SIGNATURES = {
     "gcn_layer_fwd_f32": ([_ARGS, _TA, I, P], I),
     "gcn_layer_bwd_f32": ([_ARGS, _TA, P], I),
+    "gcn_bwd_set_timing": ([I], I),
+    "gcn_bwd_pass_ms": ([P], I),
     "gcn_error_string": ([I], ctypes.c_char_p),
 }
+BWD_PASSES = ("dw", "dx")
 
 
 def _lib() -> ctypes.CDLL:
@@ -234,17 +238,20 @@ def _bwd_cuda(g, x, w, b, z_bias, ngp, nsib, p, pe_pack, seed, drop, alpha,
     m = bsz * n
     splits = product_splits(x, m, din + pos, dout)
     chunks = min(bsz, 64)
-    work = {"g": g, "dz": empty(m, dout), "g2sum": empty(bsz, dout),
-            "part_w": empty(splits, din + pos, dout),
-            "part_b": empty(chunks, n * dout),
+    pw = product_work(x, m, din + pos, dout, needs_staging(x, drop, pos),
+                      0 if need_dx else din, splits)
+    ldd = pw["wdp"]
+    work = {"g": g, "dz": empty(m, ldd), "g2sum": empty(bsz, dout),
+            "part_w": pw["part_w"], "part_b": empty(chunks, n * ldd),
             "pe_rows": empty(m, pos) if pos else None,
             "part_pe": empty(chunks, n * pos) if pos else None,
             "dx": grads["x"], "dw": grads["w"], "db": grads["b"],
             "dzb": grads["z_bias"], "dpe": grads.get("pe"),
-            "dwp": grads.get("wp")}
+            "dwp": grads.get("wp"), "xm": pw["xm"], "wt": pw["wt"]}
     args = _args(x, w, b, z_bias, ngp, nsib, p, alpha, work,
                  need_dx=int(need_dx), need_dzb=int(need_dzb),
-                 splits=splits, chunks=chunks)
+                 splits=splits, chunks=chunks, kxp=pw["kxp"], ldd=ldd,
+                 ntp=pw["ntp"])
     lib = _lib()
     with torch.cuda.device(x.device):
         rc = lib.gcn_layer_bwd_f32(ctypes.byref(args), ctypes.byref(ta),
@@ -267,6 +274,12 @@ def gcn_layer_bwd(g, x, w, b, z_bias, ngp, nsib, p: int, *, pe_pack=None,
     if x.shape[0]:
         gcn_layer_bwd.launches += 1
     return res
+
+
+def bwd_pass_ms(call) -> dict:
+    """Device ms of K5b's product passes in one `call` of gcn_layer_bwd on
+    the card, by BWD_PASSES."""
+    return dict(zip(BWD_PASSES, pass_times(_lib(), "gcn_bwd", call)))
 
 
 WRAPPERS = {w.__name__: w for w in (gcn_layer_fwd, gcn_layer_fwd_train,

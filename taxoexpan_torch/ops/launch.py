@@ -95,9 +95,55 @@ def stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def round4(v: int) -> int:
+    """v rounded up to a multiple of 4 floats (16 bytes): the row width of
+    every operand the tensor-core products (csrc/gemm_tf32.cuh) read."""
+    return (v + 3) // 4 * 4
+
+
 def product_splits(x: torch.Tensor, m: int, kx: int, wd: int) -> int:
-    """Split-K count of the dW product (bwd_common.cuh) over m rows: about
-    four blocks an SM, at least 1024 rows a split."""
+    """Split-K count of the dW product (csrc/bwd_common.cuh) over m rows:
+    about four waves of its 128 x 128 output tiles (one block an SM), at
+    least 4096 rows a split."""
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tiles = -(-wd // 128) * -(-kx // 64)
-    return max(1, min(-(-4 * sms // tiles), -(-m // 1024)))
+    tiles = -(-wd // 128) * -(-kx // 128)
+    return max(1, min(-(-4 * sms // tiles), -(-m // 4096)))
+
+
+def needs_staging(x: torch.Tensor, feat_drop: float, pos: int) -> bool:
+    """Whether the products read the layer input X = [x*m | pe*m_pe] from a
+    staged copy (masks, a pe path, or rows of x that are not 16-byte
+    multiples) rather than from x itself."""
+    return (feat_drop > 0 or pos > 0 or x.shape[-1] % 4 != 0
+            or x.data_ptr() % 16 != 0)
+
+
+def product_work(x: torch.Tensor, m: int, kx: int, wd: int, staged: bool,
+                 kbeg: int, splits: int) -> dict:
+    """Workspaces of the product passes (csrc/bwd_common.cuh:ProductWork):
+    xm [m, kxp] (staged only), wt [wdp, ntp] (the dx product's W^T over
+    the input columns [kbeg, kx)), part_w [splits, kx, wd], and the
+    widths."""
+    kxp, wdp, ntp = round4(kx), round4(wd), round4(kx - kbeg)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa
+                                       device=x.device)
+    return {"xm": empty(m, kxp) if staged else None,
+            "wt": empty(wdp, ntp) if ntp else None,
+            "part_w": empty(splits, kx, wd),
+            "kxp": kxp if staged else kx, "wdp": wdp, "ntp": ntp}
+
+
+def pass_times(lib, prefix: str, call) -> list[float]:
+    """Device milliseconds between the passes of one `call` of a kernel
+    library's entry point (its `<prefix>_set_timing` / `<prefix>_pass_ms`
+    C functions): events recorded on the stream between the launches."""
+    rc = getattr(lib, f"{prefix}_set_timing")(1)
+    if rc:
+        raise RuntimeError(f"{prefix}_set_timing failed: CUDA error {rc}")
+    try:
+        call()
+        out = (ctypes.c_float * 8)()
+        count = getattr(lib, f"{prefix}_pass_ms")(out)
+    finally:
+        getattr(lib, f"{prefix}_set_timing")(0)
+    return [float(v) for v in out[:count]]

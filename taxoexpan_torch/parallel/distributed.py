@@ -1,8 +1,12 @@
 """Multi-process data parallelism on torch.distributed (port of
 `taxoexpan_tpu/parallel/distributed.py`).
 
-Every process runs the same program on one device: rank r on card
-r % device_count of its host (two ranks may share a card), or on the CPU.
+Every process runs the same program on one device: the rank with local
+index l among the ranks of its host runs on card l % device_count of that
+host (two ranks may share a card), or on the CPU. The local index and the
+host's rank count come from LOCAL_RANK / LOCAL_WORLD_SIZE where a launcher
+sets them, else from the hostnames every rank posts to a TCPStore at the
+coordinator before the process group is built.
 `maybe_initialize` wires `torch.distributed.init_process_group` from
 explicit arguments or the TAXOEXPAN_COORDINATOR / TAXOEXPAN_NUM_PROCESSES /
 TAXOEXPAN_PROCESS_ID environment variables, as the JAX package wires
@@ -14,9 +18,8 @@ sampler and keeps its own contiguous share of groups (`rank_share`, the
 counterpart of `put_global`): bit-exact global batches with no data
 service, as in the JAX package.
 
-Backend: NCCL when every rank has a card of its own (the host has at least
-as many cards as there are ranks); gloo on the CPU and when ranks share a
-card, since NCCL refuses two ranks on one device. gloo runs its
+Backend: NCCL when every rank has a card of its own (no host runs more
+ranks than it has cards); gloo on the CPU and when ranks share a card, since NCCL refuses two ranks on one device. gloo runs its
 collectives on host memory (its CUDA code paths copy device tensors
 through host buffers), so under gloo this module stages every collective
 it issues through the host itself, explicitly: `all_reduce_sum`,
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import logging
 import os
+import socket
 
 import numpy as np
 import torch
@@ -65,18 +69,47 @@ def maybe_initialize(coordinator: str | None = None,
     if not 0 <= process_id < num_processes:
         raise ValueError(f"process id {process_id} outside "
                          f"[0, {num_processes})")
+    init = {"init_method": f"tcp://{coordinator}"}
     if torch.device(device).type == "cuda":
         resolve_device("cuda")          # raises where there is no card
+        local, init = local_ranks(coordinator, num_processes, process_id)
         count = torch.cuda.device_count()
-        torch.cuda.set_device(process_id % count)
-        backend = "nccl" if count >= num_processes else "gloo"
+        global _LOCAL_RANK
+        _LOCAL_RANK = local[0]
+        torch.cuda.set_device(local[0] % count)
+        backend = "nccl" if local[1] <= count else "gloo"
     else:
         backend = "gloo"
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id)
+    dist.init_process_group(backend, world_size=num_processes,
+                            rank=process_id, **init)
     logger.info("process group up: rank %d of %d, backend %s", process_id,
                 num_processes, backend)
     return True
+
+
+_LOCAL_RANK: int | None = None   # this rank's index on its host
+
+
+def local_ranks(coordinator: str, num_processes: int,
+                process_id: int) -> tuple[tuple[int, int], dict]:
+    """((this rank's index among the ranks of its host, their number),
+    the rendezvous arguments of init_process_group). LOCAL_RANK /
+    LOCAL_WORLD_SIZE where set; otherwise every rank posts its hostname to
+    a TCPStore at the coordinator (rank 0 serves it), which then also
+    serves the process group's rendezvous."""
+    if "LOCAL_RANK" in os.environ and "LOCAL_WORLD_SIZE" in os.environ:
+        return ((int(os.environ["LOCAL_RANK"]),
+                 int(os.environ["LOCAL_WORLD_SIZE"])),
+                {"init_method": f"tcp://{coordinator}"})
+    host, port = coordinator.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), num_processes,
+                          is_master=process_id == 0)
+    store.set(f"taxoexpan/host/{process_id}", socket.gethostname())
+    hosts = [store.get(f"taxoexpan/host/{r}").decode()
+             for r in range(num_processes)]
+    mine = hosts[process_id]
+    return ((hosts[:process_id].count(mine), hosts.count(mine)),
+            {"store": store})
 
 
 def is_multiprocess() -> bool:
@@ -94,11 +127,12 @@ def world_size() -> int:
 
 def rank_device(device: str | torch.device = "cuda") -> torch.device:
     """This rank's device: `device` itself on the CPU or with an explicit
-    card index, else card rank % device_count (the card maybe_initialize
-    selected)."""
+    card index, else card (local rank) % device_count (the card
+    maybe_initialize selected)."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None and is_multiprocess():
-        dev = torch.device("cuda", rank() % torch.cuda.device_count())
+        local = rank() if _LOCAL_RANK is None else _LOCAL_RANK
+        dev = torch.device("cuda", local % torch.cuda.device_count())
     return resolve_device(dev)
 
 

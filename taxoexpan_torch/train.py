@@ -9,8 +9,8 @@
 
 The JAX `train.py`'s config files, override flags and multi-process flags
 (also read from TAXOEXPAN_COORDINATOR / TAXOEXPAN_NUM_PROCESSES /
-TAXOEXPAN_PROCESS_ID); runs on CUDA unless `-d cpu` is given, rank r on card
-r % device_count. `parallel.feature_mode: "partitioned"` row-partitions the
+TAXOEXPAN_PROCESS_ID); runs on CUDA unless `-d cpu` is given, each rank on
+card (its index among its host's ranks) % device_count. `parallel.feature_mode: "partitioned"` row-partitions the
 feature table across the ranks, with the halo exchange TAXOEXPAN_HALO
 selects (all_to_all, or ring: K6 on the card). `parallel.mp > 1` (head
 tensor parallelism) is not ported and raises. Checkpoints hold the JAX

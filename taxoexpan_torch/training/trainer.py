@@ -25,8 +25,10 @@ replicated on every rank (`feature_mode="replicated"`) or row-partitioned
 across them (`"partitioned"`): then egonet and query features come through
 `parallel/partition.py:partitioned_gather` and the exchange that
 TAXOEXPAN_HALO selects (all_to_all, or ring on K6). The epoch's losses,
-summed over the ranks, and the count of overflowed halo requests come back
-in one readback an epoch; sampled validation scores each rank's share and
+summed over the ranks, and the count of its steps' overflowed halo
+requests come back in one readback an epoch, the sampled validation's
+overflow in a second one after it (both in the epoch log's
+`halo_overflow`); sampled validation scores each rank's share and
 all-gathers the scores; full-catalog validation runs the ranker's
 data-parallel encode. Checkpoints and the tensorboard writer are rank 0's;
 every rank resumes from the same checkpoint.
@@ -340,13 +342,10 @@ class Trainer:
         if self.dp is not None:
             vals = distributed.all_reduce_sum(vals, self.dp)
         loss_vals = vals.cpu().numpy()
+        overflow = {}
         if self.feature_mode == "partitioned":
-            loss_vals, overflowed = loss_vals[:-1], int(loss_vals[-1])
-            if overflowed:
-                self.logger.warning(
-                    "partitioned_gather: %d requests overflowed their halo "
-                    "buckets this epoch and were poisoned with NaN; raise "
-                    "capacity_factor", overflowed)
+            loss_vals, overflow["train"] = loss_vals[:-1], int(loss_vals[-1])
+            self._warn_overflow(epoch, "training", overflow["train"])
         t_sync = time.time() - t_s
         dt = max(time.time() - t_epoch, 1e-9)
         for i, lv in enumerate(loss_vals):
@@ -360,12 +359,19 @@ class Trainer:
                           "sync_s": round(t_sync, 2)}}
         if step_s:
             log["step_ms"] = [round(1e3 * s, 3) for s in step_s]
+        if overflow:
+            log["halo_overflow"] = overflow
         self.writer.add_scalar("edges_per_sec", n_edges / dt)
 
         if self.valid_loader is not None and not full_epoch:
             t_v = time.time()
             log.update(self._valid_epoch(epoch))
             log["timing"]["valid_s"] = round(time.time() - t_v, 2)
+            if self.feature_mode == "partitioned":
+                # validation's gathers count into the same device scalar:
+                # read it back now, so the epoch reports its own overflow
+                overflow["valid"] = self._overflow_readback()
+                self._warn_overflow(epoch, "validation", overflow["valid"])
             if self.full_validation_every > 0:
                 # off-epoch of a K > 1 schedule: sampled metrics are logged
                 # but must not reach the monitor or the plateau
@@ -383,6 +389,22 @@ class Trainer:
                 log["val_metrics"][idx], self.opt_state)
         log["lr"] = get_lr(self.opt_state)
         return log
+
+    def _overflow_readback(self) -> int:
+        """The overflowed halo requests counted since the last readback,
+        summed over the ranks; the counter starts again from 0."""
+        vals = self._overflow.double()[None]
+        self._overflow.zero_()
+        if self.dp is not None:
+            vals = distributed.all_reduce_sum(vals, self.dp)
+        return int(vals.cpu()[0])
+
+    def _warn_overflow(self, epoch: int, phase: str, count: int) -> None:
+        if count:
+            self.logger.warning(
+                "partitioned_gather: %d requests overflowed their halo "
+                "buckets in epoch %d's %s and were poisoned with NaN; raise "
+                "capacity_factor", count, epoch, phase)
 
     @torch.no_grad()
     def eval_scores(self, batch: GroupBatch) -> torch.Tensor:

@@ -12,6 +12,11 @@ of K1/K3 and the stored K2/K4 (also at the MTL per-slot final layer's
 widths, Din 3600 and Dh 600) with 32- and 8-bit masks, held to the
 recompute backward on the card within 1e-6 of each grad's largest value,
 the 8-bit golden bytes, and the differentiable layer with both switches;
+the projection of the per-slot layer (3xTF32 on the tensor cores) alone
+and K1 / K2 around it at B*N not a multiple of its 128-row tile, Dh 500 /
+900 / 600, din + pos 300 / 400 / 2050 / 3700, heads 4 and 1, dropout 0 and
+0.1 with 32- and 8-bit masks, need_dx both ways, stored and recompute
+backwards (equal bits);
 for K6 the halo gather at P = 1 to 4 in float32 and bf16 (exact), empty
 buckets, and two rank processes sharing the card through CUDA IPC.
 
@@ -22,8 +27,9 @@ Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the card:
 (`--noconftest`: tests/conftest.py sets JAX up for the CPU suite, and the
 port's card tests need no JAX.)
 
-Tolerance rtol 1e-4 / atol 1e-4 for the forwards: float32 on both sides,
-sums taken in another order (the kernel's tiled K loop vs cuBLAS). The
+Tolerance rtol 1e-4 / atol 1e-4 for the forwards: float32 on both sides
+(the projections in 3xTF32, float32-accurate), sums taken in another order
+(the kernel's tiled K loop vs cuBLAS). The
 backward grads reduce over every row of the batch (dW, slot biases) and
 take rtol 1e-3 / atol 1e-4, the CPU parity tests' gradient tolerance."""
 import numpy as np
@@ -449,6 +455,69 @@ def test_stored_layer_function_on_card_matches_cpu(dev, monkeypatch):
     assert gk.gat_layer_bwd_stored.launches == before + 1
     for a, b in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(a, b, **GTOL)
+
+
+# --------------------------------- K1 / K2 around the projection (3xTF32)
+
+PROJ_SHAPES = [
+    # b, p, s, din, heads, dh, pos: B*N = 48 or 192, never a multiple of
+    # the projection's 128-row tile
+    (3, 2, 13, 250, 4, 500, 50),     # N = 16; din + pos 300 (PGAT layer 0)
+    (3, 13, 50, 300, 4, 900, 100),   # N = 64; 400 (the MTL layer 0)
+    (3, 13, 50, 2000, 1, 500, 50),   # 2050 (the PGAT final layer's input)
+    (3, 13, 50, 3600, 1, 600, 100),  # 3700 (the MTL per-slot final layer)
+]
+
+
+@pytest.mark.parametrize("b,p,s,din,heads,dh,pos", PROJ_SHAPES)
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+@pytest.mark.parametrize("bits", [32, 8])
+def test_projection_k1_k2_match_plain(dev, b, p, s, din, heads, dh, pos,
+                                      drop, bits):
+    """The projection alone, K1 (the eval form at dropout 0, else the train
+    form's store form) and K2 with need_dx on and off against their plain
+    versions; with dropout also the stored K2 fed the store form's
+    weights, equal bits with the recompute K2 (both run the forward's
+    projection). Layer-0 widths (heads 4) fuse leaky_relu 0.01, whose
+    derivative jumps at 0: the incoming grad is 0 where the
+    pre-activation lies within 1e-5 of it. An empty and a full egonet
+    lead the batch."""
+    t = _inputs(dev, b, p, s, din, heads, dh)
+    n = p + 1 + s
+    pe = _pe_pack(dev, n, pos, heads, dh) if drop else None
+    kw = dict(pe_pack=pe, seed=17, feat_drop=drop, dropout_bits=bits)
+    before = gk.gat_projection.launches
+    proj = gk.gat_projection(*t[:7], **kw)
+    torch.cuda.synchronize()
+    assert gk.gat_projection.launches == before + 1
+    torch.testing.assert_close(proj, gk.gat_projection_plain(*t[:7], **kw),
+                               **TOL)
+    out_alpha = 0.01 if heads > 1 else None
+    tkw = dict(kw, attn_drop=drop, out_alpha=out_alpha)
+    if drop:
+        out, attn = gk.gat_layer_fwd_train_store(*t, p, heads, **tkw)
+        want, want_attn = gk.gat_layer_train_plain(*t, p, heads,
+                                                   store_attn=True, **tkw)
+        torch.testing.assert_close(attn, want_attn, **TOL)
+    else:
+        out, attn = gk.gat_layer_fwd(*t, p, heads, out_alpha=out_alpha), None
+        want = gk.gat_layer_fwd_plain(*t, p, heads, out_alpha)
+    torch.testing.assert_close(out, want, **TOL)
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(18)) * 1e-2
+    if out_alpha is not None:
+        pre = gk.gat_layer_train_plain(*t, p, heads, **dict(tkw,
+                                                             out_alpha=None))
+        g = g * (pre.abs() > 1e-5)
+    for need_dx in (True, False):
+        bkw = dict(tkw, need_dx=need_dx)
+        got = gk.gat_layer_bwd(g, *t, p, heads, **bkw)
+        _assert_grads(got, gk.gat_layer_bwd_plain(g, *t, p, heads, **bkw))
+        if attn is not None:
+            stored = gk.gat_layer_bwd_stored(g, *t, p, heads, attn, **bkw)
+            for name, a in stored.items():
+                assert (a is None) == (got[name] is None), name
+                assert a is None or torch.equal(a, got[name]), name
 
 
 # ------------------------------------------------------------------- K6

@@ -278,3 +278,28 @@ def test_backward_replays_the_forward_masks(rng):
     part = gk.gat_layer_train_plain(*[a[:4] for a in t[:1]], *t[1:7],
                                     t[7][:4], t[8][:4], P, HEADS, **kw)
     torch.testing.assert_close(part, out[:4], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("bits", [32, 8])
+def test_projection_plain_matches_float64_reference(rng, bits):
+    """`gat_projection` on the CPU (its plain version, which the card test
+    holds the 3xTF32 kernel to) equals [x*m | pe*m_pe] @ [fc | wa1 | wa2;
+    wp | wpa1 | wpa2] + the slot biases, computed in float64 with numpy
+    from the same masks."""
+    arrays = _layer_inputs(rng)
+    t = _torch(arrays)
+    pe = [(rng.normal(size=s) * 0.3).astype(np.float32)
+          for s in ((N, POS), (POS, HEADS * DH), (POS, HEADS), (POS, HEADS))]
+    got = gk.gat_projection(*t[:7], pe_pack=tuple(_torch(pe)), seed=5,
+                            feat_drop=0.3, dropout_bits=bits)
+    m = dropout.slot_mask(5, dropout.STREAM_FEAT, B, N, DIN, 0.3,
+                          torch.device("cpu"), bits).numpy()
+    m_pe = dropout.slot_mask(5, dropout.STREAM_PE, B, N, POS, 0.3,
+                             torch.device("cpu"), bits).numpy()
+    xcat = np.concatenate([arrays[0] * m, pe[0][None] * m_pe], axis=-1)
+    w = np.concatenate([np.concatenate(arrays[1:4], axis=1),
+                        np.concatenate(pe[1:], axis=1)], axis=0)
+    bias = np.concatenate(arrays[4:7], axis=1)
+    want = xcat.astype(np.float64) @ w.astype(np.float64) + bias
+    assert got.shape == (B, N, HEADS * DH + 2 * HEADS)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
