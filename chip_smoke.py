@@ -43,11 +43,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               line is null), beside the least time the card could take
               (`bound_ms`, at the float32 rate; where the form's products
               run on the tensor cores in 3xTF32, also `bound_3xtf32_ms`
-              at a third of the dense TF32 rate). The per-slot forwards
-              (K1) and the backwards (K2, K4, K5b) also give their time
+              at a third of the dense TF32 rate). The GAT forwards (K1,
+              K3) and the backwards (K2, K4, K5b) also give their time
               by pass (`passes_ms`, CUDA events the kernel library records
               between its launches: staging and packing, the projection,
-              the star pass; the head core, the slot-bias sums, dW, dx).
+              the star or pooled star pass; the head core, the slot-bias
+              sums, dW, dx). The pooled star pass of K3 is also held alone
+              against its plain version on the projection the card computes
+              (`star_alone`).
               K6 (the halo gather, ops/csrc/halo.cu) in one process
               holding all shards of an 800 x 250 table, at the data-parallel
               path's shapes for P = 2 and P = 4 (one rank's request for its
@@ -500,6 +503,30 @@ def measure(name: str, kernel, plain, backward: bool, matmul,
     return got, {**err, **times}
 
 
+def pooled_star_alone(name: str, x, ops, ngp, nsib, heads: int,
+                      train_kw: dict, store: bool = False) -> dict:
+    """K3's pooled star pass alone (`gat_pooled_star`) on the projection the
+    card computes for these inputs (`gat_projection`), against its plain
+    version on the same projection: the pools and, with `store`, the
+    softmax weights. The launches of both are outside every path's count."""
+    import torch
+    from taxoexpan_torch.ops import gat_kernels as gk
+    pkw = {k: train_kw[k] for k in ("pe_pack", "seed", "feat_drop",
+                                    "dropout_bits") if k in train_kw}
+    skw = {k: train_kw[k] for k in ("seed", "attn_drop", "dropout_bits")
+           if k in train_kw}
+    with torch.no_grad():
+        proj = gk.gat_projection(x, *ops, **pkw)
+        got = gk.gat_pooled_star(proj, ngp, nsib, MAG_P, heads, store=store,
+                                 **skw)
+        torch.cuda.synchronize()
+        want = gk.gat_pooled_star_plain(proj, ngp, nsib, MAG_P, heads,
+                                        store_attn=store, **skw)
+        res = compare_outputs(f"{name} pooled star pass", got, want)
+    del proj, got, want
+    return res
+
+
 def phase_masks(device) -> dict:
     """The dropout generator of the kernels against the plain version."""
     import torch
@@ -635,12 +662,13 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
         else:
             matmul = lambda: x2 @ fc  # noqa: E731
             call = "torch.matmul(x.reshape(-1, Din), fc)"
-        # the per-slot forwards and both backwards run their products on
-        # the tensor cores (K4's first pass does not)
-        tc = backward or not pooled
+        # every GAT form runs its products on the tensor cores
         got, nums = measure(name, kernel, plain, backward, matmul,
-                            ("gat_bwd" if backward else "gat_fwd")
-                            if tc else None)
+                            "gat_bwd" if backward else "gat_fwd")
+        if pooled and not backward:
+            nums["star_alone"] = pooled_star_alone(
+                name, x, ops, ngp, nsib, heads,
+                tkw1 if pe_pack is not None else {})
         if backward:
             del d
             nbytes, flops = bwd_work(x, ops, pe_pack, g1 if pooled else g0,
@@ -659,7 +687,7 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
                # no single PyTorch call computes the star-GAT layer or its
                # backward; one product alone is timed as a yardstick
                "library_ms": None, "matmul_call": call,
-               **_bound(nbytes, flops, tc)}
+               **_bound(nbytes, flops, True)}
         emit("kernel", **rec)
         records.append(rec)
         del got
@@ -676,7 +704,7 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
 
 def gat_record(name: str, wrapper: str, path: str, backward: bool, x, fc,
                pe_pack, nums: dict, work: tuple, replaces: str,
-               tensor_cores: bool = True, **extra) -> dict:
+               **extra) -> dict:
     """Emit and return the record of one star-GAT kernel entry."""
     rec = {"name": name, "wrapper": wrapper, "path": path, "route": "cuda",
            "source": "taxoexpan_torch/ops/csrc/"
@@ -690,7 +718,7 @@ def gat_record(name: str, wrapper: str, path: str, backward: bool, x, fc,
            "matmul_call": ("torch.matmul(x.reshape(-1, Din).T, "
                            "D [B*N, H*Dh+2H])" if backward else
                            "torch.matmul(x.reshape(-1, Din), fc)"),
-           **_bound(*work, tensor_cores)}
+           **_bound(*work, True)}
     emit("kernel", **rec)
     return rec
 
@@ -723,12 +751,15 @@ def store_entries(tag: str, path: str, pooled: bool, x, ops, pe_pack,
         name + tag, lambda: fwd_w(*ops_all, **train_kw, **akw),
         lambda: gk.gat_layer_train_plain(*ops_all, pooled=pooled,
                                          store_attn=True, **train_kw, **akw),
-        False, lambda: x2 @ fc, None if pooled else "gat_fwd")
+        False, lambda: x2 @ fc, "gat_fwd")
+    if pooled:
+        nums["star_alone"] = pooled_star_alone(name + tag, x, ops, ngp, nsib,
+                                               heads, train_kw, store=True)
     records = [gat_record(
         name + tag, name, path, False, x, fc, pe_pack, nums,
         fwd_work(pooled, x, ops, pe_pack, ngp, nsib, heads,
                  out.numel() + attn.numel()),
-        replaces or REPLACES[name], not pooled, **common)]
+        replaces or REPLACES[name], **common)]
     del out
 
     name = bwd_w.__name__

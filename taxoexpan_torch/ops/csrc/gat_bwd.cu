@@ -18,14 +18,14 @@
 // gemm_tf32.cuh's, shared with gcn.cu):
 //  0. the layer input X = [x*m | pe*m_pe] staged once (each mask bit hashed
 //     once) where the layer has masks or a pe path, W packed for the
-//     products; K2 only: the projection P = X @ [fc | wa1 | wa2; wp | wpa1 |
+//     products; then the projection P = X @ [fc | wa1 | wa2; wp | wpa1 |
 //     wpa2] + the slot biases over all B*N rows ([B*N, wdp], wdp = H*Dh +
-//     2H rounded up to 4), the forward's own product (gat_fwd.cu), so a1/a2
-//     and the recomputed softmax are the forward's bits.
-//  1. head core, one block per (egonet, head): a1/a2 and the softmax once,
-//     then per 128-column tile of the head the ft tile (K2: read from P;
-//     K4: the register-tiled SIMT product of gat_common.cuh:head_tile), the
-//     incoming grad tile (K2: g, chained through leaky'(pre) of the
+//     2H rounded up to 4, zero in the padding columns) into the Dcat
+//     workspace: the forward's own product (gat_fwd.cu), so a1/a2 and the
+//     recomputed softmax are the forward's bits.
+//  1. head core, one block per (egonet, head): a1/a2 from P and the softmax
+//     once, then per 128-column tile of the head the ft tile (read from P),
+//     the incoming grad tile (K2: g, chained through leaky'(pre) of the
 //     recomputed pre-activation when the layer fuses out_alpha; K4: the
 //     three pool rows broadcast over the VALID slots and scaled by
 //     1/heads), the dft tile (the aggregation transposed) and the per-edge
@@ -33,9 +33,8 @@
 //     reduces over the head's whole Dh, so da1/da2 (softmax Jacobian, leaky'
 //     of the logits, the closed-form scatter onto the star,
 //     pallas_gat.py:459-504) follow the tile loop. Writes Dcat = [dft | da1
-//     | da2], [B*N, wdp], zero in the padding: K2 over P in place (each
-//     block reads its tile before it writes the same columns), K4 into a
-//     workspace.
+//     | da2] over P in place (each block reads its tile before it writes
+//     the same columns; the padding columns stay P's zeros).
 //  2. dW = X^T @ Dcat over all B*N rows, split-K on the tensor cores
 //     (3xTF32), partial sums per split in a workspace, then a second pass
 //     adds the splits in a fixed order and scatters the [din+pos, H*Dh+2H]
@@ -53,13 +52,12 @@
 //
 // What bounds it on an H100: the products. At the config.mag.json shapes
 // the projection is the forward's x @ fc (2 * B*64 * 300 * 2008 flop for
-// layer 0), the dW product is as large again and dx (K4) once more; bytes
-// (x, P and Dcat once each, dx) are a few GB. K2 runs all three products on
-// the tensor cores in 3xTF32 (gemm_tf32.cuh), one product a layer instead
-// of one per (egonet, head, column tile); the head core reads P and writes
-// Dcat, a pass bound by bytes. K4's first pass still recomputes its ft
-// tiles with the SIMT product (one block per egonet and head, the K loop
-// once per 128-column tile); moving it onto the projection is later work.
+// layer 0, 2 * B*64 * 2050 * 504 for the final layer), the dW product is as
+// large again and dx (K4) once more; bytes (x, P and Dcat once each, dx)
+// are a few GB. K2 and K4 run all three products on the tensor cores in
+// 3xTF32 (gemm_tf32.cuh), one product a layer instead of one per (egonet,
+// head, column tile); the head core reads P and writes Dcat, a pass bound
+// by bytes, at three blocks an SM for both.
 
 #include "bwd_common.cuh"
 
@@ -77,7 +75,7 @@ struct BwdArgs {
   const float* g;        // K2 [b, n, heads*dh]; K4 [b, 3, dh]
   const float* attn;     // stored softmax [b, heads, 2n - p - 1], or null
   float* dcat;           // workspace [b*n, wdp], wdp = round4(heads*dh +
-                         // 2*heads); K2: the projection P, then Dcat
+                         // 2*heads): the projection P, then Dcat over it
   float* part_w;         // workspace [splits, din+pos, wd]
   float* part_b;         // workspace [chunks, n, wdp] (need_dbias)
   float* pe_rows;        // workspace [b*n, pos] (pos > 0)
@@ -94,9 +92,9 @@ struct BwdArgs {
   float* dwpa1;          // [pos, heads]
   float* dwpa2;
   float* xm;             // workspace [b*n, kxp]: X staged, or null (read x)
-  float* wcat;           // workspace [kxp, wdp]: W for the projection (K2)
+  float* wcat;           // workspace [kxp, wdp]: W for the projection
   float* wt;             // workspace [wdp, ntp]: W^T for the dx product
-  float* biascat;        // workspace [n, wdp]: the slot biases (K2)
+  float* biascat;        // workspace [n, wdp]: the slot biases
   int b, n, din, heads, dh, p;
   int pooled, need_dx, need_dbias, has_out_alpha, splits, chunks;
   int kxp, wdp, ntp;     // widths of the workspaces (multiples of 4)
@@ -121,14 +119,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------- 1. head core
-// The K2 head core's shared memory, which reads its ft tiles from the
-// projection: the backward layout's arrays without the product's staging
-// (xs, ws, was) and the row keys, so that three blocks fit an SM.
-__host__ __device__ inline size_t proj_head_floats(int n) {
+// The head core's shared memory: the ft and grad tiles, a1 / a2, the
+// softmax weights, masks and d(weights) of the star, no product staging,
+// so that three blocks fit an SM.
+__host__ __device__ inline size_t head_floats(int n) {
   return 2 * (size_t)n * kTileCols + 17 * (size_t)n;
 }
 
-__device__ __forceinline__ Smem carve_proj_head(float* base, int n) {
+__device__ __forceinline__ Smem carve_head(float* base, int n) {
   Smem s = {};
   s.ft = base;
   s.g = s.ft + (size_t)n * kTileCols;
@@ -146,18 +144,16 @@ __device__ __forceinline__ Smem carve_proj_head(float* base, int n) {
   return s;
 }
 
-// K4: two blocks an SM (its SIMT product needs the registers); K2: three
+// K2 (kPooled = false) and K4 differ only in the incoming grad tile.
 template <bool kPooled>
-__global__ void __launch_bounds__(kThreads, kPooled ? 2 : 3)
+__global__ void __launch_bounds__(kThreads, 3)
 gat_bwd_head_kernel(BwdArgs a, TrainArgs ta) {
   extern __shared__ float4 smem4[];
-  const int n = a.n, p = a.p, heads = a.heads, dh = a.dh, din = a.din;
-  float* base = reinterpret_cast<float*>(smem4);
-  const Smem s = kPooled ? carve(base, n, kBwdLayout)
-                         : carve_proj_head(base, n);
+  const int n = a.n, p = a.p, heads = a.heads, dh = a.dh;
+  const Smem s = carve_head(reinterpret_cast<float*>(smem4), n);
   const long long b = blockIdx.x / heads;
   const int h = blockIdx.x % heads;
-  const int hd = heads * dh, wd = hd + 2 * heads, ldd = a.wdp;
+  const int hd = heads * dh, ldd = a.wdp;
   const int ngp = min(max(a.ngp[b], 0), p);
   const int nsib = min(max(a.nsib[b], 0), n - p - 1);
   const int ntiles = (dh + kTileCols - 1) / kTileCols;
@@ -165,38 +161,34 @@ gat_bwd_head_kernel(BwdArgs a, TrainArgs ta) {
   const float inv_h = 1.f / heads;
   float* drow = a.dcat + (size_t)b * n * ldd;
 
-  for (int r = tid; r < n; r += kThreads)
+  for (int r = tid; r < n; r += kThreads) {  // a1 / a2 of the head from P
     s.d_self[r] = s.d_anchor[r] = s.d_to_anchor[r] = 0.f;
-  if (kPooled) {
-    setup_row_keys(ta, b, n, s);
-    if (h == 0)  // Dcat's padding columns
-      for (int e = tid; e < n * (ldd - wd); e += kThreads)
-        drow[(size_t)(e / (ldd - wd)) * ldd + wd + e % (ldd - wd)] = 0.f;
-  } else {  // a1 / a2 of the head from the projection
-    for (int r = tid; r < n; r += kThreads) {
-      s.a1[r] = drow[(size_t)r * ldd + hd + h];
-      s.a2[r] = drow[(size_t)r * ldd + hd + heads + h];
-    }
+    s.a1[r] = drow[(size_t)r * ldd + hd + h];
+    s.a2[r] = drow[(size_t)r * ldd + hd + heads + h];
   }
 
   for (int t = 0; t < ntiles; ++t) {
     const int c0 = t * kTileCols;
     const int ncols = min(kTileCols, dh - c0);
     const int col0 = h * dh + c0;
-    if (kPooled) {
-      head_tile<true>(a.x + b * n * din, a.fc, a.wa1, a.wa2, a.bias_ft,
-                      a.bias_a1, a.bias_a2, n, din, hd, heads, h, col0,
-                      ncols, s, ta);
-    } else {  // the ft tile from the projection (bias included), g's
+    // the ft tile from P (bias included) and the incoming grad tile: K2's
+    // g; K4's three pool rows over the valid slots, times 1/heads
 #pragma unroll 4
-      for (int e = tid; e < n * kTileCols; e += kThreads) {
-        const int r = e / kTileCols, c = e % kTileCols;
-        const bool in = c < ncols;
-        s.ft[e] = in ? drow[(size_t)r * ldd + col0 + c] : 0.f;
-        s.g[e] = in ? a.g[((size_t)b * n + r) * hd + col0 + c] : 0.f;
+    for (int e = tid; e < n * kTileCols; e += kThreads) {
+      const int r = e / kTileCols, c = e % kTileCols;
+      const bool in = c < ncols;
+      s.ft[e] = in ? drow[(size_t)r * ldd + col0 + c] : 0.f;
+      float gv = 0.f;
+      if (kPooled) {
+        const bool valid = r < p ? r < ngp : (r == p || r - p - 1 < nsib);
+        const int cls = r < p ? 0 : (r == p ? 1 : 2);
+        if (in && valid) gv = a.g[((size_t)b * 3 + cls) * dh + c0 + c] * inv_h;
+      } else if (in) {
+        gv = a.g[((size_t)b * n + r) * hd + col0 + c];
       }
-      __syncthreads();
+      s.g[e] = gv;
     }
+    __syncthreads();
     if (t == 0) {
       if (a.attn != nullptr)
         attention_weights<true, true, true>(
@@ -208,18 +200,10 @@ gat_bwd_head_kernel(BwdArgs a, TrainArgs ta) {
     }
     const float* fa = s.ft + p * kTileCols;
 
-    // incoming grad tile (K2: loaded with the ft tile)
+    // K2: the grad through leaky'(pre) of the fused activation
     for (int e = tid; e < n * kTileCols; e += kThreads) {
       const int r = e / kTileCols, c = e % kTileCols;
-      if (kPooled) {
-        float gv = 0.f;
-        const bool valid = r < p ? r < ngp : (r == p || r - p - 1 < nsib);
-        const int cls = r < p ? 0 : (r == p ? 1 : 2);
-        if (c < ncols && valid)
-          gv = a.g[((size_t)b * 3 + cls) * dh + c0 + c] * inv_h;
-        s.g[e] = gv;
-      } else if (a.has_out_alpha && c < ncols) {
-        // leaky'(pre) of the fused activation
+      if (!kPooled && a.has_out_alpha && c < ncols) {
         float pre;
         if (r < p) {
           pre = s.w_self[r] * s.ft[r * kTileCols + c];
@@ -362,19 +346,16 @@ int gat_layer_bwd_f32(const BwdArgs* ap, const TrainArgs* tap, void* stream) {
   cudaError_t err;
 
   mark(g_marks, st);
-  err = stage_and_pack(op, ta, m, work, a.need_dx ? 0 : a.din,
-                       a.pooled ? nullptr : a.wcat, st);
+  err = stage_and_pack(op, ta, m, work, a.need_dx ? 0 : a.din, a.wcat, st);
   if (err != cudaSuccess) return err;
   mark(g_marks, st);
-  if (!a.pooled) {  // 0. the projection into the Dcat workspace
-    err = gat_projection(op, a.xm, a.kxp, a.wcat, a.wdp, a.bias_ft,
-                         a.bias_a1, a.bias_a2, a.biascat, a.dcat, m, st);
-    if (err != cudaSuccess) return err;
-  }
+  // 0. the projection into the Dcat workspace
+  err = gat_projection(op, a.xm, a.kxp, a.wcat, a.wdp, a.bias_ft, a.bias_a1,
+                       a.bias_a2, a.biascat, a.dcat, m, st);
+  if (err != cudaSuccess) return err;
   mark(g_marks, st);
 
-  const size_t smem = a.pooled ? smem_bytes(a.n, kBwdLayout)
-                               : sizeof(float) * proj_head_floats(a.n);
+  const size_t smem = sizeof(float) * head_floats(a.n);
   const void* head = a.pooled ? (const void*)gat_bwd_head_kernel<true>
                               : (const void*)gat_bwd_head_kernel<false>;
   err = prepare(head, smem);

@@ -1,6 +1,8 @@
-// Building blocks shared by the star-GAT kernels (gat_fwd.cu, gat_bwd.cu):
-// the dropout bit generator, the shared-memory layout, the register-tiled
-// ft / a1 / a2 product of one head tile and the star softmax weights.
+// Building blocks shared by the star kernels (gat_fwd.cu, gat_bwd.cu,
+// gcn.cu): the dropout bit generator, the star softmax weights, and the
+// shared-memory layout and register-tiled product of one head tile that
+// the K5 kernels (gcn.cu) still run in SIMT (the GAT kernels read their
+// products from the tensor-core projection, gemm_tf32.cuh).
 //
 // Eval instantiations (kTrain = false) are the serving kernels' code; the
 // train instantiations add, in the same loops:
@@ -112,14 +114,15 @@ __device__ __forceinline__ float leaky(float v, float a) {
   return v >= 0.f ? v : a * v;
 }
 
-enum Layout { kEvalLayout = 0, kTrainLayout = 1, kBwdLayout = 2 };
+enum Layout { kEvalLayout = 0, kTrainLayout = 1 };
 
 struct Smem {
   float* xs;           // [kTileK][kXsStride]  x tile, k-major
   float* ws;           // [kTileK][kTileCols]  fc tile
   float* was;          // [2][kTileK]          wa1 / wa2 tile of the head
   float* ft;           // [n][kTileCols]       ft tile incl. slot bias
-  float* g;            // [n][kTileCols]       incoming grad tile (backward)
+  float* g;            // [n][kTileCols]       incoming grad tile (backward,
+                       //                      gat_bwd.cu:carve_head)
   float* a1;           // [n]
   float* a2;           // [n]
   float* w_self;       // [n] weight of a row's own ft (after dropout)
@@ -127,7 +130,8 @@ struct Smem {
   float* w_to_anchor;  // [n] weight of gp row j in the anchor's output
   unsigned* rk_feat;   // [n] row keys of the feature / pe masks (train)
   unsigned* rk_pe;     // [n]
-  // backward: softmax weights before dropout, the masks, d(weights)
+  // backward (gat_bwd.cu:carve_head): softmax weights before dropout, the
+  // masks, d(weights)
   float* sm_self;
   float* sm_anchor;
   float* sm_to_anchor;
@@ -144,8 +148,7 @@ struct Smem {
 
 __host__ __device__ inline size_t smem_floats(int n, Layout layout) {
   size_t f = (size_t)kStaticFloats + (size_t)n * kTileCols + 5 * (size_t)n;
-  if (layout >= kTrainLayout) f += 2 * (size_t)n;
-  if (layout == kBwdLayout) f += (size_t)n * kTileCols + 12 * (size_t)n;
+  if (layout == kTrainLayout) f += 2 * (size_t)n;
   return f;
 }
 
@@ -159,31 +162,14 @@ __device__ __forceinline__ Smem carve(float* base, int n, Layout layout) {
   s.ws = s.xs + kTileK * kXsStride;
   s.was = s.ws + kTileK * kTileCols;
   s.ft = s.was + 2 * kTileK;
-  float* next = s.ft + (size_t)n * kTileCols;
-  if (layout == kBwdLayout) {
-    s.g = next;
-    next += (size_t)n * kTileCols;
-  }
-  s.a1 = next;
+  s.a1 = s.ft + (size_t)n * kTileCols;
   s.a2 = s.a1 + n;
   s.w_self = s.a2 + n;
   s.w_anchor = s.w_self + n;
   s.w_to_anchor = s.w_anchor + n;
-  next = s.w_to_anchor + n;
-  if (layout >= kTrainLayout) {
-    s.rk_feat = reinterpret_cast<unsigned*>(next);
+  if (layout == kTrainLayout) {
+    s.rk_feat = reinterpret_cast<unsigned*>(s.w_to_anchor + n);
     s.rk_pe = s.rk_feat + n;
-    next += 2 * n;
-  }
-  if (layout == kBwdLayout) {
-    float** arrays[] = {&s.sm_self, &s.sm_anchor, &s.sm_to_anchor,
-                        &s.m_self,  &s.m_anchor,  &s.m_to_anchor,
-                        &s.d_self,  &s.d_anchor,  &s.d_to_anchor,
-                        &s.dz,      &s.da1,       &s.da2};
-    for (float** a : arrays) {
-      *a = next;
-      next += n;
-    }
   }
   return s;
 }

@@ -30,36 +30,37 @@
 // B*64*2000 floats; the final layer does 2*B*64*(2000 [+50])*502 flop and
 // writes only the pools. Both sit far above the float32 ridge point.
 //
-// Per-slot layer (gat_layer_fwd[_train]): two launches (and two small
-// preparations).
+// Both layers run two launches (and two small preparations).
 //  1. The projection P = X @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot
 //     biases over all B*N rows, [B*N, wdp] (wdp = H*Dh + 2H rounded up to
-//     4), on the tensor cores in 3xTF32 (gemm_tf32.cuh): one product a
-//     layer, W's tiles reused across 128 rows (two egonets) a block. X is
-//     x itself, or, where the layer has masks or a pe path or x's rows are
-//     not 16-byte multiples, x staged once into a workspace with each mask
-//     bit hashed once (gemm_tf32.cuh:stage_input_kernel). The backward
+//     4: 2008 for config.mag.json's layer 0, 504 for its final layer), on
+//     the tensor cores in 3xTF32 (gemm_tf32.cuh): one product a layer, W's
+//     tiles reused across 128 rows (two egonets) a block. X is x itself,
+//     or, where the layer has masks or a pe path or x's rows are not
+//     16-byte multiples, x staged once into a workspace with each mask bit
+//     hashed once (gemm_tf32.cuh:stage_input_kernel). The backward
 //     (gat_bwd.cu) runs the same product on the same inputs, so its a1/a2
 //     and softmax are these bits.
-//  2. The star pass, one block per (egonet, head): a1/a2 from P, the star
-//     softmax once (with attention dropout, and the stored weights written
-//     where attn is not null), then the aggregation, the optional
-//     out_alpha leaky and the output, each thread a column of the head:
-//     bound by bytes (P read and the output written once).
+//  2. Per-slot layer (gat_layer_fwd[_train]): the star pass, one block per
+//     (egonet, head): a1/a2 from P, the star softmax once (with attention
+//     dropout, and the stored weights written where attn is not null),
+//     then the aggregation, the optional out_alpha leaky and the output,
+//     each thread a column of the head: bound by bytes (P read and the
+//     output written once).
+//     Pooled layer (gat_layer_pooled_fwd[_train]): the pooled star pass,
+//     one block per egonet looping over heads: the same softmax once per
+//     (egonet, head), then per column the valid-gp sum, the anchor and the
+//     valid-sib sum, averaged over heads in shared memory, the pools
+//     written once. It reads the valid rows of P only; the projection
+//     computes all B*N rows, as the TPU kernel does.
 // The workspace P is 4 * B*N*wdp bytes: 2.1 GB for config.mag.json's layer
-// 0 at B = 4096, 3.8 GB for the MTL configuration's layer 0.
-//
-// Pooled layer (gat_layer_pooled_fwd[_train], simple first): one block of
-// 256 threads per (egonet, 128-column tile), looping over heads so that
-// the head mean and class sums stay in registers; a register-tiled SIMT
-// product (4 rows x 8 columns per thread, K tiles of 16 staged in shared
-// memory) with a1/a2 folded into the same K loop, the ft tile [N, 128] in
-// shared memory, the pools written directly: ft never reaches device
-// memory. Moving it onto the projection is later work.
+// 0 at B = 4096, 0.53 GB for its final layer, 3.8 GB for the MTL
+// configuration's layer 0; X staged adds 4 * B*N*kxp bytes (2.15 GB for
+// the final layer's train forms, kxp = 2052).
 
 #include "bwd_common.cuh"
 
-// Workspaces of the per-slot forward, allocated by the caller; mirrored
+// Workspaces of the forwards, allocated by the caller; mirrored
 // field by field by gat_kernels._FwdWork.
 struct FwdWork {
   float* proj;     // [b*n, wdp] the projection P
@@ -135,98 +136,70 @@ gat_star_fwd_kernel(const float* __restrict__ proj, int ldp,
   }
 }
 
+// 2. the pooled star pass over the projection P [b*n, ldp]: one block per
+// egonet, looping over heads so that each (egonet, head)'s softmax is
+// computed (and, where attn is not null, stored) once; each thread a column
+// of the head, its three class sums kept in shared memory across the head
+// loop (acc [3][dh], each column touched by its own thread only). Only the
+// valid rows of P are read: the pools never see the others.
 template <bool kTrain>
-__device__ __forceinline__ void
-pooled_body(const float* __restrict__ x,
-                            const float* __restrict__ fc,
-                            const float* __restrict__ wa1,
-                            const float* __restrict__ wa2,
-                            const float* __restrict__ bias_ft,
-                            const float* __restrict__ bias_a1,
-                            const float* __restrict__ bias_a2,
-                            const int* __restrict__ ngp_arr,
-                            const int* __restrict__ nsib_arr,
-                            float* __restrict__ pools, int n, int din,
-                            int heads, int dh, int p, float alpha,
-                            int ntiles, TrainArgs ta,
-                            float* __restrict__ attn) {
+__global__ void __launch_bounds__(kThreads)
+gat_pooled_star_kernel(const float* __restrict__ proj, int ldp,
+                       const int* __restrict__ ngp_arr,
+                       const int* __restrict__ nsib_arr,
+                       float* __restrict__ pools, int n, int heads, int dh,
+                       int p, float alpha, TrainArgs ta,
+                       float* __restrict__ attn) {
   extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4), n,
-                       kTrain ? kTrainLayout : kEvalLayout);
-  const long long b = blockIdx.x / ntiles;
-  const int c0 = (blockIdx.x % ntiles) * kTileCols;
-  const int ncols = min(kTileCols, dh - c0);
+  float* base = reinterpret_cast<float*>(smem4);
+  Smem s = {};
+  s.a1 = base;
+  s.a2 = base + n;
+  s.w_self = base + 2 * n;
+  s.w_anchor = base + 3 * n;
+  s.w_to_anchor = base + 4 * n;
+  float* acc = base + 5 * n;
+  const long long b = blockIdx.x;
   const int hd = heads * dh;
   const int ngp = min(max(ngp_arr[b], 0), p);
   const int nsib = min(max(nsib_arr[b], 0), n - p - 1);
-  const int c = threadIdx.x;  // threads c < ncols own one pool column
-  const float* fa = s.ft + p * kTileCols;
-  float pool_gp = 0.f, pool_anchor = 0.f, pool_sib = 0.f;
+  const float* pb = proj + (size_t)b * n * ldp;
+  for (int c = threadIdx.x; c < 3 * dh; c += kThreads) acc[c] = 0.f;
 
-  if (kTrain) setup_row_keys(ta, b, n, s);
   for (int h = 0; h < heads; ++h) {
-    head_tile<kTrain>(x + b * n * din, fc, wa1, wa2, bias_ft, bias_a1,
-                      bias_a2, n, din, hd, heads, h, h * dh + c0, ncols, s,
-                      ta);
-    float* stored = (attn != nullptr && c0 == 0)
-                        ? attn + ((size_t)b * heads + h) * attn_row(n, p)
+    for (int r = threadIdx.x; r < n; r += kThreads) {
+      s.a1[r] = pb[(size_t)r * ldp + hd + h];
+      s.a2[r] = pb[(size_t)r * ldp + hd + heads + h];
+    }
+    __syncthreads();
+    float* stored =
+        attn != nullptr ? attn + ((size_t)b * heads + h) * attn_row(n, p)
                         : nullptr;
     attention_weights<kTrain, false>(n, p, ngp, alpha, s, ta, b, h, stored);
-    if (c < ncols) {
+
+    const float* fb = pb + (size_t)h * dh;
+    for (int c = threadIdx.x; c < dh; c += kThreads) {
+      const float fa = fb[(size_t)p * ldp + c];
       float sg = 0.f, anc = 0.f, ss = 0.f;
-      for (int j = 0; j < ngp; ++j) {
-        const float v = s.ft[j * kTileCols + c];
-        sg += kTrain ? s.w_self[j] * v : v;
+#pragma unroll 4
+      for (int j = 0; j < ngp; ++j) {  // valid gps: own ft, and -> anchor
+        const float v = fb[(size_t)j * ldp + c];
+        sg += kTrain ? s.w_self[j] * v : v;  // the dropped gp self-loop
         anc += s.w_to_anchor[j] * v;
       }
-      anc += s.w_self[p] * fa[c];
-      for (int i = 0; i < nsib; ++i) {
-        const int r = p + 1 + i;
-        ss += s.w_anchor[r] * fa[c] + s.w_self[r] * s.ft[r * kTileCols + c];
-      }
-      pool_gp += sg;
-      pool_anchor += anc;
-      pool_sib += ss;
+      anc += s.w_self[p] * fa;  // anchor: valid gps and self
+#pragma unroll 4
+      for (int r = p + 1; r <= p + nsib; ++r)  // valid sibs: anchor and self
+        ss += s.w_anchor[r] * fa + s.w_self[r] * fb[(size_t)r * ldp + c];
+      acc[c] += sg;
+      acc[dh + c] += anc;
+      acc[2 * dh + c] += ss;
     }
-    __syncthreads();  // the next head overwrites s.ft and the weights
+    __syncthreads();  // the next head overwrites a1 / a2 and the weights
   }
-  if (c < ncols) {
-    const float inv_h = 1.f / heads;  // mean over heads
-    float* pb = pools + b * 3 * dh + c0 + c;
-    pb[0] = pool_gp * inv_h;
-    pb[dh] = pool_anchor * inv_h;
-    pb[2 * dh] = pool_sib * inv_h;
-  }
-}
-
-// The pooled kernels. The train form asks for two resident blocks an SM
-// (at most 128 registers a thread: 157 without the bound left one block an
-// SM); the eval form keeps the serving kernel's bounds. attn, of the train
-// form only, is null or receives the softmax weights (the store form).
-#define GAT_FWD_PARAMS                                                     \
-  const float *__restrict__ x, const float *__restrict__ fc,               \
-      const float *__restrict__ wa1, const float *__restrict__ wa2,        \
-      const float *__restrict__ bias_ft, const float *__restrict__ bias_a1, \
-      const float *__restrict__ bias_a2, const int *__restrict__ ngp_arr,  \
-      const int *__restrict__ nsib_arr
-#define GAT_FWD_ARGS \
-  x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp_arr, nsib_arr
-
-__global__ void __launch_bounds__(kThreads)
-gat_layer_pooled_fwd_kernel(GAT_FWD_PARAMS, float* __restrict__ pools, int n,
-                            int din, int heads, int dh, int p, float alpha,
-                            int ntiles, TrainArgs ta) {
-  pooled_body<false>(GAT_FWD_ARGS, pools, n, din, heads, dh, p, alpha, ntiles,
-                     ta, nullptr);
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-gat_layer_pooled_fwd_train_kernel(GAT_FWD_PARAMS, float* __restrict__ pools,
-                                  int n, int din, int heads, int dh, int p,
-                                  float alpha, int ntiles, TrainArgs ta,
-                                  float* __restrict__ attn) {
-  pooled_body<true>(GAT_FWD_ARGS, pools, n, din, heads, dh, p, alpha, ntiles,
-                    ta, attn);
+  const float inv_h = 1.f / heads;  // mean over heads
+  float* out = pools + (size_t)b * 3 * dh;
+  for (int c = threadIdx.x; c < 3 * dh; c += kThreads) out[c] = acc[c] * inv_h;
 }
 
 // The dropout generator alone (words, or the 8-bit mode's bytes), for
@@ -240,6 +213,17 @@ __global__ void dropout_bits_kernel(unsigned seed, unsigned stream,
   if (i < count)
     out[i] = drop_value(row_key(stream_key(seed, stream), rows[i]), cols[i],
                         bits8);
+}
+
+// The layer's product operands: x and [fc | wa1 | wa2], the pe path's rows
+// from ta.
+Operand layer_operand(const float* x, const float* fc, const float* wa1,
+                      const float* wa2, int n, int din, int heads, int dh,
+                      const TrainArgs& ta) {
+  const int hd = heads * dh;
+  return {x,   {fc, wa1, wa2}, {ta.wp, ta.wpa1, ta.wpa2},
+          n,   din,            hd,
+          hd + heads, hd + 2 * heads};
 }
 
 // 1. the projection, with X staged and W packed first (pass marks before,
@@ -270,10 +254,9 @@ cudaError_t launch_fwd(const float* x, const float* fc, const float* wa1,
   const cudaStream_t st = (cudaStream_t)stream;
   const long long m = (long long)b * n;
   if (m == 0) return cudaSuccess;
-  const int hd = heads * dh, wd = hd + 2 * heads;
-  const Operand op = {x, {fc, wa1, wa2}, {ta.wp, ta.wpa1, ta.wpa2}, n, din,
-                      hd, hd + heads, wd};
-  cudaError_t err = project(op, ta, m, w, bias_ft, bias_a1, bias_a2, st);
+  cudaError_t err =
+      project(layer_operand(x, fc, wa1, wa2, n, din, heads, dh, ta), ta, m, w,
+              bias_ft, bias_a1, bias_a2, st);
   if (err != cudaSuccess) return err;
 
   const size_t smem = 5 * sizeof(float) * (size_t)n;  // 2. the star pass
@@ -287,6 +270,21 @@ cudaError_t launch_fwd(const float* x, const float* fc, const float* wa1,
   return err;
 }
 
+// 2. the pooled star pass over P [b*n, ldp] into pools [b, 3, dh]
+template <bool kTrain>
+cudaError_t pooled_star(const float* proj, int ldp, const int* ngp,
+                        const int* nsib, float* pools, int b, int n,
+                        int heads, int dh, int p, float alpha,
+                        const TrainArgs& ta, float* attn, cudaStream_t st) {
+  if (b == 0) return cudaSuccess;
+  const size_t smem = sizeof(float) * (5 * (size_t)n + 3 * (size_t)dh);
+  cudaError_t err = prepare((const void*)gat_pooled_star_kernel<kTrain>, smem);
+  if (err != cudaSuccess) return err;
+  gat_pooled_star_kernel<kTrain><<<(unsigned)b, kThreads, smem, st>>>(
+      proj, ldp, ngp, nsib, pools, n, heads, dh, p, alpha, ta, attn);
+  return cudaGetLastError();
+}
+
 template <bool kTrain>
 cudaError_t launch_pooled(const float* x, const float* fc, const float* wa1,
                           const float* wa2, const float* bias_ft,
@@ -294,27 +292,18 @@ cudaError_t launch_pooled(const float* x, const float* fc, const float* wa1,
                           const int* ngp, const int* nsib, float* pools,
                           int b, int n, int din, int heads, int dh, int p,
                           float alpha, const TrainArgs& ta, float* attn,
-                          void* stream) {
-  const size_t smem = smem_bytes(n, kTrain ? kTrainLayout : kEvalLayout);
-  cudaError_t err =
-      prepare(kTrain ? (const void*)gat_layer_pooled_fwd_train_kernel
-                     : (const void*)gat_layer_pooled_fwd_kernel,
-              smem);
-  if (err != cudaSuccess) return err;
-  const int ntiles = (dh + kTileCols - 1) / kTileCols;
-  const long long blocks = (long long)b * ntiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks);
+                          const FwdWork& w, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (blocks > 0 && kTrain)
-    gat_layer_pooled_fwd_train_kernel<<<grid, kThreads, smem, st>>>(
-        x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, pools, n, din,
-        heads, dh, p, alpha, ntiles, ta, attn);
-  else if (blocks > 0)
-    gat_layer_pooled_fwd_kernel<<<grid, kThreads, smem, st>>>(
-        x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, pools, n, din,
-        heads, dh, p, alpha, ntiles, ta);
-  return cudaGetLastError();
+  const long long m = (long long)b * n;
+  if (m == 0) return cudaSuccess;
+  cudaError_t err =
+      project(layer_operand(x, fc, wa1, wa2, n, din, heads, dh, ta), ta, m, w,
+              bias_ft, bias_a1, bias_a2, st);
+  if (err != cudaSuccess) return err;
+  err = pooled_star<kTrain>(w.proj, w.wdp, ngp, nsib, pools, b, n, heads, dh,
+                            p, alpha, ta, attn, st);
+  mark(g_marks, st);
+  return err;
 }
 
 }  // namespace
@@ -351,11 +340,11 @@ int gat_layer_pooled_fwd_f32(const float* x, const float* fc,
                              const float* bias_a2, const int* ngp,
                              const int* nsib, float* pools, int b, int n,
                              int din, int heads, int dh, int p, float alpha,
-                             void* stream) {
+                             const FwdWork* w, void* stream) {
   const TrainArgs none = {};
   return launch_pooled<false>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
                               ngp, nsib, pools, b, n, din, heads, dh, p,
-                              alpha, none, nullptr, stream);
+                              alpha, none, nullptr, *w, stream);
 }
 
 // Train forms: as above, with dropout and the pe path described by *ta;
@@ -383,10 +372,11 @@ int gat_layer_pooled_fwd_train_f32(const float* x, const float* fc,
                                    const int* nsib, float* pools, int b,
                                    int n, int din, int heads, int dh, int p,
                                    float alpha, const TrainArgs* ta,
-                                   float* attn, void* stream) {
+                                   float* attn, const FwdWork* w,
+                                   void* stream) {
   return launch_pooled<true>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                              nsib, pools, b, n, din, heads, dh, p, alpha,
-                             *ta, attn, stream);
+                             *ta, attn, *w, stream);
 }
 
 // The projection alone, P = [x*m | pe*m_pe] @ [fc | wa1 | wa2; wp | wpa1 |
@@ -399,16 +389,28 @@ int gat_projection_f32(const float* x, const float* fc, const float* wa1,
                        const FwdWork* w, void* stream) {
   const long long m = (long long)b * n;
   if (m == 0) return cudaSuccess;
-  const int hd = heads * dh;
-  const Operand op = {x,   {fc, wa1, wa2}, {ta->wp, ta->wpa1, ta->wpa2},
-                      n,   din,            hd,
-                      hd + heads, hd + 2 * heads};
-  return project(op, *ta, m, *w, bias_ft, bias_a1, bias_a2,
-                 (cudaStream_t)stream);
+  return project(layer_operand(x, fc, wa1, wa2, n, din, heads, dh, *ta), *ta,
+                 m, *w, bias_ft, bias_a1, bias_a2, (cudaStream_t)stream);
 }
 
-// Launch timing of the per-slot forward: with `on`, the next call records
-// device events around its launches; gat_fwd_pass_ms then gives their
+// The pooled star pass alone: pools [b, 3, dh] from a projection proj
+// [b*n, ldp] ([ft | a1 | a2] in its first heads*dh + 2*heads columns), with
+// the attention masks of *ta (the train form when ta->attn_on or attn is
+// not null) and the softmax weights written to attn when it is not null.
+int gat_pooled_star_f32(const float* proj, int ldp, const int* ngp,
+                        const int* nsib, float* pools, int b, int n,
+                        int heads, int dh, int p, float alpha,
+                        const TrainArgs* ta, float* attn, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (ta->attn_on || attn != nullptr)
+    return pooled_star<true>(proj, ldp, ngp, nsib, pools, b, n, heads, dh, p,
+                             alpha, *ta, attn, st);
+  return pooled_star<false>(proj, ldp, ngp, nsib, pools, b, n, heads, dh, p,
+                            alpha, *ta, nullptr, st);
+}
+
+// Launch timing of the forwards: with `on`, the next call records device
+// events around its launches; gat_fwd_pass_ms then gives their
 // milliseconds (stage and pack, projection, star pass) into out[3] and
 // returns their count.
 int gat_fwd_set_timing(int on) { return set_timing(g_marks, on); }

@@ -17,12 +17,14 @@ counters and the autograd Functions around them.
 
 The forwards are `ops/csrc/gat_fwd.cu`, the backwards `ops/csrc/gat_bwd.cu`;
 their headers state what bounds them on an H100 and what the design does
-about it. The per-slot forward (K1) and K2 compute the layer's product once
-for all B*N rows, the projection [ft | a1 | a2] = [x*m | pe*m_pe] @
+about it. Every forward and backward computes the layer's product once for
+all B*N rows, the projection [ft | a1 | a2] = [x*m | pe*m_pe] @
 [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot biases, on the tensor cores
 in 3xTF32 (`ops/csrc/gemm_tf32.cuh`), into a workspace that the star pass
-(K1) or the head core (K2) reads; `gat_projection` runs it alone, for
-tests. `fwd_pass_ms` / `bwd_pass_ms` time one call's passes. Dropout bits come from `ops/dropout.py`, whose generator the
+(K1), the pooled star pass (K3) or the head core (K2, K4) reads;
+`gat_projection` and `gat_pooled_star` run the projection and the pooled
+star pass alone, for tests. `fwd_pass_ms` / `bwd_pass_ms` time one call's
+passes. Dropout bits come from `ops/dropout.py`, whose generator the
 kernels share, so a plain version regenerates the kernels' masks exactly;
 every train form and backward takes `dropout_bits` (32, or 8 for the 8-bit
 thresholds of K7b, pallas_gat.py:73-97).
@@ -88,19 +90,22 @@ class _FwdWork(ctypes.Structure):
 
 # C signatures of ops/csrc/gat_fwd.cu: 10 pointers (x, fc, wa1, wa2,
 # bias_ft, bias_a1, bias_a2, ngp, nsib, out), b, n, din, heads, dh, p,
-# alpha, ... (the train forms: ..., TrainArgs*, attn or null; the per-slot
-# forms: ..., FwdWork*; then the stream)
+# alpha, ... (the per-slot forms: out_alpha, has_out_alpha; the train
+# forms: TrainArgs*, attn or null; then FwdWork* and the stream)
 _COMMON = [_P] * 10 + [_I] * 6 + [_F]
 _TA = ctypes.POINTER(_TrainArgs)
 _FW = ctypes.POINTER(_FwdWork)
 FWD_SIGNATURES = {
     "gat_layer_fwd_f32": (_COMMON + [_F, _I, _FW, _P], _I),
-    "gat_layer_pooled_fwd_f32": (_COMMON + [_P], _I),
+    "gat_layer_pooled_fwd_f32": (_COMMON + [_FW, _P], _I),
     "gat_layer_fwd_train_f32": (_COMMON + [_F, _I, _TA, _P, _FW, _P], _I),
-    "gat_layer_pooled_fwd_train_f32": (_COMMON + [_TA, _P, _P], _I),
+    "gat_layer_pooled_fwd_train_f32": (_COMMON + [_TA, _P, _FW, _P], _I),
     "dropout_bits_u32": ([ctypes.c_uint, ctypes.c_uint, _P, _P, _P,
                           ctypes.c_longlong, _I, _P], _I),
     "gat_projection_f32": ([_P] * 7 + [_I] * 5 + [_TA, _FW, _P], _I),
+    # proj, ldp, ngp, nsib, pools, b, n, heads, dh, p, alpha, ta, attn
+    "gat_pooled_star_f32": ([_P, _I] + [_P] * 3 + [_I] * 5 + [_F, _TA, _P,
+                                                              _P], _I),
     "gat_fwd_set_timing": ([_I], _I),
     "gat_fwd_pass_ms": ([_P], _I),
     "gat_fwd_error_string": ([_I], ctypes.c_char_p),
@@ -302,12 +307,20 @@ def gat_layer_train_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
     store_attn: return (output, softmax weights [B, H, 2N - P - 1]) as the
     store forms do; stored_attn: such weights, used instead of the softmax
     (their backward is the stored form's)."""
-    b, n, _ = x.shape
-    hd = fc.shape[1]
-    dev = x.device
     ft, a1, a2 = _projection_plain(x, fc, wa1, wa2, bias_ft, bias_a1,
                                    bias_a2, pe_pack, seed, feat_drop,
                                    dropout_bits)
+    out, sm = _star_plain(ft, a1, a2, ngp, nsib, p, heads, seed, attn_drop,
+                          out_alpha, pooled, dropout_bits, stored_attn)
+    return (out, sm) if store_attn else out
+
+
+def _star_plain(ft, a1, a2, ngp, nsib, p, heads, seed, attn_drop, out_alpha,
+                pooled, dropout_bits, stored_attn):
+    """The star pass of the train forms from the projection's ft [B, N,
+    H*Dh], a1, a2 [B, N, H]: (output, softmax weights before dropout)."""
+    b, n, hd = ft.shape
+    dev = ft.device
     masks = None
     if attn_drop > 0:
         masks = dropout.attention_masks(seed, b, p, n - p - 1, heads,
@@ -326,6 +339,21 @@ def gat_layer_train_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                         dim=1).reshape(b, n, hd)
         if out_alpha is not None:
             out = _leaky(out, out_alpha)
+    return out, sm
+
+
+def gat_pooled_star_plain(proj, ngp, nsib, p: int, heads: int, *,
+                          seed: int = 0, attn_drop: float = 0.0,
+                          dropout_bits: int = 32, store_attn: bool = False):
+    """Plain version of `gat_pooled_star`: the pools [B, 3, Dh] of the
+    pooled layer from its projection proj = [ft | a1 | a2], [B, N, H*Dh +
+    2H] (`gat_projection_plain`'s output), with the attention masks of
+    `seed`; with `store_attn`, (pools, softmax weights [B, H, 2N - P - 1])."""
+    hd = proj.shape[-1] - 2 * heads
+    out, sm = _star_plain(proj[..., :hd], proj[..., hd:hd + heads],
+                          proj[..., hd + heads:hd + 2 * heads], ngp, nsib, p,
+                          heads, seed, attn_drop, None, True, dropout_bits,
+                          None)
     return (out, sm) if store_attn else out
 
 
@@ -389,8 +417,8 @@ def _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
     shapes.update(dict(extra))
     check_operands(x, shapes)
     check_star(x, 0 if p is None else p)
-    # a launch whose shared memory (gat::smem_bytes, about 0.5 KB a slot;
-    # about 1 KB in the backward) exceeds the device's limit comes back as
+    # a launch whose shared memory (the backward's head core about 1 KB a
+    # slot, gat_bwd.cu:head_floats) exceeds the device's limit comes back as
     # an error and raises
 
 
@@ -423,10 +451,9 @@ def _fwd_cuda(what: str, pooled: bool, x, fc, wa1, wa2, bias_ft, bias_a1,
                  0 if out_alpha is None else 1]
     if ta is not None:
         args += [ctypes.byref(ta), attn.data_ptr() if store else None]
-    if not pooled:
-        work = _fwd_work(x, heads * dh + 2 * heads,
-                         train[2] if train is not None else 0.0, ta)
-        args.append(ctypes.byref(work.args))
+    work = _fwd_work(x, heads * dh + 2 * heads,
+                     train[2] if train is not None else 0.0, ta)
+    args.append(ctypes.byref(work.args))
     fn = getattr(lib, f"{'gat_layer_pooled_fwd' if pooled else 'gat_layer_fwd'}"
                       f"{'_train' if train is not None else ''}_f32")
     with torch.cuda.device(x.device):
@@ -444,9 +471,9 @@ class _Work:
 
 
 def _fwd_work(x, wd: int, feat_drop: float, ta) -> _Work:
-    """The per-slot forward's workspaces (gat_fwd.cu:FwdWork): the
-    projection P [B*N, wdp], X staged where needed, W and the slot biases
-    in the projection's layouts."""
+    """The forwards' workspaces (gat_fwd.cu:FwdWork): the projection P
+    [B*N, wdp], X staged where needed, W and the slot biases in the
+    projection's layouts."""
     b, n, din = x.shape
     pos = ta.pos if ta is not None else 0
     kx, wdp = din + pos, round4(wd)
@@ -616,9 +643,8 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
             "pe_rows": empty(m, pos) if pos else None,
             "part_pe": empty(chunks, n, pos) if pos else None,
             "xm": pw["xm"], "wt": pw["wt"],
-            # the projection's W and slot biases (K2 only)
-            "wcat": None if pooled else empty(pw["kxp"], wdp),
-            "biascat": None if pooled else empty(n, wdp)}
+            # the projection's W and slot biases
+            "wcat": empty(pw["kxp"], wdp), "biascat": empty(n, wdp)}
     args = _BwdArgs()
     ptrs = {"x": x, "fc": fc, "wa1": wa1, "wa2": wa2, "bias_ft": bias_ft,
             "bias_a1": bias_a1, "bias_a2": bias_a2, "ngp": ngp,
@@ -761,15 +787,63 @@ def gat_projection(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, *,
 gat_projection.launches = 0
 
 
+def gat_pooled_star(proj, ngp, nsib, p: int, heads: int, *, seed: int = 0,
+                    attn_drop: float = 0.0, dropout_bits: int = 32,
+                    store: bool = False):
+    """The pooled star pass of `gat_layer_pooled_fwd[_train[_store]]` alone,
+    pools [B, 3, Dh] from a projection proj [B, N, H*Dh + 2H] (rows may be
+    wider, as `gat_projection`'s output on the card is: its last dimension
+    unit-strided), with the attention masks of `seed`; with `store`,
+    (pools, softmax weights [B, H, 2N - P - 1]). Exposed for testing the
+    pass on its own (the plain version on the CPU; on the card the kernel,
+    counted in `gat_pooled_star.launches`)."""
+    kw = dict(seed=seed, attn_drop=attn_drop, dropout_bits=dropout_bits)
+    if not on_cuda(proj, "gat_pooled_star"):
+        return gat_pooled_star_plain(proj, ngp, nsib, p, heads,
+                                     store_attn=store, **kw)
+    b, n, width = proj.shape
+    dh = (width - 2 * heads) // heads
+    if dh <= 0 or proj.dtype != torch.float32 or proj.stride(2) != 1 or (
+            b > 1 and proj.stride(0) != n * proj.stride(1)):
+        raise ValueError("proj must be float32 [B, N, H*Dh + 2H] with "
+                         "unit-strided, evenly spaced rows")
+    for name, t in (("ngp", ngp), ("nsib", nsib)):
+        if (tuple(t.shape) != (b,) or t.dtype != torch.int32
+                or t.device != proj.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int32 [{b}] on "
+                             f"{proj.device}")
+    check_star(proj, p)
+    ta = train_args(None, seed, 0.0, attn_drop, dropout_bits)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa
+                                       device=proj.device)
+    pools = empty(b, 3, dh)
+    attn = empty(b, heads, attn_row(n, p)) if store else None
+    lib = _lib()
+    with torch.cuda.device(proj.device):
+        rc = lib.gat_pooled_star_f32(
+            proj.data_ptr(), proj.stride(1), ngp.data_ptr(), nsib.data_ptr(),
+            pools.data_ptr(), b, n, heads, dh, p, LEAKY_ALPHA,
+            ctypes.byref(ta), attn.data_ptr() if store else None,
+            stream(proj))
+    raise_on(lib, rc, "gat_pooled_star", "gat_fwd_error_string")
+    if b:
+        gat_pooled_star.launches += 1
+    return (pools, attn) if store else pools
+
+
+gat_pooled_star.launches = 0
+
+
 def fwd_pass_ms(call) -> dict:
-    """Device ms of the per-slot forward's launches in one `call` of
-    gat_layer_fwd[_train[_store]] on the card, by FWD_PASSES."""
+    """Device ms of a forward's launches in one `call` of
+    gat_layer[_pooled]_fwd[_train[_store]] on the card, by FWD_PASSES (the
+    pooled forms' "star" is the pooled star pass)."""
     return dict(zip(FWD_PASSES, pass_times(_lib(), "gat_fwd", call)))
 
 
 def bwd_pass_ms(call) -> dict:
     """Device ms of the backward's passes in one `call` of a backward
-    wrapper on the card, by BWD_PASSES (K4: no projection, ~0 ms)."""
+    wrapper on the card, by BWD_PASSES."""
     return dict(zip(BWD_PASSES, pass_times(_bwd_lib(), "gat_bwd", call)))
 
 

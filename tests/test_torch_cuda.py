@@ -16,7 +16,10 @@ the projection of the per-slot layer (3xTF32 on the tensor cores) alone
 and K1 / K2 around it at B*N not a multiple of its 128-row tile, Dh 500 /
 900 / 600, din + pos 300 / 400 / 2050 / 3700, heads 4 and 1, dropout 0 and
 0.1 with 32- and 8-bit masks, need_dx both ways, stored and recompute
-backwards (equal bits);
+backwards (equal bits); K3 (eval, train and store forms) and K4 (recompute
+and stored) around the same projection at B = 1, a batch of empty
+egonets, heads 3, Dh 200 / 500 and din 33 / 250 (rows staged), stored and
+recompute grads equal bits, and the pooled star pass alone;
 for K6 the halo gather at P = 1 to 4 in float32 and bf16 (exact), empty
 buckets, and two rank processes sharing the card through CUDA IPC.
 
@@ -518,6 +521,86 @@ def test_projection_k1_k2_match_plain(dev, b, p, s, din, heads, dh, pos,
             for name, a in stored.items():
                 assert (a is None) == (got[name] is None), name
                 assert a is None or torch.equal(a, got[name]), name
+
+
+# ------------------- K3 / K4 around the projection (3xTF32), pooled star
+
+POOLED_SHAPES = [
+    # b, p, s, din, heads, dh, pos, only empty egonets
+    (1, 13, 50, 250, 1, 500, 50, False),   # B = 1; din 250: rows staged
+    (6, 5, 20, 33, 3, 200, 7, False),      # heads 3, Dh 200, din 33
+    (9, 3, 30, 30, 3, 500, 0, False),      # heads 3, Dh 500, no pe path
+    (4, 13, 50, 2000, 1, 500, 50, True),   # only empty egonets
+]
+
+
+@pytest.mark.parametrize("b,p,s,din,heads,dh,pos,empty", POOLED_SHAPES)
+def test_pooled_forms_around_projection(dev, b, p, s, din, heads, dh, pos,
+                                        empty):
+    """K3 in all three forms (eval, train, store) and K4 in both (recompute,
+    stored) against their plain versions at shapes the smoke does not use
+    (Dh not a multiple of 128, din not a multiple of 4, heads 3, B = 1, a
+    batch of empty egonets); stored and recompute grads equal bits (both
+    run the forward's projection); each wrapper launched once."""
+    t = _inputs(dev, b, p, s, din, heads, dh)
+    n = p + 1 + s
+    if empty:
+        t[7].zero_()
+        t[8].zero_()
+        t[0] *= star.node_mask(t[7], t[8], p, n)[..., None]
+    names = ("gat_layer_pooled_fwd", "gat_layer_pooled_fwd_train",
+             "gat_layer_pooled_fwd_train_store", "gat_layer_pooled_bwd",
+             "gat_layer_pooled_bwd_stored")
+    before = {k: gk.WRAPPERS[k].launches for k in names}
+    got = gk.gat_layer_pooled_fwd(*t, p, heads)
+    torch.testing.assert_close(got, gk.gat_layer_pooled_fwd_plain(
+        *t, p, heads), **TOL)
+    kw = dict(pe_pack=_pe_pack(dev, n, pos, heads, dh), seed=21,
+              feat_drop=0.1, attn_drop=0.1)
+    out = gk.gat_layer_pooled_fwd_train(*t, p, heads, **kw)
+    torch.testing.assert_close(out, gk.gat_layer_train_plain(
+        *t, p, heads, pooled=True, **kw), **TOL)
+    out_s, attn = gk.gat_layer_pooled_fwd_train_store(*t, p, heads, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out_s, out)
+    want_attn = gk.gat_layer_train_plain(*t, p, heads, pooled=True,
+                                         store_attn=True, **kw)[1]
+    torch.testing.assert_close(attn, want_attn, **TOL)
+    g = torch.randn((b, 3, dh), device=dev,
+                    generator=torch.Generator(dev).manual_seed(22))
+    got = gk.gat_layer_pooled_bwd(g, *t, p, heads, **kw)
+    _assert_grads(got, gk.gat_layer_bwd_plain(g, *t, p, heads, pooled=True,
+                                              **kw))
+    stored = gk.gat_layer_pooled_bwd_stored(g, *t, p, heads, attn, **kw)
+    torch.cuda.synchronize()
+    for name, a in stored.items():
+        assert (a is None) == (got[name] is None), name
+        assert a is None or torch.equal(a, got[name]), name
+    assert {k: gk.WRAPPERS[k].launches - before[k] for k in names} == \
+        dict.fromkeys(names, 1)
+
+
+@pytest.mark.parametrize("b,p,s,heads,dh", [
+    (7, 13, 50, 1, 500),   # the config.mag.json final layer's head
+    (5, 5, 64, 3, 200),    # N = 70, heads 3
+    (4, 2, 9, 2, 130),     # N = 12, Dh past one 128-column block
+])
+@pytest.mark.parametrize("store", [False, True])
+def test_pooled_star_pass_matches_plain(dev, b, p, s, heads, dh, store):
+    """K3's pooled star pass alone, on the projection the card computes,
+    against its plain version on the same projection: the eval form, and
+    the train form with attention dropout writing the softmax weights."""
+    t = _inputs(dev, b, p, s, 40, heads, dh)
+    proj = gk.gat_projection(*t[:7])
+    kw = dict(seed=23, attn_drop=0.2 if store else 0.0)
+    before = gk.gat_pooled_star.launches
+    got = gk.gat_pooled_star(proj, t[7], t[8], p, heads, store=store, **kw)
+    torch.cuda.synchronize()
+    assert gk.gat_pooled_star.launches == before + 1
+    want = gk.gat_pooled_star_plain(proj, t[7], t[8], p, heads,
+                                    store_attn=store, **kw)
+    for a, w in zip(got if store else (got,), want if store else (want,)):
+        torch.testing.assert_close(a, w, **TOL)
 
 
 # ------------------------------------------------------------------- K6
