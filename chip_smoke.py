@@ -43,14 +43,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               line is null), beside the least time the card could take
               (`bound_ms`, at the float32 rate; where the form's products
               run on the tensor cores in 3xTF32, also `bound_3xtf32_ms`
-              at a third of the dense TF32 rate). The GAT forwards (K1,
-              K3) and the backwards (K2, K4, K5b) also give their time
-              by pass (`passes_ms`, CUDA events the kernel library records
-              between its launches: staging and packing, the projection,
-              the star or pooled star pass; the head core, the slot-bias
-              sums, dW, dx). The pooled star pass of K3 is also held alone
-              against its plain version on the projection the card computes
-              (`star_alone`).
+              at a third of the dense TF32 rate). Every form also gives
+              its time by pass (`passes_ms`, CUDA events the kernel library
+              records between its launches: staging and packing, the
+              projection, the star or pooled star pass; the head core or
+              K5b's dz pass, the slot-bias or db sums, dW, dx). The pooled
+              star pass of K3 and K5f's star pass are also held alone
+              against their plain versions on the projection the card
+              computes (`star_alone`).
               K6 (the halo gather, ops/csrc/halo.cu) in one process
               holding all shards of an 800 x 250 table, at the data-parallel
               path's shapes for P = 2 and P = 4 (one rank's request for its
@@ -427,13 +427,15 @@ def _bound(nbytes: float, flops: float, tensor_cores: bool = False) -> dict:
 def pass_split(kernel, which: str, calls: int = 3) -> dict:
     """Mean device ms of each pass of `kernel` (one wrapper call) over
     `calls` calls, from CUDA events the kernel library records between its
-    launches: which = "gat_fwd" (the per-slot forward: stage and pack,
-    projection, star pass), "gat_bwd" (K2 / K4: stage and pack, projection,
-    head core, slot-bias sums, dW, dx) or "gcn_bwd" (K5b: dW, dx)."""
+    launches: which = "gat_fwd" (K1 / K3: stage and pack, projection, star
+    or pooled star pass), "gat_bwd" (K2 / K4: stage and pack, projection,
+    head core, slot-bias sums, dW, dx), "gcn_fwd" (K5f: stage and pack,
+    projection, star pass) or "gcn_bwd" (K5b: stage and pack, projection,
+    the dz pass, the db / d z_bias sums, dW, dx)."""
     from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.ops import gcn_kernels as ck
     fn = {"gat_fwd": gk.fwd_pass_ms, "gat_bwd": gk.bwd_pass_ms,
-          "gcn_bwd": ck.bwd_pass_ms}[which]
+          "gcn_fwd": ck.fwd_pass_ms, "gcn_bwd": ck.bwd_pass_ms}[which]
     runs = [fn(kernel) for _ in range(calls)]
     return {k: sum(r[k] for r in runs) / calls for k in runs[0]}
 
@@ -524,6 +526,26 @@ def pooled_star_alone(name: str, x, ops, ngp, nsib, heads: int,
                                         store_attn=store, **skw)
         res = compare_outputs(f"{name} pooled star pass", got, want)
     del proj, got, want
+    return res
+
+
+def gcn_star_alone(name: str, x, ops, ngp, nsib, alpha,
+                   train_kw: dict) -> dict:
+    """K5f's star pass alone (`gcn_star`) on the projection the card
+    computes for these inputs (`gcn_projection`, the train form's where
+    `train_kw` has a pe path), against its plain version on the same z. The
+    launches of both are outside every path's count."""
+    import torch
+    from taxoexpan_torch.ops import gcn_kernels as ck
+    pkw = {k: train_kw[k] for k in ("pe_pack", "seed", "drop")
+           if k in train_kw}
+    with torch.no_grad():
+        z = ck.gcn_projection(x, ops[0], ops[2], **pkw)
+        got = ck.gcn_star(z, ops[1], ngp, nsib, MAG_P, alpha)
+        torch.cuda.synchronize()
+        res = compare(f"{name} star pass", got,
+                      ck.gcn_star_plain(z, ops[1], ngp, nsib, MAG_P, alpha))
+    del z, got
     return res
 
 
@@ -952,13 +974,17 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
             matmul = lambda: x2 @ w  # noqa: E731
             call = "torch.matmul(x.reshape(-1, Din), W_h)"
         got, nums = measure(name, kernel, plain, backward, matmul,
-                            "gcn_bwd" if backward else None)
+                            "gcn_bwd" if backward else "gcn_fwd")
         if backward:
             del d
             nbytes, flops = gcn_bwd_work(x, ops, pe_pack,
                                          g0 if layer == "layer0" else g1,
                                          got, ngp, nsib, alpha)
         else:
+            nums["star_alone"] = gcn_star_alone(
+                name, x, ops, ngp, nsib, alpha,
+                (tkw0 if layer == "layer0" else tkw1)
+                if pe_pack is not None else {})
             nbytes, flops = gcn_fwd_work(x, ops, pe_pack, ngp, nsib,
                                          got.numel())
         rec = {"name": name, "wrapper": wrapper, "path": "PGCN",
@@ -974,7 +1000,7 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
                # no single PyTorch call computes the star-GCN layer or its
                # backward; one product alone is timed as a yardstick
                "library_ms": None, "matmul_call": call,
-               **_bound(nbytes, flops, backward)}
+               **_bound(nbytes, flops, True)}
         emit("kernel", **rec)
         records.append(rec)
         del got

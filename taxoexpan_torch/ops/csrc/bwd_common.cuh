@@ -156,10 +156,12 @@ inline cudaError_t stage_and_pack(const Operand& op, const TrainArgs& ta,
   return cudaGetLastError();
 }
 
-// The star-GAT projection P = X @ [fc | wa1 | wa2; wp | wpa1 | wpa2] +
-// the slot biases, [m, wdp] over all m = b*n rows (X staged and W packed
-// into wcat [kxp, wdp] by stage_and_pack; X is x itself when xm is null):
-// the product the per-slot forward's star pass and K2's head core read.
+// The layer projection P = X @ W + the slot biases, [m, wdp] over all
+// m = b*n rows (X staged and W packed into wcat [kxp, wdp] by
+// stage_and_pack; X is x itself when xm is null): star-GAT W = [fc | wa1 |
+// wa2; wp | wpa1 | wpa2] with bias_ft, bias_a1, bias_a2, the product the
+// GAT star passes and K2's head core read; star-GCN (gcn.cu) W = [W_h;
+// W_p] with z_bias alone (bias_a1, bias_a2 null), z.
 inline cudaError_t gat_projection(const Operand& op, const float* xm,
                                   int kxp, const float* wcat, int wdp,
                                   const float* bias_ft, const float* bias_a1,

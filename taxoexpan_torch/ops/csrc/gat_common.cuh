@@ -1,18 +1,14 @@
 // Building blocks shared by the star kernels (gat_fwd.cu, gat_bwd.cu,
-// gcn.cu): the dropout bit generator, the star softmax weights, and the
-// shared-memory layout and register-tiled product of one head tile that
-// the K5 kernels (gcn.cu) still run in SIMT (the GAT kernels read their
-// products from the tensor-core projection, gemm_tf32.cuh).
+// gcn.cu): the dropout bit generator, the train-form arguments, the star
+// softmax weights and the shared-memory arrays of the GAT star passes and
+// head core. Every layer product is gemm_tf32.cuh's tensor-core projection.
 //
-// Eval instantiations (kTrain = false) are the serving kernels' code; the
-// train instantiations add, in the same loops:
-//   - the input-feature mask on x as the x tile is staged in the K loop;
-//   - the position-embedding path [x*m | pe*m_pe] @ [W_h; W_p] as `pos`
-//     extra K columns of the same product (the source pointer switches at
-//     din, W_p / wpa1 / wpa2 are the tail rows), which is the reference's
-//     dropout over the concatenated layer input (pallas_gat.py:847-853);
-//   - the five attention masks, multiplied into the softmax weights after
-//     the softmax (pallas_gat.py:150-159).
+// The train forms' dropout: the feature and pe masks over the layer input
+// X = [x*m | pe*m_pe], the reference's dropout over the concatenated input
+// (pallas_gat.py:847-853), applied where X is staged
+// (gemm_tf32.cuh:stage_input_kernel) and replayed in the dx product's
+// epilogue; the five attention masks, multiplied into the softmax weights
+// after the softmax (pallas_gat.py:150-159, attention_weights).
 // Every mask compares either the element's 32-bit word or, with
 // TrainArgs::bits8 (TAXOEXPAN_DROPOUT_BITS=8), byte col % 4 of the word of
 // column col / 4 with its threshold (drop_value; ops/dropout.py).
@@ -33,12 +29,7 @@
 namespace gat {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerChunk = 64;            // 16 row groups x 4 rows
-constexpr int kTileCols = 128;               // 16 col groups x (4 + 4)
-constexpr int kTileK = 16;
-constexpr int kXsStride = kRowsPerChunk + 4;  // padded: fewer bank conflicts
-constexpr int kStaticFloats =
-    kTileK * kXsStride + kTileK * kTileCols + 2 * kTileK;
+constexpr int kTileCols = 128;  // columns of the head core's tiles
 
 // dropout streams (ops/dropout.py)
 constexpr unsigned kStreamFeat = 0;
@@ -114,12 +105,10 @@ __device__ __forceinline__ float leaky(float v, float a) {
   return v >= 0.f ? v : a * v;
 }
 
-enum Layout { kEvalLayout = 0, kTrainLayout = 1 };
-
+// Shared-memory arrays of one (egonet, head) in the GAT star passes
+// (gat_fwd.cu) and the head core (gat_bwd.cu:carve_head); each kernel sets
+// the ones it uses.
 struct Smem {
-  float* xs;           // [kTileK][kXsStride]  x tile, k-major
-  float* ws;           // [kTileK][kTileCols]  fc tile
-  float* was;          // [2][kTileK]          wa1 / wa2 tile of the head
   float* ft;           // [n][kTileCols]       ft tile incl. slot bias
   float* g;            // [n][kTileCols]       incoming grad tile (backward,
                        //                      gat_bwd.cu:carve_head)
@@ -128,8 +117,6 @@ struct Smem {
   float* w_self;       // [n] weight of a row's own ft (after dropout)
   float* w_anchor;     // [n] weight of the anchor's ft (sibling rows)
   float* w_to_anchor;  // [n] weight of gp row j in the anchor's output
-  unsigned* rk_feat;   // [n] row keys of the feature / pe masks (train)
-  unsigned* rk_pe;     // [n]
   // backward (gat_bwd.cu:carve_head): softmax weights before dropout, the
   // masks, d(weights)
   float* sm_self;
@@ -145,173 +132,6 @@ struct Smem {
   float* da1;
   float* da2;
 };
-
-__host__ __device__ inline size_t smem_floats(int n, Layout layout) {
-  size_t f = (size_t)kStaticFloats + (size_t)n * kTileCols + 5 * (size_t)n;
-  if (layout == kTrainLayout) f += 2 * (size_t)n;
-  return f;
-}
-
-inline size_t smem_bytes(int n, Layout layout) {
-  return sizeof(float) * smem_floats(n, layout);
-}
-
-__device__ __forceinline__ Smem carve(float* base, int n, Layout layout) {
-  Smem s = {};
-  s.xs = base;
-  s.ws = s.xs + kTileK * kXsStride;
-  s.was = s.ws + kTileK * kTileCols;
-  s.ft = s.was + 2 * kTileK;
-  s.a1 = s.ft + (size_t)n * kTileCols;
-  s.a2 = s.a1 + n;
-  s.w_self = s.a2 + n;
-  s.w_anchor = s.w_self + n;
-  s.w_to_anchor = s.w_anchor + n;
-  if (layout == kTrainLayout) {
-    s.rk_feat = reinterpret_cast<unsigned*>(s.w_to_anchor + n);
-    s.rk_pe = s.rk_feat + n;
-  }
-  return s;
-}
-
-// Row keys of the feature and pe masks for the rows of egonet b.
-__device__ __forceinline__ void setup_row_keys(const TrainArgs& ta,
-                                               long long b, int n,
-                                               const Smem& s) {
-  const unsigned kf = stream_key(ta.seed, kStreamFeat);
-  const unsigned kp = stream_key(ta.seed, kStreamPe);
-  for (int r = threadIdx.x; r < n; r += kThreads) {
-    const unsigned row = (unsigned)(b * n + r);
-    s.rk_feat[r] = row_key(kf, row);
-    s.rk_pe[r] = row_key(kp, row);
-  }
-  __syncthreads();
-}
-
-// ft tile and a1/a2 of head h for every row of egonet xb ([n, din]):
-// s.ft[r][c] = x[r] . fc[:, col0 + c] + bias_ft[r, col0 + c] (0 for c >= ncols)
-// s.a1[r]    = x[r] . wa1[:, h] + bias_a1[r, h]; s.a2 likewise.
-// Train form: x masked as staged, and the pe rows as `pos` extra K columns.
-// kAttn = false (the GCN layer): the ft tile alone; wa1, wa2, bias_a1,
-// bias_a2, ta.wpa1 and ta.wpa2 are not read and s.a1 / s.a2 not written.
-template <bool kTrain, bool kAttn = true>
-__device__ void head_tile(const float* __restrict__ xb,
-                          const float* __restrict__ fc,
-                          const float* __restrict__ wa1,
-                          const float* __restrict__ wa2,
-                          const float* __restrict__ bias_ft,
-                          const float* __restrict__ bias_a1,
-                          const float* __restrict__ bias_a2, int n, int din,
-                          int hd, int heads, int h, int col0, int ncols,
-                          const Smem& s, const TrainArgs& ta) {
-  const int t = threadIdx.x;
-  const int tx = t & 15, ty = t >> 4;
-  const int kdim = kTrain ? din + ta.pos : din;
-  for (int row0 = 0; row0 < n; row0 += kRowsPerChunk) {
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    float a_acc = 0.f;  // threads t < 128: row t/2, a1 (even) or a2 (odd)
-    for (int k0 = 0; k0 < kdim; k0 += kTileK) {
-#pragma unroll
-      for (int q = 0; q < kRowsPerChunk * kTileK / kThreads; ++q) {
-        const int e = t + q * kThreads;
-        const int r = e / kTileK, kk = e % kTileK;
-        const int gr = row0 + r, gk = k0 + kk;
-        if (!kTrain) {
-          s.xs[kk * kXsStride + r] =
-              (gr < n && gk < din) ? xb[(size_t)gr * din + gk] : 0.f;
-        } else {
-          float v = 0.f;
-          if (gr < n && gk < din) {
-            v = xb[(size_t)gr * din + gk];
-            if (ta.feat_on)
-              v *= keep_at(ta, s.rk_feat[gr], (unsigned)gk, ta.feat_thresh,
-                           ta.feat_scale);
-          } else if (gr < n && gk < kdim) {
-            const int kp = gk - din;
-            v = ta.pe[(size_t)gr * ta.pos + kp];
-            if (ta.feat_on)
-              v *= keep_at(ta, s.rk_pe[gr], (unsigned)kp, ta.feat_thresh,
-                           ta.feat_scale);
-          }
-          s.xs[kk * kXsStride + r] = v;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kTileK * kTileCols / kThreads; ++q) {
-        const int e = t + q * kThreads;
-        const int kk = e / kTileCols, c = e % kTileCols;
-        const int gk = k0 + kk;
-        float w = 0.f;
-        if (c < ncols) {
-          if (gk < din)
-            w = fc[(size_t)gk * hd + col0 + c];
-          else if (kTrain && gk < kdim)
-            w = ta.wp[(size_t)(gk - din) * hd + col0 + c];
-        }
-        s.ws[kk * kTileCols + c] = w;
-      }
-      if (kAttn && t < 2 * kTileK) {
-        const int gk = k0 + (t % kTileK);
-        float w = 0.f;
-        if (gk < din)
-          w = ((t < kTileK) ? wa1 : wa2)[(size_t)gk * heads + h];
-        else if (kTrain && gk < kdim)
-          w = ((t < kTileK) ? ta.wpa1 : ta.wpa2)[(size_t)(gk - din) * heads +
-                                                 h];
-        s.was[t] = w;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kTileK; ++kk) {
-        const float4 xv =
-            *reinterpret_cast<const float4*>(&s.xs[kk * kXsStride + ty * 4]);
-        const float4 w0 =
-            *reinterpret_cast<const float4*>(&s.ws[kk * kTileCols + tx * 4]);
-        const float4 w1 = *reinterpret_cast<const float4*>(
-            &s.ws[kk * kTileCols + 64 + tx * 4]);
-        const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-        const float wc[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xr[i], wc[j], acc[i][j]);
-      }
-      if (kAttn && t < 2 * kRowsPerChunk) {
-        const int r = t >> 1;
-        const float* wa = s.was + (t & 1) * kTileK;
-#pragma unroll
-        for (int kk = 0; kk < kTileK; ++kk)
-          a_acc = fmaf(s.xs[kk * kXsStride + r], wa[kk], a_acc);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + ty * 4 + i;
-      if (r >= n) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = (j < 4) ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-        s.ft[r * kTileCols + c] =
-            c < ncols ? acc[i][j] + bias_ft[(size_t)r * hd + col0 + c] : 0.f;
-      }
-    }
-    if (kAttn && t < 2 * kRowsPerChunk) {
-      const int r = row0 + (t >> 1);
-      if (r < n) {
-        if (t & 1)
-          s.a2[r] = a_acc + bias_a2[(size_t)r * heads + h];
-        else
-          s.a1[r] = a_acc + bias_a1[(size_t)r * heads + h];
-      }
-    }
-  }
-  __syncthreads();
-}
 
 // Floats of one (egonet, head)'s stored softmax row.
 __host__ __device__ __forceinline__ int attn_row(int n, int p) {

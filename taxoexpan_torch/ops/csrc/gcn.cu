@@ -14,38 +14,52 @@
 //   out  = leaky(pre + b, alpha), or pre + b on the final layer.
 // Invalid slots have norm 0, so their output is leaky(b) (or b), the TPU
 // kernel's value, not 0. The eval form takes pe's term as the constant
-// z_bias = pe @ W_p; the train form masks x and the pe rows (`pos` extra K
-// columns, gat_common.cuh:head_tile) with the counter-based bits of
+// z_bias = pe @ W_p; the train form masks x and the pe rows (`pos` extra
+// columns of the layer input X) with the counter-based bits of
 // ops/dropout.py, rows b*n + slot, streams STREAM_FEAT / STREAM_PE.
 //
+// Forward, two launches and a small preparation (as gat_fwd.cu runs K1):
+//  1. X staged once into a workspace, each mask bit hashed once, where the
+//     layer has masks or a pe path or x's rows are not 16-byte multiples
+//     (else the product reads x), and W = [W_h; W_p] packed; then the
+//     projection z = X @ W + z_bias over all B*N rows into a workspace
+//     [B*N, ldd] (ldd = dout rounded up to 4, zero in the padding
+//     columns), on the tensor cores in 3xTF32 (gemm_tf32.cuh, shared with
+//     K1-K4: bwd_common.cuh:gat_projection with W alone and z_bias as the
+//     slot bias).
+//  2. The star pass, one block per (egonet, 128-column tile), each thread
+//     a column: the star sum with the closed-form norms, the bias and the
+//     activation, out written once for all N rows; only the valid rows of
+//     z are read (an invalid row's output is act(b)).
+//
 // Backward, one C entry point launching in order:
-//  1. dz, one block per (egonet, 128-column tile): the incoming grad tile,
-//     times leaky'(pre + b) where the layer has an activation (z recomputed
-//     by the forward's product: only then is the product needed, so the
-//     final layer's backward skips it), the mirrored aggregation
-//     dz = norm * copy_src_sum^T(norm * g2) into a workspace [b*n, dout],
-//     and the per-egonet column sums of g2 for db.
-//  2. db and d z_bias: sums over egonets, chunked partial sums then a
-//     fixed-order reduction (bwd_common.cuh).
-//  3. dW = [x*m | pe*m_pe]^T @ dz split-K, dx = (dz @ W_h^T) * m (need_dx)
-//     and dpe = sum over egonets of (dz @ W_p^T) * m_pe: the tensor-core
-//     products of bwd_common.cuh (3xTF32), the layer input staged once.
+//  1. X staged and W packed once: W^T for the dx product and, where the
+//     layer has an activation, W for the projection;
+//  2. with an activation, z recomputed by the forward's own projection on
+//     the same X, so leaky' is taken at the forward's pre-activation, bit
+//     for bit (the final layer's backward needs no z and skips it);
+//  3. the dz star pass, blocks as the forward's star pass: g2 = g
+//     times leaky'(pre + b), dz = norm * copy_src_sum^T(norm * g2) written
+//     over the z workspace in place (each thread reads and writes its own
+//     column only; zero in the padding columns and on invalid rows), and
+//     the per-egonet column sums of g2 for db;
+//  4. db and d z_bias: sums over egonets, chunked partial sums then a
+//     fixed-order reduction (bwd_common.cuh);
+//  5. dW = X^T @ dz split-K, dx = (dz @ W_h^T) * m (need_dx) and dpe = sum
+//     over egonets of (dz @ W_p^T) * m_pe: the tensor-core products of
+//     bwd_common.cuh (3xTF32).
 // Deterministic: no atomics.
 //
 // What bounds it on an H100: the products. At config.mag.json's PGCN
-// shapes (N = 64, 4096 egonets) layer 0's forward does 2*B*64*300*500 =
-// 78.6 GFLOP against 0.79 GB of x and out (1.17 ms at 67 TFLOP/s float32
-// outside the tensor cores, 0.23 ms at 3.35 TB/s); the backwards add the
-// dW and dx products of the same size. The forward's product is float32
-// SIMT FMAs; the backward's dW and dx products run on the tensor cores in
-// 3xTF32, which keeps float32 accuracy (bwd_common.cuh).
-//
-// Design (simple first): the forward's block computes the egonet's whole
-// z tile [n, 128] in shared memory with the register-tiled product of
-// gat_common.cuh (4 rows x 8 columns a thread, K tiles of 16), then the
-// star sum, the dst norm, the bias and the activation, and writes only
-// out: z never reaches device memory. N is taken as given (no slot
-// padding); rows beyond n and columns beyond dout are masked.
+// shapes (N = 64, 4096 egonets) layer 0's train forward projects
+// 2 * 262,144 * 300 * 500 = 78.6 GFLOP (the final layer's 144 GFLOP),
+// against 0.8-1.1 GB of x, z and out; the 3xTF32 product runs these
+// shallow products (K 250-550) at 42-48 TFLOP/s of float32 work on an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md). The star passes are bound by
+// bytes: the valid rows of z read and out written, or g read and dz
+// written over z, 0.8-1.3 GB each, at 2.1-2.4 TB/s there. The projection
+// runs over all B*N rows, as the TPU kernel does, while only the valid ones
+// (about half in the smoke's batch) reach out.
 
 #include "bwd_common.cuh"
 
@@ -59,10 +73,11 @@ struct GcnArgs {
   const int* nsib;      // [b]
   const float* g;       // backward: incoming grad [b, n, dout]
   float* out;           // forward: [b, n, dout]
-  float* dz;            // backward workspaces: [b*n, ldd]
+  float* z;             // workspace [b*n, ldd]: the projection z; the
+                        // backward writes dz over it
   float* g2sum;         // [b, dout]
   float* part_w;        // [splits, din+pos, dout]
-  float* part_b;        // [chunks, n*dout]
+  float* part_b;        // [chunks, n*ldd]
   float* pe_rows;       // [b*n, pos] (pos > 0)
   float* part_pe;       // [chunks, n*pos] (pos > 0)
   float* dx;            // [b, n, din] (need_dx)
@@ -72,9 +87,12 @@ struct GcnArgs {
   float* dpe;           // [n, pos] (pos > 0)
   float* dwp;           // [pos, dout] (pos > 0)
   float* xm;            // [b*n, kxp] the layer input staged, or null
+  float* wcat;          // [kxp, ldd] W for the projection, or null (the
+                        // backward of a layer without activation)
+  float* biascat;       // [n, ldd] z_bias in the projection's layout
   float* wt;            // [ldd, ntp] W^T over the dx product's columns
   int b, n, din, dout, p, has_alpha, need_dx, need_dzb, splits, chunks;
-  int kxp, ldd, ntp;    // ldd: dz's row stride, dout rounded up to 4
+  int kxp, ldd, ntp;    // ldd: z's row stride, dout rounded up to 4
   float alpha;
 };
 
@@ -82,162 +100,185 @@ namespace {
 
 using namespace gat;
 
-PassMarks g_marks;
+PassMarks g_fwd_marks, g_bwd_marks;
 
-// rsqrt(in-degree) of every slot of one egonet, 0 on invalid slots.
-__device__ __forceinline__ void star_norms(int n, int p, int ngp, int nsib,
-                                           float* norm) {
-  for (int r = threadIdx.x; r < n; r += kThreads) {
-    if (r < p)
-      norm[r] = r < ngp ? 1.f : 0.f;
-    else if (r == p)
-      norm[r] = rsqrtf(1.f + (float)ngp);
-    else
-      norm[r] = r - p - 1 < nsib ? rsqrtf(2.f) : 0.f;
-  }
-}
-
-// pre-activation (before the bias) of row r, column c of a z tile
-__device__ __forceinline__ float aggregate(const float* z, const float* norm,
-                                           int r, int c, int p, int ngp) {
-  const float nr = norm[r];
-  if (r < p) return z[r * kTileCols + c] * nr * nr;
-  const float za = z[p * kTileCols + c] * norm[p];
-  if (r > p) return (z[r * kTileCols + c] * nr + za) * nr;
-  float acc = za;
-  for (int j = 0; j < ngp; ++j) acc += z[j * kTileCols + c] * norm[j];
-  return acc * nr;
-}
-
-// The z tile of egonet b, columns [c0, c0 + ncols), with z_bias, into s.ft.
-template <bool kTrain>
-__device__ __forceinline__ void z_tile(const GcnArgs& a, const TrainArgs& ta,
-                                       long long b, int c0, int ncols,
-                                       const Smem& s) {
-  if (kTrain) setup_row_keys(ta, b, a.n, s);
-  head_tile<kTrain, false>(a.x + b * a.n * a.din, a.w, nullptr, nullptr,
-                           a.z_bias, nullptr, nullptr, a.n, a.din, a.dout, 1,
-                           0, c0, ncols, s, ta);
-}
-
-template <bool kTrain>
-__device__ __forceinline__ void fwd_body(const GcnArgs& a,
-                                         const TrainArgs& ta) {
-  extern __shared__ float4 smem4[];
-  const int n = a.n, p = a.p, dout = a.dout;
-  const Smem s = carve(reinterpret_cast<float*>(smem4), n,
-                       kTrain ? kTrainLayout : kEvalLayout);
-  const int ntiles = (dout + kTileCols - 1) / kTileCols;
-  const long long b = blockIdx.x / ntiles;
-  const int c0 = (blockIdx.x % ntiles) * kTileCols;
-  const int ncols = min(kTileCols, dout - c0);
-  const int ngp = min(max(a.ngp[b], 0), p);
-  const int nsib = min(max(a.nsib[b], 0), n - p - 1);
-  float* norm = s.a1;  // head_tile<., false> leaves s.a1 free
-
-  star_norms(n, p, ngp, nsib, norm);
-  z_tile<kTrain>(a, ta, b, c0, ncols, s);  // ends with __syncthreads
-
-  float* outb = a.out + b * n * dout;
-  for (int e = threadIdx.x; e < n * kTileCols; e += kThreads) {
-    const int r = e / kTileCols, c = e % kTileCols;
-    if (c >= ncols) continue;
-    float v = aggregate(s.ft, norm, r, c, p, ngp) + a.bias[c0 + c];
-    if (a.has_alpha) v = leaky(v, a.alpha);
-    outb[(size_t)r * dout + c0 + c] = v;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-gcn_fwd_kernel(GcnArgs a, TrainArgs ta) {
-  fwd_body<false>(a, ta);
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-gcn_fwd_train_kernel(GcnArgs a, TrainArgs ta) {
-  fwd_body<true>(a, ta);
-}
-
-// Shared memory of the backward's first pass: with an activation the
-// forward's (train) layout for the z recompute, then the grad tile
-// [n][kTileCols]; without, the norms and the grad tile only.
-size_t bwd_smem_floats(int n, bool act) {
-  return (act ? smem_floats(n, kTrainLayout) : (size_t)n) +
-         (size_t)n * kTileCols;
-}
-
-// 1. dz and the per-egonet column sums of g2
 template <bool kAct>
-__global__ void __launch_bounds__(kThreads, 2)
-gcn_bwd_dz_kernel(GcnArgs a, TrainArgs ta) {
-  extern __shared__ float4 smem4[];
-  float* base = reinterpret_cast<float*>(smem4);
-  const int n = a.n, p = a.p, dout = a.dout;
-  const int ntiles = (dout + kTileCols - 1) / kTileCols;
+__device__ __forceinline__ float act(float v, float alpha) {
+  return kAct ? leaky(v, alpha) : v;
+}
+
+// g times leaky'(pre) (kAct), else g
+template <bool kAct>
+__device__ __forceinline__ float through_act(float pre, float g,
+                                             float alpha) {
+  return kAct && !(pre >= 0.f) ? g * alpha : g;
+}
+
+// The star passes' blocks: one egonet's 128-column tile, a thread a column.
+constexpr int kStarCols = 128;
+
+// The star passes' grid over b egonets of `width` columns, or 0 if too large.
+unsigned star_blocks(long long b, int width) {
+  const long long blocks = b * ((width + kStarCols - 1) / kStarCols);
+  return blocks > 0x7fffffffLL ? 0u : (unsigned)blocks;
+}
+
+// Rows [lo, hi) of a thread's column, kRowBatch at a time: the loads of a
+// batch's rows (load(r)) are all issued before any of them is used
+// (use(r, value)), so that each thread keeps several loads in flight, also
+// where use() writes the buffer load() reads (the dz pass, in place).
+constexpr int kRowBatch = 8;
+
+template <class T, class Load, class Use>
+__device__ __forceinline__ void row_batches(int lo, int hi, Load load,
+                                            Use use) {
+  for (int r0 = lo; r0 < hi; r0 += kRowBatch) {
+    T v[kRowBatch];
+#pragma unroll
+    for (int i = 0; i < kRowBatch; ++i)
+      if (r0 + i < hi) v[i] = load(r0 + i);
+#pragma unroll
+    for (int i = 0; i < kRowBatch; ++i)
+      if (r0 + i < hi) use(r0 + i, v[i]);
+  }
+}
+
+// 2. the forward's star pass over z [b*n, ldz] into out [b, n, dout]
+template <bool kAct>
+__global__ void __launch_bounds__(kStarCols)
+gcn_star_fwd_kernel(const float* __restrict__ z, int ldz,
+                    const float* __restrict__ bias,
+                    const int* __restrict__ ngp_arr,
+                    const int* __restrict__ nsib_arr, float* __restrict__ out,
+                    int n, int dout, int p, float alpha) {
+  const int ntiles = (dout + kStarCols - 1) / kStarCols;
   const long long b = blockIdx.x / ntiles;
-  const int c0 = (blockIdx.x % ntiles) * kTileCols;
-  const int ncols = min(kTileCols, dout - c0);
-  const int ngp = min(max(a.ngp[b], 0), p);
-  const int nsib = min(max(a.nsib[b], 0), n - p - 1);
-  Smem s = {};
-  float *norm, *gt;
-  if (kAct) {
-    s = carve(base, n, kTrainLayout);
-    norm = s.a1;
-    gt = base + smem_floats(n, kTrainLayout);
-  } else {
-    norm = base;
-    gt = base + n;
-  }
-  star_norms(n, p, ngp, nsib, norm);
-  if (kAct) z_tile<true>(a, ta, b, c0, ncols, s);
-  else __syncthreads();
+  const int c = (blockIdx.x % ntiles) * kStarCols + threadIdx.x;
+  if (c >= dout) return;
+  const int ngp = min(max(ngp_arr[b], 0), p);
+  const int nsib = min(max(nsib_arr[b], 0), n - p - 1);
+  const float na = rsqrtf(1.f + (float)ngp), ns = rsqrtf(2.f);
+  const float* zc = z + (size_t)b * n * ldz + c;
+  float* oc = out + (size_t)b * n * dout + c;
+  const auto zrow = [&](int r) { return zc[(size_t)r * ldz]; };
+  const float bc = bias[c];
+  const float off = act<kAct>(bc, alpha);  // invalid slots: norm 0
+  const float za = zrow(p) * na;
+  float acc = za;
+  row_batches<float>(0, ngp, zrow, [&](int r, float v) {
+    acc += v;  // valid gps: self (norm 1), and -> anchor
+    oc[(size_t)r * dout] = act<kAct>(v + bc, alpha);
+  });
+  for (int r = ngp; r < p; ++r) oc[(size_t)r * dout] = off;
+  oc[(size_t)p * dout] = act<kAct>(acc * na + bc, alpha);
+  row_batches<float>(p + 1, p + 1 + nsib, zrow, [&](int r, float v) {
+    oc[(size_t)r * dout] = act<kAct>((v * ns + za) * ns + bc, alpha);
+  });  // valid sibs: self and anchor
+  for (int r = p + 1 + nsib; r < n; ++r) oc[(size_t)r * dout] = off;
+}
 
-  // the incoming grad tile, through leaky'(pre + b) of the recomputed
-  // pre-activation
-  const float* gb = a.g + b * n * dout;
-  for (int e = threadIdx.x; e < n * kTileCols; e += kThreads) {
-    const int r = e / kTileCols, c = e % kTileCols;
-    float gv = 0.f;
-    if (c < ncols) {
-      gv = gb[(size_t)r * dout + c0 + c];
-      if (kAct) {
-        const float pre = aggregate(s.ft, norm, r, c, p, ngp) + a.bias[c0 + c];
-        if (!(pre >= 0.f)) gv *= a.alpha;
-      }
-    }
-    gt[e] = gv;
+// 3. the backward's dz star pass: dz over z [b*n, ldd] in place and the
+// column sums of g2 into g2sum [b, dout]. Invalid rows: pre = b (norm 0),
+// so their g2 = g * leaky'(b) enters db, and their dz is 0.
+template <bool kAct>
+__global__ void __launch_bounds__(kStarCols)
+gcn_star_bwd_kernel(float* __restrict__ zd, int ldd,
+                    const float* __restrict__ g,
+                    const float* __restrict__ bias,
+                    const int* __restrict__ ngp_arr,
+                    const int* __restrict__ nsib_arr,
+                    float* __restrict__ g2sum, int n, int dout, int p,
+                    float alpha) {
+  const int ntiles = (ldd + kStarCols - 1) / kStarCols;
+  const long long b = blockIdx.x / ntiles;
+  const int c = (blockIdx.x % ntiles) * kStarCols + threadIdx.x;
+  if (c >= ldd) return;
+  float* zc = zd + (size_t)b * n * ldd + c;
+  if (c >= dout) {  // the padding columns the products read
+    for (int r = 0; r < n; ++r) zc[(size_t)r * ldd] = 0.f;
+    return;
   }
-  __syncthreads();
+  const int ngp = min(max(ngp_arr[b], 0), p);
+  const int nsib = min(max(nsib_arr[b], 0), n - p - 1);
+  const float na = rsqrtf(1.f + (float)ngp), ns = rsqrtf(2.f);
+  const float* gc = g + (size_t)b * n * dout + c;
+  const auto grow = [&](int r) { return gc[(size_t)r * dout]; };
+  const auto gzrow = [&](int r) {  // g and (kAct) z of a valid row
+    return make_float2(grow(r), kAct ? zc[(size_t)r * ldd] : 0.f);
+  };
+  const float bc = bias[c];
+  float za = 0.f, pre_a = 0.f;
+  if (kAct) {  // the anchor's pre-activation, from the forward's z
+    za = zc[(size_t)p * ldd] * na;
+    float acc = za;
+    row_batches<float>(0, ngp, [&](int r) { return zc[(size_t)r * ldd]; },
+                       [&](int, float v) { acc += v; });
+    pre_a = acc * na + bc;
+  }
+  const float ga = through_act<kAct>(pre_a, grow(p), alpha);
+  const float ga_n = ga * na;
+  float sum = 0.f;  // db's column sum over all rows, in row order
+  row_batches<float2>(0, ngp, gzrow, [&](int r, float2 v) {
+    const float gr = through_act<kAct>(v.y + bc, v.x, alpha);
+    sum += gr;
+    zc[(size_t)r * ldd] = gr + ga_n;
+  });
+  row_batches<float>(ngp, p, grow, [&](int r, float v) {
+    sum += through_act<kAct>(bc, v, alpha);
+    zc[(size_t)r * ldd] = 0.f;
+  });
+  sum += ga;
+  float anc = ga_n;  // the anchor's dz: self and the valid sibs
+  row_batches<float2>(p + 1, p + 1 + nsib, gzrow, [&](int r, float2 v) {
+    const float gr = through_act<kAct>((v.y * ns + za) * ns + bc, v.x, alpha);
+    sum += gr;
+    anc += gr * ns;
+    zc[(size_t)r * ldd] = gr * ns * ns;
+  });
+  row_batches<float>(p + 1 + nsib, n, grow, [&](int r, float v) {
+    sum += through_act<kAct>(bc, v, alpha);
+    zc[(size_t)r * ldd] = 0.f;
+  });
+  zc[(size_t)p * ldd] = anc * na;
+  g2sum[b * dout + c] = sum;
+}
 
-  // db: the bias reaches every slot, invalid ones included
-  for (int c = threadIdx.x; c < ncols; c += kThreads) {
-    float sum = 0.f;
-    for (int r = 0; r < n; ++r) sum += gt[r * kTileCols + c];
-    a.g2sum[b * dout + c0 + c] = sum;
-  }
-  // dz = norm * copy_src_sum^T(norm * g2), zero in the padding columns
-  float* dzb = a.dz + b * n * a.ldd;
-  if (c0 == 0)
-    for (int e = threadIdx.x; e < n * (a.ldd - dout); e += kThreads)
-      dzb[(size_t)(e / (a.ldd - dout)) * a.ldd + dout +
-          e % (a.ldd - dout)] = 0.f;
-  for (int e = threadIdx.x; e < n * kTileCols; e += kThreads) {
-    const int r = e / kTileCols, c = e % kTileCols;
-    if (c >= ncols) continue;
-    const float ga = gt[p * kTileCols + c] * norm[p];
-    float v;
-    if (r < p) {
-      v = (gt[e] * norm[r] + ga) * norm[r];
-    } else if (r == p) {
-      v = ga;
-      for (int i = p + 1; i < n; ++i) v += gt[i * kTileCols + c] * norm[i];
-      v *= norm[p];
-    } else {
-      v = gt[e] * norm[r] * norm[r];
-    }
-    dzb[(size_t)r * a.ldd + c0 + c] = v;
-  }
+// The layer's product operands: x and W_h, the pe rows from ta.
+Operand layer_operand(const GcnArgs& a, const TrainArgs& ta) {
+  return {a.x, {a.w, nullptr, nullptr}, {ta.wp, nullptr, nullptr},
+          a.n, a.din, a.dout, a.dout, a.dout};
+}
+
+// 1. X staged, W packed and the projection into a.z (marks before, between
+// and after)
+cudaError_t project(const GcnArgs& a, const TrainArgs& ta, long long m,
+                    cudaStream_t st) {
+  const Operand op = layer_operand(a, ta);
+  const ProductWork work = {a.xm, nullptr, nullptr, a.kxp, a.ldd, 0, 1};
+  mark(g_fwd_marks, st);
+  cudaError_t err = stage_and_pack(op, ta, m, work, 0, a.wcat, st);
+  if (err != cudaSuccess) return err;
+  mark(g_fwd_marks, st);
+  err = gat_projection(op, a.xm, a.kxp, a.wcat, a.ldd, a.z_bias, nullptr,
+                       nullptr, a.biascat, a.z, m, st);
+  mark(g_fwd_marks, st);
+  return err;
+}
+
+cudaError_t star_fwd(const float* z, int ldz, const float* bias,
+                     const int* ngp, const int* nsib, float* out, int b,
+                     int n, int dout, int p, int has_alpha, float alpha,
+                     cudaStream_t st) {
+  if (b == 0 || dout == 0) return cudaSuccess;
+  const unsigned blocks = star_blocks(b, dout);
+  if (blocks == 0) return cudaErrorInvalidValue;
+  if (has_alpha)
+    gcn_star_fwd_kernel<true><<<blocks, kStarCols, 0, st>>>(
+        z, ldz, bias, ngp, nsib, out, n, dout, p, alpha);
+  else
+    gcn_star_fwd_kernel<false><<<blocks, kStarCols, 0, st>>>(
+        z, ldz, bias, ngp, nsib, out, n, dout, p, alpha);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -248,32 +289,40 @@ const char* gcn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The forward of one star-GCN layer: eval form (train = 0, *ta unused) or
-// train form (feature and pe dropout, the pe path, as *ta describes). All
-// pointers are device pointers to contiguous row-major arrays allocated by
-// the caller (ops/gcn_kernels.py). Returns cudaGetLastError() after the
-// launch.
-int gcn_layer_fwd_f32(const GcnArgs* ap, const TrainArgs* tap, int train,
+// The forward of one star-GCN layer: eval form (*ta zeroed) or train form
+// (feature and pe dropout, the pe path, as *ta describes). All pointers are
+// device pointers to contiguous row-major arrays allocated by the caller
+// (ops/gcn_kernels.py), the workspaces z, xm (or null), wcat and biascat
+// included. Returns the first CUDA error of a launch, or 0.
+int gcn_layer_fwd_f32(const GcnArgs* ap, const TrainArgs* tap,
                       void* stream) {
   const GcnArgs a = *ap;
-  const size_t smem =
-      sizeof(float) * smem_floats(a.n, train ? kTrainLayout : kEvalLayout);
-  const void* kernel =
-      train ? (const void*)gcn_fwd_train_kernel : (const void*)gcn_fwd_kernel;
-  cudaError_t err = prepare(kernel, smem);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long m = (long long)a.b * a.n;
+  if (m == 0) return cudaSuccess;
+  cudaError_t err = project(a, *tap, m, st);
   if (err != cudaSuccess) return err;
-  const long long blocks =
-      (long long)a.b * ((a.dout + kTileCols - 1) / kTileCols);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (blocks > 0) {
-    if (train)
-      gcn_fwd_train_kernel<<<(unsigned)blocks, kThreads, smem,
-                             (cudaStream_t)stream>>>(a, *tap);
-    else
-      gcn_fwd_kernel<<<(unsigned)blocks, kThreads, smem,
-                       (cudaStream_t)stream>>>(a, *tap);
-  }
-  return cudaGetLastError();
+  err = star_fwd(a.z, a.ldd, a.bias, a.ngp, a.nsib, a.out, a.b, a.n, a.dout,
+                 a.p, a.has_alpha, a.alpha, st);
+  mark(g_fwd_marks, st);
+  return err;
+}
+
+// The projection alone: z = [x*m | pe*m_pe] @ [W_h; W_p] + z_bias into
+// a->z [b*n, ldd].
+int gcn_projection_f32(const GcnArgs* ap, const TrainArgs* tap,
+                       void* stream) {
+  const long long m = (long long)ap->b * ap->n;
+  if (m == 0) return cudaSuccess;
+  return project(*ap, *tap, m, (cudaStream_t)stream);
+}
+
+// The forward's star pass alone: out [b, n, dout] from z [b*n, ldz].
+int gcn_star_f32(const float* z, int ldz, const float* bias, const int* ngp,
+                 const int* nsib, float* out, int b, int n, int dout, int p,
+                 int has_alpha, float alpha, void* stream) {
+  return star_fwd(z, ldz, bias, ngp, nsib, out, b, n, dout, p, has_alpha,
+                  alpha, (cudaStream_t)stream);
 }
 
 // The backward of one star-GCN layer for the incoming grad a->g: every pass
@@ -282,49 +331,68 @@ int gcn_layer_fwd_f32(const GcnArgs* ap, const TrainArgs* tap, int train,
 int gcn_layer_bwd_f32(const GcnArgs* ap, const TrainArgs* tap, void* stream) {
   const GcnArgs a = *ap;
   const TrainArgs ta = *tap;
-  cudaStream_t st = (cudaStream_t)stream;
+  const cudaStream_t st = (cudaStream_t)stream;
   const long long m = (long long)a.b * a.n;
   if (m == 0) return cudaSuccess;
   const bool act = a.has_alpha != 0;
-  const size_t smem = sizeof(float) * bwd_smem_floats(a.n, act);
-  const void* kernel = act ? (const void*)gcn_bwd_dz_kernel<true>
-                           : (const void*)gcn_bwd_dz_kernel<false>;
-  cudaError_t err = prepare(kernel, smem);
+  const Operand op = layer_operand(a, ta);
+  const ProductWork work = {a.xm, a.wt, a.part_w, a.kxp, a.ldd, a.ntp,
+                            a.splits};
+  cudaError_t err;
+
+  mark(g_bwd_marks, st);
+  err = stage_and_pack(op, ta, m, work, a.need_dx ? 0 : a.din,
+                       act ? a.wcat : nullptr, st);
   if (err != cudaSuccess) return err;
-  const long long blocks =
-      (long long)a.b * ((a.dout + kTileCols - 1) / kTileCols);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  mark(g_bwd_marks, st);
+  if (act) {  // z recomputed for leaky'
+    err = gat_projection(op, a.xm, a.kxp, a.wcat, a.ldd, a.z_bias, nullptr,
+                         nullptr, a.biascat, a.z, m, st);
+    if (err != cudaSuccess) return err;
+  }
+  mark(g_bwd_marks, st);
+
+  const unsigned blocks = star_blocks(a.b, a.ldd);
+  if (blocks == 0) return cudaErrorInvalidValue;
   if (act)
-    gcn_bwd_dz_kernel<true><<<(unsigned)blocks, kThreads, smem, st>>>(a, ta);
+    gcn_star_bwd_kernel<true><<<blocks, kStarCols, 0, st>>>(
+        a.z, a.ldd, a.g, a.bias, a.ngp, a.nsib, a.g2sum, a.n, a.dout, a.p,
+        a.alpha);
   else
-    gcn_bwd_dz_kernel<false><<<(unsigned)blocks, kThreads, smem, st>>>(a, ta);
+    gcn_star_bwd_kernel<false><<<blocks, kStarCols, 0, st>>>(
+        a.z, a.ldd, a.g, a.bias, a.ngp, a.nsib, a.g2sum, a.n, a.dout, a.p,
+        a.alpha);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mark(g_bwd_marks, st);
 
   err = sum_over_egonets(a.g2sum, a.b, 1, a.dout, a.dout, a.chunks,
                          a.part_b, a.db, st);
   if (err != cudaSuccess) return err;
   if (a.need_dzb) {
-    err = sum_over_egonets(a.dz, a.b, a.n, a.ldd, a.dout, a.chunks,
-                           a.part_b, a.dzb, st);
+    err = sum_over_egonets(a.z, a.b, a.n, a.ldd, a.dout, a.chunks, a.part_b,
+                           a.dzb, st);
     if (err != cudaSuccess) return err;
   }
-  const Operand op = {a.x, {a.w, nullptr, nullptr}, {ta.wp, nullptr, nullptr},
-                      a.n, a.din, a.dout, a.dout, a.dout};
-  const ProductWork work = {a.xm, a.wt, a.part_w, a.kxp, a.ldd, a.ntp,
-                            a.splits};
-  err = stage_and_pack(op, ta, m, work, a.need_dx ? 0 : a.din, nullptr, st);
-  if (err != cudaSuccess) return err;
+  mark(g_bwd_marks, st);
   float* const dw[3] = {a.dw, nullptr, nullptr};
   float* const dwp[3] = {a.dwp, nullptr, nullptr};
-  return product_grads(op, ta, a.dz, a.ldd, m, work, a.chunks, dw, dwp,
-                       a.need_dx, a.dx, a.pe_rows, a.part_pe, a.dpe, g_marks,
-                       st);
+  return product_grads(op, ta, a.z, a.ldd, m, work, a.chunks, dw, dwp,
+                       a.need_dx, a.dx, a.pe_rows, a.part_pe, a.dpe,
+                       g_bwd_marks, st);
 }
 
-// Pass timing of the backward, as gat_bwd.cu's: the dW and dx passes
-// (marks after each) into out[2].
-int gcn_bwd_set_timing(int on) { return set_timing(g_marks, on); }
+// Pass timing, as gat_fwd.cu's and gat_bwd.cu's: with `on`, the next call
+// records device events between its launches; *_pass_ms then gives their
+// milliseconds into out and returns their count. Forward (and the
+// projection alone): stage and pack, projection, star pass. Backward: stage
+// and pack, projection (empty without an activation), the dz pass, the
+// db / d z_bias sums, dW, dx (with dpe).
+int gcn_fwd_set_timing(int on) { return set_timing(g_fwd_marks, on); }
 
-int gcn_bwd_pass_ms(float* out) { return pass_ms(g_marks, out); }
+int gcn_fwd_pass_ms(float* out) { return pass_ms(g_fwd_marks, out); }
+
+int gcn_bwd_set_timing(int on) { return set_timing(g_bwd_marks, on); }
+
+int gcn_bwd_pass_ms(float* out) { return pass_ms(g_bwd_marks, out); }
 
 }  // extern "C"

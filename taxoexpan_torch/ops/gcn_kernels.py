@@ -9,7 +9,9 @@ launch counters and the autograd Function around them.
                           _bwd_kernel :129)
 
 All three are `ops/csrc/gcn.cu`, whose header states what bounds them on an
-H100 and what the design does about it. One layer is
+H100 and what the design does about it: the layer's product runs once as a
+projection on the tensor cores (`gcn_projection` alone), then a star pass
+(`gcn_star` alone; neither is in WRAPPERS). One layer is
 
     z   = [x*m | pe*m_pe] @ [W_h; W_p] + z_bias
     out = act(norm * copy_src_sum(norm * z) + b)
@@ -30,6 +32,7 @@ and its backward replays the masks and recomputes z where leaky' needs it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -39,9 +42,9 @@ from .launch import (F, I, P, TrainArgs, check_operands, check_star,
                      needs_staging, on_cuda, pass_times, product_splits,
                      product_work, raise_on, stream, train_args)
 
-_POINTERS = ("x", "w", "bias", "z_bias", "ngp", "nsib", "g", "out", "dz",
+_POINTERS = ("x", "w", "bias", "z_bias", "ngp", "nsib", "g", "out", "z",
              "g2sum", "part_w", "part_b", "pe_rows", "part_pe", "dx", "dw",
-             "db", "dzb", "dpe", "dwp", "xm", "wt")
+             "db", "dzb", "dpe", "dwp", "xm", "wcat", "biascat", "wt")
 _INTS = ("b", "n", "din", "dout", "p", "has_alpha", "need_dx", "need_dzb",
          "splits", "chunks", "kxp", "ldd", "ntp")
 
@@ -55,13 +58,20 @@ class _GcnArgs(ctypes.Structure):
 _ARGS = ctypes.POINTER(_GcnArgs)
 _TA = ctypes.POINTER(TrainArgs)
 SIGNATURES = {
-    "gcn_layer_fwd_f32": ([_ARGS, _TA, I, P], I),
+    "gcn_layer_fwd_f32": ([_ARGS, _TA, P], I),
+    "gcn_projection_f32": ([_ARGS, _TA, P], I),
+    # z, ldz, bias, ngp, nsib, out, b, n, dout, p, has_alpha, alpha, stream
+    "gcn_star_f32": ([P, I] + [P] * 4 + [I] * 5 + [F, P], I),
     "gcn_layer_bwd_f32": ([_ARGS, _TA, P], I),
+    "gcn_fwd_set_timing": ([I], I),
+    "gcn_fwd_pass_ms": ([P], I),
     "gcn_bwd_set_timing": ([I], I),
     "gcn_bwd_pass_ms": ([P], I),
     "gcn_error_string": ([I], ctypes.c_char_p),
 }
-BWD_PASSES = ("dw", "dx")
+# what the pass times of `pass_times` measure, in order
+FWD_PASSES = ("stage_pack", "projection", "star")
+BWD_PASSES = ("stage_pack", "projection", "dz", "dbias", "dw", "dx")
 
 
 def _lib() -> ctypes.CDLL:
@@ -74,13 +84,10 @@ def _leaky(v, alpha):
     return torch.where(v >= 0, v, alpha * v)
 
 
-def gcn_layer_train_plain(x, w, b, z_bias, ngp, nsib, p: int, *,
-                          pe_pack=None, seed: int = 0, drop: float = 0.0,
-                          alpha=None) -> torch.Tensor:
-    """Plain PyTorch version of the train form (and, at drop 0, of the eval
-    form), differentiable by autograd: [B, N, Dout]. pe_pack = (pe [N, pos],
-    wp [pos, Dout]): the pe path (requires drop > 0). The masks come from
-    ops/dropout.py, exactly the kernel's bits."""
+def gcn_projection_plain(x, w, z_bias, *, pe_pack=None, seed: int = 0,
+                         drop: float = 0.0) -> torch.Tensor:
+    """Plain version of `gcn_projection`: z = [x*m | pe*m_pe] @ [W_h; W_p]
+    + z_bias, [B, N, Dout] (the masks of ops/dropout.py when drop > 0)."""
     bsz, n, din = x.shape
     if drop > 0:
         x = x * dropout.slot_mask(seed, dropout.STREAM_FEAT, bsz, n, din,
@@ -91,9 +98,27 @@ def gcn_layer_train_plain(x, w, b, z_bias, ngp, nsib, p: int, *,
         pm = pe[None] * dropout.slot_mask(seed, dropout.STREAM_PE, bsz, n,
                                           pe.shape[1], drop, x.device)
         z = z + (pm.reshape(bsz * n, -1) @ wp).reshape(bsz, n, -1)
-    norm = star.gcn_norm(ngp, nsib, p, n)
+    return z
+
+
+def gcn_star_plain(z, b, ngp, nsib, p: int, alpha=None) -> torch.Tensor:
+    """Plain version of `gcn_star`: act(norm * copy_src_sum(norm * z) + b),
+    [B, N, Dout], from the projection z [B, N, Dout]."""
+    norm = star.gcn_norm(ngp, nsib, p, z.shape[1])
     out = star.copy_src_sum(z * norm, ngp, nsib, p) * norm + b
     return out if alpha is None else _leaky(out, alpha)
+
+
+def gcn_layer_train_plain(x, w, b, z_bias, ngp, nsib, p: int, *,
+                          pe_pack=None, seed: int = 0, drop: float = 0.0,
+                          alpha=None) -> torch.Tensor:
+    """Plain PyTorch version of the train form (and, at drop 0, of the eval
+    form), differentiable by autograd: [B, N, Dout]. pe_pack = (pe [N, pos],
+    wp [pos, Dout]): the pe path (requires drop > 0). The masks come from
+    ops/dropout.py, exactly the kernel's bits."""
+    z = gcn_projection_plain(x, w, z_bias, pe_pack=pe_pack, seed=seed,
+                             drop=drop)
+    return gcn_star_plain(z, b, ngp, nsib, p, alpha)
 
 
 def gcn_layer_fwd_plain(x, w, b, z_bias, ngp, nsib, p: int,
@@ -134,11 +159,13 @@ def gcn_layer_bwd_plain(g, x, w, b, z_bias, ngp, nsib, p: int, *,
 # ------------------------------------------------------------------ launches
 
 def _check(x, w, b, z_bias, ngp, nsib, p, pe_pack=None, g=None):
+    """Shapes, device, dtype and layout of the operands; b, ngp, nsib and p
+    None for the projection alone."""
     bsz, n, din = x.shape
     dout = w.shape[-1]
-    shapes = {"w": (w, (din, dout)), "b": (b, (dout,)),
-              "z_bias": (z_bias, (n, dout)), "ngp": (ngp, (bsz,)),
-              "nsib": (nsib, (bsz,))}
+    shapes = {"w": (w, (din, dout)), "z_bias": (z_bias, (n, dout))}
+    if p is not None:
+        shapes.update(b=(b, (dout,)), ngp=(ngp, (bsz,)), nsib=(nsib, (bsz,)))
     if pe_pack is not None:
         pe, wp = pe_pack
         pos = pe.shape[-1]
@@ -146,7 +173,7 @@ def _check(x, w, b, z_bias, ngp, nsib, p, pe_pack=None, g=None):
     if g is not None:
         shapes["g"] = (g, (bsz, n, dout))
     check_operands(x, shapes)
-    check_star(x, p)
+    check_star(x, 0 if p is None else p)
     if (bsz * n + 63) // 64 > 65535:
         raise ValueError(f"B * N = {bsz * n} rows exceed the dx grid "
                          "(4,194,240)")
@@ -158,30 +185,57 @@ def _args(x, w, b, z_bias, ngp, nsib, p, alpha, ptrs: dict, **ints):
                         **ptrs).items():
         setattr(args, name, t.data_ptr() if t is not None else None)
     bsz, n, din = x.shape
-    for name, v in dict(b=bsz, n=n, din=din, dout=w.shape[1], p=p,
-                        has_alpha=int(alpha is not None), **ints).items():
+    for name, v in dict(b=bsz, n=n, din=din, dout=w.shape[1],
+                        p=p or 0, has_alpha=int(alpha is not None),
+                        **ints).items():
         setattr(args, name, v)
     args.alpha = 0.0 if alpha is None else float(alpha)
     return args
 
 
-def _fwd_cuda(what: str, x, w, b, z_bias, ngp, nsib, p, alpha, train=None):
-    """Check, allocate and launch the forward; `train` = (pe_pack, seed,
-    drop) selects the train form."""
+def _empty(x, *shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+
+def _projection_work(x, dout: int, drop: float,
+                     pos: int) -> tuple[dict, dict]:
+    """Workspaces of the projection (csrc/gcn.cu), as (pointers, widths):
+    z [B*N, ldd], X staged where `needs_staging` says so, W [kxp, ldd] and
+    z_bias [N, ldd] in its layouts."""
+    bsz, n, din = x.shape
+    kx = din + pos
+    pw = product_work(x, bsz * n, kx, dout, needs_staging(x, drop, pos), kx,
+                      0)
+    ldd = pw["wdp"]
+    ptrs = {"z": _empty(x, bsz * n, ldd), "xm": pw["xm"],
+            "wcat": _empty(x, pw["kxp"], ldd), "biascat": _empty(x, n, ldd)}
+    return ptrs, {"kxp": pw["kxp"], "ldd": ldd}
+
+
+def _fwd_cuda(what: str, entry: str, x, w, b, z_bias, ngp, nsib, p, alpha,
+              train=None):
+    """Check, allocate and launch a forward entry point (the layer, or the
+    projection alone when p is None); `train` = (pe_pack, seed, drop)
+    selects the train form. Returns (out or None, z [B, N, Dout])."""
     pe_pack = train[0] if train is not None else None
     _check(x, w, b, z_bias, ngp, nsib, p, pe_pack)
     ta = train_args(*train) if train is not None else TrainArgs()
-    out = torch.empty((*x.shape[:2], w.shape[1]), dtype=torch.float32,
-                      device=x.device)
-    if x.shape[0] == 0:
-        return out
-    args = _args(x, w, b, z_bias, ngp, nsib, p, alpha, {"out": out})
+    bsz, n = x.shape[:2]
+    dout = w.shape[1]
+    out = _empty(x, bsz, n, dout) if p is not None else None
+    ptrs, widths = _projection_work(x, dout, train[2] if train else 0.0,
+                                    ta.pos)
+    z = ptrs["z"].reshape(bsz, n, widths["ldd"])[..., :dout]
+    if bsz == 0:
+        return out, z
+    args = _args(x, w, b, z_bias, ngp, nsib, p, alpha, {"out": out, **ptrs},
+                 **widths)
     lib = _lib()
     with torch.cuda.device(x.device):
-        rc = lib.gcn_layer_fwd_f32(ctypes.byref(args), ctypes.byref(ta),
-                                   int(train is not None), stream(x))
+        rc = getattr(lib, entry)(ctypes.byref(args), ctypes.byref(ta),
+                                 stream(x))
     raise_on(lib, rc, what, "gcn_error_string")
-    return out
+    return out, z
 
 
 def gcn_layer_fwd(x, w, b, z_bias, ngp, nsib, p: int,
@@ -194,7 +248,7 @@ def gcn_layer_fwd(x, w, b, z_bias, ngp, nsib, p: int,
     ops = (x, w, b, z_bias, ngp, nsib, p)
     if not on_cuda(x, "gcn_layer_fwd"):
         return gcn_layer_fwd_plain(*ops, alpha)
-    out = _fwd_cuda("gcn_layer_fwd", *ops, alpha)
+    out, _ = _fwd_cuda("gcn_layer_fwd", "gcn_layer_fwd_f32", *ops, alpha)
     if x.shape[0]:
         gcn_layer_fwd.launches += 1
     return out
@@ -210,8 +264,8 @@ def gcn_layer_fwd_train(x, w, b, z_bias, ngp, nsib, p: int, *, pe_pack=None,
     if not on_cuda(x, "gcn_layer_fwd_train"):
         return gcn_layer_train_plain(*ops, pe_pack=pe_pack, seed=seed,
                                      drop=drop, alpha=alpha)
-    out = _fwd_cuda("gcn_layer_fwd_train", *ops, alpha,
-                    train=(pe_pack, seed, drop))
+    out, _ = _fwd_cuda("gcn_layer_fwd_train", "gcn_layer_fwd_f32", *ops,
+                       alpha, train=(pe_pack, seed, drop))
     if x.shape[0]:
         gcn_layer_fwd_train.launches += 1
     return out
@@ -223,8 +277,7 @@ def _bwd_cuda(g, x, w, b, z_bias, ngp, nsib, p, pe_pack, seed, drop, alpha,
     ta = train_args(pe_pack, seed, drop)
     bsz, n, din = x.shape
     dout, pos = w.shape[1], ta.pos
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa
-                                       device=x.device)
+    empty = functools.partial(_empty, x)
     grads = {"x": empty(bsz, n, din) if need_dx else None,
              "w": empty(din, dout), "b": empty(dout),
              "z_bias": empty(n, dout) if need_dzb else None}
@@ -241,7 +294,10 @@ def _bwd_cuda(g, x, w, b, z_bias, ngp, nsib, p, pe_pack, seed, drop, alpha,
     pw = product_work(x, m, din + pos, dout, needs_staging(x, drop, pos),
                       0 if need_dx else din, splits)
     ldd = pw["wdp"]
-    work = {"g": g, "dz": empty(m, ldd), "g2sum": empty(bsz, dout),
+    act = alpha is not None   # z recomputed for leaky'
+    work = {"g": g, "z": empty(m, ldd), "g2sum": empty(bsz, dout),
+            "wcat": empty(pw["kxp"], ldd) if act else None,
+            "biascat": empty(n, ldd) if act else None,
             "part_w": pw["part_w"], "part_b": empty(chunks, n * ldd),
             "pe_rows": empty(m, pos) if pos else None,
             "part_pe": empty(chunks, n * pos) if pos else None,
@@ -276,9 +332,75 @@ def gcn_layer_bwd(g, x, w, b, z_bias, ngp, nsib, p: int, *, pe_pack=None,
     return res
 
 
+def gcn_projection(x, w, z_bias, *, pe_pack=None, seed: int = 0,
+                   drop: float = 0.0) -> torch.Tensor:
+    """The projection of the layer alone, z = [x*m | pe*m_pe] @ [W_h; W_p]
+    + z_bias, [B, N, Dout]: the first launch of `gcn_layer_fwd[_train]`
+    and of `gcn_layer_bwd` with an activation, exposed for testing it on
+    its own (the plain version on the CPU; on the card the kernel, counted
+    in `gcn_projection.launches`, its rows dout rounded up to 4 apart)."""
+    kw = dict(pe_pack=pe_pack, seed=seed, drop=drop)
+    if not on_cuda(x, "gcn_projection"):
+        return gcn_projection_plain(x, w, z_bias, **kw)
+    _, z = _fwd_cuda("gcn_projection", "gcn_projection_f32", x, w, None,
+                     z_bias, None, None, None, None,
+                     train=(pe_pack, seed, drop))
+    if x.shape[0]:
+        gcn_projection.launches += 1
+    return z
+
+
+gcn_projection.launches = 0
+
+
+def gcn_star(z, b, ngp, nsib, p: int, alpha=None) -> torch.Tensor:
+    """The star pass of `gcn_layer_fwd[_train]` alone, out [B, N, Dout]
+    from a projection z [B, N, Dout] (rows may be wider apart, as
+    `gcn_projection`'s output on the card is: its last dimension
+    unit-strided). Exposed for testing the pass on its own (the plain
+    version on the CPU; on the card the kernel, counted in
+    `gcn_star.launches`)."""
+    if not on_cuda(z, "gcn_star"):
+        return gcn_star_plain(z, b, ngp, nsib, p, alpha)
+    bsz, n, dout = z.shape
+    if z.dtype != torch.float32 or z.stride(2) != 1 or (
+            bsz > 1 and z.stride(0) != n * z.stride(1)):
+        raise ValueError("z must be float32 [B, N, Dout] with unit-strided, "
+                         "evenly spaced rows")
+    for name, t, shape, dtype in (("b", b, (dout,), torch.float32),
+                                  ("ngp", ngp, (bsz,), torch.int32),
+                                  ("nsib", nsib, (bsz,), torch.int32)):
+        if (tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != z.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {dtype} {shape} on "
+                             f"{z.device}")
+    check_star(z, p)
+    out = _empty(z, bsz, n, dout)
+    lib = _lib()
+    with torch.cuda.device(z.device):
+        rc = lib.gcn_star_f32(
+            z.data_ptr(), z.stride(1), b.data_ptr(), ngp.data_ptr(),
+            nsib.data_ptr(), out.data_ptr(), bsz, n, dout, p,
+            int(alpha is not None), 0.0 if alpha is None else float(alpha),
+            stream(z))
+    raise_on(lib, rc, "gcn_star", "gcn_error_string")
+    if bsz:
+        gcn_star.launches += 1
+    return out
+
+
+gcn_star.launches = 0
+
+
+def fwd_pass_ms(call) -> dict:
+    """Device ms of K5f's launches in one `call` of gcn_layer_fwd[_train]
+    on the card, by FWD_PASSES."""
+    return dict(zip(FWD_PASSES, pass_times(_lib(), "gcn_fwd", call)))
+
+
 def bwd_pass_ms(call) -> dict:
-    """Device ms of K5b's product passes in one `call` of gcn_layer_bwd on
-    the card, by BWD_PASSES."""
+    """Device ms of K5b's passes in one `call` of gcn_layer_bwd on the
+    card, by BWD_PASSES."""
     return dict(zip(BWD_PASSES, pass_times(_lib(), "gcn_bwd", call)))
 
 

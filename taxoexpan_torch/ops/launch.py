@@ -122,14 +122,14 @@ def product_work(x: torch.Tensor, m: int, kx: int, wd: int, staged: bool,
                  kbeg: int, splits: int) -> dict:
     """Workspaces of the product passes (csrc/bwd_common.cuh:ProductWork):
     xm [m, kxp] (staged only), wt [wdp, ntp] (the dx product's W^T over
-    the input columns [kbeg, kx)), part_w [splits, kx, wd], and the
-    widths."""
+    the input columns [kbeg, kx)), part_w [splits, kx, wd] (splits > 0:
+    the dW product), and the widths."""
     kxp, wdp, ntp = round4(kx), round4(wd), round4(kx - kbeg)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa
                                        device=x.device)
     return {"xm": empty(m, kxp) if staged else None,
             "wt": empty(wdp, ntp) if ntp else None,
-            "part_w": empty(splits, kx, wd),
+            "part_w": empty(splits, kx, wd) if splits else None,
             "kxp": kxp if staged else kx, "wdp": wdp, "ntp": ntp}
 
 

@@ -19,7 +19,11 @@ and K1 / K2 around it at B*N not a multiple of its 128-row tile, Dh 500 /
 backwards (equal bits); K3 (eval, train and store forms) and K4 (recompute
 and stored) around the same projection at B = 1, a batch of empty
 egonets, heads 3, Dh 200 / 500 and din 33 / 250 (rows staged), stored and
-recompute grads equal bits, and the pooled star pass alone;
+recompute grads equal bits, and the pooled star pass alone; K5 (eval
+and train forward, backward) around its projection at B = 1, N = 70 with
+B*N not a multiple of the 128-row tile, Dout 130 (rows of 132 floats), din
+33 / 250 and a batch of empty egonets (dz and dx exactly 0 on invalid
+rows), and the projection and the star pass alone;
 for K6 the halo gather at P = 1 to 4 in float32 and bf16 (exact), empty
 buckets, and two rank processes sharing the card through CUDA IPC.
 
@@ -601,6 +605,81 @@ def test_pooled_star_pass_matches_plain(dev, b, p, s, heads, dh, store):
                                     store_attn=store, **kw)
     for a, w in zip(got if store else (got,), want if store else (want,)):
         torch.testing.assert_close(a, w, **TOL)
+
+
+# ------------------------ K5 around the projection (3xTF32), star pass
+
+K5_SHAPES = [
+    # b, p, s, din, dout, pos, only empty egonets
+    (1, 13, 50, 250, 500, 50, False),   # B = 1; din 250: rows staged
+    (37, 5, 64, 33, 130, 7, False),     # N = 70, 2590 rows, Dout 130
+    (9, 5, 64, 250, 130, 0, True),      # only empty egonets, no pe path
+]
+
+
+@pytest.mark.parametrize("b,p,s,din,dout,pos,empty", K5_SHAPES)
+@pytest.mark.parametrize("alpha", [0.01, None])
+def test_gcn_forms_around_projection(dev, b, p, s, din, dout, pos, empty,
+                                     alpha):
+    """K5f in both forms and K5b (need_dx, d z_bias) against their plain
+    versions at shapes the projection's tiles do not divide (B*N not a
+    multiple of 128 rows, Dout 130 in rows of 132 floats, din 33), B = 1
+    and a batch of empty egonets; a dense incoming grad, yet dx and d
+    z_bias exactly 0 where only invalid slots reach them (dz is 0 there);
+    each wrapper launched once."""
+    ops, pe_pack = _gcn_inputs(dev, b, p, s, din, dout, pos)
+    n = p + 1 + s
+    if empty:
+        ops[4].zero_()
+        ops[5].zero_()
+        ops[0].mul_(star.node_mask(ops[4], ops[5], p, n)[..., None])
+    valid = star.node_mask(ops[4], ops[5], p, n)
+    before = {k: w.launches for k, w in ck.WRAPPERS.items()}
+    torch.testing.assert_close(ck.gcn_layer_fwd(*ops, p, alpha=alpha),
+                               ck.gcn_layer_fwd_plain(*ops, p, alpha),
+                               **TOL)
+    kw = dict(pe_pack=pe_pack, seed=31, drop=0.1, alpha=alpha)
+    torch.testing.assert_close(ck.gcn_layer_fwd_train(*ops, p, **kw),
+                               ck.gcn_layer_train_plain(*ops, p, **kw),
+                               **TOL)
+    g = torch.randn((b, n, dout), device=dev,
+                    generator=torch.Generator(dev).manual_seed(32))
+    got = ck.gcn_layer_bwd(g, *ops, p, need_dx=True, need_dzb=True, **kw)
+    torch.cuda.synchronize()
+    _assert_grads(got, ck.gcn_layer_bwd_plain(g, *ops, p, need_dx=True,
+                                              need_dzb=True, **kw))
+    assert float(got["x"][~valid].abs().max()) == 0.0
+    if empty:   # only the anchor slot is valid in every egonet
+        assert float(got["z_bias"][:p].abs().max()) == 0.0
+        assert float(got["z_bias"][p + 1:].abs().max()) == 0.0
+    assert {k: w.launches - before[k] for k, w in ck.WRAPPERS.items()} == \
+        dict.fromkeys(ck.WRAPPERS, 1)
+
+
+@pytest.mark.parametrize("b,p,s,din,dout,pos", [
+    (7, 13, 50, 250, 500, 50),   # the config.mag.json PGCN layer 0
+    (5, 5, 64, 33, 130, 0),      # N = 70, Dout 130 (rows of 132 floats)
+    (3, 2, 9, 16, 7, 3),         # Dout 7 (rows of 8 floats)
+])
+@pytest.mark.parametrize("alpha", [0.01, None])
+def test_gcn_projection_and_star_pass_match_plain(dev, b, p, s, din, dout,
+                                                  pos, alpha):
+    """The projection alone (the train form's where the layer has a pe
+    path) and the star pass alone on it, each against its plain version;
+    each launched once."""
+    ops, pe_pack = _gcn_inputs(dev, b, p, s, din, dout, pos)
+    x, w, bias, zb, ngp, nsib = ops
+    kw = dict(pe_pack=pe_pack, seed=33, drop=0.1) if pos else {}
+    before = (ck.gcn_projection.launches, ck.gcn_star.launches)
+    z = ck.gcn_projection(x, w, zb, **kw)
+    torch.testing.assert_close(z, ck.gcn_projection_plain(x, w, zb, **kw),
+                               **TOL)
+    got = ck.gcn_star(z, bias, ngp, nsib, p, alpha)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ck.gcn_star_plain(z, bias, ngp, nsib, p,
+                                                      alpha), **TOL)
+    assert (ck.gcn_projection.launches, ck.gcn_star.launches) == \
+        (before[0] + 1, before[1] + 1)
 
 
 # ------------------------------------------------------------------- K6
