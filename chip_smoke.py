@@ -34,7 +34,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               4 x 900, leaky_relu 0.01) and the per-slot final layer
               (3600 + 100 -> 1 x 600), each as K1 eval, the K1 train store
               form and the stored K2 (need_dx off / on), the train forms
-              with 8-bit dropout thresholds (K7b). Every gradient compared,
+              with 8-bit dropout thresholds (K7b), in float32 and in bf16
+              (section 7). The incoming grads of the backwards are drawn on
+              the card. Every gradient compared,
               the masks
               regenerated by the plain versions; times of the kernel, its
               plain version and one torch.matmul as a yardstick
@@ -96,7 +98,27 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               through test_fast; the 2-rank median step beside the
               single-process PGAT step (two contexts time-slicing one card,
               not a scaling figure).
-7. a `{"kernels": [...]}` line (eval-form launches from the serving phase
+7. bf16    - compute_dtype "bfloat16" (the JAX package's production dtype,
+              bench.py:246): in the kernels phase the bf16 forms of K1 (eval
+              and train, the pe path), K2 (need_dx off), K3 (eval and
+              train), K4 (need_dx on) at PGAT's shapes, and both MTL
+              layers' K1 eval, K1t-store and K2-stored (8-bit masks) at
+              MTL's shapes (MTL-bf16 is the bf16 path that stores
+              attention), each held to its plain version (a bf16 result to one bf16 ulp, a bf16
+              grad to 2**-6 relative plus 2**-8 of its largest value), with
+              `matmul_ms` of one bf16 torch.matmul and `bound_ms` at the
+              dense bf16 rate (989 TFLOP/s); serving and training of
+              PGAT-bf16 (config.mag.json with the key) and MTL-bf16
+              (config.semeval_verb_mtl.json with the key, its switches) as
+              above, launches read from the wrappers' `launches_bf16` (a
+              float32 GAT launch on these paths fails the phase); the graph
+              embeddings against the CPU plain path within 2**-7 of their
+              largest value, the scores against the float32 model's from
+              the same checkpoint within 0.05 of its mean |score|
+              (tests/test_bf16.py's contract), `step_vs_cpu` (loss 1e-3,
+              grads 2**-6 of each leaf's largest value), and a
+              `bf16_steps` line: the median steps beside the float32 ones.
+8. a `{"kernels": [...]}` line (eval-form launches from the serving phase
    of the entry's path, the train-path kernels' from its training phase,
    K6's from the partitioned 2-rank run, over both ranks),
    then the card's nvidia-smi line, and last `{"ok": true, "device":
@@ -126,6 +148,9 @@ REPO = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_3XTF32_FLOP_PER_S = 495e12 / 3
+# the bf16 forms' products: bf16 operands on the tensor cores with float32
+# accumulation, bounded at the data sheet's dense bf16 rate
+PEAK_BF16_FLOP_PER_S = 989e12
 
 # kernel vs plain version on the card: both float32, sums taken in another
 # order (tiled K loop vs cuBLAS), so agreement is to rounding, not bits
@@ -134,6 +159,20 @@ RTOL, ATOL = 1e-4, 1e-4
 # batch in another order (split-K partial sums vs cuBLAS), with
 # cancellation; held to 1e-3 relative plus 1e-3 of the grad's largest value
 GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-3
+# a bf16 result (a per-slot output, dx, dfc, dwa1, dwa2) against its plain
+# version: kernel and plain version multiply the same bf16 operands exactly
+# and sum in float32 in another order, so before its rounding a result
+# agrees to the float32 forms' tolerance, and the rounding may then pick
+# the neighbouring bf16 value: one ulp, 2**-7 relative, plus ATOL (float32
+# sums over up to 3600 products, where the layer's output cancels to near
+# 0); a bf16 grad is a sum over rows of D rounded to bf16 from float32
+# values that differ by rounding, so an element of D may already sit one
+# ulp apart: 2**-6 relative plus 2**-8 of the grad's largest value
+BF16_RTOL, BF16_ATOL = 2 ** -7, ATOL
+BF16_GRAD_RTOL, BF16_GRAD_ATOL_REL = 2 ** -6, 2 ** -8
+# tests/test_bf16.py's contract: bf16 scores within 0.05 of the float32
+# model's mean |score|
+BF16_SCORE_REL = 0.05
 MAG_P, MAG_S = 13, 50          # max_parents, expand_factor -> N = 64
 BATCH = 4096                   # egonets per kernel call: one encode_chunk
 NODES, N_NOVEL, SEED = 4000, 8, 0
@@ -164,9 +203,16 @@ PATHS = {
     "PGCN": ("config.mag.json", "PGCN", {}),
     "PGAT-stored": ("config.mag.json", "PGAT", {STORED: "1"}),
     "MTL": ("config.semeval_verb_mtl.json", "PGAT", {STORED: "1", BITS: "8"}),
+    "PGAT-bf16": ("config.mag.json", "PGAT", {}),
+    "MTL-bf16": ("config.semeval_verb_mtl.json", "PGAT",
+                 {STORED: "1", BITS: "8"}),
 }
-SERVING_PATHS = ("PGAT", "PGCN", "MTL")
-TRAINING_PATHS = {"PGAT": 2, "PGCN": 2, "PGAT-stored": 1, "MTL": 2}
+# the paths whose configuration sets arch.args.compute_dtype "bfloat16"
+# (as scripts/reference_scale_run.py:87 sets it): bf16 GAT layers
+BF16_PATHS = ("PGAT-bf16", "MTL-bf16")
+SERVING_PATHS = ("PGAT", "PGCN", "MTL", "PGAT-bf16", "MTL-bf16")
+TRAINING_PATHS = {"PGAT": 2, "PGCN": 2, "PGAT-stored": 1, "MTL": 2,
+                  "PGAT-bf16": 2, "MTL-bf16": 1}
 # stored and recompute backwards on the card: the same expressions of
 # gat_common.cuh in two translation units; equal bits expected
 STORED_REL = 1e-6
@@ -204,19 +250,28 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(name: str, got, want, rtol=RTOL, atol=ATOL) -> dict:
+def compare(name: str, got, want, rtol=None, atol=None) -> dict:
+    """got against want within atol + rtol |want| elementwise; by default
+    RTOL / ATOL, or BF16_RTOL / BF16_ATOL for a bf16 result."""
     import torch
-    if got.shape != want.shape:
-        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
-                             f"{tuple(want.shape)}")
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} != "
+                             f"{want.dtype} {tuple(want.shape)}")
+    low = got.dtype == torch.bfloat16
+    rtol = (BF16_RTOL if low else RTOL) if rtol is None else rtol
+    atol = (BF16_ATOL if low else ATOL) if atol is None else atol
+    got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite values")
     diff = (got - want).abs()
-    ok = bool((diff <= atol + rtol * want.abs()).all())
+    bad = diff > atol + rtol * want.abs()
     rel = diff / want.abs().clamp(min=max(atol, 1e-30))
     res = {"max_abs_err": float(diff.max()), "max_rel_err": float(rel.max()),
            "rtol": rtol, "atol": atol}
-    if not ok:
+    if bool(bad.any()):
+        worst = int((diff - rtol * want.abs()).masked_fill(~bad, -1).argmax())
+        res.update(failing=int(bad.sum()), worst_got=float(got.flatten()[
+            worst]), worst_want=float(want.flatten()[worst]))
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"{res}")
     return res
@@ -256,12 +311,14 @@ def path_model(path: str = "PGAT"):
     """The configuration of a path (configs/config.mag.json with
     `arch.args.propagation_method` set: PGAT as published, PGCN the
     paper's other propagation family at the same widths;
-    configs/config.semeval_verb_mtl.json as published), and the port's
-    model of it."""
+    configs/config.semeval_verb_mtl.json as published; the BF16_PATHS with
+    `arch.args.compute_dtype` "bfloat16"), and the port's model of it."""
     from taxoexpan_torch import builders
     name, propagation, _env = PATHS[path]
     cfg = load_config(name)
     cfg["arch"]["args"]["propagation_method"] = propagation
+    if path in BF16_PATHS:
+        cfg["arch"]["args"]["compute_dtype"] = "bfloat16"
     model = builders.build_model(cfg["arch"], max_parents=MAG_P,
                                  expand_factor=MAG_S)
     return cfg, model
@@ -289,10 +346,24 @@ def _eval_wrappers(path: str) -> dict:
     from taxoexpan_torch.ops import gcn_kernels as ck
     if PATHS[path][1] in ("GCN", "PGCN"):
         return {"gcn_layer_fwd": ck.gcn_layer_fwd}
-    if path == "MTL":
+    if path.startswith("MTL"):
         return {"gat_layer_fwd": gk.gat_layer_fwd}
     return {"gat_layer_fwd": gk.gat_layer_fwd,
             "gat_layer_pooled_fwd": gk.gat_layer_pooled_fwd}
+
+
+def path_launches(path: str, wrappers: dict) -> dict:
+    """The launch counts of `wrappers` in the path's compute dtype: their
+    bf16 kernels' on a BF16_PATHS path (which then must have launched no
+    float32 GAT kernel: raises), else their float32 kernels'."""
+    from taxoexpan_torch.ops import gat_kernels as gk
+    if path not in BF16_PATHS:
+        return {name: w.launches for name, w in wrappers.items()}
+    f32 = {name: w.launches for name, w in gk.WRAPPERS.items() if w.launches}
+    if f32:
+        raise AssertionError(f"the bf16 path {path} launched float32 "
+                             f"kernels {f32}")
+    return {name: w.launches_bf16 for name, w in wrappers.items()}
 
 
 def _train_wrappers(path: str) -> tuple[dict, tuple]:
@@ -307,7 +378,7 @@ def _train_wrappers(path: str) -> tuple[dict, tuple]:
                              "gat_layer_pooled_fwd_train_store",
                              "gat_layer_bwd_stored",
                              "gat_layer_pooled_bwd_stored")
-    if path == "MTL":
+    if path.startswith("MTL"):
         return gk.WRAPPERS, ("gat_layer_fwd_train_store",
                              "gat_layer_bwd_stored")
     return gk.WRAPPERS, ("gat_layer_fwd_train", "gat_layer_pooled_fwd_train",
@@ -337,16 +408,16 @@ def _nbytes(*tensors) -> int:
                if t is not None)
 
 
-def fwd_work(pooled: bool, x, ops, pe_pack, ngp, nsib, heads: int,
-             out_elems: int):
+def fwd_work(pooled: bool, x, ops, pe_pack, ngp, nsib, heads: int, *outs):
     """(bytes, operations) a forward needs on these inputs: each input read
-    once and the output written once; the [x | pe] @ [fc | wa1 | wa2]
-    products over the rows the output depends on, plus the aggregation."""
+    once and each output (`outs`) written once, at their element sizes;
+    the [x | pe] @ [fc | wa1 | wa2] products over the rows the output
+    depends on, plus the aggregation."""
     b, n, din = x.shape
     hd = ops[0].shape[1]
     dh = hd // heads
     kx = din + (pe_pack[0].shape[1] if pe_pack else 0)
-    nbytes = _nbytes(x, *ops, ngp, nsib, *(pe_pack or ())) + out_elems * 4
+    nbytes = _nbytes(x, *ops, ngp, nsib, *(pe_pack or ()), *outs)
     ngp_sum = float(ngp.double().sum())
     if not pooled:
         rows = b * n                      # every slot is an output row
@@ -409,11 +480,19 @@ def gcn_bwd_work(x, ops, pe_pack, g, grads: dict, ngp, nsib, alpha):
     return nbytes, 2.0 * rows * dout * products + 8.0 * rows * dout
 
 
-def _bound(nbytes: float, flops: float, tensor_cores: bool = False) -> dict:
+def _bound(nbytes: float, flops: float, tensor_cores: bool = False,
+           bf16: bool = False) -> dict:
     """The least time for the work at the float32 rate (`bound_ms`) and,
     for a form whose products run on the tensor cores, at 3xTF32's
-    (`bound_3xtf32_ms`, all its operations counted at that rate)."""
+    (`bound_3xtf32_ms`, all its operations counted at that rate); for a
+    bf16 form `bound_ms` at the dense bf16 tensor-core rate."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    if bf16:
+        t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
+        return {"bytes": nbytes, "operations": flops,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_rate": "bf16 989 TFLOP/s"}
     t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
     res = {"bytes": nbytes, "operations": flops,
            "bound_ms": max(t_bytes, t_ops),
@@ -441,17 +520,27 @@ def pass_split(kernel, which: str, calls: int = 3) -> dict:
 
 
 def compare_grads(name: str, got: dict, want: dict) -> dict:
-    """Every grad the kernel returned against the plain version's."""
+    """Every grad the kernel returned against the plain version's (the bf16
+    grads of a bf16 layer at BF16_GRAD_RTOL / _ATOL_REL)."""
+    import torch
     worst = {"max_abs_err": 0.0, "max_rel_err": 0.0}
     for key, g in got.items():
         if g is None:
             continue
-        scale = float(want[key].abs().max())
-        res = compare(f"{name} d{key}", g, want[key], rtol=GRAD_RTOL,
-                      atol=GRAD_ATOL_REL * scale)
+        scale = float(want[key].float().abs().max())
+        low = g.dtype == torch.bfloat16
+        res = compare(f"{name} d{key}", g, want[key],
+                      rtol=BF16_GRAD_RTOL if low else GRAD_RTOL,
+                      atol=(BF16_GRAD_ATOL_REL if low else GRAD_ATOL_REL)
+                      * scale)
         for k in worst:
             worst[k] = max(worst[k], res[k])
+    low = sorted(k for k, v in got.items()
+                 if v is not None and v.dtype == torch.bfloat16)
     return {**worst, "rtol": GRAD_RTOL, "atol": f"{GRAD_ATOL_REL} x max|grad|",
+            **({"bf16_grads": low, "bf16_rtol": BF16_GRAD_RTOL,
+                "bf16_atol": f"{BF16_GRAD_ATOL_REL} x max|grad|"}
+               if low else {}),
             "grads": sorted(k for k, v in got.items() if v is not None)}
 
 
@@ -475,8 +564,9 @@ def stored_vs_recompute(name: str, stored: dict, recompute: dict) -> float:
     for key, g in stored.items():
         if g is None:
             continue
-        scale = max(float(recompute[key].abs().max()), 1e-30)
-        worst = max(worst, float((g - recompute[key]).abs().max()) / scale)
+        g, ref = g.float(), recompute[key].float()
+        scale = max(float(ref.abs().max()), 1e-30)
+        worst = max(worst, float((g - ref).abs().max()) / scale)
     if worst > STORED_REL:
         raise AssertionError(f"{name}: stored and recompute grads differ by "
                              f"{worst} of the grad's largest value")
@@ -589,17 +679,24 @@ def phase_masks(device) -> dict:
     return res
 
 
-def phase_kernels(batch: int, device, drop: float) -> list[dict]:
+def phase_kernels(batch: int, device, drop: float,
+                  path: str = "PGAT") -> list[dict]:
+    """PGAT's K1-K4 (and K7a) at config.mag.json's shapes against their
+    plain versions; with path "PGAT-bf16" their bf16 forms (x, fc, wa1, wa2
+    in bf16; entries named "<wrapper>[bf16]"), without the store forms."""
     import torch
     from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.ops import star
     from taxoexpan_torch.weights import params_to
-    _cfg, model = path_model("PGAT")
+    _cfg, model = path_model(path)
+    bf16 = path in BF16_PATHS
+    tag = "[bf16]" if bf16 else ""
     gen = torch.Generator().manual_seed(SEED)
     prop = model.propagate
     params = params_to(model.init(gen), device)["propagate"]
     x0, ngp, nsib = random_egonets(gen, batch, prop.layer_specs[0][0]
                                    - prop.pos_dim, device)
+    x0 = x0.to(prop.dtype)
     n = x0.shape[1]
     ops0, _ = prop.operands(params, 0, n, MAG_P)
     ops1, _ = prop.operands(params, 1, n, MAG_P)
@@ -624,14 +721,16 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
     with torch.no_grad():
         pre = gk.gat_layer_train_plain(x0, *tops0, ngp, nsib, MAG_P, h0,
                                        **tkw0)
-        away = pre.abs() > 1e-5
+        away = pre.float().abs() > 1e-5
         near_kink_share = 1.0 - float(away.double().mean())
         del pre
-    g0 = (torch.randn(x1t.shape, generator=gen).to(device) * 1e-3) * valid \
-        * away
+    # drawn on the card: a host draw of g0's 524 M elements takes seconds
+    dgen = torch.Generator(device=device).manual_seed(SEED)
+    g0 = ((torch.randn(x1t.shape, generator=dgen, device=device) * 1e-3)
+          * valid * away).to(x1t.dtype)
     del away
-    g1 = torch.randn((batch, 3, prop.out_dim), generator=gen).to(device) \
-        * 1e-2
+    g1 = torch.randn((batch, 3, prop.out_dim), generator=dgen,
+                     device=device) * 1e-2
     fwd, bwd = "taxoexpan_torch/ops/csrc/gat_fwd.cu", \
         "taxoexpan_torch/ops/csrc/gat_bwd.cu"
     cases = [
@@ -672,18 +771,22 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
                                         **tkw1)),
     ]
     records = []
-    for name, source, pooled, x, ops, pe_pack, heads, kernel, plain in cases:
-        backward = name.endswith("_bwd")
+    for wrapper, source, pooled, x, ops, pe_pack, heads, kernel, plain in \
+            cases:
+        name = wrapper + tag
+        backward = wrapper.endswith("_bwd")
         x2 = x.reshape(-1, x.shape[-1])
         fc = ops[0]
         if backward:
             d = torch.randn((x2.shape[0], fc.shape[1] + 2 * heads),
-                            device=device)
+                            device=device).to(x.dtype)
             matmul = lambda: x2.T @ d  # noqa: E731
             call = "torch.matmul(x.reshape(-1, Din).T, D [B*N, H*Dh+2H])"
         else:
             matmul = lambda: x2 @ fc  # noqa: E731
             call = "torch.matmul(x.reshape(-1, Din), fc)"
+        if bf16:
+            call += " in bf16"
         # every GAT form runs its products on the tensor cores
         got, nums = measure(name, kernel, plain, backward, matmul,
                             "gat_bwd" if backward else "gat_fwd")
@@ -697,25 +800,29 @@ def phase_kernels(batch: int, device, drop: float) -> list[dict]:
                                      got, ngp, nsib, heads)
         else:
             nbytes, flops = fwd_work(pooled, x, ops, pe_pack, ngp, nsib,
-                                     heads, got.numel())
-        rec = {"name": name, "wrapper": name, "path": "PGAT",
+                                     heads, got)
+        rec = {"name": name, "wrapper": wrapper, "path": path,
                "route": "cuda", "source": source,
-               "replaces": REPLACES[name], "batch": batch,
+               "replaces": REPLACES[wrapper], "batch": batch,
                "x_shape": list(x.shape), "fc_shape": list(fc.shape),
+               "dtype": str(x.dtype).replace("torch.", ""),
                "pe": pe_pack is not None,
                **({"near_kink_share": near_kink_share}
-                  if name == "gat_layer_bwd" else {}),
+                  if wrapper == "gat_layer_bwd" else {}),
                "dropout": drop if pe_pack is not None else 0.0, **nums,
                # no single PyTorch call computes the star-GAT layer or its
                # backward; one product alone is timed as a yardstick
                "library_ms": None, "matmul_call": call,
-               **_bound(nbytes, flops, True)}
+               **_bound(nbytes, flops, True, bf16)}
         emit("kernel", **rec)
         records.append(rec)
         del got
         torch.cuda.empty_cache()
     # K7a: the store forms of both train forwards, same seeds, and the
-    # stored backwards fed their weights
+    # stored backwards fed their weights (in bf16 at MTL's shapes only,
+    # phase_mtl_kernels: MTL-bf16 is the bf16 path that stores attention)
+    if bf16:
+        return records
     args = (ngp, nsib, MAG_P)
     records += store_entries("", "PGAT-stored", False, x0, tops0, pe0, h0,
                              g0, tkw0, 0.01, False, args)
@@ -728,19 +835,23 @@ def gat_record(name: str, wrapper: str, path: str, backward: bool, x, fc,
                pe_pack, nums: dict, work: tuple, replaces: str,
                **extra) -> dict:
     """Emit and return the record of one star-GAT kernel entry."""
+    import torch
+    bf16 = x.dtype == torch.bfloat16
     rec = {"name": name, "wrapper": wrapper, "path": path, "route": "cuda",
            "source": "taxoexpan_torch/ops/csrc/"
            + ("gat_bwd.cu" if backward else "gat_fwd.cu"),
            "replaces": replaces, "batch": x.shape[0],
            "x_shape": list(x.shape), "fc_shape": list(fc.shape),
+           "dtype": str(x.dtype).replace("torch.", ""),
            "pe": pe_pack is not None, **extra, **nums,
            # no single PyTorch call computes the star-GAT layer or its
            # backward; one product alone is timed as a yardstick
            "library_ms": None,
            "matmul_call": ("torch.matmul(x.reshape(-1, Din).T, "
                            "D [B*N, H*Dh+2H])" if backward else
-                           "torch.matmul(x.reshape(-1, Din), fc)"),
-           **_bound(*work, True)}
+                           "torch.matmul(x.reshape(-1, Din), fc)")
+           + (" in bf16" if bf16 else ""),
+           **_bound(*work, True, bf16)}
     emit("kernel", **rec)
     return rec
 
@@ -779,13 +890,13 @@ def store_entries(tag: str, path: str, pooled: bool, x, ops, pe_pack,
                                                heads, train_kw, store=True)
     records = [gat_record(
         name + tag, name, path, False, x, fc, pe_pack, nums,
-        fwd_work(pooled, x, ops, pe_pack, ngp, nsib, heads,
-                 out.numel() + attn.numel()),
+        fwd_work(pooled, x, ops, pe_pack, ngp, nsib, heads, out, attn),
         replaces or REPLACES[name], **common)]
     del out
 
     name = bwd_w.__name__
-    d = torch.randn((x2.shape[0], fc.shape[1] + 2 * heads), device=x.device)
+    d = torch.randn((x2.shape[0], fc.shape[1] + 2 * heads),
+                    device=x.device).to(x.dtype)
     grads, nums = measure(
         name + tag, lambda: bwd_w(g, *ops_all, attn, need_dbias=False, **bkw),
         lambda: gk.gat_layer_bwd_plain(g, *ops_all, pooled=pooled,
@@ -806,36 +917,40 @@ def store_entries(tag: str, path: str, pooled: bool, x, ops, pe_pack,
 
 def phase_mtl_kernels(batch: int, device, drop: float) -> list[dict]:
     """Both GAT layers of the SemEval-Verb MTL configuration at B egonets,
-    with the config's dropout and 8-bit thresholds in the train forms.
-    Layer 0 (300 + pe 100 -> 4 x 900, leaky_relu 0.01): K1 eval, the K1
-    train store form and the stored K2 (need_dx off). The per-slot final
-    layer (3600 + pe 100 -> 1 x 600, no activation), fed layer 0's eval
-    output: K1 eval, the K1 train store form and the stored K2 (need_dx
-    on)."""
+    with the config's dropout and 8-bit thresholds in the train forms, in
+    float32 (path MTL) and in bf16 (path MTL-bf16: the same params and
+    inputs, x, fc, wa1, wa2 in bf16). Layer 0 (300 + pe 100 -> 4 x 900,
+    leaky_relu 0.01): K1 eval, the K1 train store form and the stored K2
+    (need_dx off). The per-slot final layer (3600 + pe 100 -> 1 x 600, no
+    activation), fed layer 0's eval output in the same dtype: K1 eval, the
+    K1 train store form and the stored K2 (need_dx on)."""
     import torch
     from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.ops import star
     from taxoexpan_torch.weights import params_to
     _cfg, model = path_model("MTL")
     gen = torch.Generator().manual_seed(SEED + 1)
-    prop = model.propagate
     params = params_to(model.init(gen), device)["propagate"]
+    prop = model.propagate
     x0, ngp, nsib = random_egonets(gen, batch, prop.layer_specs[0][0]
                                    - prop.pos_dim, device)
     n = x0.shape[1]
     args = (ngp, nsib, MAG_P)
     h0, h1 = prop.layer_specs[0][2], prop.layer_specs[1][2]
-    ops0, _ = prop.operands(params, 0, n, MAG_P)
-    ops1, _ = prop.operands(params, 1, n, MAG_P)
-    tops0, pe0 = prop.operands(params, 0, n, MAG_P, pe_dropout=True)
-    tops1, pe1 = prop.operands(params, 1, n, MAG_P, pe_dropout=True)
-    tkw0 = dict(pe_pack=pe0, seed=30, feat_drop=drop, attn_drop=drop,
-                dropout_bits=8)
-    tkw1 = dict(pe_pack=pe1, seed=31, feat_drop=drop, attn_drop=drop,
-                dropout_bits=8)
+    tkw0 = dict(seed=30, feat_drop=drop, attn_drop=drop, dropout_bits=8)
+    tkw1 = dict(seed=31, feat_drop=drop, attn_drop=drop, dropout_bits=8)
     valid = star.node_mask(ngp, nsib, MAG_P, n)[..., None]
+    # the incoming grads, drawn once for both dtypes: layer 0's is zero on
+    # invalid slots and where the pre-activation lies within 1e-5 of
+    # leaky_relu's kink (as in phase_kernels); the readouts' grad reaches
+    # the valid slots of the per-slot final layer
+    dgen = torch.Generator(device=device).manual_seed(SEED + 1)
+    noise0 = torch.randn((batch, n, prop.layer_specs[1][0] - prop.pos_dim),
+                         generator=dgen, device=device) * 1e-3 * valid
+    noise1 = torch.randn((batch, n, prop.out_dim), generator=dgen,
+                         device=device) * 1e-2 * valid
 
-    def eval_entry(tag, x, ops, heads, out_alpha):
+    def eval_entry(tag, path, x, ops, heads, out_alpha):
         name = "gat_layer_fwd"
         x2 = x.reshape(-1, x.shape[-1])
         got, nums = measure(
@@ -845,38 +960,45 @@ def phase_mtl_kernels(batch: int, device, drop: float) -> list[dict]:
             lambda: gk.gat_layer_fwd_plain(x, *ops, *args, heads, out_alpha),
             False, lambda: x2 @ ops[0], "gat_fwd")
         return got, gat_record(
-            f"{name}{tag}", name, "MTL", False, x, ops[0], None, nums,
-            fwd_work(False, x, ops, None, ngp, nsib, heads, got.numel()),
+            f"{name}{tag}", name, path, False, x, ops[0], None, nums,
+            fwd_work(False, x, ops, None, ngp, nsib, heads, got),
             REPLACES[name], dropout=0.0)
 
-    # layer 0; its eval output is the final layer's input
-    x1, rec = eval_entry("[mtl layer 0]", x0, ops0, h0, 0.01)
-    records = [rec]
-    # the incoming grad as in phase_kernels: zero on invalid slots and
-    # where the pre-activation lies within 1e-5 of leaky_relu's kink
-    with torch.no_grad():
-        pre = gk.gat_layer_train_plain(x0, *tops0, *args, h0, **tkw0)
-        away = pre.abs() > 1e-5
-        del pre
-    g0 = (torch.randn(x1.shape, generator=gen).to(device) * 1e-3) * valid \
-        * away
-    del away
-    records += store_entries("[mtl layer 0, 8-bit]", "MTL", False, x0, tops0,
-                             pe0, h0, g0, tkw0, 0.01, False, args,
-                             replaces=K7B)
-    del x0, g0
-    torch.cuda.empty_cache()
+    records = []
+    for path in ("MTL", "MTL-bf16"):
+        p = prop if path == "MTL" else path_model(path)[1].propagate
+        bf = ", bf16" if path in BF16_PATHS else ""
+        xin = x0.to(p.dtype)
+        ops0, _ = p.operands(params, 0, n, MAG_P)
+        tops0, pe0 = p.operands(params, 0, n, MAG_P, pe_dropout=True)
+        # layer 0; its eval output is the final layer's input
+        x1, rec = eval_entry(f"[mtl layer 0{bf}]", path, xin, ops0, h0, 0.01)
+        records.append(rec)
+        with torch.no_grad():
+            pre = gk.gat_layer_train_plain(xin, *tops0, *args, h0,
+                                           pe_pack=pe0, **tkw0)
+            g0 = (noise0 * (pre.float().abs() > 1e-5)).to(p.dtype)
+            del pre
+        records += store_entries(f"[mtl layer 0, 8-bit{bf}]", path, False,
+                                 xin, tops0, pe0, h0, g0,
+                                 dict(tkw0, pe_pack=pe0), 0.01, False, args,
+                                 replaces=K7B)
+        del xin, g0
+        torch.cuda.empty_cache()
 
-    # the per-slot final layer; the readouts' grad reaches the valid slots
-    g1 = (torch.randn((batch, n, prop.out_dim), generator=gen).to(device)
-          * 1e-2) * valid
-    got, rec = eval_entry("[mtl final]", x1, ops1, h1, None)
-    records.append(rec)
-    del got
-    torch.cuda.empty_cache()
-    return records + store_entries("[mtl final, 8-bit]", "MTL", False, x1,
-                                   tops1, pe1, h1, g1, tkw1, None, True, args,
-                                   replaces=K7B)
+        # the per-slot final layer
+        ops1, _ = p.operands(params, 1, n, MAG_P)
+        tops1, pe1 = p.operands(params, 1, n, MAG_P, pe_dropout=True)
+        got, rec = eval_entry(f"[mtl final{bf}]", path, x1, ops1, h1, None)
+        records.append(rec)
+        del got
+        records += store_entries(f"[mtl final, 8-bit{bf}]", path, False, x1,
+                                 tops1, pe1, h1, noise1.to(p.dtype),
+                                 dict(tkw1, pe_pack=pe1), None, True, args,
+                                 replaces=K7B)
+        del x1
+        torch.cuda.empty_cache()
+    return records
 
 
 def phase_gcn_kernels(batch: int, device) -> list[dict]:
@@ -925,11 +1047,12 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
     # incoming grads live on the valid slots: layer 1's dx and the
     # readout's grad are zero elsewhere
     valid = star.node_mask(ngp, nsib, MAG_P, n)[..., None]
-    g0 = (torch.randn(x1t.shape, generator=gen).to(device) * 1e-3) * valid \
-        * away
+    dgen = torch.Generator(device=device).manual_seed(SEED)
+    g0 = (torch.randn(x1t.shape, generator=dgen, device=device) * 1e-3) \
+        * valid * away
     del away
-    g1 = (torch.randn(x1t.shape[:2] + (prop.out_dim,), generator=gen)
-          .to(device) * 1e-2) * valid
+    g1 = (torch.randn(x1t.shape[:2] + (prop.out_dim,), generator=dgen,
+                      device=device) * 1e-2) * valid
     args = (ngp, nsib, MAG_P)
     cases = [
         ("gcn_layer_fwd", "layer0", x0, ops0, None, a0,
@@ -1134,7 +1257,7 @@ def phase_serving(device, num_nodes: int, n_novel: int, seed: int,
              "-s", str(run / "predictions.tsv")]))
         torch.cuda.synchronize()
         t2 = time.time()
-        launches = {name: w.launches for name, w in wrappers.items()}
+        launches = path_launches(path, wrappers)
 
         # ---- checks
         for name, count in launches.items():
@@ -1174,23 +1297,69 @@ def phase_serving(device, num_nodes: int, n_novel: int, seed: int,
                                    torch.from_numpy(node_ids).long(),
                                    ngp_t, nsib_t)
         want = model.encode(params, feats, ngp_t, nsib_t)
+    bf16 = path in BF16_PATHS
+    # bf16: layer outputs may round to neighbouring bf16 values (one ulp,
+    # 2**-8 relative) on the card and the CPU; through the next layer's sum
+    # over 2000 or 3600 inputs that moves hg by far less than 2**-7 of its
+    # largest value
     hg_check = compare("hg (card vs CPU plain path, first 256 anchors)",
-                       hg[:256].cpu(), want)
+                       hg[:256].cpu(), want,
+                       **({"rtol": BF16_RTOL,
+                           "atol": BF16_RTOL * float(want.abs().max())}
+                          if bf16 else {}))
     if model.aux_heads and "aux" not in state["params"]:
         raise AssertionError("the MTL checkpoint has no aux params")
+    bf16_vs_f32 = None
+    if bf16:     # test_bf16.py's contract against the float32 model
+        bf16_vs_f32 = bf16_scores_vs_f32(cfg, params, sampler, hg[:256],
+                                         device)
     res = {"path": path, "nodes": taxonomy.num_nodes, "dim": in_dim,
            "candidates": len(ranker.candidates),
            "queries": len(sampler.node_list),
            "encode_chunk": ranker.encode_chunk, "metrics": metrics,
            "test_fast_s": t1 - t0, "infer_s": t2 - t1, "encode_s": encode_s,
            "launches": launches, "novel_queries": n_novel,
-           "predictions_head": preds[:2], "hg_vs_cpu": hg_check}
+           "predictions_head": preds[:2], "hg_vs_cpu": hg_check,
+           **({"scores_vs_float32": bf16_vs_f32} if bf16 else {})}
     emit("serving", **res)
     return res
 
 
+def bf16_scores_vs_f32(cfg: dict, params: dict, sampler, hg16, device,
+                       queries: int = 64) -> dict:
+    """The bf16 model's scores (graph embeddings hg16 of the first anchors,
+    against the first test queries) beside the float32 model's from the
+    same checkpoint on the card: within BF16_SCORE_REL of the float32
+    scores' mean |score| (tests/test_bf16.py's contract)."""
+    import numpy as np
+    import torch
+    from taxoexpan_torch import builders
+    from taxoexpan_torch.evaluation.ranker import TaxonomyRanker
+    args = {k: v for k, v in cfg["arch"]["args"].items()
+            if k != "compute_dtype"}
+    m32 = builders.build_model({"args": args}, max_parents=MAG_P,
+                               expand_factor=MAG_S)
+    ranker = TaxonomyRanker(m32, params, sampler, sampler.node_features,
+                            device=device)
+    hg32 = ranker.encode_all_anchors()[:hg16.shape[0]]
+    qf = torch.from_numpy(np.asarray(
+        sampler.node_features[np.asarray(sampler.node_list[:queries])],
+        dtype=np.float32)).to(device)
+    dev_params = ranker.params
+    with torch.no_grad():
+        s16 = m32.match_all(dev_params, hg16.to(device), qf)
+        s32 = m32.match_all(dev_params, hg32, qf)
+    scale = float(s32.abs().mean())
+    rel = float((s16 - s32).abs().max()) / scale
+    if not rel < BF16_SCORE_REL:
+        raise AssertionError(f"bf16 scores differ from the float32 model's "
+                             f"by {rel} of its mean |score|")
+    return {"max_abs_diff_over_mean_abs_f32": rel, "limit": BF16_SCORE_REL,
+            "anchors": int(hg16.shape[0]), "queries": int(qf.shape[0])}
+
+
 def compare_train_step(device, cfg: dict, taxonomy, params: dict,
-                       groups: int = 4) -> dict:
+                       groups: int = 4, bf16: bool = False) -> dict:
     """One train step (forward, loss, grads, AMSGrad update) on the card
     against the same step on the CPU plain path: same params, batch, step
     index (so the same dropout seeds and masks) and switches, full width.
@@ -1203,7 +1372,12 @@ def compare_train_step(device, cfg: dict, taxonomy, params: dict,
     1e-5 where its grad is at least max(1e-6, 1e-3 of the leaf's largest),
     and within 2 * lr elsewhere: AMSGrad's first step
     lr * g / (|g| + 1e-8) turns float32 rounding of a near-zero grad into
-    any step in [-lr, lr]."""
+    any step in [-lr, lr]. With `bf16` (a bf16 model): the loss to 1e-3
+    relative and each grad to 2**-6 of its leaf's largest value: the layers'
+    outputs and their weight grads are rounded to bf16 on both sides from
+    float32 values summed in another order, so elements may land one bf16
+    ulp (2**-8 relative) apart, and what follows them moves by about as
+    much."""
     import numpy as np
     import torch
     from taxoexpan_torch import builders
@@ -1234,7 +1408,8 @@ def compare_train_step(device, cfg: dict, taxonomy, params: dict,
                         [q.cpu() for q in tree_leaves(tr.params)]))
     (l_gpu, s_gpu, g_gpu, p_gpu), (l_cpu, s_cpu, g_cpu, p_cpu) = out
     lr = float(cfg["optimizer"]["args"]["lr"])
-    if not np.isfinite(l_gpu) or abs(l_gpu - l_cpu) > 1e-4 * abs(l_cpu):
+    loss_rtol, grad_rel = (1e-3, 2 ** -6) if bf16 else (1e-4, 1e-3)
+    if not np.isfinite(l_gpu) or abs(l_gpu - l_cpu) > loss_rtol * abs(l_cpu):
         raise AssertionError(f"train step loss: card {l_gpu}, CPU {l_cpu}")
     worst_g = worst_p = 0.0
     n_tiny = n_all = 0
@@ -1242,7 +1417,7 @@ def compare_train_step(device, cfg: dict, taxonomy, params: dict,
     for gg, gc, pg, pc in zip(g_gpu, g_cpu, p_gpu, p_cpu):
         scale = float(gc.abs().max())
         dg = float((gg - gc).abs().max())
-        if dg > 1e-3 * scale + 1e-6 * step_max:
+        if dg > grad_rel * scale + 1e-6 * step_max:
             raise AssertionError(f"train step grad differs by {dg} (leaf "
                                  f"max {scale}, step max {step_max})")
         worst_g = max(worst_g, dg / max(scale, 1e-6 * step_max))
@@ -1256,7 +1431,8 @@ def compare_train_step(device, cfg: dict, taxonomy, params: dict,
         n_tiny += int(tiny.sum())
         n_all += tiny.numel()
     return {"egonets": int(batch.labels.size), "loss_card": l_gpu,
-            "loss_cpu": l_cpu, "step_s_card_first": s_gpu,
+            "loss_cpu": l_cpu, "loss_rtol": loss_rtol,
+            "grad_tol_rel_to_leaf_max": grad_rel, "step_s_card_first": s_gpu,
             "step_s_cpu": s_cpu, "max_grad_err_rel_to_leaf_max": worst_g,
             "largest_grad": step_max,
             "max_param_err_well_conditioned": worst_p,
@@ -1301,7 +1477,7 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
             log = train_cli.main(config)
         torch.cuda.synchronize()
         train_s = time.time() - t0
-        launches = {name: w.launches for name, w in wrappers.items()}
+        launches = path_launches(path, wrappers)
 
         # ---- checks
         for name in required:
@@ -1337,7 +1513,8 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
     median_ms = float(np.median(step_ms)) if step_ms else float("nan")
     with switches(env):
         step_vs_cpu = compare_train_step(device, cfg, taxonomy, trained,
-                                         2 if model.aux_heads else 4)
+                                         2 if model.aux_heads else 4,
+                                         bf16=path in BF16_PATHS)
     res = {"path": path, "switches": env, "card": nvidia_smi_line(),
            "nodes": taxonomy.num_nodes,
            "dim": in_dim, "epochs": epochs,
@@ -1568,6 +1745,8 @@ def reset_counters() -> None:
     for wrapper in (*gk.WRAPPERS.values(), *ck.WRAPPERS.values(),
                     *hk.WRAPPERS.values()):
         wrapper.launches = 0
+    for wrapper in gk.WRAPPERS.values():
+        wrapper.launches_bf16 = 0
 
 
 def run_paths(device) -> list[dict]:
@@ -1575,6 +1754,8 @@ def run_paths(device) -> list[dict]:
     kernels line."""
     cfg, _ = path_model("PGAT")
     records = phase_kernels(BATCH, device, cfg["arch"]["args"]["feat_drop"])
+    records += phase_kernels(BATCH, device, cfg["arch"]["args"]["feat_drop"],
+                             "PGAT-bf16")
     records += phase_gcn_kernels(BATCH, device)
     mtl_cfg, _ = path_model("MTL")
     records += phase_mtl_kernels(BATCH, device,
@@ -1587,6 +1768,10 @@ def run_paths(device) -> list[dict]:
                 for path, epochs in TRAINING_PATHS.items()}
     training["PGAT-dp"] = phase_dp_training(
         device, TRAIN_NODES, SEED, training["PGAT"]["median_step_ms"])
+    # the bf16 paths' median train step beside their float32 paths'
+    emit("bf16_steps", card=nvidia_smi_line(), median_step_ms={
+        path: training[path]["median_step_ms"]
+        for path in ("PGAT", "PGAT-bf16", "MTL", "MTL-bf16")})
     kernels = []
     for rec in records:
         # eval forms: the serving path's launches; train forms and the

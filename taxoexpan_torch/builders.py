@@ -3,8 +3,9 @@
 semantics, so a JAX run's `config.json` drives the port.
 
 Settings the port does not have yet raise instead of being ignored
-(bf16, pos_mode="concat"); the JAX kernel choice (`kernel`) is not read:
-the port runs its kernels on CUDA and their plain versions on the CPU.
+(pos_mode="concat"); the JAX kernel choice (`kernel`) is not read: the
+port runs its kernels on CUDA and their plain versions on the CPU, and its
+bf16 layers follow the JAX package's Pallas path.
 """
 from __future__ import annotations
 
@@ -39,10 +40,9 @@ def build_model(arch_cfg: dict, *, max_parents: int,
                 expand_factor: int) -> TaxoExpan:
     """From the `arch.args` config block."""
     a = arch_cfg["args"] if "args" in arch_cfg else arch_cfg
-    for key, ported in (("compute_dtype", "float32"), ("pos_mode", "bias")):
-        if a.get(key, ported) != ported:
-            raise ValueError(f"{key}={a[key]!r} is not ported yet; the "
-                             f"port runs {key}={ported!r}")
+    if a.get("pos_mode", "bias") != "bias":
+        raise ValueError(f"pos_mode={a['pos_mode']!r} is not ported yet; "
+                         "the port runs pos_mode='bias'")
     return TaxoExpan(
         a.get("propagation_method", "PGAT"),
         a.get("readout_method", "WMR"),
@@ -61,7 +61,8 @@ def build_model(arch_cfg: dict, *, max_parents: int,
         expand_factor=expand_factor,
         attention_dim=a.get("attention_dim", 100),
         aux_heads=a.get("aux_heads"),
-        raw_channel=a.get("raw_channel", False))
+        raw_channel=a.get("raw_channel", False),
+        compute_dtype=a.get("compute_dtype", "float32"))
 
 
 def build_loader(sampler: MaskedGraphSampler, loader_cfg: dict,

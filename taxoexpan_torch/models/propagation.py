@@ -30,6 +30,18 @@ parallelism each layer's seed has the stack's `rank` folded in
 (`fold_rank`). The grads of the pos_emb rows, the weights' tail rows and
 attn_l / attn_r flow through the slicing and the einsum fold outside the
 kernels, by autograd.
+
+Compute dtype (GAT only; `GAT(dtype=torch.bfloat16)`, the JAX package's
+compute_dtype "bfloat16" with its Pallas kernels, propagation.py:239-305):
+each layer's input is rounded to bf16, and so are fc and the folded
+wa1 / wa2, computed in float32 from the float32 params and then cast; the
+slot biases and the pe path's rows stay float32. The kernels then take the
+bf16 forms (ops/gat_kernels.py): the hidden layers' outputs come out in
+bf16, the pools in float32, and the per-slot final layer's head mean is
+taken in bf16 and cast to float32 (propagation.py:573). The params and
+their grads stay float32: the casts sit outside the kernels' autograd
+Function, so autograd turns the bf16 grads of fc, wa1 and wa2 back into
+float32 ones. GCN has no compute dtype (taxoexpan.py:78 passes none).
 """
 from __future__ import annotations
 
@@ -96,9 +108,11 @@ def init_gat_layer(gen: torch.Generator, in_dim: int, out_dim: int,
 
 
 def layer_operands(lp: dict, pe: torch.Tensor | None, num_heads: int,
-                   din_h: int, n: int, pe_dropout: bool = False):
+                   din_h: int, n: int, pe_dropout: bool = False,
+                   dtype: torch.dtype = torch.float32):
     """Kernel operands of one layer: ((fc_h, wa1, wa2, bias_ft, bias_a1,
-    bias_a2), pe_pack), all contiguous float32.
+    bias_a2), pe_pack), all contiguous; fc_h, wa1 and wa2 in `dtype`
+    (computed in float32, then cast), the rest float32.
 
     wa = einsum("ihd,hd->ih", fc, attn) folds the attention dot products
     into [in, H] so a1/a2 come from the same x as ft; with a position
@@ -125,17 +139,19 @@ def layer_operands(lp: dict, pe: torch.Tensor | None, num_heads: int,
         bias_a1 = zeros((n, num_heads))
         bias_a2 = zeros((n, num_heads))
     return tuple(t.contiguous() for t in (
-        fc_full[:din_h], wa1_full[:din_h], wa2_full[:din_h], bias_ft,
-        bias_a1, bias_a2)), pe_pack
+        fc_full[:din_h].to(dtype), wa1_full[:din_h].to(dtype),
+        wa2_full[:din_h].to(dtype), bias_ft, bias_a1, bias_a2)), pe_pack
 
 
 class GAT:
-    """GAT stack; PGAT when pos_dim > 0 (the paper's main model)."""
+    """GAT stack; PGAT when pos_dim > 0 (the paper's main model). `dtype`:
+    the compute dtype of its layers, float32 or bfloat16."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  num_layers: int, heads, pos_dim: int = 0,
                  position_vocab_size: int = 3, feat_drop: float = 0.0,
-                 attn_drop: float = 0.0):
+                 attn_drop: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         if len(heads) != num_layers + 1:
             raise ValueError(
                 f"heads must have num_layers+1 entries, got {heads} for "
@@ -147,6 +163,7 @@ class GAT:
         self.out_dim = out_dim
         self.feat_drop = feat_drop
         self.attn_drop = attn_drop
+        self.dtype = dtype
         # this process's data-parallel rank, folded into the dropout seeds
         # (set by the trainer)
         self.rank = 0
@@ -176,7 +193,7 @@ class GAT:
             pe = slot_embeddings(params["pos_emb"][l]["emb"], p_slots, n)
         return layer_operands(params["layers"][l], pe, self.layer_specs[l][2],
                               fc.shape[0] - self.pos_dim, n,
-                              pe_dropout=pe_dropout)
+                              pe_dropout=pe_dropout, dtype=self.dtype)
 
     def apply(self, params: dict, h: torch.Tensor, ngp: torch.Tensor,
               nsib: torch.Tensor, p_slots: int, *,
@@ -186,13 +203,15 @@ class GAT:
         [B, 3, out_dim] (grandparents, anchor, siblings; head-averaged) or,
         with pool_readout=False, the per-slot activation [B, N, out_dim]
         (the mean over heads of the final layer, which has no activation;
-        invalid slots keep their formula value, the readouts mask them).
-        train=True turns dropout on, one seed per layer from `gen`."""
+        invalid slots keep their formula value, the readouts mask them),
+        both float32. train=True turns dropout on, one seed per layer from
+        `gen`."""
         b, n = h.shape[:2]
         feat_drop = self.feat_drop if train else 0.0
         attn_drop = self.attn_drop if train else 0.0
         differentiable = train or torch.is_grad_enabled()
         last = self.num_layers
+        h = h.to(self.dtype)
         for l in range(last + 1):
             heads = self.layer_specs[l][2]
             ops, pe_pack = self.operands(params, l, n, p_slots,
@@ -219,7 +238,8 @@ class GAT:
                               out_alpha=out_alpha, **kw)
         if pool_readout:
             return h
-        return h.reshape(b, n, self.layer_specs[last][2], -1).mean(dim=2)
+        return h.reshape(b, n, self.layer_specs[last][2],
+                         -1).mean(dim=2).float()
 
 
 # ----------------------------------------------------------------- GCN

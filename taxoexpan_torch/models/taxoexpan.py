@@ -4,13 +4,15 @@
 The model object holds static configuration; parameters are a plain dict
 tree with the JAX package's keys and layouts (see weights.py). Ported so
 far: every propagation method (GCN, PGCN, GAT, PGAT) with pos_mode="bias"
-in float32, eval and train (dropout) forms, every readout (MR, WMR, CR,
+in float32, GAT and PGAT also in bf16 (compute_dtype "bfloat16"; GCN and
+PGCN ignore it, as the JAX package's TaxoExpan passes no dtype to GCN,
+taxoexpan.py:78), eval and train (dropout) forms, every readout (MR, WMR, CR,
 SUM, MAX, PATR), every matcher, the raw-feature channel and its
 structure-prior init, the training forward (`forward`: GroupBatch -> scores
 [G, C]; `forward_with_feats` from features the caller gathered, the
 partitioned feature table's path) and the auxiliary MTL heads
 (`aux_heads`, `forward_heads[_with_feats]`).
-pos_mode="concat", residual GAT layers and bf16 wait for later work
+pos_mode="concat" and residual GAT layers wait for later work
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -23,6 +25,7 @@ from .propagation import GAT, GCN
 from .readout import POOLED_KINDS, Readout
 
 PROPAGATION_KINDS = ("GCN", "PGCN", "GAT", "PGAT")
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class TaxoExpan:
@@ -45,11 +48,16 @@ class TaxoExpan:
                  expand_factor: int = 50,
                  attention_dim: int = 100,
                  aux_heads: list | None = None,
-                 raw_channel: bool = False):
+                 raw_channel: bool = False,
+                 compute_dtype: str = "float32"):
         if propagation_method not in PROPAGATION_KINDS:
             raise ValueError(
                 f"Unacceptable or not yet ported propagation method "
                 f"{propagation_method!r}; the port has {PROPAGATION_KINDS}")
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                             f"got {compute_dtype!r}")
+        self.compute_dtype = COMPUTE_DTYPES[compute_dtype]
         self.propagation_method = propagation_method
         self.readout_method = readout_method
         self.matching_method = matching_method
@@ -69,7 +77,8 @@ class TaxoExpan:
                 raise ValueError("GAT/PGAT require a heads list")
             self.propagate = GAT(in_dim, hidden_dim, out_dim, num_layers,
                                  heads, pos_dim=pos_dim_eff,
-                                 feat_drop=feat_drop, attn_drop=attn_drop)
+                                 feat_drop=feat_drop, attn_drop=attn_drop,
+                                 dtype=self.compute_dtype)
         self.readout = Readout(readout_method, out_dim,
                                attention_dim=attention_dim)
         # optional raw-feature channel: the unit-normalised anchor+sibling

@@ -8,23 +8,31 @@
 //                          layer has masks or a pe path or x's rows are not
 //                          16-byte multiples; else the products read x;
 //   pack_weights_kernel    W^T over the input columns the dx product needs;
-//   dW = X^T @ D           the 3xTF32 tensor-core product of gemm_tf32.cuh,
-//                          A read M-major, split-K over the rows, partial
-//                          sums per split in a workspace;
+//   dW = X^T @ D           the tensor-core product (gemm_tf32.cuh's 3xTF32,
+//                          or in a bf16 layer gemm_bf16.cuh's bf16 on D
+//                          cast to bf16 once), A read M-major, split-K over
+//                          the rows, float32 partial sums per split in a
+//                          workspace;
 //   reduce_scatter_kernel  adds the splits in a fixed order and scatters
-//                          the rows and column blocks into the weight grads;
+//                          the rows and column blocks into the weight grads
+//                          (the x rows' in the layer's element type, so
+//                          rounded to bf16 in a bf16 layer, pallas_gat.py:
+//                          1097; the pe rows' float32);
 //   dX = (D @ W^T) * mask  the same product, A = D read K-major, its
 //                          epilogue masking and scattering the columns into
 //                          dx (the x columns) and the pe rows (the pe
 //                          columns);
 //   colsum_partial_kernel  chunked sums over egonets (slot grads, dpe),
 //                          reduced again by reduce_scatter_kernel.
-// Deterministic: no atomics. The kernels live in namespace gat, not in an
-// unnamed namespace: nvcc's registration stub cannot name an unnamed
-// namespace nested in a named one beside the including file's own.
+// Deterministic: no atomics. The functions are templated on the layer's
+// element type E (float, or bf16: x, W_h, the staged X, the packed W and
+// dx in bf16; P, D, the slot and pe grads float32). The kernels live in
+// namespace gat, not in an unnamed namespace: nvcc's registration stub
+// cannot name an unnamed namespace nested in a named one beside the
+// including file's own.
 #pragma once
 
-#include "gemm_tf32.cuh"
+#include "gemm_bf16.cuh"
 
 namespace gat {
 
@@ -43,14 +51,15 @@ __global__ void colsum_partial_kernel(const float* __restrict__ src,
 }
 
 // Adds nsplit partial [rows, cols] matrices in split order and scatters the
-// result into up to six outputs: row blocks [0, row_split) and
-// [row_split, rows), column blocks [0, c1), [c1, c2), [c2, c3); columns
-// from c3 on (padding) are dropped.
+// result into up to six outputs: row blocks [0, row_split) (o0-o2, of
+// element type O) and [row_split, rows) (o3-o5, float), column blocks
+// [0, c1), [c1, c2), [c2, c3); columns from c3 on (padding) are dropped.
+template <class O>
 __global__ void reduce_scatter_kernel(const float* __restrict__ part,
                                       int nsplit, long long rows, int cols,
                                       int row_split, int c1, int c2, int c3,
-                                      float* o0, float* o1, float* o2,
-                                      float* o3, float* o4, float* o5) {
+                                      O* o0, O* o1, O* o2, float* o3,
+                                      float* o4, float* o5) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long total = rows * cols;
   if (i >= total) return;
@@ -61,7 +70,6 @@ __global__ void reduce_scatter_kernel(const float* __restrict__ part,
   for (int s = 0; s < nsplit; ++s) sum += part[(size_t)s * total + i];
   const bool lower = r >= row_split;
   const long long rr = lower ? r - row_split : r;
-  float* outs[6] = {o0, o1, o2, o3, o4, o5};
   int blk, cc, width;
   if (c < c1) {
     blk = 0, cc = c, width = c1;
@@ -70,8 +78,13 @@ __global__ void reduce_scatter_kernel(const float* __restrict__ part,
   } else {
     blk = 2, cc = c - c2, width = c3 - c2;
   }
-  float* o = outs[blk + (lower ? 3 : 0)];
-  if (o != nullptr) o[rr * width + cc] = sum;
+  if (lower) {
+    float* outs[3] = {o3, o4, o5};
+    if (outs[blk] != nullptr) outs[blk][rr * width + cc] = sum;
+  } else {
+    O* outs[3] = {o0, o1, o2};
+    if (outs[blk] != nullptr) outs[blk][rr * width + cc] = from_float<O>(sum);
+  }
 }
 
 inline unsigned blocks_for(long long count) {
@@ -89,7 +102,7 @@ inline cudaError_t sum_over_egonets(const float* src, long long nb,
   const long long chunk_b = (nb + chunks - 1) / chunks;
   colsum_partial_kernel<<<dim3(blocks_for(rw), chunks), kThreads, 0, st>>>(
       src, nb, rw, chunk_b, part);
-  reduce_scatter_kernel<<<blocks_for(rw), kThreads, 0, st>>>(
+  reduce_scatter_kernel<float><<<blocks_for(rw), kThreads, 0, st>>>(
       part, chunks, rows, cols, (int)rows, width, width, width, out, nullptr,
       nullptr, nullptr, nullptr, nullptr);
   return cudaGetLastError();
@@ -130,29 +143,32 @@ inline int pass_ms(PassMarks& mk, float* out) {
 }
 
 // Scratch of the product passes, allocated by the caller.
-struct ProductWork {
-  float* xm;      // [m, kxp] the staged layer input, or null (read x)
-  float* wt;      // [wdp, ntp] W^T over the input columns [kbeg, din + pos)
+template <class E>
+struct ProductWorkT {
+  E* xm;          // [m, kxp] the staged layer input, or null (read x)
+  E* wt;          // [wdp, ntp] W^T over the input columns [kbeg, din + pos)
   float* part_w;  // [splits, din + pos, wd]
   int kxp, wdp, ntp, splits;
 };
+using ProductWork = ProductWorkT<float>;
 
 // X staged (when work.xm is set) and the weights packed: W^T over the
 // input columns [kbeg, din + pos) for the dx product into work.wt (kbeg =
 // din when dx is not needed: the pe columns alone), and, given wcat_out, W
 // [kxp, wdp] for the projection.
-inline cudaError_t stage_and_pack(const Operand& op, const TrainArgs& ta,
-                                  long long m, const ProductWork& work,
-                                  int kbeg, float* wcat_out,
-                                  cudaStream_t st) {
+template <class E>
+inline cudaError_t stage_and_pack(const OperandT<E>& op, const TrainArgs& ta,
+                                  long long m, const ProductWorkT<E>& work,
+                                  int kbeg, E* wcat_out, cudaStream_t st) {
   if (work.xm != nullptr)  // 8 rows a block of 256 threads
-    stage_input_kernel<<<grid_for(m * 32), 256, 0, st>>>(op, ta, work.xm, m,
-                                                         work.kxp);
+    stage_input_kernel<E><<<grid_for(m * 32), 256, 0, st>>>(op, ta, work.xm,
+                                                            m, work.kxp);
   if (wcat_out == nullptr && work.ntp == 0) return cudaGetLastError();
   int krows = kbeg + work.ntp;
   if (wcat_out != nullptr && work.kxp > krows) krows = work.kxp;
-  pack_weights_kernel<<<grid_for((long long)krows * work.wdp), 256, 0, st>>>(
-      op, ta, wcat_out, work.kxp, work.wdp, work.wt, kbeg, work.ntp);
+  pack_weights_kernel<E>
+      <<<grid_for((long long)krows * work.wdp), 256, 0, st>>>(
+          op, ta, wcat_out, work.kxp, work.wdp, work.wt, kbeg, work.ntp);
   return cudaGetLastError();
 }
 
@@ -161,9 +177,11 @@ inline cudaError_t stage_and_pack(const Operand& op, const TrainArgs& ta,
 // stage_and_pack; X is x itself when xm is null): star-GAT W = [fc | wa1 |
 // wa2; wp | wpa1 | wpa2] with bias_ft, bias_a1, bias_a2, the product the
 // GAT star passes and K2's head core read; star-GCN (gcn.cu) W = [W_h;
-// W_p] with z_bias alone (bias_a1, bias_a2 null), z.
-inline cudaError_t gat_projection(const Operand& op, const float* xm,
-                                  int kxp, const float* wcat, int wdp,
+// W_p] with z_bias alone (bias_a1, bias_a2 null), z. P is float32 in
+// either element type (pallas_gat.py:289-291).
+template <class E>
+inline cudaError_t gat_projection(const OperandT<E>& op, const E* xm,
+                                  int kxp, const E* wcat, int wdp,
                                   const float* bias_ft, const float* bias_a1,
                                   const float* bias_a2, float* biascat,
                                   float* proj, long long m, cudaStream_t st) {
@@ -171,7 +189,7 @@ inline cudaError_t gat_projection(const Operand& op, const float* xm,
       bias_ft, bias_a1, bias_a2, op.n, op.c1, op.c2, op.wd, wdp, biascat);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  GemmArgs g = {};
+  GemmArgsT<E> g = {};
   g.a = xm != nullptr ? xm : op.x;
   g.lda = xm != nullptr ? kxp : op.din;
   g.b = wcat;
@@ -184,27 +202,28 @@ inline cudaError_t gat_projection(const Operand& op, const float* xm,
   g.k_chunk = g.lda;
   g.bias = biascat;
   g.bias_rows = op.n;
-  return gemm_tf32x3<true, kEpiRowBias>(g, TrainArgs{}, 1, st);
+  return product<true, kEpiRowBias>(g, TrainArgs{}, 1, st);
 }
 
-// The passes after the layer's own first one, from D [m, ldd] (X staged
-// and W^T packed by stage_and_pack):
+// The passes after the layer's own first one, from D [m, ldd] in the
+// layer's element type (X staged and W^T packed by stage_and_pack):
 //  - dW = X^T @ D split-K into work.part_w, reduced into dw[i] (x rows) and
 //    dwp[i] (pe rows), column block i;
 //  - dx (need_dx) and the pe rows' grads pe_rows [m, pos] = (D @ W^T) *
 //    mask, then dpe [n, pos] = their sum over egonets via part_pe
 //    [chunks, n * pos].
-inline cudaError_t product_grads(const Operand& op, const TrainArgs& ta,
-                                 const float* d, int ldd, long long m,
-                                 const ProductWork& work, int chunks,
-                                 float* const dw[3], float* const dwp[3],
-                                 int need_dx, float* dx, float* pe_rows,
+template <class E>
+inline cudaError_t product_grads(const OperandT<E>& op, const TrainArgs& ta,
+                                 const E* d, int ldd, long long m,
+                                 const ProductWorkT<E>& work, int chunks,
+                                 E* const dw[3], float* const dwp[3],
+                                 int need_dx, E* dx, float* pe_rows,
                                  float* part_pe, float* dpe, PassMarks& mk,
                                  cudaStream_t st) {
   cudaError_t err;
   const int kx = op.din + ta.pos;
   const bool staged = work.xm != nullptr;
-  GemmArgs g = {};
+  GemmArgsT<E> g = {};
   g.a = staged ? work.xm : op.x;
   g.lda = staged ? work.kxp : op.din;
   g.b = d;
@@ -215,20 +234,20 @@ inline cudaError_t product_grads(const Operand& op, const TrainArgs& ta,
   g.m = kx;
   g.n = op.wd;
   g.k = m;
-  constexpr int bk = GemmTileDefault::BK;
+  constexpr int bk = GemmTile<E, 4>::BK;
   g.k_chunk = ((m + work.splits - 1) / work.splits + bk - 1) / bk * bk;
-  err = gemm_tf32x3<false, kEpiStore>(g, ta, work.splits, st);
+  err = product<false, kEpiStore>(g, ta, work.splits, st);
   if (err != cudaSuccess) return err;
-  reduce_scatter_kernel<<<blocks_for((long long)kx * op.wd), kThreads, 0,
-                          st>>>(work.part_w, work.splits, kx, op.wd, op.din,
-                                op.c1, op.c2, op.wd, dw[0], dw[1], dw[2],
-                                dwp[0], dwp[1], dwp[2]);
+  reduce_scatter_kernel<E><<<blocks_for((long long)kx * op.wd), kThreads, 0,
+                             st>>>(work.part_w, work.splits, kx, op.wd,
+                                   op.din, op.c1, op.c2, op.wd, dw[0], dw[1],
+                                   dw[2], dwp[0], dwp[1], dwp[2]);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   mark(mk, st);
 
   const int kbeg = need_dx ? 0 : op.din;  // else the pe columns alone
   if (kx > kbeg) {
-    GemmArgs x = {};
+    GemmArgsT<E> x = {};
     x.a = d;
     x.lda = ldd;
     x.b = work.wt;
@@ -241,9 +260,9 @@ inline cudaError_t product_grads(const Operand& op, const TrainArgs& ta,
     x.pe_rows = pe_rows;
     x.din = op.din;
     x.kbeg = kbeg;
-    err = x.n <= GemmTileNarrow::BN
-              ? gemm_tf32x3<true, kEpiDx, GemmTileNarrow>(x, ta, 1, st)
-              : gemm_tf32x3<true, kEpiDx>(x, ta, 1, st);
+    err = x.n <= kNarrowBN
+              ? product<true, kEpiDx, true>(x, ta, 1, st)
+              : product<true, kEpiDx>(x, ta, 1, st);
     if (err != cudaSuccess) return err;
   }
   if (ta.pos > 0) {

@@ -1,4 +1,5 @@
-// Star-GAT layer backward kernels for Hopper (sm_90a), float32.
+// Star-GAT layer backward kernels for Hopper (sm_90a), for float32 layers
+// (gat_layer_bwd_f32) and bf16 layers (gat_layer_bwd_bf16).
 //
 // Replace the backward Pallas kernels of taxoexpan_tpu/ops/pallas_gat.py:
 //   gat_layer_bwd (K2)        <- fused_gat_layer's VJP (_fused_bwd,
@@ -58,32 +59,48 @@
 // 3xTF32 (gemm_tf32.cuh), one product a layer instead of one per (egonet,
 // head, column tile); the head core reads P and writes Dcat, a pass bound
 // by bytes, at three blocks an SM for both.
+//
+// The bf16 form (pallas_gat.py with x in bf16): x, fc, wa1, wa2, K2's
+// incoming grad g and dx in bf16. Pass 0 stages X and packs W in bf16 and
+// runs the forward's bf16 projection on them, so P, leaky' and the softmax
+// have the forward's bits; the head core is unchanged (float32, g read as
+// float); after the slot-bias sums (float32, over Dcat) Dcat is cast to
+// bf16 once (pallas_gat.py:628-631) for the dW and dx products, bf16
+// tensor-core MMAs with float32 accumulation (gemm_bf16.cuh); split-K dW
+// partials float32 with the fixed-order reduce, then dfc, dwa1, dwa2
+// rounded to bf16 (:1097, :1289), the pe rows' grads float32; dx times its
+// float32 mask, rounded to bf16 (:647-651).
 
 #include "bwd_common.cuh"
 
-// Mirrored field by field by gat_kernels._BwdArgs.
-struct BwdArgs {
-  const float* x;        // [b, n, din]
-  const float* fc;       // [din, heads*dh]
-  const float* wa1;      // [din, heads]
-  const float* wa2;
+using gat::bf16;
+
+// Mirrored field by field by gat_kernels._BwdArgs. E: the layer's element
+// type.
+template <class E>
+struct BwdArgsT {
+  const E* x;            // [b, n, din]
+  const E* fc;           // [din, heads*dh]
+  const E* wa1;          // [din, heads]
+  const E* wa2;
   const float* bias_ft;  // [n, heads*dh]
   const float* bias_a1;  // [n, heads]
   const float* bias_a2;
   const int* ngp;        // [b]
   const int* nsib;
-  const float* g;        // K2 [b, n, heads*dh]; K4 [b, 3, dh]
+  const void* g;         // K2 [b, n, heads*dh] (E); K4 [b, 3, dh] (float)
   const float* attn;     // stored softmax [b, heads, 2n - p - 1], or null
-  float* dcat;           // workspace [b*n, wdp], wdp = round4(heads*dh +
-                         // 2*heads): the projection P, then Dcat over it
+  float* dcat;           // workspace [b*n, wdp], wdp = heads*dh + 2*heads
+                         // rounded up to a 16-byte multiple of E: the
+                         // projection P, then Dcat over it
   float* part_w;         // workspace [splits, din+pos, wd]
   float* part_b;         // workspace [chunks, n, wdp] (need_dbias)
   float* pe_rows;        // workspace [b*n, pos] (pos > 0)
   float* part_pe;        // workspace [chunks, n, pos] (pos > 0)
-  float* dx;             // [b, n, din] (need_dx)
-  float* dfc;            // [din, heads*dh]
-  float* dwa1;           // [din, heads]
-  float* dwa2;
+  E* dx;                 // [b, n, din] (need_dx)
+  E* dfc;                // [din, heads*dh]
+  E* dwa1;               // [din, heads]
+  E* dwa2;
   float* dbias_ft;       // [n, heads*dh] (need_dbias)
   float* dbias_a1;       // [n, heads]
   float* dbias_a2;
@@ -91,13 +108,14 @@ struct BwdArgs {
   float* dwp;            // [pos, heads*dh]
   float* dwpa1;          // [pos, heads]
   float* dwpa2;
-  float* xm;             // workspace [b*n, kxp]: X staged, or null (read x)
-  float* wcat;           // workspace [kxp, wdp]: W for the projection
-  float* wt;             // workspace [wdp, ntp]: W^T for the dx product
+  E* xm;                 // workspace [b*n, kxp]: X staged, or null (read x)
+  E* wcat;               // workspace [kxp, wdp]: W for the projection
+  E* wt;                 // workspace [wdp, ntp]: W^T for the dx product
   float* biascat;        // workspace [n, wdp]: the slot biases
+  E* dcat16;             // workspace [b*n, wdp]: Dcat in bf16 (bf16 only)
   int b, n, din, heads, dh, p;
   int pooled, need_dx, need_dbias, has_out_alpha, splits, chunks;
-  int kxp, wdp, ntp;     // widths of the workspaces (multiples of 4)
+  int kxp, wdp, ntp;     // widths of the workspaces (16-byte multiples)
   float alpha, out_alpha;
 };
 
@@ -144,10 +162,11 @@ __device__ __forceinline__ Smem carve_head(float* base, int n) {
   return s;
 }
 
-// K2 (kPooled = false) and K4 differ only in the incoming grad tile.
-template <bool kPooled>
+// K2 (kPooled = false) and K4 differ only in the incoming grad tile (K2's
+// in the layer's element type E, K4's pool grads float).
+template <bool kPooled, class E>
 __global__ void __launch_bounds__(kThreads, 3)
-gat_bwd_head_kernel(BwdArgs a, TrainArgs ta) {
+gat_bwd_head_kernel(BwdArgsT<E> a, TrainArgs ta) {
   extern __shared__ float4 smem4[];
   const int n = a.n, p = a.p, heads = a.heads, dh = a.dh;
   const Smem s = carve_head(reinterpret_cast<float*>(smem4), n);
@@ -160,6 +179,8 @@ gat_bwd_head_kernel(BwdArgs a, TrainArgs ta) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float inv_h = 1.f / heads;
   float* drow = a.dcat + (size_t)b * n * ldd;
+  const float* gpool = static_cast<const float*>(a.g);
+  const E* gslot = static_cast<const E*>(a.g);
 
   for (int r = tid; r < n; r += kThreads) {  // a1 / a2 of the head from P
     s.d_self[r] = s.d_anchor[r] = s.d_to_anchor[r] = 0.f;
@@ -182,9 +203,10 @@ gat_bwd_head_kernel(BwdArgs a, TrainArgs ta) {
       if (kPooled) {
         const bool valid = r < p ? r < ngp : (r == p || r - p - 1 < nsib);
         const int cls = r < p ? 0 : (r == p ? 1 : 2);
-        if (in && valid) gv = a.g[((size_t)b * 3 + cls) * dh + c0 + c] * inv_h;
+        if (in && valid)
+          gv = gpool[((size_t)b * 3 + cls) * dh + c0 + c] * inv_h;
       } else if (in) {
-        gv = a.g[((size_t)b * n + r) * hd + col0 + c];
+        gv = to_float(gslot[((size_t)b * n + r) * hd + col0 + c]);
       }
       s.g[e] = gv;
     }
@@ -320,29 +342,20 @@ gat_bwd_head_kernel(BwdArgs a, TrainArgs ta) {
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* gat_bwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// The backward of one star-GAT layer (K2, or K4 with a->pooled): all
-// passes launched in order on `stream`. Outputs and workspaces are
-// allocated by the caller (ops/gat_kernels.py). Returns the first CUDA
-// error of a launch, or 0.
-int gat_layer_bwd_f32(const BwdArgs* ap, const TrainArgs* tap, void* stream) {
-  const BwdArgs a = *ap;
-  const TrainArgs ta = *tap;
-  cudaStream_t st = (cudaStream_t)stream;
+// All passes of the backward (K2, or K4 with a.pooled) in order on st.
+template <class E>
+cudaError_t launch_bwd(const BwdArgsT<E>& a, const TrainArgs& ta,
+                       cudaStream_t st) {
   const long long m = (long long)a.b * a.n;
   if (m == 0) return cudaSuccess;
   const int hd = a.heads * a.dh, wd = hd + 2 * a.heads;
-  const Operand op = {a.x, {a.fc, a.wa1, a.wa2}, {ta.wp, ta.wpa1, ta.wpa2},
-                      a.n, a.din, hd, hd + a.heads, wd};
-  const ProductWork work = {a.xm, a.wt, a.part_w, a.kxp, a.wdp, a.ntp,
-                            a.splits};
+  const OperandT<E> op = {a.x,   {a.fc, a.wa1, a.wa2},
+                          {ta.wp, ta.wpa1, ta.wpa2},
+                          a.n,   a.din,
+                          hd,    hd + a.heads,
+                          wd};
+  const ProductWorkT<E> work = {a.xm,  a.wt,  a.part_w, a.kxp,
+                                a.wdp, a.ntp, a.splits};
   cudaError_t err;
 
   mark(g_marks, st);
@@ -356,18 +369,18 @@ int gat_layer_bwd_f32(const BwdArgs* ap, const TrainArgs* tap, void* stream) {
   mark(g_marks, st);
 
   const size_t smem = sizeof(float) * head_floats(a.n);
-  const void* head = a.pooled ? (const void*)gat_bwd_head_kernel<true>
-                              : (const void*)gat_bwd_head_kernel<false>;
+  const void* head = a.pooled ? (const void*)gat_bwd_head_kernel<true, E>
+                              : (const void*)gat_bwd_head_kernel<false, E>;
   err = prepare(head, smem);
   if (err != cudaSuccess) return err;
   const long long head_blocks = (long long)a.b * a.heads;
   if (head_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (a.pooled)
-    gat_bwd_head_kernel<true><<<(unsigned)head_blocks, kThreads, smem, st>>>(
-        a, ta);
+    gat_bwd_head_kernel<true, E>
+        <<<(unsigned)head_blocks, kThreads, smem, st>>>(a, ta);
   else
-    gat_bwd_head_kernel<false><<<(unsigned)head_blocks, kThreads, smem, st>>>(
-        a, ta);
+    gat_bwd_head_kernel<false, E>
+        <<<(unsigned)head_blocks, kThreads, smem, st>>>(a, ta);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   mark(g_marks, st);
 
@@ -376,24 +389,59 @@ int gat_layer_bwd_f32(const BwdArgs* ap, const TrainArgs* tap, void* stream) {
     const long long chunk_b = (a.b + a.chunks - 1) / a.chunks;
     colsum_partial_kernel<<<dim3(blocks_for(rw), a.chunks), kThreads, 0,
                             st>>>(a.dcat, a.b, rw, chunk_b, a.part_b);
-    reduce_scatter_kernel<<<blocks_for(rw), kThreads, 0, st>>>(
+    reduce_scatter_kernel<float><<<blocks_for(rw), kThreads, 0, st>>>(
         a.part_b, a.chunks, a.n, a.wdp, a.n, hd, hd + a.heads, wd,
         a.dbias_ft, a.dbias_a1, a.dbias_a2, nullptr, nullptr, nullptr);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
+  // the products' D: Dcat itself, or in a bf16 layer Dcat cast to bf16
+  const E* d;
+  if constexpr (sizeof(E) == 2) {
+    cast_bf16_kernel<<<grid_for(m * a.wdp / 4), 256, 0, st>>>(
+        a.dcat, a.dcat16, m * a.wdp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    d = a.dcat16;
+  } else {
+    d = a.dcat;
+  }
   mark(g_marks, st);
 
-  float* const dw[3] = {a.dfc, a.dwa1, a.dwa2};
+  E* const dw[3] = {a.dfc, a.dwa1, a.dwa2};
   float* const dwp[3] = {a.dwp, a.dwpa1, a.dwpa2};
-  return product_grads(op, ta, a.dcat, a.wdp, m, work, a.chunks, dw, dwp,
+  return product_grads(op, ta, d, a.wdp, m, work, a.chunks, dw, dwp,
                        a.need_dx, a.dx, a.pe_rows, a.part_pe, a.dpe, g_marks,
                        st);
 }
 
+}  // namespace
+
+extern "C" {
+
+const char* gat_bwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The backward of one star-GAT layer (K2, or K4 with a->pooled): all
+// passes launched in order on `stream`. Outputs and workspaces are
+// allocated by the caller (ops/gat_kernels.py). Returns the first CUDA
+// error of a launch, or 0.
+int gat_layer_bwd_f32(const BwdArgsT<float>* ap, const TrainArgs* tap,
+                      void* stream) {
+  return launch_bwd(*ap, *tap, (cudaStream_t)stream);
+}
+
+// The bf16 form: *ap with the bf16 fields of BwdArgsT<bf16> (x, fc, wa1,
+// wa2, K2's g, dx, dfc, dwa1, dwa2, the workspaces xm, wcat, wt and
+// dcat16), every other field as in the float32 form.
+int gat_layer_bwd_bf16(const BwdArgsT<bf16>* ap, const TrainArgs* tap,
+                       void* stream) {
+  return launch_bwd(*ap, *tap, (cudaStream_t)stream);
+}
+
 // Pass timing: with `on`, the next gat_layer_bwd_f32 records device events
 // between its passes; gat_bwd_pass_ms then gives their milliseconds (stage
-// and pack, projection, head core, slot-bias sums, dW, dx) into out[6] and
-// returns their count.
+// and pack, projection, head core, slot-bias sums (with the cast of Dcat
+// to bf16 in the bf16 form), dW, dx) into out[6] and returns their count.
 int gat_bwd_set_timing(int on) { return set_timing(g_marks, on); }
 
 int gat_bwd_pass_ms(float* out) { return pass_ms(g_marks, out); }

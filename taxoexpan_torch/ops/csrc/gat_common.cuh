@@ -1,7 +1,9 @@
 // Building blocks shared by the star kernels (gat_fwd.cu, gat_bwd.cu,
 // gcn.cu): the dropout bit generator, the train-form arguments, the star
-// softmax weights and the shared-memory arrays of the GAT star passes and
-// head core. Every layer product is gemm_tf32.cuh's tensor-core projection.
+// softmax weights, the shared-memory arrays of the GAT star passes and
+// head core, and the element conversions of the bf16 forms. Every layer
+// product is a tensor-core product: gemm_tf32.cuh's (float32 layers) or
+// gemm_bf16.cuh's (bf16 layers).
 //
 // The train forms' dropout: the feature and pe masks over the layer input
 // X = [x*m | pe*m_pe], the reference's dropout over the concatenated input
@@ -24,9 +26,30 @@
 // no counterpart here.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace gat {
+
+using bf16 = __nv_bfloat16;
+
+// An element of a layer's compute dtype (float or bf16) to float and back
+// (round to nearest even); the identity for float.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(bf16 v) {
+  return __bfloat162float(v);
+}
+
+template <class E>
+__device__ __forceinline__ E from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 constexpr int kThreads = 256;
 constexpr int kTileCols = 128;  // columns of the head core's tiles

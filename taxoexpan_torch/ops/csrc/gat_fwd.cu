@@ -1,5 +1,6 @@
-// Star-GAT layer forward kernels for Hopper (sm_90a), float32, in eval form
-// (serving) and train form (dropout).
+// Star-GAT layer forward kernels for Hopper (sm_90a), in eval form
+// (serving) and train form (dropout), for float32 layers (*_f32) and bf16
+// layers (*_bf16).
 //
 // Replace the forward Pallas kernels of taxoexpan_tpu/ops/pallas_gat.py:
 //   gat_layer_fwd[_train]        <- fused_gat_layer        (_fused_fwd,
@@ -57,18 +58,33 @@
 // 0 at B = 4096, 0.53 GB for its final layer, 3.8 GB for the MTL
 // configuration's layer 0; X staged adds 4 * B*N*kxp bytes (2.15 GB for
 // the final layer's train forms, kxp = 2052).
+//
+// The bf16 forms (compute_dtype "bfloat16"; the Pallas kernels with x in
+// bf16): x, fc, wa1, wa2 in bf16, the slot biases and the pe path's rows
+// float32; X staged and W packed in bf16 (gemm_tf32.cuh:stage_input_kernel,
+// pack_weights_kernel, 8 elements a 16-byte chunk: kxp and wdp rounded up
+// to 8), the projection on bf16 tensor-core MMAs with float32 accumulation
+// (gemm_bf16.cuh), so P, the softmax and the aggregation stay float32
+// (pallas_gat.py:283-291); the per-slot output is rounded to bf16 after
+// the fused leaky (:359-362), the pools stay float32 (:1148). X staged
+// takes 2 bytes an element; the final layer's eval form reads x directly
+// (4000-byte rows).
 
 #include "bwd_common.cuh"
 
+using gat::bf16;
+
 // Workspaces of the forwards, allocated by the caller; mirrored
-// field by field by gat_kernels._FwdWork.
-struct FwdWork {
+// field by field by gat_kernels._FwdWork. E: the layer's element type.
+template <class E>
+struct FwdWorkT {
   float* proj;     // [b*n, wdp] the projection P
-  float* xm;       // [b*n, kxp] X staged, or null (the product reads x)
-  float* wcat;     // [kxp, wdp] W
+  E* xm;           // [b*n, kxp] X staged, or null (the product reads x)
+  E* wcat;         // [kxp, wdp] W
   float* biascat;  // [n, wdp] the slot biases
   int kxp, wdp;
 };
+using FwdWork = FwdWorkT<float>;
 
 namespace {
 
@@ -76,11 +92,12 @@ using namespace gat;
 
 PassMarks g_marks;
 
-// 2. the star pass of the per-slot layer over the projection P [b*n, ldp]
-template <bool kTrain>
+// 2. the star pass of the per-slot layer over the projection P [b*n, ldp],
+// the output in OutT (the layer's element type)
+template <bool kTrain, class OutT>
 __global__ void __launch_bounds__(kThreads)
 gat_star_fwd_kernel(const float* __restrict__ proj, int ldp,
-                    const int* __restrict__ ngp_arr, float* __restrict__ out,
+                    const int* __restrict__ ngp_arr, OutT* __restrict__ out,
                     int n, int heads, int dh, int p, float alpha,
                     float out_alpha, int has_out_alpha, TrainArgs ta,
                     float* __restrict__ attn) {
@@ -110,7 +127,7 @@ gat_star_fwd_kernel(const float* __restrict__ proj, int ldp,
   attention_weights<kTrain, false>(n, p, ngp, alpha, s, ta, b, h, stored);
 
   const float* fb = pb + (size_t)h * dh;
-  float* ob = out + (size_t)b * n * hd + (size_t)h * dh;
+  OutT* ob = out + (size_t)b * n * hd + (size_t)h * dh;
   // each thread a column; the row loops unrolled so that several rows'
   // loads are in flight at once
   for (int c = threadIdx.x; c < dh; c += kThreads) {
@@ -122,16 +139,16 @@ gat_star_fwd_kernel(const float* __restrict__ proj, int ldp,
       if (r < ngp) acc += s.w_to_anchor[r] * f;
       float v = kTrain ? f * s.w_self[r] : f;  // the dropped gp self-loop
       if (has_out_alpha) v = leaky(v, out_alpha);
-      ob[(size_t)r * hd + c] = v;
+      ob[(size_t)r * hd + c] = from_float<OutT>(v);
     }
     float va = acc + s.w_self[p] * fa;  // anchor: valid gps and self
     if (has_out_alpha) va = leaky(va, out_alpha);
-    ob[(size_t)p * hd + c] = va;
+    ob[(size_t)p * hd + c] = from_float<OutT>(va);
 #pragma unroll 4
     for (int r = p + 1; r < n; ++r) {  // sib rows: anchor and self
       float v = s.w_anchor[r] * fa + s.w_self[r] * fb[(size_t)r * ldp + c];
       if (has_out_alpha) v = leaky(v, out_alpha);
-      ob[(size_t)r * hd + c] = v;
+      ob[(size_t)r * hd + c] = from_float<OutT>(v);
     }
   }
 }
@@ -217,9 +234,10 @@ __global__ void dropout_bits_kernel(unsigned seed, unsigned stream,
 
 // The layer's product operands: x and [fc | wa1 | wa2], the pe path's rows
 // from ta.
-Operand layer_operand(const float* x, const float* fc, const float* wa1,
-                      const float* wa2, int n, int din, int heads, int dh,
-                      const TrainArgs& ta) {
+template <class E>
+OperandT<E> layer_operand(const E* x, const E* fc, const E* wa1,
+                          const E* wa2, int n, int din, int heads, int dh,
+                          const TrainArgs& ta) {
   const int hd = heads * dh;
   return {x,   {fc, wa1, wa2}, {ta.wp, ta.wpa1, ta.wpa2},
           n,   din,            hd,
@@ -228,11 +246,12 @@ Operand layer_operand(const float* x, const float* fc, const float* wa1,
 
 // 1. the projection, with X staged and W packed first (pass marks before,
 // between and after)
-cudaError_t project(const Operand& op, const TrainArgs& ta, long long m,
-                    const FwdWork& w, const float* bias_ft,
+template <class E>
+cudaError_t project(const OperandT<E>& op, const TrainArgs& ta, long long m,
+                    const FwdWorkT<E>& w, const float* bias_ft,
                     const float* bias_a1, const float* bias_a2,
                     cudaStream_t st) {
-  const ProductWork work = {w.xm, nullptr, nullptr, w.kxp, w.wdp, 0, 1};
+  const ProductWorkT<E> work = {w.xm, nullptr, nullptr, w.kxp, w.wdp, 0, 1};
   mark(g_marks, st);
   cudaError_t err = stage_and_pack(op, ta, m, work, 0, w.wcat, st);
   if (err != cudaSuccess) return err;
@@ -243,14 +262,14 @@ cudaError_t project(const Operand& op, const TrainArgs& ta, long long m,
   return err;
 }
 
-template <bool kTrain>
-cudaError_t launch_fwd(const float* x, const float* fc, const float* wa1,
-                       const float* wa2, const float* bias_ft,
-                       const float* bias_a1, const float* bias_a2,
-                       const int* ngp, float* out, int b, int n, int din,
-                       int heads, int dh, int p, float alpha, float out_alpha,
-                       int has_out_alpha, const TrainArgs& ta, float* attn,
-                       const FwdWork& w, void* stream) {
+template <bool kTrain, class E>
+cudaError_t launch_fwd(const E* x, const E* fc, const E* wa1, const E* wa2,
+                       const float* bias_ft, const float* bias_a1,
+                       const float* bias_a2, const int* ngp, E* out, int b,
+                       int n, int din, int heads, int dh, int p, float alpha,
+                       float out_alpha, int has_out_alpha,
+                       const TrainArgs& ta, float* attn,
+                       const FwdWorkT<E>& w, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const long long m = (long long)b * n;
   if (m == 0) return cudaSuccess;
@@ -262,7 +281,7 @@ cudaError_t launch_fwd(const float* x, const float* fc, const float* wa1,
   const size_t smem = 5 * sizeof(float) * (size_t)n;  // 2. the star pass
   const long long blocks = (long long)b * heads;
   if (blocks > 0x7fffffffLL || smem > 48 * 1024) return cudaErrorInvalidValue;
-  gat_star_fwd_kernel<kTrain><<<(unsigned)blocks, kThreads, smem, st>>>(
+  gat_star_fwd_kernel<kTrain, E><<<(unsigned)blocks, kThreads, smem, st>>>(
       w.proj, w.wdp, ngp, out, n, heads, dh, p, alpha, out_alpha,
       has_out_alpha, ta, attn);
   err = cudaGetLastError();
@@ -285,14 +304,14 @@ cudaError_t pooled_star(const float* proj, int ldp, const int* ngp,
   return cudaGetLastError();
 }
 
-template <bool kTrain>
-cudaError_t launch_pooled(const float* x, const float* fc, const float* wa1,
-                          const float* wa2, const float* bias_ft,
+template <bool kTrain, class E>
+cudaError_t launch_pooled(const E* x, const E* fc, const E* wa1,
+                          const E* wa2, const float* bias_ft,
                           const float* bias_a1, const float* bias_a2,
                           const int* ngp, const int* nsib, float* pools,
                           int b, int n, int din, int heads, int dh, int p,
                           float alpha, const TrainArgs& ta, float* attn,
-                          const FwdWork& w, void* stream) {
+                          const FwdWorkT<E>& w, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const long long m = (long long)b * n;
   if (m == 0) return cudaSuccess;
@@ -407,6 +426,77 @@ int gat_pooled_star_f32(const float* proj, int ldp, const int* ngp,
                              alpha, *ta, attn, st);
   return pooled_star<false>(proj, ldp, ngp, nsib, pools, b, n, heads, dh, p,
                             alpha, *ta, nullptr, st);
+}
+
+// The bf16 forms of the four layer entry points and the projection alone:
+// x, fc, wa1, wa2 and the per-slot out in bf16, every other pointer as in
+// the float32 forms (the pools float32); *w with xm and wcat in bf16.
+int gat_layer_fwd_bf16(const bf16* x, const bf16* fc, const bf16* wa1,
+                       const bf16* wa2, const float* bias_ft,
+                       const float* bias_a1, const float* bias_a2,
+                       const int* ngp, const int* nsib, bf16* out, int b,
+                       int n, int din, int heads, int dh, int p, float alpha,
+                       float out_alpha, int has_out_alpha,
+                       const FwdWorkT<bf16>* w, void* stream) {
+  (void)nsib;
+  const TrainArgs none = {};
+  return launch_fwd<false>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
+                           out, b, n, din, heads, dh, p, alpha, out_alpha,
+                           has_out_alpha, none, nullptr, *w, stream);
+}
+
+int gat_layer_pooled_fwd_bf16(const bf16* x, const bf16* fc,
+                              const bf16* wa1, const bf16* wa2,
+                              const float* bias_ft, const float* bias_a1,
+                              const float* bias_a2, const int* ngp,
+                              const int* nsib, float* pools, int b, int n,
+                              int din, int heads, int dh, int p, float alpha,
+                              const FwdWorkT<bf16>* w, void* stream) {
+  const TrainArgs none = {};
+  return launch_pooled<false>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
+                              ngp, nsib, pools, b, n, din, heads, dh, p,
+                              alpha, none, nullptr, *w, stream);
+}
+
+int gat_layer_fwd_train_bf16(const bf16* x, const bf16* fc, const bf16* wa1,
+                             const bf16* wa2, const float* bias_ft,
+                             const float* bias_a1, const float* bias_a2,
+                             const int* ngp, const int* nsib, bf16* out,
+                             int b, int n, int din, int heads, int dh, int p,
+                             float alpha, float out_alpha, int has_out_alpha,
+                             const TrainArgs* ta, float* attn,
+                             const FwdWorkT<bf16>* w, void* stream) {
+  (void)nsib;
+  return launch_fwd<true>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
+                          out, b, n, din, heads, dh, p, alpha, out_alpha,
+                          has_out_alpha, *ta, attn, *w, stream);
+}
+
+int gat_layer_pooled_fwd_train_bf16(const bf16* x, const bf16* fc,
+                                    const bf16* wa1, const bf16* wa2,
+                                    const float* bias_ft,
+                                    const float* bias_a1,
+                                    const float* bias_a2, const int* ngp,
+                                    const int* nsib, float* pools, int b,
+                                    int n, int din, int heads, int dh, int p,
+                                    float alpha, const TrainArgs* ta,
+                                    float* attn, const FwdWorkT<bf16>* w,
+                                    void* stream) {
+  return launch_pooled<true>(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
+                             nsib, pools, b, n, din, heads, dh, p, alpha,
+                             *ta, attn, *w, stream);
+}
+
+int gat_projection_bf16(const bf16* x, const bf16* fc, const bf16* wa1,
+                        const bf16* wa2, const float* bias_ft,
+                        const float* bias_a1, const float* bias_a2, int b,
+                        int n, int din, int heads, int dh,
+                        const TrainArgs* ta, const FwdWorkT<bf16>* w,
+                        void* stream) {
+  const long long m = (long long)b * n;
+  if (m == 0) return cudaSuccess;
+  return project(layer_operand(x, fc, wa1, wa2, n, din, heads, dh, *ta), *ta,
+                 m, *w, bias_ft, bias_a1, bias_a2, (cudaStream_t)stream);
 }
 
 // Launch timing of the forwards: with `on`, the next call records device

@@ -31,13 +31,19 @@
 // as their fragments are read from shared memory. A is read either K-major
 // (row-major [M][K]) or M-major (A^T stored row-major, [K][M]: the dW
 // product X^T @ D reads X so); B is row-major [K][N]. Every stride and the
-// reduction depth are multiples of 4 floats, with zeros in the padding, so
+// reduction depth are multiples of a chunk, with zeros in the padding, so
 // a 16-byte chunk is either wholly inside or wholly outside the operand
 // and is zero-filled outside. The epilogue goes through shared memory, so
 // that the output rows are written 16 bytes a thread, coalesced. Split-K
 // over blockIdx.z (the dW product over the batch's rows) writes one partial
 // product per split; the caller adds them in a fixed order
 // (bwd_common.cuh). Deterministic: no atomics.
+//
+// One pipeline serves both element types of a layer: the ring, the
+// epilogue, the argument struct and the operand preparation are templated
+// on E (float, or bf16 for a bf16 layer's X, W and dx), and only the inner
+// step over a K tile (MmaStep<E>: here 3xTF32, in gemm_bf16.cuh bf16
+// mma.sync.m16n8k16) and the chunk width (4 floats, 8 bf16) differ.
 //
 // The kernels live in namespace gat (see bwd_common.cuh on nvcc's stubs).
 #pragma once
@@ -46,28 +52,34 @@
 
 namespace gat {
 
-// A tile shape: 8 warps, 2 x 4, each 4 x NI fragments of 16 x 8 (an output
-// tile of 128 x 32 NI), K tiles of 64 in a 3-deep ring.
-template <int NI_>
+// A tile shape in element type E: 8 warps, 2 x 4, each 4 x NI fragments
+// of 16 x 8 (an output tile of 128 x 32 NI), K tiles of 64 in a 3-deep
+// ring; a 16-byte chunk holds CHUNK elements (4 floats, 8 bf16). The rows
+// of a K-major A tile are padded by a chunk, the others by 8 elements, so
+// that the rows a warp reads at once fall on distinct banks. The C tile
+// [BM][BN + 4] floats reuses the ring after the last K tile.
+template <class E, int NI_>
 struct GemmTile {
   static constexpr int MI = 4, NI = NI_, WARPS_M = 2, WARPS_N = 4;
   static constexpr int STAGES = 3;
   static constexpr int BM = WARPS_M * MI * 16, BN = WARPS_N * NI * 8,
                        BK = 64;
   static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-  static constexpr int A_STRIDE_K = BK + 4;  // K-major A tile [BM][BK + 4]
-  static constexpr int A_STRIDE_M = BM + 8;  // M-major A tile [BK][BM + 8]
-  static constexpr int B_STRIDE = BN + 8;    // B tile [BK][BN + 8]
+  static constexpr int CHUNK = 16 / (int)sizeof(E);
+  static constexpr int A_STRIDE_K = BK + CHUNK;  // K-major A [BM][BK + C]
+  static constexpr int A_STRIDE_M = BM + 8;      // M-major A [BK][BM + 8]
+  static constexpr int B_STRIDE = BN + 8;        // B tile [BK][BN + 8]
   static constexpr int A_STAGE =
       BM * A_STRIDE_K > BK * A_STRIDE_M ? BM * A_STRIDE_K : BK * A_STRIDE_M;
   static constexpr int B_STAGE = BK * B_STRIDE;
-  static constexpr size_t SMEM = sizeof(float) * STAGES * (A_STAGE + B_STAGE);
+  static constexpr size_t RING = sizeof(E) * STAGES * (A_STAGE + B_STAGE);
+  static constexpr size_t CTILE = sizeof(float) * BM * (BN + 4);
+  static constexpr size_t SMEM = RING > CTILE ? RING : CTILE;
 };
 
 // the tiles the layers use: 128 x 128, and 128 x 64 for narrow products
 // (the pe columns' dx alone)
-using GemmTileDefault = GemmTile<4>;
-using GemmTileNarrow = GemmTile<2>;
+constexpr int kNarrowBN = GemmTile<float, 2>::BN;
 
 // What the epilogue does with the product's element (i, j):
 enum GemmEpi {
@@ -78,21 +90,22 @@ enum GemmEpi {
                     // pe_rows [i][pos] (k >= din)
 };
 
-struct GemmArgs {
-  const float* a;      // K-major: (i, k) at a[i * lda + k]; M-major:
+template <class E>
+struct GemmArgsT {
+  const E* a;          // K-major: (i, k) at a[i * lda + k]; M-major:
   long long lda;       //   a[k * lda + i], i < lda
-  const float* b;      // (k, j) at b[k * ldb + j], j < ldb
+  const E* b;          // (k, j) at b[k * ldb + j], j < ldb
   long long ldb;
   float* c;            // output, row stride ldc; split z at c + z * c_split
   long long ldc;
   long long c_split;
   long long m;         // output rows
   int n;               // output columns (stored: j < n)
-  long long k;         // reduction depth (a multiple of 4)
+  long long k;         // reduction depth (16 bytes of E a multiple)
   long long k_chunk;   // rows of the reduction a split takes (multiple of BK)
   const float* bias;   // kEpiRowBias: [bias_rows][ldc]
   int bias_rows;
-  float* dx;           // kEpiDx
+  E* dx;               // kEpiDx (rounded to E)
   float* pe_rows;
   int din, kbeg;
 };
@@ -102,7 +115,7 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
 }
 
 // 16 bytes from global to shared memory, or 16 zero bytes when !valid.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
@@ -144,8 +157,8 @@ __device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
 // The epilogue's second half: the C tile cs [BM][BN + 4] (shared memory)
 // out to the rows [i0, i0 + BM) and columns [j0, j0 + BN) of the product,
 // 4 columns a thread, neighbouring threads on neighbouring columns.
-template <int BM, int BN, int THREADS, int kEpi>
-__device__ __forceinline__ void gemm_store_tile(const GemmArgs& g,
+template <int BM, int BN, int THREADS, int kEpi, class E>
+__device__ __forceinline__ void gemm_store_tile(const GemmArgsT<E>& g,
                                                 const TrainArgs& ta,
                                                 const float* cs, long long i0,
                                                 int j0) {
@@ -176,7 +189,7 @@ __device__ __forceinline__ void gemm_store_tile(const GemmArgs& g,
           if (ta.feat_on)
             v[q] *= keep_at(ta, rkf, (unsigned)k, ta.feat_thresh,
                             ta.feat_scale);
-          g.dx[i * g.din + k] = v[q];
+          g.dx[i * g.din + k] = from_float<E>(v[q]);
         } else {
           const int kp2 = k - g.din;
           if (ta.feat_on)
@@ -212,51 +225,109 @@ __device__ __forceinline__ void gemm_store_tile(const GemmArgs& g,
 }
 
 // One K tile of A and B into stage buffers As / Bs (rows of the reduction
-// [k0, k0 + BK) of this block's split, which ends at k_end).
-template <class T, bool kAKMajor>
-__device__ __forceinline__ void gemm_load_tile(const GemmArgs& g,
+// [k0, k0 + BK) of this block's split, which ends at k_end), a 16-byte
+// chunk (T::CHUNK elements) a cp.async.
+template <class T, bool kAKMajor, class E>
+__device__ __forceinline__ void gemm_load_tile(const GemmArgsT<E>& g,
                                                long long i0, int j0,
                                                long long k0, long long k_end,
-                                               float* As, float* Bs) {
+                                               E* As, E* Bs) {
+  constexpr int C = T::CHUNK;
   const int t = threadIdx.x;
 #pragma unroll
-  for (int q = 0; q < T::BM * T::BK / 4 / T::THREADS; ++q) {
+  for (int q = 0; q < T::BM * T::BK / C / T::THREADS; ++q) {
     const int e = t + q * T::THREADS;
-    if (kAKMajor) {  // [BM rows][BK / 4 chunks]
-      const int r = e / (T::BK / 4), c4 = (e % (T::BK / 4)) * 4;
-      const long long i = i0 + r, kk = k0 + c4;
+    if (kAKMajor) {  // [BM rows][BK / C chunks]
+      const int r = e / (T::BK / C), cc = (e % (T::BK / C)) * C;
+      const long long i = i0 + r, kk = k0 + cc;
       const bool ok = i < g.m && kk < k_end;
-      cp_async16(As + r * T::A_STRIDE_K + c4, ok ? g.a + i * g.lda + kk : g.a,
+      cp_async16(As + r * T::A_STRIDE_K + cc, ok ? g.a + i * g.lda + kk : g.a,
                  ok);
-    } else {  // [BK rows][BM / 4 chunks]
-      const int r = e / (T::BM / 4), c4 = (e % (T::BM / 4)) * 4;
-      const long long kk = k0 + r, i = i0 + c4;
+    } else {  // [BK rows][BM / C chunks]
+      const int r = e / (T::BM / C), cc = (e % (T::BM / C)) * C;
+      const long long kk = k0 + r, i = i0 + cc;
       const bool ok = kk < k_end && i < g.lda;
-      cp_async16(As + r * T::A_STRIDE_M + c4, ok ? g.a + kk * g.lda + i : g.a,
+      cp_async16(As + r * T::A_STRIDE_M + cc, ok ? g.a + kk * g.lda + i : g.a,
                  ok);
     }
   }
 #pragma unroll
-  for (int q = 0; q < T::BK * T::BN / 4 / T::THREADS; ++q) {
+  for (int q = 0; q < T::BK * T::BN / C / T::THREADS; ++q) {
     const int e = t + q * T::THREADS;
-    const int r = e / (T::BN / 4), c4 = (e % (T::BN / 4)) * 4;
+    const int r = e / (T::BN / C), cc = (e % (T::BN / C)) * C;
     const long long kk = k0 + r;
-    const int j = j0 + c4;
+    const int j = j0 + cc;
     const bool ok = kk < k_end && j < g.ldb;
-    cp_async16(Bs + r * T::B_STRIDE + c4, ok ? g.b + kk * g.ldb + j : g.b, ok);
+    cp_async16(Bs + r * T::B_STRIDE + cc, ok ? g.b + kk * g.ldb + j : g.b, ok);
   }
 }
+
+// The one part of the product that differs by element type: a warp's
+// products over one K tile in shared memory (as, bs), added into part.
+// MmaStep<float> (below) is 3xTF32; MmaStep<bf16> is in gemm_bf16.cuh.
+template <class E>
+struct MmaStep;
+
+template <>
+struct MmaStep<float> {
+  // mma.sync.m16n8k8 TF32 fragments read from shared memory element by
+  // element (thread (gid, tig): rows +gid / +gid + 8, k +tig / +tig + 4),
+  // each split into hi / lo there.
+  template <class T, bool kAKMajor>
+  static __device__ __forceinline__ void tile(
+      const float* as, const float* bs, int wm, int wn, int lane,
+      float (&part)[T::MI][T::NI][4]) {
+    constexpr int MI = T::MI, NI = T::NI;
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < T::BK; kk += 8) {
+      const int k = kk + tig;
+      unsigned bhi[NI][2], blo[NI][2];
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int col = wn * NI * 8 + ni * 8 + gid;
+        split_tf32(bs[k * T::B_STRIDE + col], bhi[ni][0], blo[ni][0]);
+        split_tf32(bs[(k + 4) * T::B_STRIDE + col], bhi[ni][1], blo[ni][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const int r = wm * MI * 16 + mi * 16 + gid;
+        float v[4];
+        if (kAKMajor) {
+          v[0] = as[r * T::A_STRIDE_K + k];
+          v[1] = as[(r + 8) * T::A_STRIDE_K + k];
+          v[2] = as[r * T::A_STRIDE_K + k + 4];
+          v[3] = as[(r + 8) * T::A_STRIDE_K + k + 4];
+        } else {
+          v[0] = as[k * T::A_STRIDE_M + r];
+          v[1] = as[k * T::A_STRIDE_M + r + 8];
+          v[2] = as[(k + 4) * T::A_STRIDE_M + r];
+          v[3] = as[(k + 4) * T::A_STRIDE_M + r + 8];
+        }
+        unsigned ahi[4], alo[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split_tf32(v[q], ahi[q], alo[q]);
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {  // the small terms first
+          mma_tf32(part[mi][ni], alo, bhi[ni]);
+          mma_tf32(part[mi][ni], ahi, blo[ni]);
+          mma_tf32(part[mi][ni], ahi, bhi[ni]);
+        }
+      }
+    }
+  }
+};
 
 // C = A @ B (+ the epilogue) over one BM x BN output tile a block; grid
 // (tiles of M x tiles of N, 1, splits), N tiles fastest so that blocks
 // running together share their A rows in L2.
-template <class T, bool kAKMajor, int kEpi>
+template <class E, class T, bool kAKMajor, int kEpi>
 __global__ void __launch_bounds__(T::THREADS, 1)
-gemm_tf32x3_kernel(GemmArgs g, TrainArgs ta) {
+gemm_kernel(GemmArgsT<E> g, TrainArgs ta) {
   constexpr int MI = T::MI, NI = T::NI;
   extern __shared__ float4 gemm_smem4[];
-  float* As = reinterpret_cast<float*>(gemm_smem4);
-  float* Bs = As + T::STAGES * T::A_STAGE;
+  E* As = reinterpret_cast<E*>(gemm_smem4);
+  E* Bs = As + T::STAGES * T::A_STAGE;
 
   const int ntiles = (g.n + T::BN - 1) / T::BN;
   const long long i0 = (long long)(blockIdx.x / ntiles) * T::BM;
@@ -300,8 +371,6 @@ gemm_tf32x3_kernel(GemmArgs g, TrainArgs ta) {
       }
       cp_async_commit();
     }
-    const float* as = As + (kt % T::STAGES) * T::A_STAGE;
-    const float* bs = Bs + (kt % T::STAGES) * T::B_STAGE;
 
     float part[MI][NI][4];  // this K tile's products, summed apart
 #pragma unroll
@@ -310,43 +379,9 @@ gemm_tf32x3_kernel(GemmArgs g, TrainArgs ta) {
       for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
         for (int q = 0; q < 4; ++q) part[mi][ni][q] = 0.f;
-
-#pragma unroll
-    for (int kk = 0; kk < T::BK; kk += 8) {
-      const int k = kk + tig;
-      unsigned bhi[NI][2], blo[NI][2];
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int col = wn * NI * 8 + ni * 8 + gid;
-        split_tf32(bs[k * T::B_STRIDE + col], bhi[ni][0], blo[ni][0]);
-        split_tf32(bs[(k + 4) * T::B_STRIDE + col], bhi[ni][1], blo[ni][1]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const int r = wm * MI * 16 + mi * 16 + gid;
-        float v[4];
-        if (kAKMajor) {
-          v[0] = as[r * T::A_STRIDE_K + k];
-          v[1] = as[(r + 8) * T::A_STRIDE_K + k];
-          v[2] = as[r * T::A_STRIDE_K + k + 4];
-          v[3] = as[(r + 8) * T::A_STRIDE_K + k + 4];
-        } else {
-          v[0] = as[k * T::A_STRIDE_M + r];
-          v[1] = as[k * T::A_STRIDE_M + r + 8];
-          v[2] = as[(k + 4) * T::A_STRIDE_M + r];
-          v[3] = as[(k + 4) * T::A_STRIDE_M + r + 8];
-        }
-        unsigned ahi[4], alo[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(v[q], ahi[q], alo[q]);
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) {  // the small terms first
-          mma_tf32(part[mi][ni], alo, bhi[ni]);
-          mma_tf32(part[mi][ni], ahi, blo[ni]);
-          mma_tf32(part[mi][ni], ahi, bhi[ni]);
-        }
-      }
-    }
+    MmaStep<E>::template tile<T, kAKMajor>(
+        As + (kt % T::STAGES) * T::A_STAGE, Bs + (kt % T::STAGES) * T::B_STAGE,
+        wm, wn, lane, part);
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -360,12 +395,10 @@ gemm_tf32x3_kernel(GemmArgs g, TrainArgs ta) {
 
   // epilogue: the accumulators through shared memory (thread (gid, tig)
   // holds rows +gid / +gid + 8 and columns +2 tig / +2 tig + 1 of each
-  // 16 x 8 fragment), then rows of the tile out, 4 columns a thread and
-  // neighbouring threads on neighbouring columns
+  // 16 x 8 fragment, in either element type), then rows of the tile out,
+  // 4 columns a thread and neighbouring threads on neighbouring columns
   constexpr int CS = T::BN + 4;
-  static_assert(T::BM * CS <= T::STAGES * (T::A_STAGE + T::B_STAGE),
-                "C tile");
-  float* cs = As;
+  float* cs = reinterpret_cast<float*>(gemm_smem4);
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -382,20 +415,23 @@ gemm_tf32x3_kernel(GemmArgs g, TrainArgs ta) {
   gemm_store_tile<T::BM, T::BN, T::THREADS, kEpi>(g, ta, cs, i0, j0);
 }
 
-// Launches the product on `st` with tile T: A K-major (kAKMajor) or
-// M-major, the epilogue kEpi, `splits` partial products over blockIdx.z.
-template <bool kAKMajor, int kEpi, class T = GemmTileDefault>
-inline cudaError_t gemm_tf32x3(const GemmArgs& g, const TrainArgs& ta,
-                               int splits, cudaStream_t st) {
+// The layer product in the layer's element type E (3xTF32 for float, bf16
+// MMAs for bf16) on `st`: A K-major (kAKMajor) or M-major, the epilogue
+// kEpi, `splits` partial products over blockIdx.z; kNarrow takes the
+// 128 x 64 tile.
+template <bool kAKMajor, int kEpi, bool kNarrow = false, class E>
+inline cudaError_t product(const GemmArgsT<E>& g, const TrainArgs& ta,
+                           int splits, cudaStream_t st) {
+  using T = GemmTile<E, kNarrow ? 2 : 4>;
   if (g.m <= 0 || g.n <= 0) return cudaSuccess;
-  const void* kernel = (const void*)gemm_tf32x3_kernel<T, kAKMajor, kEpi>;
+  const void* kernel = (const void*)gemm_kernel<E, T, kAKMajor, kEpi>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (err != cudaSuccess) return err;
   const long long tiles = ((g.m + T::BM - 1) / T::BM) *
                           (long long)((g.n + T::BN - 1) / T::BN);
   if (tiles > 0x7fffffffLL || splits > 65535) return cudaErrorInvalidValue;
-  gemm_tf32x3_kernel<T, kAKMajor, kEpi>
+  gemm_kernel<E, T, kAKMajor, kEpi>
       <<<dim3((unsigned)tiles, 1, splits), T::THREADS, T::SMEM, st>>>(g, ta);
   return cudaGetLastError();
 }
@@ -406,33 +442,45 @@ inline cudaError_t gemm_tf32x3(const GemmArgs& g, const TrainArgs& ta,
 // blocks [0, c1), [c1, c2), [c2, wd) (GAT: fc, wa1, wa2; GCN: W alone,
 // c1 = c2 = wd); the pe rows' blocks wp[i] follow the same split. The pe
 // rows themselves, pos and the masks come with the TrainArgs.
-struct Operand {
-  const float* x;      // [b*n, din]
-  const float* w[3];   // [din, width of block i]
+// A bf16 layer's x and W_h are bf16; its pe rows and W_p stay float32.
+template <class E>
+struct OperandT {
+  const E* x;          // [b*n, din]
+  const E* w[3];       // [din, width of block i]
   const float* wp[3];  // [pos, width of block i] (pos > 0)
   int n, din, c1, c2, wd;
 };
+using Operand = OperandT<float>;
 
-// Element (k, j) of W = [W_h; W_p] (k < din + pos, j < wd).
-__device__ __forceinline__ float wcat(const Operand& op, int k, int j) {
-  const float* const* blocks = op.w;
-  if (k >= op.din) {
-    blocks = op.wp;
-    k -= op.din;
-  }
-  if (j < op.c1) return blocks[0][(size_t)k * op.c1 + j];
-  if (j < op.c2) return blocks[1][(size_t)k * (op.c2 - op.c1) + j - op.c1];
-  return blocks[2][(size_t)k * (op.wd - op.c2) + j - op.c2];
+// Element (k, j) of row block `blocks` (column blocks [0, c1), [c1, c2),
+// [c2, wd)).
+template <class T, class E>
+__device__ __forceinline__ float wblock(const T* const* blocks,
+                                        const OperandT<E>& op, int k,
+                                        int j) {
+  if (j < op.c1) return to_float(blocks[0][(size_t)k * op.c1 + j]);
+  if (j < op.c2)
+    return to_float(blocks[1][(size_t)k * (op.c2 - op.c1) + j - op.c1]);
+  return to_float(blocks[2][(size_t)k * (op.wd - op.c2) + j - op.c2]);
 }
 
-__host__ __device__ inline int round4(int v) { return (v + 3) & ~3; }
+// Element (k, j) of W = [W_h; W_p] (k < din + pos, j < wd).
+template <class E>
+__device__ __forceinline__ float wcat(const OperandT<E>& op, int k, int j) {
+  return k < op.din ? wblock(op.w, op, k, j)
+                    : wblock(op.wp, op, k - op.din, j);
+}
 
 // xm [m][kxp] = the layer input X = [x*m | pe*m_pe], zero past din + pos:
 // each element's mask bits hashed once, for every product that reads X.
 // A warp a row, its lanes over the columns (eight loads in flight a
 // lane): no division per element, the row keys once a row; bound by bytes.
-__global__ void stage_input_kernel(Operand op, TrainArgs ta,
-                                   float* __restrict__ xm, long long m,
+// In a bf16 layer (pallas_gat.py:282-283, :296-297) an x column is x times
+// its mask rounded to bf16, the product rounded to bf16; a pe column is
+// pe times the float32 mask, rounded to bf16.
+template <class E>
+__global__ void stage_input_kernel(OperandT<E> op, TrainArgs ta,
+                                   E* __restrict__ xm, long long m,
                                    int kxp) {
   const unsigned kf = stream_key(ta.seed, kStreamFeat);
   const unsigned kp = stream_key(ta.seed, kStreamPe);
@@ -442,15 +490,16 @@ __global__ void stage_input_kernel(Operand op, TrainArgs ta,
        r < m; r += (long long)gridDim.x * warps) {
     const unsigned rkf = row_key(kf, (unsigned)r);
     const unsigned rkp = row_key(kp, (unsigned)r);
-    const float* xr = op.x + r * op.din;
+    const E* xr = op.x + r * op.din;
     const float* per = ta.pe + (r % op.n) * ta.pos;
-    float* out = xm + r * kxp;
+    E* out = xm + r * kxp;
 #pragma unroll 8
     for (int k = lane; k < op.din; k += 32) {  // the x columns
-      float v = xr[k];
+      float v = to_float(xr[k]);
       if (ta.feat_on)
-        v *= keep_at(ta, rkf, (unsigned)k, ta.feat_thresh, ta.feat_scale);
-      out[k] = v;
+        v *= to_float(from_float<E>(
+            keep_at(ta, rkf, (unsigned)k, ta.feat_thresh, ta.feat_scale)));
+      out[k] = from_float<E>(v);
     }
     for (int k = op.din + lane; k < kxp; k += 32) {  // pe columns, padding
       float v = 0.f;
@@ -460,7 +509,7 @@ __global__ void stage_input_kernel(Operand op, TrainArgs ta,
           v *= keep_at(ta, rkp, (unsigned)(k - op.din), ta.feat_thresh,
                        ta.feat_scale);
       }
-      out[k] = v;
+      out[k] = from_float<E>(v);
     }
   }
 }
@@ -468,10 +517,11 @@ __global__ void stage_input_kernel(Operand op, TrainArgs ta,
 // The weight rows in the products' layouts, zero-padded: wcat_out
 // [kxp][wdp] = W (the projection's B), wt [wdp][ntp] = W^T restricted to
 // the input columns [kbeg, kbeg + ntp) (the dx product's B). Either may be
-// null.
-__global__ void pack_weights_kernel(Operand op, TrainArgs ta,
-                                    float* __restrict__ wcat_out, int kxp,
-                                    int wdp, float* __restrict__ wt,
+// null. A bf16 layer's W_p rows are rounded to bf16 (pallas_gat.py:298).
+template <class E>
+__global__ void pack_weights_kernel(OperandT<E> op, TrainArgs ta,
+                                    E* __restrict__ wcat_out, int kxp,
+                                    int wdp, E* __restrict__ wt,
                                     int kbeg, int ntp) {
   const int kx = op.din + ta.pos;
   const int krows = max(kxp, kbeg + ntp);
@@ -479,7 +529,7 @@ __global__ void pack_weights_kernel(Operand op, TrainArgs ta,
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
     const int k = (int)(e / wdp), j = (int)(e % wdp);
-    const float v = (k < kx && j < op.wd) ? wcat(op, k, j) : 0.f;
+    const E v = from_float<E>((k < kx && j < op.wd) ? wcat(op, k, j) : 0.f);
     if (wcat_out != nullptr && k < kxp) wcat_out[(size_t)k * wdp + j] = v;
     if (wt != nullptr && k >= kbeg && k < kbeg + ntp)
       wt[(size_t)j * ntp + (k - kbeg)] = v;

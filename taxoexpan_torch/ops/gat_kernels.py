@@ -32,7 +32,26 @@ thresholds of K7b, pallas_gat.py:73-97).
 Dispatch is by the device of the tensors: on the CPU a wrapper runs its
 plain version; on CUDA it launches the kernel or raises. There is no
 fallback from one to the other. Each wrapper counts its launches in
-`<wrapper>.launches`, incremented only where the kernel is launched.
+`<wrapper>.launches` (the float32 kernel) and `<wrapper>.launches_bf16`
+(the bf16 kernel), incremented only where that kernel is launched.
+
+bf16 layers (compute_dtype "bfloat16"; the Pallas kernels called with x in
+bf16): x, fc, wa1, wa2 come in bf16, the slot biases and the pe path's rows
+in float32. Every form then has a bf16 kernel (`*_bf16` in the C
+libraries), which follows the Pallas path: X = [x*m | pe*m_pe] rounded to
+bf16 (the x columns multiplied by the mask rounded to bf16, pallas_gat.py:
+282-283; the pe columns by the float32 mask, :296-297), W_p rounded to
+bf16 (:298), the products on bf16 operands with float32 accumulation, so
+the projection P (ft, a1, a2), the softmax and the aggregation are float32;
+the per-slot output is rounded to bf16 after the fused leaky (:359-362),
+the pools stay float32 (:1148). The backwards keep the head core in
+float32, cast its grads D to bf16 once for the dW and dx products
+(_bwd_epilogue :607-651) and return dx (times its float32 mask), dfc, dwa1
+and dwa2 in bf16 (:651, :1097, :1289), the slot-bias and pe grads in
+float32. The plain versions compute the same roundings: bf16-exact operands
+upcast and multiplied in float32 (`_bf16_operands`), the backward written
+out pass by pass (`_bwd_plain_bf16`) rather than by autograd through the
+casts.
 
 `gat_layer` / `gat_layer_pooled` are the differentiable layers (the
 counterparts of the JAX custom_vjp functions): their forward runs a forward
@@ -56,9 +75,9 @@ import torch
 
 from . import cuda_build, dropout, star
 from .launch import (F as _F, I as _I, P as _P, TrainArgs as _TrainArgs,
-                     check_operands, check_star, needs_staging, on_cuda,
-                     pass_times, product_splits, product_work, raise_on,
-                     round4, stream, train_args)
+                     check_operands, check_star, chunk_elems, needs_staging,
+                     on_cuda, pass_times, product_splits, product_work,
+                     raise_on, round_up, stream, train_args)
 
 LEAKY_ALPHA = 0.2   # attention logits (GATLayer default); the inter-layer
                     # activation fused through `out_alpha` is 0.01
@@ -68,7 +87,7 @@ _BWD_POINTERS = ("x", "fc", "wa1", "wa2", "bias_ft", "bias_a1", "bias_a2",
                  "ngp", "nsib", "g", "attn", "dcat", "part_w", "part_b",
                  "pe_rows", "part_pe", "dx", "dfc", "dwa1", "dwa2", "dbias_ft",
                  "dbias_a1", "dbias_a2", "dpe", "dwp", "dwpa1", "dwpa2", "xm",
-                 "wcat", "wt", "biascat")
+                 "wcat", "wt", "biascat", "dcat16")
 _BWD_INTS = ("b", "n", "din", "heads", "dh", "p", "pooled", "need_dx",
              "need_dbias", "has_out_alpha", "splits", "chunks", "kxp", "wdp",
              "ntp")
@@ -91,27 +110,33 @@ class _FwdWork(ctypes.Structure):
 # C signatures of ops/csrc/gat_fwd.cu: 10 pointers (x, fc, wa1, wa2,
 # bias_ft, bias_a1, bias_a2, ngp, nsib, out), b, n, din, heads, dh, p,
 # alpha, ... (the per-slot forms: out_alpha, has_out_alpha; the train
-# forms: TrainArgs*, attn or null; then FwdWork* and the stream)
+# forms: TrainArgs*, attn or null; then FwdWork* and the stream); each in
+# a float32 (_f32) and a bf16 (_bf16) form
 _COMMON = [_P] * 10 + [_I] * 6 + [_F]
 _TA = ctypes.POINTER(_TrainArgs)
 _FW = ctypes.POINTER(_FwdWork)
+_DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 FWD_SIGNATURES = {
-    "gat_layer_fwd_f32": (_COMMON + [_F, _I, _FW, _P], _I),
-    "gat_layer_pooled_fwd_f32": (_COMMON + [_FW, _P], _I),
-    "gat_layer_fwd_train_f32": (_COMMON + [_F, _I, _TA, _P, _FW, _P], _I),
-    "gat_layer_pooled_fwd_train_f32": (_COMMON + [_TA, _P, _FW, _P], _I),
+    f"{name}_{sfx}": sig for sfx in _DTYPE_SUFFIX.values()
+    for name, sig in (
+        ("gat_layer_fwd", (_COMMON + [_F, _I, _FW, _P], _I)),
+        ("gat_layer_pooled_fwd", (_COMMON + [_FW, _P], _I)),
+        ("gat_layer_fwd_train", (_COMMON + [_F, _I, _TA, _P, _FW, _P], _I)),
+        ("gat_layer_pooled_fwd_train", (_COMMON + [_TA, _P, _FW, _P], _I)),
+        ("gat_projection", ([_P] * 7 + [_I] * 5 + [_TA, _FW, _P], _I)))}
+FWD_SIGNATURES.update({
     "dropout_bits_u32": ([ctypes.c_uint, ctypes.c_uint, _P, _P, _P,
                           ctypes.c_longlong, _I, _P], _I),
-    "gat_projection_f32": ([_P] * 7 + [_I] * 5 + [_TA, _FW, _P], _I),
     # proj, ldp, ngp, nsib, pools, b, n, heads, dh, p, alpha, ta, attn
     "gat_pooled_star_f32": ([_P, _I] + [_P] * 3 + [_I] * 5 + [_F, _TA, _P,
                                                               _P], _I),
     "gat_fwd_set_timing": ([_I], _I),
     "gat_fwd_pass_ms": ([_P], _I),
     "gat_fwd_error_string": ([_I], ctypes.c_char_p),
-}
+})
 BWD_SIGNATURES = {
     "gat_layer_bwd_f32": ([ctypes.POINTER(_BwdArgs), _TA, _P], _I),
+    "gat_layer_bwd_bf16": ([ctypes.POINTER(_BwdArgs), _TA, _P], _I),
     "gat_bwd_set_timing": ([_I], _I),
     "gat_bwd_pass_ms": ([_P], _I),
     "gat_bwd_error_string": ([_I], ctypes.c_char_p),
@@ -140,11 +165,20 @@ def _ft_logits(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, heads):
     return ft.reshape(b, n, heads, hd // heads), a1, a2
 
 
+def _is_bf16(x) -> bool:
+    return x.dtype == torch.bfloat16
+
+
 def gat_layer_fwd_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                         nsib, p: int, heads: int,
                         out_alpha=None) -> torch.Tensor:
-    """Plain PyTorch version of `gat_layer_fwd`: [B, N, H*Dh]. Invalid
-    slots keep their formula value (the TPU kernel does not mask them)."""
+    """Plain PyTorch version of `gat_layer_fwd`: [B, N, H*Dh] in x's dtype.
+    Invalid slots keep their formula value (the TPU kernel does not mask
+    them)."""
+    if _is_bf16(x):
+        return gat_layer_train_plain(x, fc, wa1, wa2, bias_ft, bias_a1,
+                                     bias_a2, ngp, nsib, p, heads,
+                                     out_alpha=out_alpha)
     b, n, _ = x.shape
     ft, a1, a2 = _ft_logits(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
                             heads)
@@ -162,7 +196,11 @@ def gat_layer_pooled_fwd_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
                                heads: int) -> torch.Tensor:
     """Plain PyTorch version of `gat_layer_pooled_fwd`: pools [B, 3, Dh] =
     (sum over valid gp slots, anchor, sum over valid sib slots) of the
-    head-averaged aggregation."""
+    head-averaged aggregation, float32."""
+    if _is_bf16(x):
+        return gat_layer_train_plain(x, fc, wa1, wa2, bias_ft, bias_a1,
+                                     bias_a2, ngp, nsib, p, heads,
+                                     pooled=True)
     b, n, _ = x.shape
     ft, a1, a2 = _ft_logits(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
                             heads)
@@ -257,10 +295,64 @@ def _star_attention_train(ft, a1, a2, ngp, p, masks, stored=None):
     return out_gp, out_anchor, out_sib, gp_mask, sm
 
 
+def _round_bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _bf16_operands(x, fc, wa1, wa2, pe_pack, seed, feat_drop, dropout_bits):
+    """A bf16 layer's product operands as its kernels stage and pack them,
+    in float32 tensors holding bf16 values: X = [x*m | pe*m_pe] [B*N, kx]
+    (x times its mask rounded to bf16, the product rounded; pe times the
+    float32 mask, rounded), W = [fc | wa1 | wa2; wp | wpa1 | wpa2] [kx, wd]
+    (W_p rounded to bf16), and the float32 masks (x's [B*N, din], pe's
+    [B*N, pos]; None without dropout / a pe path) the backward applies to
+    dx and the pe rows' grads."""
+    b, n, din = x.shape
+    dev = x.device
+    xs = x.float().reshape(b * n, din)
+    fmask = pmask = None
+    if feat_drop > 0:
+        fmask = dropout.slot_mask(seed, dropout.STREAM_FEAT, b, n, din,
+                                  feat_drop, dev, dropout_bits
+                                  ).reshape(b * n, din)
+        xs = _round_bf16(xs * _round_bf16(fmask))
+    cols, rows = [xs], [torch.cat([fc, wa1, wa2], dim=1).float()]
+    if pe_pack is not None:
+        pe, wp, wpa1, wpa2 = pe_pack
+        pos = pe.shape[1]
+        pmask = dropout.slot_mask(seed, dropout.STREAM_PE, b, n, pos,
+                                  feat_drop, dev, dropout_bits
+                                  ).reshape(b * n, pos)
+        cols.append(_round_bf16(pe.float().repeat(b, 1) * pmask))
+        rows.append(_round_bf16(torch.cat([wp, wpa1, wpa2], dim=1)))
+    return torch.cat(cols, dim=1), torch.cat(rows, dim=0), fmask, pmask
+
+
+def _projection_bf16(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, pe_pack,
+                     seed, feat_drop, dropout_bits):
+    """A bf16 layer's projection P = X @ W + the slot biases, [B, N, wd]
+    float32, and its operands (`_bf16_operands`)."""
+    b, n, _ = x.shape
+    xs, w, fmask, pmask = _bf16_operands(x, fc, wa1, wa2, pe_pack, seed,
+                                         feat_drop, dropout_bits)
+    bias = torch.cat([bias_ft, bias_a1, bias_a2], dim=1).float()
+    proj = (xs @ w).reshape(b, n, -1) + bias[None]
+    return proj, (xs, w, fmask, pmask)
+
+
 def _projection_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, pe_pack,
                       seed, feat_drop, dropout_bits):
     """ft [B, N, H*Dh], a1, a2 [B, N, H] of the layer input [x*m | pe*m_pe]
-    (the masks of ops/dropout.py when feat_drop > 0)."""
+    (the masks of ops/dropout.py when feat_drop > 0); float32, also for a
+    bf16 x (`_projection_bf16`)."""
+    if _is_bf16(x):
+        heads = wa1.shape[1]
+        hd = fc.shape[1]
+        proj, _ = _projection_bf16(x, fc, wa1, wa2, bias_ft, bias_a1,
+                                   bias_a2, pe_pack, seed, feat_drop,
+                                   dropout_bits)
+        return (proj[..., :hd], proj[..., hd:hd + heads],
+                proj[..., hd + heads:])
     b, n, din = x.shape
     hd = fc.shape[1]
     dev = x.device
@@ -298,9 +390,12 @@ def gat_layer_train_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                           pooled: bool = False, dropout_bits: int = 32,
                           store_attn: bool = False, stored_attn=None):
     """Plain PyTorch version of the train forms (and, at rates 0, of the
-    eval forms), differentiable by autograd: per-slot output [B, N, H*Dh]
-    or, with `pooled`, pools [B, 3, Dh]. The masks come from
-    ops/dropout.py, exactly the kernels' bits (`dropout_bits` 32 or 8).
+    eval forms), differentiable by autograd in float32: per-slot output
+    [B, N, H*Dh] in x's dtype or, with `pooled`, pools [B, 3, Dh] float32.
+    The masks come from ops/dropout.py, exactly the kernels' bits
+    (`dropout_bits` 32 or 8). For a bf16 x the roundings of the bf16
+    kernels (module docstring); its backward is `gat_layer_bwd_plain`, not
+    autograd through the casts.
 
     pe_pack = (pe [N, pos], wp [pos, H*Dh], wpa1 [pos, H], wpa2 [pos, H]):
     the pe path, [x*m | pe*m_pe] @ [W_h; W_p] (requires feat_drop > 0).
@@ -312,6 +407,8 @@ def gat_layer_train_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                                    dropout_bits)
     out, sm = _star_plain(ft, a1, a2, ngp, nsib, p, heads, seed, attn_drop,
                           out_alpha, pooled, dropout_bits, stored_attn)
+    if not pooled:
+        out = out.to(x.dtype)
     return (out, sm) if store_attn else out
 
 
@@ -371,7 +468,12 @@ def gat_layer_bwd_plain(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
     with the same seed, so the same masks (and, given `stored_attn`, the
     stored form's softmax weights). Returns {name: grad} for x (None unless
     need_dx), fc, wa1, wa2, the slot biases and, on the pe path, pe, wp,
-    wpa1, wpa2."""
+    wpa1, wpa2 (for a bf16 x: `_bwd_plain_bf16`)."""
+    if _is_bf16(x):
+        return _bwd_plain_bf16(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
+                               ngp, nsib, p, heads, pe_pack, seed, feat_drop,
+                               attn_drop, out_alpha, pooled, need_dx,
+                               dropout_bits, stored_attn)
     tensors = [x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2]
     names = list(_GRAD_NAMES)
     if pe_pack is not None:
@@ -392,12 +494,57 @@ def gat_layer_bwd_plain(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
     return res
 
 
+def _bwd_plain_bf16(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
+                    nsib, p, heads, pe_pack, seed, feat_drop, attn_drop,
+                    out_alpha, pooled, need_dx, dropout_bits,
+                    stored_attn) -> dict:
+    """The plain backward of a bf16 layer, pass by pass as the bf16 kernels
+    run it (pallas_gat.py:_bwd_epilogue :607-677): the projection P
+    recomputed from the staged X and packed W; D = dP through the float32
+    star pass by autograd (the head core), g upcast; the slot-bias grads
+    D's float32 sums over egonets; D rounded to bf16 for dW = X^T D (dfc,
+    dwa1, dwa2 rounded to bf16; the pe rows' dwp, dwpa1, dwpa2 float32)
+    and dX = D W^T (dx times its float32 mask, rounded to bf16; the pe
+    columns times theirs, summed over egonets into dpe, float32)."""
+    b, n, din = x.shape
+    hd = fc.shape[1]
+    proj, (xs, w, fmask, pmask) = _projection_bf16(
+        x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, pe_pack, seed, feat_drop,
+        dropout_bits)
+    proj = proj.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out, _ = _star_plain(proj[..., :hd], proj[..., hd:hd + heads],
+                             proj[..., hd + heads:], ngp, nsib, p, heads,
+                             seed, attn_drop, out_alpha, pooled,
+                             dropout_bits, stored_attn)
+        (dproj,) = torch.autograd.grad(out, proj, g.float())
+    d = dproj.reshape(b * n, -1)
+    dsum = dproj.sum(dim=0)
+    res = {"bias_ft": dsum[:, :hd], "bias_a1": dsum[:, hd:hd + heads],
+           "bias_a2": dsum[:, hd + heads:]}
+    d16 = _round_bf16(d)
+    dw = xs.T @ d16
+    bf = torch.bfloat16
+    res.update(fc=dw[:din, :hd].to(bf), wa1=dw[:din, hd:hd + heads].to(bf),
+               wa2=dw[:din, hd + heads:].to(bf))
+    dxs = d16 @ w.T
+    dx = dxs[:, :din] if fmask is None else dxs[:, :din] * fmask
+    res["x"] = dx.reshape(b, n, din).to(bf) if need_dx else None
+    if pe_pack is not None:
+        pos = pe_pack[0].shape[1]
+        res.update(pe=(dxs[:, din:] * pmask).reshape(b, n, pos).sum(dim=0),
+                   wp=dw[din:, :hd], wpa1=dw[din:, hd:hd + heads],
+                   wpa2=dw[din:, hd + heads:])
+    return res
+
+
 # ------------------------------------------------------------------ checks
 
 def _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
-           pe_pack=None, extra=()):
-    """Shapes, device, dtype and layout of the operands; ngp, nsib and p
-    None for the projection alone."""
+           pe_pack=None, extra=(), low=("fc", "wa1", "wa2")):
+    """Shapes, device, dtype and layout of the operands (x and the names in
+    `low` float32, or all bf16; every other float operand float32); ngp,
+    nsib and p None for the projection alone."""
     b, n, din = x.shape
     hd = fc.shape[1]
     if hd % heads:
@@ -415,7 +562,7 @@ def _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
                        "wpa1": (wpa1, (pos, heads)),
                        "wpa2": (wpa2, (pos, heads))})
     shapes.update(dict(extra))
-    check_operands(x, shapes)
+    check_operands(x, shapes, low)
     check_star(x, 0 if p is None else p)
     # a launch whose shared memory (the backward's head core about 1 KB a
     # slot, gat_bwd.cu:head_floats) exceeds the device's limit comes back as
@@ -438,7 +585,9 @@ def _fwd_cuda(what: str, pooled: bool, x, fc, wa1, wa2, bias_ft, bias_a1,
     b, n, din = x.shape
     dh = fc.shape[1] // heads
     shape = (b, 3, dh) if pooled else (b, n, heads * dh)
-    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    # the per-slot output in x's dtype, the pools float32
+    out = torch.empty(shape, dtype=torch.float32 if pooled else x.dtype,
+                      device=x.device)
     attn = (torch.empty((b, heads, attn_row(n, p)), dtype=torch.float32,
                         device=x.device) if store else None)
     if b == 0:
@@ -455,7 +604,8 @@ def _fwd_cuda(what: str, pooled: bool, x, fc, wa1, wa2, bias_ft, bias_a1,
                      train[2] if train is not None else 0.0, ta)
     args.append(ctypes.byref(work.args))
     fn = getattr(lib, f"{'gat_layer_pooled_fwd' if pooled else 'gat_layer_fwd'}"
-                      f"{'_train' if train is not None else ''}_f32")
+                      f"{'_train' if train is not None else ''}"
+                      f"_{_DTYPE_SUFFIX[x.dtype]}")
     with torch.cuda.device(x.device):
         rc = fn(*args, stream(x))
     raise_on(lib, rc, what, "gat_fwd_error_string")
@@ -472,35 +622,42 @@ class _Work:
 
 def _fwd_work(x, wd: int, feat_drop: float, ta) -> _Work:
     """The forwards' workspaces (gat_fwd.cu:FwdWork): the projection P
-    [B*N, wdp], X staged where needed, W and the slot biases in the
-    projection's layouts."""
+    [B*N, wdp] and the slot biases float32, X staged where needed and W in
+    x's dtype, in the projection's layouts (widths 16-byte multiples)."""
     b, n, din = x.shape
     pos = ta.pos if ta is not None else 0
-    kx, wdp = din + pos, round4(wd)
+    c = chunk_elems(x)
+    kx, wdp = din + pos, round_up(wd, c)
     staged = needs_staging(x, feat_drop, pos)
-    kxp = round4(kx) if staged else kx
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa
-                                       device=x.device)
-    tensors = [empty(b * n, wdp), empty(b * n, kxp) if staged else None,
-               empty(kxp, wdp), empty(n, wdp)]
+    kxp = round_up(kx, c) if staged else kx
+    empty = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
+        shape, dtype=dtype, device=x.device)
+    tensors = [empty(b * n, wdp),
+               empty(b * n, kxp, dtype=x.dtype) if staged else None,
+               empty(kxp, wdp, dtype=x.dtype), empty(n, wdp)]
     args = _FwdWork(*[t.data_ptr() if t is not None else None
                       for t in tensors], kxp, wdp)
     return _Work(args, tensors)
 
 
 def _count(wrapper, x) -> None:
+    """One launch of `wrapper`'s float32 or bf16 kernel, by x's dtype."""
     if x.shape[0]:
-        wrapper.launches += 1
+        if _is_bf16(x):
+            wrapper.launches_bf16 += 1
+        else:
+            wrapper.launches += 1
 
 
 def gat_layer_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
                   p: int, heads: int, out_alpha=None) -> torch.Tensor:
-    """One star-GAT layer, per-slot output [B, N, H*Dh] (float32).
+    """One star-GAT layer, per-slot output [B, N, H*Dh] in x's dtype.
 
     x [B, N, Din]; fc [Din, H*Dh] (head-major columns); wa1/wa2 [Din, H]
-    (fc folded with attn_l / attn_r); slot biases bias_ft [N, H*Dh],
-    bias_a1/bias_a2 [N, H]; ngp/nsib [B] int32; p = anchor slot;
-    out_alpha: fused leaky_relu slope of the output, or None."""
+    (fc folded with attn_l / attn_r), all four float32 or all bf16; slot
+    biases bias_ft [N, H*Dh], bias_a1/bias_a2 [N, H] (float32); ngp/nsib
+    [B] int32; p = anchor slot; out_alpha: fused leaky_relu slope of the
+    output, or None."""
     ops = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads)
     if not on_cuda(x, "gat_layer_fwd"):
         return gat_layer_fwd_plain(*ops, out_alpha)
@@ -512,8 +669,9 @@ def gat_layer_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
 def gat_layer_pooled_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                          nsib, p: int, heads: int) -> torch.Tensor:
     """Final star-GAT layer with the head mean and the per-class readout
-    pools fused in: returns pools [B, 3, Dh] (float32) and never writes the
-    [B, N, H*Dh] activation. Arguments as `gat_layer_fwd`."""
+    pools fused in: returns pools [B, 3, Dh] (float32, also for a bf16 x)
+    and never writes the [B, N, H*Dh] activation. Arguments as
+    `gat_layer_fwd`."""
     ops = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads)
     if not on_cuda(x, "gat_layer_pooled_fwd"):
         return gat_layer_pooled_fwd_plain(*ops)
@@ -607,16 +765,21 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
     extra = [("g", (g, g_shape))]
     if attn is not None:
         extra.append(("attn", (attn, (b, heads, attn_row(n, p)))))
+    # K2's incoming grad is the grad of an output in x's dtype; K4's are
+    # the float32 pools'
+    low = ("fc", "wa1", "wa2") + (() if pooled else ("g",))
     _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
-           pe_pack, extra=extra)
+           pe_pack, extra=extra, low=low)
     ta = train_args(pe_pack, seed, feat_drop, attn_drop, dropout_bits)
     pos = ta.pos
     dev = x.device
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa
-                                       device=dev)
-    grads = {"x": empty(b, n, din) if need_dx else None,
-             "fc": empty(din, hd), "wa1": empty(din, heads),
-             "wa2": empty(din, heads)}
+    empty = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
+        shape, dtype=dtype, device=dev)
+    dt = x.dtype    # dx, dfc, dwa1, dwa2 in x's dtype; the rest float32
+    grads = {"x": empty(b, n, din, dtype=dt) if need_dx else None,
+             "fc": empty(din, hd, dtype=dt),
+             "wa1": empty(din, heads, dtype=dt),
+             "wa2": empty(din, heads, dtype=dt)}
     if need_dbias:
         grads.update(bias_ft=empty(n, hd), bias_a1=empty(n, heads),
                      bias_a2=empty(n, heads))
@@ -644,7 +807,9 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
             "part_pe": empty(chunks, n, pos) if pos else None,
             "xm": pw["xm"], "wt": pw["wt"],
             # the projection's W and slot biases
-            "wcat": empty(pw["kxp"], wdp), "biascat": empty(n, wdp)}
+            "wcat": empty(pw["kxp"], wdp, dtype=dt), "biascat": empty(n, wdp),
+            # the products' D in bf16 (bf16 layers)
+            "dcat16": empty(m, wdp, dtype=dt) if _is_bf16(x) else None}
     args = _BwdArgs()
     ptrs = {"x": x, "fc": fc, "wa1": wa1, "wa2": wa2, "bias_ft": bias_ft,
             "bias_a1": bias_a1, "bias_a2": bias_a2, "ngp": ngp,
@@ -667,9 +832,9 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
     args.alpha = LEAKY_ALPHA
     args.out_alpha = 0.0 if out_alpha is None else float(out_alpha)
     lib = _bwd_lib()
+    fn = getattr(lib, f"gat_layer_bwd_{_DTYPE_SUFFIX[x.dtype]}")
     with torch.cuda.device(dev):
-        rc = lib.gat_layer_bwd_f32(ctypes.byref(args), ctypes.byref(ta),
-                                   stream(x))
+        rc = fn(ctypes.byref(args), ctypes.byref(ta), stream(x))
     what = "gat_layer_pooled_bwd" if pooled else "gat_layer_bwd"
     raise_on(lib, rc, what, "gat_bwd_error_string")
     return grads
@@ -697,8 +862,9 @@ def gat_layer_bwd(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
                   out_alpha=None, need_dx: bool = True,
                   need_dbias: bool = True, dropout_bits: int = 32) -> dict:
     """Backward of `gat_layer_fwd[_train]` for the incoming grad g
-    [B, N, H*Dh]: {x (need_dx), fc, wa1, wa2, bias_ft, bias_a1, bias_a2
-    (need_dbias), and with pe_pack pe, wp, wpa1, wpa2}."""
+    [B, N, H*Dh] (in x's dtype): {x (need_dx), fc, wa1, wa2, bias_ft,
+    bias_a1, bias_a2 (need_dbias), and with pe_pack pe, wp, wpa1, wpa2};
+    x, fc, wa1, wa2's grads in x's dtype, the others float32."""
     return _bwd(gat_layer_bwd, False, g,
                 (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p,
                  heads), out_alpha, None, pe_pack, seed, feat_drop,
@@ -754,10 +920,10 @@ def gat_projection(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, *,
                    dropout_bits: int = 32) -> torch.Tensor:
     """The projection of the per-slot layer alone, [ft | a1 | a2] =
     [x*m | pe*m_pe] @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot biases,
-    [B, N, H*Dh + 2H]: the first launch of `gat_layer_fwd[_train]` and of
-    `gat_layer_bwd`, exposed for testing it on its own (the plain version
-    on the CPU; on the card the kernel, counted in
-    `gat_projection.launches`)."""
+    [B, N, H*Dh + 2H], float32 (also for a bf16 x): the first launch of
+    `gat_layer_fwd[_train]` and of `gat_layer_bwd`, exposed for testing it
+    on its own (the plain version on the CPU; on the card the kernel,
+    counted in `gat_projection.launches[_bf16]`)."""
     kw = dict(pe_pack=pe_pack, seed=seed, feat_drop=feat_drop,
               dropout_bits=dropout_bits)
     if not on_cuda(x, "gat_projection"):
@@ -772,19 +938,19 @@ def gat_projection(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, *,
     ta = train_args(pe_pack, seed, feat_drop, 0.0, dropout_bits)
     work = _fwd_work(x, wd, feat_drop, ta)
     lib = _lib()
+    fn = getattr(lib, f"gat_projection_{_DTYPE_SUFFIX[x.dtype]}")
     with torch.cuda.device(x.device):
-        rc = lib.gat_projection_f32(
+        rc = fn(
             *[t.data_ptr() for t in (x, fc, wa1, wa2, bias_ft, bias_a1,
                                      bias_a2)],
             b, n, din, heads, hd // heads, ctypes.byref(ta),
             ctypes.byref(work.args), stream(x))
     raise_on(lib, rc, "gat_projection", "gat_fwd_error_string")
-    if b:
-        gat_projection.launches += 1
+    _count(gat_projection, x)
     return work.tensors[0].reshape(b, n, -1)[..., :wd]
 
 
-gat_projection.launches = 0
+gat_projection.launches = gat_projection.launches_bf16 = 0
 
 
 def gat_pooled_star(proj, ngp, nsib, p: int, heads: int, *, seed: int = 0,
@@ -853,7 +1019,7 @@ WRAPPERS = {w.__name__: w for w in (
     gat_layer_pooled_fwd_train_store, gat_layer_bwd, gat_layer_pooled_bwd,
     gat_layer_bwd_stored, gat_layer_pooled_bwd_stored)}
 for _w in WRAPPERS.values():
-    _w.launches = 0
+    _w.launches = _w.launches_bf16 = 0
 
 
 # --------------------------------------------------- differentiable layers

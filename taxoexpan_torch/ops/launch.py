@@ -50,19 +50,28 @@ def train_args(pe_pack, seed: int, feat_drop: float, attn_drop: float = 0.0,
     return ta
 
 
-def check_operands(x: torch.Tensor, shapes: dict) -> None:
+def check_operands(x: torch.Tensor, shapes: dict, low: tuple = ()) -> None:
     """Every operand {name: (tensor, expected shape)} and x itself: shape,
-    x's device, float32 (int32 for ngp / nsib), contiguous."""
+    x's device, float32 (int32 for ngp / nsib), contiguous. x and the
+    operands named in `low` may instead all be bfloat16 together (a layer
+    whose compute dtype is bf16); a mix of the two raises."""
+    x_dtype = torch.bfloat16 if low and x.dtype == torch.bfloat16 \
+        else torch.float32
     for name, (t, want) in [("x", (x, tuple(x.shape)))] + list(shapes.items()):
         if tuple(t.shape) != tuple(want):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(want)}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        want_dtype = torch.int32 if name in ("ngp", "nsib") else torch.float32
+        if name in ("ngp", "nsib"):
+            want_dtype = torch.int32
+        elif name == "x" or name in low:
+            want_dtype = x_dtype
+        else:
+            want_dtype = torch.float32
         if t.dtype != want_dtype:
             raise TypeError(f"{name} is {t.dtype}; the kernel takes "
-                            f"{want_dtype} only")
+                            f"{want_dtype} here (x is {x.dtype})")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
 
@@ -95,10 +104,16 @@ def stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def round4(v: int) -> int:
-    """v rounded up to a multiple of 4 floats (16 bytes): the row width of
-    every operand the tensor-core products (csrc/gemm_tf32.cuh) read."""
-    return (v + 3) // 4 * 4
+def chunk_elems(x: torch.Tensor) -> int:
+    """Elements of x's dtype in a 16-byte chunk, the products' copy unit
+    (4 floats, csrc/gemm_tf32.cuh; 8 bf16, csrc/gemm_bf16.cuh): the row
+    widths of every operand the tensor-core products read are multiples of
+    it."""
+    return 16 // x.element_size()
+
+
+def round_up(v: int, k: int) -> int:
+    return -(-v // k) * k
 
 
 def product_splits(x: torch.Tensor, m: int, kx: int, wd: int) -> int:
@@ -114,7 +129,7 @@ def needs_staging(x: torch.Tensor, feat_drop: float, pos: int) -> bool:
     """Whether the products read the layer input X = [x*m | pe*m_pe] from a
     staged copy (masks, a pe path, or rows of x that are not 16-byte
     multiples) rather than from x itself."""
-    return (feat_drop > 0 or pos > 0 or x.shape[-1] % 4 != 0
+    return (feat_drop > 0 or pos > 0 or x.shape[-1] % chunk_elems(x) != 0
             or x.data_ptr() % 16 != 0)
 
 
@@ -122,14 +137,17 @@ def product_work(x: torch.Tensor, m: int, kx: int, wd: int, staged: bool,
                  kbeg: int, splits: int) -> dict:
     """Workspaces of the product passes (csrc/bwd_common.cuh:ProductWork):
     xm [m, kxp] (staged only), wt [wdp, ntp] (the dx product's W^T over
-    the input columns [kbeg, kx)), part_w [splits, kx, wd] (splits > 0:
-    the dW product), and the widths."""
-    kxp, wdp, ntp = round4(kx), round4(wd), round4(kx - kbeg)
-    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa
-                                       device=x.device)
+    the input columns [kbeg, kx)), both in x's dtype, part_w [splits, kx,
+    wd] float32 (splits > 0: the dW product), and the widths (16-byte
+    multiples of x's dtype)."""
+    c = chunk_elems(x)
+    kxp, wdp, ntp = round_up(kx, c), round_up(wd, c), round_up(kx - kbeg, c)
+    empty = lambda *shape, dtype=x.dtype: torch.empty(  # noqa: E731
+        shape, dtype=dtype, device=x.device)
     return {"xm": empty(m, kxp) if staged else None,
             "wt": empty(wdp, ntp) if ntp else None,
-            "part_w": empty(splits, kx, wd) if splits else None,
+            "part_w": (empty(splits, kx, wd, dtype=torch.float32)
+                       if splits else None),
             "kxp": kxp if staged else kx, "wdp": wdp, "ntp": ntp}
 
 

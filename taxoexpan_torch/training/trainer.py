@@ -482,13 +482,16 @@ class Trainer:
         return final_log
 
     def _write_report(self, log: dict) -> None:
-        """Rank r's last epoch log and kernel launch counts, as
+        """Rank r's last epoch log and kernel launch counts (a GAT
+        wrapper's bf16 kernel under "<name>[bf16]"), as
         report-rank<r>.json in the run directory (the rank processes' only
         record: the log and checkpoints are rank 0's)."""
         from ..ops import gat_kernels, gcn_kernels, halo_kernels
         launches = {name: w.launches for mod in (
             gat_kernels, gcn_kernels, halo_kernels)
             for name, w in mod.WRAPPERS.items()}
+        launches.update({f"{name}[bf16]": w.launches_bf16
+                         for name, w in gat_kernels.WRAPPERS.items()})
         rank = self.dp.rank
         report = {"rank": rank, "world_size": self.dp.size,
                   "device": str(self.device),

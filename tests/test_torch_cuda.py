@@ -25,7 +25,13 @@ B*N not a multiple of the 128-row tile, Dout 130 (rows of 132 floats), din
 33 / 250 and a batch of empty egonets (dz and dx exactly 0 on invalid
 rows), and the projection and the star pass alone;
 for K6 the halo gather at P = 1 to 4 in float32 and bf16 (exact), empty
-buckets, and two rank processes sharing the card through CUDA IPC.
+buckets, and two rank processes sharing the card through CUDA IPC; the
+bf16 forms of K1-K4 (compute_dtype "bfloat16": the projection on bf16
+tensor-core MMAs) and of K7 at din not a multiple of 8, P's rows padded to
+8 elements, B*N not a multiple of the 128-row tile, several split-K
+splits, dropout 0 and 0.1 with 32- and 8-bit masks, stored and recompute
+backwards (equal bits), the differentiable layer against the CPU, and the
+wrappers' refusal of mixed dtypes.
 
 Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the card:
 
@@ -38,7 +44,9 @@ Tolerance rtol 1e-4 / atol 1e-4 for the forwards: float32 on both sides
 (the projections in 3xTF32, float32-accurate), sums taken in another order
 (the kernel's tiled K loop vs cuBLAS). The
 backward grads reduce over every row of the batch (dW, slot biases) and
-take rtol 1e-3 / atol 1e-4, the CPU parity tests' gradient tolerance."""
+take rtol 1e-3 / atol 1e-4, the CPU parity tests' gradient tolerance.
+The bf16 forms' tolerances are stated at `_assert_close_bf16` and
+`_assert_grads_bf16`."""
 import numpy as np
 import pytest
 import torch
@@ -763,3 +771,199 @@ def test_ring_exchange_two_processes_on_one_card(dev):
         s.bind(("127.0.0.1", 0))
         coord = f"127.0.0.1:{s.getsockname()[1]}"
     mp.spawn(_ring_rank, args=(coord, 2), nprocs=2, join=True)
+
+
+# ------------------------- bf16 layers: the bf16 forms of K1-K4, K7 in bf16
+
+BF16_SHAPES = [
+    # b, p, s, din, heads, dh, pos: din not a multiple of 8 (rows staged),
+    # H*Dh + 2H not a multiple of 8 (P's rows padded), B*N not a multiple
+    # of the 128-row tile
+    (3, 2, 13, 250, 4, 500, 50),     # PGAT layer 0's widths, N = 16
+    (37, 5, 64, 33, 3, 130, 7),      # N = 70, 2590 rows, wd 396
+    (3, 13, 50, 2000, 1, 500, 50),   # the PGAT final layer's (x read
+                                     # directly in the eval form)
+    (3, 13, 50, 3600, 1, 600, 100),  # the MTL per-slot final layer's
+    (260, 3, 30, 40, 2, 24, 5),      # 8840 rows: three split-K splits
+]
+
+
+def _bf16(t):
+    """A layer's operands in bf16: x, fc, wa1, wa2 rounded, the rest as
+    they are."""
+    return [a.to(torch.bfloat16) for a in t[:4]] + list(t[4:])
+
+
+def _assert_close_bf16(got, want, name=""):
+    """One bf16 ulp (2**-7 relative) elementwise, plus TOL's atol: both
+    sides multiply the same bf16 operands exactly and sum in float32 in
+    another order, so before its rounding a result agrees to the float32
+    forms' tolerance (where it cancels to near 0 as well), and the rounding
+    may then pick the neighbouring bf16 value."""
+    assert got.dtype == want.dtype == torch.bfloat16, name
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=TOL["atol"], msg=lambda m: f"{name}: {m}")
+
+
+def _assert_grads_bf16(got, want):
+    """dx, dfc, dwa1, dwa2 in bf16: 2**-6 relative plus 2**-8 of the
+    grad's largest value (D rounded to bf16 on both sides from float32
+    values that differ by rounding, so an element of D can land one bf16
+    ulp apart before the sums over rows); the float32 grads (slot biases,
+    the pe path) GTOL's rtol plus 1e-3 of the grad's largest value."""
+    assert set(got) == set(want)
+    for name in want:
+        if want[name] is None or got[name] is None:
+            assert got[name] is None, name
+            continue
+        assert got[name].dtype == want[name].dtype, name
+        scale = float(want[name].abs().max())
+        low = want[name].dtype == torch.bfloat16
+        torch.testing.assert_close(
+            got[name].float(), want[name].float(),
+            rtol=2 ** -6 if low else GTOL["rtol"],
+            atol=(2 ** -8 if low else 1e-3) * scale,
+            msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("b,p,s,din,heads,dh,pos", BF16_SHAPES)
+@pytest.mark.parametrize("drop,bits", [(0.0, 32), (0.1, 32), (0.1, 8)])
+def test_bf16_projection_k1_k2_match_plain(dev, b, p, s, din, heads, dh, pos,
+                                           drop, bits):
+    """The bf16 forms of the projection, K1 (the eval form at dropout 0,
+    else the train form's store form) and K2 with need_dx on and off
+    against their plain versions; the stored K2 equal bits with the
+    recompute K2; every launch counted as a bf16 launch, none as a float32
+    one."""
+    t = _bf16(_inputs(dev, b, p, s, din, heads, dh))
+    n = p + 1 + s
+    pe = _pe_pack(dev, n, pos, heads, dh) if drop else None
+    kw = dict(pe_pack=pe, seed=31, feat_drop=drop, dropout_bits=bits)
+    names = ("gat_layer_fwd", "gat_layer_fwd_train_store", "gat_layer_bwd",
+             "gat_layer_bwd_stored")
+    before = {k: (gk.WRAPPERS[k].launches, gk.WRAPPERS[k].launches_bf16)
+              for k in names}
+    before_proj = (gk.gat_projection.launches, gk.gat_projection.launches_bf16)
+    proj = gk.gat_projection(*t[:7], **kw)
+    torch.cuda.synchronize()
+    assert (gk.gat_projection.launches, gk.gat_projection.launches_bf16) == (
+        before_proj[0], before_proj[1] + 1)
+    assert proj.dtype == torch.float32
+    torch.testing.assert_close(proj, gk.gat_projection_plain(*t[:7], **kw),
+                               **TOL)
+    out_alpha = 0.01 if heads > 1 else None
+    tkw = dict(kw, attn_drop=drop, out_alpha=out_alpha)
+    if drop:
+        out, attn = gk.gat_layer_fwd_train_store(*t, p, heads, **tkw)
+        want, want_attn = gk.gat_layer_train_plain(*t, p, heads,
+                                                   store_attn=True, **tkw)
+        torch.testing.assert_close(attn, want_attn, **TOL)
+    else:
+        out, attn = gk.gat_layer_fwd(*t, p, heads, out_alpha=out_alpha), None
+        want = gk.gat_layer_fwd_plain(*t, p, heads, out_alpha)
+    _assert_close_bf16(out, want, "out")
+    g = (torch.randn(out.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(32))
+         * 1e-2).to(torch.bfloat16)
+    if out_alpha is not None:   # leaky' jumps at 0: no grad near the kink
+        pre = gk.gat_layer_train_plain(*t, p, heads,
+                                       **dict(tkw, out_alpha=None))
+        g = g * (pre.float().abs() > 1e-5)
+    for need_dx in (True, False):
+        bkw = dict(tkw, need_dx=need_dx)
+        got = gk.gat_layer_bwd(g, *t, p, heads, **bkw)
+        _assert_grads_bf16(got, gk.gat_layer_bwd_plain(g, *t, p, heads,
+                                                       **bkw))
+        if attn is not None:
+            stored = gk.gat_layer_bwd_stored(g, *t, p, heads, attn, **bkw)
+            for name, a in stored.items():
+                assert (a is None) == (got[name] is None), name
+                assert a is None or torch.equal(a, got[name]), name
+    torch.cuda.synchronize()
+    after = {k: (gk.WRAPPERS[k].launches, gk.WRAPPERS[k].launches_bf16)
+             for k in names}
+    calls = {"gat_layer_fwd": 0 if drop else 1,
+             "gat_layer_fwd_train_store": 1 if drop else 0,
+             "gat_layer_bwd": 2, "gat_layer_bwd_stored": 2 if drop else 0}
+    assert after == {k: (before[k][0], before[k][1] + calls[k])
+                     for k in names}
+
+
+@pytest.mark.parametrize("b,p,s,din,heads,dh,pos,empty", POOLED_SHAPES + [
+    (3, 13, 50, 2000, 1, 500, 50, False),   # x read directly (eval form)
+])
+def test_bf16_pooled_forms_match_plain(dev, b, p, s, din, heads, dh, pos,
+                                       empty):
+    """The bf16 forms of K3 (eval, train, store; pools float32) and K4
+    (recompute, stored; dx bf16, zero on invalid slots) against their
+    plain versions; stored and recompute grads equal bits."""
+    t = _bf16(_inputs(dev, b, p, s, din, heads, dh))
+    n = p + 1 + s
+    if empty:
+        t[7].zero_()
+        t[8].zero_()
+        t[0] *= star.node_mask(t[7], t[8], p, n)[..., None].to(t[0].dtype)
+    got = gk.gat_layer_pooled_fwd(*t, p, heads)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, gk.gat_layer_pooled_fwd_plain(
+        *t, p, heads), **TOL)
+    kw = dict(pe_pack=_pe_pack(dev, n, pos, heads, dh), seed=33,
+              feat_drop=0.1, attn_drop=0.1)
+    out = gk.gat_layer_pooled_fwd_train(*t, p, heads, **kw)
+    torch.testing.assert_close(out, gk.gat_layer_train_plain(
+        *t, p, heads, pooled=True, **kw), **TOL)
+    out_s, attn = gk.gat_layer_pooled_fwd_train_store(*t, p, heads, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out_s, out)
+    g = torch.randn((b, 3, dh), device=dev,
+                    generator=torch.Generator(dev).manual_seed(34))
+    got = gk.gat_layer_pooled_bwd(g, *t, p, heads, **kw)
+    _assert_grads_bf16(got, gk.gat_layer_bwd_plain(g, *t, p, heads,
+                                                   pooled=True, **kw))
+    mask = star.node_mask(t[7], t[8], p, n)
+    if bool((~mask).any()):    # invalid slots get no grad from the pools
+        assert float(got["x"][~mask].abs().max()) == 0.0
+    stored = gk.gat_layer_pooled_bwd_stored(g, *t, p, heads, attn, **kw)
+    torch.cuda.synchronize()
+    for name, a in stored.items():
+        assert (a is None) == (got[name] is None), name
+        assert a is None or torch.equal(a, got[name]), name
+
+
+def test_bf16_layer_function_on_card_matches_cpu(dev):
+    """The differentiable layer with bf16 operands (the model casts float32
+    params to bf16 outside it): card forward + K2 against the CPU Function
+    (plain versions), grads reaching the float32 leaves."""
+    t = _inputs(dev, 12, 4, 20, 24, 2, 36)
+    kw = dict(seed=9, feat_drop=0.1, attn_drop=0.1, out_alpha=0.01)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        leaves = [a.to(d).clone().requires_grad_(True) for a in t[:7]]
+        ops = [v.to(torch.bfloat16) for v in leaves[:4]] + leaves[4:]
+        y = gk.gat_layer(*ops, t[7].to(d), t[8].to(d), 4, 2, **kw)
+        assert y.dtype == torch.bfloat16
+        grads = torch.autograd.grad(y.float().square().sum(), leaves)
+        out[d.type] = [y.detach().cpu()] + [x.cpu() for x in grads]
+    _assert_close_bf16(out["cuda"][0], out["cpu"][0], "out")
+    for a, b in zip(out["cuda"][1:], out["cpu"][1:]):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=2 ** -6,
+                                   atol=2 ** -8 * float(b.abs().max()))
+
+
+def test_bf16_wrappers_refuse_mixed_dtypes(dev):
+    """x, fc, wa1, wa2 all bf16 or all float32: a mix raises; the slot
+    biases stay float32; K5 takes no bf16."""
+    t = _inputs(dev, 4, 3, 8, 6, 2, 4)
+    bf = _bf16(t)
+    with pytest.raises(TypeError, match="the kernel takes"):
+        gk.gat_layer_fwd(bf[0], t[1], *bf[2:], 3, 2)
+    with pytest.raises(TypeError, match="the kernel takes"):
+        gk.gat_layer_fwd(t[0], bf[1], *t[2:], 3, 2)
+    with pytest.raises(TypeError, match="the kernel takes"):
+        gk.gat_layer_pooled_fwd(*bf[:4], bf[4].to(torch.bfloat16), *bf[5:],
+                                3, 2)
+    w = torch.zeros((6, 5), device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        ck.gcn_layer_fwd(bf[0], w, torch.zeros(5, device=dev),
+                         torch.zeros((12, 5), device=dev), t[7], t[8], 3)

@@ -287,7 +287,8 @@ def test_forward_heads_and_mtl_loss_grads_match_jax(rng, tmp_path):
 
 def test_builders_accept_the_mtl_config():
     """config.semeval_verb_mtl.json builds (PATR, PMLP, one aux head at its
-    widths); bf16 and pos_mode="concat" still raise."""
+    widths), also with compute_dtype "bfloat16" (bf16 GAT layers);
+    pos_mode="concat" and a compute dtype the JAX package refuses raise."""
     with open("configs/config.semeval_verb_mtl.json") as fin:
         arch = json.load(fin)["arch"]
     model = tbuilders.build_model(arch, max_parents=P, expand_factor=S)
@@ -296,9 +297,13 @@ def test_builders_accept_the_mtl_config():
     assert [(rd.kind, mt.kind) for rd, mt in model.aux_heads] == [
         ("WMR", "BIM")]
     assert model.propagate.layer_specs == [(400, 900, 4), (3700, 600, 1)]
-    for key, value in (("compute_dtype", "bfloat16"), ("pos_mode", "concat")):
+    bf16 = {"args": dict(arch["args"], compute_dtype="bfloat16")}
+    assert tbuilders.build_model(bf16, max_parents=P, expand_factor=S
+                                 ).propagate.dtype == torch.bfloat16
+    for key, value, match in (("pos_mode", "concat", "not ported"),
+                              ("compute_dtype", "float16", "compute_dtype")):
         bad = {"args": dict(arch["args"], **{key: value})}
-        with pytest.raises(ValueError, match="not ported"):
+        with pytest.raises(ValueError, match=match):
             tbuilders.build_model(bad, max_parents=P, expand_factor=S)
 
 
