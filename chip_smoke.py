@@ -104,8 +104,12 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               train), K4 (need_dx on) at PGAT's shapes, and both MTL
               layers' K1 eval, K1t-store and K2-stored (8-bit masks) at
               MTL's shapes (MTL-bf16 is the bf16 path that stores
-              attention), each held to its plain version (a bf16 result to one bf16 ulp, a bf16
-              grad to 2**-6 relative plus 2**-8 of its largest value), with
+              attention), and K5's forms at PGCN's shapes (eval, train,
+              backward of both layers, x and W_h in bf16: a direct call,
+              no model path reaches them, so their launches are the PGCN
+              path's bf16 ones, 0), each held to its plain version (a bf16
+              result to one bf16 ulp, a bf16 grad to 2**-6 relative plus
+              2**-8 of its largest value), with
               `matmul_ms` of one bf16 torch.matmul and `bound_ms` at the
               dense bf16 rate (989 TFLOP/s); serving and training of
               PGAT-bf16 (config.mag.json with the key) and MTL-bf16
@@ -118,6 +122,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (tests/test_bf16.py's contract), `step_vs_cpu` (loss 1e-3,
               grads 2**-6 of each leaf's largest value), and a
               `bf16_steps` line: the median steps beside the float32 ones.
+              PGAT-bf16's training runs the trainer's profiler window
+              (`Trainer(profile_dir=)`, batches 1-4 of its 6-step epoch 1,
+              epoch 1 with the sampled validation and its prefetch, epoch
+              2 the full one) and a second window over one more epoch
+              without the per-step sync; a `profile` line reads each trace
+              back (wall ms, device-busy ms, the device's idle share, the
+              top device operations), with the epochs' split and the
+              checkpoint writer's and the prefetch's foreground seconds
+              against the inline and foreground forms.
 8. a `{"kernels": [...]}` line (eval-form launches from the serving phase
    of the entry's path, the train-path kernels' from its training phase,
    K6's from the partitioned 2-rank run, over both ranks),
@@ -213,6 +226,9 @@ BF16_PATHS = ("PGAT-bf16", "MTL-bf16")
 SERVING_PATHS = ("PGAT", "PGCN", "MTL", "PGAT-bf16", "MTL-bf16")
 TRAINING_PATHS = {"PGAT": 2, "PGCN": 2, "PGAT-stored": 1, "MTL": 2,
                   "PGAT-bf16": 2, "MTL-bf16": 1}
+# the path whose training turns the trainer's profiler window on, and the
+# window: batches 1-4 of epoch 1 (its 800-node epoch has 6 steps)
+PROFILE_PATH, PROFILE_WINDOW = "PGAT-bf16", (1, 4)
 # stored and recompute backwards on the card: the same expressions of
 # gat_common.cuh in two translation units; equal bits expected
 STORED_REL = 1e-6
@@ -355,10 +371,14 @@ def _eval_wrappers(path: str) -> dict:
 def path_launches(path: str, wrappers: dict) -> dict:
     """The launch counts of `wrappers` in the path's compute dtype: their
     bf16 kernels' on a BF16_PATHS path (which then must have launched no
-    float32 GAT kernel: raises), else their float32 kernels'."""
+    float32 GAT kernel: raises), else their float32 kernels', and their
+    bf16 kernels' under "<name>[bf16]" (K5's bf16 form has no path of its
+    own: PGCN's count of it is its count on the main paths)."""
     from taxoexpan_torch.ops import gat_kernels as gk
     if path not in BF16_PATHS:
-        return {name: w.launches for name, w in wrappers.items()}
+        return {name: w.launches for name, w in wrappers.items()} | {
+            f"{name}[bf16]": w.launches_bf16
+            for name, w in wrappers.items()}
     f32 = {name: w.launches for name, w in gk.WRAPPERS.items() if w.launches}
     if f32:
         raise AssertionError(f"the bf16 path {path} launched float32 "
@@ -451,15 +471,15 @@ def bwd_work(x, ops, pe_pack, g, grads: dict, ngp, nsib, heads: int,
     return nbytes, flops
 
 
-def gcn_fwd_work(x, ops, pe_pack, ngp, nsib, out_elems: int):
+def gcn_fwd_work(x, ops, pe_pack, ngp, nsib, out):
     """(bytes, operations) a K5 forward needs on these inputs: each input
-    read once and the output written once; the [x | pe] @ [W_h; W_p]
+    read once and the output `out` written once; the [x | pe] @ [W_h; W_p]
     product over the valid slots (an invalid slot's output is the bias
     alone) plus about 5 operations a (valid slot, column) for the norms,
     the star sum, the bias and the activation."""
     din, dout = x.shape[2], ops[0].shape[1]
     kx = din + (pe_pack[0].shape[1] if pe_pack else 0)
-    nbytes = _nbytes(x, *ops, ngp, nsib, *(pe_pack or ())) + out_elems * 4
+    nbytes = _nbytes(x, *ops, ngp, nsib, *(pe_pack or ()), out)
     rows = float((ngp + 1 + nsib).double().sum())
     return nbytes, 2.0 * rows * kx * dout + 5.0 * rows * dout
 
@@ -1007,7 +1027,11 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
     500 + 50 -> 500, no activation), 4096 egonets: the eval forward of both
     layers (pe term as z_bias), the train forward of both (feature and pe
     dropout at the config's feat_drop / out_drop, the pe path), and K5b of
-    both (layer 0: need_dx off; the final layer: need_dx on)."""
+    both (layer 0: need_dx off; the final layer: need_dx on); in float32
+    (path PGCN) and in bf16 (x and W_h in bf16, the final layer fed the
+    bf16 layer 0's output; reached by a direct call only, since PGCN runs
+    float32 under any compute dtype, so its launches are the PGCN path's
+    bf16 launches)."""
     import torch
     from taxoexpan_torch.models.propagation import (gcn_layer_operands,
                                                     slot_embeddings)
@@ -1034,100 +1058,119 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
     tops1, pe1 = operands(1, din1, True)
     tkw0 = dict(pe_pack=pe0, seed=21, drop=drop0, alpha=a0)
     tkw1 = dict(pe_pack=pe1, seed=22, drop=drop1, alpha=a1)
-    with torch.no_grad():
-        x1 = ck.gcn_layer_fwd_plain(x0, *ops0, ngp, nsib, MAG_P, a0)
-        x1t = ck.gcn_layer_train_plain(x0, *tops0, ngp, nsib, MAG_P, **tkw0)
-        # layer 0's leaky' jumps 100x at 0: the incoming grad is 0 within
-        # 1e-5 of the kink, as for gat_layer_bwd
-        pre = ck.gcn_layer_train_plain(x0, *tops0, ngp, nsib, MAG_P,
-                                       **dict(tkw0, alpha=None))
-        away = pre.abs() > 1e-5
-        near_kink_share = 1.0 - float(away.double().mean())
-        del pre
     # incoming grads live on the valid slots: layer 1's dx and the
     # readout's grad are zero elsewhere
     valid = star.node_mask(ngp, nsib, MAG_P, n)[..., None]
     dgen = torch.Generator(device=device).manual_seed(SEED)
-    g0 = (torch.randn(x1t.shape, generator=dgen, device=device) * 1e-3) \
-        * valid * away
-    del away
-    g1 = (torch.randn(x1t.shape[:2] + (prop.out_dim,), generator=dgen,
-                      device=device) * 1e-2) * valid
     args = (ngp, nsib, MAG_P)
-    cases = [
-        ("gcn_layer_fwd", "layer0", x0, ops0, None, a0,
-         lambda: ck.gcn_layer_fwd(x0, *ops0, *args, a0),
-         lambda: ck.gcn_layer_fwd_plain(x0, *ops0, *args, a0)),
-        ("gcn_layer_fwd", "final", x1, ops1, None, a1,
-         lambda: ck.gcn_layer_fwd(x1, *ops1, *args, a1),
-         lambda: ck.gcn_layer_fwd_plain(x1, *ops1, *args, a1)),
-        ("gcn_layer_fwd_train", "layer0", x0, tops0, pe0, a0,
-         lambda: ck.gcn_layer_fwd_train(x0, *tops0, *args, **tkw0),
-         lambda: ck.gcn_layer_train_plain(x0, *tops0, *args, **tkw0)),
-        ("gcn_layer_fwd_train", "final", x1t, tops1, pe1, a1,
-         lambda: ck.gcn_layer_fwd_train(x1t, *tops1, *args, **tkw1),
-         lambda: ck.gcn_layer_train_plain(x1t, *tops1, *args, **tkw1)),
-        # the train step's backwards: layer 0 without dx (fixed input
-        # features), neither needs d z_bias (zero on the pe path)
-        ("gcn_layer_bwd", "layer0", x0, tops0, pe0, a0,
-         lambda: ck.gcn_layer_bwd(g0, x0, *tops0, *args, need_dx=False,
-                                  need_dzb=False, **tkw0),
-         lambda: ck.gcn_layer_bwd_plain(g0, x0, *tops0, *args,
-                                        need_dx=False, need_dzb=False,
-                                        **tkw0)),
-        ("gcn_layer_bwd", "final", x1t, tops1, pe1, a1,
-         lambda: ck.gcn_layer_bwd(g1, x1t, *tops1, *args, need_dx=True,
-                                  need_dzb=False, **tkw1),
-         lambda: ck.gcn_layer_bwd_plain(g1, x1t, *tops1, *args,
-                                        need_dx=True, need_dzb=False,
-                                        **tkw1)),
-    ]
     source = "taxoexpan_torch/ops/csrc/gcn.cu"
+    bf16 = torch.bfloat16
     records = []
-    for wrapper, layer, x, ops, pe_pack, alpha, kernel, plain in cases:
-        name = f"{wrapper}[{layer}]"
-        backward = wrapper == "gcn_layer_bwd"
-        x2 = x.reshape(-1, x.shape[-1])
-        w = ops[0]
-        if backward:
-            d = torch.randn((x2.shape[0], w.shape[1]), device=device)
-            matmul = lambda: x2.T @ d  # noqa: E731
-            call = "torch.matmul(x.reshape(-1, Din).T, dz [B*N, Dout])"
-        else:
-            matmul = lambda: x2 @ w  # noqa: E731
-            call = "torch.matmul(x.reshape(-1, Din), W_h)"
-        got, nums = measure(name, kernel, plain, backward, matmul,
-                            "gcn_bwd" if backward else "gcn_fwd")
-        if backward:
-            del d
-            nbytes, flops = gcn_bwd_work(x, ops, pe_pack,
-                                         g0 if layer == "layer0" else g1,
-                                         got, ngp, nsib, alpha)
-        else:
-            nums["star_alone"] = gcn_star_alone(
-                name, x, ops, ngp, nsib, alpha,
-                (tkw0 if layer == "layer0" else tkw1)
-                if pe_pack is not None else {})
-            nbytes, flops = gcn_fwd_work(x, ops, pe_pack, ngp, nsib,
-                                         got.numel())
-        rec = {"name": name, "wrapper": wrapper, "path": "PGCN",
-               "route": "cuda", "source": source,
-               "replaces": REPLACES[wrapper], "batch": batch,
-               "x_shape": list(x.shape), "w_shape": list(w.shape),
-               "alpha": alpha, "pe": pe_pack is not None,
-               **({"near_kink_share": near_kink_share}
-                  if name == "gcn_layer_bwd[layer0]" else {}),
-               "dropout": ((tkw0 if layer == "layer0" else tkw1)["drop"]
-                           if pe_pack is not None else 0.0),
-               **nums,
-               # no single PyTorch call computes the star-GCN layer or its
-               # backward; one product alone is timed as a yardstick
-               "library_ms": None, "matmul_call": call,
-               **_bound(nbytes, flops, True)}
-        emit("kernel", **rec)
-        records.append(rec)
-        del got
-        torch.cuda.empty_cache()
+    for dtype in (torch.float32, bf16):
+        low = dtype == bf16
+        # x and W_h in the layer's dtype; b, z_bias and the pe path float32
+        cast = lambda ops: (ops[0].to(dtype), *ops[1:])  # noqa: E731
+        o0, o1, t0, t1 = cast(ops0), cast(ops1), cast(tops0), cast(tops1)
+        xa = x0.to(dtype)
+        with torch.no_grad():
+            xb = ck.gcn_layer_fwd_plain(xa, *o0, *args, a0)
+            xbt = ck.gcn_layer_train_plain(xa, *t0, *args, **tkw0)
+            # layer 0's leaky' jumps 100x at 0: the incoming grad is 0
+            # within 1e-5 of the kink (of the float32 pre-activation the
+            # kernel takes leaky' at), as for gat_layer_bwd
+            pre = ck.gcn_star_plain(ck.gcn_projection_plain(
+                xa, t0[0], t0[2], pe_pack=pe0, seed=21, drop=drop0),
+                t0[1], *args)
+            away = pre.abs() > 1e-5
+            near_kink_share = 1.0 - float(away.double().mean())
+            del pre
+        g0 = ((torch.randn(xbt.shape, generator=dgen, device=device) * 1e-3)
+              * valid * away).to(dtype)
+        del away
+        g1 = ((torch.randn(xbt.shape[:2] + (prop.out_dim,), generator=dgen,
+                           device=device) * 1e-2) * valid).to(dtype)
+        cases = [
+            ("gcn_layer_fwd", "layer0", xa, o0, None, a0,
+             lambda: ck.gcn_layer_fwd(xa, *o0, *args, a0),
+             lambda: ck.gcn_layer_fwd_plain(xa, *o0, *args, a0)),
+            ("gcn_layer_fwd", "final", xb, o1, None, a1,
+             lambda: ck.gcn_layer_fwd(xb, *o1, *args, a1),
+             lambda: ck.gcn_layer_fwd_plain(xb, *o1, *args, a1)),
+            ("gcn_layer_fwd_train", "layer0", xa, t0, pe0, a0,
+             lambda: ck.gcn_layer_fwd_train(xa, *t0, *args, **tkw0),
+             lambda: ck.gcn_layer_train_plain(xa, *t0, *args, **tkw0)),
+            ("gcn_layer_fwd_train", "final", xbt, t1, pe1, a1,
+             lambda: ck.gcn_layer_fwd_train(xbt, *t1, *args, **tkw1),
+             lambda: ck.gcn_layer_train_plain(xbt, *t1, *args, **tkw1)),
+            # the train step's backwards: layer 0 without dx (fixed input
+            # features), neither needs d z_bias (zero on the pe path)
+            ("gcn_layer_bwd", "layer0", xa, t0, pe0, a0,
+             lambda: ck.gcn_layer_bwd(g0, xa, *t0, *args, need_dx=False,
+                                      need_dzb=False, **tkw0),
+             lambda: ck.gcn_layer_bwd_plain(g0, xa, *t0, *args,
+                                            need_dx=False, need_dzb=False,
+                                            **tkw0)),
+            ("gcn_layer_bwd", "final", xbt, t1, pe1, a1,
+             lambda: ck.gcn_layer_bwd(g1, xbt, *t1, *args, need_dx=True,
+                                      need_dzb=False, **tkw1),
+             lambda: ck.gcn_layer_bwd_plain(g1, xbt, *t1, *args,
+                                            need_dx=True, need_dzb=False,
+                                            **tkw1)),
+        ]
+        for wrapper, layer, x, ops, pe_pack, alpha, kernel, plain in cases:
+            name = f"{wrapper}[{layer}, bf16]" if low else \
+                f"{wrapper}[{layer}]"
+            backward = wrapper == "gcn_layer_bwd"
+            x2 = x.reshape(-1, x.shape[-1])
+            w = ops[0]
+            if backward:
+                d = torch.randn((x2.shape[0], w.shape[1]), device=device,
+                                dtype=dtype)
+                matmul = lambda: x2.T @ d  # noqa: E731
+                call = "torch.matmul(x.reshape(-1, Din).T, dz [B*N, Dout])"
+            else:
+                matmul = lambda: x2 @ w  # noqa: E731
+                call = "torch.matmul(x.reshape(-1, Din), W_h)"
+            if low:
+                call += " in bf16"
+            got, nums = measure(name, kernel, plain, backward, matmul,
+                                "gcn_bwd" if backward else "gcn_fwd")
+            kw = (tkw0 if layer == "layer0" else tkw1) \
+                if pe_pack is not None else {}
+            if backward:
+                del d
+                nbytes, flops = gcn_bwd_work(x, ops, pe_pack,
+                                             g0 if layer == "layer0" else g1,
+                                             got, ngp, nsib, alpha)
+            else:
+                nums["star_alone"] = gcn_star_alone(name, x, ops, ngp, nsib,
+                                                    alpha, kw)
+                nbytes, flops = gcn_fwd_work(x, ops, pe_pack, ngp, nsib, got)
+            rec = {"name": name, "wrapper": wrapper, "path": "PGCN",
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "route": "cuda", "source": source,
+                   "replaces": REPLACES[wrapper], "batch": batch,
+                   "x_shape": list(x.shape), "w_shape": list(w.shape),
+                   "alpha": alpha, "pe": pe_pack is not None,
+                   **({"near_kink_share": near_kink_share}
+                      if wrapper == "gcn_layer_bwd" and layer == "layer0"
+                      else {}),
+                   "dropout": kw.get("drop", 0.0),
+                   **({"launch_key": f"{wrapper}[bf16]",
+                       "reached_by": "a direct call (no model path: PGCN "
+                                     "runs float32 under any compute "
+                                     "dtype)"} if low else {}),
+                   **nums,
+                   # no single PyTorch call computes the star-GCN layer or
+                   # its backward; one product alone is timed as a
+                   # yardstick
+                   "library_ms": None, "matmul_call": call,
+                   **_bound(nbytes, flops, not low, bf16=low)}
+            emit("kernel", **rec)
+            records.append(rec)
+            del got
+            torch.cuda.empty_cache()
+        del xa, xb, xbt, g0, g1
     return records
 
 
@@ -1260,8 +1303,8 @@ def phase_serving(device, num_nodes: int, n_novel: int, seed: int,
         launches = path_launches(path, wrappers)
 
         # ---- checks
-        for name, count in launches.items():
-            if count <= 0:
+        for name in wrappers:
+            if launches[name] <= 0:
                 raise AssertionError(f"the serving path never launched "
                                      f"{name}")
         bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
@@ -1439,15 +1482,93 @@ def compare_train_step(device, cfg: dict, taxonomy, params: dict,
             "near_zero_grad_share": n_tiny / max(n_all, 1)}
 
 
+def trace_split(path: Path) -> dict:
+    """A profiler window's Chrome trace read back: its wall ms (the span of
+    its events, host and device), the device-busy ms (the union of its
+    kernels' intervals), the device's idle share (1 - busy / wall), and
+    the device operations with the most total time."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    if not kernels:
+        raise AssertionError(f"the profiler trace {path} holds no kernel")
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, float("-inf")
+    for e in kernels:            # the union of the kernels' intervals
+        a, b = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name: dict = {}
+    for e in kernels:
+        calls, total = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (calls + 1, total + e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"wall_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / (t1 - t0),
+            "kernel_launches": len(kernels),
+            "top_device_ops": [{"name": name[:120], "calls": calls,
+                                "ms": total / 1e3}
+                               for name, (calls, total) in top]}
+
+
+def trainer_runtime(trainer, run: Path) -> dict:
+    """What the checkpoint writer and the validation prefetch take off an
+    epoch's foreground on the card, on the trained trainer: the sampled
+    validation inline (sampled and staged, then scored) against prefetched
+    (staged by the prefetch thread beforehand, as during a train epoch);
+    a checkpoint in the foreground (readback and both files, the form
+    before the writer thread) against the background form's foreground
+    (clones and the thread's start), and the wait for its write."""
+    import torch
+    from taxoexpan_torch.weights import to_numpy
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        return time.time() - t0
+
+    valid_inline_s = timed(lambda: trainer._valid_epoch(1))
+    trainer._valid_prefetch = trainer._start_valid_prefetch()
+    trainer._valid_prefetch[0].join()
+    valid_prefetched_s = timed(lambda: trainer._valid_epoch(1))
+    kw = dict(epoch=1, monitor_best=trainer.mnt_best, config=trainer.config,
+              scheduler_state=None)
+    checkpoint_foreground_s = timed(lambda: trainer._write_checkpoint(
+        [run / "fg-epoch.ckpt", run / "fg-best.ckpt"],
+        *to_numpy([trainer.params, trainer.opt_state]), **kw))
+    checkpoint_background_s = timed(
+        lambda: trainer._save_checkpoint(99, save_best=True))
+    t0 = time.time()
+    trainer._join_ckpt()
+    return {"valid_inline_s": valid_inline_s,
+            "valid_prefetched_s": valid_prefetched_s,
+            "valid_batches": len(trainer.valid_loader),
+            "checkpoint_foreground_s": checkpoint_foreground_s,
+            "checkpoint_background_s": checkpoint_background_s,
+            "checkpoint_background_write_s": time.time() - t0}
+
+
 def phase_training(device, num_nodes: int, epochs: int, seed: int,
                    path: str = "PGAT") -> dict:
     """`python -m taxoexpan_torch.train` (its main, in this process) on a
-    synthetic run directory at the path's full width, with its switches."""
+    synthetic run directory at the path's full width, with its switches.
+    On PROFILE_PATH the trainer's profiler window is on (batches
+    PROFILE_WINDOW of epoch 1, `Trainer(profile_dir=)`), epoch 1 runs the
+    sampled validation (with its prefetch) and epoch 2 the full one; its
+    trace is read back (`trace_split`), a second window is traced over
+    one more epoch without the per-step synchronisation of
+    `trainer.step_timing`, and `trainer_runtime` measures the checkpoint
+    writer and the prefetch."""
     import numpy as np
     import torch
     from taxoexpan_torch import test_fast as test_fast_cli
     from taxoexpan_torch import train as train_cli
     from taxoexpan_torch.data.synthetic import synthetic_taxonomy
+    from taxoexpan_torch.reference_scale_run import epoch_split
     from taxoexpan_torch.tree import tree_leaves
     from taxoexpan_torch.weights import load_jax_checkpoint, restore_params
 
@@ -1467,14 +1588,33 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
         cfg["trainer"].update(epochs=epochs, save_dir=str(run / "saved"),
                               full_validation_every=1, tensorboardX=False,
                               step_timing=True)
+        profile = path == PROFILE_PATH
+        if profile:
+            cfg["trainer"]["full_validation_every"] = 2
         (run / "config.json").write_text(json.dumps(cfg))
         config = train_cli.parse_args(["-c", str(run / "config.json")])
+        trainers = []
+        trainer_cls = train_cli.Trainer
+
+        class ProfiledTrainer(trainer_cls):
+            """The CLI's trainer with the profiler window on, kept."""
+
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, profile_dir=run / "profile",
+                                 **kwargs)
+                self._profile_window = PROFILE_WINDOW
+                trainers.append(self)
 
         # ---- the main path, with the launch counters around it
         reset_counters()
         t0 = time.time()
-        with switches(env):
-            log = train_cli.main(config)
+        if profile:
+            train_cli.Trainer = ProfiledTrainer
+        try:
+            with switches(env):
+                log = train_cli.main(config)
+        finally:
+            train_cli.Trainer = trainer_cls
         torch.cuda.synchronize()
         train_s = time.time() - t0
         launches = path_launches(path, wrappers)
@@ -1506,6 +1646,26 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
         if bad:
             raise AssertionError(f"non-finite metrics of the trained "
                                  f"checkpoint {bad}")
+        if profile:
+            extra, trainer = {}, trainers[0]
+            traces = sorted(p.relative_to(run) for p in
+                            (run / "profile").rglob("*") if p.is_file())
+            if [str(p) for p in traces] != ["profile/trace.json"]:
+                raise AssertionError(f"profiler traces {traces}")
+            extra["profile"] = trace_split(run / "profile" / "trace.json")
+            trainer.step_timing = False
+            trainer.profile_dir = run / "profile_no_sync"
+            with switches(env):
+                trainer._train_epoch(1)     # epoch 1: the window again
+            extra["profile_no_step_sync"] = trace_split(
+                run / "profile_no_sync" / "trace.json")
+            with switches(env):
+                extra["runtime"] = trainer_runtime(trainer, run)
+            emit("profile", path=path, card=nvidia_smi_line(),
+                 window=list(PROFILE_WINDOW),
+                 epochs=epoch_split(
+                     (config.log_dir / "info.log").read_text()), **extra)
+            del trainer, trainers[:]
     step_ms = log.get("step_ms", [])
     egonets_per_step = (cfg["train_data_loader"]["args"]["batch_size"]
                         * (1 + cfg["train_data_loader"]["args"]
@@ -1745,7 +1905,7 @@ def reset_counters() -> None:
     for wrapper in (*gk.WRAPPERS.values(), *ck.WRAPPERS.values(),
                     *hk.WRAPPERS.values()):
         wrapper.launches = 0
-    for wrapper in gk.WRAPPERS.values():
+    for wrapper in (*gk.WRAPPERS.values(), *ck.WRAPPERS.values()):
         wrapper.launches_bf16 = 0
 
 
@@ -1781,7 +1941,7 @@ def run_paths(device) -> list[dict]:
             wrapper in serving[path]["launches"] else training[path]
         kernels.append({k: rec[k] for k in (
             "name", "route", "source", "replaces")} | {
-            "launches": phase["launches"][wrapper],
+            "launches": phase["launches"][rec.get("launch_key", wrapper)],
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
     return kernels

@@ -1,5 +1,5 @@
-// Star-GCN layer kernels for Hopper (sm_90a), float32: the forward in eval
-// form (serving) and train form (dropout), and the backward.
+// Star-GCN layer kernels for Hopper (sm_90a), float32 and bf16: the forward
+// in eval form (serving) and train form (dropout), and the backward.
 //
 // Replace the Pallas kernels of taxoexpan_tpu/ops/pallas_gcn.py:
 //   gcn_layer_fwd[_train] (K5f) <- fused_gcn_layer forward (_fused_fwd,
@@ -50,6 +50,21 @@
 //     bwd_common.cuh (3xTF32).
 // Deterministic: no atomics.
 //
+// The bf16 form (fused_gcn_layer with x in bf16; `*_bf16` entry points):
+// x, W_h, the output, the incoming grad g, dx and dW in bf16, on the same
+// passes at element type bf16 (pallas_gcn.py:69-78, :124-126, :163,
+// :209-223). X is staged as x times its mask rounded to bf16, the pe rows
+// times their float32 mask rounded to bf16, W_p packed in bf16; the
+// projection runs bf16 MMAs with float32 accumulation (gemm_bf16.cuh) into
+// the float32 z, and the backward's recompute reruns it on the same staged
+// X, so leaky' is taken at the forward's bits. The star passes keep their
+// float32 arithmetic: the forward's rounds the output to bf16, the dz pass
+// upcasts g. After the db / d z_bias sums (float32, from dz) dz is cast to
+// bf16 once (as K2's cast of D) for dW = X^T @ dz (the x rows rounded to
+// bf16, the pe rows' dW_p float32) and dX = dz @ W^T (dx times its float32
+// mask, rounded to bf16; the pe columns' grads float32). Rows of z, W and
+// dz hold 8 bf16 a 16-byte chunk: ldd, kxp and ntp round to 8.
+//
 // What bounds it on an H100: the products. At config.mag.json's PGCN
 // shapes (N = 64, 4096 egonets) layer 0's train forward projects
 // 2 * 262,144 * 300 * 500 = 78.6 GFLOP (the final layer's 144 GFLOP),
@@ -63,16 +78,21 @@
 
 #include "bwd_common.cuh"
 
-// Mirrored field by field by gcn_kernels._GcnArgs.
-struct GcnArgs {
-  const float* x;       // [b, n, din]
-  const float* w;       // [din, dout] (W_h)
+using gat::bf16;
+
+// Mirrored field by field by gcn_kernels._GcnArgs. E: the layer's element
+// type (float, or bf16: x, w, g, out, dx, dw and the workspaces xm, wcat,
+// wt, dz16).
+template <class E>
+struct GcnArgsT {
+  const E* x;           // [b, n, din]
+  const E* w;           // [din, dout] (W_h)
   const float* bias;    // [dout]
   const float* z_bias;  // [n, dout]
   const int* ngp;       // [b]
   const int* nsib;      // [b]
-  const float* g;       // backward: incoming grad [b, n, dout]
-  float* out;           // forward: [b, n, dout]
+  const E* g;           // backward: incoming grad [b, n, dout]
+  E* out;               // forward: [b, n, dout]
   float* z;             // workspace [b*n, ldd]: the projection z; the
                         // backward writes dz over it
   float* g2sum;         // [b, dout]
@@ -80,19 +100,21 @@ struct GcnArgs {
   float* part_b;        // [chunks, n*ldd]
   float* pe_rows;       // [b*n, pos] (pos > 0)
   float* part_pe;       // [chunks, n*pos] (pos > 0)
-  float* dx;            // [b, n, din] (need_dx)
-  float* dw;            // [din, dout]
+  E* dx;                // [b, n, din] (need_dx)
+  E* dw;                // [din, dout]
   float* db;            // [dout]
   float* dzb;           // [n, dout] (need_dzb)
   float* dpe;           // [n, pos] (pos > 0)
   float* dwp;           // [pos, dout] (pos > 0)
-  float* xm;            // [b*n, kxp] the layer input staged, or null
-  float* wcat;          // [kxp, ldd] W for the projection, or null (the
+  E* xm;                // [b*n, kxp] the layer input staged, or null
+  E* wcat;              // [kxp, ldd] W for the projection, or null (the
                         // backward of a layer without activation)
   float* biascat;       // [n, ldd] z_bias in the projection's layout
-  float* wt;            // [ldd, ntp] W^T over the dx product's columns
+  E* wt;                // [ldd, ntp] W^T over the dx product's columns
+  E* dz16;              // [b*n, ldd] dz cast to bf16 (the bf16 backward)
   int b, n, din, dout, p, has_alpha, need_dx, need_dzb, splits, chunks;
-  int kxp, ldd, ntp;    // ldd: z's row stride, dout rounded up to 4
+  int kxp, ldd, ntp;    // ldd: z's row stride, dout rounded up to a
+                        // 16-byte multiple of E
   float alpha;
 };
 
@@ -143,13 +165,14 @@ __device__ __forceinline__ void row_batches(int lo, int hi, Load load,
   }
 }
 
-// 2. the forward's star pass over z [b*n, ldz] into out [b, n, dout]
-template <bool kAct>
+// 2. the forward's star pass over z [b*n, ldz] into out [b, n, dout] of
+// element type O (float32 arithmetic, the output rounded to O)
+template <bool kAct, class O>
 __global__ void __launch_bounds__(kStarCols)
 gcn_star_fwd_kernel(const float* __restrict__ z, int ldz,
                     const float* __restrict__ bias,
                     const int* __restrict__ ngp_arr,
-                    const int* __restrict__ nsib_arr, float* __restrict__ out,
+                    const int* __restrict__ nsib_arr, O* __restrict__ out,
                     int n, int dout, int p, float alpha) {
   const int ntiles = (dout + kStarCols - 1) / kStarCols;
   const long long b = blockIdx.x / ntiles;
@@ -159,31 +182,34 @@ gcn_star_fwd_kernel(const float* __restrict__ z, int ldz,
   const int nsib = min(max(nsib_arr[b], 0), n - p - 1);
   const float na = rsqrtf(1.f + (float)ngp), ns = rsqrtf(2.f);
   const float* zc = z + (size_t)b * n * ldz + c;
-  float* oc = out + (size_t)b * n * dout + c;
+  O* oc = out + (size_t)b * n * dout + c;
   const auto zrow = [&](int r) { return zc[(size_t)r * ldz]; };
+  const auto put = [&](int r, float v) {
+    oc[(size_t)r * dout] = from_float<O>(act<kAct>(v, alpha));
+  };
   const float bc = bias[c];
-  const float off = act<kAct>(bc, alpha);  // invalid slots: norm 0
   const float za = zrow(p) * na;
   float acc = za;
   row_batches<float>(0, ngp, zrow, [&](int r, float v) {
     acc += v;  // valid gps: self (norm 1), and -> anchor
-    oc[(size_t)r * dout] = act<kAct>(v + bc, alpha);
+    put(r, v + bc);
   });
-  for (int r = ngp; r < p; ++r) oc[(size_t)r * dout] = off;
-  oc[(size_t)p * dout] = act<kAct>(acc * na + bc, alpha);
+  for (int r = ngp; r < p; ++r) put(r, bc);  // invalid slots: norm 0
+  put(p, acc * na + bc);
   row_batches<float>(p + 1, p + 1 + nsib, zrow, [&](int r, float v) {
-    oc[(size_t)r * dout] = act<kAct>((v * ns + za) * ns + bc, alpha);
+    put(r, (v * ns + za) * ns + bc);
   });  // valid sibs: self and anchor
-  for (int r = p + 1 + nsib; r < n; ++r) oc[(size_t)r * dout] = off;
+  for (int r = p + 1 + nsib; r < n; ++r) put(r, bc);
 }
 
 // 3. the backward's dz star pass: dz over z [b*n, ldd] in place and the
-// column sums of g2 into g2sum [b, dout]. Invalid rows: pre = b (norm 0),
-// so their g2 = g * leaky'(b) enters db, and their dz is 0.
-template <bool kAct>
+// column sums of g2 into g2sum [b, dout], g of element type G upcast to
+// float32. Invalid rows: pre = b (norm 0), so their g2 = g * leaky'(b)
+// enters db, and their dz is 0.
+template <bool kAct, class G>
 __global__ void __launch_bounds__(kStarCols)
 gcn_star_bwd_kernel(float* __restrict__ zd, int ldd,
-                    const float* __restrict__ g,
+                    const G* __restrict__ g,
                     const float* __restrict__ bias,
                     const int* __restrict__ ngp_arr,
                     const int* __restrict__ nsib_arr,
@@ -201,8 +227,8 @@ gcn_star_bwd_kernel(float* __restrict__ zd, int ldd,
   const int ngp = min(max(ngp_arr[b], 0), p);
   const int nsib = min(max(nsib_arr[b], 0), n - p - 1);
   const float na = rsqrtf(1.f + (float)ngp), ns = rsqrtf(2.f);
-  const float* gc = g + (size_t)b * n * dout + c;
-  const auto grow = [&](int r) { return gc[(size_t)r * dout]; };
+  const G* gc = g + (size_t)b * n * dout + c;
+  const auto grow = [&](int r) { return to_float(gc[(size_t)r * dout]); };
   const auto gzrow = [&](int r) {  // g and (kAct) z of a valid row
     return make_float2(grow(r), kAct ? zc[(size_t)r * ldd] : 0.f);
   };
@@ -244,17 +270,19 @@ gcn_star_bwd_kernel(float* __restrict__ zd, int ldd,
 }
 
 // The layer's product operands: x and W_h, the pe rows from ta.
-Operand layer_operand(const GcnArgs& a, const TrainArgs& ta) {
+template <class E>
+OperandT<E> layer_operand(const GcnArgsT<E>& a, const TrainArgs& ta) {
   return {a.x, {a.w, nullptr, nullptr}, {ta.wp, nullptr, nullptr},
           a.n, a.din, a.dout, a.dout, a.dout};
 }
 
 // 1. X staged, W packed and the projection into a.z (marks before, between
 // and after)
-cudaError_t project(const GcnArgs& a, const TrainArgs& ta, long long m,
+template <class E>
+cudaError_t project(const GcnArgsT<E>& a, const TrainArgs& ta, long long m,
                     cudaStream_t st) {
-  const Operand op = layer_operand(a, ta);
-  const ProductWork work = {a.xm, nullptr, nullptr, a.kxp, a.ldd, 0, 1};
+  const OperandT<E> op = layer_operand(a, ta);
+  const ProductWorkT<E> work = {a.xm, nullptr, nullptr, a.kxp, a.ldd, 0, 1};
   mark(g_fwd_marks, st);
   cudaError_t err = stage_and_pack(op, ta, m, work, 0, a.wcat, st);
   if (err != cudaSuccess) return err;
@@ -265,42 +293,30 @@ cudaError_t project(const GcnArgs& a, const TrainArgs& ta, long long m,
   return err;
 }
 
+template <class O>
 cudaError_t star_fwd(const float* z, int ldz, const float* bias,
-                     const int* ngp, const int* nsib, float* out, int b,
-                     int n, int dout, int p, int has_alpha, float alpha,
+                     const int* ngp, const int* nsib, O* out, int b, int n,
+                     int dout, int p, int has_alpha, float alpha,
                      cudaStream_t st) {
   if (b == 0 || dout == 0) return cudaSuccess;
   const unsigned blocks = star_blocks(b, dout);
   if (blocks == 0) return cudaErrorInvalidValue;
   if (has_alpha)
-    gcn_star_fwd_kernel<true><<<blocks, kStarCols, 0, st>>>(
+    gcn_star_fwd_kernel<true, O><<<blocks, kStarCols, 0, st>>>(
         z, ldz, bias, ngp, nsib, out, n, dout, p, alpha);
   else
-    gcn_star_fwd_kernel<false><<<blocks, kStarCols, 0, st>>>(
+    gcn_star_fwd_kernel<false, O><<<blocks, kStarCols, 0, st>>>(
         z, ldz, bias, ngp, nsib, out, n, dout, p, alpha);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* gcn_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// The forward of one star-GCN layer: eval form (*ta zeroed) or train form
-// (feature and pe dropout, the pe path, as *ta describes). All pointers are
-// device pointers to contiguous row-major arrays allocated by the caller
-// (ops/gcn_kernels.py), the workspaces z, xm (or null), wcat and biascat
-// included. Returns the first CUDA error of a launch, or 0.
-int gcn_layer_fwd_f32(const GcnArgs* ap, const TrainArgs* tap,
-                      void* stream) {
-  const GcnArgs a = *ap;
-  const cudaStream_t st = (cudaStream_t)stream;
+// The forward: the projection, then the star pass.
+template <class E>
+cudaError_t layer_fwd(const GcnArgsT<E>& a, const TrainArgs& ta,
+                      cudaStream_t st) {
   const long long m = (long long)a.b * a.n;
   if (m == 0) return cudaSuccess;
-  cudaError_t err = project(a, *tap, m, st);
+  cudaError_t err = project(a, ta, m, st);
   if (err != cudaSuccess) return err;
   err = star_fwd(a.z, a.ldd, a.bias, a.ngp, a.nsib, a.out, a.b, a.n, a.dout,
                  a.p, a.has_alpha, a.alpha, st);
@@ -308,36 +324,25 @@ int gcn_layer_fwd_f32(const GcnArgs* ap, const TrainArgs* tap,
   return err;
 }
 
-// The projection alone: z = [x*m | pe*m_pe] @ [W_h; W_p] + z_bias into
-// a->z [b*n, ldd].
-int gcn_projection_f32(const GcnArgs* ap, const TrainArgs* tap,
-                       void* stream) {
-  const long long m = (long long)ap->b * ap->n;
+// The projection alone.
+template <class E>
+cudaError_t projection(const GcnArgsT<E>& a, const TrainArgs& ta,
+                       cudaStream_t st) {
+  const long long m = (long long)a.b * a.n;
   if (m == 0) return cudaSuccess;
-  return project(*ap, *tap, m, (cudaStream_t)stream);
+  return project(a, ta, m, st);
 }
 
-// The forward's star pass alone: out [b, n, dout] from z [b*n, ldz].
-int gcn_star_f32(const float* z, int ldz, const float* bias, const int* ngp,
-                 const int* nsib, float* out, int b, int n, int dout, int p,
-                 int has_alpha, float alpha, void* stream) {
-  return star_fwd(z, ldz, bias, ngp, nsib, out, b, n, dout, p, has_alpha,
-                  alpha, (cudaStream_t)stream);
-}
-
-// The backward of one star-GCN layer for the incoming grad a->g: every pass
-// launched in order on `stream`, workspaces and outputs allocated by the
-// caller. Returns the first CUDA error of a launch, or 0.
-int gcn_layer_bwd_f32(const GcnArgs* ap, const TrainArgs* tap, void* stream) {
-  const GcnArgs a = *ap;
-  const TrainArgs ta = *tap;
-  const cudaStream_t st = (cudaStream_t)stream;
+// The backward: every pass in order on st.
+template <class E>
+cudaError_t layer_bwd(const GcnArgsT<E>& a, const TrainArgs& ta,
+                      cudaStream_t st) {
   const long long m = (long long)a.b * a.n;
   if (m == 0) return cudaSuccess;
   const bool act = a.has_alpha != 0;
-  const Operand op = layer_operand(a, ta);
-  const ProductWork work = {a.xm, a.wt, a.part_w, a.kxp, a.ldd, a.ntp,
-                            a.splits};
+  const OperandT<E> op = layer_operand(a, ta);
+  const ProductWorkT<E> work = {a.xm, a.wt, a.part_w, a.kxp, a.ldd, a.ntp,
+                                a.splits};
   cudaError_t err;
 
   mark(g_bwd_marks, st);
@@ -355,11 +360,11 @@ int gcn_layer_bwd_f32(const GcnArgs* ap, const TrainArgs* tap, void* stream) {
   const unsigned blocks = star_blocks(a.b, a.ldd);
   if (blocks == 0) return cudaErrorInvalidValue;
   if (act)
-    gcn_star_bwd_kernel<true><<<blocks, kStarCols, 0, st>>>(
+    gcn_star_bwd_kernel<true, E><<<blocks, kStarCols, 0, st>>>(
         a.z, a.ldd, a.g, a.bias, a.ngp, a.nsib, a.g2sum, a.n, a.dout, a.p,
         a.alpha);
   else
-    gcn_star_bwd_kernel<false><<<blocks, kStarCols, 0, st>>>(
+    gcn_star_bwd_kernel<false, E><<<blocks, kStarCols, 0, st>>>(
         a.z, a.ldd, a.g, a.bias, a.ngp, a.nsib, a.g2sum, a.n, a.dout, a.p,
         a.alpha);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -373,12 +378,83 @@ int gcn_layer_bwd_f32(const GcnArgs* ap, const TrainArgs* tap, void* stream) {
                            a.dzb, st);
     if (err != cudaSuccess) return err;
   }
+  // the products' dz: z itself, or in a bf16 layer dz cast to bf16
+  const E* d;
+  if constexpr (sizeof(E) == 2) {
+    cast_bf16_kernel<<<grid_for(m * a.ldd / 4), 256, 0, st>>>(a.z, a.dz16,
+                                                             m * a.ldd);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    d = a.dz16;
+  } else {
+    d = a.z;
+  }
   mark(g_bwd_marks, st);
-  float* const dw[3] = {a.dw, nullptr, nullptr};
+  E* const dw[3] = {a.dw, nullptr, nullptr};
   float* const dwp[3] = {a.dwp, nullptr, nullptr};
-  return product_grads(op, ta, a.z, a.ldd, m, work, a.chunks, dw, dwp,
+  return product_grads(op, ta, d, a.ldd, m, work, a.chunks, dw, dwp,
                        a.need_dx, a.dx, a.pe_rows, a.part_pe, a.dpe,
                        g_bwd_marks, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* gcn_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The forward of one star-GCN layer: eval form (*ta zeroed) or train form
+// (feature and pe dropout, the pe path, as *ta describes). All pointers are
+// device pointers to contiguous row-major arrays allocated by the caller
+// (ops/gcn_kernels.py), the workspaces z, xm (or null), wcat and biascat
+// included. Returns the first CUDA error of a launch, or 0.
+int gcn_layer_fwd_f32(const GcnArgsT<float>* ap, const TrainArgs* tap,
+                      void* stream) {
+  return layer_fwd(*ap, *tap, (cudaStream_t)stream);
+}
+
+// The bf16 form: *ap with the bf16 fields of GcnArgsT<bf16> (x, w, out and
+// the workspaces xm, wcat), every other field as in the float32 form.
+int gcn_layer_fwd_bf16(const GcnArgsT<bf16>* ap, const TrainArgs* tap,
+                       void* stream) {
+  return layer_fwd(*ap, *tap, (cudaStream_t)stream);
+}
+
+// The projection alone: z = [x*m | pe*m_pe] @ [W_h; W_p] + z_bias into
+// a->z [b*n, ldd] (float32 in either form).
+int gcn_projection_f32(const GcnArgsT<float>* ap, const TrainArgs* tap,
+                       void* stream) {
+  return projection(*ap, *tap, (cudaStream_t)stream);
+}
+
+int gcn_projection_bf16(const GcnArgsT<bf16>* ap, const TrainArgs* tap,
+                        void* stream) {
+  return projection(*ap, *tap, (cudaStream_t)stream);
+}
+
+// The forward's star pass alone: out [b, n, dout] from z [b*n, ldz].
+int gcn_star_f32(const float* z, int ldz, const float* bias, const int* ngp,
+                 const int* nsib, float* out, int b, int n, int dout, int p,
+                 int has_alpha, float alpha, void* stream) {
+  return star_fwd(z, ldz, bias, ngp, nsib, out, b, n, dout, p, has_alpha,
+                  alpha, (cudaStream_t)stream);
+}
+
+// The backward of one star-GCN layer for the incoming grad a->g: every pass
+// launched in order on `stream`, workspaces and outputs allocated by the
+// caller. Returns the first CUDA error of a launch, or 0.
+int gcn_layer_bwd_f32(const GcnArgsT<float>* ap, const TrainArgs* tap,
+                      void* stream) {
+  return layer_bwd(*ap, *tap, (cudaStream_t)stream);
+}
+
+// The bf16 form: *ap with the bf16 fields of GcnArgsT<bf16> (x, w, g, dx,
+// dw and the workspaces xm, wcat, wt, dz16), every other field as in the
+// float32 form.
+int gcn_layer_bwd_bf16(const GcnArgsT<bf16>* ap, const TrainArgs* tap,
+                       void* stream) {
+  return layer_bwd(*ap, *tap, (cudaStream_t)stream);
 }
 
 // Pass timing, as gat_fwd.cu's and gat_bwd.cu's: with `on`, the next call
@@ -386,7 +462,8 @@ int gcn_layer_bwd_f32(const GcnArgs* ap, const TrainArgs* tap, void* stream) {
 // milliseconds into out and returns their count. Forward (and the
 // projection alone): stage and pack, projection, star pass. Backward: stage
 // and pack, projection (empty without an activation), the dz pass, the
-// db / d z_bias sums, dW, dx (with dpe).
+// db / d z_bias sums (with the cast of dz to bf16 in the bf16 form), dW,
+// dx (with dpe).
 int gcn_fwd_set_timing(int on) { return set_timing(g_fwd_marks, on); }
 
 int gcn_fwd_pass_ms(float* out) { return pass_ms(g_fwd_marks, out); }

@@ -49,7 +49,8 @@ float32, cast its grads D to bf16 once for the dW and dx products
 (_bwd_epilogue :607-651) and return dx (times its float32 mask), dfc, dwa1
 and dwa2 in bf16 (:651, :1097, :1289), the slot-bias and pe grads in
 float32. The plain versions compute the same roundings: bf16-exact operands
-upcast and multiplied in float32 (`_bf16_operands`), the backward written
+upcast and multiplied in float32 (`launch.bf16_operands`), the backward
+written
 out pass by pass (`_bwd_plain_bf16`) rather than by autograd through the
 casts.
 
@@ -75,9 +76,10 @@ import torch
 
 from . import cuda_build, dropout, star
 from .launch import (F as _F, I as _I, P as _P, TrainArgs as _TrainArgs,
-                     check_operands, check_star, chunk_elems, needs_staging,
-                     on_cuda, pass_times, product_splits, product_work,
-                     raise_on, round_up, stream, train_args)
+                     bf16_operands, check_operands, check_star, chunk_elems,
+                     count_launch, is_bf16, needs_staging, on_cuda,
+                     pass_times, product_splits, product_work, raise_on,
+                     round_bf16, round_up, stream, train_args)
 
 LEAKY_ALPHA = 0.2   # attention logits (GATLayer default); the inter-layer
                     # activation fused through `out_alpha` is 0.01
@@ -165,17 +167,13 @@ def _ft_logits(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, heads):
     return ft.reshape(b, n, heads, hd // heads), a1, a2
 
 
-def _is_bf16(x) -> bool:
-    return x.dtype == torch.bfloat16
-
-
 def gat_layer_fwd_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                         nsib, p: int, heads: int,
                         out_alpha=None) -> torch.Tensor:
     """Plain PyTorch version of `gat_layer_fwd`: [B, N, H*Dh] in x's dtype.
     Invalid slots keep their formula value (the TPU kernel does not mask
     them)."""
-    if _is_bf16(x):
+    if is_bf16(x):
         return gat_layer_train_plain(x, fc, wa1, wa2, bias_ft, bias_a1,
                                      bias_a2, ngp, nsib, p, heads,
                                      out_alpha=out_alpha)
@@ -197,7 +195,7 @@ def gat_layer_pooled_fwd_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
     """Plain PyTorch version of `gat_layer_pooled_fwd`: pools [B, 3, Dh] =
     (sum over valid gp slots, anchor, sum over valid sib slots) of the
     head-averaged aggregation, float32."""
-    if _is_bf16(x):
+    if is_bf16(x):
         return gat_layer_train_plain(x, fc, wa1, wa2, bias_ft, bias_a1,
                                      bias_a2, ngp, nsib, p, heads,
                                      pooled=True)
@@ -295,46 +293,16 @@ def _star_attention_train(ft, a1, a2, ngp, p, masks, stored=None):
     return out_gp, out_anchor, out_sib, gp_mask, sm
 
 
-def _round_bf16(t):
-    return t.to(torch.bfloat16).float()
-
-
-def _bf16_operands(x, fc, wa1, wa2, pe_pack, seed, feat_drop, dropout_bits):
-    """A bf16 layer's product operands as its kernels stage and pack them,
-    in float32 tensors holding bf16 values: X = [x*m | pe*m_pe] [B*N, kx]
-    (x times its mask rounded to bf16, the product rounded; pe times the
-    float32 mask, rounded), W = [fc | wa1 | wa2; wp | wpa1 | wpa2] [kx, wd]
-    (W_p rounded to bf16), and the float32 masks (x's [B*N, din], pe's
-    [B*N, pos]; None without dropout / a pe path) the backward applies to
-    dx and the pe rows' grads."""
-    b, n, din = x.shape
-    dev = x.device
-    xs = x.float().reshape(b * n, din)
-    fmask = pmask = None
-    if feat_drop > 0:
-        fmask = dropout.slot_mask(seed, dropout.STREAM_FEAT, b, n, din,
-                                  feat_drop, dev, dropout_bits
-                                  ).reshape(b * n, din)
-        xs = _round_bf16(xs * _round_bf16(fmask))
-    cols, rows = [xs], [torch.cat([fc, wa1, wa2], dim=1).float()]
-    if pe_pack is not None:
-        pe, wp, wpa1, wpa2 = pe_pack
-        pos = pe.shape[1]
-        pmask = dropout.slot_mask(seed, dropout.STREAM_PE, b, n, pos,
-                                  feat_drop, dev, dropout_bits
-                                  ).reshape(b * n, pos)
-        cols.append(_round_bf16(pe.float().repeat(b, 1) * pmask))
-        rows.append(_round_bf16(torch.cat([wp, wpa1, wpa2], dim=1)))
-    return torch.cat(cols, dim=1), torch.cat(rows, dim=0), fmask, pmask
-
-
 def _projection_bf16(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, pe_pack,
                      seed, feat_drop, dropout_bits):
     """A bf16 layer's projection P = X @ W + the slot biases, [B, N, wd]
-    float32, and its operands (`_bf16_operands`)."""
+    float32, and its operands (`launch.bf16_operands`)."""
     b, n, _ = x.shape
-    xs, w, fmask, pmask = _bf16_operands(x, fc, wa1, wa2, pe_pack, seed,
-                                         feat_drop, dropout_bits)
+    pe, wp = (None, None) if pe_pack is None else (
+        pe_pack[0], torch.cat(pe_pack[1:], dim=1))
+    xs, w, fmask, pmask = bf16_operands(x, torch.cat([fc, wa1, wa2], dim=1),
+                                        pe, wp, seed, feat_drop,
+                                        dropout_bits)
     bias = torch.cat([bias_ft, bias_a1, bias_a2], dim=1).float()
     proj = (xs @ w).reshape(b, n, -1) + bias[None]
     return proj, (xs, w, fmask, pmask)
@@ -345,7 +313,7 @@ def _projection_plain(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, pe_pack,
     """ft [B, N, H*Dh], a1, a2 [B, N, H] of the layer input [x*m | pe*m_pe]
     (the masks of ops/dropout.py when feat_drop > 0); float32, also for a
     bf16 x (`_projection_bf16`)."""
-    if _is_bf16(x):
+    if is_bf16(x):
         heads = wa1.shape[1]
         hd = fc.shape[1]
         proj, _ = _projection_bf16(x, fc, wa1, wa2, bias_ft, bias_a1,
@@ -469,7 +437,7 @@ def gat_layer_bwd_plain(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
     stored form's softmax weights). Returns {name: grad} for x (None unless
     need_dx), fc, wa1, wa2, the slot biases and, on the pe path, pe, wp,
     wpa1, wpa2 (for a bf16 x: `_bwd_plain_bf16`)."""
-    if _is_bf16(x):
+    if is_bf16(x):
         return _bwd_plain_bf16(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
                                ngp, nsib, p, heads, pe_pack, seed, feat_drop,
                                attn_drop, out_alpha, pooled, need_dx,
@@ -522,7 +490,7 @@ def _bwd_plain_bf16(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
     dsum = dproj.sum(dim=0)
     res = {"bias_ft": dsum[:, :hd], "bias_a1": dsum[:, hd:hd + heads],
            "bias_a2": dsum[:, hd + heads:]}
-    d16 = _round_bf16(d)
+    d16 = round_bf16(d)
     dw = xs.T @ d16
     bf = torch.bfloat16
     res.update(fc=dw[:din, :hd].to(bf), wa1=dw[:din, hd:hd + heads].to(bf),
@@ -640,15 +608,6 @@ def _fwd_work(x, wd: int, feat_drop: float, ta) -> _Work:
     return _Work(args, tensors)
 
 
-def _count(wrapper, x) -> None:
-    """One launch of `wrapper`'s float32 or bf16 kernel, by x's dtype."""
-    if x.shape[0]:
-        if _is_bf16(x):
-            wrapper.launches_bf16 += 1
-        else:
-            wrapper.launches += 1
-
-
 def gat_layer_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
                   p: int, heads: int, out_alpha=None) -> torch.Tensor:
     """One star-GAT layer, per-slot output [B, N, H*Dh] in x's dtype.
@@ -662,7 +621,7 @@ def gat_layer_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
     if not on_cuda(x, "gat_layer_fwd"):
         return gat_layer_fwd_plain(*ops, out_alpha)
     out = _fwd_cuda("gat_layer_fwd", False, *ops, out_alpha=out_alpha)
-    _count(gat_layer_fwd, x)
+    count_launch(gat_layer_fwd, x)
     return out
 
 
@@ -676,7 +635,7 @@ def gat_layer_pooled_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
     if not on_cuda(x, "gat_layer_pooled_fwd"):
         return gat_layer_pooled_fwd_plain(*ops)
     out = _fwd_cuda("gat_layer_pooled_fwd", True, *ops)
-    _count(gat_layer_pooled_fwd, x)
+    count_launch(gat_layer_pooled_fwd, x)
     return out
 
 
@@ -693,7 +652,7 @@ def _train_fwd(wrapper, pooled: bool, store: bool, ops, out_alpha, pe_pack,
     out = _fwd_cuda(what, pooled, *ops, out_alpha=out_alpha,
                     train=(pe_pack, seed, feat_drop, attn_drop, dropout_bits),
                     store=store)
-    _count(wrapper, ops[0])
+    count_launch(wrapper, ops[0])
     return out
 
 
@@ -809,7 +768,7 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
             # the projection's W and slot biases
             "wcat": empty(pw["kxp"], wdp, dtype=dt), "biascat": empty(n, wdp),
             # the products' D in bf16 (bf16 layers)
-            "dcat16": empty(m, wdp, dtype=dt) if _is_bf16(x) else None}
+            "dcat16": empty(m, wdp, dtype=dt) if is_bf16(x) else None}
     args = _BwdArgs()
     ptrs = {"x": x, "fc": fc, "wa1": wa1, "wa2": wa2, "bias_ft": bias_ft,
             "bias_a1": bias_a1, "bias_a2": bias_a2, "ngp": ngp,
@@ -852,7 +811,7 @@ def _bwd(wrapper, pooled: bool, g, ops, out_alpha, attn, pe_pack, seed,
             need_dx=need_dx, dropout_bits=dropout_bits, stored_attn=attn)
     res = _bwd_cuda(pooled, g, *ops, pe_pack, seed, feat_drop, attn_drop,
                     out_alpha, need_dx, need_dbias, dropout_bits, attn)
-    _count(wrapper, x)
+    count_launch(wrapper, x)
     return res
 
 
@@ -946,7 +905,7 @@ def gat_projection(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, *,
             b, n, din, heads, hd // heads, ctypes.byref(ta),
             ctypes.byref(work.args), stream(x))
     raise_on(lib, rc, "gat_projection", "gat_fwd_error_string")
-    _count(gat_projection, x)
+    count_launch(gat_projection, x)
     return work.tensors[0].reshape(b, n, -1)[..., :wd]
 
 

@@ -22,9 +22,23 @@ has no masks and no pe rows (their term is the constant z_bias = pe @ W_p);
 the train form draws the masks from ops/dropout.py (STREAM_FEAT over x,
 STREAM_PE over the pe rows, row = b * N + slot), the kernels' own bits.
 
+The bf16 form (the Pallas kernel called with x in bf16): x and w in bf16
+together (a mix raises), b, z_bias and the pe path's rows float32; the
+output, dx and dW in bf16, db, d z_bias, dpe and dW_p float32. Every
+wrapper then launches the `*_bf16` kernel, which follows the reference's
+roundings (pallas_gcn.py:69-78, :124-126, :163, :209-223): x times its
+mask rounded to bf16, the pe rows times their float32 mask and W_p rounded
+to bf16, the products on bf16 operands with float32 accumulation, z and
+the star passes float32, the output rounded to bf16; g upcast, dz cast to
+bf16 for dW and dx, dx times its float32 mask, rounded to bf16. The plain
+versions compute the same roundings (`launch.bf16_operands`,
+`_bwd_plain_bf16`). No model path reaches it: the JAX TaxoExpan passes no
+dtype to GCN, nor does the port's; a direct call does.
+
 Dispatch is by the device of the tensors: on the CPU a wrapper runs its
 plain version; on CUDA it launches the kernel or raises. Each wrapper
-counts its launches in `<wrapper>.launches`, incremented only where the
+counts its launches in `<wrapper>.launches` (the float32 kernel) and
+`<wrapper>.launches_bf16` (the bf16 kernel), incremented only where that
 kernel is launched. `gcn_layer` is the differentiable layer (the port of
 the `fused_gcn_layer` custom_vjp): it saves the layer inputs and the seed,
 and its backward replays the masks and recomputes z where leaky' needs it.
@@ -38,19 +52,22 @@ from dataclasses import dataclass
 import torch
 
 from . import cuda_build, dropout, star
-from .launch import (F, I, P, TrainArgs, check_operands, check_star,
-                     needs_staging, on_cuda, pass_times, product_splits,
-                     product_work, raise_on, stream, train_args)
+from .launch import (F, I, P, TrainArgs, bf16_operands, check_operands,
+                     check_star, count_launch, is_bf16, needs_staging,
+                     on_cuda, pass_times, product_splits, product_work,
+                     raise_on, round_bf16, stream, train_args)
 
 _POINTERS = ("x", "w", "bias", "z_bias", "ngp", "nsib", "g", "out", "z",
              "g2sum", "part_w", "part_b", "pe_rows", "part_pe", "dx", "dw",
-             "db", "dzb", "dpe", "dwp", "xm", "wcat", "biascat", "wt")
+             "db", "dzb", "dpe", "dwp", "xm", "wcat", "biascat", "wt",
+             "dz16")
 _INTS = ("b", "n", "din", "dout", "p", "has_alpha", "need_dx", "need_dzb",
          "splits", "chunks", "kxp", "ldd", "ntp")
 
 
 class _GcnArgs(ctypes.Structure):
-    """GcnArgs of ops/csrc/gcn.cu, field by field."""
+    """GcnArgsT of ops/csrc/gcn.cu, field by field (either element type:
+    its fields are pointers and ints)."""
     _fields_ = ([(name, P) for name in _POINTERS] +
                 [(name, I) for name in _INTS] + [("alpha", F)])
 
@@ -58,11 +75,12 @@ class _GcnArgs(ctypes.Structure):
 _ARGS = ctypes.POINTER(_GcnArgs)
 _TA = ctypes.POINTER(TrainArgs)
 SIGNATURES = {
-    "gcn_layer_fwd_f32": ([_ARGS, _TA, P], I),
-    "gcn_projection_f32": ([_ARGS, _TA, P], I),
+    # a float32 (_f32) and a bf16 (_bf16) form
+    **{f"gcn_{name}_{sfx}": ([_ARGS, _TA, P], I)
+       for name in ("layer_fwd", "projection", "layer_bwd")
+       for sfx in ("f32", "bf16")},
     # z, ldz, bias, ngp, nsib, out, b, n, dout, p, has_alpha, alpha, stream
     "gcn_star_f32": ([P, I] + [P] * 4 + [I] * 5 + [F, P], I),
-    "gcn_layer_bwd_f32": ([_ARGS, _TA, P], I),
     "gcn_fwd_set_timing": ([I], I),
     "gcn_fwd_pass_ms": ([P], I),
     "gcn_bwd_set_timing": ([I], I),
@@ -78,16 +96,34 @@ def _lib() -> ctypes.CDLL:
     return cuda_build.load("gcn", SIGNATURES)
 
 
+def _entry(name: str, x) -> str:
+    """The C entry point of `name` for x's dtype."""
+    return f"gcn_{name}_{'bf16' if is_bf16(x) else 'f32'}"
+
+
 # ------------------------------------------------------------ plain versions
 
 def _leaky(v, alpha):
     return torch.where(v >= 0, v, alpha * v)
 
 
+def _projection_bf16(x, w, z_bias, pe_pack, seed: int, drop: float):
+    """A bf16 layer's z = X @ W + z_bias [B, N, Dout], float32, and its
+    operands (`launch.bf16_operands`)."""
+    bsz, n, _ = x.shape
+    pe, wp = pe_pack if pe_pack is not None else (None, None)
+    xs, wcat, fmask, pmask = bf16_operands(x, w, pe, wp, seed, drop)
+    z = (xs @ wcat).reshape(bsz, n, -1) + z_bias[None]
+    return z, (xs, wcat, fmask, pmask)
+
+
 def gcn_projection_plain(x, w, z_bias, *, pe_pack=None, seed: int = 0,
                          drop: float = 0.0) -> torch.Tensor:
     """Plain version of `gcn_projection`: z = [x*m | pe*m_pe] @ [W_h; W_p]
-    + z_bias, [B, N, Dout] (the masks of ops/dropout.py when drop > 0)."""
+    + z_bias, [B, N, Dout] float32 (the masks of ops/dropout.py when drop
+    > 0; for a bf16 x the bf16 roundings, `_projection_bf16`)."""
+    if is_bf16(x):
+        return _projection_bf16(x, w, z_bias, pe_pack, seed, drop)[0]
     bsz, n, din = x.shape
     if drop > 0:
         x = x * dropout.slot_mask(seed, dropout.STREAM_FEAT, bsz, n, din,
@@ -113,12 +149,12 @@ def gcn_layer_train_plain(x, w, b, z_bias, ngp, nsib, p: int, *,
                           pe_pack=None, seed: int = 0, drop: float = 0.0,
                           alpha=None) -> torch.Tensor:
     """Plain PyTorch version of the train form (and, at drop 0, of the eval
-    form), differentiable by autograd: [B, N, Dout]. pe_pack = (pe [N, pos],
-    wp [pos, Dout]): the pe path (requires drop > 0). The masks come from
-    ops/dropout.py, exactly the kernel's bits."""
+    form), differentiable by autograd: [B, N, Dout] in x's dtype. pe_pack =
+    (pe [N, pos], wp [pos, Dout]): the pe path (requires drop > 0). The
+    masks come from ops/dropout.py, exactly the kernel's bits."""
     z = gcn_projection_plain(x, w, z_bias, pe_pack=pe_pack, seed=seed,
                              drop=drop)
-    return gcn_star_plain(z, b, ngp, nsib, p, alpha)
+    return gcn_star_plain(z, b, ngp, nsib, p, alpha).to(x.dtype)
 
 
 def gcn_layer_fwd_plain(x, w, b, z_bias, ngp, nsib, p: int,
@@ -136,9 +172,12 @@ def gcn_layer_bwd_plain(g, x, w, b, z_bias, ngp, nsib, p: int, *,
                         alpha=None, need_dx: bool = True,
                         need_dzb: bool = True) -> dict:
     """Plain backward: torch.autograd.grad through `gcn_layer_train_plain`
-    with the same seed, so the same masks. Returns {name: grad} for x
-    (None unless need_dx), w, b, z_bias (None unless need_dzb) and, on the
-    pe path, pe and wp."""
+    with the same seed, so the same masks (for a bf16 x pass by pass,
+    `_bwd_plain_bf16`). Returns {name: grad} for x (None unless need_dx),
+    w, b, z_bias (None unless need_dzb) and, on the pe path, pe and wp."""
+    if is_bf16(x):
+        return _bwd_plain_bf16(g, x, w, b, z_bias, ngp, nsib, p, pe_pack,
+                               seed, drop, alpha, need_dx, need_dzb)
     tensors = [x, w, b, z_bias] + list(pe_pack or ())
     names = list(_GRAD_NAMES) + (list(_PE_NAMES) if pe_pack else [])
     leaves = [t.detach().requires_grad_(True) for t in tensors]
@@ -153,6 +192,38 @@ def gcn_layer_bwd_plain(g, x, w, b, z_bias, ngp, nsib, p: int, *,
         res["x"] = None
     if not need_dzb:
         res["z_bias"] = None
+    return res
+
+
+def _bwd_plain_bf16(g, x, w, b, z_bias, ngp, nsib, p, pe_pack, seed, drop,
+                    alpha, need_dx, need_dzb) -> dict:
+    """The plain backward of a bf16 layer, pass by pass as the bf16 kernel
+    runs it (pallas_gcn.py:_bwd_kernel :129): z recomputed from the staged
+    X and packed W; dz and db through the float32 star pass by autograd, g
+    upcast (:163); d z_bias dz's float32 sum over egonets; dz rounded to
+    bf16 (:209) for dW = X^T dz (the x rows rounded to bf16, :217, :384;
+    the pe rows' dwp float32, :223) and dX = dz W^T (dx times its float32
+    mask, rounded to bf16, :211-214; the pe columns times theirs, summed
+    over egonets into dpe, float32, :220-221)."""
+    bsz, n, din = x.shape
+    z, (xs, wcat, fmask, pmask) = _projection_bf16(x, w, z_bias, pe_pack,
+                                                   seed, drop)
+    z = z.detach().requires_grad_(True)
+    bias = b.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = gcn_star_plain(z, bias, ngp, nsib, p, alpha)
+        dz, db = torch.autograd.grad(out, (z, bias), g.float())
+    d16 = round_bf16(dz.reshape(bsz * n, -1))
+    dw = xs.T @ d16
+    dxs = d16 @ wcat.T
+    dx = dxs[:, :din] if fmask is None else dxs[:, :din] * fmask
+    res = {"x": dx.reshape(bsz, n, din).to(x.dtype) if need_dx else None,
+           "w": dw[:din].to(w.dtype), "b": db,
+           "z_bias": dz.sum(dim=0) if need_dzb else None}
+    if pe_pack is not None:
+        pos = pe_pack[0].shape[1]
+        res.update(pe=(dxs[:, din:] * pmask).reshape(bsz, n, pos).sum(dim=0),
+                   wp=dw[din:])
     return res
 
 
@@ -172,7 +243,7 @@ def _check(x, w, b, z_bias, ngp, nsib, p, pe_pack=None, g=None):
         shapes.update(pe=(pe, (n, pos)), wp=(wp, (pos, dout)))
     if g is not None:
         shapes["g"] = (g, (bsz, n, dout))
-    check_operands(x, shapes)
+    check_operands(x, shapes, low=("w", "g"))
     check_star(x, 0 if p is None else p)
     if (bsz * n + 63) // 64 > 65535:
         raise ValueError(f"B * N = {bsz * n} rows exceed the dx grid "
@@ -193,8 +264,8 @@ def _args(x, w, b, z_bias, ngp, nsib, p, alpha, ptrs: dict, **ints):
     return args
 
 
-def _empty(x, *shape) -> torch.Tensor:
-    return torch.empty(shape, dtype=torch.float32, device=x.device)
+def _empty(x, *shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=x.device)
 
 
 def _projection_work(x, dout: int, drop: float,
@@ -208,7 +279,8 @@ def _projection_work(x, dout: int, drop: float,
                       0)
     ldd = pw["wdp"]
     ptrs = {"z": _empty(x, bsz * n, ldd), "xm": pw["xm"],
-            "wcat": _empty(x, pw["kxp"], ldd), "biascat": _empty(x, n, ldd)}
+            "wcat": _empty(x, pw["kxp"], ldd, dtype=x.dtype),
+            "biascat": _empty(x, n, ldd)}
     return ptrs, {"kxp": pw["kxp"], "ldd": ldd}
 
 
@@ -222,7 +294,7 @@ def _fwd_cuda(what: str, entry: str, x, w, b, z_bias, ngp, nsib, p, alpha,
     ta = train_args(*train) if train is not None else TrainArgs()
     bsz, n = x.shape[:2]
     dout = w.shape[1]
-    out = _empty(x, bsz, n, dout) if p is not None else None
+    out = _empty(x, bsz, n, dout, dtype=x.dtype) if p is not None else None
     ptrs, widths = _projection_work(x, dout, train[2] if train else 0.0,
                                     ta.pos)
     z = ptrs["z"].reshape(bsz, n, widths["ldd"])[..., :dout]
@@ -240,17 +312,17 @@ def _fwd_cuda(what: str, entry: str, x, w, b, z_bias, ngp, nsib, p, alpha,
 
 def gcn_layer_fwd(x, w, b, z_bias, ngp, nsib, p: int,
                   alpha=None) -> torch.Tensor:
-    """One star-GCN layer, [B, N, Dout] (float32).
+    """One star-GCN layer, [B, N, Dout] in x's dtype.
 
-    x [B, N, Din]; w [Din, Dout] (W_h); b [Dout]; z_bias [N, Dout] (the
-    position term pe @ W_p, or zeros); ngp/nsib [B] int32; p = anchor slot;
-    alpha: fused leaky_relu slope, or None on the final layer."""
+    x [B, N, Din]; w [Din, Dout] (W_h), both float32 or both bf16; b
+    [Dout]; z_bias [N, Dout] (the position term pe @ W_p, or zeros); ngp/
+    nsib [B] int32; p = anchor slot; alpha: fused leaky_relu slope, or None
+    on the final layer."""
     ops = (x, w, b, z_bias, ngp, nsib, p)
     if not on_cuda(x, "gcn_layer_fwd"):
         return gcn_layer_fwd_plain(*ops, alpha)
-    out, _ = _fwd_cuda("gcn_layer_fwd", "gcn_layer_fwd_f32", *ops, alpha)
-    if x.shape[0]:
-        gcn_layer_fwd.launches += 1
+    out, _ = _fwd_cuda("gcn_layer_fwd", _entry("layer_fwd", x), *ops, alpha)
+    count_launch(gcn_layer_fwd, x)
     return out
 
 
@@ -264,10 +336,9 @@ def gcn_layer_fwd_train(x, w, b, z_bias, ngp, nsib, p: int, *, pe_pack=None,
     if not on_cuda(x, "gcn_layer_fwd_train"):
         return gcn_layer_train_plain(*ops, pe_pack=pe_pack, seed=seed,
                                      drop=drop, alpha=alpha)
-    out, _ = _fwd_cuda("gcn_layer_fwd_train", "gcn_layer_fwd_f32", *ops,
+    out, _ = _fwd_cuda("gcn_layer_fwd_train", _entry("layer_fwd", x), *ops,
                        alpha, train=(pe_pack, seed, drop))
-    if x.shape[0]:
-        gcn_layer_fwd_train.launches += 1
+    count_launch(gcn_layer_fwd_train, x)
     return out
 
 
@@ -278,8 +349,8 @@ def _bwd_cuda(g, x, w, b, z_bias, ngp, nsib, p, pe_pack, seed, drop, alpha,
     bsz, n, din = x.shape
     dout, pos = w.shape[1], ta.pos
     empty = functools.partial(_empty, x)
-    grads = {"x": empty(bsz, n, din) if need_dx else None,
-             "w": empty(din, dout), "b": empty(dout),
+    grads = {"x": empty(bsz, n, din, dtype=x.dtype) if need_dx else None,
+             "w": empty(din, dout, dtype=x.dtype), "b": empty(dout),
              "z_bias": empty(n, dout) if need_dzb else None}
     if pe_pack is not None:
         grads.update(pe=empty(n, pos), wp=empty(pos, dout))
@@ -296,22 +367,24 @@ def _bwd_cuda(g, x, w, b, z_bias, ngp, nsib, p, pe_pack, seed, drop, alpha,
     ldd = pw["wdp"]
     act = alpha is not None   # z recomputed for leaky'
     work = {"g": g, "z": empty(m, ldd), "g2sum": empty(bsz, dout),
-            "wcat": empty(pw["kxp"], ldd) if act else None,
+            "wcat": empty(pw["kxp"], ldd, dtype=x.dtype) if act else None,
             "biascat": empty(n, ldd) if act else None,
             "part_w": pw["part_w"], "part_b": empty(chunks, n * ldd),
             "pe_rows": empty(m, pos) if pos else None,
             "part_pe": empty(chunks, n * pos) if pos else None,
             "dx": grads["x"], "dw": grads["w"], "db": grads["b"],
             "dzb": grads["z_bias"], "dpe": grads.get("pe"),
-            "dwp": grads.get("wp"), "xm": pw["xm"], "wt": pw["wt"]}
+            "dwp": grads.get("wp"), "xm": pw["xm"], "wt": pw["wt"],
+            # the products' dz in bf16 (bf16 layers)
+            "dz16": empty(m, ldd, dtype=x.dtype) if is_bf16(x) else None}
     args = _args(x, w, b, z_bias, ngp, nsib, p, alpha, work,
                  need_dx=int(need_dx), need_dzb=int(need_dzb),
                  splits=splits, chunks=chunks, kxp=pw["kxp"], ldd=ldd,
                  ntp=pw["ntp"])
     lib = _lib()
     with torch.cuda.device(x.device):
-        rc = lib.gcn_layer_bwd_f32(ctypes.byref(args), ctypes.byref(ta),
-                                   stream(x))
+        rc = getattr(lib, _entry("layer_bwd", x))(
+            ctypes.byref(args), ctypes.byref(ta), stream(x))
     raise_on(lib, rc, "gcn_layer_bwd", "gcn_error_string")
     return grads
 
@@ -320,15 +393,15 @@ def gcn_layer_bwd(g, x, w, b, z_bias, ngp, nsib, p: int, *, pe_pack=None,
                   seed: int = 0, drop: float = 0.0, alpha=None,
                   need_dx: bool = True, need_dzb: bool = True) -> dict:
     """Backward of `gcn_layer_fwd[_train]` for the incoming grad g
-    [B, N, Dout]: {x (need_dx), w, b, z_bias (need_dzb), and with pe_pack
-    pe, wp}."""
+    [B, N, Dout] (in x's dtype): {x (need_dx), w, b, z_bias (need_dzb), and
+    with pe_pack pe, wp}; x and w's grads in x's dtype, the others
+    float32."""
     kw = dict(pe_pack=pe_pack, seed=seed, drop=drop, alpha=alpha,
               need_dx=need_dx, need_dzb=need_dzb)
     if not on_cuda(x, "gcn_layer_bwd"):
         return gcn_layer_bwd_plain(g, x, w, b, z_bias, ngp, nsib, p, **kw)
     res = _bwd_cuda(g, x, w, b, z_bias, ngp, nsib, p, **kw)
-    if x.shape[0]:
-        gcn_layer_bwd.launches += 1
+    count_launch(gcn_layer_bwd, x)
     return res
 
 
@@ -338,19 +411,19 @@ def gcn_projection(x, w, z_bias, *, pe_pack=None, seed: int = 0,
     + z_bias, [B, N, Dout]: the first launch of `gcn_layer_fwd[_train]`
     and of `gcn_layer_bwd` with an activation, exposed for testing it on
     its own (the plain version on the CPU; on the card the kernel, counted
-    in `gcn_projection.launches`, its rows dout rounded up to 4 apart)."""
+    in `gcn_projection.launches[_bf16]`, its rows dout rounded up to a
+    16-byte multiple of x's dtype apart). float32 in either form."""
     kw = dict(pe_pack=pe_pack, seed=seed, drop=drop)
     if not on_cuda(x, "gcn_projection"):
         return gcn_projection_plain(x, w, z_bias, **kw)
-    _, z = _fwd_cuda("gcn_projection", "gcn_projection_f32", x, w, None,
+    _, z = _fwd_cuda("gcn_projection", _entry("projection", x), x, w, None,
                      z_bias, None, None, None, None,
                      train=(pe_pack, seed, drop))
-    if x.shape[0]:
-        gcn_projection.launches += 1
+    count_launch(gcn_projection, x)
     return z
 
 
-gcn_projection.launches = 0
+gcn_projection.launches = gcn_projection.launches_bf16 = 0
 
 
 def gcn_star(z, b, ngp, nsib, p: int, alpha=None) -> torch.Tensor:
@@ -407,7 +480,7 @@ def bwd_pass_ms(call) -> dict:
 WRAPPERS = {w.__name__: w for w in (gcn_layer_fwd, gcn_layer_fwd_train,
                                     gcn_layer_bwd)}
 for _w in WRAPPERS.values():
-    _w.launches = 0
+    _w.launches = _w.launches_bf16 = 0
 
 
 # --------------------------------------------------- the differentiable layer

@@ -1,6 +1,7 @@
 """Plumbing shared by the kernel wrappers (`gat_kernels.py`, `gcn_kernels.py`):
 the train-form argument struct, operand checks, device dispatch, the stream
-and launch errors."""
+and launch errors, the launch counters by dtype, and the bf16 layers'
+product operands for the plain versions."""
 from __future__ import annotations
 
 import ctypes
@@ -74,6 +75,49 @@ def check_operands(x: torch.Tensor, shapes: dict, low: tuple = ()) -> None:
                             f"{want_dtype} here (x is {x.dtype})")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+
+
+def is_bf16(x: torch.Tensor) -> bool:
+    return x.dtype == torch.bfloat16
+
+
+def count_launch(wrapper, x: torch.Tensor) -> None:
+    """One launch of `wrapper`'s float32 or bf16 kernel, by x's dtype."""
+    if x.shape[0]:
+        if is_bf16(x):
+            wrapper.launches_bf16 += 1
+        else:
+            wrapper.launches += 1
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
+def bf16_operands(x, w, pe, wp, seed: int, drop: float, bits: int = 32):
+    """A bf16 layer's product operands as its kernels stage and pack them,
+    in float32 tensors holding bf16 values: X = [x*m | pe*m_pe] [B*N, din +
+    pos] (x times its mask rounded to bf16, the product rounded; the pe
+    rows [N, pos] times their float32 mask, rounded), W = [w; wp] (w [din,
+    wd]; wp [pos, wd] rounded to bf16), and the float32 masks (x's [B*N,
+    din], the pe rows' [B*N, pos]; None without dropout / a pe path) that
+    dx and the pe rows' grads take. pe and wp are None without a pe path;
+    `bits`: the masks' width (ops/dropout.py)."""
+    b, n, din = x.shape
+    xs = x.float().reshape(b * n, din)
+    fmask = pmask = None
+    if drop > 0:
+        fmask = dropout.slot_mask(seed, dropout.STREAM_FEAT, b, n, din, drop,
+                                  x.device, bits).reshape(b * n, din)
+        xs = round_bf16(xs * round_bf16(fmask))
+    cols, rows = [xs], [w.float()]
+    if pe is not None:
+        pos = pe.shape[1]
+        pmask = dropout.slot_mask(seed, dropout.STREAM_PE, b, n, pos, drop,
+                                  x.device, bits).reshape(b * n, pos)
+        cols.append(round_bf16(pe.float().repeat(b, 1) * pmask))
+        rows.append(round_bf16(wp))
+    return torch.cat(cols, dim=1), torch.cat(rows, dim=0), fmask, pmask
 
 
 def check_star(x: torch.Tensor, p: int) -> None:

@@ -33,8 +33,26 @@ all-gathers the scores; full-catalog validation runs the ranker's
 data-parallel encode. Checkpoints and the tensorboard writer are rank 0's;
 every rank resumes from the same checkpoint.
 
-Not ported: head tensor parallelism over 'mp' (the CLI refuses it), the
-profiler window. Checkpoints are written in the foreground.
+The runtime around the epochs (trainer.py:173-177, :366-377, :442-462,
+:510-518, :610-693):
+- the profiler window: with `profile_dir`, torch.profiler traces batches
+  `_profile_window` = (10, 15) of epoch 1 (CPU and CUDA activity), closes
+  the window on finished work (the device synchronised) and exports a
+  Chrome trace, profile_dir/trace.json (under data parallelism
+  profile_dir/rank<r>/trace.json);
+- checkpoints in the background: the foreground clones params and
+  optimizer state on the device, a non-daemon thread reads the clone back
+  once and writes the epoch checkpoint and model_best from that one host
+  snapshot; at most two writes in flight, each joining its predecessor;
+  joined at the end of `train` and before `resume`;
+- the validation prefetch: the sampled validation's batches are sampled
+  and staged on a thread during the train epoch and joined in
+  `_valid_epoch`, which runs before the epoch's one loss readback (none on
+  full-validation epochs);
+- parameter histograms after each sampled validation, with a tensorboard
+  writer, one a parameter leaf named by its key path.
+
+Not ported: head tensor parallelism over 'mp' (the CLI refuses it).
 """
 from __future__ import annotations
 
@@ -55,8 +73,9 @@ from ..ops import star
 from ..parallel import distributed
 from ..parallel.partition import (halo_impl, make_exchange,
                                   partitioned_gather, shard_table)
-from ..tree import tree_leaves, tree_map, tree_unflatten
-from ..weights import params_to
+from ..tree import (tree_leaves, tree_leaves_with_path, tree_map,
+                    tree_unflatten)
+from ..weights import params_to, to_numpy
 from ..writer import TensorboardWriter
 from . import checkpoint as ckpt_mod
 from .optim import PlateauScheduler, get_lr
@@ -157,7 +176,8 @@ class Trainer:
                  device: torch.device | str = "cuda",
                  encode_chunk: int = 4096,
                  dp=None,
-                 feature_mode: str = "replicated"):
+                 feature_mode: str = "replicated",
+                 profile_dir: str | Path | None = None):
         self.device = torch.device(device)
         if feature_mode not in ("replicated", "partitioned"):
             raise ValueError(f"unknown feature_mode {feature_mode!r}")
@@ -214,6 +234,18 @@ class Trainer:
             raise ValueError("trainer.full_validation_every is set but no "
                              "full_valid_sampler was provided")
         self._full_ranker = None
+        # the sampled validation's batches, staged during the train epoch
+        self._valid_prefetch = None
+
+        # the profiler window: batches [start, stop] of epoch 1
+        self.profile_dir = Path(profile_dir) if profile_dir else None
+        self._profile_window = (10, 15)
+        self._profiler = None
+
+        # background checkpoint writes in flight (oldest first) and their
+        # errors
+        self._ckpt_pending: list[threading.Thread] = []
+        self._ckpt_errors: list[BaseException] = []
 
         self.checkpoint_dir = Path(save_dir)
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
@@ -314,12 +346,21 @@ class Trainer:
         t_epoch = time.time()
         full_epoch = (self.full_validation_every > 0
                       and epoch % self.full_validation_every == 0)
+        sampled_valid = self.valid_loader is not None and not full_epoch
+        if sampled_valid:
+            self._valid_prefetch = self._start_valid_prefetch()
         t0 = time.time()
         for batch_idx, (_host, dev_batch, b_egonets, b_edges) in enumerate(
                 _DeviceFeed(self.train_loader, self.device, dp=self.dp)):
             t1 = time.time()
+            if (self.profile_dir is not None and epoch == 1
+                    and batch_idx == self._profile_window[0]):
+                self._start_profile()
             losses.append(self.train_step(dev_batch,
                                           epoch * STEP_STRIDE + batch_idx))
+            if (self._profiler is not None
+                    and batch_idx == self._profile_window[1]):
+                self._stop_profile()
             if self.step_timing:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
@@ -331,14 +372,26 @@ class Trainer:
             t_wait += t1 - t0
             t_step += t2 - t1
             t0 = t2
-        # one readback of the epoch's losses (with dp summed over the
-        # ranks, the overflowed halo requests riding along)
-        t_s = time.time()
+        if self._profiler is not None:   # an epoch shorter than the window
+            self._stop_profile()
+        # the epoch's losses and overflowed halo requests, on the device
         vals = torch.stack(losses).double() if losses else \
             torch.zeros(0, dtype=torch.float64, device=self.device)
         if self.feature_mode == "partitioned":
             vals = torch.cat([vals, self._overflow.double()[None]])
             self._overflow.zero_()
+        # the sampled validation runs before the epoch's one loss readback
+        # (trainer.py:387-399): its host work overlaps the device's drain
+        # of the train steps, which its first score readback then waits
+        # for (on these epochs valid_s holds that drain, sync_s the rest)
+        valid_log, t_valid = {}, 0.0
+        if sampled_valid:
+            t_v = time.time()
+            valid_log = self._valid_epoch(epoch)
+            t_valid = time.time() - t_v
+        # one readback of the epoch's losses (with dp summed over the
+        # ranks, the overflowed halo requests riding along)
+        t_s = time.time()
         if self.dp is not None:
             vals = distributed.all_reduce_sum(vals, self.dp)
         loss_vals = vals.cpu().numpy()
@@ -363,10 +416,9 @@ class Trainer:
             log["halo_overflow"] = overflow
         self.writer.add_scalar("edges_per_sec", n_edges / dt)
 
-        if self.valid_loader is not None and not full_epoch:
-            t_v = time.time()
-            log.update(self._valid_epoch(epoch))
-            log["timing"]["valid_s"] = round(time.time() - t_v, 2)
+        if sampled_valid:
+            log.update(valid_log)
+            log["timing"]["valid_s"] = round(t_valid, 2)
             if self.feature_mode == "partitioned":
                 # validation's gathers count into the same device scalar:
                 # read it back now, so the epoch reports its own overflow
@@ -428,23 +480,95 @@ class Trainer:
             scores = distributed.all_gather_cat(scores, self.dp)
         return scores
 
+    def _staged_valid_batches(self) -> list:
+        """The sampled validation's batches as (labels, cand_mask, device
+        batch), sampled and staged in the validation loader's order."""
+        return [(host.labels, host.cand_mask, dev) for host, dev, _ne, _ee
+                in _DeviceFeed(self.valid_loader, self.device, dp=self.dp)]
+
+    def _start_valid_prefetch(self):
+        """Sample and stage the sampled validation's batches on a thread
+        while the train epoch runs (trainer.py:442-462): the same batches
+        as sampling them inline, since the validation loader is iterated
+        once either way; `_valid_epoch` joins the thread. Returns (thread,
+        batches, errors)."""
+        staged: list = []
+        err: list[BaseException] = []
+
+        def produce():
+            try:
+                staged.extend(self._staged_valid_batches())
+            except BaseException as e:  # surface in _valid_epoch
+                err.append(e)
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        return t, staged, err
+
     def _valid_epoch(self, epoch: int) -> dict:
-        """Sampled validation: metrics averaged over validation batches."""
+        """Sampled validation: metrics averaged over validation batches,
+        then the parameter histograms. The batches come from the prefetch
+        the train epoch started (`_valid_prefetch`), joined here, or are
+        sampled and staged here (the inline form); every batch's scores
+        are dispatched before the first is read back."""
+        prefetch, self._valid_prefetch = self._valid_prefetch, None
+        if prefetch is None:
+            staged = self._staged_valid_batches()
+        else:
+            thread, staged, err = prefetch
+            thread.join()
+            if err:
+                raise err[0]
+        scores = [self.eval_scores(dev) for _l, _m, dev in staged]
         totals = np.zeros(len(self.metric_fns))
-        n_batches = 0
-        for batch_idx, (host, dev_batch, _ne, _ee) in enumerate(
-                _DeviceFeed(self.valid_loader, self.device, dp=self.dp)):
-            scores = self.eval_scores(dev_batch).cpu().numpy()
+        for batch_idx, ((labels, cand_mask, _dev), s) in enumerate(
+                zip(staged, scores)):
             all_ranks = metrics_mod.ranks_from_groups(
-                scores, host.labels, host.cand_mask, mode=self.rank_mode)
+                s.cpu().numpy(), labels, cand_mask, mode=self.rank_mode)
             self.writer.set_step((epoch - 1) * len(self.valid_loader)
                                  + batch_idx, "valid")
             for i, fn in enumerate(self.metric_fns):
                 val = fn(all_ranks)
                 totals[i] += val
                 self.writer.add_scalar(self.metric_names[i], val)
-            n_batches += 1
-        return {"val_metrics": (totals / max(n_batches, 1)).tolist()}
+        self._histograms()
+        return {"val_metrics": (totals / max(len(staged), 1)).tolist()}
+
+    def _histograms(self) -> None:
+        """One histogram a parameter leaf, named by its key path joined
+        with "/" (trainer.py:510-518); only with a tensorboard writer."""
+        if self.writer.writer is None:
+            return
+        for path, leaf in tree_leaves_with_path(self.params):
+            self.writer.add_histogram("/".join(map(str, path)),
+                                      leaf.detach().cpu().numpy())
+
+    # ---------------------------------------------------- profiler window
+    def _start_profile(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=activities)
+        self._profiler.start()
+
+    def _stop_profile(self) -> Path:
+        """Close the window on finished work (the device synchronised, as
+        the JAX trainer blocks on the loss, trainer.py:374-376) and export
+        its Chrome trace: profile_dir/trace.json, or under data
+        parallelism profile_dir/rank<r>/trace.json."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        out = self.profile_dir if self.dp is None \
+            else self.profile_dir / f"rank{self.dp.rank}"
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / "trace.json"
+        prof.export_chrome_trace(str(path))
+        self.logger.info("profiler trace of epoch 1, batches %d-%d: %s",
+                         *self._profile_window, path)
+        return path
 
     def _full_valid(self, epoch: int) -> dict:
         """Full-catalog validation: every validation query ranked against
@@ -471,10 +595,15 @@ class Trainer:
     # ------------------------------------------------------------ train
     def train(self) -> dict:
         """The epoch loop with monitoring, early stop and checkpoints; under
-        data parallelism, then each rank's report file. The halo exchange
-        is closed when the loop ends normally (its tear-down is
-        collective); after an exception the process exit releases it."""
-        final_log = self._train_loop()
+        data parallelism, then each rank's report file. The checkpoint
+        writes in flight land before it returns, also after an exception.
+        The halo exchange is closed when the loop ends normally (its
+        tear-down is collective); after an exception the process exit
+        releases it."""
+        try:
+            final_log = self._train_loop()
+        finally:
+            self._join_ckpt()
         if self.exchange is not None:
             self.exchange.close()
         if self.dp is not None:
@@ -546,29 +675,78 @@ class Trainer:
                             "epochs. Training stops.", self.early_stop)
                         break
             if epoch % self.save_period == 0:
+                t_c = time.time()
                 self._save_checkpoint(epoch, save_best=best)
+                self.logger.info("    %-15s: %s", "checkpoint_s",
+                                 round(time.time() - t_c, 2))
         self.writer.close()
         return final_log
 
     # ------------------------------------------------------ checkpoints
     def _save_checkpoint(self, epoch: int, save_best: bool = False) -> None:
+        """Checkpoint without stalling the epoch loop on the readback
+        (trainer.py:610-693): the foreground clones params and optimizer
+        state on the device; a non-daemon thread reads the clone back once
+        and writes the epoch checkpoint and, if best, model_best from that
+        one host snapshot. At most two writes are in flight, each joining
+        its predecessor first, so the files land in epoch order. Only rank
+        0 writes (every rank holds the same params)."""
         if not self._primary:
-            return           # every rank holds the same params; rank 0 writes
-        sched = self.lr_scheduler.state_dict() if self.lr_scheduler else None
-        kw = dict(params=self.params, opt_state=self.opt_state, epoch=epoch,
-                  monitor_best=self.mnt_best, config=self.config,
-                  scheduler_state=sched)
-        path = self.checkpoint_dir / f"checkpoint-epoch{epoch}.ckpt"
-        self.logger.info("Saving checkpoint: %s ...", path)
-        ckpt_mod.save_checkpoint(path, **kw)
+            return
+        self._ckpt_pending = [t for t in self._ckpt_pending if t.is_alive()]
+        while len(self._ckpt_pending) >= 2:
+            self._ckpt_pending.pop(0).join()
+        # clones, not references: the snapshot is what these params are
+        # now. The trainer's work and the writer's readback both run on the
+        # device's default stream, so the readback follows the clones.
+        snap = tree_map(lambda v: v.detach().clone()
+                        if isinstance(v, torch.Tensor) else v,
+                        (self.params, self.opt_state))
+        paths = [self.checkpoint_dir / f"checkpoint-epoch{epoch}.ckpt"]
+        self.logger.info("Saving checkpoint: %s ...", paths[0])
         if save_best:
             self.logger.info("Saving current best: model_best.ckpt ...")
-            ckpt_mod.save_checkpoint(self.checkpoint_dir / "model_best.ckpt",
-                                     **kw)
+            paths.append(self.checkpoint_dir / "model_best.ckpt")
+        kw = dict(epoch=epoch, monitor_best=self.mnt_best, config=self.config,
+                  scheduler_state=self.lr_scheduler.state_dict()
+                  if self.lr_scheduler else None)
+        prev = self._ckpt_pending[-1] if self._ckpt_pending else None
+
+        def write():
+            try:
+                if prev is not None:
+                    prev.join()
+                self._write_checkpoint(paths, *to_numpy(snap), **kw)
+            except BaseException as e:  # raised by _join_ckpt
+                self._ckpt_errors.append(e)
+
+        # non-daemon: the interpreter's exit waits for the write
+        t = threading.Thread(target=write, daemon=False)
+        t.start()
+        self._ckpt_pending.append(t)
+
+    @staticmethod
+    def _write_checkpoint(paths: list, params, opt_state, **kw) -> None:
+        """One snapshot into every file of `paths` (atomic writes)."""
+        for path in paths:
+            ckpt_mod.save_checkpoint(path, params=params,
+                                     opt_state=opt_state, **kw)
+
+    def _join_ckpt(self) -> None:
+        """Wait for the checkpoint writes in flight; raise the first error
+        one of them met."""
+        pending, self._ckpt_pending = self._ckpt_pending, []
+        for t in pending:
+            t.join()
+        if self._ckpt_errors:
+            err, self._ckpt_errors = self._ckpt_errors[0], []
+            raise err
 
     def resume(self, path: str | Path) -> None:
         """Restore params, optimizer state, epoch, monitor best and the
-        scheduler from a checkpoint of either package."""
+        scheduler from a checkpoint of either package, after the
+        checkpoint writes in flight have landed."""
+        self._join_ckpt()
         state = ckpt_mod.load_checkpoint(path)
         self.params, self.opt_state = ckpt_mod.restore_into(
             state, model=self.model, optimizer=self.optimizer,

@@ -22,6 +22,19 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_leaves_with_path(tree, prefix: tuple = ()) -> list:
+    """(key path, leaf) pairs in tree_leaves order; a path is the tuple of
+    dict keys and list indices leading to the leaf, as
+    jax.tree_util.tree_flatten_with_path gives them."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_leaves_with_path(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree)
+                for x in tree_leaves_with_path(t, prefix + (i,))]
+    return [(prefix, tree)]
+
+
 def tree_unflatten(template, leaves) -> object:
     """A tree shaped like `template` holding `leaves` in tree_leaves order."""
     it = iter(leaves)

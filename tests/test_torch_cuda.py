@@ -31,7 +31,12 @@ tensor-core MMAs) and of K7 at din not a multiple of 8, P's rows padded to
 8 elements, B*N not a multiple of the 128-row tile, several split-K
 splits, dropout 0 and 0.1 with 32- and 8-bit masks, stored and recompute
 backwards (equal bits), the differentiable layer against the CPU, and the
-wrappers' refusal of mixed dtypes.
+wrappers' refusal of mixed dtypes; the bf16 form of K5 (eval and train
+forward, backward with need_dx both ways, with and without the activation,
+the projection alone) at din 33 / 250 / 500 (not all multiples of 8), Dout
+130 (rows of z padded to 136), B*N not a multiple of the 128-row tile,
+several split-K splits and a batch of empty egonets, and its
+differentiable layer against the CPU.
 
 Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the card:
 
@@ -953,7 +958,7 @@ def test_bf16_layer_function_on_card_matches_cpu(dev):
 
 def test_bf16_wrappers_refuse_mixed_dtypes(dev):
     """x, fc, wa1, wa2 all bf16 or all float32: a mix raises; the slot
-    biases stay float32; K5 takes no bf16."""
+    biases stay float32; K5 takes a bf16 x only with a bf16 W_h."""
     t = _inputs(dev, 4, 3, 8, 6, 2, 4)
     bf = _bf16(t)
     with pytest.raises(TypeError, match="the kernel takes"):
@@ -967,3 +972,90 @@ def test_bf16_wrappers_refuse_mixed_dtypes(dev):
     with pytest.raises(TypeError, match="float32"):
         ck.gcn_layer_fwd(bf[0], w, torch.zeros(5, device=dev),
                          torch.zeros((12, 5), device=dev), t[7], t[8], 3)
+
+
+GCN_BF16_SHAPES = [
+    # b, p, s, din, dout, pos, only empty egonets
+    (37, 5, 64, 33, 130, 7, False),    # N = 70, 2590 rows, Dout 130
+    (3, 13, 50, 250, 500, 50, False),  # PGCN layer 0's widths, N = 64
+    (3, 13, 50, 500, 500, 50, False),  # PGCN final layer's (x read
+                                       # directly in the eval form)
+    (260, 3, 30, 40, 24, 5, False),    # 8840 rows: three split-K splits
+    (9, 5, 64, 250, 130, 0, True),     # only empty egonets, no pe path
+]
+
+
+@pytest.mark.parametrize("b,p,s,din,dout,pos,empty", GCN_BF16_SHAPES)
+@pytest.mark.parametrize("alpha", [0.01, None])
+def test_bf16_gcn_forms_match_plain(dev, b, p, s, din, dout, pos, empty,
+                                    alpha):
+    """The bf16 forms of K5: the projection alone (float32 z), K5f eval and
+    train (bf16 output), K5b with need_dx on and off (dx, dW bf16; db, d
+    z_bias, the pe grads float32) against their plain versions; dx exactly
+    0 on invalid slots; every launch counted as a bf16 launch, none as a
+    float32 one."""
+    ops, pe_pack = _gcn_inputs(dev, b, p, s, din, dout, pos)
+    n = p + 1 + s
+    if empty:
+        ops[4].zero_()
+        ops[5].zero_()
+        ops[0].mul_(star.node_mask(ops[4], ops[5], p, n)[..., None])
+    ops = (ops[0].to(torch.bfloat16), ops[1].to(torch.bfloat16), *ops[2:])
+    valid = star.node_mask(ops[4], ops[5], p, n)
+    names = (*ck.WRAPPERS, "gcn_projection")
+    counter = lambda k: getattr(ck, k)  # noqa: E731
+    before = {k: (counter(k).launches, counter(k).launches_bf16)
+              for k in names}
+    kw = dict(pe_pack=pe_pack, seed=41, drop=0.1, alpha=alpha)
+    pkw = {k: kw[k] for k in ("pe_pack", "seed", "drop")}
+    z = ck.gcn_projection(ops[0], ops[1], ops[3], **pkw)
+    assert z.dtype == torch.float32
+    torch.testing.assert_close(z, ck.gcn_projection_plain(
+        ops[0], ops[1], ops[3], **pkw), **TOL)
+    _assert_close_bf16(ck.gcn_layer_fwd(*ops, p, alpha=alpha),
+                       ck.gcn_layer_fwd_plain(*ops, p, alpha), "eval")
+    _assert_close_bf16(ck.gcn_layer_fwd_train(*ops, p, **kw),
+                       ck.gcn_layer_train_plain(*ops, p, **kw), "train")
+    g = (torch.randn((b, n, dout), device=dev,
+                     generator=torch.Generator(dev).manual_seed(42))
+         * 1e-2).to(torch.bfloat16)
+    if alpha is not None:   # leaky' jumps at 0: no grad near the kink
+        pre = ck.gcn_layer_train_plain(*ops, p, **dict(kw, alpha=None))
+        g = g * (pre.float().abs() > 1e-5)
+    for need_dx in (True, False):
+        bkw = dict(kw, need_dx=need_dx, need_dzb=True)
+        got = ck.gcn_layer_bwd(g, *ops, p, **bkw)
+        torch.cuda.synchronize()
+        _assert_grads_bf16(got, ck.gcn_layer_bwd_plain(g, *ops, p, **bkw))
+        if need_dx and bool((~valid).any()):
+            assert float(got["x"][~valid].abs().max()) == 0.0
+    after = {k: (counter(k).launches, counter(k).launches_bf16)
+             for k in names}
+    calls = {"gcn_layer_fwd": 1, "gcn_layer_fwd_train": 1,
+             "gcn_layer_bwd": 2, "gcn_projection": 1}
+    assert after == {k: (before[k][0], before[k][1] + calls[k])
+                     for k in names}
+
+
+def test_bf16_gcn_layer_function_on_card_matches_cpu(dev):
+    """The differentiable K5 layer with bf16 x and W_h (cast from float32
+    leaves): card forward + K5b against the CPU Function (plain
+    versions), grads reaching the float32 leaves."""
+    ops, pe_pack = _gcn_inputs(dev, 12, 4, 20, 24, 36, 5)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        leaves = [a.to(d).clone().requires_grad_(True)
+                  for a in (*ops[:4], *pe_pack)]
+        y = ck.gcn_layer(leaves[0].to(torch.bfloat16),
+                         leaves[1].to(torch.bfloat16), *leaves[2:4],
+                         ops[4].to(d), ops[5].to(d), 4,
+                         pe_pack=tuple(leaves[4:]), seed=9, drop=0.1,
+                         alpha=0.01)
+        assert y.dtype == torch.bfloat16
+        grads = torch.autograd.grad(y.float().square().sum(), leaves)
+        out[d.type] = [y.detach().cpu()] + [x.cpu() for x in grads]
+    _assert_close_bf16(out["cuda"][0], out["cpu"][0], "out")
+    for a, b in zip(out["cuda"][1:], out["cpu"][1:]):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=2 ** -6,
+                                   atol=2 ** -8 * float(b.abs().max()))
