@@ -53,6 +53,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               star pass of K3 and K5f's star pass are also held alone
               against their plain versions on the projection the card
               computes (`star_alone`).
+              The shapes head tensor parallelism over mp = 2 gives the
+              star-GAT kernels (mp index 0's shard), in float32 and bf16:
+              config.mag.json's layer 0 at 2 of its 4 heads (250 + 50 ->
+              2 x 500) as K1 eval, K1t, its store form with the stored K2,
+              and K2 (need_dx off), the PGAT-tp path's layer 0; and the
+              pooled TP form, K3 eval, K3t and K4 (need_dx on) at 2 of 4
+              heads of a pooled layer (2000 + 50 -> 2 x 500), which no
+              configuration of the repo reaches (its launches: the pooled
+              wrappers' count at 2 heads in the PGAT-tp runs, 0).
               K6 (the halo gather, ops/csrc/halo.cu) in one process
               holding all shards of an 800 x 250 table, at the data-parallel
               path's shapes for P = 2 and P = 4 (one rank's request for its
@@ -98,6 +107,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               through test_fast; the 2-rank median step beside the
               single-process PGAT step (two contexts time-slicing one card,
               not a scaling figure).
+              Then the tensor-parallel path (PGAT-tp): `python -m
+              taxoexpan_torch.train` as 2 rank processes sharing the card
+              (gloo) with config.mag.json and "parallel": {"dp": 1, "mp":
+              2} at full width (the whole 128-group batch on both ranks,
+              layer 0's heads split 2 a rank, the 1-head final layer whole
+              on both), one epoch from a start checkpoint, at dropout 0
+              against the single-process run from it (epoch loss, final
+              params), then at the config's dropout with both ranks'
+              profiler windows traced (both ranks' final params equal
+              bits); then `test_fast -m` and `infer -m` as 2 rank
+              processes against the single process (`phase_tp_training`).
 7. bf16    - compute_dtype "bfloat16" (the JAX package's production dtype,
               bench.py:246): in the kernels phase the bf16 forms of K1 (eval
               and train, the pe path), K2 (need_dx off), K3 (eval and
@@ -130,10 +150,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               back (wall ms, device-busy ms, the device's idle share, the
               top device operations), with the epochs' split and the
               checkpoint writer's and the prefetch's foreground seconds
-              against the inline and foreground forms.
+              against the inline and foreground forms, and a train step's
+              two host-to-device copies repaired (AMSGrad's bias
+              corrections and the position embeddings' slot codes made on
+              the card) against their form before the repair
+              (`sync_repair`: the host syncs of one step under CUDA's sync
+              debug mode, the median step, the window's idle share).
 8. a `{"kernels": [...]}` line (eval-form launches from the serving phase
    of the entry's path, the train-path kernels' from its training phase,
-   K6's from the partitioned 2-rank run, over both ranks),
+   K6's from the partitioned 2-rank run, over both ranks; the TP rows'
+   from the PGAT-tp runs' counts at the shard's heads, `launches_by_heads`,
+   over both runs and ranks),
    then the card's nvidia-smi line, and last `{"ok": true, "device":
    {...}}`.
 
@@ -144,6 +171,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -1021,6 +1049,146 @@ def phase_mtl_kernels(batch: int, device, drop: float) -> list[dict]:
     return records
 
 
+def phase_tp_kernels(batch: int, device, drop: float) -> list[dict]:
+    """The star-GAT kernels at the shapes head tensor parallelism over
+    mp = 2 gives them, mp index 0's shard, in float32 (paths PGAT-tp,
+    PGAT-tp-pooled) and in bf16 (PGAT-tp-bf16, PGAT-tp-pooled-bf16): the
+    layer-0 shard of config.mag.json (250 + pe 50 -> 2 x 500 of its 4
+    heads, leaky_relu 0.01) as K1 eval, the K1 train form, its store form
+    (K7a) with the stored K2, and K2 (need_dx off), the PGAT-tp path's
+    layer 0; and the pooled layer's TP form, heads_local = 2 of a 4-head
+    final layer (2000 + pe 50 -> 2 x 500, pools), which no configuration of
+    the repo reaches (config.mag.json's final layer has 1 head and runs
+    whole on both mp ranks): K3 eval, K3t and K4 (need_dx on). The same
+    params and inputs in both dtypes; the pooled layer fed layer 0's whole
+    eval output (what the mp gather gives it)."""
+    import torch
+    from taxoexpan_torch import builders
+    from taxoexpan_torch.models.propagation import head_shard
+    from taxoexpan_torch.ops import gat_kernels as gk
+    from taxoexpan_torch.ops import star
+    from taxoexpan_torch.weights import params_to
+    cfg, _ = path_model("PGAT")
+    heads, mp = 4, 2
+    local = heads // mp
+    gen = torch.Generator().manual_seed(SEED + 2)
+    n = MAG_P + 1 + MAG_S
+    x0, ngp, nsib = random_egonets(gen, batch, cfg["arch"]["args"]["in_dim"],
+                                   device)
+    args = (ngp, nsib, MAG_P)
+    valid = star.node_mask(ngp, nsib, MAG_P, n)[..., None]
+    tkw0 = dict(seed=40, feat_drop=drop, attn_drop=drop)
+    tkw1 = dict(seed=41, feat_drop=drop, attn_drop=drop)
+    dgen = torch.Generator(device=device).manual_seed(SEED + 2)
+    noise0 = torch.randn((batch, n, local * cfg["arch"]["args"]
+                          ["hidden_dim"]), generator=dgen,
+                         device=device) * 1e-3 * valid
+    g1 = torch.randn((batch, 3, cfg["arch"]["args"]["out_dim"]),
+                     generator=dgen, device=device) * 1e-2
+    records = []
+    params = None
+    for path in ("PGAT-tp", "PGAT-tp-bf16"):
+        bf16 = path.endswith("bf16")
+        arch = dict(cfg["arch"], args=dict(
+            cfg["arch"]["args"], heads=[heads, heads],
+            compute_dtype="bfloat16" if bf16 else "float32"))
+        prop = builders.build_model(arch, max_parents=MAG_P,
+                                    expand_factor=MAG_S).propagate
+        if params is None:
+            params = params_to(prop.init(gen), device)
+        bf = ", bf16" if bf16 else ""
+        xin = x0.to(prop.dtype)
+
+        def shard(l, pe_dropout=False):
+            return head_shard(*prop.operands(params, l, n, MAG_P,
+                                             pe_dropout=pe_dropout),
+                              heads, 0, mp)
+        (ops0, _), (tops0, pe0) = shard(0), shard(0, True)
+        kw0 = dict(tkw0, pe_pack=pe0)
+        with torch.no_grad():
+            pre = gk.gat_layer_train_plain(xin, *tops0, *args, local, **kw0)
+            g0 = (noise0 * (pre.float().abs() > 1e-5)).to(prop.dtype)
+            del pre
+        tag = f"[tp shard{bf}]"
+        cases = [
+            ("gat_layer_fwd", False, xin, ops0, None,
+             lambda: gk.gat_layer_fwd(xin, *ops0, *args, local,
+                                      out_alpha=0.01),
+             lambda: gk.gat_layer_fwd_plain(xin, *ops0, *args, local,
+                                            out_alpha=0.01)),
+            ("gat_layer_fwd_train", False, xin, tops0, pe0,
+             lambda: gk.gat_layer_fwd_train(xin, *tops0, *args, local,
+                                            out_alpha=0.01, **kw0),
+             lambda: gk.gat_layer_train_plain(xin, *tops0, *args, local,
+                                              out_alpha=0.01, **kw0)),
+            ("gat_layer_bwd", False, xin, tops0, pe0,
+             lambda: gk.gat_layer_bwd(g0, xin, *tops0, *args, local,
+                                      out_alpha=0.01, need_dx=False,
+                                      need_dbias=False, **kw0),
+             lambda: gk.gat_layer_bwd_plain(g0, xin, *tops0, *args, local,
+                                            out_alpha=0.01, need_dx=False,
+                                            **kw0))]
+        # the pooled TP form, on layer 0's whole eval output
+        ops0_all, _ = prop.operands(params, 0, n, MAG_P)
+        with torch.no_grad():
+            x1 = gk.gat_layer_fwd_plain(xin, *ops0_all, *args, heads,
+                                        out_alpha=0.01)
+        del ops0_all
+        (ops1, _), (tops1, pe1) = shard(1), shard(1, True)
+        kw1 = dict(tkw1, pe_pack=pe1)
+        cases += [
+            ("gat_layer_pooled_fwd", True, x1, ops1, None,
+             lambda: gk.gat_layer_pooled_fwd(x1, *ops1, *args, local),
+             lambda: gk.gat_layer_pooled_fwd_plain(x1, *ops1, *args,
+                                                   local)),
+            ("gat_layer_pooled_fwd_train", True, x1, tops1, pe1,
+             lambda: gk.gat_layer_pooled_fwd_train(x1, *tops1, *args, local,
+                                                   **kw1),
+             lambda: gk.gat_layer_train_plain(x1, *tops1, *args, local,
+                                              pooled=True, **kw1)),
+            ("gat_layer_pooled_bwd", True, x1, tops1, pe1,
+             lambda: gk.gat_layer_pooled_bwd(g1, x1, *tops1, *args, local,
+                                             need_dx=True, need_dbias=False,
+                                             **kw1),
+             lambda: gk.gat_layer_bwd_plain(g1, x1, *tops1, *args, local,
+                                            pooled=True, need_dx=True,
+                                            **kw1))]
+        for wrapper, pooled, x, ops, pe_pack, kernel, plain in cases:
+            backward = wrapper.endswith("_bwd")
+            name = wrapper + (f"[tp pooled {local} of {heads}{bf}]" if pooled
+                              else tag)
+            x2 = x.reshape(-1, x.shape[-1])
+            if backward:
+                d = torch.randn((x2.shape[0], ops[0].shape[1] + 2 * local),
+                                device=device).to(x.dtype)
+                matmul = lambda: x2.T @ d  # noqa: E731
+            else:
+                matmul = lambda: x2 @ ops[0]  # noqa: E731
+            got, nums = measure(name, kernel, plain, backward, matmul,
+                                "gat_bwd" if backward else "gat_fwd")
+            if backward:
+                del d
+                work = bwd_work(x, ops, pe_pack, g1 if pooled else g0, got,
+                                ngp, nsib, local)
+            else:
+                work = fwd_work(pooled, x, ops, pe_pack, ngp, nsib, local,
+                                got)
+            records.append(gat_record(
+                name, wrapper, path.replace("-tp", "-tp-pooled")
+                if pooled else path, backward, x, ops[0], pe_pack, nums,
+                work, REPLACES[wrapper], heads_local=local, heads=heads,
+                dropout=drop if pe_pack is not None else 0.0,
+                **({"need_dx": backward and pooled} if backward else {})))
+            del got
+            torch.cuda.empty_cache()
+        # K7a at the shard: the store form and the stored K2 fed its weights
+        records += store_entries(tag, path, False, xin, tops0, pe0, local,
+                                 g0, kw0, 0.01, False, args)
+        del xin, x1, g0
+        torch.cuda.empty_cache()
+    return records
+
+
 def phase_gcn_kernels(batch: int, device) -> list[dict]:
     """K5 against its plain versions at the PGCN shapes of config.mag.json
     (layer 0: 250 + 50 -> 500 with leaky_relu 0.01; the final layer:
@@ -1454,16 +1622,14 @@ def compare_train_step(device, cfg: dict, taxonomy, params: dict,
     loss_rtol, grad_rel = (1e-3, 2 ** -6) if bf16 else (1e-4, 1e-3)
     if not np.isfinite(l_gpu) or abs(l_gpu - l_cpu) > loss_rtol * abs(l_cpu):
         raise AssertionError(f"train step loss: card {l_gpu}, CPU {l_cpu}")
-    worst_g = worst_p = 0.0
+    worst_g = grads_vs_reference([g.numpy() for g in g_gpu],
+                                 [g.numpy() for g in g_cpu], grad_rel,
+                                 "train step")
+    worst_p = 0.0
     n_tiny = n_all = 0
     step_max = max(float(g.abs().max()) for g in g_cpu)
-    for gg, gc, pg, pc in zip(g_gpu, g_cpu, p_gpu, p_cpu):
+    for gc, pg, pc in zip(g_cpu, p_gpu, p_cpu):
         scale = float(gc.abs().max())
-        dg = float((gg - gc).abs().max())
-        if dg > grad_rel * scale + 1e-6 * step_max:
-            raise AssertionError(f"train step grad differs by {dg} (leaf "
-                                 f"max {scale}, step max {step_max})")
-        worst_g = max(worst_g, dg / max(scale, 1e-6 * step_max))
         tiny = gc.abs() < max(1e-6, 1e-3 * scale)
         dp = (pg - pc).abs()
         if bool((dp[~tiny] > 1e-5).any()) or bool((dp[tiny] > 2 * lr).any()):
@@ -1480,6 +1646,111 @@ def compare_train_step(device, cfg: dict, taxonomy, params: dict,
             "largest_grad": step_max,
             "max_param_err_well_conditioned": worst_p,
             "near_zero_grad_share": n_tiny / max(n_all, 1)}
+
+
+def grads_vs_reference(got: list, want: list, rel: float,
+                       what: str) -> float:
+    """Each leaf's grad in `got` (numpy arrays) within `rel` of that leaf's
+    largest value in `want` plus 1e-6 of the largest of all: the float32
+    rule `grad_rel` = 1e-3 of `compare_train_step` (a leaf whose grad
+    vanishes analytically holds rounding noise only). Returns the worst
+    difference relative to its leaf's scale; raises past the rule."""
+    import numpy as np
+    step_max = max(float(np.abs(w).max()) for w in want)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = float(np.abs(w).max())
+        dg = float(np.abs(g - w).max())
+        if dg > rel * scale + 1e-6 * step_max:
+            raise AssertionError(f"{what}: grad leaf {i} differs by {dg} "
+                                 f"(leaf max {scale}, step max {step_max})")
+        worst = max(worst, dg / max(scale, 1e-6 * step_max))
+    return worst
+
+
+@contextlib.contextmanager
+def pre_repair_syncs():
+    """The two host-to-device copies of a train step as they were before
+    their repair, for the before / after measurements: AMSGrad's bias
+    corrections as float32 tensors on the host copied to the params'
+    device, and the slot codes of the position embeddings copied from a
+    host array (each a blocking copy, a layer)."""
+    import torch
+    from taxoexpan_torch.models import propagation
+    from taxoexpan_torch.training import optim
+
+    def corrections(count, device):
+        return tuple((1 - torch.tensor(b, dtype=torch.float32) ** count)
+                     .to(device) for b in (optim.B1, optim.B2))
+
+    def slot_embeddings(emb, p_slots, n):
+        return emb[torch.as_tensor(propagation.star_slot_positions(
+            p_slots, n), device=emb.device)]
+    repaired = optim.bias_corrections, propagation.slot_embeddings
+    optim.bias_corrections = corrections
+    propagation.slot_embeddings = slot_embeddings
+    try:
+        yield
+    finally:
+        optim.bias_corrections, propagation.slot_embeddings = repaired
+
+
+def step_syncs(trainer, batch, step_idx: int) -> dict:
+    """The host syncs one train step makes: the step run under
+    torch.cuda.set_sync_debug_mode("warn"), every synchronizing operation
+    counted with the source line that issued it."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.train_step(batch, step_idx)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    where: dict = {}
+    for w in syncs:
+        key = f"{Path(w.filename).name}:{w.lineno}"
+        where[key] = where.get(key, 0) + 1
+    return {"count": len(syncs), "where": where}
+
+
+def sync_repair(trainer, run: Path) -> dict:
+    """A train step's host-to-device copies repaired (AMSGrad's bias
+    corrections and the slot codes made on the card) against their form
+    before the repair (`pre_repair_syncs`), on the trained trainer, each
+    in turn:
+    the host syncs of one train step (`step_syncs`), the median step of an
+    epoch with `trainer.step_timing`'s sync after each step, and the
+    device's idle share in the profiler window of an epoch without it."""
+    import numpy as np
+    from taxoexpan_torch.training.trainer import batch_to
+    batch = batch_to(next(iter(trainer.train_loader)), trainer.device)
+    # the first step under sync debug mode in a process has met a one-time
+    # sync in torch's own code: counted apart
+    out = {"first_step_in_process": step_syncs(trainer, batch, 0)}
+    for label, form in (("before", pre_repair_syncs),
+                        ("after", contextlib.nullcontext)):
+        with form():
+            syncs = step_syncs(trainer, batch, 0)
+            trainer.step_timing, trainer.profile_dir = True, None
+            step_ms = trainer._train_epoch(3)["step_ms"]
+            trainer.step_timing = False
+            trainer.profile_dir = run / f"profile_{label}"
+            trainer._train_epoch(1)
+        window = trace_split(trainer.profile_dir / "trace.json")
+        out[label] = {"syncs": syncs, "step_ms": step_ms,
+                      "median_step_ms": float(np.median(step_ms)),
+                      "window_device_idle_share": window["device_idle_share"],
+                      "window_wall_ms": window["wall_ms"],
+                      "window_device_busy_ms": window["device_busy_ms"]}
+    if out["after"]["syncs"]["count"]:
+        raise AssertionError(f"the repaired train step still syncs: "
+                             f"{out['after']['syncs']}")
+    return out
 
 
 def trace_split(path: Path) -> dict:
@@ -1661,6 +1932,7 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
                 run / "profile_no_sync" / "trace.json")
             with switches(env):
                 extra["runtime"] = trainer_runtime(trainer, run)
+                extra["sync_repair"] = sync_repair(trainer, run)
             emit("profile", path=path, card=nvidia_smi_line(),
                  window=list(PROFILE_WINDOW),
                  epochs=epoch_split(
@@ -1700,18 +1972,35 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_ranks(run: Path, device, env: dict) -> list[dict]:
+def run_ranks(run: Path, device, env: dict, extra: tuple = (),
+              main: tuple = ("-m", "taxoexpan_torch.train")) -> list[dict]:
     """`python -m taxoexpan_torch.train -c run/config.json` as DP_RANKS
     rank processes (--coordinator / --num_processes / --process_id) on
     `device`'s type; returns each rank's report (report-rank<r>.json in the
-    shared run directory). A rank that fails or outlives DP_TIMEOUT_S fails
-    the phase; every rank is stopped before it returns."""
+    shared run directory). `extra`: more arguments of the CLI; `main`: what
+    python runs in place of the CLI's module (a driver that calls its
+    main). The ranks' output goes to run/rank<r>.log."""
+    launch_ranks(run, env, list(main) + [
+        "-c", str(run / "config.json"), "-d", device.type, *extra],
+        "rank")
+    runs = list((run / "saved" / "models").glob("*/*/"))
+    if len(runs) != 1:
+        raise AssertionError(f"expected one shared run directory, got "
+                             f"{runs}")
+    return [json.loads((runs[0] / f"report-rank{r}.json").read_text())
+            | {"run_dir": str(runs[0])} for r in range(DP_RANKS)]
+
+
+def launch_ranks(run: Path, env: dict, args: list, log: str) -> None:
+    """`python <args> --coordinator ... --num_processes DP_RANKS
+    --process_id r` for every rank r, their output in run/<log><r>.log. A
+    rank that fails or outlives DP_TIMEOUT_S fails the phase; every rank
+    is stopped before it returns."""
     coord = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ, PYTHONPATH=str(REPO), **env)
-    cmd = [sys.executable, "-m", "taxoexpan_torch.train", "-c",
-           str(run / "config.json"), "-d", device.type, "--coordinator",
-           coord, "--num_processes", str(DP_RANKS)]
-    logs = [open(run / f"rank{r}.log", "w+") for r in range(DP_RANKS)]
+    cmd = [sys.executable, *args, "--coordinator", coord, "--num_processes",
+           str(DP_RANKS)]
+    logs = [open(run / f"{log}{r}.log", "w+") for r in range(DP_RANKS)]
     procs = [subprocess.Popen(cmd + ["--process_id", str(r)], cwd=REPO,
                               env=env, stdout=logs[r],
                               stderr=subprocess.STDOUT)
@@ -1744,14 +2033,8 @@ def run_ranks(run: Path, device, env: dict) -> list[dict]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        for log in logs:
-            log.close()
-    runs = list((run / "saved" / "models").glob("*/*/"))
-    if len(runs) != 1:
-        raise AssertionError(f"expected one shared run directory, got "
-                             f"{runs}")
-    return [json.loads((runs[0] / f"report-rank{r}.json").read_text())
-            | {"run_dir": str(runs[0])} for r in range(DP_RANKS)]
+        for f in logs:
+            f.close()
 
 
 def phase_dp_training(device, num_nodes: int, seed: int,
@@ -1870,6 +2153,406 @@ def phase_dp_training(device, num_nodes: int, seed: int,
     return res
 
 
+# a rank process of the tensor-parallel path: the entry point's main (through
+# its own argument parser) and what the smoke reads back.
+# `python -c RANK_DRIVER <what> <out dir> <the CLI's arguments>`:
+# "train" traces the profiler window TP_WINDOW of epoch 1 into <out dir>
+# (per rank: <out dir>/rank<r>-dp<d>-mp<m>/trace.json); "grads" writes every
+# step's reduced grads (`recorded_grads`) as grads<r>.pkl; "test_fast" and
+# "infer" write their files as case<r>.tsv / infer<r>.tsv, what their main
+# returns (the metrics, the predictions) as <what><r>.json and the encoded
+# anchors' graph embeddings as hg_<what><r>.pt into <out dir>.
+TP_WINDOW = (1, 4)
+RANK_DRIVER = """
+import json, sys
+from pathlib import Path
+import torch
+from taxoexpan_torch.parallel import distributed
+what, out, argv = sys.argv[1], Path(sys.argv[2]), sys.argv[3:]
+rank = int(argv[argv.index("--process_id") + 1])
+try:
+    if what == "train":
+        from taxoexpan_torch import train as cli
+
+        class Traced(cli.Trainer):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, profile_dir=out, **kwargs)
+                self._profile_window = WINDOW
+        cli.Trainer = Traced
+        cli.main(cli.parse_args(argv))
+    elif what == "grads":
+        import pickle
+        from chip_smoke import recorded_grads
+        from taxoexpan_torch import train as cli
+        with recorded_grads(cli) as steps:
+            cli.main(cli.parse_args(argv))
+        (out / f"grads{rank}.pkl").write_bytes(pickle.dumps(steps))
+    else:
+        from taxoexpan_torch.evaluation.ranker import TaxonomyRanker
+        encode = TaxonomyRanker.encode_all_anchors
+
+        def keep(self):
+            hg = encode(self)
+            torch.save(hg.cpu(), out / f"hg_{what}{rank}.pt")
+            return hg
+        TaxonomyRanker.encode_all_anchors = keep
+        if what == "test_fast":
+            from taxoexpan_torch import test_fast as cli
+            argv += ["-c", str(out / f"case{rank}.tsv")]
+        else:
+            from taxoexpan_torch import infer as cli
+            argv += ["-s", str(out / f"infer{rank}.tsv")]
+        result = cli.main(cli.parse_args(argv))
+        (out / f"{what}{rank}.json").write_text(json.dumps(result,
+                                                          default=int))
+finally:
+    distributed.shutdown()
+""".replace("WINDOW", repr(TP_WINDOW))
+
+
+@contextlib.contextmanager
+def captured_hg():
+    """The graph embeddings the rankers encode in this process (once a
+    ranker and parameter set), in the list the block gets."""
+    from taxoexpan_torch.evaluation.ranker import TaxonomyRanker
+    encode, kept = TaxonomyRanker.encode_all_anchors, []
+
+    def keep(self):
+        fresh = self._hg is None
+        hg = encode(self)
+        if fresh:
+            kept.append(hg.cpu())
+        return hg
+    TaxonomyRanker.encode_all_anchors = keep
+    try:
+        yield kept
+    finally:
+        TaxonomyRanker.encode_all_anchors = encode
+
+
+# the TP-against-single-process epoch's param rule: SGD moves a param by lr
+# times its grad, so the runs' final params part by lr times their grads'
+# rounding differences (5.96e-08 at most on the card, 1 float32 ulp at 0.5)
+TP_PARAM_ATOL = TP_PARAM_RTOL = 1e-6
+
+
+@contextlib.contextmanager
+def recorded_grads(train_cli):
+    """The CLI's Trainer recording each step's grads as its train_step
+    returns them (reduced over the ranks in a multi-process run), per step
+    a list of the leaves as numpy arrays, into the list the block gets."""
+    from taxoexpan_torch.tree import tree_leaves
+    steps: list = []
+    base = train_cli.Trainer
+
+    class Recording(base):
+        def train_step(self, batch, step_idx, return_grads=False):
+            loss, grads = super().train_step(batch, step_idx,
+                                             return_grads=True)
+            steps.append([g.detach().cpu().numpy()
+                          for g in tree_leaves(grads)])
+            return (loss, grads) if return_grads else loss
+    train_cli.Trainer = Recording
+    try:
+        yield steps
+    finally:
+        train_cli.Trainer = base
+
+
+def collective_ms(path: Path) -> dict:
+    """The host time of the process group's collectives in a profiler
+    window's trace: the CPU events of gloo's collectives (their names
+    start with "gloo:"), summed by name."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e
+              and str(e.get("name", "")).startswith("gloo:")]
+    out: dict = {}
+    for e in events:
+        calls, total = out.get(e["name"], (0, 0.0))
+        out[e["name"]] = (calls + 1, total + e["dur"] / 1e3)
+    return {name: {"calls": c, "ms": ms} for name, (c, ms) in out.items()}
+
+
+def phase_tp_training(device, num_nodes: int, seed: int,
+                      single_step_ms: float) -> dict:
+    """The tensor-parallel path: `python -m taxoexpan_torch.train` as 2
+    rank processes sharing the card (gloo, --coordinator) with
+    config.mag.json and "parallel": {"dp": 1, "mp": 2} at full width on the
+    synthetic training taxonomy (128 groups x 32 candidates a step, the
+    whole batch on both ranks; layer 0's 4 heads split 2 a rank through
+    K1t / K2 at the shard, the 1-head final layer whole on both through
+    K3t / K4; full-catalog validation with the heads split), one epoch
+    from a start checkpoint (the seeded init), twice:
+    - at dropout 0 and with SGD in place of AMSGrad (see below), against
+      the single-process run (`python -m taxoexpan_torch.train`'s main in
+      this process) from the same checkpoint: the epoch loss to 1e-4,
+      every step's reduced grads equal bit for bit on both ranks and
+      within `grads_vs_reference`'s rule of the single process's, every
+      element of the final params within TP_PARAM_ATOL + TP_PARAM_RTOL of
+      the single process's;
+    - at the config's dropout, its profiler window traced on both ranks
+      (TP_WINDOW): a finite loss, changed params, both ranks' final params
+      equal bit for bit (their digests), the launches of K1t and K2 at the
+      shard's heads and of K3t and K4 at the final layer's whole heads on
+      every rank.
+    Then `python -m taxoexpan_torch.test_fast -m` and `infer -m` as 2 rank
+    processes (the anchors' encoding split between them) on rank 0's
+    checkpoint of the second run against the single process: equal
+    metrics, case study and predictions (written by rank 0 alone), graph
+    embeddings within 1e-5 of their largest value. The TP median step
+    stands beside the single-process step (two contexts time-slicing one
+    card: not a scaling figure), with the collectives' host time from the
+    traces."""
+    import copy
+
+    import numpy as np
+    import torch
+    from taxoexpan_torch import builders
+    from taxoexpan_torch import infer as infer_cli
+    from taxoexpan_torch import test_fast as test_fast_cli
+    from taxoexpan_torch import train as train_cli
+    from taxoexpan_torch.data.synthetic import synthetic_taxonomy
+    from taxoexpan_torch.training.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+    from taxoexpan_torch.tree import tree_leaves
+
+    cfg, model = path_model("PGAT")
+    in_dim = cfg["arch"]["args"]["in_dim"]
+    taxonomy = synthetic_taxonomy(num_nodes=num_nodes, dim=in_dim, seed=seed)
+    rng = np.random.default_rng(seed)
+    held = np.asarray(taxonomy.test_node_ids[:N_NOVEL], dtype=np.int64)
+    novel = taxonomy.features[held] + 0.1 * rng.normal(
+        size=(len(held), in_dim)).astype(np.float32)
+    torch.cuda.empty_cache()
+    res = {"ranks": DP_RANKS, "layout": {"dp": 1, "mp": DP_RANKS},
+           "card": nvidia_smi_line(), "nodes": taxonomy.num_nodes,
+           "dim": in_dim,
+           "groups_per_step": cfg["train_data_loader"]["args"]["batch_size"],
+           "single_process_median_step_ms": single_step_ms,
+           "note": "two rank processes sharing one card (two contexts "
+                   "time-slicing it), the layer-0 gather staged through "
+                   "the host (gloo): not a scaling figure"}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = tmp / "synthetic.pickle.bin"
+        taxonomy.save(str(data))
+        for loader in ("train_data_loader", "validation_data_loader",
+                       "test_data_loader"):
+            cfg[loader]["args"].update(data_path=str(data),
+                                       max_parents=MAG_P,
+                                       expand_factor=MAG_S)
+        cfg["trainer"].update(epochs=1, full_validation_every=1,
+                              tensorboardX=False, step_timing=True)
+        params = model.init(torch.Generator().manual_seed(cfg.get("seed",
+                                                                  0)))
+        opt = builders.build_optimizer_from_config(cfg["optimizer"],
+                                                   cfg["trainer"])
+        start = tmp / "start" / "epoch0.ckpt"
+        start.parent.mkdir()
+        save_checkpoint(start, params=params, opt_state=opt.init(params),
+                        epoch=0, monitor_best=float("inf"), config=cfg)
+        init = [np.asarray(a) for a in tree_leaves(
+            load_checkpoint(start)["params"])]
+
+        def configure(name: str, drop: float | None, parallel,
+                      sgd: bool = False):
+            run = tmp / name
+            run.mkdir()
+            c = copy.deepcopy(cfg)
+            if drop is not None:
+                c["arch"]["args"].update(feat_drop=drop, attn_drop=drop)
+            if sgd:
+                c["optimizer"] = {"type": "SGD", "args": {
+                    "lr": cfg["optimizer"]["args"]["lr"]}}
+            c["trainer"]["save_dir"] = str(run / "saved")
+            if parallel:
+                c["parallel"] = parallel
+            (run / "config.json").write_text(json.dumps(c))
+            return run
+
+        layout = {"dp": 1, "mp": DP_RANKS}
+        local = cfg["arch"]["args"]["heads"][0] // DP_RANKS
+        # ---- dropout 0 and SGD: the single process, then the two ranks,
+        # each recording every step's grads. SGD: AMSGrad's first steps are
+        # lr * sign(g) wherever |g| >> 1e-8, so the rounding of a near-zero
+        # grad moves a param by up to 2 * lr, the next step's grads by more
+        # than rounding, and in 6 steps well-conditioned params by up to
+        # 0.8 * lr (seen on the card); an SGD step is linear in the grad
+        # and keeps rounding at its size
+        run = configure("single", 0.0, None, sgd=True)
+        config = train_cli.parse_args(["-c", str(run / "config.json"), "-r",
+                                       str(start), "-d", device.type])
+        with recorded_grads(train_cli) as single_grads:
+            single_log = train_cli.main(config)
+        single = load_checkpoint(config.save_dir / "checkpoint-epoch1.ckpt")
+        run = configure("tp", 0.0, layout, sgd=True)
+        t0 = time.time()
+        tp = run_ranks(run, device, {}, extra=("-r", str(start)),
+                       main=("-c", RANK_DRIVER, "grads", str(run)))
+        wall = {"tp_dropout0": time.time() - t0}
+        tp_params = [np.asarray(a) for a in tree_leaves(load_checkpoint(
+            Path(tp[0]["run_dir"]) / "checkpoint-epoch1.ckpt")["params"])]
+        losses = [r["log"]["loss"] for r in tp]
+        if len(set(losses)) != 1 or abs(losses[0] - single_log["loss"]) > \
+                1e-4 * abs(single_log["loss"]):
+            raise AssertionError(f"epoch loss: ranks {losses}, single "
+                                 f"process {single_log['loss']}")
+        tp_grads = [pickle.loads((run / f"grads{r}.pkl").read_bytes())
+                    for r in range(DP_RANKS)]
+        if not len(tp_grads[0]) == len(single_grads) > 0:
+            raise AssertionError(f"steps: TP {len(tp_grads[0])}, single "
+                                 f"process {len(single_grads)}")
+        for other in tp_grads[1:]:
+            for step, (a, b) in enumerate(zip(tp_grads[0], other)):
+                if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                    raise AssertionError(f"step {step}: the ranks' reduced "
+                                         "grads differ")
+        vs_single = {"max_grad_err_rel_to_leaf_max": [
+            grads_vs_reference(got, want, 1e-3, f"TP step {step}")
+            for step, (got, want) in enumerate(zip(tp_grads[0],
+                                                   single_grads))]}
+        del tp_grads, single_grads
+        worst = 0.0
+        for i, (got, want) in enumerate(zip(tp_params, tree_leaves(
+                single["params"]))):
+            want = np.asarray(want)
+            err = np.abs(got - want)
+            if (err > TP_PARAM_ATOL + TP_PARAM_RTOL * np.abs(want)).any():
+                raise AssertionError(f"final params: leaf {i} "
+                                     f"{want.shape} differs by "
+                                     f"{float(err.max())}")
+            worst = max(worst, float(err.max()))
+        vs_single.update(
+            max_param_err=worst, loss_rel_diff=abs(
+                losses[0] - single_log["loss"]) / abs(single_log["loss"]),
+            rule=f"grads: 1e-3 x leaf max + 1e-6 x step max, every step; "
+                 f"params: {TP_PARAM_ATOL} + {TP_PARAM_RTOL} x |param|, "
+                 "every element")
+
+        # ---- the config's dropout, traced
+        run = configure("tp_dropout", None, layout)
+        t0 = time.time()
+        tpd = run_ranks(run, device, {}, extra=("-r", str(start)),
+                        main=("-c", RANK_DRIVER, "train",
+                              str(run / "profile")))
+        wall["tp_dropout"] = time.time() - t0
+        ckpt = Path(tpd[0]["run_dir"]) / "checkpoint-epoch1.ckpt"
+        trained = [np.asarray(a) for a in tree_leaves(
+            load_checkpoint(ckpt)["params"])]
+        if not np.isfinite(tpd[0]["log"]["loss"]):
+            raise AssertionError(f"non-finite TP loss {tpd[0]['log']}")
+        changed = max(float(np.abs(a - b).max())
+                      for a, b in zip(trained, init))
+        if not changed > 0:
+            raise AssertionError("TP training left the params unchanged")
+        digests = [r["params_sha256"] for r in tpd]
+        if len(set(digests)) != 1:
+            raise AssertionError(f"the ranks' final params differ: "
+                                 f"{digests}")
+        if [(r["dp_index"], r["mp_index"]) for r in tpd] != [(0, 0),
+                                                             (0, 1)]:
+            raise AssertionError(f"rank layout {tpd}")
+        traces = {}
+        for r in tpd:
+            trace = (run / "profile" / f"rank{r['rank']}-dp{r['dp_index']}"
+                     f"-mp{r['mp_index']}" / "trace.json")
+            traces[r["rank"]] = {**trace_split(trace),
+                                 "collectives_host": collective_ms(trace)}
+        # at dropout 0 the layers' forwards are the eval kernels; with
+        # dropout the train forms (the rank processes of a CPU rehearsal run
+        # the plain versions and count nothing): layer 0's at the shard's
+        # heads, the final layer's at its whole heads
+        whole = str(cfg["arch"]["args"]["heads"][-1])
+        for reports, forwards in (
+                (tp, ("gat_layer_fwd", "gat_layer_pooled_fwd")),
+                (tpd, ("gat_layer_fwd_train", "gat_layer_pooled_fwd_train"))):
+            for r in reports if device.type == "cuda" else ():
+                for name in forwards + ("gat_layer_bwd",
+                                        "gat_layer_pooled_bwd"):
+                    key = whole if "pooled" in name else str(local)
+                    if r["launches_by_heads"][name].get(key, 0) <= 0:
+                        raise AssertionError(f"TP rank {r['rank']} never "
+                                             f"launched {name} at {key} "
+                                             "heads")
+
+        # ---- test_fast -m and infer -m on 2 ranks against one process
+        ev = tmp / "eval"
+        ev.mkdir()
+        (ev / "novel.txt").write_text("".join(
+            f"novel term {i}\t{' '.join(map(str, row))}\n"
+            for i, row in enumerate(novel)))
+        cli = ["-r", str(ckpt), "-d", device.type, "-m"]
+        t0 = time.time()
+        launch_ranks(ev, {}, ["-c", RANK_DRIVER, "test_fast", str(ev), *cli],
+                     "test_fast")
+        launch_ranks(ev, {}, ["-c", RANK_DRIVER, "infer", str(ev), *cli,
+                              "-t", str(ev / "novel.txt")], "infer")
+        wall["eval_2rank"] = time.time() - t0
+        with captured_hg() as hg:
+            single_metrics = test_fast_cli.main(test_fast_cli.parse_args(
+                ["-r", str(ckpt), "-d", device.type, "-c",
+                 str(ev / "case_single.tsv")]))
+            single_preds = infer_cli.main(infer_cli.parse_args(
+                ["-r", str(ckpt), "-d", device.type, "-t",
+                 str(ev / "novel.txt"), "-s", str(ev / "infer_single.tsv")]))
+        for what, want in (("test_fast", single_metrics),
+                           ("infer", single_preds)):
+            got = [json.loads((ev / f"{what}{r}.json").read_text())
+                   for r in range(DP_RANKS)]
+            if any(g != json.loads(json.dumps(want, default=int))
+                   for g in got):
+                raise AssertionError(f"{what} -m returned {got}, the single "
+                                     f"process {want}")
+        for name in ("case", "infer"):
+            if (ev / f"{name}0.tsv").read_text() != \
+                    (ev / f"{name}_single.tsv").read_text():
+                raise AssertionError(f"the 2-rank {name} file differs")
+            if (ev / f"{name}1.tsv").exists():
+                raise AssertionError(f"rank 1 wrote its {name} file")
+        hg_err = {}
+        for what, ref in zip(("test_fast", "infer"), hg):
+            for r in range(DP_RANKS):
+                got = torch.load(ev / f"hg_{what}{r}.pt")
+                err = float((got - ref).abs().max()) / max(
+                    float(ref.abs().max()), 1e-30)
+                if got.shape != ref.shape or err > 1e-5:
+                    raise AssertionError(f"{what} -m: rank {r}'s graph "
+                                         f"embeddings differ by {err} of "
+                                         "their largest value")
+                hg_err[f"{what} rank{r}"] = err
+
+    def median(r):
+        return float(np.median(r["log"]["step_ms"])) \
+            if r["log"].get("step_ms") else float("nan")
+    by_heads: dict = {}
+    for r in tp + tpd:
+        for name, counts in r["launches_by_heads"].items():
+            mine = by_heads.setdefault(name, {})
+            for k, v in counts.items():
+                mine[k] = mine.get(k, 0) + v
+    res.update({
+        "loss": {"tp_dropout0": losses, "single_dropout0": single_log["loss"],
+                 "tp_dropout": [r["log"]["loss"] for r in tpd]},
+        "vs_single_process": vs_single, "params_equal_bits_dropout": True,
+        "max_param_change_dropout": changed,
+        "median_step_ms": {"tp_dropout0": [median(r) for r in tp],
+                           "tp_dropout": [median(r) for r in tpd]},
+        "step_ms_rank0": {"tp_dropout0": tp[0]["log"].get("step_ms"),
+                          "tp_dropout": tpd[0]["log"].get("step_ms")},
+        "profile": {"window": list(TP_WINDOW), "ranks": traces},
+        "launches_per_rank": {"tp_dropout0": [r["launches"] for r in tp],
+                              "tp_dropout": [r["launches"] for r in tpd]},
+        "val_macro_mr": [r["log"].get("val_macro_mr") for r in tpd],
+        "eval_2rank": {"metrics": single_metrics,
+                       "hg_err_rel_to_max": hg_err},
+        "wall_s": wall,
+        # both runs, both ranks, by heads on the rank (the kernels line's
+        # TP rows read those at `heads_local`)
+        "launches_by_heads": by_heads, "heads_local": local})
+    emit("tp_training", **res)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1907,6 +2590,8 @@ def reset_counters() -> None:
         wrapper.launches = 0
     for wrapper in (*gk.WRAPPERS.values(), *ck.WRAPPERS.values()):
         wrapper.launches_bf16 = 0
+    for wrapper in gk.WRAPPERS.values():
+        wrapper.launches_by_heads = {}
 
 
 def run_paths(device) -> list[dict]:
@@ -1916,6 +2601,8 @@ def run_paths(device) -> list[dict]:
     records = phase_kernels(BATCH, device, cfg["arch"]["args"]["feat_drop"])
     records += phase_kernels(BATCH, device, cfg["arch"]["args"]["feat_drop"],
                              "PGAT-bf16")
+    records += phase_tp_kernels(BATCH, device,
+                                cfg["arch"]["args"]["feat_drop"])
     records += phase_gcn_kernels(BATCH, device)
     mtl_cfg, _ = path_model("MTL")
     records += phase_mtl_kernels(BATCH, device,
@@ -1928,6 +2615,18 @@ def run_paths(device) -> list[dict]:
                 for path, epochs in TRAINING_PATHS.items()}
     training["PGAT-dp"] = phase_dp_training(
         device, TRAIN_NODES, SEED, training["PGAT"]["median_step_ms"])
+    tp = phase_tp_training(device, TRAIN_NODES, SEED,
+                           training["PGAT"]["median_step_ms"])
+    # the TP rows: each wrapper's launches at the shard's heads in the TP
+    # runs, by dtype (float32 runs: the bf16 rows read 0); the pooled TP
+    # form's rows read the pooled wrappers' count there (config.mag.json's
+    # 1-head final layer runs whole, so it is 0)
+    local = tp["heads_local"]
+    for path, key in (("PGAT-tp", str(local)),
+                      ("PGAT-tp-bf16", f"{local}[bf16]")):
+        training[path] = training[path.replace("-tp", "-tp-pooled")] = {
+            "launches": {name: by.get(key, 0) for name, by in
+                         tp["launches_by_heads"].items()}}
     # the bf16 paths' median train step beside their float32 paths'
     emit("bf16_steps", card=nvidia_smi_line(), median_step_ms={
         path: training[path]["median_step_ms"]

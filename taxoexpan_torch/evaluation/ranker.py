@@ -13,11 +13,14 @@ ranks on the device, in query chunks. The dense work here (the matcher
 product, the cosine prefilter, rank counting) stays plain torch, run in full
 float32 (TF32 off, `device.resolve_device`).
 
-Data parallelism (`dp`, the trainer's full-catalog validation in a
-multi-process run; ranker.py:33-64): the candidate egonets are padded to a
-multiple of the data-parallel size with empty egonets, each rank encodes
-its contiguous share in chunks, and the ranks all-gather hg, so every rank
-scores and ranks the whole catalog as a single process would.
+Multi-process (`layout`, parallel/mesh.py: the trainer's full-catalog
+validation, `test_fast -m` and `infer -m`; ranker.py:33-64): the candidate
+egonets are padded to a multiple of the dp size with empty egonets, each
+dp rank encodes its contiguous share in chunks (with mp > 1 the mp ranks of
+one dp index encode the same share, the GAT heads split between them,
+models/propagation.py), and the dp ranks all-gather hg, so every rank
+scores and ranks the whole catalog as a single process would, to the same
+metrics.
 
 Differences from the JAX engine, none of them visible in the results: the
 encode loop does not pad the candidate list to a whole number of chunks
@@ -47,9 +50,12 @@ class TaxonomyRanker:
     def __init__(self, model, params: dict, sampler: MaskedGraphSampler,
                  feature_table, *, encode_chunk: int = 4096,
                  query_chunk: int = 256, anchors: list[int] | None = None,
-                 device: str | torch.device = "cuda", dp=None):
+                 device: str | torch.device = "cuda", layout=None):
         self.device = resolve_device(device)
+        dp = layout.dp if layout is not None else None
         self.dp = dp if dp is not None and dp.size > 1 else None
+        if layout is not None:
+            model.propagate.mp = layout.mp
         self.model = model
         self.params = params_to(params, self.device)
         self.sampler = sampler

@@ -8,7 +8,9 @@ predicted parents per term.
 
 Novel embeddings are L2-normalised when the training loader normalised
 its embeddings; `--sum_norm` divides by the row sum instead (the
-reference's behaviour). Runs on CUDA unless `-d cpu` is given.
+reference's behaviour). Runs on CUDA unless `-d cpu` is given; as
+several processes with -m and the multi-process flags, as test_fast
+(process 0 writes the output).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import numpy as np
 
 from . import builders
 from .config import load_run_config, setup_logging
-from .device import resolve_device
+from .parallel import distributed, mesh
 from .evaluation.ranker import TaxonomyRanker
 from .weights import load_jax_checkpoint, restore_params
 
@@ -48,7 +50,19 @@ def normalize_novel(nf: np.ndarray, sum_norm: bool = False) -> np.ndarray:
 
 
 def main(args) -> list[list[int]]:
-    device = resolve_device(args.device)
+    # the process group before the first device query; no-op unless
+    # --coordinator / --num_processes (or the TAXOEXPAN_* variables) ask
+    distributed.maybe_initialize(args.coordinator, args.num_processes,
+                                 args.process_id, args.device)
+    device = distributed.rank_device(args.device)
+    layout = None
+    if args.mesh:
+        # anchor encoding sharded over every process (dp only, as the
+        # JAX package's data_parallel_mesh)
+        layout = mesh.layout()
+        if layout is not None:
+            logger.info("Sharding anchor encoding over %d processes",
+                        layout.dp.size)
     state = load_jax_checkpoint(args.resume)
     config = load_run_config(args.resume, state)
     vocab, nf = load_novel_taxons(args.taxon)
@@ -71,14 +85,16 @@ def main(args) -> list[list[int]]:
     encode_chunk = args.batch_size if args.batch_size > 0 else 4096
     ranker = TaxonomyRanker(model, params, sampler, sampler.node_features,
                             encode_chunk=encode_chunk, anchors=anchors,
-                            device=device)
+                            device=device, layout=layout)
     predictions = ranker.predict_parents(nf, rank_mode, topk=5,
                                          prior_lambda=args.prior_lambda)
-    with open(args.save, "w") as fout:
-        fout.write("Query\tPredicted parents\n")
-        for term, parents in zip(vocab, predictions):
-            names = ", ".join(taxonomy.vocab[p] for p in parents)
-            fout.write(f"{term}\t{names}\n")
+    if distributed.rank() == 0:
+        # the predictions are the same on every process; one writes
+        with open(args.save, "w") as fout:
+            fout.write("Query\tPredicted parents\n")
+            for term, parents in zip(vocab, predictions):
+                names = ", ".join(taxonomy.vocab[p] for p in parents)
+                fout.write(f"{term}\t{names}\n")
     logger.info("Wrote %d predictions to %s", len(vocab), args.save)
     return predictions
 
@@ -101,9 +117,13 @@ def parse_args(argv=None):
     ap.add_argument("--sum_norm", action="store_true",
                     help="normalize novel embeddings by row sum "
                          "(reference bug-compatible mode)")
+    distributed.add_multiprocess_args(ap)
     return ap.parse_args(argv)
 
 
 if __name__ == "__main__":
     setup_logging()
-    main(parse_args())
+    try:
+        main(parse_args())
+    finally:
+        distributed.shutdown()

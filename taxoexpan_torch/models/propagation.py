@@ -53,6 +53,7 @@ import torch
 from ..ops.gat_kernels import (gat_layer, gat_layer_fwd, gat_layer_pooled,
                                gat_layer_pooled_fwd)
 from ..ops.gcn_kernels import gcn_layer, gcn_layer_fwd
+from ..parallel import distributed
 from .init import embedding_params, uniform, xavier_normal
 
 HIDDEN_ALPHA = 0.01   # the stack's F.leaky_relu between layers; the
@@ -68,29 +69,43 @@ def star_slot_positions(p_slots: int, n: int) -> np.ndarray:
 
 
 def slot_embeddings(emb: torch.Tensor, p_slots: int, n: int) -> torch.Tensor:
-    """The position embedding row of every slot: emb [3, pos] -> [N, pos]."""
-    return emb[torch.as_tensor(star_slot_positions(p_slots, n),
-                               device=emb.device)]
+    """The position embedding row of every slot: emb [3, pos] -> [N, pos],
+    the rows of `star_slot_positions`' codes taken by slices of emb: an
+    index tensor of the codes copied from the host to a card would wait
+    for its stream."""
+    return torch.cat([emb[0:1].expand(p_slots, -1), emb[1:2],
+                      emb[2:3].expand(n - p_slots - 1, -1)])
 
 
 RANK_SEED_STRIDE = 1_000_003
+MP_SEED_STRIDE = 7_368_787
 
 
-def fold_rank(seed: int, rank: int) -> int:
+def _int32(v: int) -> int:
+    v &= 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def fold_rank(seed: int, rank: int, mp_index: int | None = None) -> int:
     """A layer's dropout seed on data-parallel rank `rank`: seed + rank *
     1_000_003 in int32 wraparound, as the JAX package folds the device's
     'dp' index in (propagation.py:138 for GAT, :173 for GCN), so the ranks'
-    shares of a batch draw independent masks."""
-    s = (seed + rank * RANK_SEED_STRIDE) & 0xFFFFFFFF
-    return s - (1 << 32) if s >= 1 << 31 else s
+    shares of a batch draw independent masks. A head-sharded layer also
+    folds its mp index in, + mp_index * 7_368_787 (:140), so the mp ranks'
+    heads draw independent masks; a layer replicated over 'mp' keeps the
+    dp fold alone, and its replicas stay equal bit for bit."""
+    seed = _int32(seed + rank * RANK_SEED_STRIDE)
+    if mp_index is not None:
+        seed = _int32(seed + mp_index * MP_SEED_STRIDE)
+    return seed
 
 
 def _layer_seed(gen: torch.Generator | None, train: bool,
-                rank: int = 0) -> int:
+                rank: int = 0, mp_index: int | None = None) -> int:
     if not train:
         return 0
     return fold_rank(int(torch.randint(0, 2_147_483_647, (1,),
-                                       generator=gen)), rank)
+                                       generator=gen)), rank, mp_index)
 
 
 def init_gat_layer(gen: torch.Generator, in_dim: int, out_dim: int,
@@ -143,9 +158,40 @@ def layer_operands(lp: dict, pe: torch.Tensor | None, num_heads: int,
         wa2_full[:din_h].to(dtype), bias_ft, bias_a1, bias_a2)), pe_pack
 
 
+def head_shard(ops: tuple, pe_pack, heads: int, index: int, parts: int):
+    """Head shard `index` of `parts` of a layer's kernel operands (see
+    `layer_operands`): fc / bias_ft columns [index * H/parts * Dh, ...) and
+    wa1 / wa2 / bias_a1 / bias_a2 columns [index * H/parts, ...), and the
+    same columns of the pe path's weight rows (pe itself whole). The
+    columns are head-major, so a column shard is a head shard, as the JAX
+    package shards them over 'mp' (propagation.py:132-134)."""
+    local = heads // parts
+    width = ops[0].shape[1] // heads * local
+
+    def cols(t, w):
+        return t[:, index * w:(index + 1) * w].contiguous()
+    fc, wa1, wa2, bias_ft, bias_a1, bias_a2 = ops
+    ops = (cols(fc, width), cols(wa1, local), cols(wa2, local),
+           cols(bias_ft, width), cols(bias_a1, local), cols(bias_a2, local))
+    if pe_pack is not None:
+        pe, wp, wpa1, wpa2 = pe_pack
+        pe_pack = (pe, cols(wp, width), cols(wpa1, local), cols(wpa2, local))
+    return ops, pe_pack
+
+
 class GAT:
     """GAT stack; PGAT when pos_dim > 0 (the paper's main model). `dtype`:
-    the compute dtype of its layers, float32 or bfloat16."""
+    the compute dtype of its layers, float32 or bfloat16.
+
+    Head tensor parallelism (`mp`, the mp group of the trainer's or the
+    ranker's layout; `_fused_call_spmd`, propagation.py:106-159): a layer
+    whose head count the group's size divides runs this rank's head shard
+    (`head_shard`) through the same kernels at H / mp heads, with the mp
+    index folded into its seed; a per-slot output is then gathered over
+    the group along its feature axis (head-major), a pooled one scaled by
+    heads_local / heads and summed over the group; its input's grad is
+    summed over the group (each rank's heads give a part of it). A layer
+    whose head count mp does not divide runs whole on every rank."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  num_layers: int, heads, pos_dim: int = 0,
@@ -164,9 +210,11 @@ class GAT:
         self.feat_drop = feat_drop
         self.attn_drop = attn_drop
         self.dtype = dtype
-        # this process's data-parallel rank, folded into the dropout seeds
-        # (set by the trainer)
+        # this process's data-parallel rank, folded into the dropout seeds,
+        # and its mp group (head tensor parallelism; None: off), both set by
+        # the trainer or the ranker
         self.rank = 0
+        self.mp = None
         specs = [(in_dim + pos_dim, hidden_dim, heads[0])]
         for l in range(1, num_layers):
             specs.append((hidden_dim * heads[l - 1] + pos_dim, hidden_dim,
@@ -195,6 +243,14 @@ class GAT:
                               fc.shape[0] - self.pos_dim, n,
                               pe_dropout=pe_dropout, dtype=self.dtype)
 
+    def sharded_layers(self) -> list[int]:
+        """The layers whose heads run sharded over `mp`: those whose head
+        count the group's size divides (none without a group)."""
+        if self.mp is None or self.mp.size == 1:
+            return []
+        return [l for l, spec in enumerate(self.layer_specs)
+                if spec[2] % self.mp.size == 0]
+
     def apply(self, params: dict, h: torch.Tensor, ngp: torch.Tensor,
               nsib: torch.Tensor, p_slots: int, *,
               gen: torch.Generator | None = None, train: bool = False,
@@ -211,6 +267,7 @@ class GAT:
         attn_drop = self.attn_drop if train else 0.0
         differentiable = train or torch.is_grad_enabled()
         last = self.num_layers
+        sharded = self.sharded_layers()
         h = h.to(self.dtype)
         for l in range(last + 1):
             heads = self.layer_specs[l][2]
@@ -219,23 +276,35 @@ class GAT:
             pooled = l == last and pool_readout
             # hidden layers: flat [B, N, H*Dh] = the flatten-heads step
             out_alpha = HIDDEN_ALPHA if l < last else None
+            mp = self.mp if l in sharded else None
+            if mp is not None:
+                ops, pe_pack = head_shard(ops, pe_pack, heads, mp.rank,
+                                          mp.size)
+                if differentiable and l > 0:
+                    h = distributed.mp_sum_grads(h, mp)
+            local = heads // (1 if mp is None else mp.size)
             if not differentiable:
                 if pooled:
                     h = gat_layer_pooled_fwd(h, *ops, ngp, nsib, p_slots,
-                                             heads)
+                                             local)
                 else:
-                    h = gat_layer_fwd(h, *ops, ngp, nsib, p_slots, heads,
+                    h = gat_layer_fwd(h, *ops, ngp, nsib, p_slots, local,
                                       out_alpha=out_alpha)
-                continue
-            kw = dict(pe_pack=pe_pack,
-                      seed=_layer_seed(gen, train, self.rank),
-                      feat_drop=feat_drop, attn_drop=attn_drop,
-                      need_dx=l > 0)
-            if pooled:
-                h = gat_layer_pooled(h, *ops, ngp, nsib, p_slots, heads, **kw)
             else:
-                h = gat_layer(h, *ops, ngp, nsib, p_slots, heads,
-                              out_alpha=out_alpha, **kw)
+                kw = dict(pe_pack=pe_pack,
+                          seed=_layer_seed(gen, train, self.rank,
+                                           None if mp is None else mp.rank),
+                          feat_drop=feat_drop, attn_drop=attn_drop,
+                          need_dx=l > 0)
+                if pooled:
+                    h = gat_layer_pooled(h, *ops, ngp, nsib, p_slots, local,
+                                         **kw)
+                else:
+                    h = gat_layer(h, *ops, ngp, nsib, p_slots, local,
+                                  out_alpha=out_alpha, **kw)
+            if mp is not None:
+                h = (distributed.mp_sum(h * (local / heads), mp) if pooled
+                     else distributed.mp_gather_last(h, mp))
         if pool_readout:
             return h
         return h.reshape(b, n, self.layer_specs[last][2],
@@ -300,11 +369,18 @@ class GCN:
         self.position_vocab_size = position_vocab_size
         self.out_dim = out_dim
         self.rank = 0    # data-parallel rank, as GAT.rank
+        # GAT.mp's counterpart, unused: GCN has no heads to shard, so every
+        # layer runs whole on every mp rank (propagation.py:161-179)
+        self.mp = None
         self.layer_specs = (
             [(in_dim + pos_dim, hidden_dim, HIDDEN_ALPHA, in_dropout)] +
             [(hidden_dim + pos_dim, hidden_dim, HIDDEN_ALPHA, hidden_dropout)
              for _ in range(num_layers - 1)] +
             [(hidden_dim + pos_dim, out_dim, None, output_dropout)])
+
+    def sharded_layers(self) -> list[int]:
+        """None: under `mp` every layer runs whole on every rank."""
+        return []
 
     def init(self, gen: torch.Generator) -> dict:
         params = {"layers": [], "pos_emb": []}

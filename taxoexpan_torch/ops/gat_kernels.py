@@ -33,7 +33,9 @@ Dispatch is by the device of the tensors: on the CPU a wrapper runs its
 plain version; on CUDA it launches the kernel or raises. There is no
 fallback from one to the other. Each wrapper counts its launches in
 `<wrapper>.launches` (the float32 kernel) and `<wrapper>.launches_bf16`
-(the bf16 kernel), incremented only where that kernel is launched.
+(the bf16 kernel), incremented only where that kernel is launched, and
+again by the layer's heads on this rank in `<wrapper>.launches_by_heads`
+(which tells a head-sharded launch from a whole one).
 
 bf16 layers (compute_dtype "bfloat16"; the Pallas kernels called with x in
 bf16): x, fc, wa1, wa2 come in bf16, the slot biases and the pe path's rows
@@ -621,7 +623,7 @@ def gat_layer_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
     if not on_cuda(x, "gat_layer_fwd"):
         return gat_layer_fwd_plain(*ops, out_alpha)
     out = _fwd_cuda("gat_layer_fwd", False, *ops, out_alpha=out_alpha)
-    count_launch(gat_layer_fwd, x)
+    count_launch(gat_layer_fwd, x, heads)
     return out
 
 
@@ -635,7 +637,7 @@ def gat_layer_pooled_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
     if not on_cuda(x, "gat_layer_pooled_fwd"):
         return gat_layer_pooled_fwd_plain(*ops)
     out = _fwd_cuda("gat_layer_pooled_fwd", True, *ops)
-    count_launch(gat_layer_pooled_fwd, x)
+    count_launch(gat_layer_pooled_fwd, x, heads)
     return out
 
 
@@ -652,7 +654,7 @@ def _train_fwd(wrapper, pooled: bool, store: bool, ops, out_alpha, pe_pack,
     out = _fwd_cuda(what, pooled, *ops, out_alpha=out_alpha,
                     train=(pe_pack, seed, feat_drop, attn_drop, dropout_bits),
                     store=store)
-    count_launch(wrapper, ops[0])
+    count_launch(wrapper, ops[0], ops[10])
     return out
 
 
@@ -811,7 +813,7 @@ def _bwd(wrapper, pooled: bool, g, ops, out_alpha, attn, pe_pack, seed,
             need_dx=need_dx, dropout_bits=dropout_bits, stored_attn=attn)
     res = _bwd_cuda(pooled, g, *ops, pe_pack, seed, feat_drop, attn_drop,
                     out_alpha, need_dx, need_dbias, dropout_bits, attn)
-    count_launch(wrapper, x)
+    count_launch(wrapper, x, ops[10])
     return res
 
 
@@ -979,6 +981,7 @@ WRAPPERS = {w.__name__: w for w in (
     gat_layer_bwd_stored, gat_layer_pooled_bwd_stored)}
 for _w in WRAPPERS.values():
     _w.launches = _w.launches_bf16 = 0
+    _w.launches_by_heads = {}
 
 
 # --------------------------------------------------- differentiable layers

@@ -81,13 +81,20 @@ def is_bf16(x: torch.Tensor) -> bool:
     return x.dtype == torch.bfloat16
 
 
-def count_launch(wrapper, x: torch.Tensor) -> None:
-    """One launch of `wrapper`'s float32 or bf16 kernel, by x's dtype."""
+def count_launch(wrapper, x: torch.Tensor, heads: int | None = None) -> None:
+    """One launch of `wrapper`'s float32 or bf16 kernel, by x's dtype; with
+    `heads` (a star-GAT layer's heads on this rank) also under
+    "<heads>" or "<heads>[bf16]" in `wrapper.launches_by_heads`."""
     if x.shape[0]:
-        if is_bf16(x):
+        bf16 = is_bf16(x)
+        if bf16:
             wrapper.launches_bf16 += 1
         else:
             wrapper.launches += 1
+        if heads is not None:
+            key = f"{heads}[bf16]" if bf16 else str(heads)
+            counts = wrapper.launches_by_heads
+            counts[key] = counts.get(key, 0) + 1
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:

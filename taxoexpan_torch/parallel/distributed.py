@@ -1,5 +1,7 @@
-"""Multi-process data parallelism on torch.distributed (port of
-`taxoexpan_tpu/parallel/distributed.py`).
+"""Multi-process runs on torch.distributed (port of
+`taxoexpan_tpu/parallel/distributed.py`): data parallelism over the dp
+groups and head tensor parallelism over the mp groups of
+`parallel/mesh.py`'s layout.
 
 Every process runs the same program on one device: the rank with local
 index l among the ranks of its host runs on card l % device_count of that
@@ -14,17 +16,24 @@ TAXOEXPAN_PROCESS_ID environment variables, as the JAX package wires
 is `tcp://host:port`.
 
 Batches: every rank builds the same host-global batch from the same seeded
-sampler and keeps its own contiguous share of groups (`rank_share`, the
-counterpart of `put_global`): bit-exact global batches with no data
+sampler and keeps its dp index's contiguous share of groups (`rank_share`,
+the counterpart of `put_global`): bit-exact global batches with no data
 service, as in the JAX package.
+
+Head tensor parallelism: `mp_gather_last`, `mp_sum` and `mp_sum_grads`
+are autograd Functions over an mp group (the per-slot output's gather,
+the pooled output's psum, the psum of a replicated input's grad, as
+shard_map's transpose makes it); their sums add every rank's copy in rank
+order (`sum_in_rank_order`), so every rank holds the same bits.
 
 Backend: NCCL when every rank has a card of its own (no host runs more
 ranks than it has cards); gloo on the CPU and when ranks share a card, since NCCL refuses two ranks on one device. gloo runs its
 collectives on host memory (its CUDA code paths copy device tensors
 through host buffers), so under gloo this module stages every collective
 it issues through the host itself, explicitly: `all_reduce_sum`,
-`all_gather_cat` and `all_to_all` copy a CUDA tensor to the host, run the
-collective on the CPU copy and copy the result back; `all_gather_object`
+`all_gather_cat`, `all_to_all` and the mp group's gathers copy a CUDA
+tensor to the host, run the collective on the CPU copy and copy the
+result back; `all_gather_object`
 and `barrier` carry no tensors of the caller. Under NCCL the tensors stay
 on the card.
 """
@@ -42,6 +51,21 @@ from ..data.egobatch import EgoBatch, GroupBatch
 from ..device import resolve_device
 
 logger = logging.getLogger(__name__)
+
+
+def add_multiprocess_args(ap) -> None:
+    """The evaluation CLIs' -m / --mesh and the flags `maybe_initialize`
+    takes, as the JAX CLIs have them (test_fast.py:130-143,
+    infer.py:112-128)."""
+    ap.add_argument("-m", "--mesh", action="store_true",
+                    help="shard anchor encoding over all processes "
+                         "(data-parallel evaluation)")
+    ap.add_argument("--coordinator", default=None, type=str,
+                    help="process-group rendezvous address host:port")
+    ap.add_argument("--num_processes", default=None, type=int,
+                    help="total process count")
+    ap.add_argument("--process_id", default=None, type=int,
+                    help="this process's rank in [0, num_processes)")
 
 
 def maybe_initialize(coordinator: str | None = None,
@@ -142,8 +166,10 @@ def shutdown() -> None:
 
 
 def rank_share(batch: GroupBatch, rank: int, size: int) -> GroupBatch:
-    """Rank `rank`'s contiguous share of a host-global batch: groups
-    [rank * G/size, (rank + 1) * G/size) and their egonet rows."""
+    """The contiguous share of a host-global batch of dp index `rank` among
+    `size` dp ranks: groups [rank * G/size, (rank + 1) * G/size) and their
+    egonet rows. Every mp rank of one dp group gets the same share (the
+    JAX batch spec P("dp"))."""
     g, c = batch.labels.shape
     if g % size:
         raise ValueError(f"{g} groups a batch do not split over {size} "
@@ -202,6 +228,90 @@ def all_to_all(t: torch.Tensor, dp) -> torch.Tensor:
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=dp.group)
     return out.to(t.device)
+
+
+def _gather_parts(t: torch.Tensor, grp) -> list:
+    """Every rank's `t` (equal shapes) of group `grp`, in rank order, on
+    t's device; staged through the host under gloo."""
+    src = t.contiguous()
+    if _staged(src, grp):
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(grp.size)]
+    dist.all_gather(parts, src, group=grp.group)
+    return [part.to(t.device) for part in parts]
+
+
+def sum_in_rank_order(t: torch.Tensor, grp) -> torch.Tensor:
+    """The sum of `t` over the ranks of `grp`, added in rank order from
+    every rank's copy: the same bits on every rank, under any backend."""
+    parts = _gather_parts(t, grp)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+class _GatherLast(torch.autograd.Function):
+    """Forward: every mp rank's `t` concatenated along the last axis in rank
+    order. Backward: this rank's columns of the incoming grad, which every
+    mp rank holds equal (what follows the gather is replicated over mp)."""
+
+    @staticmethod
+    def forward(ctx, t, grp):
+        ctx.grp, ctx.width = grp, t.shape[-1]
+        return torch.cat(_gather_parts(t, grp), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.grp.rank * ctx.width
+        return g[..., lo:lo + ctx.width].contiguous(), None
+
+
+class _SumReplicated(torch.autograd.Function):
+    """Forward: the sum of the mp ranks' partial `t`. Backward: the grad
+    unchanged, every mp rank's partial entered the sum once."""
+
+    @staticmethod
+    def forward(ctx, t, grp):
+        return sum_in_rank_order(t, grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumGrads(torch.autograd.Function):
+    """Forward: `t` unchanged (a replicated input of a head-sharded layer).
+    Backward: the sum of the mp ranks' partial grads, each rank's heads'
+    share."""
+
+    @staticmethod
+    def forward(ctx, t, grp):
+        ctx.grp = grp
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_in_rank_order(g, ctx.grp), None
+
+
+def mp_gather_last(t: torch.Tensor, grp) -> torch.Tensor:
+    """A head-sharded layer's per-slot output gathered over the mp group
+    along its feature axis, in head-major order (differentiable)."""
+    return _GatherLast.apply(t, grp)
+
+
+def mp_sum(t: torch.Tensor, grp) -> torch.Tensor:
+    """The sum over the mp group of the ranks' partial outputs
+    (differentiable; the JAX package's psum over 'mp')."""
+    return _SumReplicated.apply(t, grp)
+
+
+def mp_sum_grads(t: torch.Tensor, grp) -> torch.Tensor:
+    """`t` itself, its grad summed over the mp group (differentiable; the
+    psum shard_map's transpose makes of a cotangent replicated over
+    'mp')."""
+    return _SumGrads.apply(t, grp)
 
 
 def all_gather_object(obj, dp) -> list:

@@ -4,7 +4,13 @@ all candidate positions (one-shot anchor encoding + all-pairs scoring).
     python -m taxoexpan_torch.test_fast --resume saved/.../model_best.ckpt
 
 Reads checkpoints that the JAX package's train.py wrote, with the
-`config.json` beside them. Runs on CUDA unless `-d cpu` is given.
+`config.json` beside them. Runs on CUDA unless `-d cpu` is given. As the
+JAX test_fast.py, it runs as several processes with --coordinator /
+--num_processes / --process_id, and with -m / --mesh shards the anchor
+encoding over them; process 0 writes the case study.
+
+    python -m taxoexpan_torch.test_fast -r <ckpt> -m \
+        --coordinator 127.0.0.1:29500 --num_processes 2 --process_id 0
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ import time
 
 from . import builders
 from .config import load_run_config, setup_logging
-from .device import resolve_device
+from .parallel import distributed, mesh
 from .evaluation.ranker import TaxonomyRanker
 from .weights import load_jax_checkpoint, restore_params
 
@@ -23,7 +29,19 @@ logger = logging.getLogger("taxoexpan_torch.test")
 
 def main(args) -> dict:
     t0 = time.time()
-    device = resolve_device(args.device)
+    # the process group before the first device query; no-op unless
+    # --coordinator / --num_processes (or the TAXOEXPAN_* variables) ask
+    distributed.maybe_initialize(args.coordinator, args.num_processes,
+                                 args.process_id, args.device)
+    device = distributed.rank_device(args.device)
+    layout = None
+    if args.mesh:
+        # anchor encoding sharded over every process (dp only, as the
+        # JAX package's data_parallel_mesh)
+        layout = mesh.layout()
+        if layout is not None:
+            logger.info("Sharding anchor encoding over %d processes",
+                        layout.dp.size)
     state = load_jax_checkpoint(args.resume)
     config = load_run_config(args.resume, state)
     test_cfg = dict(config["test_data_loader"]["args"])
@@ -53,13 +71,15 @@ def main(args) -> dict:
         val_sampler = builders.build_sampler(taxonomy, val_cfg, "validation")
         val_ranker = TaxonomyRanker(model, params, val_sampler,
                                     val_sampler.node_features,
-                                    encode_chunk=encode_chunk, device=device)
+                                    encode_chunk=encode_chunk, device=device,
+                                    layout=layout)
         prior_lambda, curve = val_ranker.select_prior_lambda(
             lambdas, rank_mode, select_metric=args.prior_metric)
         logger.info("prior-blend selection on validation (%s): %s -> "
                     "lam=%.4g", args.prior_metric, curve, prior_lambda)
     ranker = TaxonomyRanker(model, params, sampler, sampler.node_features,
-                            encode_chunk=encode_chunk, device=device)
+                            encode_chunk=encode_chunk, device=device,
+                            layout=layout)
     logger.info("Number of queries: %d", len(sampler.node_list))
     ranker.encode_all_anchors()
     t_encode = time.time()
@@ -69,7 +89,8 @@ def main(args) -> dict:
     logger.info("stage timing: data+sampler %.1fs, checkpoint %.1fs, "
                 "encode %.1fs, rank %.1fs", t_data - t0, t_ckpt - t_data,
                 t_encode - t_ckpt, time.time() - t_encode)
-    if args.case:
+    if args.case and distributed.rank() == 0:
+        # the metrics are the same on every process; one writes
         with open(args.case, "w") as fout:
             for row in cases:
                 fout.write("\t".join(row) + "\n")
@@ -102,9 +123,13 @@ def parse_args(argv=None):
     ap.add_argument("--prior-metric", dest="prior_metric",
                     default="combined_metrics", type=str,
                     help="selection metric for --prior-select")
+    distributed.add_multiprocess_args(ap)
     return ap.parse_args(argv)
 
 
 if __name__ == "__main__":
     setup_logging()
-    main(parse_args())
+    try:
+        main(parse_args())
+    finally:
+        distributed.shutdown()

@@ -3,19 +3,22 @@
     python -m taxoexpan_torch.train -c configs/config.mag.json
     python -m taxoexpan_torch.train -c ... --lr 1e-3 --ep 20 -d cpu
     python -m taxoexpan_torch.train -r saved/models/<name>/<ts>/checkpoint-epoch3.ckpt
-    # data parallel, one process a rank (here 2 ranks on this host):
+    # one process a rank (here 2 ranks on this host); the config's
+    # "parallel": {"dp": D, "mp": M} lays them out as D x M:
     python -m taxoexpan_torch.train -c ... --coordinator 127.0.0.1:29500 \
         --num_processes 2 --process_id 0   # and --process_id 1
 
 The JAX `train.py`'s config files, override flags and multi-process flags
 (also read from TAXOEXPAN_COORDINATOR / TAXOEXPAN_NUM_PROCESSES /
 TAXOEXPAN_PROCESS_ID); runs on CUDA unless `-d cpu` is given, each rank on
-card (its index among its host's ranks) % device_count. `parallel.feature_mode: "partitioned"` row-partitions the
-feature table across the ranks, with the halo exchange TAXOEXPAN_HALO
-selects (all_to_all, or ring: K6 on the card). `parallel.mp > 1` (head
-tensor parallelism) is not ported and raises. Checkpoints hold the JAX
-package's payload keys: the JAX package and the port's test_fast serve
-them, and --resume takes a checkpoint of either package.
+card (its index among its host's ranks) % device_count. The `parallel`
+block lays the processes out as dp x mp (parallel/mesh.py): dp ranks split
+the group batch, mp ranks split the GAT layers' heads;
+`parallel.feature_mode: "partitioned"` row-partitions the feature table
+across the dp ranks, with the halo exchange TAXOEXPAN_HALO selects
+(all_to_all, or ring: K6 on the card). Checkpoints hold the JAX package's
+payload keys: the JAX package and the port's test_fast serve them, and
+--resume takes a checkpoint of either package.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import torch
 
 from . import builders
 from .config import ConfigParser, CustomArg
-from .parallel import data_parallel, distributed
+from .parallel import distributed, mesh
 from .training import Trainer
 from .tree import tree_leaves
 
@@ -83,21 +86,43 @@ OPTIONS = [
 
 
 def _parallel(config):
-    """(data-parallel group or None, feature mode) from the config's
-    `parallel` block (the JAX train.py:69-106): dp defaults to the number
-    of processes; mp > 1 raises (not ported); with one process the table
-    is replicated."""
+    """(process layout or None, feature mode) from the config's `parallel`
+    block, as the JAX train.py:69-106 reads it: mp runs the GAT heads
+    tensor-parallel; it falls back to 1 with a warning when it does not
+    divide the processes or divides none of `arch.args.heads`. dp defaults
+    to processes // mp; an explicit dp must make dp x mp = processes. With
+    one process the table is replicated; partitioned, it is sharded over
+    dp and replicated over mp."""
     par = config.get("parallel", {}) or {}
-    dp = data_parallel(int(par["dp"]) if par.get("dp") else None,
-                       int(par.get("mp", 1) or 1))
+    world = distributed.world_size()
+    mp = int(par.get("mp", 1) or 1)
+    if mp > 1 and world % mp:
+        logger.warning("parallel.mp=%d does not divide %d processes; "
+                       "disabling tensor parallelism", mp, world)
+        mp = 1
+    if mp > 1:
+        # a layer whose head count mp does not divide runs whole on every mp
+        # rank; if that is every layer, mp only shrinks dp
+        heads = config["arch"]["args"].get("heads") or []
+        if heads and all(h % mp for h in heads):
+            logger.warning(
+                "parallel.mp=%d divides none of the head counts %s; all "
+                "layers would replicate over mp (wasting ~%dx throughput) "
+                "- disabling tensor parallelism, using dp only",
+                mp, heads, mp)
+            mp = 1
+    layout = mesh.layout(int(par["dp"]) if par.get("dp") else None, mp)
+    if layout is not None:
+        logger.info("process layout: dp %d x mp %d", layout.dp.size,
+                    layout.mp_size)
     feature_mode = par.get("feature_mode", "replicated")
-    return dp, feature_mode if dp is not None else "replicated"
+    return layout, feature_mode if layout is not None else "replicated"
 
 
 def main(config: ConfigParser) -> dict:
     """Train as the config says; returns the last epoch's log."""
     device = distributed.rank_device(config.args.device)
-    dp, feature_mode = _parallel(config)
+    layout, feature_mode = _parallel(config)
     taxonomy = builders.build_taxonomy(
         config["train_data_loader"]["args"]["data_path"])
     train_cfg = config["train_data_loader"]["args"]
@@ -139,7 +164,8 @@ def main(config: ConfigParser) -> dict:
                       log_dir=config.log_dir,
                       rng_seed=config.get("seed", 0),
                       full_valid_sampler=full_valid_sampler,
-                      device=device, dp=dp, feature_mode=feature_mode)
+                      device=device, layout=layout,
+                      feature_mode=feature_mode)
     if config.resume is not None:
         trainer.resume(config.resume)
     start = time.time()
@@ -159,11 +185,11 @@ def parse_args(argv=None) -> ConfigParser:
                     help="torch device (cuda | cuda:N | cpu)")
     ap.add_argument("-s", "--suffix", default="", type=str,
                     help="suffix indicating this run")
-    # multi-process data parallelism, see parallel/distributed.py
+    # multi-process runs, see parallel/distributed.py and parallel/mesh.py
     ap.add_argument("--coordinator", default=None, type=str,
                     help="process-group rendezvous address host:port")
     ap.add_argument("--num_processes", default=None, type=int,
-                    help="total process count (data-parallel ranks)")
+                    help="total process count (dp x mp ranks)")
     ap.add_argument("--process_id", default=None, type=int,
                     help="this process's rank in [0, num_processes)")
     for opt in OPTIONS:

@@ -73,10 +73,7 @@ class Optimizer:
             mu = tree_map(lambda u, m: (1 - B1) * u + B1 * m, g, state["mu"])
             nu = tree_map(lambda u, v: (1 - B2) * (u * u) + B2 * v, g,
                           state["nu"])
-            # bias corrections in float32, as optax computes 1 - decay**count
-            dev = tree_leaves(mu)[0].device
-            bc1 = (1 - torch.tensor(B1, dtype=torch.float32) ** count).to(dev)
-            bc2 = (1 - torch.tensor(B2, dtype=torch.float32) ** count).to(dev)
+            bc1, bc2 = bias_corrections(count, tree_leaves(mu)[0].device)
             new["mu"], new["nu"] = mu, nu
             if self.amsgrad:
                 nu_max = tree_map(lambda m, v: torch.maximum(m, v / bc2),
@@ -92,6 +89,20 @@ class Optimizer:
         neg_lr = -state["lr"]
         params = tree_map(lambda p, x: p + x * neg_lr, params, u)
         return params, new
+
+
+def bias_corrections(count: int, device) -> tuple:
+    """Adam's bias corrections 1 - B1**count and 1 - B2**count: float32
+    values computed on the host as optax computes 1 - decay**count, then
+    made on `device` by a fill (`torch.full`), never copied there: a
+    blocking host-to-device copy of a CPU tensor waits for the stream, a
+    host sync in every step. 0-dim device tensors, not Python floats:
+    PyTorch turns a division by a CPU scalar into a multiply by its
+    reciprocal, which changes the bits."""
+    return tuple(torch.full((), float(1 - torch.tensor(b, dtype=torch.float32)
+                                      ** count),
+                            dtype=torch.float32, device=device)
+                 for b in (B1, B2))
 
 
 def clip_by_global_norm(grads, max_norm: float):

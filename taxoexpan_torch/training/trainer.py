@@ -33,6 +33,19 @@ all-gathers the scores; full-catalog validation runs the ranker's
 data-parallel encode. Checkpoints and the tensorboard writer are rank 0's;
 every rank resumes from the same checkpoint.
 
+Head tensor parallelism (`layout.mp`, parallel/mesh.py; the JAX trainer's
+{"dp", "mp"} mesh): the ranks of one dp group split the batch as above,
+the mp ranks of one dp index take the same share and split the heads of
+the GAT layers whose head count mp divides (models/propagation.py). Params
+and optimizer state stay whole and equal on every rank
+(trainer.py:193-208). The grads of those layers' leaves (fc, attn_l,
+attn_r and their pos_emb rows, which feed every head) are partial on each
+mp rank, this rank's heads' part, and are summed over the world; every
+other leaf lies after the mp gather or sum, gets the same grad on every
+mp rank and is summed over the dp group alone. The epoch's losses are
+summed over the dp group, validation gathers scores and encodings over it,
+and the dropout seeds of a sharded layer fold the mp index in.
+
 The runtime around the epochs (trainer.py:173-177, :366-377, :442-462,
 :510-518, :610-693):
 - the profiler window: with `profile_dir`, torch.profiler traces batches
@@ -51,11 +64,10 @@ The runtime around the epochs (trainer.py:173-177, :366-377, :442-462,
   full-validation epochs);
 - parameter histograms after each sampled validation, with a tensorboard
   writer, one a parameter leaf named by its key path.
-
-Not ported: head tensor parallelism over 'mp' (the CLI refuses it).
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import queue
@@ -71,6 +83,7 @@ from ..data.egobatch import EgoBatch, GroupBatch
 from ..losses import get_loss
 from ..ops import star
 from ..parallel import distributed
+from ..parallel.mesh import Layout
 from ..parallel.partition import (halo_impl, make_exchange,
                                   partitioned_gather, shard_table)
 from ..tree import (tree_leaves, tree_leaves_with_path, tree_map,
@@ -112,9 +125,9 @@ def batch_to(batch: GroupBatch, device: torch.device) -> GroupBatch:
 class _DeviceFeed:
     """Stage batches on the device from a background thread, with the
     host-side batch statistics (egonet and edge counts). Yields
-    (host_batch, device_batch, n_egonets, n_edges); with `dp` the device
-    batch is this rank's share of the host batch, the counts the whole
-    batch's."""
+    (host_batch, device_batch, n_egonets, n_edges); with `dp` (a dp group)
+    the device batch is this dp index's share of the host batch, the
+    counts the whole batch's."""
 
     def __init__(self, loader, device: torch.device, depth: int = 2,
                  dp=None):
@@ -175,10 +188,14 @@ class Trainer:
                  full_valid_sampler=None,
                  device: torch.device | str = "cuda",
                  encode_chunk: int = 4096,
-                 dp=None,
+                 layout: Layout | None = None,
                  feature_mode: str = "replicated",
                  profile_dir: str | Path | None = None):
+        """`layout`: the run's dp x mp process layout (parallel/mesh.py),
+        None for a single process."""
         self.device = torch.device(device)
+        self.layout = layout
+        dp = layout.dp if layout is not None else None
         if feature_mode not in ("replicated", "partitioned"):
             raise ValueError(f"unknown feature_mode {feature_mode!r}")
         if feature_mode == "partitioned" and dp is None:
@@ -187,8 +204,10 @@ class Trainer:
         self.dp = dp
         self.feature_mode = feature_mode
         self.model = model
-        # the rank's dropout seeds (models/propagation.py:fold_rank)
+        # the rank's dropout seeds (models/propagation.py:fold_rank) and
+        # the heads' mp group
         model.propagate.rank = dp.rank if dp is not None else 0
+        model.propagate.mp = layout.mp if layout is not None else None
         self.params = params_to(params, self.device)
         self.optimizer = optimizer
         self.opt_state = params_to(opt_state, self.device)
@@ -270,7 +289,33 @@ class Trainer:
     @property
     def _primary(self) -> bool:
         """Rank 0 (or the single process): the one that writes."""
-        return self.dp is None or self.dp.rank == 0
+        return self.layout is None or self.layout.world.rank == 0
+
+    def _sharded_leaves(self, params: dict) -> list[bool]:
+        """Per leaf of `params`: whether it belongs to a head-sharded GAT
+        layer (its weights or its pos_emb rows), whose grad is partial on
+        each mp rank."""
+        layers = set(self.model.propagate.sharded_layers())
+        return [len(path) > 2 and path[0] == "propagate"
+                and path[1] in ("layers", "pos_emb") and path[2] in layers
+                for path, _leaf in tree_leaves_with_path(params)]
+
+    def _reduce_grads(self, grads: list, sharded: list[bool]) -> list:
+        """The global batch's gradient: each leaf's grad summed over the
+        world (a head-sharded layer's leaves) or over the dp group (the
+        rest), in one all-reduce of the flattened grads a group."""
+        out = list(grads)
+        for group, pick in ((self.layout.world, True),
+                            (self.layout.dp, False)):
+            idx = [i for i, s in enumerate(sharded) if s == pick]
+            if not idx or group.size == 1:
+                continue
+            flat = distributed.all_reduce_sum(
+                torch.cat([grads[i].reshape(-1) for i in idx]), group)
+            for i, part in zip(idx, flat.split([grads[i].numel()
+                                                for i in idx])):
+                out[i] = part.view_as(grads[i])
+        return out
 
     # ---------------------------------------------------- model inputs
     def _ego_feats(self, ids, ngp, nsib) -> torch.Tensor:
@@ -324,13 +369,8 @@ class Trainer:
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
-        if self.dp is not None:
-            # the global batch's gradient: the sum over the ranks, in one
-            # all-reduce of the flattened grads
-            flat = distributed.all_reduce_sum(
-                torch.cat([g.reshape(-1) for g in grads]), self.dp)
-            grads = [part.view_as(g) for part, g in zip(
-                flat.split([g.numel() for g in grads]), grads)]
+        if self.layout is not None:
+            grads = self._reduce_grads(grads, self._sharded_leaves(params))
         grads = tree_unflatten(params, grads)
         self.params, self.opt_state = self.optimizer.update(
             grads, self.opt_state, tree_map(lambda x: x.detach(), params))
@@ -552,17 +592,28 @@ class Trainer:
         self._profiler = profile(activities=activities)
         self._profiler.start()
 
+    @property
+    def _rank_name(self) -> str:
+        """rank<r>, and with mp > 1 its dp and mp indices:
+        rank<r>-dp<d>-mp<m>."""
+        lay = self.layout
+        name = f"rank{lay.world.rank}"
+        if lay.mp is not None:
+            name += f"-dp{lay.dp.rank}-mp{lay.mp.rank}"
+        return name
+
     def _stop_profile(self) -> Path:
         """Close the window on finished work (the device synchronised, as
         the JAX trainer blocks on the loss, trainer.py:374-376) and export
         its Chrome trace: profile_dir/trace.json, or under data
-        parallelism profile_dir/rank<r>/trace.json."""
+        parallelism profile_dir/rank<r>/trace.json (rank<r>-dp<d>-mp<m>
+        with mp > 1)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof, self._profiler = self._profiler, None
         prof.stop()
-        out = self.profile_dir if self.dp is None \
-            else self.profile_dir / f"rank{self.dp.rank}"
+        out = self.profile_dir if self.layout is None \
+            else self.profile_dir / self._rank_name
         out.mkdir(parents=True, exist_ok=True)
         path = out / "trace.json"
         prof.export_chrome_trace(str(path))
@@ -581,7 +632,7 @@ class Trainer:
             self._full_ranker = TaxonomyRanker(
                 self.model, self.params, s, s.node_features,
                 encode_chunk=self.encode_chunk, device=self.device,
-                dp=self.dp)
+                layout=self.layout)
         else:
             self._full_ranker.refresh(self.params)
         result, _ = self._full_ranker.evaluate(self.metric_names,
@@ -606,26 +657,38 @@ class Trainer:
             self._join_ckpt()
         if self.exchange is not None:
             self.exchange.close()
-        if self.dp is not None:
+        if self.layout is not None:
             self._write_report(final_log)
         return final_log
 
     def _write_report(self, log: dict) -> None:
-        """Rank r's last epoch log and kernel launch counts (a GAT
-        wrapper's bf16 kernel under "<name>[bf16]"), as
-        report-rank<r>.json in the run directory (the rank processes' only
-        record: the log and checkpoints are rank 0's)."""
+        """Rank r's last epoch log, kernel launch counts (a GAT wrapper's
+        bf16 kernel under "<name>[bf16]"; its launches by the rank's heads
+        under "launches_by_heads"), its dp and mp indices and a
+        digest of its final params, as report-rank<r>.json in the run
+        directory (the rank processes' only record: the log and
+        checkpoints are rank 0's)."""
         from ..ops import gat_kernels, gcn_kernels, halo_kernels
         launches = {name: w.launches for mod in (
             gat_kernels, gcn_kernels, halo_kernels)
             for name, w in mod.WRAPPERS.items()}
         launches.update({f"{name}[bf16]": w.launches_bf16
                          for name, w in gat_kernels.WRAPPERS.items()})
-        rank = self.dp.rank
-        report = {"rank": rank, "world_size": self.dp.size,
+        by_heads = {name: dict(w.launches_by_heads)
+                    for name, w in gat_kernels.WRAPPERS.items()}
+        lay = self.layout
+        rank = lay.world.rank
+        digest = hashlib.sha256()
+        for leaf in tree_leaves(self.params):
+            digest.update(leaf.detach().cpu().numpy().tobytes())
+        report = {"rank": rank, "world_size": lay.world.size,
+                  "dp_index": lay.dp.rank, "dp": lay.dp.size,
+                  "mp_index": lay.mp_index, "mp": lay.mp_size,
+                  "params_sha256": digest.hexdigest(),
                   "device": str(self.device),
                   "feature_mode": self.feature_mode, "halo": self.halo,
-                  "log": log, "launches": launches}
+                  "log": log, "launches": launches,
+                  "launches_by_heads": by_heads}
         path = self.checkpoint_dir / f"report-rank{rank}.json"
         path.write_text(json.dumps(report, indent=1))
 

@@ -36,7 +36,11 @@ forward, backward with need_dx both ways, with and without the activation,
 the projection alone) at din 33 / 250 / 500 (not all multiples of 8), Dout
 130 (rows of z padded to 136), B*N not a multiple of the 128-row tile,
 several split-K splits and a batch of empty egonets, and its
-differentiable layer against the CPU.
+differentiable layer against the CPU; the shapes head tensor parallelism
+over mp = 2 gives K1-K4 (config.mag.json's layer 0 at 2 of its 4 heads,
+a pooled layer at 2 of 4 heads), in float32 and bf16; and one train step
+of config.mag.json's PGAT at full width free of host syncs (CUDA's sync
+debug mode "error").
 
 Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the card:
 
@@ -112,9 +116,11 @@ def test_gat_layer_fwd_matches_plain(dev, b, p, s, din, heads, dh,
                                      out_alpha):
     t = _inputs(dev, b, p, s, din, heads, dh)
     before = gk.gat_layer_fwd.launches
+    at_heads = gk.gat_layer_fwd.launches_by_heads.get(str(heads), 0)
     got = gk.gat_layer_fwd(*t, p, heads, out_alpha=out_alpha)
     torch.cuda.synchronize()
     assert gk.gat_layer_fwd.launches == before + 1
+    assert gk.gat_layer_fwd.launches_by_heads[str(heads)] == at_heads + 1
     want = gk.gat_layer_fwd_plain(*t, p, heads, out_alpha=out_alpha)
     torch.testing.assert_close(got, want, **TOL)
 
@@ -124,9 +130,12 @@ def test_gat_layer_fwd_matches_plain(dev, b, p, s, din, heads, dh,
 def test_gat_layer_pooled_fwd_matches_plain(dev, b, p, s, din, heads, dh):
     t = _inputs(dev, b, p, s, din, heads, dh)
     before = gk.gat_layer_pooled_fwd.launches
+    by_heads = gk.gat_layer_pooled_fwd.launches_by_heads
+    at_heads = by_heads.get(str(heads), 0)
     got = gk.gat_layer_pooled_fwd(*t, p, heads)
     torch.cuda.synchronize()
     assert gk.gat_layer_pooled_fwd.launches == before + 1
+    assert by_heads[str(heads)] == at_heads + 1
     torch.testing.assert_close(got, gk.gat_layer_pooled_fwd_plain(
         *t, p, heads), **TOL)
 
@@ -483,6 +492,7 @@ PROJ_SHAPES = [
     # b, p, s, din, heads, dh, pos: B*N = 48 or 192, never a multiple of
     # the projection's 128-row tile
     (3, 2, 13, 250, 4, 500, 50),     # N = 16; din + pos 300 (PGAT layer 0)
+    (3, 13, 50, 250, 2, 500, 50),    # N = 64; PGAT layer 0's mp = 2 shard
     (3, 13, 50, 300, 4, 900, 100),   # N = 64; 400 (the MTL layer 0)
     (3, 13, 50, 2000, 1, 500, 50),   # 2050 (the PGAT final layer's input)
     (3, 13, 50, 3600, 1, 600, 100),  # 3700 (the MTL per-slot final layer)
@@ -548,6 +558,7 @@ POOLED_SHAPES = [
     (6, 5, 20, 33, 3, 200, 7, False),      # heads 3, Dh 200, din 33
     (9, 3, 30, 30, 3, 500, 0, False),      # heads 3, Dh 500, no pe path
     (4, 13, 50, 2000, 1, 500, 50, True),   # only empty egonets
+    (3, 13, 50, 2000, 2, 500, 50, False),  # the TP form: 2 heads of 4
 ]
 
 
@@ -785,6 +796,7 @@ BF16_SHAPES = [
     # H*Dh + 2H not a multiple of 8 (P's rows padded), B*N not a multiple
     # of the 128-row tile
     (3, 2, 13, 250, 4, 500, 50),     # PGAT layer 0's widths, N = 16
+    (3, 13, 50, 250, 2, 500, 50),    # its mp = 2 shard, N = 64
     (37, 5, 64, 33, 3, 130, 7),      # N = 70, 2590 rows, wd 396
     (3, 13, 50, 2000, 1, 500, 50),   # the PGAT final layer's (x read
                                      # directly in the eval form)
@@ -1059,3 +1071,41 @@ def test_bf16_gcn_layer_function_on_card_matches_cpu(dev):
         assert a.dtype == torch.float32
         torch.testing.assert_close(a, b, rtol=2 ** -6,
                                    atol=2 ** -8 * float(b.abs().max()))
+
+
+def test_train_step_makes_no_host_sync(dev, tmp_path):
+    """One train step of config.mag.json's PGAT at full width (4 groups x
+    32 candidates, AMSGrad) after a warm-up step raises nothing under
+    torch.cuda.set_sync_debug_mode("error"): no operation of the step waits
+    for the device (AMSGrad's bias corrections are filled in on the card,
+    the slot codes of the position embeddings too)."""
+    import json
+
+    from taxoexpan_torch import builders
+    from taxoexpan_torch.data.synthetic import synthetic_taxonomy
+    from taxoexpan_torch.training.trainer import Trainer, batch_to
+    with open("configs/config.mag.json") as fin:
+        cfg = json.load(fin)
+    loader = dict(cfg["train_data_loader"]["args"], batch_size=4,
+                  num_workers=0, max_parents=13, expand_factor=50)
+    taxonomy = synthetic_taxonomy(num_nodes=300, dim=250, seed=0)
+    sampler = builders.build_sampler(taxonomy, loader, "train")
+    model = builders.build_model(cfg["arch"],
+                                 max_parents=sampler.max_parents,
+                                 expand_factor=sampler.expand_factor)
+    params = model.init(torch.Generator().manual_seed(0))
+    opt = builders.build_optimizer_from_config(cfg["optimizer"],
+                                               cfg["trainer"])
+    trainer = Trainer(model, params, opt, opt.init(params),
+                      loss_name=cfg["loss"], metric_names=cfg["metrics"],
+                      feature_table=sampler.node_features, train_loader=None,
+                      save_dir=tmp_path, device=dev)
+    batch = batch_to(next(iter(builders.build_loader(sampler, loader))), dev)
+    trainer.train_step(batch, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = trainer.train_step(batch, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(loss))

@@ -1,8 +1,8 @@
 """Port parity, the data-parallel slice: the K6 plain version against the
 JAX ring exchange, `partitioned_gather` against JAX's per rank, the shard
 layout and bucket capacity, the rank fold of the dropout seeds, the
-refusals, and a 2-rank `python -m taxoexpan_torch.train` (gloo on the CPU,
-partitioned feature table) against JAX's Trainer on a dp = 2 mesh.
+rules of the `parallel` block, and a 2-rank `python -m
+taxoexpan_torch.train` (gloo on the CPU, partitioned feature table) against JAX's Trainer on a dp = 2 mesh.
 
 The JAX side runs jitted on the virtual CPU devices (its Pallas ring
 kernel in interpret mode, as tests/test_halo.py runs it); the port runs
@@ -16,6 +16,7 @@ step of up to lr (tests/test_torch_train.py), which an epoch of steps
 compounds past any fixed tolerance between two frameworks; SGD's update is
 linear in the grad, and AMSGrad is held to optax there."""
 import json
+import logging
 import os
 import socket
 import subprocess
@@ -30,10 +31,11 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from taxoexpan_torch import builders as tbuilders
+from taxoexpan_torch import train as t_train
 from taxoexpan_torch.evaluation.ranker import TaxonomyRanker
 from taxoexpan_torch.models.propagation import fold_rank
 from taxoexpan_torch.ops import dropout, halo_kernels
-from taxoexpan_torch.parallel import data_parallel
+from taxoexpan_torch.parallel import distributed, mesh
 from taxoexpan_torch.parallel import partition as tpart
 from taxoexpan_torch.parallel.halo import RingExchange
 from taxoexpan_torch.training import checkpoint as tckpt
@@ -173,13 +175,35 @@ def test_halo_impl_selection(monkeypatch):
         RingExchange(torch.zeros(4, 2), None, torch.device("cpu"))
 
 
-def test_refuses_tensor_parallel_only():
-    """`parallel.mp > 1` raises; dp must match the processes."""
-    assert data_parallel() is None and data_parallel(1) is None
-    with pytest.raises(ValueError, match="mp=2"):
-        data_parallel(mp=2)
+def test_refuses_tensor_parallel_only(monkeypatch, caplog):
+    """The `parallel` block's rules (the JAX train.py:69-106): dp x mp must
+    match the processes; mp falls back to 1 with a warning where it does
+    not divide the processes or divides none of the head counts."""
+    assert mesh.layout() is None and mesh.layout(1) is None
     with pytest.raises(ValueError, match="dp=2"):
-        data_parallel(dp=2)
+        mesh.layout(dp=2)
+    with pytest.raises(ValueError, match="mp=2"):
+        mesh.layout(mp=2)
+
+    def config(par, heads=(4, 1)):
+        return {"arch": {"args": {"heads": list(heads)}}, "parallel": par}
+    with caplog.at_level(logging.WARNING, logger="taxoexpan_torch.train"):
+        assert t_train._parallel(config({"mp": 2})) == (None, "replicated")
+    assert "parallel.mp=2 does not divide 1 processes" in caplog.text
+    # two processes: the layout the block asks for
+    calls = []
+    monkeypatch.setattr(distributed, "world_size", lambda: 2)
+    monkeypatch.setattr(mesh, "layout", lambda dp, mp: calls.append((dp, mp)))
+    caplog.clear()
+    with caplog.at_level(logging.WARNING, logger="taxoexpan_torch.train"):
+        t_train._parallel(config({"mp": 2}, heads=(1, 3)))
+        assert "divides none of the head counts [1, 3]" in caplog.text
+        caplog.clear()
+        t_train._parallel(config({"mp": 2}))
+        t_train._parallel(config({"dp": 1, "mp": 2}))
+        t_train._parallel(config({"dp": 2}))
+    assert not caplog.text
+    assert calls == [(None, 1), (None, 2), (1, 2), (2, 1)]
 
 
 # -------------------------------------------------------------- seeds

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from taxoexpan_torch.parallel import distributed
-from taxoexpan_torch.parallel.mesh import DataParallel
+from taxoexpan_torch.parallel.mesh import DataParallel, Layout
 from taxoexpan_torch.training import optim as toptim
 from taxoexpan_torch.training.trainer import Trainer
 
@@ -104,7 +104,8 @@ def test_validation_overflow_is_reported_in_its_epoch(monkeypatch, tmp_path,
                       feature_table=np.zeros((8, 2), np.float32),
                       train_loader=[], valid_loader=[], save_dir=tmp_path,
                       device="cpu",
-                      dp=DataParallel(size=1, rank=0, backend="gloo"),
+                      layout=Layout.data_parallel(
+                          DataParallel(size=1, rank=0, backend="gloo")),
                       feature_mode="partitioned")
 
     def validation(epoch):           # its gathers overflow in epoch 1

@@ -134,6 +134,39 @@ def test_optimizer_matches_optax(rng, kw):
     assert toptim.get_lr(tstate) == joptim.get_lr(jstate)
 
 
+def test_amsgrad_update_bits_pinned():
+    """Three AMSGrad steps equal, bit for bit, the update written with the
+    bias corrections made on the host and copied to the params' device
+    (1 - tensor(B, float32) ** count); the device-made corrections of
+    `optim.bias_corrections` hold the same float32 values."""
+    gen = torch.Generator().manual_seed(5)
+    params = {"w": torch.randn((6, 3), generator=gen),
+              "b": torch.randn((7,), generator=gen)}
+    opt = toptim.Optimizer(lr=1e-2, amsgrad=True)
+    state = opt.init(params)
+    mu = nu = nu_max = {k: torch.zeros_like(v) for k, v in params.items()}
+    want = params
+    for count, scale in enumerate((1.0, 0.01, 3.0), start=1):
+        grads = {k: torch.randn(v.shape, generator=gen) * scale
+                 for k, v in params.items()}
+        params, state = opt.update(grads, state, params)
+        bc1 = 1 - torch.tensor(toptim.B1, dtype=torch.float32) ** count
+        bc2 = 1 - torch.tensor(toptim.B2, dtype=torch.float32) ** count
+        assert [t.item() for t in toptim.bias_corrections(count, "cpu")] \
+            == [bc1.item(), bc2.item()]
+        mu = {k: (1 - toptim.B1) * grads[k] + toptim.B1 * mu[k] for k in mu}
+        nu = {k: (1 - toptim.B2) * (grads[k] * grads[k]) + toptim.B2 * nu[k]
+              for k in nu}
+        nu_max = {k: torch.maximum(nu_max[k], nu[k] / bc2) for k in nu}
+        neg_lr = -float(np.float32(1e-2))
+        want = {k: want[k] + ((mu[k] / bc1) / (torch.sqrt(nu_max[k])
+                                               + toptim.EPS)) * neg_lr
+                for k in want}
+        for k in want:
+            assert torch.equal(params[k], want[k]), (count, k)
+            assert torch.equal(state["nu_max"][k], nu_max[k])
+
+
 def test_plateau_scheduler_matches_jax():
     jsched = joptim.PlateauScheduler(mode="min", factor=0.5, patience=1)
     tsched = toptim.PlateauScheduler(mode="min", factor=0.5, patience=1)

@@ -23,7 +23,7 @@ import torch
 from taxoexpan_torch import builders as tbuilders
 from taxoexpan_torch.data.synthetic import synthetic_taxonomy
 from taxoexpan_torch.parallel import distributed
-from taxoexpan_torch.parallel.mesh import DataParallel
+from taxoexpan_torch.parallel.mesh import DataParallel, Layout
 from taxoexpan_torch.training import checkpoint as tckpt
 from taxoexpan_torch.training import optim as toptim
 from taxoexpan_torch.training.trainer import Trainer
@@ -111,7 +111,8 @@ def test_profiler_trace_is_rank_suffixed_under_dp(taxonomy, tmp_path,
                         lambda t, dp: t.clone())
     trainer = _trainer(taxonomy, tmp_path / "run",
                        profile_dir=tmp_path / "prof",
-                       dp=DataParallel(size=2, rank=1, backend="gloo"))
+                       layout=Layout.data_parallel(
+                           DataParallel(size=2, rank=1, backend="gloo")))
     trainer.valid_loader = None
     trainer._profile_window = (2, 10_000)
     trainer._train_epoch(1)
