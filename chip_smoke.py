@@ -8,7 +8,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. device   - requires CUDA; prints the card's name and power limit
               (nvidia-smi) and turns TF32 off for full float32 products.
 2. build    - builds every CUDA kernel from taxoexpan_torch/ops/csrc with
-              nvcc for sm_90a (one nvcc per source, started together).
+              nvcc for sm_90a (one nvcc per source, started together),
+              then the native C++ sampler (taxoexpan_torch/native, g++),
+              which the loaders' "auto" backend takes in every phase.
 3. masks    - the kernels' dropout generator on the card against the
               plain torch generator (ops/dropout.py): the pinned golden
               vectors and 2**20 random (row, column) pairs, bit for bit, for
@@ -156,11 +158,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               the card) against their form before the repair
               (`sync_repair`: the host syncs of one step under CUDA's sync
               debug mode, the median step, the window's idle share).
-8. a `{"kernels": [...]}` line (eval-form launches from the serving phase
+8. native_loader - the host data path (`phase_native_loader`): a dataset
+              made by the port (`python -m
+              taxoexpan_torch.tools.make_synthetic_dataset --v2`, 30000
+              nodes, dim 250, max_children 40, seed 42, noise 1.0),
+              `python -m taxoexpan_torch.train` on it at config.mag.json's
+              full width (128 groups x 32 candidates a step), two epochs
+              with sampled validation, once with loader backend "native"
+              and once "python" in this process, same seed, the profiler
+              window on: a finite loss that falls, K1t, K3t, K2, K4 and
+              (validation) K1, K3 launched by both runs, the invariants of
+              every native batch, the native batches equal to the Python
+              ones where both are deterministic; per backend the epochs'
+              wait_s, step_s, valid_s, egonets/s, epoch 2's median step
+              and the window's device idle share; `tools.sampler_bench`'s
+              batches/s on the same dataset; the simple_mlp baseline on
+              the card against the CPU and trained one epoch there.
+9. a `{"kernels": [...]}` line (eval-form launches from the serving phase
    of the entry's path, the train-path kernels' from its training phase,
    K6's from the partitioned 2-rank run, over both ranks; the TP rows'
    from the PGAT-tp runs' counts at the shard's heads, `launches_by_heads`,
-   over both runs and ranks),
+   over both runs and ranks; the `[native_loader]` rows, PGAT's K1-K4
+   entries again, from the native_loader phase's native run),
    then the card's nvidia-smi line, and last `{"ok": true, "device":
    {...}}`.
 
@@ -336,15 +355,21 @@ def phase_device() -> dict:
 
 
 def phase_build() -> None:
+    from taxoexpan_torch import native
     from taxoexpan_torch.ops import cuda_build
     t0 = time.time()
     logs = cuda_build.build_all()
     ptxas = {name: [ln.strip() for ln in text.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, text in logs.items()}
-    emit("build", seconds=round(time.time() - t0, 3),
+    t1 = time.time()
+    # the native sampler (g++), which the loaders' "auto" backend then
+    # takes in every phase; a failed build raises here
+    library = native.build()
+    emit("build", seconds=round(t1 - t0, 3),
          sources=[f"taxoexpan_torch/ops/csrc/{n}.cu" for n in logs],
-         ptxas=ptxas)
+         ptxas=ptxas, native_sampler=str(library.relative_to(REPO)),
+         native_sampler_s=round(time.time() - t1, 3))
 
 
 def load_config(name: str) -> dict:
@@ -2553,6 +2578,329 @@ def phase_tp_training(device, num_nodes: int, seed: int,
     return res
 
 
+# the native_loader phase: the synthetic v2 benchmark of
+# artifacts/DIFFICULTY_CURVE.md at its settings, trained at config.mag.json's
+# full width for two epochs with sampled validation, once a backend
+NATIVE_DATA = ("--v2", "--nodes", "30000", "--dim", "250", "--max_children",
+               "40", "--seed", "42", "--noise", "1.0")
+NATIVE_EPOCHS = 2
+NATIVE_BACKENDS = ("native", "python")
+
+
+@contextlib.contextmanager
+def recorded_batches(log: list):
+    """Every batch a GroupBatchLoader builds in the block (either backend),
+    as (its sampler, its queries, the batch), on the loaders' threads."""
+    from taxoexpan_torch.data.loader import GroupBatchLoader
+    build = GroupBatchLoader._build_batch
+
+    def recording(self, queries):
+        batch = build(self, queries)
+        log.append((self.sampler, list(queries), batch))
+        return batch
+
+    GroupBatchLoader._build_batch = recording
+    try:
+        yield
+    finally:
+        GroupBatchLoader._build_batch = build
+
+
+def native_invariants(records: list) -> dict:
+    """tests/test_native_sampler.py's invariants on every recorded batch
+    (:24-53 for the train layout, :117-155 for the validation layout), and
+    the slot layout: ids in range, ngp <= max_parents, nsib <=
+    expand_factor, the slots past them and the padded groups empty; a
+    train group's positive (a true parent) in column 0 and its negatives
+    train positions outside the query's masks (where the unmasked pool is
+    large enough that the sampler's 10-try refill cannot have given up,
+    :44-47); a validation group's positives (every true parent, in order)
+    leading, then at least one negative, contiguous, unmasked; no positive
+    egonet lists its query among the siblings. Returns the batches and
+    groups checked by mode."""
+    import numpy as np
+    checked = {}
+    for s, queries, b in records:
+        p, k = s.max_parents, s.expand_factor
+        ids, ngp, nsib = b.ego.node_ids, b.ego.ngp, b.ego.nsib
+        g, c = len(queries), b.labels.shape[1]
+        where = f"{s.mode} batch of queries {queries[:3]}..."
+        if ids.shape != (b.labels.shape[0] * c, p + 1 + k):
+            raise AssertionError(f"{where}: node_ids {ids.shape}")
+        if ids.min() < 0 or ids.max() >= s.taxonomy.num_nodes:
+            raise AssertionError(f"{where}: ids out of range")
+        if (ngp < 0).any() or (ngp > p).any() or (nsib < 0).any() \
+                or (nsib > k).any():
+            raise AssertionError(f"{where}: ngp / nsib out of range")
+        if ids[:, :p][np.arange(p)[None] >= ngp[:, None]].any() or \
+                ids[:, p + 1:][np.arange(k)[None] >= nsib[:, None]].any():
+            raise AssertionError(f"{where}: a slot past ngp / nsib is set")
+        if b.cand_mask[g:].any() or b.labels[g:].any():
+            raise AssertionError(f"{where}: a padded group holds "
+                                 "candidates")
+        anchors = ids[:, p].reshape(-1, c)[:g].tolist()
+        labels, mask = b.labels[:g], b.cand_mask[:g]
+        if s.sampling_mode == 1 and not (
+                mask.all() and (labels[:, 0] == 1).all()
+                and (labels[:, 1:] == 0).all()):
+            raise AssertionError(f"{where}: train labels / cand_mask")
+        mp = s.max_query_parents
+        for gi, q in enumerate(queries):
+            row, masks = anchors[gi], s.node2masks[q]
+            parents = s.node2parents[q]
+            if s.sampling_mode == 1:
+                npos, negs = 1, row[1:]
+                if row[0] not in parents:
+                    raise AssertionError(f"{where}: query {q}'s positive "
+                                         f"{row[0]} is not a parent")
+                check_masks = len(s.all_positions) - len(masks) >= \
+                    10 * s.negative_size
+            else:
+                npos = len(parents)
+                negs_at = np.flatnonzero(mask[gi, mp:])
+                if not ((labels[gi, :npos] == 1).all()
+                        and (labels[gi, npos:] == 0).all()
+                        and mask[gi, :npos].all()
+                        and not mask[gi, npos:mp].any()
+                        and row[:npos] == parents and len(negs_at)
+                        and (negs_at == np.arange(len(negs_at))).all()):
+                    raise AssertionError(f"{where}: query {q}'s group "
+                                         "layout")
+                negs, check_masks = row[mp:mp + len(negs_at)], True
+            for j in range(npos):
+                r = gi * c + j
+                if (ids[r, p + 1:p + 1 + nsib[r]] == q).any():
+                    raise AssertionError(f"{where}: query {q} among its "
+                                         "positive's siblings")
+            for a in negs:
+                if a not in s.all_positions or (check_masks and a in masks):
+                    raise AssertionError(f"{where}: query {q}'s negative "
+                                         f"{a} is masked or no position")
+        n = checked.setdefault(s.mode, {"batches": 0, "groups": 0})
+        n["batches"] += 1
+        n["groups"] += g
+    return checked
+
+
+def layouts_equal(native: list, python: list) -> dict:
+    """The native and Python runs' batches where both are deterministic,
+    batch for batch in the loaders' (equally seeded) order: the queries,
+    labels and cand_mask of every group (a validation group's positive
+    columns), the positive anchors and their grandparent slots."""
+    import numpy as np
+    compared = {}
+    for mode in ("train", "validation"):
+        nat = [r for r in native if r[0].mode == mode]
+        py = [r for r in python if r[0].mode == mode]
+        if len(nat) != len(py):
+            raise AssertionError(f"{mode}: {len(nat)} native batches, "
+                                 f"{len(py)} Python ones")
+        for (s, qn, bn), (_s, qp, bp) in zip(nat, py):
+            c = bn.labels.shape[1]
+            mp = 1 if s.sampling_mode == 1 else s.max_query_parents
+            cols = slice(None) if s.sampling_mode == 1 else slice(0, mp)
+            pos = bn.cand_mask[:, :mp]
+            rows = (np.arange(bn.labels.shape[0])[:, None] * c
+                    + np.arange(mp)[None])[pos]
+            head = slice(0, s.max_parents + 1)   # grandparents, anchor
+            same = (qn == qp
+                    and np.array_equal(bn.labels, bp.labels)
+                    and np.array_equal(bn.cand_mask[:, cols],
+                                       bp.cand_mask[:, cols])
+                    and np.array_equal(bn.ego.ngp[rows], bp.ego.ngp[rows])
+                    and np.array_equal(bn.ego.node_ids[rows, head],
+                                       bp.ego.node_ids[rows, head]))
+            if not same:
+                raise AssertionError(f"{mode}: the native and Python "
+                                     f"layouts differ (queries {qn[:3]}...)")
+        compared[mode] = len(nat)
+    return compared
+
+
+def simple_mlp_card(data: Path, device) -> dict:
+    """The simple_mlp baseline (DeepAPGMLP: every layer of the family) on
+    the card against its CPU run on `data`, from the same seeded init at
+    dropout 0: the eval-mode scores of 3 test queries against 4096
+    candidates and one 64-edge batch's loss within 1e-5, every grad within
+    1e-5 of its leaf's largest value (float32 GEMMs in another order);
+    then `python -m taxoexpan_torch.baselines.simple_mlp` (its main, one
+    epoch with dropout, on the card) to finite metrics."""
+    import numpy as np
+    import torch
+    from taxoexpan_torch.baselines import simple_mlp
+    from taxoexpan_torch.data.taxonomy import Taxonomy
+    from taxoexpan_torch.tree import tree_leaves
+    taxo = Taxonomy.load(str(data))
+    runs = [simple_mlp.SimpleMLPBaseline(taxo, model="DeepAPGMLP", device=d)
+            for d in ("cpu", device)]
+    cand = np.asarray(taxo.train_node_ids[:4096], np.int32)
+    sets = [runs[0]._sets_for(int(a), -1) for a in cand]
+    sibs = np.asarray([s for s, _ in sets], np.int32)
+    gps = np.asarray([g for _, g in sets], np.int32)
+    err = {"scores": 0.0, "grads_rel": 0.0}
+    for q in taxo.test_node_ids[:3]:
+        cpu, card = (b.scores(cand, sibs, gps, int(q)) for b in runs)
+        err["scores"] = max(err["scores"], float(np.abs(card - cpu).max()))
+        if not np.allclose(card, cpu, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"simple_mlp scores of query {q}: card "
+                                 f"vs CPU {np.abs(card - cpu).max()}")
+    batch = runs[0]._sample_batch(runs[0].train_edges[:64])
+    losses, grads = [], []
+    for b in runs:
+        b.model.drop = 0.0
+        loss = b.loss(*batch)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append([p.grad.cpu() for p in
+                      tree_leaves(b.model.param_tree())])
+    err["loss"] = abs(losses[1] - losses[0])
+    if err["loss"] > 1e-5 * abs(losses[0]):
+        raise AssertionError(f"simple_mlp loss: card {losses[1]} vs CPU "
+                             f"{losses[0]}")
+    for got, want in zip(grads[1], grads[0]):
+        rel = float((got - want).abs().max() / want.abs().max())
+        err["grads_rel"] = max(err["grads_rel"], rel)
+        if rel > 1e-5:
+            raise AssertionError(f"simple_mlp grads: card vs CPU {rel} of "
+                                 "the leaf's largest")
+    del runs, grads
+    t0 = time.time()
+    metrics = simple_mlp.main(["--data", str(data), "--model", "DeepAPGMLP",
+                               "--epochs", "1", "-d", device.type])
+    torch.cuda.synchronize()
+    bad = {k: v for k, v in metrics.items()
+           if isinstance(v, float) and not np.isfinite(v)}
+    if bad:
+        raise AssertionError(f"simple_mlp metrics not finite: {bad}")
+    res = {"model": "DeepAPGMLP", "vs_cpu": err, "card_run_s":
+           time.time() - t0, "metrics": metrics}
+    emit("simple_mlp", card=nvidia_smi_line(), **res)
+    return res
+
+
+def phase_native_loader(device) -> dict:
+    """The host data path: `python -m taxoexpan_torch.train` (its main, in
+    this process) at config.mag.json's full width on a dataset the port
+    makes itself (`tools.make_synthetic_dataset --v2`, 30000 nodes, dim
+    250, the settings of artifacts/DIFFICULTY_CURVE.md), 128 groups x 32
+    candidates = 4096 egonets a step, two epochs with sampled validation
+    (128 groups x 257 candidates a batch), once with loader backend
+    "native" (the C++ sampler, built by phase_build) and once "python",
+    same seed, the trainer's profiler window on (batches 10-15 of epoch
+    1), the launch counters set to 0 just before each run and read just
+    after. Checks: each epoch's log names the backend it ran; a finite
+    loss that falls from epoch 1 to 2; K1t, K3t, K2, K4 and (in the
+    validation) K1 and K3 launched by both runs; the invariants of every
+    native batch (`native_invariants`); the native and Python batches
+    equal where both are deterministic (`layouts_equal`). Then
+    `tools.sampler_bench` on the same dataset, and the simple_mlp
+    baseline on the card against the CPU (`simple_mlp_card`). One line a
+    backend: per
+    epoch wait_s, step_s, valid_s and egonets/s, epoch 2's median step,
+    the window's device idle share."""
+    import numpy as np
+    import torch
+    from taxoexpan_torch import train as train_cli
+    from taxoexpan_torch.ops import gat_kernels as gk
+    from taxoexpan_torch.reference_scale_run import epoch_split
+    from taxoexpan_torch.tools import make_synthetic_dataset, sampler_bench
+
+    wrappers, required = _train_wrappers("PGAT")
+    required += tuple(_eval_wrappers("PGAT"))
+    runs, batches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        data = work / "mag_v2_30000.pickle.bin"
+        t0 = time.time()
+        taxonomy = make_synthetic_dataset.main(
+            ["--out", str(data), *NATIVE_DATA])
+        data_s = time.time() - t0
+        for backend in NATIVE_BACKENDS:
+            run = work / backend
+            cfg = load_config("config.mag.json")
+            for loader in ("train_data_loader", "validation_data_loader",
+                           "test_data_loader"):
+                cfg[loader]["args"].update(
+                    data_path=str(data), max_parents=MAG_P,
+                    expand_factor=MAG_S, backend=backend)
+            cfg["trainer"].update(epochs=NATIVE_EPOCHS,
+                                  save_dir=str(run / "saved"),
+                                  full_validation_every=0,
+                                  tensorboardX=False, step_timing=True)
+            run.mkdir()
+            (run / "config.json").write_text(json.dumps(cfg))
+            config = train_cli.parse_args(["-c", str(run / "config.json")])
+            trainer_cls = train_cli.Trainer
+
+            class ProfiledTrainer(trainer_cls):
+                """The CLI's trainer with its profiler window on."""
+
+                def __init__(self, *args, **kwargs):
+                    super().__init__(*args, profile_dir=run / "profile",
+                                     **kwargs)
+
+            batches[backend] = []
+            reset_counters()
+            t0 = time.time()
+            train_cli.Trainer = ProfiledTrainer
+            try:
+                with recorded_batches(batches[backend]):
+                    log = train_cli.main(config)
+            finally:
+                train_cli.Trainer = trainer_cls
+            torch.cuda.synchronize()
+            train_s = time.time() - t0
+            launches = path_launches("PGAT", wrappers)
+            epochs = epoch_split((config.log_dir / "info.log").read_text())
+            runs[backend] = {
+                "backend": backend, "card": nvidia_smi_line(),
+                "nodes": taxonomy.num_nodes, "train_s": train_s,
+                "epochs": [{k: row.get(k) for k in (
+                    "epoch", "loader", "loss", "wait_s", "step_s", "sync_s",
+                    "valid_s", "egonets_per_sec", "epoch_seconds")}
+                    for row in epochs],
+                "steps_last_epoch": len(log.get("step_ms", [])),
+                "median_step_ms_last_epoch": float(np.median(
+                    log["step_ms"])),
+                "val_macro_mr_last_epoch": log.get("val_macro_mr"),
+                "profile": trace_split(run / "profile" / "trace.json"),
+                "launches": launches}
+            # ---- checks of the run
+            if [row.get("loader") for row in epochs] != \
+                    [backend] * NATIVE_EPOCHS:
+                raise AssertionError(f"{backend} run: epochs ran on "
+                                     f"{[r.get('loader') for r in epochs]}")
+            losses = [row["loss"] for row in epochs]
+            if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+                raise AssertionError(f"{backend} run: losses {losses}")
+            for name in required:
+                if launches[name] <= 0:
+                    raise AssertionError(f"{backend} run never launched "
+                                         f"{name}")
+            emit("native_loader", **{k: v for k, v in runs[backend].items()
+                                     if k != "profile"},
+                 device_idle_share=runs[backend]["profile"][
+                     "device_idle_share"],
+                 profile_window_ms=runs[backend]["profile"]["wall_ms"])
+        invariants = native_invariants(batches["native"])
+        compared = layouts_equal(batches["native"], batches["python"])
+        del batches
+        bench = sampler_bench.main(["--data", str(data)])
+        mlp = simple_mlp_card(data, device)
+    res = {"card": nvidia_smi_line(), "dataset_s": data_s,
+           "simple_mlp": mlp,
+           "native_invariants": invariants, "layouts_compared": compared,
+           "sampler_bench": bench,
+           "median_step_ms_last_epoch": {
+               b: runs[b]["median_step_ms_last_epoch"] for b in runs},
+           "device_idle_share": {
+               b: runs[b]["profile"]["device_idle_share"] for b in runs},
+           "wait_s": {b: [e["wait_s"] for e in runs[b]["epochs"]]
+                      for b in runs}}
+    emit("native_loader_summary", **res)
+    return runs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2617,6 +2965,13 @@ def run_paths(device) -> list[dict]:
         device, TRAIN_NODES, SEED, training["PGAT"]["median_step_ms"])
     tp = phase_tp_training(device, TRAIN_NODES, SEED,
                            training["PGAT"]["median_step_ms"])
+    # the host data path: PGAT's kernels again, driven through the native
+    # loader (their entries below read that run's launches)
+    native_runs = phase_native_loader(device)
+    training["PGAT-native"] = {"launches": native_runs["native"]["launches"]}
+    records += [dict(rec, name=rec["name"] + "[native_loader]",
+                     path="PGAT-native")
+                for rec in records if rec["path"] == "PGAT"]
     # the TP rows: each wrapper's launches at the shard's heads in the TP
     # runs, by dtype (float32 runs: the bf16 rows read 0); the pooled TP
     # form's rows read the pooled wrappers' count there (config.mag.json's

@@ -8,6 +8,8 @@ taxoexpan_torch.infer`, and the training path (PGAT with dropout, InfoNCE,
 AMSGrad, the trainer) behind `python -m taxoexpan_torch.train`, also as
 several data-parallel processes with the row-partitioned feature table
 (`parallel/`), on hand-written CUDA kernels for the GAT and GCN layers'
-forwards and backwards and for the halo gather.
+forwards and backwards and for the halo gather; the loader's native C++
+sampler (`native/`), the dataset tools (`generate_dataset_binary`,
+`tools/`) and the baselines (`baselines/`).
 Entry points run on CUDA unless the caller asks for the CPU.
 """

@@ -67,12 +67,16 @@ def build_model(arch_cfg: dict, *, max_parents: int,
 
 def build_loader(sampler: MaskedGraphSampler, loader_cfg: dict,
                  seed: int = 0) -> GroupBatchLoader:
+    """The loader of a `*_data_loader.args` block; its port-only key
+    `backend` ("auto" when absent, as the JAX package's loader) picks the
+    sampler backend."""
     return GroupBatchLoader(
         sampler,
         batch_size=loader_cfg.get("batch_size", 32),
         shuffle=loader_cfg.get("shuffle", True),
         seed=seed,
-        prefetch=min(int(loader_cfg.get("num_workers", 2)) or 0, 4))
+        prefetch=min(int(loader_cfg.get("num_workers", 2)) or 0, 4),
+        backend=loader_cfg.get("backend", "auto"))
 
 
 def build_optimizer_from_config(opt_cfg: dict,

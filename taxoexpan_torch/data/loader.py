@@ -10,19 +10,28 @@ Group layouts (static across an epoch):
 
 The final partial batch is padded with empty groups (cand_mask all False);
 losses and metrics ignore them. Batches are built on a background prefetch
-thread. The JAX package's native C++ sampler (`taxoexpan_tpu/native`) is
-not ported: `backend="native"` raises, "auto" is the Python backend.
+thread.
+
+Backends: "native" fills each batch in one call of the C++ sampler
+(`taxoexpan_torch/native`, built with g++ at first use) and raises if the
+library cannot be built; "auto" (the default, as in the JAX package) takes
+it wherever it builds and the Python sampler otherwise; "python" is the
+Python sampler. `loader.backend` says which one the loader took.
 """
 from __future__ import annotations
 
+import logging
 import queue
 import random
 import threading
 
 import numpy as np
 
-from .egobatch import GroupBatch, make_ego_batch
+from .. import native
+from .egobatch import EgoBatch, GroupBatch, make_ego_batch
 from .sampler import MaskedGraphSampler
+
+logger = logging.getLogger(__name__)
 
 
 class GroupBatchLoader:
@@ -40,14 +49,25 @@ class GroupBatchLoader:
                 "ranking")
         if backend not in ("auto", "native", "python"):
             raise ValueError(f"unknown loader backend {backend!r}")
-        if backend == "native":
-            raise ValueError("the native C++ sampler is not ported; use "
-                             "backend='python' (or 'auto')")
         self.sampler = sampler
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.rng = random.Random(seed)
         self.prefetch = prefetch
+        # the native sampler for the train layout (sampling_mode 1) and
+        # the validation layout (sampling_mode 0)
+        self.native = None
+        if backend != "python":
+            try:
+                native.get_lib()
+            except RuntimeError as e:
+                if backend == "native":
+                    raise
+                logger.info("loader backend auto: the native sampler did "
+                            "not build, using the Python sampler (%s)", e)
+            else:
+                self.native = native.NativeSampler(sampler, seed=seed)
+        self.backend = "python" if self.native is None else "native"
         if sampler.sampling_mode == 1:
             self.max_pos = 1
         else:
@@ -56,7 +76,31 @@ class GroupBatchLoader:
         self.num_queries = len(sampler)
         self.num_batches = -(-self.num_queries // self.batch_size)
 
+    def _build_batch_native(self, queries: list[int]) -> GroupBatch:
+        s = self.sampler
+        g, c = self.batch_size, self.group_size
+        n = s.max_parents + 1 + s.expand_factor
+        q = np.asarray(queries, dtype=np.int32)
+        sample = self.native.sample_train_batch if s.sampling_mode == 1 \
+            else self.native.sample_eval_batch
+        node_ids, ngp, nsib, labels, cand_mask = sample(q)
+        pad = g - len(queries)
+        if pad:                     # pad the final batch with empty groups
+            node_ids = np.vstack([node_ids,
+                                  np.zeros((pad * c, n), np.int32)])
+            ngp = np.concatenate([ngp, np.zeros(pad * c, np.int32)])
+            nsib = np.concatenate([nsib, np.zeros(pad * c, np.int32)])
+            labels = np.vstack([labels, np.zeros((pad, c), np.float32)])
+            cand_mask = np.vstack([cand_mask, np.zeros((pad, c), bool)])
+        query_ids = np.zeros((g,), np.int32)
+        query_ids[:len(queries)] = q
+        ego = EgoBatch(node_ids=node_ids, ngp=ngp, nsib=nsib)
+        return GroupBatch(ego=ego, query_ids=query_ids, query_feats=None,
+                          labels=labels, cand_mask=cand_mask)
+
     def _build_batch(self, queries: list[int]) -> GroupBatch:
+        if self.native is not None:
+            return self._build_batch_native(queries)
         s = self.sampler
         g, c = self.batch_size, self.group_size
         labels = np.zeros((g, c), dtype=np.float32)

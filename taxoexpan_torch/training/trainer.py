@@ -449,7 +449,10 @@ class Trainer:
                "edges_per_sec": round(n_edges / dt, 1),
                "timing": {"wait_s": round(t_wait, 2),
                           "step_s": round(t_step, 2),
-                          "sync_s": round(t_sync, 2)}}
+                          "sync_s": round(t_sync, 2),
+                          # the sampler backend the loader took
+                          "loader": getattr(self.train_loader, "backend",
+                                            None)}}
         if step_s:
             log["step_ms"] = [round(1e3 * s, 3) for s in step_s]
         if overflow:

@@ -38,9 +38,10 @@ the projection alone) at din 33 / 250 / 500 (not all multiples of 8), Dout
 several split-K splits and a batch of empty egonets, and its
 differentiable layer against the CPU; the shapes head tensor parallelism
 over mp = 2 gives K1-K4 (config.mag.json's layer 0 at 2 of its 4 heads,
-a pooled layer at 2 of 4 heads), in float32 and bf16; and one train step
+a pooled layer at 2 of 4 heads), in float32 and bf16; one train step
 of config.mag.json's PGAT at full width free of host syncs (CUDA's sync
-debug mode "error").
+debug mode "error"); and the simple_mlp baselines on the card against
+their CPU runs.
 
 Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the card:
 
@@ -1109,3 +1110,50 @@ def test_train_step_makes_no_host_sync(dev, tmp_path):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(loss))
+
+
+def test_simple_mlp_on_card_matches_cpu(dev):
+    """The simple_mlp baselines on the card against their CPU runs from
+    the same parameters (the same seeded init), at dropout 0: the sampled
+    batch, the eval-mode scores of a test query against every candidate
+    and the batch loss within 1e-5, every grad within 1e-5 of its leaf's
+    largest value (float32 GEMMs, cuBLAS against the CPU's, sums in
+    another order); then a few Adam steps on the card with dropout, a
+    finite loss and finite metrics."""
+    from taxoexpan_torch.baselines import simple_mlp
+    from taxoexpan_torch.data.synthetic import synthetic_taxonomy
+    from taxoexpan_torch.tree import tree_leaves
+    taxo = synthetic_taxonomy(num_nodes=300, dim=16, seed=3)
+    for kind in simple_mlp.MODELS:
+        runs = [simple_mlp.SimpleMLPBaseline(taxo, model=kind, device=d,
+                                             negative_size=4, lr=1e-2)
+                for d in ("cpu", dev)]
+        batches = [b._sample_batch(b.train_edges[:16]) for b in runs]
+        for got, want in zip(*batches):
+            np.testing.assert_array_equal(got, want)
+        cand = np.asarray(taxo.train_node_ids, np.int32)
+        sets = [runs[0]._sets_for(int(a), -1) for a in cand]
+        sibs = np.asarray([s for s, _ in sets], np.int32)
+        gps = np.asarray([g for _, g in sets], np.int32)
+        q = int(taxo.test_node_ids[0])
+        scores = [b.scores(cand, sibs, gps, q) for b in runs]
+        np.testing.assert_allclose(scores[1], scores[0], rtol=1e-5,
+                                   atol=1e-5)
+        losses, grads = [], []
+        for b in runs:
+            b.model.drop = 0.0
+            loss = b.loss(*batches[0])
+            loss.backward()
+            losses.append(float(loss.detach()))
+            grads.append([p.grad.cpu() for p in
+                          tree_leaves(b.model.param_tree())])
+        np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+        for got, want in zip(grads[1], grads[0]):
+            scale = float(want.abs().max())
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                       atol=1e-5 * scale + 1e-12)
+        card = runs[1]
+        card.model.drop = simple_mlp.DROP
+        assert np.isfinite(card.train(epochs=1, batch_size=64,
+                                      log=lambda *_: None)).all()
+        assert np.isfinite(card.evaluate()["macro_mr"])

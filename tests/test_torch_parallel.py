@@ -265,7 +265,9 @@ def test_two_rank_cli_matches_jax_dp_trainer(tmp_path):
     equals the single-process ranker's on the trained params."""
     taxo = j_synth(num_nodes=150, dim=16, seed=3)
     taxo.save(str(tmp_path / "data.pickle.bin"))
-    loader = dict(LOADER, data_path=str(tmp_path / "data.pickle.bin"))
+    # the port's ranks on the Python sampler, as the JAX loader below
+    loader = dict(LOADER, data_path=str(tmp_path / "data.pickle.bin"),
+                  backend="python")
     config = {
         "name": "dp", "seed": 0,
         "arch": {"type": "TaxoExpan", "args": ARCH},

@@ -425,7 +425,9 @@ def tp_cli(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp_cli")
     taxo = j_synth(num_nodes=150, dim=16, seed=3)
     taxo.save(str(tmp / "data.pickle.bin"))
-    loader = dict(LOADER, data_path=str(tmp / "data.pickle.bin"))
+    # the port's ranks on the Python sampler, as the JAX loader below
+    loader = dict(LOADER, data_path=str(tmp / "data.pickle.bin"),
+                  backend="python")
     config = {
         "name": "tp", "seed": 0,
         "arch": {"type": "TaxoExpan", "args": CLI_ARCH},

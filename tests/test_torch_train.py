@@ -191,7 +191,7 @@ def test_loader_batches_equal_jax(taxonomies, mode, cfg):
     js = jbuilders.build_sampler(jt, cfg, mode)
     ts = tbuilders.build_sampler(tt, cfg, mode)
     jl = JLoader(js, batch_size=cfg["batch_size"], seed=2, backend="python")
-    tl = tbuilders.build_loader(ts, cfg, seed=2)
+    tl = tbuilders.build_loader(ts, dict(cfg, backend="python"), seed=2)
     n = 0
     for jb, tb in zip(jl, tl):
         for name in ("labels", "cand_mask", "query_ids"):
