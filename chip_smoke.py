@@ -581,15 +581,66 @@ def pass_split(kernel, which: str, calls: int = 3) -> dict:
     `calls` calls, from CUDA events the kernel library records between its
     launches: which = "gat_fwd" (K1 / K3: stage and pack, projection, star
     or pooled star pass), "gat_bwd" (K2 / K4: stage and pack, projection,
-    head core, slot-bias sums, dW, dx), "gcn_fwd" (K5f: stage and pack,
-    projection, star pass) or "gcn_bwd" (K5b: stage and pack, projection,
-    the dz pass, the db / d z_bias sums, dW, dx)."""
+    head core, slot-bias sums, dW, dx), "gat_bwd_bf16" (their bf16 forms:
+    stage and pack, with K4's valid rows counted and compacted; projection;
+    the head core writing D in bf16; the reduction of its slot-bias
+    partials; dW; dx), "gcn_fwd" (K5f: stage and pack, projection, star
+    pass) or "gcn_bwd" (K5b: stage and pack, projection, the dz pass, the
+    db / d z_bias sums, dW, dx)."""
     from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.ops import gcn_kernels as ck
     fn = {"gat_fwd": gk.fwd_pass_ms, "gat_bwd": gk.bwd_pass_ms,
+          "gat_bwd_bf16": lambda call: gk.bwd_pass_ms(call, bf16=True),
           "gcn_fwd": ck.fwd_pass_ms, "gcn_bwd": ck.bwd_pass_ms}[which]
     runs = [fn(kernel) for _ in range(calls)]
     return {k: sum(r[k] for r in runs) / calls for k in runs[0]}
+
+
+def bwd_passes(x) -> str:
+    """The pass split of a star-GAT backward on x (`pass_split`)."""
+    import torch
+    return "gat_bwd_bf16" if x.dtype == torch.bfloat16 else "gat_bwd"
+
+
+def product_rates(x, ops, pe_pack, heads: int, ngp, nsib, passes: dict,
+                  backward: bool, pooled: bool, need_dx: bool) -> dict:
+    """The product passes of a bf16 star-GAT form (csrc/gemm_wgmma.cuh): for
+    the projection and, in a backward, dW (with its split reduction) and dx
+    (with the dpe sums), the rows it runs (all B*N, or K4's valid rows R),
+    its operations, its TFLOP/s from its pass ms, and one bf16
+    torch.matmul (cuBLAS) at the same shape on random operands as a
+    yardstick, not used by the port."""
+    import torch
+    b, n, din = x.shape
+    hd = ops[0].shape[1]
+    pos = pe_pack[0].shape[1] if pe_pack else 0
+    kx, wd = din + pos, hd + 2 * heads
+    valid = int((ngp.long() + 1 + nsib.long()).sum())
+    rows = valid if backward and pooled else b * n
+    shapes = {"projection": ((rows, kx), (kx, wd), False)}
+    if backward:
+        shapes["dw"] = ((rows, kx), (rows, wd), True)   # X^T @ D
+        cols = (din if need_dx else 0) + pos
+        if cols:
+            shapes["dx"] = ((rows, wd), (wd, cols), False)
+    out = {"rows": rows, "valid_rows": valid}
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    for name, (sa, sb, trans) in shapes.items():
+        a = torch.randn(sa, generator=gen, device=x.device,
+                        dtype=torch.bfloat16)
+        w = torch.randn(sb, generator=gen, device=x.device,
+                        dtype=torch.bfloat16)
+        mm, kk = (sa[1], sa[0]) if trans else sa
+        flops = 2.0 * mm * kk * sb[1]
+        lib_ms = time_ms((lambda: a.T @ w) if trans else (lambda: a @ w), 5)
+        ms = passes[name]
+        out[name] = {"m": mm, "k": kk, "n": sb[1], "gflop": flops / 1e9,
+                     "ms": ms, "tflops": flops / ms / 1e9,
+                     "cublas_ms": lib_ms,
+                     "cublas_tflops": flops / lib_ms / 1e9}
+        del a, w
+    torch.cuda.empty_cache()
+    return out
 
 
 def compare_grads(name: str, got: dict, want: dict) -> dict:
@@ -862,7 +913,11 @@ def phase_kernels(batch: int, device, drop: float,
             call += " in bf16"
         # every GAT form runs its products on the tensor cores
         got, nums = measure(name, kernel, plain, backward, matmul,
-                            "gat_bwd" if backward else "gat_fwd")
+                            bwd_passes(x) if backward else "gat_fwd")
+        if bf16:
+            nums["products"] = product_rates(
+                x, ops, pe_pack, heads, ngp, nsib, nums["passes_ms"],
+                backward, pooled, wrapper == "gat_layer_pooled_bwd")
         if pooled and not backward:
             nums["star_alone"] = pooled_star_alone(
                 name, x, ops, ngp, nsib, heads,
@@ -961,6 +1016,10 @@ def store_entries(tag: str, path: str, pooled: bool, x, ops, pe_pack,
     if pooled:
         nums["star_alone"] = pooled_star_alone(name + tag, x, ops, ngp, nsib,
                                                heads, train_kw, store=True)
+    if x.dtype == torch.bfloat16:
+        nums["products"] = product_rates(x, ops, pe_pack, heads, ngp, nsib,
+                                         nums["passes_ms"], False, pooled,
+                                         False)
     records = [gat_record(
         name + tag, name, path, False, x, fc, pe_pack, nums,
         fwd_work(pooled, x, ops, pe_pack, ngp, nsib, heads, out, attn),
@@ -974,8 +1033,12 @@ def store_entries(tag: str, path: str, pooled: bool, x, ops, pe_pack,
         name + tag, lambda: bwd_w(g, *ops_all, attn, need_dbias=False, **bkw),
         lambda: gk.gat_layer_bwd_plain(g, *ops_all, pooled=pooled,
                                        stored_attn=attn, **bkw),
-        True, lambda: x2.T @ d, "gat_bwd")
+        True, lambda: x2.T @ d, bwd_passes(x))
     del d
+    if x.dtype == torch.bfloat16:
+        nums["products"] = product_rates(x, ops, pe_pack, heads, ngp, nsib,
+                                         nums["passes_ms"], True, pooled,
+                                         need_dx)
     rel = stored_vs_recompute(name + tag, grads, recompute_w(
         g, *ops_all, need_dbias=False, **bkw))
     records.append(gat_record(
@@ -1032,6 +1095,10 @@ def phase_mtl_kernels(batch: int, device, drop: float) -> list[dict]:
                                      out_alpha=out_alpha),
             lambda: gk.gat_layer_fwd_plain(x, *ops, *args, heads, out_alpha),
             False, lambda: x2 @ ops[0], "gat_fwd")
+        if x.dtype == torch.bfloat16:
+            nums["products"] = product_rates(x, ops, None, heads, ngp, nsib,
+                                             nums["passes_ms"], False, False,
+                                             False)
         return got, gat_record(
             f"{name}{tag}", name, path, False, x, ops[0], None, nums,
             fwd_work(False, x, ops, None, ngp, nsib, heads, got),
@@ -1190,7 +1257,7 @@ def phase_tp_kernels(batch: int, device, drop: float) -> list[dict]:
             else:
                 matmul = lambda: x2 @ ops[0]  # noqa: E731
             got, nums = measure(name, kernel, plain, backward, matmul,
-                                "gat_bwd" if backward else "gat_fwd")
+                                bwd_passes(x) if backward else "gat_fwd")
             if backward:
                 del d
                 work = bwd_work(x, ops, pe_pack, g1 if pooled else g0, got,

@@ -9,10 +9,9 @@
 //                          16-byte multiples; else the products read x;
 //   pack_weights_kernel    W^T over the input columns the dx product needs;
 //   dW = X^T @ D           the tensor-core product (gemm_tf32.cuh's 3xTF32,
-//                          or in a bf16 layer gemm_bf16.cuh's bf16 on D
-//                          cast to bf16 once), A read M-major, split-K over
-//                          the rows, float32 partial sums per split in a
-//                          workspace;
+//                          or in a bf16 layer gemm_wgmma.cuh's bf16 on D in
+//                          bf16), A read M-major, split-K over the rows,
+//                          float32 partial sums per split in a workspace;
 //   reduce_scatter_kernel  adds the splits in a fixed order and scatters
 //                          the rows and column blocks into the weight grads
 //                          (the x rows' in the layer's element type, so
@@ -32,9 +31,14 @@
 // including file's own.
 #pragma once
 
-#include "gemm_bf16.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace gat {
+
+// Rows after the valid ones that a compacted operand holds as zeros (one
+// K tile of the bf16 product), so that the dW product's last K tile reads
+// zeros past the valid rows (gat_bwd.cu).
+constexpr int kRowPad = 64;
 
 // part[c][i] = sum over the egonets of chunk c of src[b][i], i < rw
 __global__ void colsum_partial_kernel(const float* __restrict__ src,
@@ -178,13 +182,17 @@ inline cudaError_t stage_and_pack(const OperandT<E>& op, const TrainArgs& ta,
 // wa2; wp | wpa1 | wpa2] with bias_ft, bias_a1, bias_a2, the product the
 // GAT star passes and K2's head core read; star-GCN (gcn.cu) W = [W_h;
 // W_p] with z_bias alone (bias_a1, bias_a2 null), z. P is float32 in
-// either element type (pallas_gat.py:289-291).
+// either element type (pallas_gat.py:289-291). bf16 only: with `rows`, the
+// m allocated rows of xm hold *rows valid rows (counted on the card, K4's
+// compaction in gat_bwd.cu), the original row of each in row_map.
 template <class E>
 inline cudaError_t gat_projection(const OperandT<E>& op, const E* xm,
                                   int kxp, const E* wcat, int wdp,
                                   const float* bias_ft, const float* bias_a1,
                                   const float* bias_a2, float* biascat,
-                                  float* proj, long long m, cudaStream_t st) {
+                                  float* proj, long long m, cudaStream_t st,
+                                  const int* rows = nullptr,
+                                  const int* row_map = nullptr) {
   pack_bias_kernel<<<grid_for((long long)op.n * wdp), 256, 0, st>>>(
       bias_ft, bias_a1, bias_a2, op.n, op.c1, op.c2, op.wd, wdp, biascat);
   cudaError_t err = cudaGetLastError();
@@ -196,12 +204,15 @@ inline cudaError_t gat_projection(const OperandT<E>& op, const E* xm,
   g.ldb = wdp;
   g.c = proj;
   g.ldc = wdp;
-  g.m = m;
+  g.m = rows != nullptr ? m + kRowPad : m;
+  g.c_rows = m;
   g.n = wdp;
   g.k = g.lda;
   g.k_chunk = g.lda;
   g.bias = biascat;
   g.bias_rows = op.n;
+  g.rows = rows;
+  g.row_map = row_map;
   return product<true, kEpiRowBias>(g, TrainArgs{}, 1, st);
 }
 
@@ -212,6 +223,9 @@ inline cudaError_t gat_projection(const OperandT<E>& op, const E* xm,
 //  - dx (need_dx) and the pe rows' grads pe_rows [m, pos] = (D @ W^T) *
 //    mask, then dpe [n, pos] = their sum over egonets via part_pe
 //    [chunks, n * pos].
+// bf16 only: with `rows`, X and D hold *rows valid rows of the m allocated
+// ones (zero rows after them up to a K tile), dx and pe_rows keep the
+// original rows (row_map) and are zero elsewhere (gat_bwd.cu).
 template <class E>
 inline cudaError_t product_grads(const OperandT<E>& op, const TrainArgs& ta,
                                  const E* d, int ldd, long long m,
@@ -219,10 +233,12 @@ inline cudaError_t product_grads(const OperandT<E>& op, const TrainArgs& ta,
                                  E* const dw[3], float* const dwp[3],
                                  int need_dx, E* dx, float* pe_rows,
                                  float* part_pe, float* dpe, PassMarks& mk,
-                                 cudaStream_t st) {
+                                 cudaStream_t st, const int* rows = nullptr,
+                                 const int* row_map = nullptr) {
   cudaError_t err;
   const int kx = op.din + ta.pos;
   const bool staged = work.xm != nullptr;
+  const long long rows_alloc = rows != nullptr ? m + kRowPad : m;
   GemmArgsT<E> g = {};
   g.a = staged ? work.xm : op.x;
   g.lda = staged ? work.kxp : op.din;
@@ -233,9 +249,10 @@ inline cudaError_t product_grads(const OperandT<E>& op, const TrainArgs& ta,
   g.c_split = (long long)kx * op.wd;
   g.m = kx;
   g.n = op.wd;
-  g.k = m;
+  g.k = rows_alloc;
   constexpr int bk = GemmTile<E, 4>::BK;
   g.k_chunk = ((m + work.splits - 1) / work.splits + bk - 1) / bk * bk;
+  g.rows = rows;
   err = product<false, kEpiStore>(g, ta, work.splits, st);
   if (err != cudaSuccess) return err;
   reduce_scatter_kernel<E><<<blocks_for((long long)kx * op.wd), kThreads, 0,
@@ -252,7 +269,7 @@ inline cudaError_t product_grads(const OperandT<E>& op, const TrainArgs& ta,
     x.lda = ldd;
     x.b = work.wt;
     x.ldb = work.ntp;
-    x.m = m;
+    x.m = rows_alloc;
     x.n = kx - kbeg;
     x.k = ldd;
     x.k_chunk = ldd;
@@ -260,6 +277,8 @@ inline cudaError_t product_grads(const OperandT<E>& op, const TrainArgs& ta,
     x.pe_rows = pe_rows;
     x.din = op.din;
     x.kbeg = kbeg;
+    x.rows = rows;
+    x.row_map = row_map;
     err = x.n <= kNarrowBN
               ? product<true, kEpiDx, true>(x, ta, 1, st)
               : product<true, kEpiDx>(x, ta, 1, st);

@@ -47,9 +47,9 @@
 //     tensor cores, skipped for the x columns when need_dx = 0; the pe
 //     columns always, masked and summed over egonets into dpe
 //     (pallas_gat.py:662-677).
-// Invalid slots are not skipped: every pass computes the TPU kernel's
-// formula on all N rows, so their grads are whatever the formula gives
-// (zero in K4, where the pool grads never reach them).
+// In the float32 form invalid slots are not skipped: every pass computes
+// the TPU kernel's formula on all N rows, so their grads are whatever the
+// formula gives (zero in K4, where the pool grads never reach them).
 //
 // What bounds it on an H100: the products. At the config.mag.json shapes
 // the projection is the forward's x @ fc (2 * B*64 * 300 * 2008 flop for
@@ -60,16 +60,35 @@
 // head, column tile); the head core reads P and writes Dcat, a pass bound
 // by bytes, at three blocks an SM for both.
 //
-// The bf16 form (pallas_gat.py with x in bf16): x, fc, wa1, wa2, K2's
-// incoming grad g and dx in bf16. Pass 0 stages X and packs W in bf16 and
-// runs the forward's bf16 projection on them, so P, leaky' and the softmax
-// have the forward's bits; the head core is unchanged (float32, g read as
-// float); after the slot-bias sums (float32, over Dcat) Dcat is cast to
-// bf16 once (pallas_gat.py:628-631) for the dW and dx products, bf16
-// tensor-core MMAs with float32 accumulation (gemm_bf16.cuh); split-K dW
-// partials float32 with the fixed-order reduce, then dfc, dwa1, dwa2
-// rounded to bf16 (:1097, :1289), the pe rows' grads float32; dx times its
-// float32 mask, rounded to bf16 (:647-651).
+// The bf16 form (pallas_gat.py with x in bf16; _bwd_kernel :507 and
+// _bwd_pool_kernel :680, their _bwd_head_core :442 and _bwd_epilogue
+// :607): x, fc, wa1, wa2, K2's incoming grad g and dx in bf16. Its passes
+// and what bounds each on an H100:
+//  0. X staged and W packed in bf16, then the forward's bf16 projection
+//     (gemm_wgmma.cuh: TMA-fed, warp-specialised wgmma), so P, leaky' and
+//     the softmax have the forward's bits. K4 (pooled) works on the valid
+//     rows alone: valid_row_offsets_kernel counts each egonet's valid
+//     slots (0..ngp, the anchor, p+1..p+nsib) and scans them on the card,
+//     stage_valid_rows_kernel stages those rows compacted (R of B*N, about
+//     half in the smoke's batch) with a row map, zeroes dx and the pe-row
+//     grads of the invalid rows (the pool grads never reach them,
+//     gat_kernels._star_plain), and the products read R from the card: no
+//     host sync. Bound by bytes (x read, X written) and, for the
+//     projection, by P's float32 bytes (2.1 GB at config.mag.json's layer
+//     0) more than by its operations.
+//  1. the head core as above, in float32 from P; it writes D once, in
+//     bf16, for the products (the reference casts once, pallas_gat.py:
+//     626-631), and with need_dbias adds D's float32 values into per-chunk
+//     slot-bias partial sums (a block walks a chunk of egonets for its
+//     head), as the reference sums its float32 buffers (:658-660): float32
+//     D never reaches device memory. Bound by bytes: P read (the head's
+//     columns), g read, D written in bf16.
+//  2. the slot-bias sums: the fixed-order reduction of those partials.
+//  3. dW = X^T @ D (bf16 wgmma, float32 split-K partials, the fixed-order
+//     reduce; dfc, dwa1, dwa2 rounded to bf16, :1097, :1289; the pe rows'
+//     grads float32) and 4. dx = (D @ W^T) * mask (the float32 mask, then
+//     bf16, :647-651; the pe columns float32, summed over egonets into
+//     dpe): bound by the tensor cores.
 
 #include "bwd_common.cuh"
 
@@ -92,9 +111,10 @@ struct BwdArgsT {
   const float* attn;     // stored softmax [b, heads, 2n - p - 1], or null
   float* dcat;           // workspace [b*n, wdp], wdp = heads*dh + 2*heads
                          // rounded up to a 16-byte multiple of E: the
-                         // projection P, then Dcat over it
+                         // projection P, then (float32) Dcat over it
   float* part_w;         // workspace [splits, din+pos, wd]
-  float* part_b;         // workspace [chunks, n, wdp] (need_dbias)
+  float* part_b;         // workspace [chunks, n, wdp] (need_dbias): the
+                         // slot-bias partial sums
   float* pe_rows;        // workspace [b*n, pos] (pos > 0)
   float* part_pe;        // workspace [chunks, n, pos] (pos > 0)
   E* dx;                 // [b, n, din] (need_dx)
@@ -108,11 +128,17 @@ struct BwdArgsT {
   float* dwp;            // [pos, heads*dh]
   float* dwpa1;          // [pos, heads]
   float* dwpa2;
-  E* xm;                 // workspace [b*n, kxp]: X staged, or null (read x)
+  E* xm;                 // workspace [b*n (+ kRowPad), kxp]: X staged (K4
+                         // bf16: the valid rows, compacted), or null
   E* wcat;               // workspace [kxp, wdp]: W for the projection
   E* wt;                 // workspace [wdp, ntp]: W^T for the dx product
   float* biascat;        // workspace [n, wdp]: the slot biases
-  E* dcat16;             // workspace [b*n, wdp]: Dcat in bf16 (bf16 only)
+  bf16* d16;             // bf16 only: workspace [b*n (+ kRowPad), wdp],
+                         // D = [dft | da1 | da2] in bf16 for the products
+  int* row_off;          // K4 bf16 only, else null: workspace [b + 1], the
+                         // egonets' first valid rows; [b] = R
+  int* row_map;          // K4 bf16 only: workspace [b*n + kRowPad], the
+                         // original row of each valid row
   int b, n, din, heads, dh, p;
   int pooled, need_dx, need_dbias, has_out_alpha, splits, chunks;
   int kxp, wdp, ntp;     // widths of the workspaces (16-byte multiples)
@@ -137,11 +163,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------- 1. head core
-// The head core's shared memory: the ft and grad tiles, a1 / a2, the
-// softmax weights, masks and d(weights) of the star, no product staging,
-// so that three blocks fit an SM.
+// The head core's shared memory: the rows of the slots, the ft and grad
+// tiles, a1 / a2, the softmax weights, masks and d(weights) of the star,
+// no product staging, so that three blocks fit an SM.
 __host__ __device__ inline size_t head_floats(int n) {
   return 2 * (size_t)n * kTileCols + 17 * (size_t)n;
+}
+
+// K4 bf16's row of each slot before them: n long longs, a 16-byte
+// multiple so that the tiles stay 16-byte aligned.
+__host__ __device__ inline size_t row_floats(int n) {
+  return 2 * (size_t)((n + 1) / 2 * 2);
 }
 
 __device__ __forceinline__ Smem carve_head(float* base, int n) {
@@ -162,43 +194,114 @@ __device__ __forceinline__ Smem carve_head(float* base, int n) {
   return s;
 }
 
-// K2 (kPooled = false) and K4 differ only in the incoming grad tile (K2's
-// in the layer's element type E, K4's pool grads float).
-template <bool kPooled, class E>
-__global__ void __launch_bounds__(kThreads, 3)
-gat_bwd_head_kernel(BwdArgsT<E> a, TrainArgs ta) {
-  extern __shared__ float4 smem4[];
+// The slot of row r in egonet b's valid rows (0..ngp-1 the grandparents,
+// ngp the anchor, then the siblings), or -1 for an invalid slot: a valid
+// egonet's slots are the two runs 0..ngp and p+1..p+nsib.
+__device__ __forceinline__ int valid_pos(int r, int ngp, int nsib, int p) {
+  if (r < p) return r < ngp ? r : -1;
+  if (r == p) return ngp;
+  return r - p - 1 < nsib ? ngp + 1 + (r - p - 1) : -1;
+}
+
+// One (egonet b, head h) of the head core. K2 (kPooled = false) and K4
+// differ only in the incoming grad tile (K2's in the layer's element type
+// E, K4's pool grads float). The float32 form writes D over P in place;
+// the bf16 form (kD16) writes D once, in bf16, to a.d16 and, with
+// need_dbias (kPart), adds its float32 values into the block's slot-bias
+// partial sums `part` [n, wdp] (= on the block's first egonet). With
+// kCompact (K4 bf16) P and D hold the valid rows alone, compacted: `rows`
+// (shared memory) gives each slot's row or -1, and ft, a1, a2 are taken
+// as 0 at an invalid slot, where the pool grads are 0 (the reference's
+// gp_mask / sib_mask, gat_kernels._star_plain): D is then exactly 0
+// there, as uncompacted.
+template <bool kPooled, class E, bool kPart, bool kCompact>
+__device__ __forceinline__ void head_egonet(const BwdArgsT<E>& a,
+                                            const TrainArgs& ta,
+                                            const Smem& s, long long* rows,
+                                            long long b, int h,
+                                            [[maybe_unused]] bool first,
+                                            [[maybe_unused]] float* part) {
+  constexpr bool kD16 = sizeof(E) == 2;
   const int n = a.n, p = a.p, heads = a.heads, dh = a.dh;
-  const Smem s = carve_head(reinterpret_cast<float*>(smem4), n);
-  const long long b = blockIdx.x / heads;
-  const int h = blockIdx.x % heads;
-  const int hd = heads * dh, ldd = a.wdp;
-  const int ngp = min(max(a.ngp[b], 0), p);
-  const int nsib = min(max(a.nsib[b], 0), n - p - 1);
+  const int hd = heads * dh, ldd = a.wdp, wd = hd + 2 * heads;
   const int ntiles = (dh + kTileCols - 1) / kTileCols;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float inv_h = 1.f / heads;
-  float* drow = a.dcat + (size_t)b * n * ldd;
   const float* gpool = static_cast<const float*>(a.g);
   const E* gslot = static_cast<const E*>(a.g);
+  const int ngp = min(max(a.ngp[b], 0), p);
+  const int nsib = min(max(a.nsib[b], 0), n - p - 1);
+  if constexpr (kCompact) {
+    const long long ob = a.row_off[b];
+    for (int r = tid; r < n; r += kThreads) {
+      const int q = valid_pos(r, ngp, nsib, p);
+      rows[r] = q < 0 ? -1 : ob + q;
+    }
+    __syncthreads();
+  }
+  float* drow = a.dcat + (size_t)b * n * ldd;
 
   for (int r = tid; r < n; r += kThreads) {  // a1 / a2 of the head from P
     s.d_self[r] = s.d_anchor[r] = s.d_to_anchor[r] = 0.f;
-    s.a1[r] = drow[(size_t)r * ldd + hd + h];
-    s.a2[r] = drow[(size_t)r * ldd + hd + heads + h];
+    if constexpr (kCompact) {
+      const long long pr = rows[r];
+      s.a1[r] = pr >= 0 ? a.dcat[(size_t)pr * ldd + hd + h] : 0.f;
+      s.a2[r] = pr >= 0 ? a.dcat[(size_t)pr * ldd + hd + heads + h] : 0.f;
+    } else {
+      s.a1[r] = drow[(size_t)r * ldd + hd + h];
+      s.a2[r] = drow[(size_t)r * ldd + hd + heads + h];
+    }
   }
-
   for (int t = 0; t < ntiles; ++t) {
     const int c0 = t * kTileCols;
     const int ncols = min(kTileCols, dh - c0);
     const int col0 = h * dh + c0;
     // the ft tile from P (bias included) and the incoming grad tile: K2's
-    // g; K4's three pool rows over the valid slots, times 1/heads
+    // g; K4's three pool rows over the valid slots, times 1/heads (the
+    // bf16 form 4 columns a thread where the head's width allows)
+    if (kD16 && dh % 4 == 0) {
+#pragma unroll 2
+      for (int e = tid; e < n * (kTileCols / 4); e += kThreads) {
+        const int r = e / (kTileCols / 4), c = 4 * (e % (kTileCols / 4));
+        float4 f = make_float4(0.f, 0.f, 0.f, 0.f), gv = f;
+        if (c < ncols) {
+          const long long pr = kCompact ? rows[r] : b * n + r;
+          if (pr >= 0)
+            f = *reinterpret_cast<const float4*>(
+                a.dcat + (size_t)pr * ldd + col0 + c);
+          if (kPooled) {
+            const bool valid =
+                r < p ? r < ngp : (r == p || r - p - 1 < nsib);
+            const int cls = r < p ? 0 : (r == p ? 1 : 2);
+            if (valid) {
+              gv = *reinterpret_cast<const float4*>(
+                  gpool + ((size_t)b * 3 + cls) * dh + c0 + c);
+              gv.x *= inv_h, gv.y *= inv_h, gv.z *= inv_h, gv.w *= inv_h;
+            }
+          } else {
+            const uint2 u = *reinterpret_cast<const uint2*>(
+                gslot + ((size_t)b * n + r) * hd + col0 + c);
+            const float2 lo = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+            const float2 hi = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+            gv = make_float4(lo.x, lo.y, hi.x, hi.y);
+          }
+        }
+        *reinterpret_cast<float4*>(s.ft + r * kTileCols + c) = f;
+        *reinterpret_cast<float4*>(s.g + r * kTileCols + c) = gv;
+      }
+    } else {
 #pragma unroll 4
     for (int e = tid; e < n * kTileCols; e += kThreads) {
       const int r = e / kTileCols, c = e % kTileCols;
       const bool in = c < ncols;
-      s.ft[e] = in ? drow[(size_t)r * ldd + col0 + c] : 0.f;
+      if constexpr (kCompact) {
+        const long long pr = rows[r];
+        s.ft[e] = in && pr >= 0 ? a.dcat[(size_t)pr * ldd + col0 + c] : 0.f;
+      } else {
+        s.ft[e] = in ? drow[(size_t)r * ldd + col0 + c] : 0.f;
+      }
       float gv = 0.f;
       if (kPooled) {
         const bool valid = r < p ? r < ngp : (r == p || r - p - 1 < nsib);
@@ -209,6 +312,7 @@ gat_bwd_head_kernel(BwdArgsT<E> a, TrainArgs ta) {
         gv = to_float(gslot[((size_t)b * n + r) * hd + col0 + c]);
       }
       s.g[e] = gv;
+    }
     }
     __syncthreads();
     if (t == 0) {
@@ -222,10 +326,50 @@ gat_bwd_head_kernel(BwdArgsT<E> a, TrainArgs ta) {
     }
     const float* fa = s.ft + p * kTileCols;
 
-    // K2: the grad through leaky'(pre) of the fused activation
+    // K2: the grad through leaky'(pre) of the fused activation (the bf16
+    // form 4 columns a thread where the head's width allows)
+    const bool quad = kD16 && dh % 4 == 0;
+    if (!kPooled && a.has_out_alpha && quad) {
+      for (int e = tid; e < n * (kTileCols / 4); e += kThreads) {
+        const int r = e / (kTileCols / 4), c = 4 * (e % (kTileCols / 4));
+        if (c >= ncols) continue;
+        const float4 f = *reinterpret_cast<const float4*>(
+            s.ft + r * kTileCols + c);
+        const float4 fa4 = *reinterpret_cast<const float4*>(fa + c);
+        float pre[4];
+        if (r < p) {
+          const float w = s.w_self[r];
+          pre[0] = w * f.x, pre[1] = w * f.y, pre[2] = w * f.z,
+          pre[3] = w * f.w;
+        } else if (r > p) {
+          const float wa = s.w_anchor[r], w = s.w_self[r];
+          pre[0] = wa * fa4.x + w * f.x, pre[1] = wa * fa4.y + w * f.y;
+          pre[2] = wa * fa4.z + w * f.z, pre[3] = wa * fa4.w + w * f.w;
+        } else {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+          for (int j = 0; j < ngp; ++j) {
+            const float wj = s.w_to_anchor[j];
+            const float4 fj = *reinterpret_cast<const float4*>(
+                s.ft + j * kTileCols + c);
+            acc[0] += wj * fj.x, acc[1] += wj * fj.y;
+            acc[2] += wj * fj.z, acc[3] += wj * fj.w;
+          }
+          const float w = s.w_self[p];
+          pre[0] = acc[0] + w * fa4.x, pre[1] = acc[1] + w * fa4.y;
+          pre[2] = acc[2] + w * fa4.z, pre[3] = acc[3] + w * fa4.w;
+        }
+        float4* gp = reinterpret_cast<float4*>(s.g + r * kTileCols + c);
+        float4 gv = *gp;
+        if (!(pre[0] >= 0.f)) gv.x *= a.out_alpha;
+        if (!(pre[1] >= 0.f)) gv.y *= a.out_alpha;
+        if (!(pre[2] >= 0.f)) gv.z *= a.out_alpha;
+        if (!(pre[3] >= 0.f)) gv.w *= a.out_alpha;
+        *gp = gv;
+      }
+    }
     for (int e = tid; e < n * kTileCols; e += kThreads) {
       const int r = e / kTileCols, c = e % kTileCols;
-      if (!kPooled && a.has_out_alpha && c < ncols) {
+      if (!kPooled && a.has_out_alpha && !quad && c < ncols) {
         float pre;
         if (r < p) {
           pre = s.w_self[r] * s.ft[r * kTileCols + c];
@@ -244,21 +388,111 @@ gat_bwd_head_kernel(BwdArgsT<E> a, TrainArgs ta) {
 
     // dft = the aggregation transposed
     const float* ga = s.g + p * kTileCols;
-#pragma unroll 4
-    for (int e = tid; e < n * kTileCols; e += kThreads) {
-      const int r = e / kTileCols, c = e % kTileCols;
-      if (c >= ncols) continue;
-      float v;
-      if (r < p) {
-        v = s.w_self[r] * s.g[r * kTileCols + c] + s.w_to_anchor[r] * ga[c];
-      } else if (r == p) {
-        v = s.w_self[p] * ga[c];
-        for (int i = p + 1; i < n; ++i)
-          v += s.w_anchor[i] * s.g[i * kTileCols + c];
-      } else {
-        v = s.w_self[r] * s.g[r * kTileCols + c];
+    if (quad) {
+      // four columns a thread, D written 8 bytes at a time
+      for (int e = tid; e < n * (kTileCols / 4); e += kThreads) {
+        const int r = e / (kTileCols / 4), c = 4 * (e % (kTileCols / 4));
+        if (c >= ncols) continue;
+        const float4 gr = *reinterpret_cast<const float4*>(
+            s.g + r * kTileCols + c);
+        const float4 ga4 = *reinterpret_cast<const float4*>(ga + c);
+        float v[4];
+        if (r < p) {
+          const float w = s.w_self[r], wt = s.w_to_anchor[r];
+          v[0] = w * gr.x + wt * ga4.x, v[1] = w * gr.y + wt * ga4.y;
+          v[2] = w * gr.z + wt * ga4.z, v[3] = w * gr.w + wt * ga4.w;
+        } else if (r == p) {
+          const float w = s.w_self[p];
+          v[0] = w * ga4.x, v[1] = w * ga4.y, v[2] = w * ga4.z,
+          v[3] = w * ga4.w;
+          for (int i = p + 1; i < n; ++i) {
+            const float wi = s.w_anchor[i];
+            const float4 gi = *reinterpret_cast<const float4*>(
+                s.g + i * kTileCols + c);
+            v[0] += wi * gi.x, v[1] += wi * gi.y;
+            v[2] += wi * gi.z, v[3] += wi * gi.w;
+          }
+        } else {
+          const float w = s.w_self[r];
+          v[0] = w * gr.x, v[1] = w * gr.y, v[2] = w * gr.z,
+          v[3] = w * gr.w;
+        }
+        const long long pr = kCompact ? rows[r] : b * n + r;
+        if (pr >= 0) {
+          __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+          __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+          uint2 pack;
+          pack.x = *reinterpret_cast<unsigned*>(&lo);
+          pack.y = *reinterpret_cast<unsigned*>(&hi);
+          *reinterpret_cast<uint2*>(a.d16 + (size_t)pr * ldd + col0 + c) =
+              pack;
+        }
+        if constexpr (kPart) {
+          float* q = part + (size_t)r * ldd + col0 + c;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) q[u] = first ? v[u] : q[u] + v[u];
+        }
       }
-      drow[(size_t)r * ldd + col0 + c] = v;
+    } else if constexpr (kD16) {
+      // two columns a thread: D written as bf16 pairs where aligned
+#pragma unroll 2
+      for (int e = tid; e < n * (kTileCols / 2); e += kThreads) {
+        const int r = e / (kTileCols / 2), c = 2 * (e % (kTileCols / 2));
+        if (c >= ncols) continue;
+        const float2 gr = *reinterpret_cast<const float2*>(
+            s.g + r * kTileCols + c);
+        float v0, v1;
+        if (r < p) {
+          v0 = s.w_self[r] * gr.x + s.w_to_anchor[r] * ga[c];
+          v1 = s.w_self[r] * gr.y + s.w_to_anchor[r] * ga[c + 1];
+        } else if (r == p) {
+          v0 = s.w_self[p] * ga[c];
+          v1 = s.w_self[p] * ga[c + 1];
+          for (int i = p + 1; i < n; ++i) {
+            const float2 gi = *reinterpret_cast<const float2*>(
+                s.g + i * kTileCols + c);
+            v0 += s.w_anchor[i] * gi.x;
+            v1 += s.w_anchor[i] * gi.y;
+          }
+        } else {
+          v0 = s.w_self[r] * gr.x;
+          v1 = s.w_self[r] * gr.y;
+        }
+        const bool two = c + 1 < ncols;
+        const long long pr = kCompact ? rows[r] : b * n + r;
+        if (pr >= 0) {
+          const size_t at = (size_t)pr * ldd + col0 + c;
+          if (two && at % 2 == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(a.d16 + at) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            a.d16[at] = from_float<bf16>(v0);
+            if (two) a.d16[at + 1] = from_float<bf16>(v1);
+          }
+        }
+        if constexpr (kPart) {
+          float* q = part + (size_t)r * ldd + col0 + c;
+          q[0] = first ? v0 : q[0] + v0;
+          if (two) q[1] = first ? v1 : q[1] + v1;
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int e = tid; e < n * kTileCols; e += kThreads) {
+        const int r = e / kTileCols, c = e % kTileCols;
+        if (c >= ncols) continue;
+        float v;
+        if (r < p) {
+          v = s.w_self[r] * s.g[r * kTileCols + c] + s.w_to_anchor[r] * ga[c];
+        } else if (r == p) {
+          v = s.w_self[p] * ga[c];
+          for (int i = p + 1; i < n; ++i)
+            v += s.w_anchor[i] * s.g[i * kTileCols + c];
+        } else {
+          v = s.w_self[r] * s.g[r * kTileCols + c];
+        }
+        drow[(size_t)r * ldd + col0 + c] = v;
+      }
     }
 
     // d(attention weight) partial sums over this tile's columns
@@ -337,8 +571,161 @@ gat_bwd_head_kernel(BwdArgsT<E> a, TrainArgs ta) {
   }
   __syncthreads();
   for (int r = tid; r < n; r += kThreads) {
-    drow[(size_t)r * ldd + hd + h] = s.da1[r];
-    drow[(size_t)r * ldd + hd + heads + h] = s.da2[r];
+    if constexpr (kD16) {
+      const long long pr = kCompact ? rows[r] : b * n + r;
+      if (pr >= 0) {
+        bf16* drow16 = a.d16 + (size_t)pr * ldd;
+        drow16[hd + h] = from_float<bf16>(s.da1[r]);
+        drow16[hd + heads + h] = from_float<bf16>(s.da2[r]);
+        if (h == 0)  // D's padding columns, zero for the dx product
+          for (int col = wd; col < ldd; ++col)
+            drow16[col] = from_float<bf16>(0.f);
+      }
+      if constexpr (kPart) {
+        float* q = part + (size_t)r * ldd;
+        q[hd + h] = first ? s.da1[r] : q[hd + h] + s.da1[r];
+        q[hd + heads + h] =
+            first ? s.da2[r] : q[hd + heads + h] + s.da2[r];
+      }
+    } else {
+      drow[(size_t)r * ldd + hd + h] = s.da1[r];
+      drow[(size_t)r * ldd + hd + heads + h] = s.da2[r];
+    }
+  }
+}
+
+// The head core: a block an (egonet, head), or with the slot-bias partial
+// sums (kPart) a (chunk of egonets, head) walking its chunk in order, its
+// partials part_b[chunk] [n, wdp] owned by it alone (a fixed order, no
+// atomics).
+template <bool kPooled, class E, bool kPart = false, bool kCompact = false>
+__global__ void __launch_bounds__(kThreads, 3)
+gat_bwd_head_kernel(BwdArgsT<E> a, TrainArgs ta) {
+  static_assert(sizeof(E) == 2 || !(kPart || kCompact),
+                "partial sums and compacted rows: the bf16 form only");
+  extern __shared__ float4 smem4[];
+  const int n = a.n, heads = a.heads, dh = a.dh;
+  // kCompact: P's (and D's) row of each slot, or -1 (an invalid slot)
+  long long* rows = reinterpret_cast<long long*>(smem4);
+  const Smem s = carve_head(
+      reinterpret_cast<float*>(smem4) + (kCompact ? row_floats(n) : 0), n);
+  const long long grp = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  if constexpr (!kPart) {
+    head_egonet<kPooled, E, false, kCompact>(a, ta, s, rows, grp, h, true,
+                                              nullptr);
+  } else {
+    const int hd = heads * dh, ldd = a.wdp;
+    const long long chunk_b = (a.b + a.chunks - 1) / a.chunks;
+    const long long b_beg = grp * chunk_b;
+    const long long b_end = min((long long)a.b, b_beg + chunk_b);
+    float* part = a.part_b + (size_t)grp * n * ldd;
+    if (b_beg >= b_end) {  // an empty chunk: zero partials
+      for (int e = threadIdx.x; e < n * (dh + 2); e += kThreads) {
+        const int r = e / (dh + 2), c = e % (dh + 2);
+        const int col = c < dh ? h * dh + c : hd + (c - dh) * heads + h;
+        part[(size_t)r * ldd + col] = 0.f;
+      }
+      return;
+    }
+    for (long long b = b_beg; b < b_end; ++b) {
+      head_egonet<kPooled, E, true, kCompact>(a, ta, s, rows, b, h,
+                                               b == b_beg, part);
+      __syncthreads();  // the next egonet reuses shared memory
+    }
+  }
+}
+
+// ------------------------------------------- K4 bf16: the valid rows
+// off[b] = the first valid row of egonet b among the valid rows of all
+// egonets in order (each egonet's grandparents, anchor, siblings);
+// off[nb] = R, their count. One block of 1024 threads: a contiguous run
+// of egonets a thread, then an exclusive scan of the runs' counts.
+__global__ void valid_row_offsets_kernel(const int* __restrict__ ngp,
+                                         const int* __restrict__ nsib,
+                                         int nb, int n, int p,
+                                         int* __restrict__ off) {
+  __shared__ int warp_sums[32];
+  const int per = (nb + blockDim.x - 1) / blockDim.x;
+  const int beg = min(nb, (int)threadIdx.x * per), end = min(nb, beg + per);
+  auto count = [&](int b) {
+    return min(max(ngp[b], 0), p) + 1 + min(max(nsib[b], 0), n - p - 1);
+  };
+  int local = 0;
+  for (int b = beg; b < end; ++b) local += count(b);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int incl = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_sums[w] = incl;
+  __syncthreads();
+  if (w == 0) {
+    const int v = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0;
+    int sc = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, sc, o);
+      if (lane >= o) sc += u;
+    }
+    warp_sums[lane] = sc - v;  // the warps' exclusive prefixes
+  }
+  __syncthreads();
+  int run = warp_sums[w] + incl - local;
+  for (int b = beg; b < end; ++b) {
+    off[b] = run;
+    run += count(b);
+  }
+  if (threadIdx.x == blockDim.x - 1) off[nb] = run;
+}
+
+// Pass 0 of K4 bf16 on the valid rows: a warp a row of the m = nb*n rows.
+// A valid row r is staged as stage_input_kernel stages it (its own masks,
+// the keys of row r) into xc at its compacted row, which row_map records;
+// an invalid row's dx (need_dx) and pe-row grads are zeroed, the values
+// the reference's formula gives there. The kRowPad rows after the R valid
+// ones are zero in xc and in d16, for the dW product's last K tile.
+template <class E>
+__global__ void stage_valid_rows_kernel(OperandT<E> op, TrainArgs ta,
+                                        const int* __restrict__ ngp,
+                                        const int* __restrict__ nsib, int p,
+                                        const int* __restrict__ off, int nb,
+                                        E* __restrict__ xc, int kxp,
+                                        int* __restrict__ row_map,
+                                        E* __restrict__ dx,
+                                        float* __restrict__ pe_rows,
+                                        bf16* __restrict__ d16, int wdp) {
+  const unsigned kf = stream_key(ta.seed, kStreamFeat);
+  const unsigned kp = stream_key(ta.seed, kStreamPe);
+  const int n = op.n;
+  const long long m = (long long)nb * n;
+  const int warps = blockDim.x >> 5, lane = threadIdx.x & 31;
+  for (long long r = (long long)blockIdx.x * warps + (threadIdx.x >> 5);
+       r < m + kRowPad; r += (long long)gridDim.x * warps) {
+    if (r >= m) {
+      const long long q = off[nb] + (r - m);
+      for (int k = lane; k < kxp; k += 32)
+        xc[q * kxp + k] = from_float<E>(0.f);
+      for (int k = lane; k < wdp; k += 32)
+        d16[q * wdp + k] = from_float<bf16>(0.f);
+      continue;
+    }
+    const long long b = r / n;
+    const int slot = (int)(r % n);
+    const int q = valid_pos(slot, min(max(ngp[b], 0), p),
+                            min(max(nsib[b], 0), n - p - 1), p);
+    if (q < 0) {
+      if (dx != nullptr)
+        for (int k = lane; k < op.din; k += 32)
+          dx[r * op.din + k] = from_float<E>(0.f);
+      for (int k = lane; k < ta.pos; k += 32) pe_rows[r * ta.pos + k] = 0.f;
+      continue;
+    }
+    const long long ci = off[b] + q;
+    if (lane == 0) row_map[ci] = (int)r;
+    stage_row(op, ta, kf, kp, r, xc + ci * kxp, kxp, lane);
   }
 }
 
@@ -346,6 +733,7 @@ gat_bwd_head_kernel(BwdArgsT<E> a, TrainArgs ta) {
 template <class E>
 cudaError_t launch_bwd(const BwdArgsT<E>& a, const TrainArgs& ta,
                        cudaStream_t st) {
+  constexpr bool kD16 = sizeof(E) == 2;
   const long long m = (long long)a.b * a.n;
   if (m == 0) return cudaSuccess;
   const int hd = a.heads * a.dh, wd = hd + 2 * a.heads;
@@ -356,61 +744,106 @@ cudaError_t launch_bwd(const BwdArgsT<E>& a, const TrainArgs& ta,
                           wd};
   const ProductWorkT<E> work = {a.xm,  a.wt,  a.part_w, a.kxp,
                                 a.wdp, a.ntp, a.splits};
+  // K4 bf16 runs its products on the valid rows alone (row_off set)
+  const bool compact = kD16 && a.row_off != nullptr;
+  const int* rows = compact ? a.row_off + a.b : nullptr;
+  const int* row_map = compact ? a.row_map : nullptr;
+  const int kbeg = a.need_dx ? 0 : a.din;
   cudaError_t err;
 
+  // 0. X staged (K4 bf16: the valid rows, compacted, with their row map)
+  // and W packed
   mark(g_marks, st);
-  err = stage_and_pack(op, ta, m, work, a.need_dx ? 0 : a.din, a.wcat, st);
+  if constexpr (kD16) {
+    if (compact) {
+      if (a.xm == nullptr || m + kRowPad > 0x7fffffffLL)
+        return cudaErrorInvalidValue;
+      valid_row_offsets_kernel<<<1, 1024, 0, st>>>(a.ngp, a.nsib, a.b, a.n,
+                                                   a.p, a.row_off);
+      stage_valid_rows_kernel<E><<<grid_for((m + kRowPad) * 32), 256, 0,
+                                   st>>>(op, ta, a.ngp, a.nsib, a.p,
+                                         a.row_off, a.b, a.xm, a.kxp,
+                                         a.row_map,
+                                         a.need_dx ? a.dx : nullptr,
+                                         a.pe_rows, a.d16, a.wdp);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      ProductWorkT<E> pack = work;
+      pack.xm = nullptr;  // staged above
+      err = stage_and_pack(op, ta, m, pack, kbeg, a.wcat, st);
+    } else {
+      err = stage_and_pack(op, ta, m, work, kbeg, a.wcat, st);
+    }
+  } else {
+    err = stage_and_pack(op, ta, m, work, kbeg, a.wcat, st);
+  }
   if (err != cudaSuccess) return err;
   mark(g_marks, st);
-  // 0. the projection into the Dcat workspace
+  // the projection into the Dcat workspace (K4 bf16: the valid rows)
   err = gat_projection(op, a.xm, a.kxp, a.wcat, a.wdp, a.bias_ft, a.bias_a1,
-                       a.bias_a2, a.biascat, a.dcat, m, st);
+                       a.bias_a2, a.biascat, a.dcat, m, st, rows, row_map);
   if (err != cudaSuccess) return err;
   mark(g_marks, st);
 
-  const size_t smem = sizeof(float) * head_floats(a.n);
-  const void* head = a.pooled ? (const void*)gat_bwd_head_kernel<true, E>
-                              : (const void*)gat_bwd_head_kernel<false, E>;
+  // 1. the head core: a block an (egonet, head), or in the bf16 form with
+  // the slot-bias partial sums a (chunk of egonets, head)
+  // (K4 bf16: the slots' rows too)
+  const size_t smem =
+      sizeof(float) * (head_floats(a.n) + (compact ? row_floats(a.n) : 0));
+  const bool part = kD16 && a.need_dbias;
+  const long long head_blocks = (part ? a.chunks : a.b) * (long long)a.heads;
+  if (head_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const void* head;
+  if constexpr (kD16) {
+    if (compact)
+      head = part ? (const void*)gat_bwd_head_kernel<true, E, true, true>
+                  : (const void*)gat_bwd_head_kernel<true, E, false, true>;
+    else if (a.pooled)
+      head = part ? (const void*)gat_bwd_head_kernel<true, E, true>
+                  : (const void*)gat_bwd_head_kernel<true, E>;
+    else
+      head = part ? (const void*)gat_bwd_head_kernel<false, E, true>
+                  : (const void*)gat_bwd_head_kernel<false, E>;
+  } else {
+    head = a.pooled ? (const void*)gat_bwd_head_kernel<true, E>
+                    : (const void*)gat_bwd_head_kernel<false, E>;
+  }
   err = prepare(head, smem);
   if (err != cudaSuccess) return err;
-  const long long head_blocks = (long long)a.b * a.heads;
-  if (head_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (a.pooled)
-    gat_bwd_head_kernel<true, E>
-        <<<(unsigned)head_blocks, kThreads, smem, st>>>(a, ta);
-  else
-    gat_bwd_head_kernel<false, E>
-        <<<(unsigned)head_blocks, kThreads, smem, st>>>(a, ta);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  void* params[] = {const_cast<BwdArgsT<E>*>(&a),
+                    const_cast<TrainArgs*>(&ta)};
+  err = cudaLaunchKernel(head, dim3((unsigned)head_blocks), dim3(kThreads),
+                         params, smem, st);
+  if (err != cudaSuccess) return err;
   mark(g_marks, st);
 
+  // the slot-bias grads: the float32 form sums Dcat over egonets; the bf16
+  // form's head core has summed D's float32 values by chunk; then the
+  // fixed-order reduction over the chunks
   if (a.need_dbias) {
     const long long rw = (long long)a.n * a.wdp;
-    const long long chunk_b = (a.b + a.chunks - 1) / a.chunks;
-    colsum_partial_kernel<<<dim3(blocks_for(rw), a.chunks), kThreads, 0,
-                            st>>>(a.dcat, a.b, rw, chunk_b, a.part_b);
+    if (!kD16) {
+      const long long chunk_b = (a.b + a.chunks - 1) / a.chunks;
+      colsum_partial_kernel<<<dim3(blocks_for(rw), a.chunks), kThreads, 0,
+                              st>>>(a.dcat, a.b, rw, chunk_b, a.part_b);
+    }
     reduce_scatter_kernel<float><<<blocks_for(rw), kThreads, 0, st>>>(
         a.part_b, a.chunks, a.n, a.wdp, a.n, hd, hd + a.heads, wd,
         a.dbias_ft, a.dbias_a1, a.dbias_a2, nullptr, nullptr, nullptr);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  // the products' D: Dcat itself, or in a bf16 layer Dcat cast to bf16
-  const E* d;
-  if constexpr (sizeof(E) == 2) {
-    cast_bf16_kernel<<<grid_for(m * a.wdp / 4), 256, 0, st>>>(
-        a.dcat, a.dcat16, m * a.wdp);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    d = a.dcat16;
-  } else {
-    d = a.dcat;
-  }
   mark(g_marks, st);
 
+  // 2-4. dW, dx, dpe from D: Dcat itself, or the head core's bf16 D
+  const E* d;
+  if constexpr (kD16)
+    d = a.d16;
+  else
+    d = a.dcat;
   E* const dw[3] = {a.dfc, a.dwa1, a.dwa2};
   float* const dwp[3] = {a.dwp, a.dwpa1, a.dwpa2};
   return product_grads(op, ta, d, a.wdp, m, work, a.chunks, dw, dwp,
                        a.need_dx, a.dx, a.pe_rows, a.part_pe, a.dpe, g_marks,
-                       st);
+                       st, rows, row_map);
 }
 
 }  // namespace
@@ -431,18 +864,55 @@ int gat_layer_bwd_f32(const BwdArgsT<float>* ap, const TrainArgs* tap,
 }
 
 // The bf16 form: *ap with the bf16 fields of BwdArgsT<bf16> (x, fc, wa1,
-// wa2, K2's g, dx, dfc, dwa1, dwa2, the workspaces xm, wcat, wt and
-// dcat16), every other field as in the float32 form.
+// wa2, K2's g, dx, dfc, dwa1, dwa2, the workspaces xm, wcat, wt and d16),
+// every other field as in the float32 form; K4 (a->pooled) also takes the
+// row workspaces row_off and row_map.
 int gat_layer_bwd_bf16(const BwdArgsT<bf16>* ap, const TrainArgs* tap,
                        void* stream) {
   return launch_bwd(*ap, *tap, (cudaStream_t)stream);
 }
 
-// Pass timing: with `on`, the next gat_layer_bwd_f32 records device events
-// between its passes; gat_bwd_pass_ms then gives their milliseconds (stage
-// and pack, projection, head core, slot-bias sums (with the cast of Dcat
-// to bf16 in the bf16 form), dW, dx) into out[6] and returns their count.
+// Pass timing: with `on`, the next gat_layer_bwd_* call records device
+// events between its passes; gat_bwd_pass_ms then gives their
+// milliseconds (stage and pack (K4 bf16: with the valid rows' offsets and
+// compaction), projection, head core, slot-bias sums (the bf16 form: the
+// reduction of the head core's partials alone), dW, dx) into out[6] and
+// returns their count.
 int gat_bwd_set_timing(int on) { return set_timing(g_marks, on); }
+
+// The bf16 product alone (gemm_wgmma.cuh), for tests and measurements:
+// c [splits][m][n] = the split-K partials of A @ B, A [m][k] row-major
+// (a_kmajor) or A^T [k][m] row-major, B [k][n] row-major, all bf16 rows
+// 16-byte multiples; the store epilogue.
+int gat_product_bf16(const bf16* a, long long lda, int a_kmajor,
+                     const bf16* b, long long ldb, float* c, long long m,
+                     int n, long long k, int splits, void* stream) {
+  using namespace gat;
+  if (m <= 0 || n <= 0) return 0;
+  if (k <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
+  GemmArgsT<bf16> g = {};
+  g.a = a;
+  g.lda = lda;
+  g.b = b;
+  g.ldb = ldb;
+  g.c = c;
+  g.ldc = n;
+  g.c_split = m * n;
+  g.m = m;
+  g.n = n;
+  g.k = k;
+  g.k_chunk = ((k + splits - 1) / splits + 63) / 64 * 64;
+  const TrainArgs ta = {};
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (a_kmajor)
+    err = n <= kNarrowBN ? product<true, kEpiStore, true>(g, ta, splits, st)
+                         : product<true, kEpiStore>(g, ta, splits, st);
+  else
+    err = n <= kNarrowBN ? product<false, kEpiStore, true>(g, ta, splits, st)
+                         : product<false, kEpiStore>(g, ta, splits, st);
+  return (int)err;
+}
 
 int gat_bwd_pass_ms(float* out) { return pass_ms(g_marks, out); }
 

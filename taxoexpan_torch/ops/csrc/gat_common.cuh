@@ -3,7 +3,7 @@
 // softmax weights, the shared-memory arrays of the GAT star passes and
 // head core, and the element conversions of the bf16 forms. Every layer
 // product is a tensor-core product: gemm_tf32.cuh's (float32 layers) or
-// gemm_bf16.cuh's (bf16 layers).
+// gemm_wgmma.cuh's (bf16 layers).
 //
 // The train forms' dropout: the feature and pe masks over the layer input
 // X = [x*m | pe*m_pe], the reference's dropout over the concatenated input

@@ -64,7 +64,7 @@
 // float32; X staged and W packed in bf16 (gemm_tf32.cuh:stage_input_kernel,
 // pack_weights_kernel, 8 elements a 16-byte chunk: kxp and wdp rounded up
 // to 8), the projection on bf16 tensor-core MMAs with float32 accumulation
-// (gemm_bf16.cuh), so P, the softmax and the aggregation stay float32
+// (gemm_wgmma.cuh), so P, the softmax and the aggregation stay float32
 // (pallas_gat.py:283-291); the per-slot output is rounded to bf16 after
 // the fused leaky (:359-362), the pools stay float32 (:1148). X staged
 // takes 2 bytes an element; the final layer's eval form reads x directly

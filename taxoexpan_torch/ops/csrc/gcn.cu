@@ -55,7 +55,7 @@
 // passes at element type bf16 (pallas_gcn.py:69-78, :124-126, :163,
 // :209-223). X is staged as x times its mask rounded to bf16, the pe rows
 // times their float32 mask rounded to bf16, W_p packed in bf16; the
-// projection runs bf16 MMAs with float32 accumulation (gemm_bf16.cuh) into
+// projection runs bf16 wgmma with float32 accumulation (gemm_wgmma.cuh) into
 // the float32 z, and the backward's recompute reruns it on the same staged
 // X, so leaky' is taken at the forward's bits. The star passes keep their
 // float32 arithmetic: the forward's rounds the output to bf16, the dz pass
@@ -79,6 +79,24 @@
 #include "bwd_common.cuh"
 
 using gat::bf16;
+
+namespace gat {
+
+// dst [count] = src rounded to bf16 (count a multiple of 4): dz cast once
+// for the bf16 dW and dx products (pallas_gcn.py:209-223).
+__global__ void cast_bf16_kernel(const float* __restrict__ src,
+                                 bf16* __restrict__ dst, long long count) {
+  for (long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+       e < count; e += (long long)gridDim.x * blockDim.x * 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src + e);
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    *reinterpret_cast<__nv_bfloat162*>(dst + e) = lo;
+    *reinterpret_cast<__nv_bfloat162*>(dst + e + 2) = hi;
+  }
+}
+
+}  // namespace gat
 
 // Mirrored field by field by gcn_kernels._GcnArgs. E: the layer's element
 // type (float, or bf16: x, w, g, out, dx, dw and the workspaces xm, wcat,

@@ -39,11 +39,10 @@
 // product per split; the caller adds them in a fixed order
 // (bwd_common.cuh). Deterministic: no atomics.
 //
-// One pipeline serves both element types of a layer: the ring, the
-// epilogue, the argument struct and the operand preparation are templated
-// on E (float, or bf16 for a bf16 layer's X, W and dx), and only the inner
-// step over a K tile (MmaStep<E>: here 3xTF32, in gemm_bf16.cuh bf16
-// mma.sync.m16n8k16) and the chunk width (4 floats, 8 bf16) differ.
+// The argument struct, the epilogues' meaning and the operand preparation
+// (staging, packing) are templated on E (float, or bf16 for a bf16 layer's
+// X, W and dx); product<> runs this file's 3xTF32 pipeline for float and
+// gemm_wgmma.cuh's TMA-fed wgmma kernel for bf16.
 //
 // The kernels live in namespace gat (see bwd_common.cuh on nvcc's stubs).
 #pragma once
@@ -108,6 +107,13 @@ struct GemmArgsT {
   E* dx;               // kEpiDx (rounded to E)
   float* pe_rows;
   int din, kbeg;
+  // bf16 only (gemm_wgmma.cuh), null otherwise: the rows of the row
+  // operand counted on the card (M of a K-major A, the reduction of an
+  // M-major A; m or k is then the allocated rows), and the original row
+  // of each output row (the row-bias and dx epilogues)
+  const int* rows;
+  const int* row_map;
+  long long c_rows;    // rows allocated for c (0: m), bf16 only
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -262,14 +268,9 @@ __device__ __forceinline__ void gemm_load_tile(const GemmArgsT<E>& g,
   }
 }
 
-// The one part of the product that differs by element type: a warp's
-// products over one K tile in shared memory (as, bs), added into part.
-// MmaStep<float> (below) is 3xTF32; MmaStep<bf16> is in gemm_bf16.cuh.
-template <class E>
-struct MmaStep;
-
-template <>
-struct MmaStep<float> {
+// A warp's products over one K tile in shared memory (as, bs), added into
+// part: 3xTF32.
+struct MmaStep {
   // mma.sync.m16n8k8 TF32 fragments read from shared memory element by
   // element (thread (gid, tig): rows +gid / +gid + 8, k +tig / +tig + 4),
   // each split into hi / lo there.
@@ -379,7 +380,7 @@ gemm_kernel(GemmArgsT<E> g, TrainArgs ta) {
       for (int ni = 0; ni < NI; ++ni)
 #pragma unroll
         for (int q = 0; q < 4; ++q) part[mi][ni][q] = 0.f;
-    MmaStep<E>::template tile<T, kAKMajor>(
+    MmaStep::template tile<T, kAKMajor>(
         As + (kt % T::STAGES) * T::A_STAGE, Bs + (kt % T::STAGES) * T::B_STAGE,
         wm, wn, lane, part);
 #pragma unroll
@@ -415,25 +416,36 @@ gemm_kernel(GemmArgsT<E> g, TrainArgs ta) {
   gemm_store_tile<T::BM, T::BN, T::THREADS, kEpi>(g, ta, cs, i0, j0);
 }
 
-// The layer product in the layer's element type E (3xTF32 for float, bf16
-// MMAs for bf16) on `st`: A K-major (kAKMajor) or M-major, the epilogue
-// kEpi, `splits` partial products over blockIdx.z; kNarrow takes the
-// 128 x 64 tile.
+template <bool kAKMajor, int kEpi, int BN>
+inline cudaError_t product_wgmma(const GemmArgsT<bf16>& g,
+                                 const TrainArgs& ta, int splits,
+                                 cudaStream_t st);
+
+// The layer product in the layer's element type E (3xTF32 for float here;
+// bf16: gemm_wgmma.cuh) on `st`: A K-major (kAKMajor) or M-major, the
+// epilogue kEpi, `splits` partial products over blockIdx.z; kNarrow takes
+// the 128 x 64 tile.
 template <bool kAKMajor, int kEpi, bool kNarrow = false, class E>
 inline cudaError_t product(const GemmArgsT<E>& g, const TrainArgs& ta,
                            int splits, cudaStream_t st) {
-  using T = GemmTile<E, kNarrow ? 2 : 4>;
-  if (g.m <= 0 || g.n <= 0) return cudaSuccess;
-  const void* kernel = (const void*)gemm_kernel<E, T, kAKMajor, kEpi>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
-  if (err != cudaSuccess) return err;
-  const long long tiles = ((g.m + T::BM - 1) / T::BM) *
-                          (long long)((g.n + T::BN - 1) / T::BN);
-  if (tiles > 0x7fffffffLL || splits > 65535) return cudaErrorInvalidValue;
-  gemm_kernel<E, T, kAKMajor, kEpi>
-      <<<dim3((unsigned)tiles, 1, splits), T::THREADS, T::SMEM, st>>>(g, ta);
-  return cudaGetLastError();
+  if constexpr (sizeof(E) == 2) {
+    return product_wgmma<kAKMajor, kEpi, kNarrow ? 64 : 128>(g, ta, splits,
+                                                             st);
+  } else {
+    using T = GemmTile<E, kNarrow ? 2 : 4>;
+    if (g.m <= 0 || g.n <= 0) return cudaSuccess;
+    const void* kernel = (const void*)gemm_kernel<E, T, kAKMajor, kEpi>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+    if (err != cudaSuccess) return err;
+    const long long tiles = ((g.m + T::BM - 1) / T::BM) *
+                            (long long)((g.n + T::BN - 1) / T::BN);
+    if (tiles > 0x7fffffffLL || splits > 65535) return cudaErrorInvalidValue;
+    gemm_kernel<E, T, kAKMajor, kEpi>
+        <<<dim3((unsigned)tiles, 1, splits), T::THREADS, T::SMEM, st>>>(g,
+                                                                       ta);
+    return cudaGetLastError();
+  }
 }
 
 // ------------------------------------------------- operand preparation
@@ -479,39 +491,46 @@ __device__ __forceinline__ float wcat(const OperandT<E>& op, int k, int j) {
 // its mask rounded to bf16, the product rounded to bf16; a pe column is
 // pe times the float32 mask, rounded to bf16.
 template <class E>
+__device__ __forceinline__ void stage_row(const OperandT<E>& op,
+                                          const TrainArgs& ta, unsigned kf,
+                                          unsigned kp, long long r,
+                                          E* __restrict__ out, int kxp,
+                                          int lane) {
+  const int kx = op.din + ta.pos;
+  const unsigned rkf = row_key(kf, (unsigned)r);
+  const unsigned rkp = row_key(kp, (unsigned)r);
+  const E* xr = op.x + r * op.din;
+  const float* per = ta.pe + (r % op.n) * ta.pos;
+#pragma unroll 8
+  for (int k = lane; k < op.din; k += 32) {  // the x columns
+    float v = to_float(xr[k]);
+    if (ta.feat_on)
+      v *= to_float(from_float<E>(
+          keep_at(ta, rkf, (unsigned)k, ta.feat_thresh, ta.feat_scale)));
+    out[k] = from_float<E>(v);
+  }
+  for (int k = op.din + lane; k < kxp; k += 32) {  // pe columns, padding
+    float v = 0.f;
+    if (k < kx) {
+      v = per[k - op.din];
+      if (ta.feat_on)
+        v *= keep_at(ta, rkp, (unsigned)(k - op.din), ta.feat_thresh,
+                     ta.feat_scale);
+    }
+    out[k] = from_float<E>(v);
+  }
+}
+
+template <class E>
 __global__ void stage_input_kernel(OperandT<E> op, TrainArgs ta,
                                    E* __restrict__ xm, long long m,
                                    int kxp) {
   const unsigned kf = stream_key(ta.seed, kStreamFeat);
   const unsigned kp = stream_key(ta.seed, kStreamPe);
-  const int kx = op.din + ta.pos;
   const int warps = blockDim.x >> 5, lane = threadIdx.x & 31;
   for (long long r = (long long)blockIdx.x * warps + (threadIdx.x >> 5);
-       r < m; r += (long long)gridDim.x * warps) {
-    const unsigned rkf = row_key(kf, (unsigned)r);
-    const unsigned rkp = row_key(kp, (unsigned)r);
-    const E* xr = op.x + r * op.din;
-    const float* per = ta.pe + (r % op.n) * ta.pos;
-    E* out = xm + r * kxp;
-#pragma unroll 8
-    for (int k = lane; k < op.din; k += 32) {  // the x columns
-      float v = to_float(xr[k]);
-      if (ta.feat_on)
-        v *= to_float(from_float<E>(
-            keep_at(ta, rkf, (unsigned)k, ta.feat_thresh, ta.feat_scale)));
-      out[k] = from_float<E>(v);
-    }
-    for (int k = op.din + lane; k < kxp; k += 32) {  // pe columns, padding
-      float v = 0.f;
-      if (k < kx) {
-        v = per[k - op.din];
-        if (ta.feat_on)
-          v *= keep_at(ta, rkp, (unsigned)(k - op.din), ta.feat_thresh,
-                       ta.feat_scale);
-      }
-      out[k] = from_float<E>(v);
-    }
-  }
+       r < m; r += (long long)gridDim.x * warps)
+    stage_row(op, ta, kf, kp, r, xm + r * kxp, kxp, lane);
 }
 
 // The weight rows in the products' layouts, zero-padded: wcat_out

@@ -18,9 +18,10 @@ counters and the autograd Functions around them.
 The forwards are `ops/csrc/gat_fwd.cu`, the backwards `ops/csrc/gat_bwd.cu`;
 their headers state what bounds them on an H100 and what the design does
 about it. Every forward and backward computes the layer's product once for
-all B*N rows, the projection [ft | a1 | a2] = [x*m | pe*m_pe] @
-[fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot biases, on the tensor cores
-in 3xTF32 (`ops/csrc/gemm_tf32.cuh`), into a workspace that the star pass
+all B*N rows (K4 bf16: the valid rows), the projection [ft | a1 | a2] =
+[x*m | pe*m_pe] @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot biases, on
+the tensor cores (float32 layers in 3xTF32, `ops/csrc/gemm_tf32.cuh`; bf16
+layers below), into a workspace that the star pass
 (K1), the pooled star pass (K3) or the head core (K2, K4) reads;
 `gat_projection` and `gat_pooled_star` run the projection and the pooled
 star pass alone, for tests. `fwd_pass_ms` / `bwd_pass_ms` time one call's
@@ -46,11 +47,16 @@ bf16 (the x columns multiplied by the mask rounded to bf16, pallas_gat.py:
 bf16 (:298), the products on bf16 operands with float32 accumulation, so
 the projection P (ft, a1, a2), the softmax and the aggregation are float32;
 the per-slot output is rounded to bf16 after the fused leaky (:359-362),
-the pools stay float32 (:1148). The backwards keep the head core in
-float32, cast its grads D to bf16 once for the dW and dx products
-(_bwd_epilogue :607-651) and return dx (times its float32 mask), dfc, dwa1
-and dwa2 in bf16 (:651, :1097, :1289), the slot-bias and pe grads in
-float32. The plain versions compute the same roundings: bf16-exact operands
+the pools stay float32 (:1148). The bf16 products run on a TMA-fed,
+warp-specialised wgmma kernel (`ops/csrc/gemm_wgmma.cuh`; `bf16_product`
+runs it alone). The backwards keep the head core in float32; it writes
+its grads D once, in bf16, for the dW and dx products (_bwd_epilogue
+:607-651) and sums D's float32 values for the slot-bias grads itself;
+K4's products run on the valid rows alone (compacted on the card; dx is
+zero at the invalid slots, as the reference gives it). They return dx
+(times its float32 mask), dfc, dwa1 and dwa2 in bf16 (:651, :1097, :1289),
+the slot-bias and pe grads in float32. The plain versions compute the
+same roundings: bf16-exact operands
 upcast and multiplied in float32 (`launch.bf16_operands`), the backward
 written
 out pass by pass (`_bwd_plain_bf16`) rather than by autograd through the
@@ -91,7 +97,7 @@ _BWD_POINTERS = ("x", "fc", "wa1", "wa2", "bias_ft", "bias_a1", "bias_a2",
                  "ngp", "nsib", "g", "attn", "dcat", "part_w", "part_b",
                  "pe_rows", "part_pe", "dx", "dfc", "dwa1", "dwa2", "dbias_ft",
                  "dbias_a1", "dbias_a2", "dpe", "dwp", "dwpa1", "dwpa2", "xm",
-                 "wcat", "wt", "biascat", "dcat16")
+                 "wcat", "wt", "biascat", "d16", "row_off", "row_map")
 _BWD_INTS = ("b", "n", "din", "heads", "dh", "p", "pooled", "need_dx",
              "need_dbias", "has_out_alpha", "splits", "chunks", "kxp", "wdp",
              "ntp")
@@ -141,13 +147,25 @@ FWD_SIGNATURES.update({
 BWD_SIGNATURES = {
     "gat_layer_bwd_f32": ([ctypes.POINTER(_BwdArgs), _TA, _P], _I),
     "gat_layer_bwd_bf16": ([ctypes.POINTER(_BwdArgs), _TA, _P], _I),
+    # a, lda, a_kmajor, b, ldb, c, m, n, k, splits, stream
+    "gat_product_bf16": ([_P, ctypes.c_longlong, _I, _P, ctypes.c_longlong,
+                          _P, ctypes.c_longlong, _I, ctypes.c_longlong, _I,
+                          _P], _I),
     "gat_bwd_set_timing": ([_I], _I),
     "gat_bwd_pass_ms": ([_P], _I),
     "gat_bwd_error_string": ([_I], ctypes.c_char_p),
 }
-# what the pass times of `pass_times` measure, in order
+# what the pass times of `pass_times` measure, in order; the bf16
+# backwards' head core writes D in bf16 with the slot-bias partials, so
+# their fourth pass is the partials' reduction alone (no cast of D), and
+# K4 bf16's first pass counts and compacts the valid rows
 FWD_PASSES = ("stage_pack", "projection", "star")
 BWD_PASSES = ("stage_pack", "projection", "head", "dbias", "dw", "dx")
+BWD_PASSES_BF16 = ("stage_pack", "projection", "head_d16", "dbias_reduce",
+                   "dw", "dx")
+# zero rows after a compacted operand's valid rows (csrc/bwd_common.cuh:
+# kRowPad)
+ROW_PAD = 64
 
 
 def _lib() -> ctypes.CDLL:
@@ -464,23 +482,21 @@ def gat_layer_bwd_plain(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
     return res
 
 
-def _bwd_plain_bf16(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
-                    nsib, p, heads, pe_pack, seed, feat_drop, attn_drop,
-                    out_alpha, pooled, need_dx, dropout_bits,
-                    stored_attn) -> dict:
-    """The plain backward of a bf16 layer, pass by pass as the bf16 kernels
-    run it (pallas_gat.py:_bwd_epilogue :607-677): the projection P
-    recomputed from the staged X and packed W; D = dP through the float32
-    star pass by autograd (the head core), g upcast; the slot-bias grads
-    D's float32 sums over egonets; D rounded to bf16 for dW = X^T D (dfc,
-    dwa1, dwa2 rounded to bf16; the pe rows' dwp, dwpa1, dwpa2 float32)
-    and dX = D W^T (dx times its float32 mask, rounded to bf16; the pe
-    columns times theirs, summed over egonets into dpe, float32)."""
-    b, n, din = x.shape
+def _projection_grad(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
+                     nsib, p, heads, pe_pack, seed, feat_drop, attn_drop,
+                     out_alpha, pooled, dropout_bits, stored_attn):
+    """D = dP [B, N, H*Dh + 2H] float32, the grad of the layer's projection
+    P = [ft | a1 | a2] for the incoming grad g (upcast): the head core's
+    output, through the float32 star pass by autograd, P computed as the
+    layer computes it. Returns (D, the bf16 operands of
+    `launch.bf16_operands` for a bf16 x, else None)."""
     hd = fc.shape[1]
-    proj, (xs, w, fmask, pmask) = _projection_bf16(
-        x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, pe_pack, seed, feat_drop,
-        dropout_bits)
+    args = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, pe_pack, seed,
+            feat_drop, dropout_bits)
+    if is_bf16(x):
+        proj, operands = _projection_bf16(*args)
+    else:
+        proj, operands = torch.cat(_projection_plain(*args), dim=-1), None
     proj = proj.detach().requires_grad_(True)
     with torch.enable_grad():
         out, _ = _star_plain(proj[..., :hd], proj[..., hd:hd + heads],
@@ -488,6 +504,28 @@ def _bwd_plain_bf16(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
                              seed, attn_drop, out_alpha, pooled,
                              dropout_bits, stored_attn)
         (dproj,) = torch.autograd.grad(out, proj, g.float())
+    return dproj, operands
+
+
+def _bwd_plain_bf16(g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
+                    nsib, p, heads, pe_pack, seed, feat_drop, attn_drop,
+                    out_alpha, pooled, need_dx, dropout_bits,
+                    stored_attn) -> dict:
+    """The plain backward of a bf16 layer, pass by pass as the bf16 kernels
+    run it (pallas_gat.py:_bwd_epilogue :607-677): the projection P
+    recomputed from the staged X and packed W; D = dP through the float32
+    star pass by autograd (the head core, `_projection_grad`), g upcast;
+    the slot-bias grads D's float32 sums over egonets; D rounded to bf16
+    for dW = X^T D (dfc, dwa1, dwa2 rounded to bf16; the pe rows' dwp,
+    dwpa1, dwpa2 float32) and dX = D W^T (dx times its float32 mask,
+    rounded to bf16; the pe columns times theirs, summed over egonets into
+    dpe, float32)."""
+    b, n, din = x.shape
+    hd = fc.shape[1]
+    dproj, (xs, w, fmask, pmask) = _projection_grad(
+        g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
+        pe_pack, seed, feat_drop, attn_drop, out_alpha, pooled, dropout_bits,
+        stored_attn)
     d = dproj.reshape(b * n, -1)
     dsum = dproj.sum(dim=0)
     res = {"bias_ft": dsum[:, :hd], "bias_a1": dsum[:, hd:hd + heads],
@@ -757,9 +795,17 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
     m = b * n
     wd = hd + 2 * heads
     kx = din + pos
+    bf16 = is_bf16(x)
+    # K4 bf16 runs its products on the valid rows, compacted: X always
+    # staged, kRowPad zero rows after the valid ones in X and D
+    compact = bf16 and pooled
+    rows = m + ROW_PAD if compact else m
+    if compact and rows >= 1 << 31:
+        raise ValueError("B * N + 64 must stay below 2**31 (int32 row map)")
     splits = product_splits(x, m, kx, wd)
-    chunks = min(b, 64)
-    pw = product_work(x, m, kx, wd, needs_staging(x, feat_drop, pos),
+    chunks = _bwd_chunks(x, b, heads)
+    pw = product_work(x, rows, kx, wd,
+                      compact or needs_staging(x, feat_drop, pos),
                       0 if need_dx else din, splits)
     wdp = pw["wdp"]
     work = {"dcat": empty(m, wdp), "part_w": pw["part_w"],
@@ -769,8 +815,11 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
             "xm": pw["xm"], "wt": pw["wt"],
             # the projection's W and slot biases
             "wcat": empty(pw["kxp"], wdp, dtype=dt), "biascat": empty(n, wdp),
-            # the products' D in bf16 (bf16 layers)
-            "dcat16": empty(m, wdp, dtype=dt) if is_bf16(x) else None}
+            # the products' D in bf16, written by the head core
+            "d16": empty(rows, wdp, dtype=dt) if bf16 else None,
+            "row_off": (empty(b + 1, dtype=torch.int32) if compact
+                        else None),
+            "row_map": empty(rows, dtype=torch.int32) if compact else None}
     args = _BwdArgs()
     ptrs = {"x": x, "fc": fc, "wa1": wa1, "wa2": wa2, "bias_ft": bias_ft,
             "bias_a1": bias_a1, "bias_a2": bias_a2, "ngp": ngp,
@@ -799,6 +848,16 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
     what = "gat_layer_pooled_bwd" if pooled else "gat_layer_bwd"
     raise_on(lib, rc, what, "gat_bwd_error_string")
     return grads
+
+
+def _bwd_chunks(x, b: int, heads: int) -> int:
+    """Chunks of egonets of the slot-bias and dpe sums: 64 in the float32
+    form; in the bf16 form, where a head-core block walks a chunk for its
+    head, about three blocks an SM."""
+    if not is_bf16(x):
+        return min(b, 64)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return min(b, max(64, 3 * sms // heads))
 
 
 def _bwd(wrapper, pooled: bool, g, ops, out_alpha, attn, pe_pack, seed,
@@ -968,10 +1027,60 @@ def fwd_pass_ms(call) -> dict:
     return dict(zip(FWD_PASSES, pass_times(_lib(), "gat_fwd", call)))
 
 
-def bwd_pass_ms(call) -> dict:
+def bwd_pass_ms(call, bf16: bool = False) -> dict:
     """Device ms of the backward's passes in one `call` of a backward
-    wrapper on the card, by BWD_PASSES."""
-    return dict(zip(BWD_PASSES, pass_times(_bwd_lib(), "gat_bwd", call)))
+    wrapper on the card, by BWD_PASSES (BWD_PASSES_BF16 for a bf16
+    layer's)."""
+    names = BWD_PASSES_BF16 if bf16 else BWD_PASSES
+    return dict(zip(names, pass_times(_bwd_lib(), "gat_bwd", call)))
+
+
+def bf16_product(a, b, *, a_kmajor: bool = True,
+                 splits: int = 1) -> torch.Tensor:
+    """C = A @ B on the bf16 layers' product kernel alone
+    (csrc/gemm_wgmma.cuh, the store epilogue): A [M, K] (a_kmajor) or, as
+    the dW product reads X, A^T given as [K, M]; B [K, N]; bf16. Rows whose
+    width is not a multiple of 8 are copied into zero-padded rows first (the
+    layers' workspaces are padded so). Returns float32 [M, N], the split-K
+    partials (splits > 1) summed over the splits. For tests and
+    chip_smoke's product lines; no layer calls it. The plain version on the
+    CPU (the float32 product of the bf16 operands); on the card the kernel,
+    counted in `bf16_product.launches`."""
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError("a and b must be matrices")
+    m, k = (a.shape if a_kmajor else a.shape[::-1])
+    if b.shape[0] != k:
+        raise ValueError(f"inner dimensions differ: {k} and {b.shape[0]}")
+    if not on_cuda(a, "bf16_product"):
+        af = a.float() if a_kmajor else a.float().T
+        return af @ b.float()
+    n = b.shape[1]
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.bfloat16 or t.device != a.device:
+            raise ValueError(f"{name} must be bf16 on {a.device}")
+
+    def padded(t):
+        width = round_up(t.shape[1], 8)
+        if width == t.shape[1] and t.is_contiguous() and \
+                t.data_ptr() % 16 == 0:
+            return t
+        out = t.new_zeros((t.shape[0], width))
+        out[:, :t.shape[1]] = t
+        return out
+    a, b = padded(a), padded(b)
+    part = torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(a.device):
+        rc = lib.gat_product_bf16(a.data_ptr(), a.shape[1], int(a_kmajor),
+                                  b.data_ptr(), b.shape[1], part.data_ptr(),
+                                  m, n, k, splits, stream(a))
+    raise_on(lib, rc, "bf16_product", "gat_bwd_error_string")
+    if m and n:
+        bf16_product.launches += 1
+    return part[0] if splits == 1 else part.sum(dim=0)
+
+
+bf16_product.launches = 0
 
 
 WRAPPERS = {w.__name__: w for w in (

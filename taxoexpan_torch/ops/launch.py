@@ -157,7 +157,7 @@ def stream(x: torch.Tensor) -> int:
 
 def chunk_elems(x: torch.Tensor) -> int:
     """Elements of x's dtype in a 16-byte chunk, the products' copy unit
-    (4 floats, csrc/gemm_tf32.cuh; 8 bf16, csrc/gemm_bf16.cuh): the row
+    (4 floats, csrc/gemm_tf32.cuh; 8 bf16, csrc/gemm_wgmma.cuh): the row
     widths of every operand the tensor-core products read are multiples of
     it."""
     return 16 // x.element_size()
@@ -168,12 +168,24 @@ def round_up(v: int, k: int) -> int:
 
 
 def product_splits(x: torch.Tensor, m: int, kx: int, wd: int) -> int:
-    """Split-K count of the dW product (csrc/bwd_common.cuh) over m rows:
-    about four waves of its 128 x 128 output tiles (one block an SM), at
-    least 4096 rows a split."""
+    """Split-K count of the dW product (csrc/bwd_common.cuh) over m rows.
+    float32: about four waves of its 128 x 128 output tiles (one block an
+    SM), at least 4096 rows a split. bf16 (csrc/gemm_wgmma.cuh, a
+    persistent grid of one block an SM): the fewest splits, at least 2048
+    rows each, whose tiles fill the SMs' last round to 95 %, else the best
+    fill."""
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     tiles = -(-wd // 128) * -(-kx // 128)
-    return max(1, min(-(-4 * sms // tiles), -(-m // 4096)))
+    if not is_bf16(x):
+        return max(1, min(-(-4 * sms // tiles), -(-m // 4096)))
+    best, best_fill = 1, 0.0
+    for s in range(1, max(1, min(64, m // 2048)) + 1):
+        fill = tiles * s / (-(-tiles * s // sms) * sms)
+        if fill >= 0.95:
+            return s
+        if fill > best_fill:
+            best, best_fill = s, fill
+    return best
 
 
 def needs_staging(x: torch.Tensor, feat_drop: float, pos: int) -> bool:

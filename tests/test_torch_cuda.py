@@ -26,8 +26,13 @@ B*N not a multiple of the 128-row tile, Dout 130 (rows of 132 floats), din
 rows), and the projection and the star pass alone;
 for K6 the halo gather at P = 1 to 4 in float32 and bf16 (exact), empty
 buckets, and two rank processes sharing the card through CUDA IPC; the
-bf16 forms of K1-K4 (compute_dtype "bfloat16": the projection on bf16
-tensor-core MMAs) and of K7 at din not a multiple of 8, P's rows padded to
+bf16 forms of K1-K4 (compute_dtype "bfloat16": the products on the
+TMA-fed wgmma kernel, also alone against a float32 product of the same
+operands at depths 304 / 504 / 2056 and widths 50 / 504 / 2008, K-major and
+M-major A, split-K; K4 on the valid rows with only-anchor, no-gp, no-sib
+and full egonets and large x at the invalid slots, dx exactly 0 there; K2's
+head core writing D in bf16 with the slot-bias sums; two calls equal bits)
+and of K7 at din not a multiple of 8, P's rows padded to
 8 elements, B*N not a multiple of the 128-row tile, several split-K
 splits, dropout 0 and 0.1 with 32- and 8-bit masks, stored and recompute
 backwards (equal bits), the differentiable layer against the CPU, and the
@@ -40,8 +45,8 @@ differentiable layer against the CPU; the shapes head tensor parallelism
 over mp = 2 gives K1-K4 (config.mag.json's layer 0 at 2 of its 4 heads,
 a pooled layer at 2 of 4 heads), in float32 and bf16; one train step
 of config.mag.json's PGAT at full width free of host syncs (CUDA's sync
-debug mode "error"); and the simple_mlp baselines on the card against
-their CPU runs.
+debug mode "error"), also in bf16; and the simple_mlp baselines on the
+card against their CPU runs.
 
 Needs a CUDA device and nvcc; skipped elsewhere. On a machine with the card:
 
@@ -948,6 +953,140 @@ def test_bf16_pooled_forms_match_plain(dev, b, p, s, din, heads, dh, pos,
         assert a is None or torch.equal(a, got[name]), name
 
 
+# the bf16 product alone (csrc/gemm_wgmma.cuh): K-major A (the projection,
+# the dx product) at the layers' depths and widths, M-major A (the dW
+# product, X read as X^T) over many rows with split-K; ragged M, N and K
+@pytest.mark.parametrize("k", [304, 504, 2056])
+@pytest.mark.parametrize("n", [50, 504, 2008])
+def test_wgmma_product_matches_float32(dev, k, n):
+    """A @ B of bf16 operands against the float32 product of the same
+    operands. Bound: each 64-deep partial sum is accumulated by the tensor
+    cores with truncation (at most 64 adds of 2**-23 relative each) before
+    its float32 FADD, so |err| <= 2**-17 (|A| @ |B|) elementwise, taken as
+    1e-5 (|A| @ |B|) plus 1e-6."""
+    gen = torch.Generator(dev).manual_seed(k + n)
+    for m, kmajor, splits in ((1000 + 3, True, 1), (129, True, 2),
+                              (300, False, 1), (2050, False, 3)):
+        kk = k if kmajor else 40 * k + 17   # dW: the rows are the depth
+        a = torch.randn((m, kk) if kmajor else (kk, m), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        b = torch.randn((kk, n), generator=gen, device=dev).to(torch.bfloat16)
+        before = gk.bf16_product.launches
+        got = gk.bf16_product(a, b, a_kmajor=kmajor, splits=splits)
+        torch.cuda.synchronize()
+        assert gk.bf16_product.launches == before + 1
+        af = a.float() if kmajor else a.float().T
+        want = af @ b.float()
+        bound = 1e-5 * (af.abs() @ b.float().abs()) + 1e-6
+        err = (got - want).abs()
+        assert got.shape == (m, n) and bool(torch.isfinite(got).all())
+        assert bool((err <= bound).all()), (m, kmajor, float(err.max()))
+        again = gk.bf16_product(a, b, a_kmajor=kmajor, splits=splits)
+        assert torch.equal(again, got)      # no atomics: equal bits
+
+
+K4_BF16_SHAPES = [
+    # b, p, s, din, heads, dh, pos
+    (1, 13, 50, 250, 1, 500, 50),      # B = 1
+    (7, 5, 20, 33, 3, 200, 7),         # R ragged, heads 3
+    (130, 3, 30, 40, 2, 24, 5),        # several split-K splits of R rows
+    (3, 13, 50, 2000, 1, 500, 50),     # the PGAT final layer's widths
+]
+
+
+def _edge_egonets(t, p, s, big: bool):
+    """The first egonets: only the anchor, no grandparents, no siblings,
+    full. x at the invalid slots: large finite values (big; K4 must not
+    read them into any grad), else zero as gather_feats leaves it (K2's
+    invalid slots do get grads)."""
+    n = p + 1 + s
+    pattern = [(0, 0), (0, s), (p, 0), (p, s)]
+    for i, (g, sib) in enumerate(pattern[:t[0].shape[0]]):
+        t[7][i], t[8][i] = g, sib
+    valid = star.node_mask(t[7], t[8], p, n)
+    fill = torch.full_like(t[0], 3.0e4 if big else 0.0)
+    t[0] = torch.where(valid[..., None], t[0], fill)
+    return valid
+
+
+@pytest.mark.parametrize("b,p,s,din,heads,dh,pos", K4_BF16_SHAPES)
+@pytest.mark.parametrize("bits", [32, 8])
+def test_bf16_k4_valid_rows_match_plain(dev, b, p, s, din, heads, dh, pos,
+                                        bits):
+    """K4 bf16 on the valid rows alone: grads against the plain version
+    (all rows), dx exactly 0 at the invalid slots (also with large x
+    there), need_dx on and off, the stored form equal bits with the
+    recompute one, two calls equal bits."""
+    t = _bf16(_inputs(dev, b, p, s, din, heads, dh, seed=41))
+    valid = _edge_egonets(t, p, s, big=True)
+    n = p + 1 + s
+    kw = dict(pe_pack=_pe_pack(dev, n, pos, heads, dh), seed=43,
+              feat_drop=0.1 if pos else 0.0, attn_drop=0.1,
+              dropout_bits=bits)
+    out, attn = gk.gat_layer_pooled_fwd_train_store(*t, p, heads, **kw)
+    g = torch.randn((b, 3, dh), device=dev,
+                    generator=torch.Generator(dev).manual_seed(44))
+    for need_dx in (True, False):
+        bkw = dict(kw, need_dx=need_dx)
+        got = gk.gat_layer_pooled_bwd(g, *t, p, heads, **bkw)
+        _assert_grads_bf16(got, gk.gat_layer_bwd_plain(
+            g, *t, p, heads, pooled=True, **bkw))
+        if need_dx and bool((~valid).any()):
+            assert float(got["x"][~valid].float().abs().max()) == 0.0
+        again = gk.gat_layer_pooled_bwd(g, *t, p, heads, **bkw)
+        stored = gk.gat_layer_pooled_bwd_stored(g, *t, p, heads, attn, **bkw)
+        torch.cuda.synchronize()
+        for name, a in got.items():
+            for other in (again, stored):
+                assert (a is None) == (other[name] is None), name
+                assert a is None or torch.equal(a, other[name]), name
+
+
+@pytest.mark.parametrize("b,p,s,din,heads,dh,pos", [
+    (1, 13, 50, 250, 4, 500, 50),      # B = 1, config.mag.json layer 0
+    (7, 5, 20, 33, 3, 200, 7),         # ragged rows
+    (130, 3, 30, 40, 2, 24, 5),        # several split-K splits
+])
+@pytest.mark.parametrize("bits", [32, 8])
+def test_bf16_k2_head_core_d16_match_plain(dev, b, p, s, din, heads, dh, pos,
+                                           bits):
+    """K2 bf16 with D written once in bf16 by the head core and the slot-bias
+    grads summed there (need_dbias on, at dropout 0 without a pe path, and
+    off): against the plain version, the edge egonets, need_dx on and off,
+    stored equal bits with recompute, two calls equal bits."""
+    t = _bf16(_inputs(dev, b, p, s, din, heads, dh, seed=51))
+    _edge_egonets(t, p, s, big=False)
+    n = p + 1 + s
+    g = (torch.randn((b, n, heads * dh), device=dev,
+                     generator=torch.Generator(dev).manual_seed(52))
+         * 1e-2).to(torch.bfloat16)
+    for kw in (dict(seed=53, attn_drop=0.1, dropout_bits=bits),
+               dict(pe_pack=_pe_pack(dev, n, pos, heads, dh), seed=54,
+                    feat_drop=0.1 if pos else 0.0, attn_drop=0.1,
+                    dropout_bits=bits)):
+        need_dbias = "pe_pack" not in kw
+        out, attn = gk.gat_layer_fwd_train_store(*t, p, heads, **kw)
+        for need_dx in (True, False):
+            bkw = dict(kw, need_dx=need_dx)
+            got = gk.gat_layer_bwd(g, *t, p, heads, need_dbias=need_dbias,
+                                   **bkw)
+            want = gk.gat_layer_bwd_plain(g, *t, p, heads, **bkw)
+            if not need_dbias:
+                for name in ("bias_ft", "bias_a1", "bias_a2"):
+                    assert got[name] is None
+                    want[name] = None
+            _assert_grads_bf16(got, want)
+            again = gk.gat_layer_bwd(g, *t, p, heads, need_dbias=need_dbias,
+                                     **bkw)
+            stored = gk.gat_layer_bwd_stored(g, *t, p, heads, attn,
+                                             need_dbias=need_dbias, **bkw)
+            torch.cuda.synchronize()
+            for name, a in got.items():
+                for other in (again, stored):
+                    assert (a is None) == (other[name] is None), name
+                    assert a is None or torch.equal(a, other[name]), name
+
+
 def test_bf16_layer_function_on_card_matches_cpu(dev):
     """The differentiable layer with bf16 operands (the model casts float32
     params to bf16 outside it): card forward + K2 against the CPU Function
@@ -1110,6 +1249,46 @@ def test_train_step_makes_no_host_sync(dev, tmp_path):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(loss))
+
+
+def test_bf16_train_step_makes_no_host_sync(dev, tmp_path):
+    """The same step with compute_dtype "bfloat16": K4 bf16 counts and
+    compacts its valid rows on the card and its products read their count
+    there, so the step still raises nothing under sync debug mode
+    "error"."""
+    import json
+
+    from taxoexpan_torch import builders
+    from taxoexpan_torch.data.synthetic import synthetic_taxonomy
+    from taxoexpan_torch.training.trainer import Trainer, batch_to
+    with open("configs/config.mag.json") as fin:
+        cfg = json.load(fin)
+    cfg["arch"]["args"]["compute_dtype"] = "bfloat16"
+    loader = dict(cfg["train_data_loader"]["args"], batch_size=4,
+                  num_workers=0, max_parents=13, expand_factor=50)
+    taxonomy = synthetic_taxonomy(num_nodes=300, dim=250, seed=0)
+    sampler = builders.build_sampler(taxonomy, loader, "train")
+    model = builders.build_model(cfg["arch"],
+                                 max_parents=sampler.max_parents,
+                                 expand_factor=sampler.expand_factor)
+    params = model.init(torch.Generator().manual_seed(0))
+    opt = builders.build_optimizer_from_config(cfg["optimizer"],
+                                               cfg["trainer"])
+    trainer = Trainer(model, params, opt, opt.init(params),
+                      loss_name=cfg["loss"], metric_names=cfg["metrics"],
+                      feature_table=sampler.node_features, train_loader=None,
+                      save_dir=tmp_path, device=dev)
+    batch = batch_to(next(iter(builders.build_loader(sampler, loader))), dev)
+    launches = gk.gat_layer_pooled_bwd.launches_bf16
+    trainer.train_step(batch, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = trainer.train_step(batch, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(loss))
+    assert gk.gat_layer_pooled_bwd.launches_bf16 == launches + 2
 
 
 def test_simple_mlp_on_card_matches_cpu(dev):
