@@ -51,7 +51,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               its time by pass (`passes_ms`, CUDA events the kernel library
               records between its launches: staging and packing, the
               projection, the star or pooled star pass; the head core or
-              K5b's dz pass, the slot-bias or db sums, dW, dx). The pooled
+              K5b's dz pass, the slot-bias or db sums, dW, dx; the bf16
+              forwards by their form, `gat_kernels.fwd_form`: the fused
+              per-slot form's staging, pass A (a1 | a2), the star weights
+              and the product with the star pass in its epilogue; the
+              pooled valid-rows form's counting and compacted staging of
+              the valid rows, the projection on them, the pooled star
+              pass). The pooled
               star pass of K3 and K5f's star pass are also held alone
               against their plain versions on the projection the card
               computes (`star_alone`).
@@ -89,7 +95,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               x 31 candidates) and the configuration at full width with
               full-catalog validation every epoch, for two epochs (one for
               PGAT-stored), the launch counters set to 0 just before and
-              read just after. PGAT-stored is PGAT with
+              read just after, and the run's peak device memory
+              (`max_memory_allocated_bytes`, its train steps').
+              PGAT-stored is PGAT with
               TAXOEXPAN_STORED_ATTN=1; MTL runs with TAXOEXPAN_STORED_ATTN=1
               and TAXOEXPAN_DROPOUT_BITS=8. Checks a finite loss, changed
               params, the checkpoints (MTL: with `aux`), launches of the
@@ -133,7 +141,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               result to one bf16 ulp, a bf16 grad to 2**-6 relative plus
               2**-8 of its largest value), with
               `matmul_ms` of one bf16 torch.matmul and `bound_ms` at the
-              dense bf16 rate (989 TFLOP/s); serving and training of
+              dense bf16 rate (989 TFLOP/s), and `products`: each product
+              pass's rows (all B*N, or the valid rows R of K4 and of the
+              pooled forward's valid-rows form), TFLOP/s and one cuBLAS bf16
+              matmul of its shape (the fused forward: pass A and the fused
+              product); every bf16 path must launch the fused form for each
+              per-slot forward and the valid-rows form for the pooled eval
+              and train forms (`path_launches`); serving and training of
               PGAT-bf16 (config.mag.json with the key) and MTL-bf16
               (config.semeval_verb_mtl.json with the key, its switches) as
               above, launches read from the wrappers' `launches_bf16` (a
@@ -426,7 +440,11 @@ def path_launches(path: str, wrappers: dict) -> dict:
     bf16 kernels' on a BF16_PATHS path (which then must have launched no
     float32 GAT kernel: raises), else their float32 kernels', and their
     bf16 kernels' under "<name>[bf16]" (K5's bf16 form has no path of its
-    own: PGCN's count of it is its count on the main paths)."""
+    own: PGCN's count of it is its count on the main paths). On a
+    BF16_PATHS path also the forwards' launches by form under
+    "<name>[<form>]" (`gk.fwd_form`): at N = 64 every per-slot forward
+    must take the fused form and the pooled eval and train forms the
+    valid-rows form (raises otherwise)."""
     from taxoexpan_torch.ops import gat_kernels as gk
     if path not in BF16_PATHS:
         return {name: w.launches for name, w in wrappers.items()} | {
@@ -436,7 +454,17 @@ def path_launches(path: str, wrappers: dict) -> dict:
     if f32:
         raise AssertionError(f"the bf16 path {path} launched float32 "
                              f"kernels {f32}")
-    return {name: w.launches_bf16 for name, w in wrappers.items()}
+    forms = {f"{name}[{form}]": count for name, w in wrappers.items()
+             for form, count in getattr(w, "launches_by_form", {}).items()}
+    expected = {name: "two_pass" if name.endswith("pooled_fwd_train_store")
+                else "valid_rows" if "pooled_fwd" in name else "fused"
+                for name in wrappers if "_fwd" in name}
+    other = {key: count for key, count in forms.items()
+             if key != f"{key.split('[')[0]}[{expected[key.split('[')[0]]}]"}
+    if other:
+        raise AssertionError(f"the bf16 path {path} launched forward forms "
+                             f"{other}")
+    return {name: w.launches_bf16 for name, w in wrappers.items()} | forms
 
 
 def _train_wrappers(path: str) -> tuple[dict, tuple]:
@@ -579,8 +607,13 @@ def _bound(nbytes: float, flops: float, tensor_cores: bool = False,
 def pass_split(kernel, which: str, calls: int = 3) -> dict:
     """Mean device ms of each pass of `kernel` (one wrapper call) over
     `calls` calls, from CUDA events the kernel library records between its
-    launches: which = "gat_fwd" (K1 / K3: stage and pack, projection, star
-    or pooled star pass), "gat_bwd" (K2 / K4: stage and pack, projection,
+    launches: which = "gat_fwd:<form>" (K1 / K3 by their form,
+    `gk.fwd_form`: "two_pass" stage and pack, projection, star or pooled
+    star pass; "fused" stage and pack, pass A (a1 | a2), the star weights,
+    the product with the star epilogue; "valid_rows" the valid rows
+    counted, staged and W
+    packed, the projection on them, the pooled star pass; `fwd_passes`),
+    "gat_bwd" (K2 / K4: stage and pack, projection,
     head core, slot-bias sums, dW, dx), "gat_bwd_bf16" (their bf16 forms:
     stage and pack, with K4's valid rows counted and compacted; projection;
     the head core writing D in bf16; the reduction of its slot-bias
@@ -589,7 +622,9 @@ def pass_split(kernel, which: str, calls: int = 3) -> dict:
     db / d z_bias sums, dW, dx)."""
     from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.ops import gcn_kernels as ck
-    fn = {"gat_fwd": gk.fwd_pass_ms, "gat_bwd": gk.bwd_pass_ms,
+    which, _, form = which.partition(":")
+    fn = {"gat_fwd": lambda call: gk.fwd_pass_ms(call, form),
+          "gat_bwd": gk.bwd_pass_ms,
           "gat_bwd_bf16": lambda call: gk.bwd_pass_ms(call, bf16=True),
           "gcn_fwd": ck.fwd_pass_ms, "gcn_bwd": ck.bwd_pass_ms}[which]
     runs = [fn(kernel) for _ in range(calls)]
@@ -602,28 +637,47 @@ def bwd_passes(x) -> str:
     return "gat_bwd_bf16" if x.dtype == torch.bfloat16 else "gat_bwd"
 
 
+def fwd_passes(x, pooled: bool, store: bool = False) -> str:
+    """The pass split of a star-GAT forward on x (`pass_split`), by the
+    form the wrapper launches (`gk.fwd_form`)."""
+    from taxoexpan_torch.ops import gat_kernels as gk
+    return f"gat_fwd:{gk.fwd_form(x, pooled, store)}"
+
+
 def product_rates(x, ops, pe_pack, heads: int, ngp, nsib, passes: dict,
-                  backward: bool, pooled: bool, need_dx: bool) -> dict:
+                  backward: bool, pooled: bool, need_dx: bool,
+                  store: bool = False) -> dict:
     """The product passes of a bf16 star-GAT form (csrc/gemm_wgmma.cuh): for
-    the projection and, in a backward, dW (with its split reduction) and dx
-    (with the dpe sums), the rows it runs (all B*N, or K4's valid rows R),
-    its operations, its TFLOP/s from its pass ms, and one bf16
-    torch.matmul (cuBLAS) at the same shape on random operands as a
-    yardstick, not used by the port."""
+    the projection (the fused forward: pass A, a1 | a2, and the fused
+    product, ft with the star pass in its epilogue) and, in a backward, dW
+    (with its split reduction) and dx (with the dpe sums), the rows it runs
+    (all B*N, or the valid rows R of K4 and of the pooled forward's
+    valid-rows form), its operations, its TFLOP/s from its pass ms, and
+    one bf16 torch.matmul (cuBLAS) at the same shape on random operands as
+    a yardstick, not used by the port."""
     import torch
+    from taxoexpan_torch.ops import gat_kernels as gk
     b, n, din = x.shape
     hd = ops[0].shape[1]
     pos = pe_pack[0].shape[1] if pe_pack else 0
     kx, wd = din + pos, hd + 2 * heads
     valid = int((ngp.long() + 1 + nsib.long()).sum())
-    rows = valid if backward and pooled else b * n
-    shapes = {"projection": ((rows, kx), (kx, wd), False)}
+    form = None if backward else gk.fwd_form(x, pooled, store)
+    rows = valid if (backward and pooled) or form == "valid_rows" else b * n
+    if form == "fused":
+        shapes = {"pass_a": ((rows, kx), (kx, 2 * heads), False),
+                  "fused_product": ((rows, kx), (kx, hd), False)}
+    elif form == "valid_rows":
+        shapes = {"projection_rows": ((rows, kx), (kx, wd), False)}
+    else:
+        shapes = {"projection": ((rows, kx), (kx, wd), False)}
     if backward:
         shapes["dw"] = ((rows, kx), (rows, wd), True)   # X^T @ D
         cols = (din if need_dx else 0) + pos
         if cols:
             shapes["dx"] = ((rows, wd), (wd, cols), False)
-    out = {"rows": rows, "valid_rows": valid}
+    out = {"rows": rows, "valid_rows": valid, **({"form": form} if form
+                                                  else {})}
     gen = torch.Generator(device=x.device).manual_seed(SEED)
     for name, (sa, sb, trans) in shapes.items():
         a = torch.randn(sa, generator=gen, device=x.device,
@@ -913,7 +967,8 @@ def phase_kernels(batch: int, device, drop: float,
             call += " in bf16"
         # every GAT form runs its products on the tensor cores
         got, nums = measure(name, kernel, plain, backward, matmul,
-                            bwd_passes(x) if backward else "gat_fwd")
+                            bwd_passes(x) if backward
+                            else fwd_passes(x, pooled))
         if bf16:
             nums["products"] = product_rates(
                 x, ops, pe_pack, heads, ngp, nsib, nums["passes_ms"],
@@ -1012,14 +1067,14 @@ def store_entries(tag: str, path: str, pooled: bool, x, ops, pe_pack,
         name + tag, lambda: fwd_w(*ops_all, **train_kw, **akw),
         lambda: gk.gat_layer_train_plain(*ops_all, pooled=pooled,
                                          store_attn=True, **train_kw, **akw),
-        False, lambda: x2 @ fc, "gat_fwd")
+        False, lambda: x2 @ fc, fwd_passes(x, pooled, True))
     if pooled:
         nums["star_alone"] = pooled_star_alone(name + tag, x, ops, ngp, nsib,
                                                heads, train_kw, store=True)
     if x.dtype == torch.bfloat16:
         nums["products"] = product_rates(x, ops, pe_pack, heads, ngp, nsib,
                                          nums["passes_ms"], False, pooled,
-                                         False)
+                                         False, store=True)
     records = [gat_record(
         name + tag, name, path, False, x, fc, pe_pack, nums,
         fwd_work(pooled, x, ops, pe_pack, ngp, nsib, heads, out, attn),
@@ -1094,7 +1149,7 @@ def phase_mtl_kernels(batch: int, device, drop: float) -> list[dict]:
             lambda: gk.gat_layer_fwd(x, *ops, *args, heads,
                                      out_alpha=out_alpha),
             lambda: gk.gat_layer_fwd_plain(x, *ops, *args, heads, out_alpha),
-            False, lambda: x2 @ ops[0], "gat_fwd")
+            False, lambda: x2 @ ops[0], fwd_passes(x, False))
         if x.dtype == torch.bfloat16:
             nums["products"] = product_rates(x, ops, None, heads, ngp, nsib,
                                              nums["passes_ms"], False, False,
@@ -1257,7 +1312,8 @@ def phase_tp_kernels(batch: int, device, drop: float) -> list[dict]:
             else:
                 matmul = lambda: x2 @ ops[0]  # noqa: E731
             got, nums = measure(name, kernel, plain, backward, matmul,
-                                bwd_passes(x) if backward else "gat_fwd")
+                                bwd_passes(x) if backward
+                                else fwd_passes(x, pooled))
             if backward:
                 del d
                 work = bwd_work(x, ops, pe_pack, g1 if pooled else g0, got,
@@ -1551,6 +1607,7 @@ def phase_serving(device, num_nodes: int, n_novel: int, seed: int,
 
         # ---- the main path, with the launch counters around it
         reset_counters()
+        torch.cuda.reset_peak_memory_stats(device)
         t0 = time.time()
         metrics = test_fast_cli.main(test_fast_cli.parse_args(
             ["-r", ckpt, "-c", str(run / "case.tsv")]))
@@ -1970,6 +2027,7 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
 
         # ---- the main path, with the launch counters around it
         reset_counters()
+        torch.cuda.reset_peak_memory_stats(device)
         t0 = time.time()
         if profile:
             train_cli.Trainer = ProfiledTrainer
@@ -1980,6 +2038,7 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
             train_cli.Trainer = trainer_cls
         torch.cuda.synchronize()
         train_s = time.time() - t0
+        peak_bytes = torch.cuda.max_memory_allocated(device)
         launches = path_launches(path, wrappers)
 
         # ---- checks
@@ -2050,7 +2109,11 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
            "loss_last_epoch": log["loss"],
            "val_metrics_last_epoch": {k[4:]: v for k, v in log.items()
                                       if k.startswith("val_")},
-           "train_s": train_s, "max_param_change": changed,
+           "train_s": train_s,
+           # the training run's peak device memory: its train steps' (the
+           # validation encodes at most as many egonets a chunk, no grads)
+           "max_memory_allocated_bytes": peak_bytes,
+           "max_param_change": changed,
            "launches": launches, "served_metrics": metrics,
            "serve_s": serve_s, "step_vs_cpu": step_vs_cpu}
     emit("training", **res)
@@ -3007,6 +3070,7 @@ def reset_counters() -> None:
         wrapper.launches_bf16 = 0
     for wrapper in gk.WRAPPERS.values():
         wrapper.launches_by_heads = {}
+        wrapper.launches_by_form = {}
 
 
 def run_paths(device) -> list[dict]:

@@ -11,7 +11,9 @@ parent, so that drift of the card over the call shows in both. Each run's
 standard output and error go to <out>/run<i>.out / .err. The summary
 (<out>/summary.json, also printed) gives per run: the kernel entries'
 device ms, passes_ms and launches (from the `{"kernels": [...]}` line and
-the `"phase": "kernel"` lines), each training path's median step ms, each
+the `"phase": "kernel"` lines), each training path's median step ms and,
+where the checkout's chip_smoke.py reports it, the training run's peak
+device memory (`max_memory_allocated_bytes`), each
 serving path's encode seconds, and, for each group of kernel names given
 by --sum, the sum over the group of launches x ms. Exits non-zero when a
 run fails.
@@ -28,7 +30,8 @@ from pathlib import Path
 
 def parse(stdout: str) -> dict:
     """The numbers of one chip_smoke run from its JSON lines."""
-    res = {"kernels": {}, "step_ms": {}, "encode_s": {}, "card": None}
+    res = {"kernels": {}, "step_ms": {}, "peak_bytes": {}, "encode_s": {},
+           "card": None}
     for line in stdout.splitlines():
         if not line.startswith("{"):
             if "," in line and res["card"] is None and "W" in line:
@@ -44,6 +47,9 @@ def parse(stdout: str) -> dict:
                 passes_ms=rec.get("passes_ms"))
         elif phase == "training" and "median_step_ms" in rec:
             res["step_ms"][rec["path"]] = rec["median_step_ms"]
+            if "max_memory_allocated_bytes" in rec:
+                res["peak_bytes"][rec["path"]] = \
+                    rec["max_memory_allocated_bytes"]
         elif phase == "serving" and "encode_s" in rec:
             res["encode_s"][rec["path"]] = rec["encode_s"]
         elif "kernels" in rec:

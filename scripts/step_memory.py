@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""Peak device memory and device time of one full-width train step, for a
+checkout of the PyTorch port given on the command line.
+
+    python3 scripts/step_memory.py [--path PGAT-bf16] CHECKOUT [CHECKOUT ...]
+
+For each checkout (a directory holding `taxoexpan_torch/`), in a process of
+its own, so that each imports and builds its own package: the path's
+configuration (`configs/config.mag.json`, with compute_dtype bfloat16 for
+PGAT-bf16) at full width, random weights from seed 0, a synthetic 800-node
+taxonomy (dim 250), and one batch of the configuration's 128 groups x 32
+candidates = 4096 egonets. After two warm-up steps it resets the
+allocator's peak, runs three steps, and prints one JSON line:
+`torch.cuda.max_memory_allocated` above the memory held before the steps
+(the step's own workspaces, activations and grads), the mean step time
+(CUDA events), and the card's nvidia-smi line. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+STEP = r"""
+import json, subprocess, sys, tempfile
+sys.path.insert(0, sys.argv[1])
+import torch
+from taxoexpan_torch import builders
+from taxoexpan_torch.data.synthetic import synthetic_taxonomy
+from taxoexpan_torch.training.trainer import Trainer, batch_to
+from taxoexpan_torch.weights import params_to
+cfg = json.load(open(sys.argv[1] + "/configs/config.mag.json"))
+if sys.argv[2] == "PGAT-bf16":
+    cfg["arch"]["args"]["compute_dtype"] = "bfloat16"
+dev = torch.device("cuda", 0)
+taxonomy = synthetic_taxonomy(num_nodes=800, dim=cfg["arch"]["args"]["in_dim"],
+                              seed=0)
+loader_cfg = dict(cfg["train_data_loader"]["args"], num_workers=0)
+sampler = builders.build_sampler(taxonomy, loader_cfg, "train")
+model = builders.build_model(cfg["arch"], max_parents=sampler.max_parents,
+                             expand_factor=sampler.expand_factor)
+params = params_to(model.init(torch.Generator().manual_seed(0)), dev)
+batch = next(iter(builders.build_loader(sampler, loader_cfg)))
+opt = builders.build_optimizer_from_config(cfg["optimizer"], cfg["trainer"])
+with tempfile.TemporaryDirectory() as tmp:
+    tr = Trainer(model, params, opt, opt.init(params), loss_name=cfg["loss"],
+                 metric_names=cfg["metrics"],
+                 feature_table=sampler.node_features, train_loader=None,
+                 save_dir=tmp, device=dev)
+    b = batch_to(batch, dev)
+    for i in range(2):
+        tr.train_step(b, i)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(3):
+        tr.train_step(b, 2 + i)
+    end.record()
+    torch.cuda.synchronize()
+card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                       "--format=csv,noheader"], capture_output=True,
+                      text=True).stdout.strip().splitlines()[0]
+print(json.dumps({"checkout": sys.argv[1], "path": sys.argv[2],
+                  "egonets": int(batch.labels.size),
+                  "step_peak_bytes": torch.cuda.max_memory_allocated(dev)
+                  - base, "held_before_bytes": base,
+                  "step_ms": start.elapsed_time(end) / 3, "card": card}))
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("checkouts", nargs="+")
+    ap.add_argument("--path", default="PGAT-bf16", choices=("PGAT",
+                                                            "PGAT-bf16"))
+    args = ap.parse_args()
+    rc = 0
+    for tree in args.checkouts:
+        proc = subprocess.run([sys.executable, "-c", STEP,
+                               str(Path(tree).resolve()), args.path],
+                              capture_output=True, text=True)
+        lines = proc.stdout.strip().splitlines()
+        print(lines[-1] if proc.returncode == 0 and lines else json.dumps(
+            {"checkout": tree, "rc": proc.returncode,
+             "stderr": proc.stderr[-2000:]}), flush=True)
+        rc = rc or proc.returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

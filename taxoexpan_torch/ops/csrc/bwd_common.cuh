@@ -176,6 +176,116 @@ inline cudaError_t stage_and_pack(const OperandT<E>& op, const TrainArgs& ta,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- the valid rows
+// K3 bf16 (gat_fwd.cu) and K4 bf16 (gat_bwd.cu) run their products on the
+// valid rows of the batch alone, compacted in order (each egonet's
+// grandparents, anchor, siblings), counted and scanned on the card.
+
+// The slot of row r in egonet b's valid rows (0..ngp-1 the grandparents,
+// ngp the anchor, then the siblings), or -1 for an invalid slot: a valid
+// egonet's slots are the two runs 0..ngp and p+1..p+nsib.
+__device__ __forceinline__ int valid_pos(int r, int ngp, int nsib, int p) {
+  if (r < p) return r < ngp ? r : -1;
+  if (r == p) return ngp;
+  return r - p - 1 < nsib ? ngp + 1 + (r - p - 1) : -1;
+}
+
+// off[b] = the first valid row of egonet b among the valid rows of all
+// egonets in order; off[nb] = R, their count. One block of 1024 threads: a
+// contiguous run of egonets a thread, then an exclusive scan of the runs'
+// counts.
+__global__ void valid_row_offsets_kernel(const int* __restrict__ ngp,
+                                         const int* __restrict__ nsib,
+                                         int nb, int n, int p,
+                                         int* __restrict__ off) {
+  __shared__ int warp_sums[32];
+  const int per = (nb + blockDim.x - 1) / blockDim.x;
+  const int beg = min(nb, (int)threadIdx.x * per), end = min(nb, beg + per);
+  auto count = [&](int b) {
+    return min(max(ngp[b], 0), p) + 1 + min(max(nsib[b], 0), n - p - 1);
+  };
+  int local = 0;
+  for (int b = beg; b < end; ++b) local += count(b);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int incl = local;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_sums[w] = incl;
+  __syncthreads();
+  if (w == 0) {
+    const int v = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0;
+    int sc = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, sc, o);
+      if (lane >= o) sc += u;
+    }
+    warp_sums[lane] = sc - v;  // the warps' exclusive prefixes
+  }
+  __syncthreads();
+  int run = warp_sums[w] + incl - local;
+  for (int b = beg; b < end; ++b) {
+    off[b] = run;
+    run += count(b);
+  }
+  if (threadIdx.x == blockDim.x - 1) off[nb] = run;
+}
+
+// The valid rows staged compacted: a warp a row of the m = nb*n rows. A
+// valid row r is staged as stage_input_kernel stages it (its own masks,
+// the keys of row r) into xc at its compacted row, which row_map records.
+// The backward (K4) also passes dx (need_dx) and pe_rows: an invalid row's
+// dx and pe-row grads are zeroed, the values the reference's formula
+// gives there; and d16. The kRowPad rows after the R valid ones are zero
+// in xc and, where given, d16, for the dW product's last K tile. The
+// forward (K3) passes null for all three.
+template <class E>
+__global__ void stage_valid_rows_kernel(OperandT<E> op, TrainArgs ta,
+                                        const int* __restrict__ ngp,
+                                        const int* __restrict__ nsib, int p,
+                                        const int* __restrict__ off, int nb,
+                                        E* __restrict__ xc, int kxp,
+                                        int* __restrict__ row_map,
+                                        E* __restrict__ dx,
+                                        float* __restrict__ pe_rows,
+                                        bf16* __restrict__ d16, int wdp) {
+  const unsigned kf = stream_key(ta.seed, kStreamFeat);
+  const unsigned kp = stream_key(ta.seed, kStreamPe);
+  const int n = op.n;
+  const long long m = (long long)nb * n;
+  const int warps = blockDim.x >> 5, lane = threadIdx.x & 31;
+  for (long long r = (long long)blockIdx.x * warps + (threadIdx.x >> 5);
+       r < m + kRowPad; r += (long long)gridDim.x * warps) {
+    if (r >= m) {
+      const long long q = off[nb] + (r - m);
+      for (int k = lane; k < kxp; k += 32)
+        xc[q * kxp + k] = from_float<E>(0.f);
+      if (d16 != nullptr)
+        for (int k = lane; k < wdp; k += 32)
+          d16[q * wdp + k] = from_float<bf16>(0.f);
+      continue;
+    }
+    const long long b = r / n;
+    const int slot = (int)(r % n);
+    const int q = valid_pos(slot, min(max(ngp[b], 0), p),
+                            min(max(nsib[b], 0), n - p - 1), p);
+    if (q < 0) {
+      if (dx != nullptr)
+        for (int k = lane; k < op.din; k += 32)
+          dx[r * op.din + k] = from_float<E>(0.f);
+      if (pe_rows != nullptr)
+        for (int k = lane; k < ta.pos; k += 32) pe_rows[r * ta.pos + k] = 0.f;
+      continue;
+    }
+    const long long ci = off[b] + q;
+    if (lane == 0) row_map[ci] = (int)r;
+    stage_row(op, ta, kf, kp, r, xc + ci * kxp, kxp, lane);
+  }
+}
+
 // The layer projection P = X @ W + the slot biases, [m, wdp] over all
 // m = b*n rows (X staged and W packed into wcat [kxp, wdp] by
 // stage_and_pack; X is x itself when xm is null): star-GAT W = [fc | wa1 |

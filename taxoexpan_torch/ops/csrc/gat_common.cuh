@@ -161,111 +161,125 @@ __host__ __device__ __forceinline__ int attn_row(int n, int p) {
   return 2 * n - p - 1;
 }
 
-// Star softmax weights of head h from s.a1 / s.a2:
+// Star softmax weights of head h from s.a1 / s.a2, the part of slot r:
 //   gp rows    <- self only (weight 1; train: times the gp-self mask)
 //   anchor     <- valid grandparents (j < ngp) and self
 //   sib rows   <- anchor and self
-// Train form: each weight times its attention mask after the softmax.
+// Train form: each weight times its attention mask after the softmax (with
+// ta.attn_on; a zeroed TrainArgs gives the eval form's weights).
 // kBwd also keeps the softmax weights before dropout and the masks.
 // `stored` is egonet b's row of head h (layout at the top of this file), or
 // null: kLoad takes the weights from it and leaves s.a1 / s.a2 unread;
 // otherwise they are computed and, when it is not null, also written there.
+// The anchor's slot r = p writes w_to_anchor[j] of every gp j.
+template <bool kTrain, bool kBwd, bool kLoad = false>
+__device__ __forceinline__ void star_weights_row(int r, int n, int p,
+                                                 int ngp, float alpha,
+                                                 const Smem& s,
+                                                 const TrainArgs& ta,
+                                                 long long b, int h,
+                                                 float* stored) {
+  const bool drop = kTrain && ta.attn_on;
+  const int nsl = n - p - 1;  // sibling slots
+  if (r < p) {
+    const float m = drop ? attn_mask(ta, h, 4, b, r) : 1.f;
+    s.w_self[r] = m;
+    s.w_anchor[r] = 0.f;
+    if (kBwd) {
+      s.sm_self[r] = 1.f;
+      s.m_self[r] = m;
+      s.sm_anchor[r] = s.m_anchor[r] = 0.f;
+    }
+  } else if (r > p) {
+    float sa, ss;
+    if (kLoad) {
+      sa = stored[r];
+      ss = stored[r + nsl];
+    } else {
+      const float l0 = leaky(s.a1[p] + s.a2[r], alpha);
+      const float l1 = leaky(s.a1[r] + s.a2[r], alpha);
+      const float m = fmaxf(l0, l1);
+      const float e0 = expf(l0 - m), e1 = expf(l1 - m);
+      const float den = e0 + e1;
+      sa = e0 / den;
+      ss = e1 / den;
+      if (stored != nullptr) {
+        stored[r] = sa;
+        stored[r + nsl] = ss;
+      }
+    }
+    if (drop) {
+      const float ma = attn_mask(ta, h, 2, b, r - p - 1);
+      const float ms = attn_mask(ta, h, 3, b, r - p - 1);
+      s.w_anchor[r] = sa * ma;
+      s.w_self[r] = ss * ms;
+      if (kBwd) {
+        s.m_anchor[r] = ma;
+        s.m_self[r] = ms;
+      }
+    } else {
+      s.w_anchor[r] = sa;
+      s.w_self[r] = ss;
+      if (kBwd) s.m_anchor[r] = s.m_self[r] = 1.f;
+    }
+    if (kBwd) {
+      s.sm_anchor[r] = sa;
+      s.sm_self[r] = ss;
+    }
+  } else {
+    float m = 0.f, den = 1.f, sself;
+    const float a2p = kLoad ? 0.f : s.a2[p];
+    if (kLoad) {
+      sself = stored[p];
+    } else {
+      const float lself = leaky(s.a1[p] + a2p, alpha);
+      m = lself;
+      for (int j = 0; j < ngp; ++j)
+        m = fmaxf(m, leaky(s.a1[j] + a2p, alpha));
+      den = 0.f;
+      for (int j = 0; j < ngp; ++j)
+        den += expf(leaky(s.a1[j] + a2p, alpha) - m);
+      const float eself = expf(lself - m);
+      den += eself;
+      sself = eself / den;
+    }
+    for (int j = 0; j < p; ++j) {
+      float sm;
+      if (kLoad) {
+        sm = stored[j];
+      } else {
+        sm = j < ngp ? expf(leaky(s.a1[j] + a2p, alpha) - m) / den : 0.f;
+        if (stored != nullptr) stored[j] = sm;
+      }
+      const float mj = drop ? attn_mask(ta, h, 0, b, j) : 1.f;
+      s.w_to_anchor[j] = drop ? sm * mj : sm;
+      if (kBwd) {
+        s.sm_to_anchor[j] = sm;
+        s.m_to_anchor[j] = mj;
+      }
+    }
+    if (stored != nullptr) stored[p] = sself;
+    const float ms = drop ? attn_mask(ta, h, 1, b, 0) : 1.f;
+    s.w_self[p] = drop ? sself * ms : sself;
+    s.w_anchor[p] = 0.f;
+    if (kBwd) {
+      s.sm_self[p] = sself;
+      s.m_self[p] = ms;
+      s.sm_anchor[p] = s.m_anchor[p] = 0.f;
+    }
+  }
+}
+
+// The star softmax weights of one (egonet, head) over the block's threads
+// (star_weights_row for each slot), then a __syncthreads().
 template <bool kTrain, bool kBwd, bool kLoad = false>
 __device__ void attention_weights(int n, int p, int ngp, float alpha,
                                   const Smem& s, const TrainArgs& ta,
                                   long long b, int h,
                                   float* stored = nullptr) {
-  const bool drop = kTrain && ta.attn_on;
-  const int nsl = n - p - 1;  // sibling slots
-  for (int r = threadIdx.x; r < n; r += kThreads) {
-    if (r < p) {
-      const float m = drop ? attn_mask(ta, h, 4, b, r) : 1.f;
-      s.w_self[r] = m;
-      s.w_anchor[r] = 0.f;
-      if (kBwd) {
-        s.sm_self[r] = 1.f;
-        s.m_self[r] = m;
-        s.sm_anchor[r] = s.m_anchor[r] = 0.f;
-      }
-    } else if (r > p) {
-      float sa, ss;
-      if (kLoad) {
-        sa = stored[r];
-        ss = stored[r + nsl];
-      } else {
-        const float l0 = leaky(s.a1[p] + s.a2[r], alpha);
-        const float l1 = leaky(s.a1[r] + s.a2[r], alpha);
-        const float m = fmaxf(l0, l1);
-        const float e0 = expf(l0 - m), e1 = expf(l1 - m);
-        const float den = e0 + e1;
-        sa = e0 / den;
-        ss = e1 / den;
-        if (stored != nullptr) {
-          stored[r] = sa;
-          stored[r + nsl] = ss;
-        }
-      }
-      if (drop) {
-        const float ma = attn_mask(ta, h, 2, b, r - p - 1);
-        const float ms = attn_mask(ta, h, 3, b, r - p - 1);
-        s.w_anchor[r] = sa * ma;
-        s.w_self[r] = ss * ms;
-        if (kBwd) {
-          s.m_anchor[r] = ma;
-          s.m_self[r] = ms;
-        }
-      } else {
-        s.w_anchor[r] = sa;
-        s.w_self[r] = ss;
-        if (kBwd) s.m_anchor[r] = s.m_self[r] = 1.f;
-      }
-      if (kBwd) {
-        s.sm_anchor[r] = sa;
-        s.sm_self[r] = ss;
-      }
-    } else {
-      float m = 0.f, den = 1.f, sself;
-      const float a2p = kLoad ? 0.f : s.a2[p];
-      if (kLoad) {
-        sself = stored[p];
-      } else {
-        const float lself = leaky(s.a1[p] + a2p, alpha);
-        m = lself;
-        for (int j = 0; j < ngp; ++j)
-          m = fmaxf(m, leaky(s.a1[j] + a2p, alpha));
-        den = 0.f;
-        for (int j = 0; j < ngp; ++j)
-          den += expf(leaky(s.a1[j] + a2p, alpha) - m);
-        const float eself = expf(lself - m);
-        den += eself;
-        sself = eself / den;
-      }
-      for (int j = 0; j < p; ++j) {
-        float sm;
-        if (kLoad) {
-          sm = stored[j];
-        } else {
-          sm = j < ngp ? expf(leaky(s.a1[j] + a2p, alpha) - m) / den : 0.f;
-          if (stored != nullptr) stored[j] = sm;
-        }
-        const float mj = drop ? attn_mask(ta, h, 0, b, j) : 1.f;
-        s.w_to_anchor[j] = drop ? sm * mj : sm;
-        if (kBwd) {
-          s.sm_to_anchor[j] = sm;
-          s.m_to_anchor[j] = mj;
-        }
-      }
-      if (stored != nullptr) stored[p] = sself;
-      const float ms = drop ? attn_mask(ta, h, 1, b, 0) : 1.f;
-      s.w_self[p] = drop ? sself * ms : sself;
-      s.w_anchor[p] = 0.f;
-      if (kBwd) {
-        s.sm_self[p] = sself;
-        s.m_self[p] = ms;
-        s.sm_anchor[p] = s.m_anchor[p] = 0.f;
-      }
-    }
-  }
+  for (int r = threadIdx.x; r < n; r += kThreads)
+    star_weights_row<kTrain, kBwd, kLoad>(r, n, p, ngp, alpha, s, ta, b, h,
+                                          stored);
   __syncthreads();
 }
 

@@ -26,64 +26,118 @@
 // weights before dropout, [B, H, 2N - P - 1] (layout in gat_common.cuh),
 // for the stored-attention backward (pallas_gat.py:231).
 //
-// What bounds it on an H100: the x @ fc product. At the config.mag.json
-// shapes (N = 64) layer 0 does 2*B*64*(250 [+50])*2008 flop and writes
-// B*64*2000 floats; the final layer does 2*B*64*(2000 [+50])*502 flop and
-// writes only the pools. Both sit far above the float32 ridge point.
+// The float32 forms (3xTF32 on the tensor cores, gemm_tf32.cuh) and the
+// bf16 forms (bf16 wgmma, gemm_wgmma.cuh) share the layer's arithmetic but
+// not its structure.
 //
-// Both layers run two launches (and two small preparations).
+// float32 forms: two launches (and two small preparations) a layer.
 //  1. The projection P = X @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot
 //     biases over all B*N rows, [B*N, wdp] (wdp = H*Dh + 2H rounded up to
-//     4: 2008 for config.mag.json's layer 0, 504 for its final layer), on
-//     the tensor cores in 3xTF32 (gemm_tf32.cuh): one product a layer, W's
-//     tiles reused across 128 rows (two egonets) a block. X is x itself,
-//     or, where the layer has masks or a pe path or x's rows are not
-//     16-byte multiples, x staged once into a workspace with each mask bit
-//     hashed once (gemm_tf32.cuh:stage_input_kernel). The backward
-//     (gat_bwd.cu) runs the same product on the same inputs, so its a1/a2
-//     and softmax are these bits.
-//  2. Per-slot layer (gat_layer_fwd[_train]): the star pass, one block per
+//     4: 2008 for config.mag.json's layer 0, 504 for its final layer),
+//     one product a layer, W's tiles reused across 128 rows (two egonets)
+//     a block. X is x itself, or, where the layer has masks or a pe path
+//     or x's rows are not 16-byte multiples, x staged once into a
+//     workspace with each mask bit hashed once
+//     (gemm_tf32.cuh:stage_input_kernel). The backward (gat_bwd.cu) runs
+//     the same product on the same inputs, so its a1/a2 and softmax are
+//     these bits.
+//  2. Per-slot layer: the star pass (gat_star_fwd_kernel), one block per
 //     (egonet, head): a1/a2 from P, the star softmax once (with attention
 //     dropout, and the stored weights written where attn is not null),
 //     then the aggregation, the optional out_alpha leaky and the output,
-//     each thread a column of the head: bound by bytes (P read and the
-//     output written once).
-//     Pooled layer (gat_layer_pooled_fwd[_train]): the pooled star pass,
-//     one block per egonet looping over heads: the same softmax once per
-//     (egonet, head), then per column the valid-gp sum, the anchor and the
-//     valid-sib sum, averaged over heads in shared memory, the pools
-//     written once. It reads the valid rows of P only; the projection
-//     computes all B*N rows, as the TPU kernel does.
-// The workspace P is 4 * B*N*wdp bytes: 2.1 GB for config.mag.json's layer
-// 0 at B = 4096, 0.53 GB for its final layer, 3.8 GB for the MTL
-// configuration's layer 0; X staged adds 4 * B*N*kxp bytes (2.15 GB for
-// the final layer's train forms, kxp = 2052).
+//     each thread a column of the head. Pooled layer: the pooled star pass
+//     (gat_pooled_star_kernel), one block per egonet looping over heads:
+//     the same softmax once per (egonet, head), then per column the
+//     valid-gp sum, the anchor and the valid-sib sum, averaged over heads
+//     in shared memory, the pools written once; it reads the valid rows of
+//     P only, the projection computes all B*N rows, as the TPU kernel does.
+//  What bounds them on an H100: the 3xTF32 products; P is 4 * B*N*wdp
+//  bytes (2.1 GB at config.mag.json's layer 0, B = 4096; 0.53 GB at its
+//  final layer; 3.8 GB at the MTL configuration's layer 0), written and
+//  read once, and X staged adds 4 * B*N*kxp bytes.
 //
 // The bf16 forms (compute_dtype "bfloat16"; the Pallas kernels with x in
 // bf16): x, fc, wa1, wa2 in bf16, the slot biases and the pe path's rows
 // float32; X staged and W packed in bf16 (gemm_tf32.cuh:stage_input_kernel,
 // pack_weights_kernel, 8 elements a 16-byte chunk: kxp and wdp rounded up
-// to 8), the projection on bf16 tensor-core MMAs with float32 accumulation
-// (gemm_wgmma.cuh), so P, the softmax and the aggregation stay float32
-// (pallas_gat.py:283-291); the per-slot output is rounded to bf16 after
-// the fused leaky (:359-362), the pools stay float32 (:1148). X staged
-// takes 2 bytes an element; the final layer's eval form reads x directly
-// (4000-byte rows).
+// to 8), the products on bf16 wgmma with float32 accumulation, so ft, a1,
+// a2, the softmax and the aggregation stay float32 (pallas_gat.py:283-291);
+// the per-slot output is rounded to bf16 after the fused leaky (:359-362),
+// the pools stay float32 (:1148). Each form by shape:
+//  - Per-slot layer at n <= 64 (every configuration: N = 64), the fused
+//    form, four launches and two preparations; P never reaches device
+//    memory:
+//     stage + pack  X staged where needed; W split into [fc; wp] (wcat,
+//                   wdp = H*Dh rounded up to 8) and [wa1 | wa2; wpa1 |
+//                   wpa2] (wa), their slot biases packed alike;
+//     pass A        [a1 | a2] = X @ wa + their slot biases, float32 [B*N,
+//                   lda] (lda = 2H rounded up to 4; 8.4 MB at layer 0), on
+//                   the product's narrow tile: the same K order and 64-deep
+//                   FADDs as the backward's projection, whose a1 / a2
+//                   columns (and so its softmax) are these bits;
+//     weights       the star softmax once per (egonet, head)
+//                   (star_weights_kernel: attention masks, the stored
+//                   weights), each row's weights into wts (16.8 MB);
+//     pass B        X @ [fc; wp] with the star epilogue (gemm_wgmma.cuh:
+//                   kEpiStar): each consumer warpgroup holds floor(64 / n)
+//                   whole egonets of ft (+ its slot biases) in its C tile,
+//                   the weights of the heads its columns touch copied in
+//                   while the products run, aggregates there and writes
+//                   the output, after the leaky, in bf16. The softmax stays
+//                   out of the epilogue: the anchor's is a serial chain of
+//                   exponentials that would stall the tensor cores once
+//                   per column tile.
+//    What bounds it: the product (X read from L2 once per 128-column
+//    tile) with the epilogue, which the tensor cores wait for, and the
+//    bf16 output (1.05 GB at layer 0), where the two-pass form also wrote
+//    and read 2.1 GB of float32 P.
+//  - Per-slot layer at n > 64: the two-pass form of the float32 forms, the
+//    projection on wgmma (gemm_wgmma.cuh, kEpiRowBias) and the star pass
+//    gat_star_fwd_kernel<.., bf16>, a warpgroup's 64 rows holding no whole
+//    egonet. The wrappers count its launches as the form "two_pass"
+//    (gat_kernels.fwd_form).
+//  - Pooled layer, eval and train forms, the valid-rows form: the valid
+//    rows alone are counted and scanned on the card
+//    (bwd_common.cuh:valid_row_offsets_kernel), staged compacted with
+//    their own masks and a row map (stage_valid_rows_kernel; R rows, about
+//    half of B*N in the smoke's batch), multiplied (the projection over R
+//    rows read on the card, GemmArgs::rows: no host sync) into P [R, wdp],
+//    and the pooled star pass reads them through the egonets' row offsets.
+//    Bound by the staging's bytes and the product on R rows. A row's
+//    wgmma result does not depend on its place in the tile, so the pools
+//    have the bits of the all-rows form, and K4 bf16 (which compacts the
+//    same rows) recomputes this softmax.
+//  - Pooled layer, store form: the two-pass form over all rows, since it
+//    stores the invalid siblings' formula weights too, which need those
+//    rows' a1 / a2.
 
 #include "bwd_common.cuh"
 
 using gat::bf16;
 
-// Workspaces of the forwards, allocated by the caller; mirrored
-// field by field by gat_kernels._FwdWork. E: the layer's element type.
+// Workspaces of the forwards, allocated by the caller (each form its
+// own; the others null); mirrored field by field by gat_kernels._FwdWork.
+// E: the layer's element type.
 template <class E>
 struct FwdWorkT {
-  float* proj;     // [b*n, wdp] the projection P
-  E* xm;           // [b*n, kxp] X staged, or null (the product reads x)
-  E* wcat;         // [kxp, wdp] W
-  float* biascat;  // [n, wdp] the slot biases
-  int kxp, wdp;
+  float* proj;     // [b*n, wdp] the projection P (not the fused form; the
+                   // valid-rows form's R rows first)
+  E* xm;           // [b*n, kxp] X staged, or null (the products read x);
+                   // the valid-rows form: [b*n + kRowPad, kxp], compacted
+  E* wcat;         // [kxp, wdp] W (the fused form: [fc; wp] alone)
+  float* biascat;  // [n, wdp] the slot biases of wcat's columns
+  E* wa;           // the fused form: [kxp, wap] [wa1 | wa2; wpa1 | wpa2]
+  float* biasa;    // the fused form: [n, lda] bias_a1 | bias_a2
+  float* a12;      // the fused form: [b*n, lda] pass A's a1 | a2
+  float* wts;      // the fused form: [b*n, heads, 4] the star weights
+  int* row_off;    // the valid-rows form: [b + 1] (bwd_common.cuh)
+  int* row_map;    // the valid-rows form: [b*n + kRowPad]
+  int kxp, wdp, wap, lda;
 };
+
+// The largest n of the bf16 per-slot fused form: a consumer warpgroup's 64
+// rows hold whole egonets.
+constexpr int kFusedMaxSlots = 64;
 using FwdWork = FwdWorkT<float>;
 
 namespace {
@@ -158,15 +212,19 @@ gat_star_fwd_kernel(const float* __restrict__ proj, int ldp,
 // computed (and, where attn is not null, stored) once; each thread a column
 // of the head, its three class sums kept in shared memory across the head
 // loop (acc [3][dh], each column touched by its own thread only). Only the
-// valid rows of P are read: the pools never see the others.
-template <bool kTrain>
+// valid rows of P are read: the pools never see the others. kCompact (the
+// bf16 valid-rows form): P holds the valid rows alone, egonet b's from
+// row_off[b] (grandparents, anchor, siblings), and an invalid slot's a1 /
+// a2 are taken as 0 (its weights reach no pool).
+template <bool kTrain, bool kCompact = false>
 __global__ void __launch_bounds__(kThreads)
 gat_pooled_star_kernel(const float* __restrict__ proj, int ldp,
                        const int* __restrict__ ngp_arr,
                        const int* __restrict__ nsib_arr,
                        float* __restrict__ pools, int n, int heads, int dh,
                        int p, float alpha, TrainArgs ta,
-                       float* __restrict__ attn) {
+                       float* __restrict__ attn,
+                       const int* __restrict__ row_off) {
   extern __shared__ float4 smem4[];
   float* base = reinterpret_cast<float*>(smem4);
   Smem s = {};
@@ -180,13 +238,22 @@ gat_pooled_star_kernel(const float* __restrict__ proj, int ldp,
   const int hd = heads * dh;
   const int ngp = min(max(ngp_arr[b], 0), p);
   const int nsib = min(max(nsib_arr[b], 0), n - p - 1);
-  const float* pb = proj + (size_t)b * n * ldp;
+  // the rows of the anchor and of sib slot r: r itself, or compacted
+  const int pa = kCompact ? ngp : p, sib0 = kCompact ? ngp - p : 0;
+  const float* pb =
+      proj + (kCompact ? (size_t)row_off[b] : (size_t)b * n) * ldp;
   for (int c = threadIdx.x; c < 3 * dh; c += kThreads) acc[c] = 0.f;
 
   for (int h = 0; h < heads; ++h) {
     for (int r = threadIdx.x; r < n; r += kThreads) {
-      s.a1[r] = pb[(size_t)r * ldp + hd + h];
-      s.a2[r] = pb[(size_t)r * ldp + hd + heads + h];
+      if (kCompact) {
+        const int q = valid_pos(r, ngp, nsib, p);
+        s.a1[r] = q < 0 ? 0.f : pb[(size_t)q * ldp + hd + h];
+        s.a2[r] = q < 0 ? 0.f : pb[(size_t)q * ldp + hd + heads + h];
+      } else {
+        s.a1[r] = pb[(size_t)r * ldp + hd + h];
+        s.a2[r] = pb[(size_t)r * ldp + hd + heads + h];
+      }
     }
     __syncthreads();
     float* stored =
@@ -196,7 +263,7 @@ gat_pooled_star_kernel(const float* __restrict__ proj, int ldp,
 
     const float* fb = pb + (size_t)h * dh;
     for (int c = threadIdx.x; c < dh; c += kThreads) {
-      const float fa = fb[(size_t)p * ldp + c];
+      const float fa = fb[(size_t)pa * ldp + c];
       float sg = 0.f, anc = 0.f, ss = 0.f;
 #pragma unroll 4
       for (int j = 0; j < ngp; ++j) {  // valid gps: own ft, and -> anchor
@@ -207,7 +274,8 @@ gat_pooled_star_kernel(const float* __restrict__ proj, int ldp,
       anc += s.w_self[p] * fa;  // anchor: valid gps and self
 #pragma unroll 4
       for (int r = p + 1; r <= p + nsib; ++r)  // valid sibs: anchor and self
-        ss += s.w_anchor[r] * fa + s.w_self[r] * fb[(size_t)r * ldp + c];
+        ss += s.w_anchor[r] * fa +
+              s.w_self[r] * fb[(size_t)(r + sib0) * ldp + c];
       acc[c] += sg;
       acc[dh + c] += anc;
       acc[2 * dh + c] += ss;
@@ -217,6 +285,44 @@ gat_pooled_star_kernel(const float* __restrict__ proj, int ldp,
   const float inv_h = 1.f / heads;  // mean over heads
   float* out = pools + (size_t)b * 3 * dh;
   for (int c = threadIdx.x; c < 3 * dh; c += kThreads) out[c] = acc[c] * inv_h;
+}
+
+// The fused form's star weights: a block of 64 threads an (egonet, head),
+// a thread a slot (n <= 64): a1 / a2 of the head from pass A's a12, the
+// star softmax with the attention masks (star_weights_row; the stored
+// weights written where attn is not null), then each row's (w_self,
+// w_anchor, w_to_anchor, 0) into wts [b*n, heads] float4s for the product's
+// star epilogue. The softmax is computed once per (egonet, head), as the
+// two-pass form's star pass computes it.
+__global__ void __launch_bounds__(64)
+star_weights_kernel(const float* __restrict__ a12, int lda,
+                    const int* __restrict__ ngp_arr, int n, int heads,
+                    int p, float alpha, TrainArgs ta,
+                    float* __restrict__ attn, float4* __restrict__ wts) {
+  __shared__ float base[5 * 64];
+  Smem s = {};
+  s.a1 = base;
+  s.a2 = base + 64;
+  s.w_self = base + 128;
+  s.w_anchor = base + 192;
+  s.w_to_anchor = base + 256;
+  const long long b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads, r = threadIdx.x;
+  const size_t row = (size_t)b * n + r;
+  if (r < n) {
+    s.a1[r] = a12[row * lda + h];
+    s.a2[r] = a12[row * lda + heads + h];
+  }
+  __syncthreads();
+  if (r < n)
+    star_weights_row<true, false>(
+        r, n, p, min(max(ngp_arr[b], 0), p), alpha, s, ta, b, h,
+        attn != nullptr ? attn + ((size_t)b * heads + h) * attn_row(n, p)
+                        : nullptr);
+  __syncthreads();  // the anchor's slot wrote w_to_anchor of every gp
+  if (r < n)
+    wts[row * heads + h] = make_float4(s.w_self[r], s.w_anchor[r],
+                                       r < p ? s.w_to_anchor[r] : 0.f, 0.f);
 }
 
 // The dropout generator alone (words, or the 8-bit mode's bytes), for
@@ -262,6 +368,90 @@ cudaError_t project(const OperandT<E>& op, const TrainArgs& ta, long long m,
   return err;
 }
 
+// The bf16 per-slot layer's fused form (n <= kFusedMaxSlots): stage and
+// pack, pass A (a1 | a2), the star weights, pass B (the product with the
+// star epilogue); pass marks before, between and after. The eval form
+// takes a zeroed ta.
+cudaError_t launch_fused(const bf16* x, const bf16* fc, const bf16* wa1,
+                         const bf16* wa2, const float* bias_ft,
+                         const float* bias_a1, const float* bias_a2,
+                         const int* ngp, bf16* out, int b, int n, int din,
+                         int heads, int dh, int p, float alpha,
+                         float out_alpha, int has_out_alpha,
+                         const TrainArgs& ta, float* attn,
+                         const FwdWorkT<bf16>& w, cudaStream_t st) {
+  if (w.wa == nullptr || w.biasa == nullptr || w.a12 == nullptr ||
+      w.wts == nullptr || (long long)b * heads > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const long long m = (long long)b * n;
+  const int hd = heads * dh;
+  // W's column blocks: ft's alone (c1 = c2 = wd = hd), and a1 | a2's
+  const OperandT<bf16> opf = {
+      x, {fc, fc, fc}, {ta.wp, ta.wp, ta.wp}, n, din, hd, hd, hd};
+  const OperandT<bf16> opa = {x,     {wa1, wa1, wa2},
+                              {ta.wpa1, ta.wpa1, ta.wpa2},
+                              n,     din,
+                              0,     heads,
+                              2 * heads};
+  // X staged with the first packing (xm set), W's two parts packed
+  const ProductWorkT<bf16> work_f = {w.xm, nullptr, nullptr, w.kxp,
+                                     w.wdp, 0, 1};
+  const ProductWorkT<bf16> work_a = {nullptr, nullptr, nullptr, w.kxp,
+                                     w.wap, 0, 1};
+  mark(g_marks, st);
+  cudaError_t err = stage_and_pack(opf, ta, m, work_f, 0, w.wcat, st);
+  if (err != cudaSuccess) return err;
+  err = stage_and_pack(opa, ta, m, work_a, 0, w.wa, st);
+  if (err != cudaSuccess) return err;
+  pack_bias_kernel<<<grid_for((long long)n * w.wdp), 256, 0, st>>>(
+      bias_ft, bias_ft, bias_ft, n, hd, hd, hd, w.wdp, w.biascat);
+  pack_bias_kernel<<<grid_for((long long)n * w.lda), 256, 0, st>>>(
+      bias_a1, bias_a1, bias_a2, n, 0, heads, 2 * heads, w.lda, w.biasa);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mark(g_marks, st);
+
+  // A. [a1 | a2] of every row (invalid sibling slots keep their formula
+  // value, as in the TPU kernel)
+  GemmArgsT<bf16> g = {};
+  g.a = w.xm != nullptr ? w.xm : x;
+  g.lda = w.xm != nullptr ? w.kxp : din;
+  g.b = w.wa;
+  g.ldb = w.wap;
+  g.c = w.a12;
+  g.ldc = w.lda;
+  g.m = m;
+  g.c_rows = m;
+  g.n = 2 * heads;
+  g.k = g.lda;
+  g.k_chunk = g.lda;
+  g.bias = w.biasa;
+  g.bias_rows = n;
+  err = product<true, kEpiRowBias, true>(g, TrainArgs{}, 1, st);
+  if (err != cudaSuccess) return err;
+  mark(g_marks, st);
+
+  // the star softmax of every (egonet, head), with the attention masks;
+  // the store form's weights written here, once
+  float4* wts = reinterpret_cast<float4*>(w.wts);
+  star_weights_kernel<<<(unsigned)((long long)b * heads), 64, 0, st>>>(
+      w.a12, w.lda, ngp, n, heads, p, alpha, ta, attn, wts);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mark(g_marks, st);
+
+  // B. ft and the star pass behind it
+  g.b = w.wcat;
+  g.ldb = w.wdp;
+  g.c = nullptr;
+  g.ldc = w.wdp;  // the slot biases' row stride
+  g.n = hd;
+  g.bias = w.biascat;
+  const StarArgs sa = {wts, ngp, out, b, n, p, heads, dh,
+                       kFusedMaxSlots / n * n, out_alpha, has_out_alpha};
+  err = product_wgmma<true, kEpiStar, 128>(g, ta, 1, sa, st);
+  mark(g_marks, st);
+  return err;
+}
+
 template <bool kTrain, class E>
 cudaError_t launch_fwd(const E* x, const E* fc, const E* wa1, const E* wa2,
                        const float* bias_ft, const float* bias_a1,
@@ -273,6 +463,12 @@ cudaError_t launch_fwd(const E* x, const E* fc, const E* wa1, const E* wa2,
   const cudaStream_t st = (cudaStream_t)stream;
   const long long m = (long long)b * n;
   if (m == 0) return cudaSuccess;
+  if constexpr (sizeof(E) == 2) {
+    if (n <= kFusedMaxSlots)
+      return launch_fused(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
+                          out, b, n, din, heads, dh, p, alpha, out_alpha,
+                          has_out_alpha, ta, attn, w, st);
+  }
   cudaError_t err =
       project(layer_operand(x, fc, wa1, wa2, n, din, heads, dh, ta), ta, m, w,
               bias_ft, bias_a1, bias_a2, st);
@@ -289,19 +485,65 @@ cudaError_t launch_fwd(const E* x, const E* fc, const E* wa1, const E* wa2,
   return err;
 }
 
-// 2. the pooled star pass over P [b*n, ldp] into pools [b, 3, dh]
-template <bool kTrain>
+// 2. the pooled star pass over P [b*n, ldp] (kCompact: the valid rows, from
+// row_off) into pools [b, 3, dh]
+template <bool kTrain, bool kCompact = false>
 cudaError_t pooled_star(const float* proj, int ldp, const int* ngp,
                         const int* nsib, float* pools, int b, int n,
                         int heads, int dh, int p, float alpha,
-                        const TrainArgs& ta, float* attn, cudaStream_t st) {
+                        const TrainArgs& ta, float* attn, cudaStream_t st,
+                        const int* row_off = nullptr) {
   if (b == 0) return cudaSuccess;
   const size_t smem = sizeof(float) * (5 * (size_t)n + 3 * (size_t)dh);
-  cudaError_t err = prepare((const void*)gat_pooled_star_kernel<kTrain>, smem);
+  cudaError_t err = prepare(
+      (const void*)gat_pooled_star_kernel<kTrain, kCompact>, smem);
   if (err != cudaSuccess) return err;
-  gat_pooled_star_kernel<kTrain><<<(unsigned)b, kThreads, smem, st>>>(
-      proj, ldp, ngp, nsib, pools, n, heads, dh, p, alpha, ta, attn);
+  gat_pooled_star_kernel<kTrain, kCompact><<<(unsigned)b, kThreads, smem,
+                                             st>>>(
+      proj, ldp, ngp, nsib, pools, n, heads, dh, p, alpha, ta, attn,
+      row_off);
   return cudaGetLastError();
+}
+
+// The bf16 pooled layer's valid-rows form (eval and train forms): the
+// valid rows counted and staged compacted, W packed; the projection over
+// the R valid rows; the pooled star pass on them. Pass marks before,
+// between and after.
+template <bool kTrain>
+cudaError_t launch_pooled_rows(const OperandT<bf16>& op, const TrainArgs& ta,
+                               const float* bias_ft, const float* bias_a1,
+                               const float* bias_a2, const int* ngp,
+                               const int* nsib, float* pools, int b, int n,
+                               int heads, int dh, int p, float alpha,
+                               const FwdWorkT<bf16>& w, cudaStream_t st) {
+  const long long m = (long long)b * n;
+  if (w.xm == nullptr || w.proj == nullptr || w.row_off == nullptr ||
+      w.row_map == nullptr || m + kRowPad > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  mark(g_marks, st);
+  valid_row_offsets_kernel<<<1, 1024, 0, st>>>(ngp, nsib, b, n, p,
+                                               w.row_off);
+  stage_valid_rows_kernel<bf16><<<grid_for((m + kRowPad) * 32), 256, 0,
+                                  st>>>(op, ta, ngp, nsib, p, w.row_off, b,
+                                        w.xm, w.kxp, w.row_map, nullptr,
+                                        nullptr, nullptr, 0);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const ProductWorkT<bf16> pack = {nullptr, nullptr, nullptr, w.kxp, w.wdp,
+                                   0,       1};  // X staged above
+  err = stage_and_pack(op, ta, m, pack, 0, w.wcat, st);
+  if (err != cudaSuccess) return err;
+  mark(g_marks, st);
+  err = gat_projection(op, w.xm, w.kxp, w.wcat, w.wdp, bias_ft, bias_a1,
+                       bias_a2, w.biascat, w.proj, m, st, w.row_off + b,
+                       w.row_map);
+  if (err != cudaSuccess) return err;
+  mark(g_marks, st);
+  err = pooled_star<kTrain, true>(w.proj, w.wdp, ngp, nsib, pools, b, n,
+                                  heads, dh, p, alpha, ta, nullptr, st,
+                                  w.row_off);
+  mark(g_marks, st);
+  return err;
 }
 
 template <bool kTrain, class E>
@@ -315,9 +557,14 @@ cudaError_t launch_pooled(const E* x, const E* fc, const E* wa1,
   const cudaStream_t st = (cudaStream_t)stream;
   const long long m = (long long)b * n;
   if (m == 0) return cudaSuccess;
-  cudaError_t err =
-      project(layer_operand(x, fc, wa1, wa2, n, din, heads, dh, ta), ta, m, w,
-              bias_ft, bias_a1, bias_a2, st);
+  const OperandT<E> op = layer_operand(x, fc, wa1, wa2, n, din, heads, dh, ta);
+  if constexpr (sizeof(E) == 2) {
+    if (attn == nullptr)
+      return launch_pooled_rows<kTrain>(op, ta, bias_ft, bias_a1, bias_a2,
+                                        ngp, nsib, pools, b, n, heads, dh, p,
+                                        alpha, w, st);
+  }
+  cudaError_t err = project(op, ta, m, w, bias_ft, bias_a1, bias_a2, st);
   if (err != cudaSuccess) return err;
   err = pooled_star<kTrain>(w.proj, w.wdp, ngp, nsib, pools, b, n, heads, dh,
                             p, alpha, ta, attn, st);
@@ -501,8 +748,12 @@ int gat_projection_bf16(const bf16* x, const bf16* fc, const bf16* wa1,
 
 // Launch timing of the forwards: with `on`, the next call records device
 // events around its launches; gat_fwd_pass_ms then gives their
-// milliseconds (stage and pack, projection, star pass) into out[3] and
-// returns their count.
+// milliseconds into out[4] and returns their count: stage and pack, the
+// projection, the star pass (two-pass form); stage and pack, pass A, the
+// star weights, pass B with its star epilogue (the fused form); the valid
+// rows counted,
+// staged and W packed, the projection on them, the pooled star pass (the
+// valid-rows form).
 int gat_fwd_set_timing(int on) { return set_timing(g_marks, on); }
 
 int gat_fwd_pass_ms(float* out) { return pass_ms(g_marks, out); }

@@ -47,6 +47,8 @@
 // The kernels live in namespace gat (see bwd_common.cuh on nvcc's stubs).
 #pragma once
 
+#include <type_traits>
+
 #include "gat_common.cuh"
 
 namespace gat {
@@ -87,6 +89,9 @@ enum GemmEpi {
   kEpiDx = 2,       // column k = kbeg + j of the layer input's grad: times
                     // its dropout mask, into dx [i][din] (k < din) or
                     // pe_rows [i][pos] (k >= din)
+  kEpiStar = 3,     // bf16 only (gemm_wgmma.cuh): ft = v + the slot bias
+                    // as kEpiRowBias, never stored; the star pass of the
+                    // per-slot layer on it (StarArgs), out in bf16
 };
 
 template <class E>
@@ -114,6 +119,21 @@ struct GemmArgsT {
   const int* rows;
   const int* row_map;
   long long c_rows;    // rows allocated for c (0: m), bf16 only
+};
+
+// The star pass of kEpiStar (gat_fwd.cu's fused per-slot forward): the
+// product's m rows are whole egonets of n slots, rows_wg = floor(64 / n) * n
+// of them a consumer warpgroup's tile; its columns are ft, heads * dh.
+struct StarArgs {
+  const float4* wts;   // [m][heads] each row's star weights (after dropout):
+                       //   w_self, w_anchor, w_to_anchor (gp rows), 0
+  const int* ngp;      // [b]
+  bf16* out;           // [m][heads * dh] the per-slot output
+  long long b;         // egonets
+  int n, p, heads, dh;
+  int rows_wg;
+  float out_alpha;
+  int has_out_alpha;
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -419,7 +439,7 @@ gemm_kernel(GemmArgsT<E> g, TrainArgs ta) {
 template <bool kAKMajor, int kEpi, int BN>
 inline cudaError_t product_wgmma(const GemmArgsT<bf16>& g,
                                  const TrainArgs& ta, int splits,
-                                 cudaStream_t st);
+                                 const StarArgs& sa, cudaStream_t st);
 
 // The layer product in the layer's element type E (3xTF32 for float here;
 // bf16: gemm_wgmma.cuh) on `st`: A K-major (kAKMajor) or M-major, the
@@ -429,8 +449,8 @@ template <bool kAKMajor, int kEpi, bool kNarrow = false, class E>
 inline cudaError_t product(const GemmArgsT<E>& g, const TrainArgs& ta,
                            int splits, cudaStream_t st) {
   if constexpr (sizeof(E) == 2) {
-    return product_wgmma<kAKMajor, kEpi, kNarrow ? 64 : 128>(g, ta, splits,
-                                                             st);
+    return product_wgmma<kAKMajor, kEpi, kNarrow ? 64 : 128>(
+        g, ta, splits, StarArgs{}, st);
   } else {
     using T = GemmTile<E, kNarrow ? 2 : 4>;
     if (g.m <= 0 || g.n <= 0) return cudaSuccess;
@@ -483,13 +503,38 @@ __device__ __forceinline__ float wcat(const OperandT<E>& op, int k, int j) {
                     : wblock(op.wp, op, k - op.din, j);
 }
 
+// The x columns of a bf16 row, V (8 or 2) a lane at a time, 16 or 4 bytes
+// a load and a store: x times its mask rounded to bf16, as stage_row.
+template <int V>
+__device__ __forceinline__ void stage_x_bf16(const bf16* __restrict__ xr,
+                                             bf16* __restrict__ out, int din,
+                                             const TrainArgs& ta,
+                                             unsigned rkf, int lane) {
+  using Vec = typename std::conditional<V == 8, uint4, unsigned>::type;
+  for (int k = lane * V; k < din; k += 32 * V) {
+    Vec raw = *reinterpret_cast<const Vec*>(xr + k);
+    if (ta.feat_on) {
+      bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+      for (int u = 0; u < V; ++u)
+        e[u] = from_float<bf16>(
+            to_float(e[u]) *
+            to_float(from_float<bf16>(keep_at(ta, rkf, (unsigned)(k + u),
+                                              ta.feat_thresh,
+                                              ta.feat_scale))));
+    }
+    *reinterpret_cast<Vec*>(out + k) = raw;
+  }
+}
+
 // xm [m][kxp] = the layer input X = [x*m | pe*m_pe], zero past din + pos:
 // each element's mask bits hashed once, for every product that reads X.
 // A warp a row, its lanes over the columns (eight loads in flight a
-// lane): no division per element, the row keys once a row; bound by bytes.
-// In a bf16 layer (pallas_gat.py:282-283, :296-297) an x column is x times
-// its mask rounded to bf16, the product rounded to bf16; a pe column is
-// pe times the float32 mask, rounded to bf16.
+// lane; a bf16 row 8 or 2 columns a lane where its width and x's address
+// allow): no division per element, the row keys once a row; bound by
+// bytes. In a bf16 layer (pallas_gat.py:282-283, :296-297) an x column is
+// x times its mask rounded to bf16, the product rounded to bf16; a pe
+// column is pe times the float32 mask, rounded to bf16.
 template <class E>
 __device__ __forceinline__ void stage_row(const OperandT<E>& op,
                                           const TrainArgs& ta, unsigned kf,
@@ -501,8 +546,19 @@ __device__ __forceinline__ void stage_row(const OperandT<E>& op,
   const unsigned rkp = row_key(kp, (unsigned)r);
   const E* xr = op.x + r * op.din;
   const float* per = ta.pe + (r % op.n) * ta.pos;
+  int k_done = 0;  // x columns staged by the bf16 vector path
+  if constexpr (sizeof(E) == 2) {
+    const uintptr_t at = reinterpret_cast<uintptr_t>(op.x);
+    if (op.din % 8 == 0 && at % 16 == 0) {
+      stage_x_bf16<8>(xr, out, op.din, ta, rkf, lane);
+      k_done = op.din;
+    } else if (op.din % 2 == 0 && at % 4 == 0) {
+      stage_x_bf16<2>(xr, out, op.din, ta, rkf, lane);
+      k_done = op.din;
+    }
+  }
 #pragma unroll 8
-  for (int k = lane; k < op.din; k += 32) {  // the x columns
+  for (int k = k_done + lane; k < op.din; k += 32) {  // the x columns
     float v = to_float(xr[k]);
     if (ta.feat_on)
       v *= to_float(from_float<E>(

@@ -10,10 +10,12 @@
 // What bounds it on an H100: the tensor cores (989 TFLOP/s dense bf16 on
 // the data sheet) where the reduction is deep (the dW product over 262,144
 // rows, the dx product over 2008 columns), the output bytes where it is
-// not (config.mag.json layer 0's projection writes 2.1 GB of float32 P for
-// 320 GFLOP: 0.63 ms of bytes against 0.32 ms of operations). Only wgmma
-// reaches the tensor cores' full rate, and it must be fed from shared
-// memory without the issuing threads spending instructions on copies.
+// not (config.mag.json layer 0's projection, where the backward runs it,
+// writes 2.1 GB of float32 P for 320 GFLOP: 0.63 ms of bytes against 0.32
+// ms of operations; the forward's star epilogue keeps that P in shared
+// memory and writes the layer's bf16 output, 1.05 GB). Only wgmma reaches
+// the tensor cores' full rate, and it must be fed from shared memory
+// without the issuing threads spending instructions on copies.
 //
 // Design:
 //  - Block: 3 warpgroups. Warpgroup 0 is the producer: one thread issues
@@ -49,13 +51,26 @@
 //    the tensor maps span the allocated rows, and the grid is sized for
 //    them. No host sync.
 //  - Epilogues (gemm_tf32.cuh:GemmEpi): each consumer warpgroup writes its
-//    64 x BN accumulators into its own shared C tile and stores its rows
-//    16 bytes a thread: P with its slot biases (float32; the biases copied
-//    into the C tile by cp.async while the tile's products run), split-K
-//    float32 partials (reduced in a fixed order by bwd_common.cuh), the dx
-//    epilogue (the float32 mask, x columns rounded to bf16, pe columns
-//    float32, rows scattered through GemmArgs::row_map where set). No
-//    atomics: two calls give equal bits.
+//    64 x BN accumulators into its own shared C tile, then:
+//    kEpiRowBias: P with its slot biases (float32; the biases copied into
+//      the C tile by cp.async while the tile's products run), out by TMA;
+//    kEpiStore: split-K float32 partials (reduced in a fixed order by
+//      bwd_common.cuh), 16 bytes a thread;
+//    kEpiDx: the float32 mask, x columns rounded to bf16, pe columns
+//      float32, rows scattered through GemmArgs::row_map where set;
+//    kEpiStar: the per-slot layer's star pass on the tile (wg_star_tile):
+//      ft with its slot biases as kEpiRowBias, the star weights of the
+//      tile's heads (computed once per egonet and head before the product,
+//      gat_fwd.cu) copied by cp.async into the warpgroup's own shared
+//      arrays beside the C tile while the tile's products run, then the
+//      aggregation and the output leaky, the output in bf16 8 bytes a
+//      thread; ft never leaves shared memory. Its M tiles are two
+//      warpgroup tiles of whole egonets (floor(64 / n) of them), each
+//      loaded as its own 64-row box, the rows past them computed and
+//      dropped. Its barriers are the warpgroup's own named barriers (128
+//      threads), never __syncthreads(): the producer warp does not take
+//      part in the epilogue.
+//    No atomics: two calls give equal bits.
 //
 // Accuracy: the tensor cores add the products of one wgmma into the
 // accumulator with truncation. Each 64-deep K tile (four k16 steps) is
@@ -97,7 +112,7 @@ struct WgTile {
   static constexpr int C_BYTES = BM * BN * 4;
   static constexpr int REGS = BN / 2;        // accumulators a thread
   // the ring 1024-byte aligned (the 128-byte swizzle's period), the C
-  // tiles, the mbarriers
+  // tiles, the mbarriers (kEpiStar adds its arrays after them)
   static constexpr size_t SMEM =
       1024 + STAGES * STAGE_BYTES + C_BYTES + 2 * STAGES * 8;
 };
@@ -335,10 +350,13 @@ __device__ __forceinline__ void wgmma_step<64, 1, 1>(float (&d)[32],
 
 // The output tiles of one call: N tiles fastest, then M tiles, then the
 // split; the rows of the row operand read on the card where g.rows is set.
+// An M tile is bm rows, bm / 2 a consumer warpgroup: T::BM, or for the
+// star epilogue two warpgroup tiles of whole egonets (StarArgs::rows_wg).
 struct WgSchedule {
   long long m;        // output rows
   long long k;        // reduction depth
   long long k_chunk;  // depth a split takes
+  int bm;             // rows of an M tile
   int mtiles, ntiles;
   int mgroups;        // groups of CLUSTER M tiles
   long long total;    // (M group, N tile, split)s
@@ -346,8 +364,9 @@ struct WgSchedule {
 
 template <class T, bool kAKMajor>
 __device__ __forceinline__ WgSchedule wg_schedule(const GemmArgsT<bf16>& g,
-                                                  int splits) {
+                                                  int splits, int bm) {
   WgSchedule s;
+  s.bm = bm;
   s.m = g.m;
   s.k = g.k;
   s.k_chunk = g.k_chunk;
@@ -361,7 +380,7 @@ __device__ __forceinline__ WgSchedule wg_schedule(const GemmArgsT<bf16>& g,
       if (s.k_chunk == 0) s.k_chunk = T::BK;
     }
   }
-  s.mtiles = (int)((s.m + T::BM - 1) / T::BM);
+  s.mtiles = (int)((s.m + bm - 1) / bm);
   s.ntiles = (g.n + T::BN - 1) / T::BN;
   s.mgroups = (s.mtiles + T::CLUSTER - 1) / T::CLUSTER;
   s.total = (long long)s.mgroups * s.ntiles * splits;
@@ -502,12 +521,163 @@ __device__ __forceinline__ void wg_store_tile(const GemmArgsT<bf16>& g,
   }
 }
 
+// ------------------------------------------------------ star epilogue
+
+// kEpiStar: a consumer warpgroup's star weights of up to kStarHeads heads,
+// [head][64 rows] float4s, then its row table (64 ints: each row's slot,
+// egonet within the tile and the egonet's first row), in shared memory
+// after the mbarriers.
+constexpr int kStarHeads = 4;
+constexpr int kStarFloats = kStarHeads * 64 * 4 + 64;
+
+// The star weights of the heads that columns [j0, jend) touch (up to
+// kStarHeads of them) for a warpgroup's rows [iw, iw + 64), into sw by
+// cp.async (committed with the slot biases' copies), so that their loads
+// overlap the tile's products.
+__device__ __forceinline__ void wg_prefetch_weights(const StarArgs& sa,
+                                                    float* sw, int t,
+                                                    long long m,
+                                                    long long iw, int j0,
+                                                    int jend) {
+  const int h_lo = j0 / sa.dh;
+#pragma unroll
+  for (int q = 0; q < kStarHeads * 64 / 128; ++q) {
+    const int e = t + q * 128;
+    const int h = h_lo + e / 64;
+    const long long i = iw + e % 64;
+    const bool ok = h * sa.dh < jend && i < m;
+    cp_async16(sw + 4 * e, ok ? sa.wts + i * sa.heads + h : sa.wts, ok);
+  }
+}
+
+// 4 columns from c4 (a multiple of 4) of row r of a C tile
+__device__ __forceinline__ float4 cs4(const float* cs, int r, int c4) {
+  return *reinterpret_cast<const float4*>(&cs[cs_at(r, c4)]);
+}
+
+// Four output columns of the star aggregation, the optional out_alpha
+// leaky, rounded to bf16 into dst: 8 bytes at once, or those columns that
+// lie inside the output (hs[u] >= 0).
+__device__ __forceinline__ void star_store(const StarArgs& sa,
+                                           const int (&hs)[4], float (&v)[4],
+                                           bf16* dst, int hd) {
+  if (sa.has_out_alpha) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = leaky(v[u], sa.out_alpha);
+  }
+  if (hs[3] >= 0 && hd % 4 == 0) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 pack;
+    pack.x = *reinterpret_cast<unsigned*>(&lo);
+    pack.y = *reinterpret_cast<unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(dst) = pack;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (hs[u] >= 0) dst[u] = from_float<bf16>(v[u]);
+  }
+}
+
+// kEpiStar: the star pass of the per-slot layer (gat_fwd.cu) on a consumer
+// warpgroup's C tile cs, ft + the slot biases of rows [iw, iw + 64) and
+// columns [j0, j0 + BN), the rows from iw (a multiple of n) whole egonets.
+// A lane takes one 4-column chunk of the tile (its head worked out once),
+// the warpgroup's four warps every fourth row: gp rows take their own ft,
+// the anchor the valid gps and itself, sib rows the anchor and themselves
+// (invalid sib slots keep their formula value, as the TPU kernel's), with
+// the star weights of the column's head (sw, prefetched; past its first
+// kStarHeads heads, read from sa.wts), then the optional out_alpha leaky,
+// rounded to bf16 into sa.out. Rows past the warpgroup's whole egonets or
+// past the batch are dropped. No barriers: the caller's named barrier
+// frees cs and sw for the next tile.
+template <int BN>
+__device__ __forceinline__ void wg_star_tile(const StarArgs& sa, int hd,
+                                             const float* cs,
+                                             const float4* sw,
+                                             const int* tab, int t,
+                                             long long iw, int j0) {
+  static_assert(BN == 128, "a lane a 4-column chunk of the tile");
+  const int n = sa.n, p = sa.p, dh = sa.dh;
+  const long long b0 = iw / n;
+  const long long egos = min((long long)(sa.rows_wg / n), sa.b - b0);
+  const int rows = egos > 0 ? (int)egos * n : 0;
+  const int jend = min(j0 + BN, hd);
+  const int h_lo = j0 / dh;
+  const int c4 = (t & 31) * 4, j = j0 + c4;
+  int hs[4];  // each column's head, from h_lo (-1: past the output)
+#pragma unroll
+  for (int u = 0; u < 4; ++u) hs[u] = j + u < jend ? (j + u) / dh - h_lo : -1;
+  // the weights of row r of head slot h
+  auto weight = [&](int h, int r) {
+    return h < kStarHeads ? sw[h * 64 + r]
+                          : sa.wts[(iw + r) * sa.heads + h_lo + h];
+  };
+  const bool one = hs[0] >= 0 && hs[3] == hs[0] && hs[0] < kStarHeads;
+  if (hs[0] < 0) return;
+  if (one) {
+    // the four columns in one prefetched head: every row's value is
+    // w_self f + w_anchor fa (+ the valid gps' weighted ft at the anchor),
+    // w_anchor being 0 on the gp rows and the anchor; rows unrolled so that
+    // their shared-memory loads are in flight together
+    const float4* w = sw + hs[0] * 64;
+#pragma unroll 4
+    for (int r = t >> 5; r < rows; r += 4) {
+      const int info = tab[r];
+      const int slot = info & 255, rb = info >> 16;
+      const float4 f = cs4(cs, r, c4), fa = cs4(cs, rb + p, c4), wr = w[r];
+      float g[4] = {0.f, 0.f, 0.f, 0.f};
+      if (slot == p) {
+        const int ngp = min(max(sa.ngp[b0 + ((info >> 8) & 255)], 0), p);
+#pragma unroll 4
+        for (int jj = 0; jj < ngp; ++jj) {
+          const float wj = w[rb + jj].z;
+          const float4 fj = cs4(cs, rb + jj, c4);
+          g[0] += wj * fj.x, g[1] += wj * fj.y;
+          g[2] += wj * fj.z, g[3] += wj * fj.w;
+        }
+      }
+      float v[4] = {wr.x * f.x + (wr.y * fa.x + g[0]),
+                    wr.x * f.y + (wr.y * fa.y + g[1]),
+                    wr.x * f.z + (wr.y * fa.z + g[2]),
+                    wr.x * f.w + (wr.y * fa.w + g[3])};
+      star_store(sa, hs, v, sa.out + (iw + r) * hd + j, hd);
+    }
+    return;
+  }
+  // a head boundary inside the chunk, or a head past sw (Dh < BN / 3)
+  for (int r = t >> 5; r < rows; r += 4) {
+    const int info = tab[r];
+    const int slot = info & 255, q = (info >> 8) & 255, rb = info >> 16;
+    const float4 f = cs4(cs, r, c4);
+    const float4 fa = cs4(cs, rb + p, c4);
+    const float fv[4] = {f.x, f.y, f.z, f.w};
+    const float av[4] = {fa.x, fa.y, fa.z, fa.w};
+    const int ngp = slot == p ? min(max(sa.ngp[b0 + q], 0), p) : 0;
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      v[u] = 0.f;
+      if (hs[u] < 0) continue;
+      float g = 0.f;
+      for (int jj = 0; jj < ngp; ++jj) {
+        const float4 fj = cs4(cs, rb + jj, c4);
+        const float fju[4] = {fj.x, fj.y, fj.z, fj.w};
+        g += weight(hs[u], rb + jj).z * fju[u];
+      }
+      const float4 wr = weight(hs[u], r);
+      v[u] = wr.x * fv[u] + (wr.y * av[u] + g);
+    }
+    star_store(sa, hs, v, sa.out + (iw + r) * hd + j, hd);
+  }
+}
+
 // ------------------------------------------------------ the kernel
 
 template <class T, bool kAKMajor, int kEpi>
 __global__ void __launch_bounds__(T::THREADS, 1)
 wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
-                  const __grid_constant__ CUtensorMap tm_a,
+                  const StarArgs sa, const __grid_constant__ CUtensorMap tm_a,
                   const __grid_constant__ CUtensorMap tm_b,
                   const __grid_constant__ CUtensorMap tm_c) {
   extern __shared__ uint8_t wg_smem_raw[];
@@ -528,7 +698,12 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
   }
   cluster_sync();
 
-  const WgSchedule sc = wg_schedule<T, kAKMajor>(g, splits);
+  // kEpiStar: an M tile is two warpgroup tiles of whole egonets, loaded
+  // as two 64-row boxes
+  constexpr bool kStar = kEpi == kEpiStar;
+  const WgSchedule sc =
+      wg_schedule<T, kAKMajor>(g, splits, kStar ? 2 * sa.rows_wg : T::BM);
+  const int wg_rows = sc.bm / 2;
   const int per_split = sc.mgroups * sc.ntiles;
   const int wg = threadIdx.x / 128;
   const uint32_t rank = cluster_rank();
@@ -542,7 +717,7 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
     for (long long tile = cid; tile < sc.total; tile += clusters) {
       const int z = (int)(tile / per_split);
       const int rem = (int)(tile % per_split);
-      const int i0 = ((rem / sc.ntiles) * T::CLUSTER + (int)rank) * T::BM;
+      const int i0 = ((rem / sc.ntiles) * T::CLUSTER + (int)rank) * sc.bm;
       const int j0 = (rem % sc.ntiles) * T::BN;
       const long long k_beg = (long long)z * sc.k_chunk;
       const long long k_end = min(sc.k, k_beg + sc.k_chunk);
@@ -556,7 +731,10 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
         const uint32_t a = ring + s * T::STAGE_BYTES;
         const uint32_t b = a + T::A_BYTES;
         const int k0 = (int)(k_beg + (long long)kt * T::BK);
-        if (kAKMajor) {
+        if (kStar) {  // [64 rows][64 k] of each warpgroup's egonets
+          tma_load(a, &tm_a, full, k0, i0);
+          tma_load(a + T::BLOCK64, &tm_a, full, k0, i0 + wg_rows);
+        } else if (kAKMajor) {
           tma_load(a, &tm_a, full, k0, i0);  // [128 rows][64 k]
         } else {                             // [64 k][64 m], twice
           tma_load(a, &tm_a, full, i0, k0);
@@ -582,6 +760,17 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
   const int c = wg - 1, t = threadIdx.x % 128;
   const int warp = t / 32, lane = t % 32;
   float* cs = ctile + c * 64 * T::BN;
+  // kEpiStar: the warpgroup's star weights and row table, after the
+  // mbarriers; the table (slot, egonet in the tile, its first row) is the
+  // same for every tile
+  float* sw = reinterpret_cast<float*>(base + T::STAGES * T::STAGE_BYTES +
+                                       T::C_BYTES + 2 * T::STAGES * 8) +
+              c * kStarFloats;
+  int* star_tab = reinterpret_cast<int*>(sw + kStarHeads * 64 * 4);
+  if (kStar && t < 64) {
+    const int q = t / sa.n;
+    star_tab[t] = (t - q * sa.n) | (q << 8) | ((q * sa.n) << 16);
+  }
   // two partial sets in turn: the tensor cores run K tile t + 1 while the
   // FADDs add K tile t into acc
   float acc[T::REGS], pa[T::REGS], pb[T::REGS];
@@ -622,7 +811,8 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
     const int z = (int)(tile / per_split);
     const int rem = (int)(tile % per_split);
     const long long i0 =
-        (long long)((rem / sc.ntiles) * T::CLUSTER + (int)rank) * T::BM;
+        (long long)((rem / sc.ntiles) * T::CLUSTER + (int)rank) * sc.bm;
+    const long long iw = i0 + (long long)wg_rows * c;  // this warpgroup's
     const int j0 = (rem % sc.ntiles) * T::BN;
     const long long k_beg = (long long)z * sc.k_chunk;
     const long long k_end = min(sc.k, k_beg + sc.k_chunk);
@@ -630,10 +820,13 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
         k_end > k_beg ? (int)((k_end - k_beg + T::BK - 1) / T::BK) : 0;
 #pragma unroll
     for (int v = 0; v < T::REGS; ++v) acc[v] = 0.f;
-    if (kEpi == kEpiRowBias) {  // the last tile's store has read cs
-      if (t == 0) bulk_wait<true>();
+    constexpr bool kBias = kEpi == kEpiRowBias || kStar;
+    if (kBias) {  // the last tile's store or star pass has read cs
+      if (kEpi == kEpiRowBias && t == 0) bulk_wait<true>();
       named_sync(1 + c, 128);
-      wg_prefetch_bias<T::BN>(g, cs, t, sc.m, i0 + 64 * c, j0);
+      if (kStar)
+        wg_prefetch_weights(sa, sw, t, sc.m, iw, j0, min(j0 + T::BN, g.n));
+      wg_prefetch_bias<T::BN>(g, cs, t, sc.m, iw, j0);
     }
     if (ktiles > 0) {
       issue(pa, it);
@@ -658,9 +851,9 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
     }
     // epilogue: thread (warp, lane) holds rows warp * 16 + lane / 4 (+ 8)
     // and columns 8 q + 2 (lane % 4) (+ 1) of each 8-column block q
-    // (the row-bias epilogue adds them to the prefetched biases)
+    // (the row-bias and star epilogues add them to the prefetched biases)
     const int r0 = warp * 16 + lane / 4;
-    if (kEpi == kEpiRowBias) {
+    if (kBias) {
       cp_async_wait<0>();
       named_sync(1 + c, 128);
     }
@@ -669,7 +862,7 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
       const int col = q * 8 + 2 * (lane % 4);
       float2* lo = reinterpret_cast<float2*>(&cs[cs_at(r0, col)]);
       float2* hi = reinterpret_cast<float2*>(&cs[cs_at(r0 + 8, col)]);
-      if (kEpi == kEpiRowBias) {
+      if (kBias) {
         const float2 bl = *lo, bh = *hi;
         *lo = make_float2(acc[4 * q] + bl.x, acc[4 * q + 1] + bl.y);
         *hi = make_float2(acc[4 * q + 2] + bh.x, acc[4 * q + 3] + bh.y);
@@ -678,19 +871,23 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
         *hi = make_float2(acc[4 * q + 2], acc[4 * q + 3]);
       }
     }
-    if (kEpi == kEpiRowBias) {  // P out by TMA, while the next tile runs
-      fence_async_shared();
+    if constexpr (kEpi == kEpiRowBias) {  // P out by TMA, while the next
+      fence_async_shared();               // tile runs
       named_sync(1 + c, 128);
       if (t == 0) {
 #pragma unroll
         for (int q = 0; q < T::BN / 32; ++q)
           tma_store(&tm_c, smem_u32(cs + q * 64 * 32), j0 + 32 * q,
-                    (int)(i0 + 64 * c));
+                    (int)iw);
         bulk_commit();
       }
+    } else if constexpr (kStar) {  // the next tile's barrier frees cs
+      named_sync(1 + c, 128);
+      wg_star_tile<T::BN>(sa, g.n, cs, reinterpret_cast<const float4*>(sw),
+                          star_tab, t, iw, j0);
     } else {
       named_sync(1 + c, 128);
-      wg_store_tile<T::BN, kEpi>(g, ta, cs, t, sc.m, i0 + 64 * c, j0, z);
+      wg_store_tile<T::BN, kEpi>(g, ta, cs, t, sc.m, iw, j0, z);
       named_sync(1 + c, 128);  // the C tile is free for the next tile
     }
   }
@@ -772,17 +969,25 @@ inline int sm_count() {
 
 // The bf16 product (gemm_tf32.cuh:product dispatches here): A K-major
 // (kAKMajor) or M-major, B row-major, the epilogue kEpi, `splits` partial
-// products, BN 128 or 64 columns a tile.
+// products, BN 128 or 64 columns a tile; sa: the star epilogue's arguments
+// (kEpiStar, A K-major, one split; else unread).
 template <bool kAKMajor, int kEpi, int BN>
 inline cudaError_t product_wgmma(const GemmArgsT<bf16>& g,
                                  const TrainArgs& ta, int splits,
-                                 cudaStream_t st) {
+                                 const StarArgs& sa, cudaStream_t st) {
   using T = WgTile<BN>;
+  constexpr bool kStar = kEpi == kEpiStar;
   if (g.m <= 0 || g.n <= 0) return cudaSuccess;
-  if (kEpi == kEpiRowBias && g.ldc % 4 != 0) return cudaErrorInvalidValue;
+  if ((kEpi == kEpiRowBias || kStar) && g.ldc % 4 != 0)
+    return cudaErrorInvalidValue;
+  if (kStar && (!kAKMajor || splits != 1 || sa.n < 1 || sa.n > 64 ||
+                sa.rows_wg != 64 / sa.n * sa.n || sa.dh < 1))
+    return cudaErrorInvalidValue;
+  const int bm = kStar ? 2 * sa.rows_wg : T::BM;
   CUtensorMap tm_a, tm_b;
   cudaError_t err =
-      kAKMajor ? bf16_tensor_map(&tm_a, g.a, g.k, g.m, g.lda, T::BM)
+      kAKMajor ? bf16_tensor_map(&tm_a, g.a, g.k, g.m, g.lda,
+                                 kStar ? 64 : T::BM)
                : bf16_tensor_map(&tm_a, g.a, g.m, g.k, g.lda, T::BK);
   if (err != cudaSuccess) return err;
   err = bf16_tensor_map(&tm_b, g.b, g.n, g.k, g.ldb, T::BK / T::CLUSTER);
@@ -796,9 +1001,11 @@ inline cudaError_t product_wgmma(const GemmArgsT<bf16>& g,
     if (err != cudaSuccess) return err;
   }
   auto kernel = wgmma_gemm_kernel<T, kAKMajor, kEpi>;
+  const size_t smem =
+      T::SMEM + (kStar ? sizeof(float) * T::CONSUMERS * kStarFloats : 0);
   err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)T::SMEM);
+      (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -806,7 +1013,7 @@ inline cudaError_t product_wgmma(const GemmArgsT<bf16>& g,
   attr[0].val.clusterDim.y = attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(T::THREADS);
-  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -820,12 +1027,13 @@ inline cudaError_t product_wgmma(const GemmArgsT<bf16>& g,
     if (err != cudaSuccess) return err;
     if (resident < 1) return cudaErrorInvalidConfiguration;
   }
-  const long long groups = ((g.m + T::BM - 1) / T::BM + T::CLUSTER - 1) /
+  const long long groups = ((g.m + bm - 1) / bm + T::CLUSTER - 1) /
                            T::CLUSTER *
                            (long long)((g.n + T::BN - 1) / T::BN) * splits;
   const long long clusters = groups < resident ? groups : resident;
   cfg.gridDim = dim3((unsigned)(clusters * T::CLUSTER));
-  err = cudaLaunchKernelEx(&cfg, kernel, g, ta, splits, tm_a, tm_b, tm_c);
+  err = cudaLaunchKernelEx(&cfg, kernel, g, ta, splits, sa, tm_a, tm_b,
+                           tm_c);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -17,18 +17,25 @@ counters and the autograd Functions around them.
 
 The forwards are `ops/csrc/gat_fwd.cu`, the backwards `ops/csrc/gat_bwd.cu`;
 their headers state what bounds them on an H100 and what the design does
-about it. Every forward and backward computes the layer's product once for
-all B*N rows (K4 bf16: the valid rows), the projection [ft | a1 | a2] =
-[x*m | pe*m_pe] @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot biases, on
-the tensor cores (float32 layers in 3xTF32, `ops/csrc/gemm_tf32.cuh`; bf16
-layers below), into a workspace that the star pass
-(K1), the pooled star pass (K3) or the head core (K2, K4) reads;
-`gat_projection` and `gat_pooled_star` run the projection and the pooled
-star pass alone, for tests. `fwd_pass_ms` / `bwd_pass_ms` time one call's
-passes. Dropout bits come from `ops/dropout.py`, whose generator the
-kernels share, so a plain version regenerates the kernels' masks exactly;
-every train form and backward takes `dropout_bits` (32, or 8 for the 8-bit
-thresholds of K7b, pallas_gat.py:73-97).
+about it. Each computes the layer's product once, the projection [ft | a1 |
+a2] = [x*m | pe*m_pe] @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot
+biases, on the tensor cores (float32 layers in 3xTF32,
+`ops/csrc/gemm_tf32.cuh`; bf16 layers below). The backwards and the
+float32 forwards write it for all B*N rows into a workspace P that the
+star pass (K1), the pooled star pass (K3) or the head core (K2, K4) reads.
+The bf16 forwards take one of three forms by shape (`fwd_form`, each
+form's launches also counted in `<wrapper>.launches_by_form`): "fused"
+(the per-slot layer at N <= 64: a1 | a2 first, then ft with the star pass
+in the product's epilogue, so P never reaches device memory),
+"valid_rows" (the pooled eval and train forms: the valid rows alone,
+compacted on the card, as K4 bf16 runs) or "two_pass" (the float32
+structure: the per-slot layer at N > 64, the pooled store form). `gat_projection` and
+`gat_pooled_star` run the projection and the pooled star pass alone, for
+tests. `fwd_pass_ms` / `bwd_pass_ms` time one call's passes. Dropout bits
+come from `ops/dropout.py`, whose generator the kernels share, so a plain
+version regenerates the kernels' masks exactly; every train form and
+backward takes `dropout_bits` (32, or 8 for the 8-bit thresholds of K7b,
+pallas_gat.py:73-97).
 
 Dispatch is by the device of the tensors: on the CPU a wrapper runs its
 plain version; on CUDA it launches the kernel or raises. There is no
@@ -49,18 +56,19 @@ the projection P (ft, a1, a2), the softmax and the aggregation are float32;
 the per-slot output is rounded to bf16 after the fused leaky (:359-362),
 the pools stay float32 (:1148). The bf16 products run on a TMA-fed,
 warp-specialised wgmma kernel (`ops/csrc/gemm_wgmma.cuh`; `bf16_product`
-runs it alone). The backwards keep the head core in float32; it writes
-its grads D once, in bf16, for the dW and dx products (_bwd_epilogue
-:607-651) and sums D's float32 values for the slot-bias grads itself;
+runs it alone); the fused per-slot forward runs its star pass on the
+product's tile of ft in shared memory, the pooled eval and train forwards
+their product on the valid rows. The backwards keep the head core in
+float32; it writes its grads D once, in bf16, for the dW and dx products
+(_bwd_epilogue :607-651) and sums D's float32 values for the slot-bias
+grads itself;
 K4's products run on the valid rows alone (compacted on the card; dx is
 zero at the invalid slots, as the reference gives it). They return dx
 (times its float32 mask), dfc, dwa1 and dwa2 in bf16 (:651, :1097, :1289),
 the slot-bias and pe grads in float32. The plain versions compute the
-same roundings: bf16-exact operands
-upcast and multiplied in float32 (`launch.bf16_operands`), the backward
-written
-out pass by pass (`_bwd_plain_bf16`) rather than by autograd through the
-casts.
+same roundings: bf16-exact operands upcast and multiplied in float32
+(`launch.bf16_operands`), the backward written out pass by pass
+(`_bwd_plain_bf16`) rather than by autograd through the casts.
 
 `gat_layer` / `gat_layer_pooled` are the differentiable layers (the
 counterparts of the JAX custom_vjp functions): their forward runs a forward
@@ -110,11 +118,15 @@ class _BwdArgs(ctypes.Structure):
                 [("alpha", _F), ("out_alpha", _F)])
 
 
+_FWD_POINTERS = ("proj", "xm", "wcat", "biascat", "wa", "biasa", "a12",
+                 "wts", "row_off", "row_map")
+
+
 class _FwdWork(ctypes.Structure):
-    """FwdWork of ops/csrc/gat_fwd.cu, field by field: the per-slot
-    forward's workspaces."""
-    _fields_ = [("proj", _P), ("xm", _P), ("wcat", _P), ("biascat", _P),
-                ("kxp", _I), ("wdp", _I)]
+    """FwdWork of ops/csrc/gat_fwd.cu, field by field: a forward's
+    workspaces."""
+    _fields_ = ([(name, _P) for name in _FWD_POINTERS] +
+                [(name, _I) for name in ("kxp", "wdp", "wap", "lda")])
 
 
 # C signatures of ops/csrc/gat_fwd.cu: 10 pointers (x, fc, wa1, wa2,
@@ -155,17 +167,39 @@ BWD_SIGNATURES = {
     "gat_bwd_pass_ms": ([_P], _I),
     "gat_bwd_error_string": ([_I], ctypes.c_char_p),
 }
-# what the pass times of `pass_times` measure, in order; the bf16
-# backwards' head core writes D in bf16 with the slot-bias partials, so
-# their fourth pass is the partials' reduction alone (no cast of D), and
-# K4 bf16's first pass counts and compacts the valid rows
-FWD_PASSES = ("stage_pack", "projection", "star")
+# what the pass times of `pass_times` measure, in order: a forward's by its
+# form (`fwd_form`; the fused form's pass A computes a1 | a2, its weights
+# pass the star softmax, its fused product ft with the aggregation in the
+# epilogue; the valid-rows form's first pass counts and compacts the valid
+# rows); the bf16 backwards' head core writes D in bf16 with the slot-bias
+# partials, so their fourth pass is the partials' reduction alone (no cast
+# of D), and K4 bf16's first pass counts and compacts the valid rows
+FWD_PASSES = {"two_pass": ("stage_pack", "projection", "star"),
+              "fused": ("stage_pack", "pass_a", "weights", "fused_product"),
+              "valid_rows": ("stage_rows_pack", "projection_rows", "star")}
 BWD_PASSES = ("stage_pack", "projection", "head", "dbias", "dw", "dx")
 BWD_PASSES_BF16 = ("stage_pack", "projection", "head_d16", "dbias_reduce",
                    "dw", "dx")
 # zero rows after a compacted operand's valid rows (csrc/bwd_common.cuh:
 # kRowPad)
 ROW_PAD = 64
+# the largest N of the bf16 per-slot fused form (csrc/gat_fwd.cu:
+# kFusedMaxSlots): a warpgroup's 64 rows of the product hold whole egonets
+FUSED_MAX_SLOTS = 64
+
+
+def fwd_form(x: torch.Tensor, pooled: bool, store: bool = False) -> str:
+    """The form a forward kernel takes for x (csrc/gat_fwd.cu's header):
+    "fused" for a bf16 per-slot layer with N <= FUSED_MAX_SLOTS,
+    "valid_rows" for a bf16 pooled layer's eval and train forms, else
+    "two_pass" (every float32 form, the bf16 per-slot layer at larger N,
+    the bf16 pooled store form)."""
+    if is_bf16(x):
+        if not pooled and x.shape[1] <= FUSED_MAX_SLOTS:
+            return "fused"
+        if pooled and not store:
+            return "valid_rows"
+    return "two_pass"
 
 
 def _lib() -> ctypes.CDLL:
@@ -584,7 +618,8 @@ def _fwd_cuda(what: str, pooled: bool, x, fc, wa1, wa2, bias_ft, bias_a1,
               store: bool = False):
     """Check, allocate and launch one forward kernel; `train` = (pe_pack,
     seed, feat_drop, attn_drop, dropout_bits) selects the train form, and
-    `store` its store form, which returns (out, attn)."""
+    `store` its store form, whose output is (out, attn). Returns (output,
+    the form launched, `fwd_form`)."""
     pe_pack = train[0] if train is not None else None
     _check(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads,
            pe_pack)
@@ -598,8 +633,9 @@ def _fwd_cuda(what: str, pooled: bool, x, fc, wa1, wa2, bias_ft, bias_a1,
                       device=x.device)
     attn = (torch.empty((b, heads, attn_row(n, p)), dtype=torch.float32,
                         device=x.device) if store else None)
+    form = fwd_form(x, pooled, store)
     if b == 0:
-        return (out, attn) if store else out
+        return (out, attn) if store else out, form
     args = [t.data_ptr() for t in (x, fc, wa1, wa2, bias_ft, bias_a1,
                                    bias_a2, ngp, nsib, out)]
     args += [b, n, din, heads, dh, p, LEAKY_ALPHA]
@@ -608,8 +644,8 @@ def _fwd_cuda(what: str, pooled: bool, x, fc, wa1, wa2, bias_ft, bias_a1,
                  0 if out_alpha is None else 1]
     if ta is not None:
         args += [ctypes.byref(ta), attn.data_ptr() if store else None]
-    work = _fwd_work(x, heads * dh + 2 * heads,
-                     train[2] if train is not None else 0.0, ta)
+    work = _fwd_work(x, heads, dh, train[2] if train is not None else 0.0,
+                     ta, form)
     args.append(ctypes.byref(work.args))
     fn = getattr(lib, f"{'gat_layer_pooled_fwd' if pooled else 'gat_layer_fwd'}"
                       f"{'_train' if train is not None else ''}"
@@ -617,7 +653,7 @@ def _fwd_cuda(what: str, pooled: bool, x, fc, wa1, wa2, bias_ft, bias_a1,
     with torch.cuda.device(x.device):
         rc = fn(*args, stream(x))
     raise_on(lib, rc, what, "gat_fwd_error_string")
-    return (out, attn) if store else out
+    return (out, attn) if store else out, form
 
 
 @dataclass
@@ -628,24 +664,47 @@ class _Work:
     tensors: list
 
 
-def _fwd_work(x, wd: int, feat_drop: float, ta) -> _Work:
-    """The forwards' workspaces (gat_fwd.cu:FwdWork): the projection P
-    [B*N, wdp] and the slot biases float32, X staged where needed and W in
-    x's dtype, in the projection's layouts (widths 16-byte multiples)."""
+def _fwd_work(x, heads: int, dh: int, feat_drop: float, ta,
+              form: str) -> _Work:
+    """A forward's workspaces (gat_fwd.cu:FwdWork) for its `form`, in the
+    products' layouts (widths 16-byte multiples): X staged where needed
+    (the valid-rows form: always, compacted, ROW_PAD rows more) and W in
+    x's dtype, the slot biases float32; the two-pass and valid-rows forms
+    the projection P [B*N, wdp] float32 (wdp = H*Dh + 2H rounded up); the
+    fused form no P, but W split into [fc; wp] (wdp = H*Dh rounded up) and
+    [wa1 | wa2; wpa1 | wpa2] (wap = 2H rounded up) with their slot biases,
+    pass A's a1 | a2 [B*N, lda] float32 (lda = 2H rounded up to 4) and the
+    star weights [B*N, H, 4] float32;
+    the valid-rows form its row offsets [B + 1] and row map [B*N +
+    ROW_PAD], int32."""
     b, n, din = x.shape
+    m, hd = b * n, heads * dh
     pos = ta.pos if ta is not None else 0
     c = chunk_elems(x)
-    kx, wdp = din + pos, round_up(wd, c)
-    staged = needs_staging(x, feat_drop, pos)
+    kx = din + pos
+    rows = m + ROW_PAD if form == "valid_rows" else m
+    if rows >= 1 << 31:
+        raise ValueError("B * N + 64 must stay below 2**31 (int32 row map)")
+    staged = form == "valid_rows" or needs_staging(x, feat_drop, pos)
     kxp = round_up(kx, c) if staged else kx
+    fused = form == "fused"
+    wdp = round_up(hd if fused else hd + 2 * heads, c)
+    wap, lda = round_up(2 * heads, c), round_up(2 * heads, 4)
     empty = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
         shape, dtype=dtype, device=x.device)
-    tensors = [empty(b * n, wdp),
-               empty(b * n, kxp, dtype=x.dtype) if staged else None,
-               empty(kxp, wdp, dtype=x.dtype), empty(n, wdp)]
-    args = _FwdWork(*[t.data_ptr() if t is not None else None
-                      for t in tensors], kxp, wdp)
-    return _Work(args, tensors)
+    i32 = torch.int32
+    t = {"proj": None if fused else empty(m, wdp),
+         "xm": empty(rows, kxp, dtype=x.dtype) if staged else None,
+         "wcat": empty(kxp, wdp, dtype=x.dtype), "biascat": empty(n, wdp),
+         "wa": empty(kxp, wap, dtype=x.dtype) if fused else None,
+         "biasa": empty(n, lda) if fused else None,
+         "a12": empty(m, lda) if fused else None,
+         "wts": empty(m, heads, 4) if fused else None,
+         "row_off": empty(b + 1, dtype=i32) if rows > m else None,
+         "row_map": empty(rows, dtype=i32) if rows > m else None}
+    args = _FwdWork(*[t[k].data_ptr() if t[k] is not None else None
+                      for k in _FWD_POINTERS], kxp, wdp, wap, lda)
+    return _Work(args, list(t.values()))
 
 
 def gat_layer_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
@@ -660,8 +719,8 @@ def gat_layer_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib,
     ops = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads)
     if not on_cuda(x, "gat_layer_fwd"):
         return gat_layer_fwd_plain(*ops, out_alpha)
-    out = _fwd_cuda("gat_layer_fwd", False, *ops, out_alpha=out_alpha)
-    count_launch(gat_layer_fwd, x, heads)
+    out, form = _fwd_cuda("gat_layer_fwd", False, *ops, out_alpha=out_alpha)
+    _count_fwd(gat_layer_fwd, x, heads, form)
     return out
 
 
@@ -674,8 +733,8 @@ def gat_layer_pooled_fwd(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
     ops = (x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, nsib, p, heads)
     if not on_cuda(x, "gat_layer_pooled_fwd"):
         return gat_layer_pooled_fwd_plain(*ops)
-    out = _fwd_cuda("gat_layer_pooled_fwd", True, *ops)
-    count_launch(gat_layer_pooled_fwd, x, heads)
+    out, form = _fwd_cuda("gat_layer_pooled_fwd", True, *ops)
+    _count_fwd(gat_layer_pooled_fwd, x, heads, form)
     return out
 
 
@@ -689,11 +748,20 @@ def _train_fwd(wrapper, pooled: bool, store: bool, ops, out_alpha, pe_pack,
             *ops, pe_pack=pe_pack, seed=seed, feat_drop=feat_drop,
             attn_drop=attn_drop, out_alpha=out_alpha, pooled=pooled,
             dropout_bits=dropout_bits, store_attn=store)
-    out = _fwd_cuda(what, pooled, *ops, out_alpha=out_alpha,
-                    train=(pe_pack, seed, feat_drop, attn_drop, dropout_bits),
-                    store=store)
-    count_launch(wrapper, ops[0], ops[10])
+    out, form = _fwd_cuda(what, pooled, *ops, out_alpha=out_alpha,
+                          train=(pe_pack, seed, feat_drop, attn_drop,
+                                 dropout_bits), store=store)
+    _count_fwd(wrapper, ops[0], ops[10], form)
     return out
+
+
+def _count_fwd(wrapper, x, heads: int, form: str) -> None:
+    """A forward launch on `wrapper` (`count_launch`), and of a bf16 kernel
+    also under its form in `wrapper.launches_by_form`."""
+    count_launch(wrapper, x, heads)
+    if x.shape[0] and is_bf16(x):
+        counts = wrapper.launches_by_form
+        counts[form] = counts.get(form, 0) + 1
 
 
 def gat_layer_fwd_train(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
@@ -956,7 +1024,7 @@ def gat_projection(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, *,
     hd = fc.shape[1]
     wd = hd + 2 * heads
     ta = train_args(pe_pack, seed, feat_drop, 0.0, dropout_bits)
-    work = _fwd_work(x, wd, feat_drop, ta)
+    work = _fwd_work(x, heads, hd // heads, feat_drop, ta, "two_pass")
     lib = _lib()
     fn = getattr(lib, f"gat_projection_{_DTYPE_SUFFIX[x.dtype]}")
     with torch.cuda.device(x.device):
@@ -1020,11 +1088,12 @@ def gat_pooled_star(proj, ngp, nsib, p: int, heads: int, *, seed: int = 0,
 gat_pooled_star.launches = 0
 
 
-def fwd_pass_ms(call) -> dict:
+def fwd_pass_ms(call, form: str = "two_pass") -> dict:
     """Device ms of a forward's launches in one `call` of
-    gat_layer[_pooled]_fwd[_train[_store]] on the card, by FWD_PASSES (the
-    pooled forms' "star" is the pooled star pass)."""
-    return dict(zip(FWD_PASSES, pass_times(_lib(), "gat_fwd", call)))
+    gat_layer[_pooled]_fwd[_train[_store]] on the card, by FWD_PASSES of
+    the call's `form` (`fwd_form`; the pooled forms' "star" is the pooled
+    star pass)."""
+    return dict(zip(FWD_PASSES[form], pass_times(_lib(), "gat_fwd", call)))
 
 
 def bwd_pass_ms(call, bf16: bool = False) -> dict:
@@ -1091,6 +1160,7 @@ WRAPPERS = {w.__name__: w for w in (
 for _w in WRAPPERS.values():
     _w.launches = _w.launches_bf16 = 0
     _w.launches_by_heads = {}
+    _w.launches_by_form = {}
 
 
 # --------------------------------------------------- differentiable layers

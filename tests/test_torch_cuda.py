@@ -41,7 +41,14 @@ forward, backward with need_dx both ways, with and without the activation,
 the projection alone) at din 33 / 250 / 500 (not all multiples of 8), Dout
 130 (rows of z padded to 136), B*N not a multiple of the 128-row tile,
 several split-K splits and a batch of empty egonets, and its
-differentiable layer against the CPU; the shapes head tensor parallelism
+differentiable layer against the CPU; the forms of the bf16 forwards: the
+fused per-slot forward (N 16 / 24 / 32 / 64, heads 3 x Dh 200 so that
+column tiles straddle heads, B = 1, only-anchor egonets, an empty batch,
+out_alpha on and off, dropout 0 and 0.1 with 32- and 8-bit masks, the
+store form, stored and recompute K2 equal bits), its two-pass form at
+N = 70, and K3's eval and train forms on the valid rows (R below one
+tile, ragged, only anchors; equal bits with the all-rows store form); the
+shapes head tensor parallelism
 over mp = 2 gives K1-K4 (config.mag.json's layer 0 at 2 of its 4 heads,
 a pooled layer at 2 of 4 heads), in float32 and bf16; one train step
 of config.mag.json's PGAT at full width free of host syncs (CUDA's sync
@@ -1124,6 +1131,156 @@ def test_bf16_wrappers_refuse_mixed_dtypes(dev):
     with pytest.raises(TypeError, match="float32"):
         ck.gcn_layer_fwd(bf[0], w, torch.zeros(5, device=dev),
                          torch.zeros((12, 5), device=dev), t[7], t[8], 3)
+
+
+# ------------- the bf16 forwards' forms: K1 fused, K3 on the valid rows
+
+FUSED_SHAPES = [
+    # b, p, s, din, heads, dh, pos
+    (5, 2, 13, 40, 3, 200, 8),      # N = 16: four egonets a warpgroup tile,
+                                    # column tiles straddling heads
+    (7, 5, 26, 33, 3, 200, 7),      # N = 32: two egonets a tile, din not a
+                                    # multiple of 8 (X staged)
+    (3, 4, 19, 48, 2, 100, 6),      # N = 24: two egonets (48 rows) a tile,
+                                    # 16 rows computed and dropped
+    (1, 13, 50, 250, 4, 500, 50),   # B = 1, config.mag.json layer 0
+    (3, 13, 50, 3600, 1, 600, 100),  # the MTL per-slot final layer's widths
+    (2, 5, 64, 33, 3, 130, 7),      # N = 70 > 64: the two-pass form
+]
+
+
+def _empty_egonets(t, p, s):
+    """Every egonet only its anchor (ngp = nsib = 0), x zero elsewhere."""
+    t[7].zero_()
+    t[8].zero_()
+    t[0] *= star.node_mask(t[7], t[8], p, p + 1 + s)[..., None].to(t[0].dtype)
+
+
+@pytest.mark.parametrize("b,p,s,din,heads,dh,pos", FUSED_SHAPES)
+@pytest.mark.parametrize("drop,bits", [(0.0, 32), (0.1, 32), (0.1, 8)])
+@pytest.mark.parametrize("out_alpha", [0.01, None])
+def test_bf16_fused_k1_matches_plain(dev, b, p, s, din, heads, dh, pos, drop,
+                                     bits, out_alpha):
+    """The bf16 per-slot forward in the form its shape takes (fused at
+    N <= 64, two-pass above): the eval form (dropout 0) or the train form
+    and its store form (output and softmax weights) against the plain
+    version, the store form's output equal bits with the train form's, two
+    calls equal bits, the launches counted under the form; with dropout the
+    stored K2 fed the store form's weights equal bits with the recompute
+    K2 (their softmax has the bits of the fused form's pass A)."""
+    t = _bf16(_inputs(dev, b, p, s, din, heads, dh, seed=51))
+    n = p + 1 + s
+    form = "fused" if n <= 64 else "two_pass"
+    assert gk.fwd_form(t[0], False) == form
+    kw = dict(pe_pack=_pe_pack(dev, n, pos, heads, dh) if drop else None,
+              seed=52, feat_drop=drop, attn_drop=drop, dropout_bits=bits,
+              out_alpha=out_alpha)
+    names = ("gat_layer_fwd", "gat_layer_fwd_train",
+             "gat_layer_fwd_train_store")
+    before = {k: gk.WRAPPERS[k].launches_by_form.get(form, 0) for k in names}
+    if drop:
+        call = lambda: gk.gat_layer_fwd_train(*t, p, heads, **kw)  # noqa
+        out = call()
+        out_s, attn = gk.gat_layer_fwd_train_store(*t, p, heads, **kw)
+        want, want_attn = gk.gat_layer_train_plain(*t, p, heads,
+                                                   store_attn=True, **kw)
+        torch.testing.assert_close(attn, want_attn, **TOL)
+        assert torch.equal(out_s, out)
+    else:
+        call = lambda: gk.gat_layer_fwd(  # noqa: E731
+            *t, p, heads, out_alpha=out_alpha)
+        out = call()
+        want = gk.gat_layer_fwd_plain(*t, p, heads, out_alpha)
+    _assert_close_bf16(out, want, "out")
+    assert torch.equal(call(), out)
+    torch.cuda.synchronize()
+    calls = {"gat_layer_fwd": 0 if drop else 2,
+             "gat_layer_fwd_train": 2 if drop else 0,
+             "gat_layer_fwd_train_store": 1 if drop else 0}
+    assert {k: gk.WRAPPERS[k].launches_by_form.get(form, 0)
+            for k in names} == {k: before[k] + calls[k] for k in names}
+    if drop:
+        g = (torch.randn(out.shape, device=dev,
+                         generator=torch.Generator(dev).manual_seed(53))
+             * 1e-2).to(torch.bfloat16)
+        if out_alpha is not None:   # leaky' jumps at 0: no grad near it
+            pre = gk.gat_layer_train_plain(*t, p, heads,
+                                           **dict(kw, out_alpha=None))
+            g = g * (pre.float().abs() > 1e-5)
+        bkw = dict(kw, need_dx=False)
+        got = gk.gat_layer_bwd(g, *t, p, heads, **bkw)
+        stored = gk.gat_layer_bwd_stored(g, *t, p, heads, attn, **bkw)
+        torch.cuda.synchronize()
+        for name, a in stored.items():
+            assert (a is None) == (got[name] is None), name
+            assert a is None or torch.equal(a, got[name]), name
+
+
+def test_bf16_fused_k1_empty_egonets_and_batch(dev):
+    """The fused form on a batch of egonets that hold only their anchor
+    (every sibling slot invalid, still written with its formula value) and
+    on an empty batch (no launch)."""
+    b, p, s, din, heads, dh = 9, 3, 12, 24, 2, 72
+    t = _bf16(_inputs(dev, b, p, s, din, heads, dh, seed=54))
+    _empty_egonets(t, p, s)
+    for out_alpha in (0.01, None):
+        got = gk.gat_layer_fwd(*t, p, heads, out_alpha=out_alpha)
+        _assert_close_bf16(got, gk.gat_layer_fwd_plain(*t, p, heads,
+                                                       out_alpha), "out")
+    e = [a[:0] if i in (0, 7, 8) else a for i, a in enumerate(t)]
+    before = dict(gk.gat_layer_fwd.launches_by_form)
+    assert gk.gat_layer_fwd(*e, p, heads).shape == (0, p + 1 + s,
+                                                    heads * dh)
+    assert gk.gat_layer_fwd.launches_by_form == before
+
+
+VALID_ROWS_SHAPES = [
+    # b, p, s, din, heads, dh, pos
+    (1, 13, 50, 250, 1, 500, 50),     # B = 1: R below one 128-row tile
+    (7, 5, 20, 33, 3, 200, 7),        # R ragged, heads 3 (din staged)
+    (130, 3, 30, 40, 2, 24, 5),       # R over many tiles, not a multiple
+                                      # of 128
+    (3, 13, 50, 2000, 1, 500, 50),    # the PGAT final layer's widths
+]
+
+
+@pytest.mark.parametrize("b,p,s,din,heads,dh,pos", VALID_ROWS_SHAPES)
+@pytest.mark.parametrize("empty", [False, True])
+@pytest.mark.parametrize("bits", [32, 8])
+def test_bf16_k3_valid_rows_match_plain(dev, b, p, s, din, heads, dh, pos,
+                                        empty, bits):
+    """K3 bf16's eval and train forms on the valid rows alone (only-anchor,
+    no-gp, no-sib and full egonets leading, large x at the invalid slots;
+    or every egonet only its anchor, R = B) against their plain versions,
+    the train form equal bits with the store form (all rows, two-pass),
+    two calls equal bits, the launches counted under their forms."""
+    t = _bf16(_inputs(dev, b, p, s, din, heads, dh, seed=61))
+    if empty:
+        _empty_egonets(t, p, s)
+    else:
+        _edge_egonets(t, p, s, big=True)
+    n = p + 1 + s
+    assert gk.fwd_form(t[0], True) == "valid_rows"
+    assert gk.fwd_form(t[0], True, store=True) == "two_pass"
+    kw = dict(pe_pack=_pe_pack(dev, n, pos, heads, dh), seed=62,
+              feat_drop=0.1, attn_drop=0.1, dropout_bits=bits)
+    forms = (gk.gat_layer_pooled_fwd.launches_by_form.get("valid_rows", 0),
+             gk.gat_layer_pooled_fwd_train.launches_by_form.get("valid_rows",
+                                                                 0))
+    got = gk.gat_layer_pooled_fwd(*t, p, heads)
+    torch.testing.assert_close(got, gk.gat_layer_pooled_fwd_plain(
+        *t, p, heads), **TOL)
+    out = gk.gat_layer_pooled_fwd_train(*t, p, heads, **kw)
+    torch.testing.assert_close(out, gk.gat_layer_train_plain(
+        *t, p, heads, pooled=True, **kw), **TOL)
+    out_s, _ = gk.gat_layer_pooled_fwd_train_store(*t, p, heads, **kw)
+    again = gk.gat_layer_pooled_fwd(*t, p, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(out_s, out)
+    assert torch.equal(again, got)
+    assert (gk.gat_layer_pooled_fwd.launches_by_form["valid_rows"],
+            gk.gat_layer_pooled_fwd_train.launches_by_form["valid_rows"]) \
+        == (forms[0] + 2, forms[1] + 1)
 
 
 GCN_BF16_SHAPES = [
