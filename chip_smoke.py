@@ -76,6 +76,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               share of 4096 egonets x 64 slots, about half the slots past
               the shard), held to its plain version exactly, beside one
               torch.index_select of the same rows (`library_ms`).
+              pos_mode "concat" (configs/config.mag.json with the key, paths
+              PGAT-concat, PGAT-concat-bf16, PGCN-concat): K1, K1t and K2
+              (need_dx on) at layer 0's 250 + 50 = 300 input columns, K3,
+              K3t and K4 at the final layer's 2000 + 50 = 2050, in float32
+              and bf16 (no slot biases, no pe path, the feature dropout
+              over every column); K5f, K5ft and K5b at PGCN's layer 0 (300
+              columns, K5b with need_dx on) and final layer (550), float32.
 5. serving  - for PGAT, PGCN, then MTL: the port's serving path end to end
               through its entry points: a run directory with a synthetic
               taxonomy (4000 nodes, dim 250; dim 300 for MTL), the
@@ -99,7 +106,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (`max_memory_allocated_bytes`, its train steps').
               PGAT-stored is PGAT with
               TAXOEXPAN_STORED_ATTN=1; MTL runs with TAXOEXPAN_STORED_ATTN=1
-              and TAXOEXPAN_DROPOUT_BITS=8. Checks a finite loss, changed
+              and TAXOEXPAN_DROPOUT_BITS=8; the three concat paths run one
+              epoch each. Checks a finite loss, changed
               params, the checkpoints (MTL: with `aux`), launches of the
               path's train forms and backwards; serves the best checkpoint
               through `taxoexpan_torch.test_fast`; and holds one train step
@@ -128,6 +136,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               profiler windows traced (both ranks' final params equal
               bits); then `test_fast -m` and `infer -m` as 2 rank
               processes against the single process (`phase_tp_training`).
+              Then residual GAT layers (`phase_residual`): PGAT-concat with
+              its propagation replaced by GAT(residual=True) at the same
+              widths (the final layer residual, per slot), its eval encode
+              of 4096 egonets and one train step against the plain path on
+              the card, launching only the per-slot K1 / K1t / K2. Then one
+              epoch of PGAT-concat as 2 rank processes with mp = 2
+              (`phase_tp_concat`): every step's grads, pos_emb's and layer
+              0's included, against the single process's.
 7. bf16    - compute_dtype "bfloat16" (the JAX package's production dtype,
               bench.py:246): in the kernels phase the bf16 forms of K1 (eval
               and train, the pe path), K2 (need_dx off), K3 (eval and
@@ -188,7 +204,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               and the window's device idle share; `tools.sampler_bench`'s
               batches/s on the same dataset; the simple_mlp baseline on
               the card against the CPU and trained one epoch there.
-9. a `{"kernels": [...]}` line (eval-form launches from the serving phase
+9. a `phase_seconds` line (each phase's wall time) and a `{"kernels":
+   [...]}` line (eval-form launches from the serving phase
    of the entry's path, the train-path kernels' from its training phase,
    K6's from the partitioned 2-rank run, over both ranks; the TP rows'
    from the PGAT-tp runs' counts at the shard's heads, `launches_by_heads`,
@@ -280,13 +297,23 @@ PATHS = {
     "PGAT-bf16": ("config.mag.json", "PGAT", {}),
     "MTL-bf16": ("config.semeval_verb_mtl.json", "PGAT",
                  {STORED: "1", BITS: "8"}),
+    "PGAT-concat": ("config.mag.json", "PGAT", {}),
+    "PGAT-concat-bf16": ("config.mag.json", "PGAT", {}),
+    "PGCN-concat": ("config.mag.json", "PGCN", {}),
 }
 # the paths whose configuration sets arch.args.compute_dtype "bfloat16"
 # (as scripts/reference_scale_run.py:87 sets it): bf16 GAT layers
-BF16_PATHS = ("PGAT-bf16", "MTL-bf16")
-SERVING_PATHS = ("PGAT", "PGCN", "MTL", "PGAT-bf16", "MTL-bf16")
+BF16_PATHS = ("PGAT-bf16", "MTL-bf16", "PGAT-concat-bf16")
+# the paths whose configuration sets arch.args.pos_mode "concat": the pe
+# rows appended to each layer's input (layer 0: 250 + 50 = 300 columns, the
+# final layer 2000 + 50 = 2050 for PGAT, 500 + 50 for PGCN), layer 0 with
+# its input grad
+CONCAT_PATHS = ("PGAT-concat", "PGAT-concat-bf16", "PGCN-concat")
+SERVING_PATHS = ("PGAT", "PGCN", "MTL", "PGAT-bf16", "MTL-bf16",
+                 *CONCAT_PATHS)
 TRAINING_PATHS = {"PGAT": 2, "PGCN": 2, "PGAT-stored": 1, "MTL": 2,
-                  "PGAT-bf16": 2, "MTL-bf16": 1}
+                  "PGAT-bf16": 2, "MTL-bf16": 1, "PGAT-concat": 1,
+                  "PGAT-concat-bf16": 1, "PGCN-concat": 1}
 # the path whose training turns the trainer's profiler window on, and the
 # window: batches 1-4 of epoch 1 (its 800-node epoch has 6 steps)
 PROFILE_PATH, PROFILE_WINDOW = "PGAT-bf16", (1, 4)
@@ -395,13 +422,16 @@ def path_model(path: str = "PGAT"):
     `arch.args.propagation_method` set: PGAT as published, PGCN the
     paper's other propagation family at the same widths;
     configs/config.semeval_verb_mtl.json as published; the BF16_PATHS with
-    `arch.args.compute_dtype` "bfloat16"), and the port's model of it."""
+    `arch.args.compute_dtype` "bfloat16", the CONCAT_PATHS with
+    `arch.args.pos_mode` "concat"), and the port's model of it."""
     from taxoexpan_torch import builders
     name, propagation, _env = PATHS[path]
     cfg = load_config(name)
     cfg["arch"]["args"]["propagation_method"] = propagation
     if path in BF16_PATHS:
         cfg["arch"]["args"]["compute_dtype"] = "bfloat16"
+    if path in CONCAT_PATHS:
+        cfg["arch"]["args"]["pos_mode"] = "concat"
     model = builders.build_model(cfg["arch"], max_parents=MAG_P,
                                  expand_factor=MAG_S)
     return cfg, model
@@ -861,21 +891,34 @@ def phase_kernels(batch: int, device, drop: float,
                   path: str = "PGAT") -> list[dict]:
     """PGAT's K1-K4 (and K7a) at config.mag.json's shapes against their
     plain versions; with path "PGAT-bf16" their bf16 forms (x, fc, wa1, wa2
-    in bf16; entries named "<wrapper>[bf16]"), without the store forms."""
+    in bf16; entries named "<wrapper>[bf16]"), without the store forms;
+    with a CONCAT_PATHS path the forms pos_mode "concat" gives them (the pe
+    columns in x: layer 0 at 250 + 50 = 300 input columns with its dx on,
+    the pooled final layer at 2000 + 50 = 2050; no slot biases and no pe
+    path, the feature dropout over all columns; entries
+    "<wrapper>[concat]" and "<wrapper>[concat, bf16]"), without the store
+    forms."""
     import torch
     from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.ops import star
     from taxoexpan_torch.weights import params_to
     _cfg, model = path_model(path)
     bf16 = path in BF16_PATHS
-    tag = "[bf16]" if bf16 else ""
+    concat = path in CONCAT_PATHS
+    tags = [t for t, on in (("concat", concat), ("bf16", bf16)) if on]
+    tag = f"[{', '.join(tags)}]" if tags else ""
     gen = torch.Generator().manual_seed(SEED)
     prop = model.propagate
     params = params_to(model.init(gen), device)["propagate"]
-    x0, ngp, nsib = random_egonets(gen, batch, prop.layer_specs[0][0]
-                                   - prop.pos_dim, device)
-    x0 = x0.to(prop.dtype)
+    feats, ngp, nsib = random_egonets(gen, batch, prop.layer_specs[0][0]
+                                      - prop.pos_dim, device)
+    # the layer's input as the model makes it: pe columns appended under
+    # concat, cast to the compute dtype
+    x0 = prop.layer_input(params, feats, 0, MAG_P)
+    del feats
     n = x0.shape[1]
+    # layer 0's dx: on where its input carries the trainable pe columns
+    dx0 = prop.concat
     ops0, _ = prop.operands(params, 0, n, MAG_P)
     ops1, _ = prop.operands(params, 1, n, MAG_P)
     # train form: the pe rows and W_p tail rows as pe_pack, zero biases
@@ -885,10 +928,11 @@ def phase_kernels(batch: int, device, drop: float,
     tkw0 = dict(pe_pack=pe0, seed=11, feat_drop=drop, attn_drop=drop)
     tkw1 = dict(pe_pack=pe1, seed=12, feat_drop=drop, attn_drop=drop)
     with torch.no_grad():
-        x1 = gk.gat_layer_fwd_plain(x0, *ops0, ngp, nsib, MAG_P, h0,
-                                    out_alpha=0.01)
-        x1t = gk.gat_layer_train_plain(x0, *tops0, ngp, nsib, MAG_P, h0,
+        x1 = prop.layer_input(params, gk.gat_layer_fwd_plain(
+            x0, *ops0, ngp, nsib, MAG_P, h0, out_alpha=0.01), 1, MAG_P)
+        y0t = gk.gat_layer_train_plain(x0, *tops0, ngp, nsib, MAG_P, h0,
                                        out_alpha=0.01, **tkw0)
+        x1t = prop.layer_input(params, y0t, 1, MAG_P)
     valid = star.node_mask(ngp, nsib, MAG_P, n)[..., None]
     # incoming grads as the train step gives them: layer 1's dx is zero on
     # invalid slots; the pool grads are dense. Layer 0 fuses leaky_relu
@@ -904,43 +948,44 @@ def phase_kernels(batch: int, device, drop: float,
         del pre
     # drawn on the card: a host draw of g0's 524 M elements takes seconds
     dgen = torch.Generator(device=device).manual_seed(SEED)
-    g0 = ((torch.randn(x1t.shape, generator=dgen, device=device) * 1e-3)
-          * valid * away).to(x1t.dtype)
-    del away
+    g0 = ((torch.randn(y0t.shape, generator=dgen, device=device) * 1e-3)
+          * valid * away).to(y0t.dtype)
+    del away, y0t
     g1 = torch.randn((batch, 3, prop.out_dim), generator=dgen,
                      device=device) * 1e-2
     fwd, bwd = "taxoexpan_torch/ops/csrc/gat_fwd.cu", \
         "taxoexpan_torch/ops/csrc/gat_bwd.cu"
     cases = [
-        ("gat_layer_fwd", fwd, False, x0, ops0, None, h0,
+        ("gat_layer_fwd", fwd, False, x0, ops0, None, h0, None,
          lambda: gk.gat_layer_fwd(x0, *ops0, ngp, nsib, MAG_P, h0,
                                   out_alpha=0.01),
          lambda: gk.gat_layer_fwd_plain(x0, *ops0, ngp, nsib, MAG_P, h0,
                                         out_alpha=0.01)),
-        ("gat_layer_pooled_fwd", fwd, True, x1, ops1, None, h1,
+        ("gat_layer_pooled_fwd", fwd, True, x1, ops1, None, h1, None,
          lambda: gk.gat_layer_pooled_fwd(x1, *ops1, ngp, nsib, MAG_P, h1),
          lambda: gk.gat_layer_pooled_fwd_plain(x1, *ops1, ngp, nsib, MAG_P,
                                                h1)),
-        ("gat_layer_fwd_train", fwd, False, x0, tops0, pe0, h0,
+        ("gat_layer_fwd_train", fwd, False, x0, tops0, pe0, h0, None,
          lambda: gk.gat_layer_fwd_train(x0, *tops0, ngp, nsib, MAG_P, h0,
                                         out_alpha=0.01, **tkw0),
          lambda: gk.gat_layer_train_plain(x0, *tops0, ngp, nsib, MAG_P, h0,
                                           out_alpha=0.01, **tkw0)),
-        ("gat_layer_pooled_fwd_train", fwd, True, x1t, tops1, pe1, h1,
+        ("gat_layer_pooled_fwd_train", fwd, True, x1t, tops1, pe1, h1, None,
          lambda: gk.gat_layer_pooled_fwd_train(x1t, *tops1, ngp, nsib,
                                                MAG_P, h1, **tkw1),
          lambda: gk.gat_layer_train_plain(x1t, *tops1, ngp, nsib, MAG_P, h1,
                                           pooled=True, **tkw1)),
-        # layer 0's backward in the train step: need_dx off (fixed input
-        # features), slot-bias grads off (zero biases on the pe path)
-        ("gat_layer_bwd", bwd, False, x0, tops0, pe0, h0,
+        # layer 0's backward in the train step: need_dx off for fixed input
+        # features, on under concat; slot-bias grads off (zero biases on
+        # the pe path and under concat)
+        ("gat_layer_bwd", bwd, False, x0, tops0, pe0, h0, dx0,
          lambda: gk.gat_layer_bwd(g0, x0, *tops0, ngp, nsib, MAG_P, h0,
-                                  out_alpha=0.01, need_dx=False,
+                                  out_alpha=0.01, need_dx=dx0,
                                   need_dbias=False, **tkw0),
          lambda: gk.gat_layer_bwd_plain(g0, x0, *tops0, ngp, nsib, MAG_P, h0,
-                                        out_alpha=0.01, need_dx=False,
+                                        out_alpha=0.01, need_dx=dx0,
                                         **tkw0)),
-        ("gat_layer_pooled_bwd", bwd, True, x1t, tops1, pe1, h1,
+        ("gat_layer_pooled_bwd", bwd, True, x1t, tops1, pe1, h1, True,
          lambda: gk.gat_layer_pooled_bwd(g1, x1t, *tops1, ngp, nsib, MAG_P,
                                          h1, need_dx=True, need_dbias=False,
                                          **tkw1),
@@ -949,8 +994,8 @@ def phase_kernels(batch: int, device, drop: float,
                                         **tkw1)),
     ]
     records = []
-    for wrapper, source, pooled, x, ops, pe_pack, heads, kernel, plain in \
-            cases:
+    for (wrapper, source, pooled, x, ops, pe_pack, heads, need_dx, kernel,
+         plain) in cases:
         name = wrapper + tag
         backward = wrapper.endswith("_bwd")
         x2 = x.reshape(-1, x.shape[-1])
@@ -972,11 +1017,11 @@ def phase_kernels(batch: int, device, drop: float,
         if bf16:
             nums["products"] = product_rates(
                 x, ops, pe_pack, heads, ngp, nsib, nums["passes_ms"],
-                backward, pooled, wrapper == "gat_layer_pooled_bwd")
+                backward, pooled, bool(need_dx))
         if pooled and not backward:
             nums["star_alone"] = pooled_star_alone(
                 name, x, ops, ngp, nsib, heads,
-                tkw1 if pe_pack is not None else {})
+                tkw1 if "_train" in wrapper else {})
         if backward:
             del d
             nbytes, flops = bwd_work(x, ops, pe_pack, g1 if pooled else g0,
@@ -989,10 +1034,12 @@ def phase_kernels(batch: int, device, drop: float,
                "replaces": REPLACES[wrapper], "batch": batch,
                "x_shape": list(x.shape), "fc_shape": list(fc.shape),
                "dtype": str(x.dtype).replace("torch.", ""),
-               "pe": pe_pack is not None,
+               "pe": pe_pack is not None, "pos_mode": prop.pos_mode,
                **({"near_kink_share": near_kink_share}
                   if wrapper == "gat_layer_bwd" else {}),
-               "dropout": drop if pe_pack is not None else 0.0, **nums,
+               **({"need_dx": need_dx} if backward else {}),
+               "dropout": drop if "_train" in wrapper or backward else 0.0,
+               **nums,
                # no single PyTorch call computes the star-GAT layer or its
                # backward; one product alone is timed as a yardstick
                "library_ms": None, "matmul_call": call,
@@ -1003,8 +1050,9 @@ def phase_kernels(batch: int, device, drop: float,
         torch.cuda.empty_cache()
     # K7a: the store forms of both train forwards, same seeds, and the
     # stored backwards fed their weights (in bf16 at MTL's shapes only,
-    # phase_mtl_kernels: MTL-bf16 is the bf16 path that stores attention)
-    if bf16:
+    # phase_mtl_kernels: MTL-bf16 is the bf16 path that stores attention;
+    # no concat path stores attention)
+    if bf16 or concat:
         return records
     args = (ngp, nsib, MAG_P)
     records += store_entries("", "PGAT-stored", False, x0, tops0, pe0, h0,
@@ -1337,7 +1385,8 @@ def phase_tp_kernels(batch: int, device, drop: float) -> list[dict]:
     return records
 
 
-def phase_gcn_kernels(batch: int, device) -> list[dict]:
+def phase_gcn_kernels(batch: int, device,
+                      path: str = "PGCN") -> list[dict]:
     """K5 against its plain versions at the PGCN shapes of config.mag.json
     (layer 0: 250 + 50 -> 500 with leaky_relu 0.01; the final layer:
     500 + 50 -> 500, no activation), 4096 egonets: the eval forward of both
@@ -1347,23 +1396,37 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
     (path PGCN) and in bf16 (x and W_h in bf16, the final layer fed the
     bf16 layer 0's output; reached by a direct call only, since PGCN runs
     float32 under any compute dtype, so its launches are the PGCN path's
-    bf16 launches)."""
+    bf16 launches). With path "PGCN-concat" the forms pos_mode "concat"
+    gives them, float32 only: the pe columns in x (layer 0 at 300 input
+    columns, its K5b with need_dx on; the final layer at 550), no z_bias
+    and no pe path (entries "<wrapper>[<layer>, concat]")."""
     import torch
-    from taxoexpan_torch.models.propagation import (gcn_layer_operands,
+    from taxoexpan_torch.models.propagation import (concat_pos,
+                                                    gcn_layer_operands,
                                                     slot_embeddings)
     from taxoexpan_torch.ops import gcn_kernels as ck
     from taxoexpan_torch.ops import star
     from taxoexpan_torch.weights import params_to
-    _cfg, model = path_model("PGCN")
+    _cfg, model = path_model(path)
+    concat = path in CONCAT_PATHS
     gen = torch.Generator().manual_seed(SEED)
     prop = model.propagate
     params = params_to(model.init(gen), device)["propagate"]
     (din0, _, a0, drop0), (din1, _, a1, drop1) = [
-        (spec[0] - prop.pos_dim, *spec[1:]) for spec in prop.layer_specs]
-    x0, ngp, nsib = random_egonets(gen, batch, din0, device)
+        (spec[0] - (0 if concat else prop.pos_dim), *spec[1:])
+        for spec in prop.layer_specs]
+    x0, ngp, nsib = random_egonets(gen, batch, prop.layer_specs[0][0]
+                                   - prop.pos_dim, device)
     n = x0.shape[1]
 
+    def with_pos(x, l):
+        """A layer's input: the pe columns appended under concat."""
+        return concat_pos(x, params["pos_emb"][l]["emb"], MAG_P) \
+            if concat else x
+
     def operands(l, din, pe_dropout):
+        if concat:
+            return gcn_layer_operands(params["layers"][l], None, din, n)
         pe = slot_embeddings(params["pos_emb"][l]["emb"], MAG_P, n)
         return gcn_layer_operands(params["layers"][l], pe, din, n,
                                   pe_dropout=pe_dropout)
@@ -1381,16 +1444,18 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
     args = (ngp, nsib, MAG_P)
     source = "taxoexpan_torch/ops/csrc/gcn.cu"
     bf16 = torch.bfloat16
+    dx0 = concat     # layer 0's dx: on where its input has the pe columns
     records = []
-    for dtype in (torch.float32, bf16):
+    for dtype in (torch.float32,) if concat else (torch.float32, bf16):
         low = dtype == bf16
         # x and W_h in the layer's dtype; b, z_bias and the pe path float32
         cast = lambda ops: (ops[0].to(dtype), *ops[1:])  # noqa: E731
         o0, o1, t0, t1 = cast(ops0), cast(ops1), cast(tops0), cast(tops1)
-        xa = x0.to(dtype)
+        xa = with_pos(x0, 0).to(dtype)
         with torch.no_grad():
-            xb = ck.gcn_layer_fwd_plain(xa, *o0, *args, a0)
-            xbt = ck.gcn_layer_train_plain(xa, *t0, *args, **tkw0)
+            yb = ck.gcn_layer_fwd_plain(xa, *o0, *args, a0)
+            ybt = ck.gcn_layer_train_plain(xa, *t0, *args, **tkw0)
+            xb, xbt = with_pos(yb, 1), with_pos(ybt, 1)
             # layer 0's leaky' jumps 100x at 0: the incoming grad is 0
             # within 1e-5 of the kink (of the float32 pre-activation the
             # kernel takes leaky' at), as for gat_layer_bwd
@@ -1400,9 +1465,9 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
             away = pre.abs() > 1e-5
             near_kink_share = 1.0 - float(away.double().mean())
             del pre
-        g0 = ((torch.randn(xbt.shape, generator=dgen, device=device) * 1e-3)
+        g0 = ((torch.randn(ybt.shape, generator=dgen, device=device) * 1e-3)
               * valid * away).to(dtype)
-        del away
+        del away, yb, ybt
         g1 = ((torch.randn(xbt.shape[:2] + (prop.out_dim,), generator=dgen,
                            device=device) * 1e-2) * valid).to(dtype)
         cases = [
@@ -1419,12 +1484,13 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
              lambda: ck.gcn_layer_fwd_train(xbt, *t1, *args, **tkw1),
              lambda: ck.gcn_layer_train_plain(xbt, *t1, *args, **tkw1)),
             # the train step's backwards: layer 0 without dx (fixed input
-            # features), neither needs d z_bias (zero on the pe path)
+            # features; with it under concat), neither needs d z_bias (zero
+            # on the pe path and under concat)
             ("gcn_layer_bwd", "layer0", xa, t0, pe0, a0,
-             lambda: ck.gcn_layer_bwd(g0, xa, *t0, *args, need_dx=False,
+             lambda: ck.gcn_layer_bwd(g0, xa, *t0, *args, need_dx=dx0,
                                       need_dzb=False, **tkw0),
              lambda: ck.gcn_layer_bwd_plain(g0, xa, *t0, *args,
-                                            need_dx=False, need_dzb=False,
+                                            need_dx=dx0, need_dzb=False,
                                             **tkw0)),
             ("gcn_layer_bwd", "final", xbt, t1, pe1, a1,
              lambda: ck.gcn_layer_bwd(g1, xbt, *t1, *args, need_dx=True,
@@ -1435,6 +1501,7 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
         ]
         for wrapper, layer, x, ops, pe_pack, alpha, kernel, plain in cases:
             name = f"{wrapper}[{layer}, bf16]" if low else \
+                f"{wrapper}[{layer}, concat]" if concat else \
                 f"{wrapper}[{layer}]"
             backward = wrapper == "gcn_layer_bwd"
             x2 = x.reshape(-1, x.shape[-1])
@@ -1452,7 +1519,7 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
             got, nums = measure(name, kernel, plain, backward, matmul,
                                 "gcn_bwd" if backward else "gcn_fwd")
             kw = (tkw0 if layer == "layer0" else tkw1) \
-                if pe_pack is not None else {}
+                if wrapper != "gcn_layer_fwd" else {}
             if backward:
                 del d
                 nbytes, flops = gcn_bwd_work(x, ops, pe_pack,
@@ -1462,12 +1529,15 @@ def phase_gcn_kernels(batch: int, device) -> list[dict]:
                 nums["star_alone"] = gcn_star_alone(name, x, ops, ngp, nsib,
                                                     alpha, kw)
                 nbytes, flops = gcn_fwd_work(x, ops, pe_pack, ngp, nsib, got)
-            rec = {"name": name, "wrapper": wrapper, "path": "PGCN",
+            rec = {"name": name, "wrapper": wrapper, "path": path,
                    "dtype": str(dtype).replace("torch.", ""),
                    "route": "cuda", "source": source,
                    "replaces": REPLACES[wrapper], "batch": batch,
                    "x_shape": list(x.shape), "w_shape": list(w.shape),
                    "alpha": alpha, "pe": pe_pack is not None,
+                   "pos_mode": prop.pos_mode,
+                   **({"need_dx": dx0 if layer == "layer0" else True}
+                      if backward else {}),
                    **({"near_kink_share": near_kink_share}
                       if wrapper == "gcn_layer_bwd" and layer == "layer0"
                       else {}),
@@ -2428,6 +2498,78 @@ def collective_ms(path: Path) -> dict:
     return {name: {"calls": c, "ms": ms} for name, (c, ms) in out.items()}
 
 
+def tp_against_single(device, cfg: dict, start: Path, tmp: Path,
+                      layout: dict) -> dict:
+    """One epoch at dropout 0 and with SGD in place of the config's
+    optimizer, from the checkpoint `start`: the single process (`python -m
+    taxoexpan_torch.train`'s main in this process), then DP_RANKS rank
+    processes with "parallel" `layout`, each recording every step's reduced
+    grads (`recorded_grads`; the ranks through `RANK_DRIVER`'s "grads"
+    mode). SGD: AMSGrad's first steps are lr * sign(g) wherever |g| >>
+    1e-8, so the rounding of a near-zero grad moves a param by up to 2 *
+    lr, the next step's grads by more than rounding, and in 6 steps
+    well-conditioned params by up to 0.8 * lr (seen on the card); an SGD
+    step is linear in the grad and keeps rounding at its size. Checks: the
+    ranks' epoch losses equal and within 1e-4 of the single process's,
+    their grads equal bits at every step, and rank 0's within
+    `grads_vs_reference`'s rule of the single process's. Returns both
+    runs' logs, final params (numpy leaves) and grads, the ranks' reports,
+    the per-step worst differences and the ranks' wall seconds."""
+    import copy
+
+    import numpy as np
+    from taxoexpan_torch import train as train_cli
+    from taxoexpan_torch.training.checkpoint import load_checkpoint
+    from taxoexpan_torch.tree import tree_leaves
+    runs = {}
+    for name, parallel in (("single", None), ("tp", layout)):
+        run = tmp / name
+        run.mkdir()
+        c = copy.deepcopy(cfg)
+        c["arch"]["args"].update(feat_drop=0.0, attn_drop=0.0)
+        c["optimizer"] = {"type": "SGD", "args": {
+            "lr": cfg["optimizer"]["args"]["lr"]}}
+        c["trainer"]["save_dir"] = str(run / "saved")
+        if parallel:
+            c["parallel"] = parallel
+        (run / "config.json").write_text(json.dumps(c))
+        runs[name] = run
+    config = train_cli.parse_args(["-c", str(runs["single"] / "config.json"),
+                                   "-r", str(start), "-d", device.type])
+    with recorded_grads(train_cli) as single_grads:
+        single_log = train_cli.main(config)
+    single_params = [np.asarray(a) for a in tree_leaves(load_checkpoint(
+        config.save_dir / "checkpoint-epoch1.ckpt")["params"])]
+    t0 = time.time()
+    tp = run_ranks(runs["tp"], device, {}, extra=("-r", str(start)),
+                   main=("-c", RANK_DRIVER, "grads", str(runs["tp"])))
+    wall_s = time.time() - t0
+    tp_params = [np.asarray(a) for a in tree_leaves(load_checkpoint(
+        Path(tp[0]["run_dir"]) / "checkpoint-epoch1.ckpt")["params"])]
+    losses = [r["log"]["loss"] for r in tp]
+    if len(set(losses)) != 1 or abs(losses[0] - single_log["loss"]) > \
+            1e-4 * abs(single_log["loss"]):
+        raise AssertionError(f"epoch loss: ranks {losses}, single "
+                             f"process {single_log['loss']}")
+    tp_grads = [pickle.loads((runs["tp"] / f"grads{r}.pkl").read_bytes())
+                for r in range(DP_RANKS)]
+    if not len(tp_grads[0]) == len(single_grads) > 0:
+        raise AssertionError(f"steps: TP {len(tp_grads[0])}, single "
+                             f"process {len(single_grads)}")
+    for other in tp_grads[1:]:
+        for step, (a, b) in enumerate(zip(tp_grads[0], other)):
+            if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"step {step}: the ranks' reduced "
+                                     "grads differ")
+    worst = [grads_vs_reference(got, want, 1e-3, f"TP step {step}")
+             for step, (got, want) in enumerate(zip(tp_grads[0],
+                                                    single_grads))]
+    return {"single_log": single_log, "single_params": single_params,
+            "single_grads": single_grads, "tp": tp, "tp_params": tp_params,
+            "tp_grads": tp_grads[0], "losses": losses,
+            "max_grad_err_rel_to_leaf_max": worst, "wall_s": wall_s}
+
+
 def phase_tp_training(device, num_nodes: int, seed: int,
                       single_step_ms: float) -> dict:
     """The tensor-parallel path: `python -m taxoexpan_torch.train` as 2
@@ -2465,7 +2607,6 @@ def phase_tp_training(device, num_nodes: int, seed: int,
     from taxoexpan_torch import builders
     from taxoexpan_torch import infer as infer_cli
     from taxoexpan_torch import test_fast as test_fast_cli
-    from taxoexpan_torch import train as train_cli
     from taxoexpan_torch.data.synthetic import synthetic_taxonomy
     from taxoexpan_torch.training.checkpoint import (load_checkpoint,
                                                      save_checkpoint)
@@ -2509,74 +2650,25 @@ def phase_tp_training(device, num_nodes: int, seed: int,
         init = [np.asarray(a) for a in tree_leaves(
             load_checkpoint(start)["params"])]
 
-        def configure(name: str, drop: float | None, parallel,
-                      sgd: bool = False):
-            run = tmp / name
-            run.mkdir()
-            c = copy.deepcopy(cfg)
-            if drop is not None:
-                c["arch"]["args"].update(feat_drop=drop, attn_drop=drop)
-            if sgd:
-                c["optimizer"] = {"type": "SGD", "args": {
-                    "lr": cfg["optimizer"]["args"]["lr"]}}
-            c["trainer"]["save_dir"] = str(run / "saved")
-            if parallel:
-                c["parallel"] = parallel
-            (run / "config.json").write_text(json.dumps(c))
-            return run
-
         layout = {"dp": 1, "mp": DP_RANKS}
         local = cfg["arch"]["args"]["heads"][0] // DP_RANKS
-        # ---- dropout 0 and SGD: the single process, then the two ranks,
-        # each recording every step's grads. SGD: AMSGrad's first steps are
-        # lr * sign(g) wherever |g| >> 1e-8, so the rounding of a near-zero
-        # grad moves a param by up to 2 * lr, the next step's grads by more
-        # than rounding, and in 6 steps well-conditioned params by up to
-        # 0.8 * lr (seen on the card); an SGD step is linear in the grad
-        # and keeps rounding at its size
-        run = configure("single", 0.0, None, sgd=True)
-        config = train_cli.parse_args(["-c", str(run / "config.json"), "-r",
-                                       str(start), "-d", device.type])
-        with recorded_grads(train_cli) as single_grads:
-            single_log = train_cli.main(config)
-        single = load_checkpoint(config.save_dir / "checkpoint-epoch1.ckpt")
-        run = configure("tp", 0.0, layout, sgd=True)
-        t0 = time.time()
-        tp = run_ranks(run, device, {}, extra=("-r", str(start)),
-                       main=("-c", RANK_DRIVER, "grads", str(run)))
-        wall = {"tp_dropout0": time.time() - t0}
-        tp_params = [np.asarray(a) for a in tree_leaves(load_checkpoint(
-            Path(tp[0]["run_dir"]) / "checkpoint-epoch1.ckpt")["params"])]
-        losses = [r["log"]["loss"] for r in tp]
-        if len(set(losses)) != 1 or abs(losses[0] - single_log["loss"]) > \
-                1e-4 * abs(single_log["loss"]):
-            raise AssertionError(f"epoch loss: ranks {losses}, single "
-                                 f"process {single_log['loss']}")
-        tp_grads = [pickle.loads((run / f"grads{r}.pkl").read_bytes())
-                    for r in range(DP_RANKS)]
-        if not len(tp_grads[0]) == len(single_grads) > 0:
-            raise AssertionError(f"steps: TP {len(tp_grads[0])}, single "
-                                 f"process {len(single_grads)}")
-        for other in tp_grads[1:]:
-            for step, (a, b) in enumerate(zip(tp_grads[0], other)):
-                if not all(np.array_equal(x, y) for x, y in zip(a, b)):
-                    raise AssertionError(f"step {step}: the ranks' reduced "
-                                         "grads differ")
-        vs_single = {"max_grad_err_rel_to_leaf_max": [
-            grads_vs_reference(got, want, 1e-3, f"TP step {step}")
-            for step, (got, want) in enumerate(zip(tp_grads[0],
-                                                   single_grads))]}
-        del tp_grads, single_grads
+        # ---- dropout 0 and SGD: the single process, then the two ranks
+        against = tp_against_single(device, cfg, start, tmp, layout)
+        single_log, tp = against["single_log"], against["tp"]
+        losses = against["losses"]
+        wall = {"tp_dropout0": against["wall_s"]}
+        vs_single = {"max_grad_err_rel_to_leaf_max":
+                     against["max_grad_err_rel_to_leaf_max"]}
         worst = 0.0
-        for i, (got, want) in enumerate(zip(tp_params, tree_leaves(
-                single["params"]))):
-            want = np.asarray(want)
+        for i, (got, want) in enumerate(zip(against["tp_params"],
+                                            against["single_params"])):
             err = np.abs(got - want)
             if (err > TP_PARAM_ATOL + TP_PARAM_RTOL * np.abs(want)).any():
                 raise AssertionError(f"final params: leaf {i} "
                                      f"{want.shape} differs by "
                                      f"{float(err.max())}")
             worst = max(worst, float(err.max()))
+        del against
         vs_single.update(
             max_param_err=worst, loss_rel_diff=abs(
                 losses[0] - single_log["loss"]) / abs(single_log["loss"]),
@@ -2585,7 +2677,12 @@ def phase_tp_training(device, num_nodes: int, seed: int,
                  "every element")
 
         # ---- the config's dropout, traced
-        run = configure("tp_dropout", None, layout)
+        run = tmp / "tp_dropout"
+        run.mkdir()
+        c = copy.deepcopy(cfg)
+        c["trainer"]["save_dir"] = str(run / "saved")
+        c["parallel"] = layout
+        (run / "config.json").write_text(json.dumps(c))
         t0 = time.time()
         tpd = run_ranks(run, device, {}, extra=("-r", str(start)),
                         main=("-c", RANK_DRIVER, "train",
@@ -2705,6 +2802,221 @@ def phase_tp_training(device, num_nodes: int, seed: int,
         # TP rows read those at `heads_local`)
         "launches_by_heads": by_heads, "heads_local": local})
     emit("tp_training", **res)
+    return res
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """The star-GAT and star-GCN wrappers run their plain versions on CUDA
+    tensors for the block: the plain path on the card, for the residual
+    check's reference (no path of the port runs this way)."""
+    from taxoexpan_torch.ops import gat_kernels as gk
+    from taxoexpan_torch.ops import gcn_kernels as ck
+    saved = gk.on_cuda, ck.on_cuda
+    gk.on_cuda = ck.on_cuda = lambda x, what: False
+    try:
+        yield
+    finally:
+        gk.on_cuda, ck.on_cuda = saved
+
+
+# the residual check: egonets of the train step held against the plain path
+RESIDUAL_GROUPS = 32
+
+
+def residual_model(device):
+    """config.mag.json's PGAT-concat with its propagation replaced by
+    `GAT(residual=True)` at the same widths (layer 0: 300 -> 4 x 500; the
+    final layer residual, 2050 -> 1 x 500 plus x @ res_fc [2050, 500]), and
+    its params from seed SEED on `device`."""
+    import torch
+    from taxoexpan_torch.models.propagation import GAT
+    from taxoexpan_torch.weights import params_to
+    cfg, model = path_model("PGAT-concat")
+    a = cfg["arch"]["args"]
+    model.propagate = GAT(a["in_dim"], a["hidden_dim"], a["out_dim"],
+                          a["num_layers"], a["heads"], pos_dim=a["pos_dim"],
+                          feat_drop=a["feat_drop"], attn_drop=a["attn_drop"],
+                          pos_mode="concat", residual=True)
+    return cfg, model, params_to(model.init(
+        torch.Generator().manual_seed(SEED)), device)
+
+
+def phase_residual(device) -> dict:
+    """Residual GAT layers on the card (`residual_model`): the eval encode
+    of BATCH random egonets (the final layer per slot, as a residual final
+    layer has no pooled form, then the WMR readout) and one train step
+    (RESIDUAL_GROUPS groups of the synthetic training taxonomy at the
+    config's dropout: the residual layer's input mask drawn once outside
+    the kernel, K1t with the attention dropout inside) through the kernels,
+    each against the same call on the plain path on the card
+    (`plain_on_card`): hg to RTOL / ATOL, the loss to 1e-4 relative, each
+    grad by `grads_vs_reference`'s rule (1e-3 of its leaf's largest value).
+    The launches of the kernel runs: the per-slot forms only (K1 eval, K1t,
+    K2), none of the pooled ones."""
+    import torch
+    from taxoexpan_torch import builders
+    from taxoexpan_torch.data.synthetic import synthetic_taxonomy
+    from taxoexpan_torch.ops import gat_kernels as gk
+    from taxoexpan_torch.training.trainer import Trainer, batch_to
+    from taxoexpan_torch.tree import tree_leaves
+    cfg, model, params = residual_model(device)
+    a = cfg["arch"]["args"]
+    gen = torch.Generator().manual_seed(SEED)
+    feats, ngp, nsib = random_egonets(gen, BATCH, a["in_dim"], device)
+
+    def counts():
+        return {name: w.launches for name, w in gk.WRAPPERS.items()
+                if w.launches}
+    reset_counters()
+    t0 = time.time()
+    with torch.no_grad():
+        hg = model.encode(params, feats, ngp, nsib)
+        torch.cuda.synchronize()
+    encode_s = time.time() - t0
+    eval_launches = counts()
+    with plain_on_card(), torch.no_grad():
+        hg_plain = model.encode(params, feats, ngp, nsib)
+    encode_check = compare("residual encode (kernels vs the plain path on "
+                           "the card)", hg, hg_plain)
+    del feats, hg, hg_plain
+    torch.cuda.empty_cache()
+
+    taxonomy = synthetic_taxonomy(num_nodes=TRAIN_NODES, dim=a["in_dim"],
+                                  seed=SEED)
+    train_cfg = dict(cfg["train_data_loader"]["args"],
+                     batch_size=RESIDUAL_GROUPS, num_workers=0,
+                     max_parents=MAG_P, expand_factor=MAG_S)
+    sampler = builders.build_sampler(taxonomy, train_cfg, "train")
+    batch = batch_to(next(iter(builders.build_loader(sampler, train_cfg))),
+                     device)
+    steps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, form in (("kernels", contextlib.nullcontext),
+                            ("plain", plain_on_card)):
+            opt = builders.build_optimizer_from_config(cfg["optimizer"],
+                                                       cfg["trainer"])
+            tr = Trainer(model, params, opt, opt.init(params),
+                         loss_name=cfg["loss"], metric_names=cfg["metrics"],
+                         feature_table=sampler.node_features,
+                         train_loader=None, save_dir=tmp, device=device)
+            reset_counters()
+            with form():
+                loss, grads = tr.train_step(batch, 12345, return_grads=True)
+                torch.cuda.synchronize()
+            steps[label] = (float(loss), [g.cpu().numpy()
+                                          for g in tree_leaves(grads)],
+                            counts())
+            del tr, grads
+    (l_k, g_k, train_launches), (l_p, g_p, _) = steps["kernels"], \
+        steps["plain"]
+    if not abs(l_k - l_p) <= 1e-4 * abs(l_p):
+        raise AssertionError(f"residual train step loss: kernels {l_k}, "
+                             f"plain path {l_p}")
+    worst = grads_vs_reference(g_k, g_p, 1e-3, "residual train step")
+    for what, got, need in (
+            ("eval", eval_launches, ("gat_layer_fwd",)),
+            ("train", train_launches, ("gat_layer_fwd_train",
+                                       "gat_layer_bwd"))):
+        pooled = {k: v for k, v in got.items() if "pooled" in k}
+        if pooled or any(got.get(k, 0) < 2 for k in need):
+            raise AssertionError(f"residual {what} launches {got}: expected "
+                                 f"{need} twice (both layers per slot) and "
+                                 "no pooled form")
+    res = {"card": nvidia_smi_line(), "model": "config.mag.json PGAT, "
+           "pos_mode concat, GAT(residual=True)",
+           "layers": [list(spec) + [r] for spec, r in zip(
+               model.propagate.layer_specs, model.propagate.residual_layers)],
+           "encode_egonets": BATCH, "encode_s": encode_s,
+           "hg_vs_plain": encode_check, "eval_launches": eval_launches,
+           "train_egonets": int(batch.labels.numel()), "loss": l_k,
+           "loss_plain": l_p,
+           "max_grad_err_rel_to_leaf_max": worst,
+           "train_launches": train_launches}
+    emit("residual", **res)
+    torch.cuda.empty_cache()
+    return res
+
+
+# the mp = 2 step of PGAT-concat: a taxonomy whose epoch is two steps of
+# config.mag.json's 128 groups
+TP_CONCAT_NODES = 150
+
+
+def phase_tp_concat(device, seed: int) -> dict:
+    """One epoch (TP_CONCAT_NODES nodes: two steps) of PGAT-concat
+    (config.mag.json with pos_mode "concat", full width) as 2 rank
+    processes sharing the card with "parallel": {"dp": 1, "mp": 2} (layer
+    0's 4 heads split 2 a rank, its input grad on; the pe columns' grads of
+    the sharded layer summed with its pos_emb leaf over the world) against
+    the single process from the same checkpoint (`tp_against_single`); the
+    pos_emb and layer-0 leaves' largest differences reported apart, and
+    the step times."""
+    import numpy as np
+    import torch
+    from taxoexpan_torch import builders
+    from taxoexpan_torch.data.synthetic import synthetic_taxonomy
+    from taxoexpan_torch.training.checkpoint import save_checkpoint
+    from taxoexpan_torch.tree import tree_leaves_with_path
+
+    cfg, model = path_model("PGAT-concat")
+    a = cfg["arch"]["args"]
+    taxonomy = synthetic_taxonomy(num_nodes=TP_CONCAT_NODES,
+                                  dim=a["in_dim"], seed=seed)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = tmp / "synthetic.pickle.bin"
+        taxonomy.save(str(data))
+        for loader in ("train_data_loader", "validation_data_loader",
+                       "test_data_loader"):
+            cfg[loader]["args"].update(data_path=str(data),
+                                       max_parents=MAG_P,
+                                       expand_factor=MAG_S)
+        cfg["trainer"].update(epochs=1, full_validation_every=1,
+                              tensorboardX=False, step_timing=True)
+        params = model.init(torch.Generator().manual_seed(cfg.get("seed",
+                                                                  0)))
+        opt = builders.build_optimizer_from_config(cfg["optimizer"],
+                                                   cfg["trainer"])
+        start = tmp / "epoch0.ckpt"
+        save_checkpoint(start, params=params, opt_state=opt.init(params),
+                        epoch=0, monitor_best=float("inf"), config=cfg)
+        against = tp_against_single(device, cfg, start, tmp,
+                                    {"dp": 1, "mp": DP_RANKS})
+    tp = against["tp"]
+    paths = [p for p, _ in tree_leaves_with_path(params)]
+    picked = {"pos_emb": [i for i, p in enumerate(paths)
+                          if p[:2] == ("propagate", "pos_emb")],
+              "layer0": [i for i, p in enumerate(paths)
+                         if p[:3] == ("propagate", "layers", 0)]}
+    parts = {k: 0.0 for k in picked}
+    for got, want in zip(against["tp_grads"], against["single_grads"]):
+        for key, idx in picked.items():
+            for i in idx:
+                scale = max(float(np.abs(want[i]).max()), 1e-30)
+                parts[key] = max(parts[key], float(
+                    np.abs(got[i] - want[i]).max()) / scale)
+    local = a["heads"][0] // DP_RANKS
+    for r in tp if device.type == "cuda" else ():
+        for name in ("gat_layer_fwd", "gat_layer_bwd"):
+            if r["launches_by_heads"][name].get(str(local), 0) <= 0:
+                raise AssertionError(f"TP concat rank {r['rank']} never "
+                                     f"launched {name} at {local} heads")
+    res = {"card": nvidia_smi_line(), "layout": {"dp": 1, "mp": DP_RANKS},
+           "nodes": taxonomy.num_nodes,
+           "steps": len(against["single_grads"]),
+           "loss": {"tp": against["losses"],
+                    "single": against["single_log"]["loss"]},
+           "max_grad_err_rel_to_leaf_max":
+               against["max_grad_err_rel_to_leaf_max"],
+           "max_err_rel_to_leaf_max": parts,
+           "rule": "1e-3 x leaf max + 1e-6 x step max, every leaf and step",
+           "ranks_equal_bits": True, "wall_s": against["wall_s"],
+           "step_ms": {"tp_rank0": tp[0]["log"].get("step_ms"),
+                       "single": against["single_log"].get("step_ms")},
+           "launches_by_heads_rank0": tp[0]["launches_by_heads"]}
+    emit("tp_concat", **res)
     return res
 
 
@@ -3075,30 +3387,44 @@ def reset_counters() -> None:
 
 def run_paths(device) -> list[dict]:
     """The kernel, serving and training phases; returns the entries of the
-    kernels line."""
+    kernels line. A `phase_seconds` line gives each phase's wall time."""
+    seconds: dict = {}
+
+    def timed(name: str, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        seconds[name] = round(time.time() - t0, 1)
+        return out
     cfg, _ = path_model("PGAT")
-    records = phase_kernels(BATCH, device, cfg["arch"]["args"]["feat_drop"])
-    records += phase_kernels(BATCH, device, cfg["arch"]["args"]["feat_drop"],
-                             "PGAT-bf16")
-    records += phase_tp_kernels(BATCH, device,
-                                cfg["arch"]["args"]["feat_drop"])
-    records += phase_gcn_kernels(BATCH, device)
+    drop = cfg["arch"]["args"]["feat_drop"]
+    records = []
+    for path in ("PGAT", "PGAT-bf16", "PGAT-concat", "PGAT-concat-bf16"):
+        records += timed(f"kernels {path}", phase_kernels, BATCH, device,
+                         drop, path)
+    records += timed("kernels tp", phase_tp_kernels, BATCH, device, drop)
+    for path in ("PGCN", "PGCN-concat"):
+        records += timed(f"kernels {path}", phase_gcn_kernels, BATCH, device,
+                         path)
     mtl_cfg, _ = path_model("MTL")
-    records += phase_mtl_kernels(BATCH, device,
-                                 mtl_cfg["arch"]["args"]["feat_drop"])
-    records += phase_halo_kernels(device, TRAIN_NODES, BATCH,
-                                  cfg["arch"]["args"]["in_dim"])
-    serving = {path: phase_serving(device, NODES, N_NOVEL, SEED, path)
-               for path in SERVING_PATHS}
-    training = {path: phase_training(device, TRAIN_NODES, epochs, SEED, path)
+    records += timed("kernels MTL", phase_mtl_kernels, BATCH, device,
+                     mtl_cfg["arch"]["args"]["feat_drop"])
+    records += timed("kernels halo", phase_halo_kernels, device, TRAIN_NODES,
+                     BATCH, cfg["arch"]["args"]["in_dim"])
+    serving = {path: timed(f"serving {path}", phase_serving, device, NODES,
+                           N_NOVEL, SEED, path) for path in SERVING_PATHS}
+    training = {path: timed(f"training {path}", phase_training, device,
+                            TRAIN_NODES, epochs, SEED, path)
                 for path, epochs in TRAINING_PATHS.items()}
-    training["PGAT-dp"] = phase_dp_training(
-        device, TRAIN_NODES, SEED, training["PGAT"]["median_step_ms"])
-    tp = phase_tp_training(device, TRAIN_NODES, SEED,
-                           training["PGAT"]["median_step_ms"])
+    training["PGAT-dp"] = timed(
+        "dp_training", phase_dp_training, device, TRAIN_NODES, SEED,
+        training["PGAT"]["median_step_ms"])
+    tp = timed("tp_training", phase_tp_training, device, TRAIN_NODES, SEED,
+               training["PGAT"]["median_step_ms"])
+    timed("residual", phase_residual, device)
+    timed("tp_concat", phase_tp_concat, device, SEED)
     # the host data path: PGAT's kernels again, driven through the native
     # loader (their entries below read that run's launches)
-    native_runs = phase_native_loader(device)
+    native_runs = timed("native_loader", phase_native_loader, device)
     training["PGAT-native"] = {"launches": native_runs["native"]["launches"]}
     records += [dict(rec, name=rec["name"] + "[native_loader]",
                      path="PGAT-native")
@@ -3117,6 +3443,12 @@ def run_paths(device) -> list[dict]:
     emit("bf16_steps", card=nvidia_smi_line(), median_step_ms={
         path: training[path]["median_step_ms"]
         for path in ("PGAT", "PGAT-bf16", "MTL", "MTL-bf16")})
+    # the concat paths' median train step beside their bias-mode paths'
+    emit("concat_steps", card=nvidia_smi_line(), median_step_ms={
+        path: training[path]["median_step_ms"]
+        for path in ("PGAT", "PGAT-concat", "PGAT-bf16", "PGAT-concat-bf16",
+                     "PGCN", "PGCN-concat")})
+    emit("phase_seconds", **seconds)
     kernels = []
     for rec in records:
         # eval forms: the serving path's launches; train forms and the

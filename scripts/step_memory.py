@@ -2,12 +2,14 @@
 """Peak device memory and device time of one full-width train step, for a
 checkout of the PyTorch port given on the command line.
 
-    python3 scripts/step_memory.py [--path PGAT-bf16] CHECKOUT [CHECKOUT ...]
+    python3 scripts/step_memory.py [--path PGAT-bf16 ...] CHECKOUT [...]
 
-For each checkout (a directory holding `taxoexpan_torch/`), in a process of
-its own, so that each imports and builds its own package: the path's
-configuration (`configs/config.mag.json`, with compute_dtype bfloat16 for
-PGAT-bf16) at full width, random weights from seed 0, a synthetic 800-node
+For each checkout (a directory holding `taxoexpan_torch/`) and each path,
+in a process of its own, so that each imports and builds its own package:
+the path's configuration (`configs/config.mag.json` with the path's keys:
+compute_dtype bfloat16 for the "-bf16" paths, pos_mode "concat" for the
+"-concat" ones, propagation_method PGCN for the PGCN paths) at full
+width, random weights from seed 0, a synthetic 800-node
 taxonomy (dim 250), and one batch of the configuration's 128 groups x 32
 candidates = 4096 egonets. After two warm-up steps it resets the
 allocator's peak, runs three steps, and prints one JSON line:
@@ -32,8 +34,11 @@ from taxoexpan_torch.data.synthetic import synthetic_taxonomy
 from taxoexpan_torch.training.trainer import Trainer, batch_to
 from taxoexpan_torch.weights import params_to
 cfg = json.load(open(sys.argv[1] + "/configs/config.mag.json"))
-if sys.argv[2] == "PGAT-bf16":
+cfg["arch"]["args"]["propagation_method"] = sys.argv[2].split("-")[0]
+if sys.argv[2].endswith("-bf16"):
     cfg["arch"]["args"]["compute_dtype"] = "bfloat16"
+if "-concat" in sys.argv[2]:
+    cfg["arch"]["args"]["pos_mode"] = "concat"
 dev = torch.device("cuda", 0)
 taxonomy = synthetic_taxonomy(num_nodes=800, dim=cfg["arch"]["args"]["in_dim"],
                               seed=0)
@@ -76,13 +81,14 @@ print(json.dumps({"checkout": sys.argv[1], "path": sys.argv[2],
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("checkouts", nargs="+")
-    ap.add_argument("--path", default="PGAT-bf16", choices=("PGAT",
-                                                            "PGAT-bf16"))
+    ap.add_argument("--path", nargs="+", default=["PGAT-bf16"],
+                    choices=("PGAT", "PGAT-bf16", "PGAT-concat",
+                             "PGAT-concat-bf16", "PGCN", "PGCN-concat"))
     args = ap.parse_args()
     rc = 0
-    for tree in args.checkouts:
+    for tree, path in ((t, p) for t in args.checkouts for p in args.path):
         proc = subprocess.run([sys.executable, "-c", STEP,
-                               str(Path(tree).resolve()), args.path],
+                               str(Path(tree).resolve()), path],
                               capture_output=True, text=True)
         lines = proc.stdout.strip().splitlines()
         print(lines[-1] if proc.returncode == 0 and lines else json.dumps(

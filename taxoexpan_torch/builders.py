@@ -2,10 +2,10 @@
 (port of `taxoexpan_tpu/builders.py`): the same config keys and value
 semantics, so a JAX run's `config.json` drives the port.
 
-Settings the port does not have yet raise instead of being ignored
-(pos_mode="concat"); the JAX kernel choice (`kernel`) is not read: the
-port runs its kernels on CUDA and their plain versions on the CPU, and its
-bf16 layers follow the JAX package's Pallas path.
+The JAX kernel choice (`kernel`) is not read: the port runs its kernels
+on CUDA and their plain versions on the CPU, and its bf16 layers follow
+the JAX package's Pallas path. Every other key is read as the JAX builder
+reads it (pos_mode "bias" or "concat"; any other value raises).
 """
 from __future__ import annotations
 
@@ -40,9 +40,6 @@ def build_model(arch_cfg: dict, *, max_parents: int,
                 expand_factor: int) -> TaxoExpan:
     """From the `arch.args` config block."""
     a = arch_cfg["args"] if "args" in arch_cfg else arch_cfg
-    if a.get("pos_mode", "bias") != "bias":
-        raise ValueError(f"pos_mode={a['pos_mode']!r} is not ported yet; "
-                         "the port runs pos_mode='bias'")
     return TaxoExpan(
         a.get("propagation_method", "PGAT"),
         a.get("readout_method", "WMR"),
@@ -62,7 +59,8 @@ def build_model(arch_cfg: dict, *, max_parents: int,
         attention_dim=a.get("attention_dim", 100),
         aux_heads=a.get("aux_heads"),
         raw_channel=a.get("raw_channel", False),
-        compute_dtype=a.get("compute_dtype", "float32"))
+        compute_dtype=a.get("compute_dtype", "float32"),
+        pos_mode=a.get("pos_mode", "bias"))
 
 
 def build_loader(sampler: MaskedGraphSampler, loader_cfg: dict,

@@ -8,8 +8,9 @@ specialised; this path works for any batched graph) and as the
 gather/scatter formulation a benchmark can hold the kernels against. It is
 plain PyTorch, eval form (no dropout), and shares its parameters with the
 star-path model, so both are comparable layer by layer. The position
-embeddings are concatenated to each layer's input, which equals the star
-path's position-bias split when nothing is dropped.
+embeddings are concatenated to each layer's input (pos_mode "concat"),
+which equals the star path's position-bias split when nothing is dropped.
+Residual GAT layers are not modelled here.
 """
 from __future__ import annotations
 
@@ -82,6 +83,8 @@ def encode_segment(model, params: dict, feats_flat: torch.Tensor, src, dst,
         return torch.cat([x, p["pos_emb"][i]["emb"][slot_pos_flat]], dim=-1)
 
     if isinstance(prop, GAT):
+        if any(prop.residual_layers):
+            raise ValueError("the generic path has no residual GAT layers")
         for l in range(prop.num_layers):
             h = gat_layer_segment(p["layers"][l], with_pos(h, l), src, dst,
                                   edge_mask, num_nodes,

@@ -22,14 +22,25 @@ concatenated input, pe columns included, so the layer gets the raw pe rows
 and the W_p tail rows instead (`pe_pack`) and the kernel masks them per
 node (propagation.py:274-279, :430-435).
 
+Position concat (pos_mode="concat", propagation.py:387-411, :520-530):
+each layer's input gets the slots' embedding rows appended as columns
+(`concat_pos`), and the kernels take the whole input with zero slot biases
+and no pe path; their feature dropout then covers the pe columns. The same
+parameters serve both modes.
+
 Eval (no autograd) calls the forward wrappers; train mode, or any call
 under autograd, the differentiable layers (`gat_layer`, `gcn_layer`), with
 one seed per layer drawn from the caller's torch.Generator. Layer 0's input
-is the fixed feature tensor: its dx is never computed. Under data
-parallelism each layer's seed has the stack's `rank` folded in
+is the fixed feature tensor in pos_mode "bias", and its dx is not
+computed; under "concat" it carries the trainable pe columns, and layer 0
+computes its dx as every later layer does (propagation.py:541-542). Under
+data parallelism each layer's seed has the stack's `rank` folded in
 (`fold_rank`). The grads of the pos_emb rows, the weights' tail rows and
-attn_l / attn_r flow through the slicing and the einsum fold outside the
-kernels, by autograd.
+attn_l / attn_r flow through the slicing, the concatenation and the einsum
+fold outside the kernels, by autograd.
+
+Residual GAT layers (`GAT(residual=True)`, propagation.py:187-203,
+:326-332): see `GAT._residual_layer`.
 
 Compute dtype (GAT only; `GAT(dtype=torch.bfloat16)`, the JAX package's
 compute_dtype "bfloat16" with its Pallas kernels, propagation.py:239-305):
@@ -52,6 +63,7 @@ import torch
 
 from ..ops.gat_kernels import (gat_layer, gat_layer_fwd, gat_layer_pooled,
                                gat_layer_pooled_fwd)
+from ..ops import dropout
 from ..ops.gcn_kernels import gcn_layer, gcn_layer_fwd
 from ..parallel import distributed
 from .init import embedding_params, uniform, xavier_normal
@@ -109,9 +121,11 @@ def _layer_seed(gen: torch.Generator | None, train: bool,
 
 
 def init_gat_layer(gen: torch.Generator, in_dim: int, out_dim: int,
-                   num_heads: int) -> dict:
-    """xavier_normal(gain=1.414) for fc / attn_l / attn_r."""
-    return {
+                   num_heads: int, residual: bool = False) -> dict:
+    """xavier_normal(gain=1.414) for fc / attn_l / attn_r and, for a
+    residual layer whose input width differs from its head width, the
+    residual projection res_fc [in, H*Dh] (propagation.py:187-203)."""
+    p = {
         "fc": xavier_normal(gen, (in_dim, num_heads * out_dim),
                             fan_in=in_dim, fan_out=num_heads * out_dim),
         # torch shape (1, H, D'): fan_in = H*D', fan_out = D'
@@ -120,6 +134,11 @@ def init_gat_layer(gen: torch.Generator, in_dim: int, out_dim: int,
         "attn_r": xavier_normal(gen, (num_heads, out_dim),
                                 fan_in=num_heads * out_dim, fan_out=out_dim),
     }
+    if residual and in_dim != out_dim:
+        p["res_fc"] = xavier_normal(gen, (in_dim, num_heads * out_dim),
+                                    fan_in=in_dim,
+                                    fan_out=num_heads * out_dim)
+    return p
 
 
 def layer_operands(lp: dict, pe: torch.Tensor | None, num_heads: int,
@@ -179,9 +198,33 @@ def head_shard(ops: tuple, pe_pack, heads: int, index: int, parts: int):
     return ops, pe_pack
 
 
+POS_MODES = ("bias", "concat")
+
+
+def check_pos_mode(pos_mode: str) -> str:
+    if pos_mode not in POS_MODES:
+        raise ValueError(f"pos_mode must be bias|concat, got {pos_mode!r}")
+    return pos_mode
+
+
+def concat_pos(h: torch.Tensor, emb: torch.Tensor,
+               p_slots: int) -> torch.Tensor:
+    """pos_mode "concat": the slots' position embedding rows, cast to h's
+    dtype, appended to h [B, N, D] as columns (propagation.py:525-530)."""
+    b, n = h.shape[:2]
+    pe = slot_embeddings(emb, p_slots, n).to(h.dtype)
+    return torch.cat([h, pe.expand(b, n, -1)], dim=-1)
+
+
 class GAT:
     """GAT stack; PGAT when pos_dim > 0 (the paper's main model). `dtype`:
-    the compute dtype of its layers, float32 or bfloat16.
+    the compute dtype of its layers, float32 or bfloat16. `pos_mode`:
+    "bias" (the position embeddings as slot biases or the kernels' pe path,
+    see the module docstring) or "concat" (their rows appended to each
+    layer's input as columns; the kernels then take no slot biases and no
+    pe path, and their feature dropout covers the pe columns). Both modes
+    have the same parameters. `residual`: every layer after layer 0 adds a
+    residual branch (`_residual_layer`).
 
     Head tensor parallelism (`mp`, the mp group of the trainer's or the
     ranker's layout; `_fused_call_spmd`, propagation.py:106-159): a layer
@@ -189,19 +232,37 @@ class GAT:
     (`head_shard`) through the same kernels at H / mp heads, with the mp
     index folded into its seed; a per-slot output is then gathered over
     the group along its feature axis (head-major), a pooled one scaled by
-    heads_local / heads and summed over the group; its input's grad is
-    summed over the group (each rank's heads give a part of it). A layer
-    whose head count mp does not divide runs whole on every rank."""
+    heads_local / heads and summed over the group; the grad of its input
+    from the layer before is summed over the group (each rank's heads give
+    a part of it). The grads of its own pos_emb rows, whether they enter
+    as biases or as concatenated columns, stay this rank's part, and the
+    trainer sums them over the world with the layer's weights: so layer
+    0's input grad under concat is summed where it is used, on the
+    [3, pos] embedding, and never as a [B, N, Din] tensor. A layer whose
+    head count mp does not divide, and every residual layer, runs whole on
+    every rank."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  num_layers: int, heads, pos_dim: int = 0,
                  position_vocab_size: int = 3, feat_drop: float = 0.0,
                  attn_drop: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 pos_mode: str = "bias", residual: bool = False):
         if len(heads) != num_layers + 1:
             raise ValueError(
                 f"heads must have num_layers+1 entries, got {heads} for "
                 f"num_layers={num_layers}")
+        self.pos_mode = check_pos_mode(pos_mode)
+        if residual and pos_dim and pos_mode == "bias":
+            # the JAX package builds res_fc over the input with its pe
+            # columns (propagation.py:200-202, :492-495) but multiplies the
+            # input without them (:328): its residual PGAT runs only in
+            # pos_mode "concat"
+            raise ValueError(
+                "residual GAT layers with position embeddings need "
+                "pos_mode='concat': in pos_mode='bias' the JAX package's "
+                "res_fc has in_dim + pos_dim rows but multiplies the input "
+                "without its pe columns (propagation.py:200-202, :328)")
         self.num_layers = num_layers
         self.heads = list(heads)
         self.pos_dim = pos_dim
@@ -221,11 +282,20 @@ class GAT:
                           heads[l]))
         specs.append((hidden_dim * heads[-2] + pos_dim, out_dim, heads[-1]))
         self.layer_specs = specs
+        # the JAX layer specs' fourth entry: layer 0 is never residual
+        self.residual_layers = [False] + [bool(residual)] * num_layers
+
+    @property
+    def concat(self) -> bool:
+        """Whether the position embeddings enter as input columns."""
+        return bool(self.pos_dim) and self.pos_mode == "concat"
 
     def init(self, gen: torch.Generator) -> dict:
         params = {"layers": [], "pos_emb": []}
-        for din, dout, nh in self.layer_specs:
-            params["layers"].append(init_gat_layer(gen, din, dout, nh))
+        for (din, dout, nh), res in zip(self.layer_specs,
+                                        self.residual_layers):
+            params["layers"].append(init_gat_layer(gen, din, dout, nh,
+                                                   residual=res))
             if self.pos_dim:
                 params["pos_emb"].append(embedding_params(
                     gen, self.position_vocab_size, self.pos_dim))
@@ -234,22 +304,35 @@ class GAT:
     def operands(self, params: dict, l: int, n: int, p_slots: int,
                  pe_dropout: bool = False) -> tuple:
         """Kernel operands of layer `l` for egonets of `n` slots: (ops,
-        pe_pack), see `layer_operands`."""
+        pe_pack), see `layer_operands`; under pos_mode "concat" the whole
+        of fc multiplies the input and no pe operand exists."""
         fc = params["layers"][l]["fc"]
         pe = None
-        if self.pos_dim:
+        if self.pos_dim and not self.concat:
             pe = slot_embeddings(params["pos_emb"][l]["emb"], p_slots, n)
         return layer_operands(params["layers"][l], pe, self.layer_specs[l][2],
-                              fc.shape[0] - self.pos_dim, n,
+                              fc.shape[0] - (0 if pe is None
+                                             else self.pos_dim), n,
                               pe_dropout=pe_dropout, dtype=self.dtype)
+
+    def layer_input(self, params: dict, h: torch.Tensor, l: int,
+                    p_slots: int) -> torch.Tensor:
+        """Layer `l`'s input from the previous output (or the features):
+        the pe columns appended under pos_mode "concat" (in h's dtype, as
+        the JAX package concatenates before its cast), then cast to the
+        compute dtype."""
+        if self.concat:
+            h = concat_pos(h, params["pos_emb"][l]["emb"], p_slots)
+        return h.to(self.dtype)
 
     def sharded_layers(self) -> list[int]:
         """The layers whose heads run sharded over `mp`: those whose head
-        count the group's size divides (none without a group)."""
+        count the group's size divides and that are not residual (none
+        without a group)."""
         if self.mp is None or self.mp.size == 1:
             return []
         return [l for l, spec in enumerate(self.layer_specs)
-                if spec[2] % self.mp.size == 0]
+                if spec[2] % self.mp.size == 0 and not self.residual_layers[l]]
 
     def apply(self, params: dict, h: torch.Tensor, ngp: torch.Tensor,
               nsib: torch.Tensor, p_slots: int, *,
@@ -261,46 +344,60 @@ class GAT:
         (the mean over heads of the final layer, which has no activation;
         invalid slots keep their formula value, the readouts mask them),
         both float32. train=True turns dropout on, one seed per layer from
-        `gen`."""
+        `gen`. A residual final layer has no pooled form
+        (propagation.py:264-266)."""
         b, n = h.shape[:2]
         feat_drop = self.feat_drop if train else 0.0
         attn_drop = self.attn_drop if train else 0.0
         differentiable = train or torch.is_grad_enabled()
         last = self.num_layers
+        if pool_readout and self.residual_layers[last]:
+            raise ValueError("a residual final GAT layer has no pooled "
+                             "form: apply it with pool_readout=False")
         sharded = self.sharded_layers()
-        h = h.to(self.dtype)
         for l in range(last + 1):
             heads = self.layer_specs[l][2]
+            mp = self.mp if l in sharded else None
+            if mp is not None and differentiable and l > 0:
+                h = distributed.mp_sum_grads(h, mp)
+            x = self.layer_input(params, h, l, p_slots)
             ops, pe_pack = self.operands(params, l, n, p_slots,
                                          pe_dropout=feat_drop > 0)
             pooled = l == last and pool_readout
             # hidden layers: flat [B, N, H*Dh] = the flatten-heads step
             out_alpha = HIDDEN_ALPHA if l < last else None
-            mp = self.mp if l in sharded else None
             if mp is not None:
                 ops, pe_pack = head_shard(ops, pe_pack, heads, mp.rank,
                                           mp.size)
-                if differentiable and l > 0:
-                    h = distributed.mp_sum_grads(h, mp)
             local = heads // (1 if mp is None else mp.size)
+            seed = _layer_seed(gen, train, self.rank,
+                               None if mp is None else mp.rank)
+            # layer 0's input is the fixed feature tensor unless the pe
+            # columns are concatenated to it (propagation.py:541-542)
+            need_dx = l > 0 or self.concat
+            if self.residual_layers[l]:
+                h = self._residual_layer(
+                    params["layers"][l], x, ops, ngp, nsib, p_slots, heads,
+                    seed=seed, feat_drop=feat_drop, attn_drop=attn_drop,
+                    differentiable=differentiable, need_dx=need_dx)
+                if l < last:
+                    h = torch.nn.functional.leaky_relu(h, HIDDEN_ALPHA)
+                continue
             if not differentiable:
                 if pooled:
-                    h = gat_layer_pooled_fwd(h, *ops, ngp, nsib, p_slots,
+                    h = gat_layer_pooled_fwd(x, *ops, ngp, nsib, p_slots,
                                              local)
                 else:
-                    h = gat_layer_fwd(h, *ops, ngp, nsib, p_slots, local,
+                    h = gat_layer_fwd(x, *ops, ngp, nsib, p_slots, local,
                                       out_alpha=out_alpha)
             else:
-                kw = dict(pe_pack=pe_pack,
-                          seed=_layer_seed(gen, train, self.rank,
-                                           None if mp is None else mp.rank),
-                          feat_drop=feat_drop, attn_drop=attn_drop,
-                          need_dx=l > 0)
+                kw = dict(pe_pack=pe_pack, seed=seed, feat_drop=feat_drop,
+                          attn_drop=attn_drop, need_dx=need_dx)
                 if pooled:
-                    h = gat_layer_pooled(h, *ops, ngp, nsib, p_slots, local,
+                    h = gat_layer_pooled(x, *ops, ngp, nsib, p_slots, local,
                                          **kw)
                 else:
-                    h = gat_layer(h, *ops, ngp, nsib, p_slots, local,
+                    h = gat_layer(x, *ops, ngp, nsib, p_slots, local,
                                   out_alpha=out_alpha, **kw)
             if mp is not None:
                 h = (distributed.mp_sum(h * (local / heads), mp) if pooled
@@ -309,6 +406,33 @@ class GAT:
             return h
         return h.reshape(b, n, self.layer_specs[last][2],
                          -1).mean(dim=2).float()
+
+    def _residual_layer(self, lp: dict, x, ops, ngp, nsib, p_slots: int,
+                        heads: int, *, seed: int, feat_drop: float,
+                        attn_drop: float, differentiable: bool,
+                        need_dx: bool) -> torch.Tensor:
+        """A residual layer, as the JAX package's non-fused layer
+        (propagation.py:234-238, :326-332): the feature dropout applied once
+        to the input x, outside the kernel (`ops/dropout.py`'s feature
+        stream of this layer's seed), so that both branches see one mask;
+        the per-slot kernel on the dropped input with its attention dropout
+        and no fused activation; plus the residual branch, x @ res_fc (or x
+        itself, broadcast over the heads, when the widths agree). Returns
+        [B, N, H*Dh] before the stack's activation."""
+        b, n, din = x.shape
+        if feat_drop > 0:
+            mask = dropout.slot_mask(seed, dropout.STREAM_FEAT, b, n, din,
+                                     feat_drop, x.device)
+            x = x * mask.to(x.dtype)
+        if not differentiable:
+            out = gat_layer_fwd(x, *ops, ngp, nsib, p_slots, heads)
+        else:
+            out = gat_layer(x, *ops, ngp, nsib, p_slots, heads, seed=seed,
+                            attn_drop=attn_drop, need_dx=need_dx)
+        if "res_fc" in lp:
+            return out + x @ lp["res_fc"].to(x.dtype)
+        return (out.reshape(b, n, heads, -1) + x[:, :, None, :]).reshape(
+            b, n, -1)
 
 
 # ----------------------------------------------------------------- GCN
@@ -359,12 +483,17 @@ class GCN:
     """GCN stack; PGCN when pos_dim > 0. Layer specs (din, dout, alpha,
     dropout rate): layer 0 at in_dropout, the middle layers at
     hidden_dropout, the final layer at output_dropout and without
-    activation."""
+    activation. `pos_mode` as GAT's: under "concat" each layer's input
+    carries the pe columns and K5 takes no z_bias and no pe path
+    (propagation.py:387-411, where the JAX package runs the concat on its
+    XLA path: the same function)."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  num_layers: int, pos_dim: int = 0,
                  position_vocab_size: int = 3, in_dropout: float = 0.1,
-                 hidden_dropout: float = 0.1, output_dropout: float = 0.0):
+                 hidden_dropout: float = 0.1, output_dropout: float = 0.0,
+                 pos_mode: str = "bias"):
+        self.pos_mode = check_pos_mode(pos_mode)
         self.pos_dim = pos_dim
         self.position_vocab_size = position_vocab_size
         self.out_dim = out_dim
@@ -400,14 +529,17 @@ class GCN:
         from `gen`."""
         n = h.shape[1]
         differentiable = train or torch.is_grad_enabled()
+        concat = bool(self.pos_dim) and self.pos_mode == "concat"
         for i, (_din, _dout, alpha, rate) in enumerate(self.layer_specs):
             pe = None
-            if self.pos_dim:
+            if concat:
+                h = concat_pos(h, params["pos_emb"][i]["emb"], p_slots)
+            elif self.pos_dim:
                 pe = slot_embeddings(params["pos_emb"][i]["emb"], p_slots, n)
             h = apply_gcn_layer(params["layers"][i], h, ngp, nsib, p_slots,
                                 alpha=alpha, drop=rate if train else 0.0,
                                 seed=_layer_seed(gen, train, self.rank),
                                 pos_emb=pe,
                                 differentiable=differentiable,
-                                need_dx=i > 0)
+                                need_dx=i > 0 or concat)
         return h

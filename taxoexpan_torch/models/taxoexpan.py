@@ -2,18 +2,19 @@
 `taxoexpan_tpu/models/taxoexpan.py`).
 
 The model object holds static configuration; parameters are a plain dict
-tree with the JAX package's keys and layouts (see weights.py). Ported so
-far: every propagation method (GCN, PGCN, GAT, PGAT) with pos_mode="bias"
-in float32, GAT and PGAT also in bf16 (compute_dtype "bfloat16"; GCN and
-PGCN ignore it, as the JAX package's TaxoExpan passes no dtype to GCN,
-taxoexpan.py:78), eval and train (dropout) forms, every readout (MR, WMR, CR,
-SUM, MAX, PATR), every matcher, the raw-feature channel and its
-structure-prior init, the training forward (`forward`: GroupBatch -> scores
-[G, C]; `forward_with_feats` from features the caller gathered, the
-partitioned feature table's path) and the auxiliary MTL heads
-(`aux_heads`, `forward_heads[_with_feats]`).
-pos_mode="concat" and residual GAT layers wait for later work
-(ROADMAP.md).
+tree with the JAX package's keys and layouts (see weights.py): every
+propagation method (GCN, PGCN, GAT, PGAT) in either pos_mode ("bias" or
+"concat", with the same parameters) in float32, GAT and PGAT also in bf16
+(compute_dtype "bfloat16"; GCN and PGCN ignore it, as the JAX package's
+TaxoExpan passes no dtype to GCN, taxoexpan.py:78), eval and train (dropout)
+forms, every readout (MR, WMR, CR, SUM, MAX, PATR), every matcher, the
+raw-feature channel and its structure-prior init, the training forward
+(`forward`: GroupBatch -> scores [G, C]; `forward_with_feats` from features
+the caller gathered, the partitioned feature table's path) and the
+auxiliary MTL heads (`aux_heads`, `forward_heads[_with_feats]`). Residual
+GAT layers are an option of `models.propagation.GAT` that no config key
+reaches, as in the JAX package; a model whose `propagate` is such a GAT
+takes the per-slot final layer.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ class TaxoExpan:
                  attention_dim: int = 100,
                  aux_heads: list | None = None,
                  raw_channel: bool = False,
-                 compute_dtype: str = "float32"):
+                 compute_dtype: str = "float32",
+                 pos_mode: str = "bias"):
         if propagation_method not in PROPAGATION_KINDS:
             raise ValueError(
                 f"Unacceptable or not yet ported propagation method "
@@ -71,14 +73,14 @@ class TaxoExpan:
             self.propagate = GCN(in_dim, hidden_dim, out_dim, num_layers,
                                  pos_dim=pos_dim_eff, in_dropout=feat_drop,
                                  hidden_dropout=hidden_drop,
-                                 output_dropout=out_drop)
+                                 output_dropout=out_drop, pos_mode=pos_mode)
         else:
             if heads is None:
                 raise ValueError("GAT/PGAT require a heads list")
             self.propagate = GAT(in_dim, hidden_dim, out_dim, num_layers,
                                  heads, pos_dim=pos_dim_eff,
                                  feat_drop=feat_drop, attn_drop=attn_drop,
-                                 dtype=self.compute_dtype)
+                                 dtype=self.compute_dtype, pos_mode=pos_mode)
         self.readout = Readout(readout_method, out_dim,
                                attention_dim=attention_dim)
         # optional raw-feature channel: the unit-normalised anchor+sibling
@@ -130,15 +132,17 @@ class TaxoExpan:
                train: bool = False) -> torch.Tensor:
         """Egonet features [B, N, D] -> graph embeddings [B, l_dim].
 
-        GAT/PGAT with a readout that is a linear pool (MR, WMR, CR, SUM):
-        the final layer emits the readout class pools directly (head mean
-        and masked class sums inside the kernel) and the readout is a small
-        epilogue on them. Otherwise (MAX, PATR; every GCN/PGCN readout) the
-        final layer writes the per-slot activation and the readout reduces
-        it (taxoexpan_tpu/models/taxoexpan.py:195-211). train=True turns
-        dropout on, seeds from `gen`."""
+        GAT/PGAT with a readout that is a linear pool (MR, WMR, CR, SUM)
+        and a final layer that is not residual: the final layer emits the
+        readout class pools directly (head mean and masked class sums
+        inside the kernel) and the readout is a small epilogue on them.
+        Otherwise (MAX, PATR; a residual final layer; every GCN/PGCN
+        readout) the final layer writes the per-slot activation and the
+        readout reduces it (taxoexpan_tpu/models/taxoexpan.py:195-211).
+        train=True turns dropout on, seeds from `gen`."""
         prop = self.propagate
-        if isinstance(prop, GAT) and self.readout_method in POOLED_KINDS:
+        if isinstance(prop, GAT) and self.readout_method in POOLED_KINDS \
+                and not prop.residual_layers[-1]:
             pools = prop.apply(params["propagate"], feats, ngp, nsib,
                                self.max_parents, gen=gen, train=train)
             hg = self.readout.apply_pools(params["readout"], pools, ngp,

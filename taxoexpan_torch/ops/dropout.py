@@ -150,22 +150,33 @@ def _fmix(h: torch.Tensor) -> torch.Tensor:
     return h ^ (h >> 16)
 
 
+def _keyed_bits(key, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Bits of a stream key (an int, or an int64 tensor of keys that
+    broadcasts with rows and cols) at [broadcast of rows, cols]."""
+    rows = rows.to(torch.int64) & MASK32
+    cols = cols.to(torch.int64) & MASK32
+    rk = _fmix(key ^ _mul32(rows, _ROW_MUL))
+    return _fmix((rk + _mul32(cols + 1, _COL_MUL)) & MASK32)
+
+
+def _keyed_bytes8(key, rows: torch.Tensor,
+                  cols: torch.Tensor) -> torch.Tensor:
+    cols = cols.to(torch.int64) & MASK32
+    word = _keyed_bits(key, rows, cols >> 2)
+    return (word >> ((cols & 3) * 8)) & 0xFF
+
+
 def bits_plain(seed: int, stream: int, rows: torch.Tensor,
                cols: torch.Tensor) -> torch.Tensor:
     """Bits [broadcast of rows, cols] as int64 in [0, 2**32)."""
-    rows = rows.to(torch.int64) & MASK32
-    cols = cols.to(torch.int64) & MASK32
-    rk = _fmix(stream_key(seed, stream) ^ _mul32(rows, _ROW_MUL))
-    return _fmix((rk + _mul32(cols + 1, _COL_MUL)) & MASK32)
+    return _keyed_bits(stream_key(seed, stream), rows, cols)
 
 
 def bytes8_plain(seed: int, stream: int, rows: torch.Tensor,
                  cols: torch.Tensor) -> torch.Tensor:
     """The 8-bit mode's bytes [broadcast of rows, cols] as int64 in
     [0, 256)."""
-    cols = cols.to(torch.int64) & MASK32
-    word = bits_plain(seed, stream, rows, cols >> 2)
-    return (word >> ((cols & 3) * 8)) & 0xFF
+    return _keyed_bytes8(stream_key(seed, stream), rows, cols)
 
 
 def keep_mask(seed: int, stream: int, rows: torch.Tensor, cols: torch.Tensor,
@@ -197,16 +208,21 @@ def attention_masks(seed: int, b: int, p: int, s: int, heads: int,
                     bits: int = 32) -> list[torch.Tensor]:
     """The five attention masks, each stacked over heads on the last axis:
     gp -> anchor [B, P, H], anchor self [B, 1, H], anchor -> sib [B, S, H],
-    sib self [B, S, H], gp self [B, P, H]."""
-    rows = torch.arange(b, device=device, dtype=torch.int64)[:, None]
+    sib self [B, S, H], gp self [B, P, H]. All 5 * H streams are drawn in
+    one pass over [5, H, B, max(P, S, 1)] and sliced to each kind's
+    width."""
     widths = (p, 1, s, s, p)
-    out = []
-    for kind, w in enumerate(widths):
-        cols = torch.arange(w, device=device, dtype=torch.int64)[None, :]
-        out.append(torch.stack(
-            [keep_mask(seed, attention_stream(h, kind), rows, cols, rate,
-                       bits) for h in range(heads)], dim=-1))
-    return out
+    keys = torch.tensor([[stream_key(seed, attention_stream(h, kind))
+                          for h in range(heads)] for kind in range(5)],
+                        dtype=torch.int64, device=device)[..., None, None]
+    rows = torch.arange(b, device=device, dtype=torch.int64)[:, None]
+    cols = torch.arange(max(widths), device=device,
+                        dtype=torch.int64)[None, :]
+    draw = _keyed_bytes8 if check_bits(bits) == 8 else _keyed_bits
+    keep = (draw(keys, rows, cols) < keep_threshold(rate, bits)).to(
+        torch.float32) * keep_scale(rate, bits)
+    return [keep[kind, :, :, :w].permute(1, 2, 0)
+            for kind, w in enumerate(widths)]
 
 
 # --------------------------------------------------- the CUDA generator

@@ -416,7 +416,8 @@ def test_mtl_bf16_forward_matches_jax_pallas():
 def test_build_model_takes_bfloat16():
     """config.mag.json with compute_dtype "bfloat16" builds bf16 GAT
     layers; with PGCN the key is accepted and ignored; pos_mode="concat"
-    still raises."""
+    builds bf16 GAT layers too, and a pos_mode the JAX package refuses
+    raises."""
     with open("configs/config.mag.json") as fin:
         arch = json.load(fin)["arch"]
     args = dict(arch["args"], compute_dtype="bfloat16")
@@ -428,8 +429,12 @@ def test_build_model_takes_bfloat16():
         {"args": dict(args, propagation_method="PGCN")}, max_parents=P,
         expand_factor=S)
     assert not hasattr(pgcn.propagate, "dtype")
-    with pytest.raises(ValueError, match="not ported"):
-        tbuilders.build_model({"args": dict(args, pos_mode="concat")},
+    concat = tbuilders.build_model({"args": dict(args, pos_mode="concat")},
+                                   max_parents=P, expand_factor=S)
+    assert concat.propagate.pos_mode == "concat"
+    assert concat.propagate.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="pos_mode must be bias|concat"):
+        tbuilders.build_model({"args": dict(args, pos_mode="sum")},
                               max_parents=P, expand_factor=S)
 
 

@@ -258,6 +258,22 @@ def test_keep_rate_unbiased_and_streams_independent(rate):
     assert not torch.equal(a[2][..., 0], a[2][..., 1])
 
 
+@pytest.mark.parametrize("bits", [32, 8])
+def test_attention_masks_match_stream_by_stream(bits):
+    """attention_masks draws all 5 x H streams in one pass: each of its
+    masks equals keep_mask of that (head, kind) stream drawn alone, bit for
+    bit (P and S of unequal widths, one empty kind)."""
+    for b, p, s, heads in ((7, 3, 8, 2), (4, 0, 5, 3)):
+        got = dropout.attention_masks(123, b, p, s, heads, 0.3, bits=bits)
+        rows = torch.arange(b)[:, None]
+        for kind, w in enumerate((p, 1, s, s, p)):
+            cols = torch.arange(w)[None, :]
+            want = torch.stack([dropout.keep_mask(
+                123, dropout.attention_stream(h, kind), rows, cols, 0.3,
+                bits) for h in range(heads)], dim=-1)
+            assert torch.equal(got[kind], want)
+
+
 def test_backward_replays_the_forward_masks(rng):
     """The Function's backward regenerates the forward's masks from the
     seed: its grads equal autograd through the plain train form, and a

@@ -288,7 +288,8 @@ def test_forward_heads_and_mtl_loss_grads_match_jax(rng, tmp_path):
 def test_builders_accept_the_mtl_config():
     """config.semeval_verb_mtl.json builds (PATR, PMLP, one aux head at its
     widths), also with compute_dtype "bfloat16" (bf16 GAT layers);
-    pos_mode="concat" and a compute dtype the JAX package refuses raise."""
+    pos_mode="concat" builds, and a pos_mode or a compute dtype the JAX
+    package refuses raises."""
     with open("configs/config.semeval_verb_mtl.json") as fin:
         arch = json.load(fin)["arch"]
     model = tbuilders.build_model(arch, max_parents=P, expand_factor=S)
@@ -300,7 +301,10 @@ def test_builders_accept_the_mtl_config():
     bf16 = {"args": dict(arch["args"], compute_dtype="bfloat16")}
     assert tbuilders.build_model(bf16, max_parents=P, expand_factor=S
                                  ).propagate.dtype == torch.bfloat16
-    for key, value, match in (("pos_mode", "concat", "not ported"),
+    concat = {"args": dict(arch["args"], pos_mode="concat")}
+    assert tbuilders.build_model(concat, max_parents=P, expand_factor=S
+                                 ).propagate.pos_mode == "concat"
+    for key, value, match in (("pos_mode", "sum", "pos_mode"),
                               ("compute_dtype", "float16", "compute_dtype")):
         bad = {"args": dict(arch["args"], **{key: value})}
         with pytest.raises(ValueError, match=match):
