@@ -647,16 +647,22 @@ def pass_split(kernel, which: str, calls: int = 3) -> dict:
     head core, slot-bias sums, dW, dx), "gat_bwd_bf16" (their bf16 forms:
     stage and pack, with K4's valid rows counted and compacted; projection;
     the head core writing D in bf16; the reduction of its slot-bias
-    partials; dW; dx), "gcn_fwd" (K5f: stage and pack, projection, star
-    pass) or "gcn_bwd" (K5b: stage and pack, projection, the dz pass, the
-    db / d z_bias sums, dW, dx)."""
+    partials; dW; dx), "gcn_fwd[:<form>]" (K5f by its form, `ck.form`:
+    "two_pass", the default, stage and pack, projection, star pass;
+    "valid_rows" the packed rows' offsets and tables, the rows staged and W
+    packed, the product with the star epilogue) or "gcn_bwd[:<form>]"
+    (K5b: stage and pack, or the valid
+    rows compacted and staged; projection; the dz pass; the db / d z_bias
+    sums; dW; dx)."""
     from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.ops import gcn_kernels as ck
     which, _, form = which.partition(":")
     fn = {"gat_fwd": lambda call: gk.fwd_pass_ms(call, form),
           "gat_bwd": gk.bwd_pass_ms,
           "gat_bwd_bf16": lambda call: gk.bwd_pass_ms(call, bf16=True),
-          "gcn_fwd": ck.fwd_pass_ms, "gcn_bwd": ck.bwd_pass_ms}[which]
+          "gcn_fwd": lambda call: ck.fwd_pass_ms(call, form or "two_pass"),
+          "gcn_bwd": lambda call: ck.bwd_pass_ms(call,
+                                                 form or "two_pass")}[which]
     runs = [fn(kernel) for _ in range(calls)]
     return {k: sum(r[k] for r in runs) / calls for k in runs[0]}
 
@@ -825,6 +831,18 @@ def pooled_star_alone(name: str, x, ops, ngp, nsib, heads: int,
         res = compare_outputs(f"{name} pooled star pass", got, want)
     del proj, got, want
     return res
+
+
+def packed_rows(ngp, nsib, p: int, n: int, tile: int = 64) -> int:
+    """The rows K5 bf16's forward packs the valid rows of whole egonets
+    into: next fit into `tile`-row tiles, in egonet order
+    (csrc/gcn.cu:packed_row_offsets_kernel)."""
+    pos = tiles = 0
+    for c in (ngp.clamp(0, p) + 1 + nsib.clamp(0, n - p - 1)).tolist():
+        if pos + c > tile:
+            tiles, pos = tiles + 1, 0
+        pos += c
+    return tiles * tile + pos
 
 
 def gcn_star_alone(name: str, x, ops, ngp, nsib, alpha,
@@ -1396,7 +1414,11 @@ def phase_gcn_kernels(batch: int, device,
     (path PGCN) and in bf16 (x and W_h in bf16, the final layer fed the
     bf16 layer 0's output; reached by a direct call only, since PGCN runs
     float32 under any compute dtype, so its launches are the PGCN path's
-    bf16 launches). With path "PGCN-concat" the forms pos_mode "concat"
+    bf16 launches; each bf16 entry gives its form (`ck.form`: the
+    valid-rows form at N = 64), its passes, the valid rows R and, for the
+    forwards, the packed rows, and beside them `parent_form`: the ms and
+    passes of the two-pass form, the design before the valid-rows form, on
+    the same inputs). With path "PGCN-concat" the forms pos_mode "concat"
     gives them, float32 only: the pe columns in x (layer 0 at 300 input
     columns, its K5b with need_dx on; the final layer at 550), no z_bias
     and no pe path (entries "<wrapper>[<layer>, concat]")."""
@@ -1516,8 +1538,23 @@ def phase_gcn_kernels(batch: int, device,
                 call = "torch.matmul(x.reshape(-1, Din), W_h)"
             if low:
                 call += " in bf16"
+            which = "gcn_bwd" if backward else "gcn_fwd"
+            form = ck.form(x)
             got, nums = measure(name, kernel, plain, backward, matmul,
-                                "gcn_bwd" if backward else "gcn_fwd")
+                                f"{which}:{form}")
+            if low:  # the two-pass form on the same inputs, beside it
+                rows = int((ngp.clamp(0, MAG_P) + 1
+                            + nsib.clamp(0, n - MAG_P - 1)).sum())
+                nums.update(form=form, valid_rows=rows, all_rows=x.shape[0]
+                            * n)
+                if not backward:
+                    nums["packed_rows"] = packed_rows(ngp, nsib, MAG_P, n)
+                with ck.bf16_form("two_pass"), torch.no_grad():
+                    nums["parent_form"] = {
+                        "form": "two_pass",
+                        "ms": time_ms(kernel, 5 if backward else 10),
+                        "passes_ms": pass_split(kernel,
+                                                f"{which}:two_pass")}
             kw = (tkw0 if layer == "layer0" else tkw1) \
                 if wrapper != "gcn_layer_fwd" else {}
             if backward:
@@ -3382,6 +3419,7 @@ def reset_counters() -> None:
         wrapper.launches_bf16 = 0
     for wrapper in gk.WRAPPERS.values():
         wrapper.launches_by_heads = {}
+    for wrapper in (*gk.WRAPPERS.values(), *ck.WRAPPERS.values()):
         wrapper.launches_by_form = {}
 
 

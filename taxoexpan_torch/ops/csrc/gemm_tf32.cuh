@@ -92,6 +92,10 @@ enum GemmEpi {
   kEpiStar = 3,     // bf16 only (gemm_wgmma.cuh): ft = v + the slot bias
                     // as kEpiRowBias, never stored; the star pass of the
                     // per-slot layer on it (StarArgs), out in bf16
+  kEpiGcn = 4,      // bf16 only (gemm_wgmma.cuh): z = v + z_bias as
+                    // kEpiRowBias through the row map, never stored; the
+                    // star-GCN pass on it (StarArgs: the packed rows of
+                    // gcn.cu), out in bf16
 };
 
 template <class E>
@@ -124,16 +128,25 @@ struct GemmArgsT {
 // The star pass of kEpiStar (gat_fwd.cu's fused per-slot forward): the
 // product's m rows are whole egonets of n slots, rows_wg = floor(64 / n) * n
 // of them a consumer warpgroup's tile; its columns are ft, heads * dh.
+// kEpiGcn (gcn.cu's bf16 forward) reads ngp, out, n, p, out_alpha (the
+// leaky's slope), has_out_alpha, row_info and bias: its rows are the valid
+// rows of whole egonets packed into 64-row warpgroup tiles, the original
+// row of each in GemmArgs::row_map.
 struct StarArgs {
   const float4* wts;   // [m][heads] each row's star weights (after dropout):
                        //   w_self, w_anchor, w_to_anchor (gp rows), 0
   const int* ngp;      // [b]
-  bf16* out;           // [m][heads * dh] the per-slot output
+  bf16* out;           // [m][heads * dh] the per-slot output (kEpiGcn:
+                       //   [b * n][dout])
   long long b;         // egonets
   int n, p, heads, dh;
   int rows_wg;
   float out_alpha;
   int has_out_alpha;
+  const int* row_info;  // kEpiGcn: [rows] a packed row's slot | its
+                        //   egonet's ngp << 8 | the egonet's first row in
+                        //   the warpgroup tile << 16, or -1 (no row)
+  const float* bias;    // kEpiGcn: [dout] the layer bias
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {

@@ -70,6 +70,12 @@
 //      dropped. Its barriers are the warpgroup's own named barriers (128
 //      threads), never __syncthreads(): the producer warp does not take
 //      part in the epilogue.
+//    kEpiGcn: the star-GCN layer's pass on the tile (wg_gcn_tile, gcn.cu's
+//      bf16 forward): the product's rows are the valid rows of whole
+//      egonets packed into 64-row warpgroup tiles; the tile's row tables
+//      (StarArgs::row_info, the row map) copied in by cp.async while its
+//      products run; z_bias added by slot; the output in bf16 at the
+//      original rows, z never stored.
 //    No atomics: two calls give equal bits.
 //
 // Accuracy: the tensor cores add the products of one wgmma into the
@@ -672,6 +678,74 @@ __device__ __forceinline__ void wg_star_tile(const StarArgs& sa, int hd,
   }
 }
 
+// kEpiGcn: the star-GCN pass (gcn.cu) on a consumer warpgroup's C tile cs,
+// the product of its packed rows [0, rows) and columns [j0, j0 + BN): each
+// row's slot, its egonet's ngp and first row in the tile from tab
+// (StarArgs::row_info), its original row from rmap (GemmArgs::row_map),
+// both prefetched; -1: no row. z = the product + z_bias (zb [slot][ldz],
+// read from the cache as each row is taken: a row's slot is known only
+// from the table). A lane takes one 4-column chunk, the warpgroup's four
+// warps every fourth row: a gp row its own z, the anchor itself and the
+// valid gps, a sibling itself and the anchor, with the closed-form norms,
+// then the bias, the leaky (has_out_alpha) and bf16 into sa.out at the
+// original row. The expressions are gcn.cu:gcn_star_fwd_kernel's on the
+// two-pass form's z, so the two forms give equal bits. No barriers: the
+// caller's named barrier frees cs and the tables.
+template <int BN>
+__device__ __forceinline__ void wg_gcn_tile(const StarArgs& sa, int dout,
+                                            const float* cs,
+                                            const float* zb, long long ldz,
+                                            const int* tab, const int* rmap,
+                                            int t, int rows, int j0) {
+  const int c4 = (t & 31) * 4, j = j0 + c4;
+  if (j >= dout) return;
+  const int p = sa.p;
+  const float ns = rsqrtf(2.f);
+  float bc[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) bc[u] = j + u < dout ? sa.bias[j + u] : 0.f;
+  const int hs[4] = {0, j + 1 < dout ? 0 : -1, j + 2 < dout ? 0 : -1,
+                     j + 3 < dout ? 0 : -1};
+  // z of tile row r at slot `slot`: the product plus the slot's z_bias
+  auto zat = [&](int r, int slot) {
+    const float4 a = cs4(cs, r, c4);
+    const float4 b = *reinterpret_cast<const float4*>(zb + slot * ldz + j);
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  };
+#pragma unroll 2
+  for (int r = t >> 5; r < rows; r += 4) {
+    const int info = tab[r];
+    if (info < 0) continue;
+    const int slot = info & 255, ngp = (info >> 8) & 255, fr = info >> 16;
+    const float4 z4 = zat(r, slot);
+    const float z[4] = {z4.x, z4.y, z4.z, z4.w};
+    float v[4];
+    if (slot < p) {  // a valid gp: norm 1
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = z[u] + bc[u];
+    } else {
+      const float na = rsqrtf(1.f + (float)ngp);
+      if (slot == p) {  // the anchor: itself and the valid gps, in order
+        float acc[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[u] = z[u] * na;
+        for (int jj = 0; jj < ngp; ++jj) {  // gp jj: tile row fr + jj
+          const float4 g = zat(fr + jj, jj);
+          acc[0] += g.x, acc[1] += g.y, acc[2] += g.z, acc[3] += g.w;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = acc[u] * na + bc[u];
+      } else {  // a valid sibling: itself and the anchor
+        const float4 a4 = zat(fr + ngp, p);
+        const float za[4] = {a4.x * na, a4.y * na, a4.z * na, a4.w * na};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = (z[u] * ns + za[u]) * ns + bc[u];
+      }
+    }
+    star_store(sa, hs, v, sa.out + (long long)rmap[r] * dout + j, dout);
+  }
+}
+
 // ------------------------------------------------------ the kernel
 
 template <class T, bool kAKMajor, int kEpi>
@@ -701,6 +775,7 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
   // kEpiStar: an M tile is two warpgroup tiles of whole egonets, loaded
   // as two 64-row boxes
   constexpr bool kStar = kEpi == kEpiStar;
+  constexpr bool kGcn = kEpi == kEpiGcn;
   const WgSchedule sc =
       wg_schedule<T, kAKMajor>(g, splits, kStar ? 2 * sa.rows_wg : T::BM);
   const int wg_rows = sc.bm / 2;
@@ -762,11 +837,13 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
   float* cs = ctile + c * 64 * T::BN;
   // kEpiStar: the warpgroup's star weights and row table, after the
   // mbarriers; the table (slot, egonet in the tile, its first row) is the
-  // same for every tile
+  // same for every tile. kEpiGcn: the tile's row tables there (row_info,
+  // then the row map), 64 ints each, prefetched for every tile
   float* sw = reinterpret_cast<float*>(base + T::STAGES * T::STAGE_BYTES +
                                        T::C_BYTES + 2 * T::STAGES * 8) +
               c * kStarFloats;
   int* star_tab = reinterpret_cast<int*>(sw + kStarHeads * 64 * 4);
+  int* gcn_tab = reinterpret_cast<int*>(sw);
   if (kStar && t < 64) {
     const int q = t / sa.n;
     star_tab[t] = (t - q * sa.n) | (q << 8) | ((q * sa.n) << 16);
@@ -820,13 +897,26 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
         k_end > k_beg ? (int)((k_end - k_beg + T::BK - 1) / T::BK) : 0;
 #pragma unroll
     for (int v = 0; v < T::REGS; ++v) acc[v] = 0.f;
+    // kBias: the slot biases prefetched into cs; kPre: cs (or kEpiGcn's
+    // tables) refilled for this tile, asynchronously
     constexpr bool kBias = kEpi == kEpiRowBias || kStar;
-    if (kBias) {  // the last tile's store or star pass has read cs
+    constexpr bool kPre = kBias || kGcn;
+    if (kPre) {  // the last tile's store or star pass has read cs
       if (kEpi == kEpiRowBias && t == 0) bulk_wait<true>();
       named_sync(1 + c, 128);
       if (kStar)
         wg_prefetch_weights(sa, sw, t, sc.m, iw, j0, min(j0 + T::BN, g.n));
-      wg_prefetch_bias<T::BN>(g, cs, t, sc.m, iw, j0);
+      if (kGcn) {
+        if (t < 32) {  // 16 chunks of row_info, 16 of the row map
+          const int* src = t < 16 ? sa.row_info : g.row_map;
+          const long long i = iw + 4 * (t & 15);
+          const bool ok = i + 3 < g.m;
+          cp_async16(gcn_tab + 4 * t, ok ? src + i : src, ok);
+        }
+        cp_async_commit();
+      } else {
+        wg_prefetch_bias<T::BN>(g, cs, t, sc.m, iw, j0);
+      }
     }
     if (ktiles > 0) {
       issue(pa, it);
@@ -853,7 +943,7 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
     // and columns 8 q + 2 (lane % 4) (+ 1) of each 8-column block q
     // (the row-bias and star epilogues add them to the prefetched biases)
     const int r0 = warp * 16 + lane / 4;
-    if (kBias) {
+    if (kPre) {
       cp_async_wait<0>();
       named_sync(1 + c, 128);
     }
@@ -885,6 +975,10 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
       named_sync(1 + c, 128);
       wg_star_tile<T::BN>(sa, g.n, cs, reinterpret_cast<const float4*>(sw),
                           star_tab, t, iw, j0);
+    } else if constexpr (kGcn) {  // likewise
+      named_sync(1 + c, 128);
+      wg_gcn_tile<T::BN>(sa, g.n, cs, g.bias, g.ldc, gcn_tab, gcn_tab + 64,
+                         t, (int)max(0LL, min(64LL, sc.m - iw)), j0);
     } else {
       named_sync(1 + c, 128);
       wg_store_tile<T::BN, kEpi>(g, ta, cs, t, sc.m, iw, j0, z);
@@ -977,11 +1071,16 @@ inline cudaError_t product_wgmma(const GemmArgsT<bf16>& g,
                                  const StarArgs& sa, cudaStream_t st) {
   using T = WgTile<BN>;
   constexpr bool kStar = kEpi == kEpiStar;
+  constexpr bool kGcn = kEpi == kEpiGcn;
   if (g.m <= 0 || g.n <= 0) return cudaSuccess;
-  if ((kEpi == kEpiRowBias || kStar) && g.ldc % 4 != 0)
+  if ((kEpi == kEpiRowBias || kStar || kGcn) && g.ldc % 4 != 0)
     return cudaErrorInvalidValue;
   if (kStar && (!kAKMajor || splits != 1 || sa.n < 1 || sa.n > 64 ||
                 sa.rows_wg != 64 / sa.n * sa.n || sa.dh < 1))
+    return cudaErrorInvalidValue;
+  if (kGcn && (!kAKMajor || splits != 1 || BN != 128 || sa.n < 1 ||
+               sa.n > 64 || sa.p < 0 || sa.p >= sa.n || g.rows == nullptr ||
+               g.row_map == nullptr || sa.row_info == nullptr))
     return cudaErrorInvalidValue;
   const int bm = kStar ? 2 * sa.rows_wg : T::BM;
   CUtensorMap tm_a, tm_b;
@@ -1002,7 +1101,8 @@ inline cudaError_t product_wgmma(const GemmArgsT<bf16>& g,
   }
   auto kernel = wgmma_gemm_kernel<T, kAKMajor, kEpi>;
   const size_t smem =
-      T::SMEM + (kStar ? sizeof(float) * T::CONSUMERS * kStarFloats : 0);
+      T::SMEM +
+      (kStar || kGcn ? sizeof(float) * T::CONSUMERS * kStarFloats : 0);
   err = cudaFuncSetAttribute(
       (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

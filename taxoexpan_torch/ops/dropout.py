@@ -12,8 +12,9 @@ function of (seed, stream, row, column):
     bits          = fmix(row_key + (col + 1) * 0x165667B1)
 
 Every step is a 32-bit multiply (low word), xor, shift or add, so the torch
-version below (int64 tensors masked to 32 bits, the multiply split in 16-bit
-halves) reproduces the CUDA bits exactly (`ops/csrc/gat_common.cuh`).
+version below (int32 tensors holding the 32-bit words: products and sums
+wrap modulo 2**32, right shifts are masked to be logical) reproduces the
+CUDA bits exactly (`ops/csrc/gat_common.cuh`).
 
 Streams (the JAX generation order, as stream ids):
     STREAM_FEAT   input-feature mask   row = b * N + slot, col = input column
@@ -136,34 +137,60 @@ def byte8_int(seed: int, stream: int, row: int, col: int) -> int:
 
 # ------------------------------------------------------------ torch tensors
 
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """Low 32 bits of a * c for int64 `a` in [0, 2**32): no intermediate
-    exceeds 2**48, so nothing overflows int64."""
-    return ((a & 0xFFFF) * c + ((((a >> 16) * c) & 0xFFFF) << 16)) & MASK32
+def _s32(v: int) -> int:
+    """The int32 whose bits are the 32-bit word v."""
+    v &= MASK32
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """An integer tensor's low 32 bits as int32 words."""
+    return t.to(torch.int64).bitwise_and(MASK32).to(torch.int32) \
+        if t.dtype != torch.int32 else t
+
+
+def _shr(h: torch.Tensor, k: int) -> torch.Tensor:
+    """The logical right shift of the words h by k (0 < k < 32)."""
+    return (h >> k) & ((1 << (32 - k)) - 1)
 
 
 def _fmix(h: torch.Tensor) -> torch.Tensor:
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
-    h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
-    return h ^ (h >> 16)
+    h = h ^ _shr(h, 16)
+    h = h * _s32(0x85EBCA6B)
+    h = h ^ _shr(h, 13)
+    h = h * _s32(0xC2B2AE35)
+    return h ^ _shr(h, 16)
+
+
+def _keyed_words(key, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """The bits of a stream key (an int, or an integer tensor of keys that
+    broadcasts with rows and cols) at [broadcast of rows, cols], as int32
+    words."""
+    key = _s32(key) if isinstance(key, int) else _words(key)
+    rk = _fmix(key ^ (_words(rows) * _s32(_ROW_MUL)))
+    return _fmix(rk + (_words(cols) + 1) * _s32(_COL_MUL))
 
 
 def _keyed_bits(key, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
-    """Bits of a stream key (an int, or an int64 tensor of keys that
-    broadcasts with rows and cols) at [broadcast of rows, cols]."""
-    rows = rows.to(torch.int64) & MASK32
-    cols = cols.to(torch.int64) & MASK32
-    rk = _fmix(key ^ _mul32(rows, _ROW_MUL))
-    return _fmix((rk + _mul32(cols + 1, _COL_MUL)) & MASK32)
+    """`_keyed_words` as int64 in [0, 2**32)."""
+    return _keyed_words(key, rows, cols).to(torch.int64) & MASK32
 
 
 def _keyed_bytes8(key, rows: torch.Tensor,
                   cols: torch.Tensor) -> torch.Tensor:
-    cols = cols.to(torch.int64) & MASK32
-    word = _keyed_bits(key, rows, cols >> 2)
+    """The 8-bit mode's bytes, int32 in [0, 256)."""
+    cols = _words(cols)
+    word = _keyed_words(key, rows, _shr(cols, 2))
     return (word >> ((cols & 3) * 8)) & 0xFF
+
+
+def _keep(key, rows, cols, rate: float, bits: int) -> torch.Tensor:
+    """Where the draw is below the keep threshold (bool): an unsigned
+    compare of the words (their sign bits flipped) or of the bytes."""
+    thresh = keep_threshold(rate, bits)
+    if check_bits(bits) == 8:
+        return _keyed_bytes8(key, rows, cols) < thresh
+    return (_keyed_words(key, rows, cols) ^ _s32(1 << 31)) < thresh - (1 << 31)
 
 
 def bits_plain(seed: int, stream: int, rows: torch.Tensor,
@@ -176,7 +203,8 @@ def bytes8_plain(seed: int, stream: int, rows: torch.Tensor,
                  cols: torch.Tensor) -> torch.Tensor:
     """The 8-bit mode's bytes [broadcast of rows, cols] as int64 in
     [0, 256)."""
-    return _keyed_bytes8(stream_key(seed, stream), rows, cols)
+    return _keyed_bytes8(stream_key(seed, stream), rows, cols).to(
+        torch.int64)
 
 
 def keep_mask(seed: int, stream: int, rows: torch.Tensor, cols: torch.Tensor,
@@ -184,8 +212,7 @@ def keep_mask(seed: int, stream: int, rows: torch.Tensor, cols: torch.Tensor,
     """float32 mask over the broadcast of rows and cols: the keep scale
     (1 / (1 - rate); 256 / t8 with 8-bit thresholds) where kept, 0 where
     dropped."""
-    draw = bytes8_plain if check_bits(bits) == 8 else bits_plain
-    keep = draw(seed, stream, rows, cols) < keep_threshold(rate, bits)
+    keep = _keep(stream_key(seed, stream), rows, cols, rate, bits)
     return keep.to(torch.float32) * keep_scale(rate, bits)
 
 
@@ -196,7 +223,7 @@ def slot_mask(seed: int, stream: int, b: int, n: int, width: int,
     rows = torch.arange(b * n, device=device, dtype=torch.int64)
     cols = torch.arange(width, device=device, dtype=torch.int64)
     out = torch.empty((b * n, width), dtype=torch.float32, device=device)
-    step = max(1, (1 << 24) // max(width, 1))     # bound the int64 temporaries
+    step = max(1, (1 << 24) // max(width, 1))     # bound the temporaries
     for r0 in range(0, b * n, step):
         out[r0:r0 + step] = keep_mask(seed, stream, rows[r0:r0 + step, None],
                                       cols[None, :], rate, bits)
@@ -212,14 +239,13 @@ def attention_masks(seed: int, b: int, p: int, s: int, heads: int,
     one pass over [5, H, B, max(P, S, 1)] and sliced to each kind's
     width."""
     widths = (p, 1, s, s, p)
-    keys = torch.tensor([[stream_key(seed, attention_stream(h, kind))
+    keys = torch.tensor([[_s32(stream_key(seed, attention_stream(h, kind)))
                           for h in range(heads)] for kind in range(5)],
-                        dtype=torch.int64, device=device)[..., None, None]
-    rows = torch.arange(b, device=device, dtype=torch.int64)[:, None]
+                        dtype=torch.int32, device=device)[..., None, None]
+    rows = torch.arange(b, device=device, dtype=torch.int32)[:, None]
     cols = torch.arange(max(widths), device=device,
-                        dtype=torch.int64)[None, :]
-    draw = _keyed_bytes8 if check_bits(bits) == 8 else _keyed_bits
-    keep = (draw(keys, rows, cols) < keep_threshold(rate, bits)).to(
+                        dtype=torch.int32)[None, :]
+    keep = _keep(keys, rows, cols, rate, bits).to(
         torch.float32) * keep_scale(rate, bits)
     return [keep[kind, :, :, :w].permute(1, 2, 0)
             for kind, w in enumerate(widths)]

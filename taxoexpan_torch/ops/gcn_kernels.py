@@ -33,7 +33,13 @@ the star passes float32, the output rounded to bf16; g upcast, dz cast to
 bf16 for dW and dx, dx times its float32 mask, rounded to bf16. The plain
 versions compute the same roundings (`launch.bf16_operands`,
 `_bwd_plain_bf16`). No model path reaches it: the JAX TaxoExpan passes no
-dtype to GCN, nor does the port's; a direct call does.
+dtype to GCN, nor does the port's; a direct call does. On the card a bf16
+call takes a form by shape (`form`): at N <= 64 the valid-rows form (the
+forward packs the valid rows of whole egonets into 64-row tiles and runs
+the star pass in the product's epilogue, so z never reaches device memory;
+the backward compacts the valid rows and writes dz once in bf16), else the
+two-pass form; `bf16_form` picks one for timing and comparison. Both give
+the same outputs, dx, db and d z_bias bits.
 
 Dispatch is by the device of the tensors: on the CPU a wrapper runs its
 plain version; on CUDA it launches the kernel or raises. Each wrapper
@@ -45,6 +51,7 @@ and its backward replays the masks and recomputes z where leaky' needs it.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -53,16 +60,17 @@ import torch
 
 from . import cuda_build, dropout, star
 from .launch import (F, I, P, TrainArgs, bf16_operands, check_operands,
-                     check_star, count_launch, is_bf16, needs_staging,
-                     on_cuda, pass_times, product_splits, product_work,
-                     raise_on, round_bf16, stream, train_args)
+                     check_star, chunk_elems, count_launch, is_bf16,
+                     needs_staging, on_cuda, pass_times, product_splits,
+                     product_work, raise_on, round_bf16, round_up, stream,
+                     train_args)
 
 _POINTERS = ("x", "w", "bias", "z_bias", "ngp", "nsib", "g", "out", "z",
              "g2sum", "part_w", "part_b", "pe_rows", "part_pe", "dx", "dw",
              "db", "dzb", "dpe", "dwp", "xm", "wcat", "biascat", "wt",
-             "dz16")
+             "dz16", "row_off", "row_map", "row_info", "dzf")
 _INTS = ("b", "n", "din", "dout", "p", "has_alpha", "need_dx", "need_dzb",
-         "splits", "chunks", "kxp", "ldd", "ntp")
+         "splits", "chunks", "kxp", "ldd", "ntp", "rows")
 
 
 class _GcnArgs(ctypes.Structure):
@@ -87,9 +95,48 @@ SIGNATURES = {
     "gcn_bwd_pass_ms": ([P], I),
     "gcn_error_string": ([I], ctypes.c_char_p),
 }
-# what the pass times of `pass_times` measure, in order
-FWD_PASSES = ("stage_pack", "projection", "star")
-BWD_PASSES = ("stage_pack", "projection", "dz", "dbias", "dw", "dx")
+# what the pass times of `pass_times` measure, in order, by form
+FWD_PASSES = {"two_pass": ("stage_pack", "projection", "star"),
+              "valid_rows": ("rows", "stage_pack", "product_star")}
+BWD_PASSES = {"two_pass": ("stage_pack", "projection", "dz", "dbias", "dw",
+                           "dx"),
+              "valid_rows": ("rows_stage_pack", "projection", "dz16",
+                             "dbias", "dw", "dx")}
+# rows after the valid ones, zero in X and dz (csrc/bwd_common.cuh:kRowPad)
+ROW_PAD = 64
+# rows of the forward's packed tiles (csrc/gcn.cu:kPackTile): the
+# valid-rows form takes N <= PACK_TILE
+PACK_TILE = 64
+_FORCED: list = []   # `bf16_form`'s choice, innermost last
+
+
+def form(x: torch.Tensor) -> str:
+    """The form of a K5 layer call (forward or backward) on the card:
+    "valid_rows" for a bf16 layer at N <= PACK_TILE (the forward packs the
+    valid rows of whole egonets into 64-row tiles and runs the star pass in
+    the product's epilogue; the backward compacts them, K4 bf16's way),
+    "two_pass" otherwise (the projection over all B*N rows into z, then the
+    star pass). Inside `bf16_form(name)` a bf16 call takes `name`."""
+    if not is_bf16(x):
+        return "two_pass"
+    if _FORCED:
+        return _FORCED[-1]
+    return "valid_rows" if x.shape[1] <= PACK_TILE else "two_pass"
+
+
+@contextlib.contextmanager
+def bf16_form(name: str):
+    """The bf16 K5 calls inside take the form `name`: "two_pass" (the form
+    of every shape before the valid-rows form existed, so that both can be
+    timed and their results compared on the same inputs) or "valid_rows"
+    (N <= PACK_TILE)."""
+    if name not in FWD_PASSES:
+        raise ValueError(f"unknown K5 form {name!r}")
+    _FORCED.append(name)
+    try:
+        yield
+    finally:
+        _FORCED.pop()
 
 
 def _lib() -> ctypes.CDLL:
@@ -284,20 +331,46 @@ def _projection_work(x, dout: int, drop: float,
     return ptrs, {"kxp": pw["kxp"], "ldd": ldd}
 
 
+def _packed_work(x, dout: int, pos: int) -> tuple[dict, dict]:
+    """Workspaces of the bf16 forward's valid-rows form (csrc/gcn.cu), as
+    (pointers, widths): X packed [rows + ROW_PAD, kxp], W [kxp, ldd],
+    z_bias [N, ldd], the egonets' first packed rows [B + 1] and the packed
+    rows' tables [rows + ROW_PAD] (original row, slot and egonet), where
+    rows bounds the packed rows: next fit into 64-row tiles needs fewer
+    than 64 B and fewer than 2 B*N + 64."""
+    bsz, n, din = x.shape
+    c = chunk_elems(x)
+    kxp, ldd = round_up(din + pos, c), round_up(dout, c)
+    rows = min(PACK_TILE * bsz, 2 * bsz * n + PACK_TILE)
+    i32 = torch.int32
+    ptrs = {"xm": _empty(x, rows + ROW_PAD, kxp, dtype=x.dtype),
+            "wcat": _empty(x, kxp, ldd, dtype=x.dtype),
+            "biascat": _empty(x, n, ldd),
+            "row_off": _empty(x, bsz + 1, dtype=i32),
+            "row_map": _empty(x, rows + ROW_PAD, dtype=i32),
+            "row_info": _empty(x, rows + ROW_PAD, dtype=i32)}
+    return ptrs, {"kxp": kxp, "ldd": ldd, "rows": rows}
+
+
 def _fwd_cuda(what: str, entry: str, x, w, b, z_bias, ngp, nsib, p, alpha,
               train=None):
     """Check, allocate and launch a forward entry point (the layer, or the
     projection alone when p is None); `train` = (pe_pack, seed, drop)
-    selects the train form. Returns (out or None, z [B, N, Dout])."""
+    selects the train form. Returns (out or None, z [B, N, Dout], or None
+    from the valid-rows form)."""
     pe_pack = train[0] if train is not None else None
     _check(x, w, b, z_bias, ngp, nsib, p, pe_pack)
     ta = train_args(*train) if train is not None else TrainArgs()
     bsz, n = x.shape[:2]
     dout = w.shape[1]
     out = _empty(x, bsz, n, dout, dtype=x.dtype) if p is not None else None
-    ptrs, widths = _projection_work(x, dout, train[2] if train else 0.0,
-                                    ta.pos)
-    z = ptrs["z"].reshape(bsz, n, widths["ldd"])[..., :dout]
+    if p is not None and form(x) == "valid_rows":
+        ptrs, widths = _packed_work(x, dout, ta.pos)
+        z = None
+    else:
+        ptrs, widths = _projection_work(x, dout, train[2] if train else 0.0,
+                                        ta.pos)
+        z = ptrs["z"].reshape(bsz, n, widths["ldd"])[..., :dout]
     if bsz == 0:
         return out, z
     args = _args(x, w, b, z_bias, ngp, nsib, p, alpha, {"out": out, **ptrs},
@@ -322,7 +395,7 @@ def gcn_layer_fwd(x, w, b, z_bias, ngp, nsib, p: int,
     if not on_cuda(x, "gcn_layer_fwd"):
         return gcn_layer_fwd_plain(*ops, alpha)
     out, _ = _fwd_cuda("gcn_layer_fwd", _entry("layer_fwd", x), *ops, alpha)
-    count_launch(gcn_layer_fwd, x)
+    _count(gcn_layer_fwd, x)
     return out
 
 
@@ -338,7 +411,7 @@ def gcn_layer_fwd_train(x, w, b, z_bias, ngp, nsib, p: int, *, pe_pack=None,
                                      drop=drop, alpha=alpha)
     out, _ = _fwd_cuda("gcn_layer_fwd_train", _entry("layer_fwd", x), *ops,
                        alpha, train=(pe_pack, seed, drop))
-    count_launch(gcn_layer_fwd_train, x)
+    _count(gcn_layer_fwd_train, x)
     return out
 
 
@@ -362,11 +435,17 @@ def _bwd_cuda(g, x, w, b, z_bias, ngp, nsib, p, pe_pack, seed, drop, alpha,
     m = bsz * n
     splits = product_splits(x, m, din + pos, dout)
     chunks = min(bsz, 64)
-    pw = product_work(x, m, din + pos, dout, needs_staging(x, drop, pos),
+    # the valid-rows form: X and dz compacted, ROW_PAD zero rows after them
+    compact = form(x) == "valid_rows"
+    rows = m + ROW_PAD if compact else m
+    pw = product_work(x, rows, din + pos, dout,
+                      compact or needs_staging(x, drop, pos),
                       0 if need_dx else din, splits)
     ldd = pw["wdp"]
     act = alpha is not None   # z recomputed for leaky'
-    work = {"g": g, "z": empty(m, ldd), "g2sum": empty(bsz, dout),
+    i32 = torch.int32
+    work = {"g": g, "z": empty(m, ldd) if act or not compact else None,
+            "g2sum": empty(bsz, dout),
             "wcat": empty(pw["kxp"], ldd, dtype=x.dtype) if act else None,
             "biascat": empty(n, ldd) if act else None,
             "part_w": pw["part_w"], "part_b": empty(chunks, n * ldd),
@@ -376,7 +455,10 @@ def _bwd_cuda(g, x, w, b, z_bias, ngp, nsib, p, pe_pack, seed, drop, alpha,
             "dzb": grads["z_bias"], "dpe": grads.get("pe"),
             "dwp": grads.get("wp"), "xm": pw["xm"], "wt": pw["wt"],
             # the products' dz in bf16 (bf16 layers)
-            "dz16": empty(m, ldd, dtype=x.dtype) if is_bf16(x) else None}
+            "dz16": empty(rows, ldd, dtype=x.dtype) if is_bf16(x) else None,
+            "row_off": empty(bsz + 1, dtype=i32) if compact else None,
+            "row_map": empty(rows, dtype=i32) if compact else None,
+            "dzf": empty(m, ldd) if compact and need_dzb else None}
     args = _args(x, w, b, z_bias, ngp, nsib, p, alpha, work,
                  need_dx=int(need_dx), need_dzb=int(need_dzb),
                  splits=splits, chunks=chunks, kxp=pw["kxp"], ldd=ldd,
@@ -401,7 +483,7 @@ def gcn_layer_bwd(g, x, w, b, z_bias, ngp, nsib, p: int, *, pe_pack=None,
     if not on_cuda(x, "gcn_layer_bwd"):
         return gcn_layer_bwd_plain(g, x, w, b, z_bias, ngp, nsib, p, **kw)
     res = _bwd_cuda(g, x, w, b, z_bias, ngp, nsib, p, **kw)
-    count_launch(gcn_layer_bwd, x)
+    _count(gcn_layer_bwd, x)
     return res
 
 
@@ -465,22 +547,33 @@ def gcn_star(z, b, ngp, nsib, p: int, alpha=None) -> torch.Tensor:
 gcn_star.launches = 0
 
 
-def fwd_pass_ms(call) -> dict:
+def fwd_pass_ms(call, form: str = "two_pass") -> dict:
     """Device ms of K5f's launches in one `call` of gcn_layer_fwd[_train]
-    on the card, by FWD_PASSES."""
-    return dict(zip(FWD_PASSES, pass_times(_lib(), "gcn_fwd", call)))
+    on the card, by FWD_PASSES[form] (the form the call takes, `form`)."""
+    return dict(zip(FWD_PASSES[form], pass_times(_lib(), "gcn_fwd", call)))
 
 
-def bwd_pass_ms(call) -> dict:
+def bwd_pass_ms(call, form: str = "two_pass") -> dict:
     """Device ms of K5b's passes in one `call` of gcn_layer_bwd on the
-    card, by BWD_PASSES."""
-    return dict(zip(BWD_PASSES, pass_times(_lib(), "gcn_bwd", call)))
+    card, by BWD_PASSES[form]."""
+    return dict(zip(BWD_PASSES[form], pass_times(_lib(), "gcn_bwd", call)))
+
+
+def _count(wrapper, x) -> None:
+    """One launch of `wrapper`'s kernel: by dtype (`count_launch`) and by
+    form in `wrapper.launches_by_form`."""
+    if x.shape[0]:
+        count_launch(wrapper, x)
+        key = form(x)
+        wrapper.launches_by_form[key] = \
+            wrapper.launches_by_form.get(key, 0) + 1
 
 
 WRAPPERS = {w.__name__: w for w in (gcn_layer_fwd, gcn_layer_fwd_train,
                                     gcn_layer_bwd)}
 for _w in WRAPPERS.values():
     _w.launches = _w.launches_bf16 = 0
+    _w.launches_by_form = {}
 
 
 # --------------------------------------------------- the differentiable layer

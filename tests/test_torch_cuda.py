@@ -1370,6 +1370,212 @@ def test_bf16_gcn_layer_function_on_card_matches_cpu(dev):
                                    atol=2 ** -8 * float(b.abs().max()))
 
 
+# ------------------------------------ pos_mode "concat": the input widths
+
+CONCAT_CASES = {
+    # kernel: (din, heads, dh or dout, pooled / activation)
+    "K1K2": (300, 4, 40, 0.01),      # PGAT-concat layer 0: 250 + 50
+    "K3K4": (2050, 1, 100, None),    # its final layer: 2000 + 50
+    "K5_layer0": (300, 1, 120, 0.01),  # PGCN-concat layer 0
+    "K5_final": (550, 1, 120, None),   # PGCN-concat final layer: 500 + 50
+}
+
+
+def _small_egonets(t, p, s):
+    """Every egonet at most 1 grandparent and 3 siblings: R (the valid
+    rows) below one 64-row tile."""
+    t[7].clamp_(max=1)
+    t[8].clamp_(max=3)
+    n = p + 1 + s
+    t[0] *= star.node_mask(t[7], t[8], p, n)[..., None].to(t[0].dtype)
+
+
+@pytest.mark.parametrize("kernel", list(CONCAT_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,small", [(7, False), (3, True)])
+def test_concat_widths_match_plain(dev, kernel, dtype, b, small):
+    """K1-K5 at the input widths of pos_mode "concat" (300 / 2050 / 550
+    columns, the pe columns in x: no pe path, zero slot biases), in
+    float32 and bf16: the eval and train forwards and the backward with
+    need_dx on (layer 0's input grad under concat) against their plain
+    versions, at a ragged B = 7 and at B = 3 with R below one tile; dx
+    exactly 0 at the invalid slots of a pooled or GCN layer."""
+    din, heads, width, alpha = CONCAT_CASES[kernel]
+    p, s = 13, 50
+    n = p + 1 + s
+    low = dtype == torch.bfloat16
+    close = _assert_close_bf16 if low else (
+        lambda a, b_, name: torch.testing.assert_close(a, b_, **TOL))
+    grads = _assert_grads_bf16 if low else _assert_grads
+    gen = torch.Generator(dev).manual_seed(61)
+    if kernel.startswith("K5"):
+        ops, _ = _gcn_inputs(dev, b, p, s, din, width, 0, seed=60)
+        ops = list(ops)
+        t = [ops[0], None, None, None, None, None, None, ops[4], ops[5]]
+        if small:
+            _small_egonets(t, p, s)
+        ops[3] = torch.zeros_like(ops[3])  # concat: no z_bias
+        if low:
+            ops[0], ops[1] = ops[0].to(dtype), ops[1].to(dtype)
+        kw = dict(seed=62, drop=0.1, alpha=alpha)
+        close(ck.gcn_layer_fwd(*ops, p, alpha=alpha),
+              ck.gcn_layer_fwd_plain(*ops, p, alpha), "eval")
+        close(ck.gcn_layer_fwd_train(*ops, p, **kw),
+              ck.gcn_layer_train_plain(*ops, p, **kw), "train")
+        g = (torch.randn((b, n, width), device=dev, generator=gen)
+             * 1e-2).to(dtype)
+        if alpha is not None:   # leaky' jumps at 0: no grad near the kink
+            pre = ck.gcn_layer_train_plain(*ops, p, **dict(kw, alpha=None))
+            g = g * (pre.float().abs() > 1e-5)
+        bkw = dict(kw, need_dx=True, need_dzb=False)
+        got = ck.gcn_layer_bwd(g, *ops, p, **bkw)
+        torch.cuda.synchronize()
+        grads(got, ck.gcn_layer_bwd_plain(g, *ops, p, **bkw))
+        valid = star.node_mask(ops[4], ops[5], p, n)
+        assert float(got["x"][~valid].float().abs().max()) == 0.0
+        return
+    t = _inputs(dev, b, p, s, din, heads, width, seed=60)
+    if small:
+        _small_egonets(t, p, s)
+    for i in (4, 5, 6):  # concat: no slot biases
+        t[i] = torch.zeros_like(t[i])
+    if low:
+        t = _bf16(t)
+    pooled = kernel == "K3K4"
+    kw = dict(seed=63, feat_drop=0.1, attn_drop=0.1)
+    if pooled:  # the pools are float32 in either dtype
+        torch.testing.assert_close(
+            gk.gat_layer_pooled_fwd(*t, p, heads),
+            gk.gat_layer_pooled_fwd_plain(*t, p, heads), **TOL)
+        torch.testing.assert_close(
+            gk.gat_layer_pooled_fwd_train(*t, p, heads, **kw),
+            gk.gat_layer_train_plain(*t, p, heads, pooled=True, **kw), **TOL)
+        g = torch.randn((b, 3, width), device=dev, generator=gen)
+    else:
+        kw["out_alpha"] = alpha
+        close(gk.gat_layer_fwd(*t, p, heads, out_alpha=alpha),
+              gk.gat_layer_fwd_plain(*t, p, heads, out_alpha=alpha), "eval")
+        close(gk.gat_layer_fwd_train(*t, p, heads, **kw),
+              gk.gat_layer_train_plain(*t, p, heads, **kw), "train")
+        g = torch.randn((b, n, heads * width), device=dev, generator=gen)
+        if low:
+            g = g.to(dtype)
+    bwd = gk.gat_layer_pooled_bwd if pooled else gk.gat_layer_bwd
+    got = bwd(g, *t, p, heads, need_dx=True, **kw)
+    torch.cuda.synchronize()
+    grads(got, gk.gat_layer_bwd_plain(g, *t, p, heads, pooled=pooled,
+                                      need_dx=True, **kw))
+    if pooled:
+        valid = star.node_mask(t[7], t[8], p, n)
+        assert float(got["x"][~valid].float().abs().max()) == 0.0
+
+
+# -------------------------------------------- K5 bf16's valid-rows form
+
+def _gcn_egonets(ops, p, s, sizes):
+    """The first egonets' (ngp, nsib), x zero at every invalid slot."""
+    for i, (g, sib) in enumerate(sizes[:ops[0].shape[0]]):
+        ops[4][i], ops[5][i] = g, sib
+    valid = star.node_mask(ops[4], ops[5], p, p + 1 + s)
+    ops[0] = ops[0] * valid[..., None].to(ops[0].dtype)
+    return valid
+
+
+K5_ROWS_CASES = [
+    # b, p, s, din, dout, pos, the first egonets' (ngp, nsib)
+    # three of 40 valid rows: the second straddles a 64-row tile when
+    # packed densely (the forward starts it on the next tile)
+    (5, 13, 50, 250, 500, 50, [(13, 26)] * 3),
+    (1, 13, 50, 500, 500, 50, [(13, 50)]),   # B = 1, a full egonet
+    # N = 12: several egonets a tile, holes at the tiles' ends; Dout 200
+    (70, 2, 9, 16, 200, 7, [(0, 0), (2, 9), (1, 4)]),
+    (9, 5, 20, 33, 130, 0, [(0, 0)] * 9),    # only empty egonets
+]
+
+
+@pytest.mark.parametrize("b,p,s,din,dout,pos,sizes", K5_ROWS_CASES)
+@pytest.mark.parametrize("alpha", [0.01, None])
+def test_bf16_gcn_valid_rows_form(dev, b, p, s, din, dout, pos, sizes,
+                                  alpha):
+    """K5 bf16's valid-rows form (the forward's rows packed into 64-row
+    tiles with the star pass in the product's epilogue; the backward on
+    the compacted rows, dz written once in bf16) against the plain
+    versions and against the two-pass form on the same inputs: the eval
+    and train outputs equal bits, the backward's dx, db and d z_bias equal
+    bits and dW within the bf16 grad rule (summed over the rows in another
+    grouping), need_dx on and off; dx exactly 0 at the invalid slots;
+    launches counted under the form."""
+    ops, pe_pack = _gcn_inputs(dev, b, p, s, din, dout, pos, seed=70)
+    ops = list(ops)
+    valid = _gcn_egonets(ops, p, s, sizes)
+    ops[0], ops[1] = ops[0].to(torch.bfloat16), ops[1].to(torch.bfloat16)
+    n = p + 1 + s
+    kw = dict(pe_pack=pe_pack, seed=71, drop=0.1, alpha=alpha)
+    g = (torch.randn((b, n, dout), device=dev,
+                     generator=torch.Generator(dev).manual_seed(72))
+         * 1e-2).to(torch.bfloat16)
+    if alpha is not None:   # leaky' jumps at 0: no grad near the kink
+        pre = ck.gcn_layer_train_plain(*ops, p, **dict(kw, alpha=None))
+        g = g * (pre.float().abs() > 1e-5)
+    before = {k: dict(w.launches_by_form) for k, w in ck.WRAPPERS.items()}
+
+    def run():
+        out = [ck.gcn_layer_fwd(*ops, p, alpha=alpha),
+               ck.gcn_layer_fwd_train(*ops, p, **kw)]
+        for need_dx in (True, False):
+            out.append(ck.gcn_layer_bwd(g, *ops, p, need_dx=need_dx,
+                                        need_dzb=need_dx, **kw))
+        torch.cuda.synchronize()
+        return out
+
+    assert ck.form(ops[0]) == "valid_rows"
+    rows = run()
+    with ck.bf16_form("two_pass"):
+        two = run()
+    _assert_close_bf16(rows[0], ck.gcn_layer_fwd_plain(*ops, p, alpha),
+                       "eval")
+    _assert_close_bf16(rows[1], ck.gcn_layer_train_plain(*ops, p, **kw),
+                       "train")
+    assert torch.equal(rows[0], two[0]) and torch.equal(rows[1], two[1])
+    for i, need_dx in ((2, True), (3, False)):
+        bkw = dict(kw, need_dx=need_dx, need_dzb=need_dx)
+        _assert_grads_bf16(rows[i], ck.gcn_layer_bwd_plain(g, *ops, p,
+                                                           **bkw))
+        _assert_grads_bf16(rows[i], two[i])
+        for name in ("x", "b", "z_bias", "pe"):
+            a = rows[i].get(name)
+            assert (a is None) == (two[i].get(name) is None), name
+            assert a is None or torch.equal(a, two[i][name]), name
+        if need_dx and bool((~valid).any()):
+            assert float(rows[i]["x"][~valid].float().abs().max()) == 0.0
+    after = {k: dict(w.launches_by_form) for k, w in ck.WRAPPERS.items()}
+    added = {k: {f: after[k].get(f, 0) - before[k].get(f, 0)
+                 for f in after[k]} for k in after}
+    assert added == {"gcn_layer_fwd": {"valid_rows": 1, "two_pass": 1},
+                     "gcn_layer_fwd_train": {"valid_rows": 1,
+                                             "two_pass": 1},
+                     "gcn_layer_bwd": {"valid_rows": 2, "two_pass": 2}}
+
+
+def test_bf16_gcn_valid_rows_empty_batch(dev):
+    """An empty batch in the valid-rows form: empty outputs, zero grads,
+    no launch counted."""
+    ops, pe_pack = _gcn_inputs(dev, 0, 13, 50, 250, 500, 50)
+    ops = (ops[0].to(torch.bfloat16), ops[1].to(torch.bfloat16), *ops[2:])
+    before = {k: (w.launches_bf16, dict(w.launches_by_form))
+              for k, w in ck.WRAPPERS.items()}
+    assert ck.gcn_layer_fwd(*ops, 13, alpha=0.01).shape == (0, 64, 500)
+    assert ck.gcn_layer_fwd_train(*ops, 13, pe_pack=pe_pack, seed=1,
+                                  drop=0.1).shape == (0, 64, 500)
+    got = ck.gcn_layer_bwd(torch.zeros((0, 64, 500), device=dev,
+                                       dtype=torch.bfloat16), *ops, 13,
+                           pe_pack=pe_pack, seed=1, drop=0.1, alpha=0.01)
+    for name, t in got.items():
+        assert t is None or float(t.float().abs().sum()) == 0.0, name
+    assert {k: (w.launches_bf16, dict(w.launches_by_form))
+            for k, w in ck.WRAPPERS.items()} == before
+
+
 def test_train_step_makes_no_host_sync(dev, tmp_path):
     """One train step of config.mag.json's PGAT at full width (4 groups x
     32 candidates, AMSGrad) after a warm-up step raises nothing under

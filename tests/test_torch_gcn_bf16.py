@@ -250,3 +250,26 @@ def test_float32_plain_versions_unchanged(alpha):
     for name, ref in zip(("x", "w", "b", "z_bias", "pe", "wp"), want_grads):
         assert grads[name].dtype == torch.float32
         assert torch.equal(grads[name], ref), name
+
+
+def test_card_form_by_shape():
+    """The form a K5 call takes on the card (`ck.form`): the valid-rows
+    form for bf16 at N <= 64, the two-pass form for float32 and for bf16
+    above 64 slots; `bf16_form` picks one for bf16 calls only, nests, and
+    refuses an unknown name."""
+    def x(n, dtype):
+        return torch.zeros((1, n, 4), dtype=dtype)
+
+    bf16 = torch.bfloat16
+    assert ck.form(x(64, bf16)) == "valid_rows"
+    assert ck.form(x(65, bf16)) == "two_pass"
+    assert ck.form(x(64, torch.float32)) == "two_pass"
+    with ck.bf16_form("two_pass"):
+        assert ck.form(x(64, bf16)) == "two_pass"
+        with ck.bf16_form("valid_rows"):
+            assert ck.form(x(64, bf16)) == "valid_rows"
+        assert ck.form(x(64, torch.float32)) == "two_pass"
+    assert ck.form(x(64, bf16)) == "valid_rows"
+    with pytest.raises(ValueError):
+        with ck.bf16_form("fused"):
+            pass
