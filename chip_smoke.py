@@ -204,13 +204,41 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               and the window's device idle share; `tools.sampler_bench`'s
               batches/s on the same dataset; the simple_mlp baseline on
               the card against the CPU and trained one epoch there.
-9. a `phase_seconds` line (each phase's wall time) and a `{"kernels":
+9. configurations - the repo's three other configuration files, each as
+              published (paths WordNet and WordNet-bf16:
+              config.wordnet.json, 300 + 50 -> 4 x 600, then 2400 + 50 ->
+              1 x 300, BIM, N = 13 + 1 + 40 = 54; SemEval-Noun and
+              SemEval-Noun-bf16: config.semeval_noun.json, 300 + 100 ->
+              4 x 600, then 2400 + 100 -> 600, LBM, N = 64; Synthetic:
+              config.synthetic.json, 64 + 32 -> 4 x 128, then 512 + 32 ->
+              128, LBM, N = 30; every path's models built at its own
+              expand_factor, `slot_args`): K1, K1t, K2 (need_dx off), K3,
+              K3t and K4 at 4096 egonets of the path's widths and slots
+              against their plain versions (entries "<wrapper>[wordnet]",
+              "[wordnet, bf16]", "[semeval_noun]", "[semeval_noun,
+              bf16]", "[synthetic]"), serving as in 5, one training epoch
+              as in 6 at the configuration's own batch (64 groups: 2048 /
+              1984 / 2048 egonets), and a `config_steps` line.
+10. mag_full - MAG-Full scale (`phase_mag_full`): a 355,000-node
+              `synthetic_taxonomy_v2` (dim 250, max_children 40, noise 1.0,
+              seed 42: 319,446 candidates, 17,777 test queries, N = 52),
+              config.mag.json as published (float32) with random weights,
+              `test_fast -b 30000` over every test query against the whole
+              catalog, then `infer -b 30000` on 8 novel terms; K1 and K3
+              launched ceil(candidates / 30000) times by each CLI (11 by
+              test_fast); a `mag_full` line with each stage's wall clock,
+              each CLI's peak device memory and the host's max RSS; and
+              K1 / K3 in eval form at one 30000-egonet chunk of these
+              shapes against their plain versions (`[mag_full]` entries,
+              the plain version run 4096 egonets a call).
+11. a `phase_seconds` line (each phase's wall time) and a `{"kernels":
    [...]}` line (eval-form launches from the serving phase
    of the entry's path, the train-path kernels' from its training phase,
    K6's from the partitioned 2-rank run, over both ranks; the TP rows'
    from the PGAT-tp runs' counts at the shard's heads, `launches_by_heads`,
    over both runs and ranks; the `[native_loader]` rows, PGAT's K1-K4
-   entries again, from the native_loader phase's native run),
+   entries again, from the native_loader phase's native run; the
+   `[mag_full]` rows from both MAG-Full CLIs' runs),
    then the card's nvidia-smi line, and last `{"ok": true, "device":
    {...}}`.
 
@@ -264,7 +292,11 @@ BF16_GRAD_RTOL, BF16_GRAD_ATOL_REL = 2 ** -6, 2 ** -8
 # tests/test_bf16.py's contract: bf16 scores within 0.05 of the float32
 # model's mean |score|
 BF16_SCORE_REL = 0.05
-MAG_P, MAG_S = 13, 50          # max_parents, expand_factor -> N = 64
+# grandparent slots of every path's egonets (bench.py:237-238); the sibling
+# slots are each configuration's expand_factor (`slot_args`): N = 13 + 1 +
+# 50 = 64 for config.mag.json, MTL and SemEval-Noun, 54 for WordNet (40),
+# 30 for Synthetic (16)
+GP_SLOTS = 13
 BATCH = 4096                   # egonets per kernel call: one encode_chunk
 NODES, N_NOVEL, SEED = 4000, 8, 0
 TRAIN_NODES = 800
@@ -300,20 +332,37 @@ PATHS = {
     "PGAT-concat": ("config.mag.json", "PGAT", {}),
     "PGAT-concat-bf16": ("config.mag.json", "PGAT", {}),
     "PGCN-concat": ("config.mag.json", "PGCN", {}),
+    "WordNet": ("config.wordnet.json", "PGAT", {}),
+    "WordNet-bf16": ("config.wordnet.json", "PGAT", {}),
+    "SemEval-Noun": ("config.semeval_noun.json", "PGAT", {}),
+    "SemEval-Noun-bf16": ("config.semeval_noun.json", "PGAT", {}),
+    "Synthetic": ("config.synthetic.json", "PGAT", {}),
 }
 # the paths whose configuration sets arch.args.compute_dtype "bfloat16"
 # (as scripts/reference_scale_run.py:87 sets it): bf16 GAT layers
-BF16_PATHS = ("PGAT-bf16", "MTL-bf16", "PGAT-concat-bf16")
+BF16_PATHS = ("PGAT-bf16", "MTL-bf16", "PGAT-concat-bf16", "WordNet-bf16",
+              "SemEval-Noun-bf16")
+# the paths of the repo's other three configuration files, each as
+# published (bf16: with the key): WordNet (300 + 50 -> 4 x 600, then
+# 2400 + 50 -> 1 x 300, BIM, N = 54), SemEval-Noun (300 + 100 -> 4 x 600,
+# then 2400 + 100 -> 600, LBM, N = 64) and Synthetic (64 + 32 -> 4 x 128,
+# then 512 + 32 -> 128, LBM, N = 30); the tag of their kernel entries
+CONFIG_TAGS = {"config.wordnet.json": "wordnet",
+               "config.semeval_noun.json": "semeval_noun",
+               "config.synthetic.json": "synthetic"}
+CONFIG_PATHS = tuple(path for path, spec in PATHS.items()
+                     if spec[0] in CONFIG_TAGS)
 # the paths whose configuration sets arch.args.pos_mode "concat": the pe
 # rows appended to each layer's input (layer 0: 250 + 50 = 300 columns, the
 # final layer 2000 + 50 = 2050 for PGAT, 500 + 50 for PGCN), layer 0 with
 # its input grad
 CONCAT_PATHS = ("PGAT-concat", "PGAT-concat-bf16", "PGCN-concat")
 SERVING_PATHS = ("PGAT", "PGCN", "MTL", "PGAT-bf16", "MTL-bf16",
-                 *CONCAT_PATHS)
+                 *CONCAT_PATHS, *CONFIG_PATHS)
 TRAINING_PATHS = {"PGAT": 2, "PGCN": 2, "PGAT-stored": 1, "MTL": 2,
                   "PGAT-bf16": 2, "MTL-bf16": 1, "PGAT-concat": 1,
-                  "PGAT-concat-bf16": 1, "PGCN-concat": 1}
+                  "PGAT-concat-bf16": 1, "PGCN-concat": 1,
+                  **{path: 1 for path in CONFIG_PATHS}}
 # the path whose training turns the trainer's profiler window on, and the
 # window: batches 1-4 of epoch 1 (its 800-node epoch has 6 steps)
 PROFILE_PATH, PROFILE_WINDOW = "PGAT-bf16", (1, 4)
@@ -421,9 +470,10 @@ def path_model(path: str = "PGAT"):
     """The configuration of a path (configs/config.mag.json with
     `arch.args.propagation_method` set: PGAT as published, PGCN the
     paper's other propagation family at the same widths;
-    configs/config.semeval_verb_mtl.json as published; the BF16_PATHS with
-    `arch.args.compute_dtype` "bfloat16", the CONCAT_PATHS with
-    `arch.args.pos_mode` "concat"), and the port's model of it."""
+    configs/config.semeval_verb_mtl.json and the CONFIG_PATHS' files as
+    published; the BF16_PATHS with `arch.args.compute_dtype` "bfloat16",
+    the CONCAT_PATHS with `arch.args.pos_mode` "concat"), and the port's
+    model of it at the configuration's egonet layout (`slot_args`)."""
     from taxoexpan_torch import builders
     name, propagation, _env = PATHS[path]
     cfg = load_config(name)
@@ -432,9 +482,17 @@ def path_model(path: str = "PGAT"):
         cfg["arch"]["args"]["compute_dtype"] = "bfloat16"
     if path in CONCAT_PATHS:
         cfg["arch"]["args"]["pos_mode"] = "concat"
-    model = builders.build_model(cfg["arch"], max_parents=MAG_P,
-                                 expand_factor=MAG_S)
+    model = builders.build_model(cfg["arch"], **slot_args(cfg))
     return cfg, model
+
+
+def slot_args(cfg: dict) -> dict:
+    """The egonet layout of a configuration's models and loaders: GP_SLOTS
+    grandparent slots and the configuration's own expand_factor sibling
+    slots."""
+    return {"max_parents": GP_SLOTS,
+            "expand_factor": cfg["train_data_loader"]["args"]
+            ["expand_factor"]}
 
 
 @contextlib.contextmanager
@@ -516,21 +574,22 @@ def _train_wrappers(path: str) -> tuple[dict, tuple]:
                          "gat_layer_bwd", "gat_layer_pooled_bwd")
 
 
-def random_egonets(gen, b: int, din: int, device):
-    """Unit-norm features [B, 64, din] with random ngp in [0, 13] and nsib in
-    [0, 50], invalid slots zeroed as gather_feats leaves them; the first
-    rows are empty egonets (ngp = nsib = 0) and full ones."""
+def random_egonets(gen, b: int, din: int, device, sib: int,
+                   gp: int = GP_SLOTS):
+    """Unit-norm features [B, N, din], N = gp + 1 + sib, with random ngp in
+    [0, gp] and nsib in [0, sib], invalid slots zeroed as gather_feats
+    leaves them; the first rows are empty egonets (ngp = nsib = 0) and full
+    ones."""
     import torch
     from taxoexpan_torch.ops import star
-    n = MAG_P + 1 + MAG_S
-    ngp = torch.randint(0, MAG_P + 1, (b,), generator=gen, dtype=torch.int32)
-    nsib = torch.randint(0, MAG_S + 1, (b,), generator=gen,
-                         dtype=torch.int32)
-    ngp[:4] = torch.tensor([0, 0, MAG_P, MAG_P], dtype=torch.int32)
-    nsib[:4] = torch.tensor([0, MAG_S, 0, MAG_S], dtype=torch.int32)
+    n = gp + 1 + sib
+    ngp = torch.randint(0, gp + 1, (b,), generator=gen, dtype=torch.int32)
+    nsib = torch.randint(0, sib + 1, (b,), generator=gen, dtype=torch.int32)
+    ngp[:4] = torch.tensor([0, 0, gp, gp], dtype=torch.int32)
+    nsib[:4] = torch.tensor([0, sib, 0, sib], dtype=torch.int32)
     x = torch.randn((b, n, din), generator=gen)
     x = x / x.norm(dim=-1, keepdim=True)
-    x = x * star.node_mask(ngp, nsib, MAG_P, n)[..., None]
+    x = x * star.node_mask(ngp, nsib, gp, n)[..., None]
     return x.to(device), ngp.to(device), nsib.to(device)
 
 
@@ -539,11 +598,12 @@ def _nbytes(*tensors) -> int:
                if t is not None)
 
 
-def fwd_work(pooled: bool, x, ops, pe_pack, ngp, nsib, heads: int, *outs):
+def fwd_work(pooled: bool, x, ops, pe_pack, ngp, nsib, heads: int, *outs,
+             gp: int = GP_SLOTS):
     """(bytes, operations) a forward needs on these inputs: each input read
     once and each output (`outs`) written once, at their element sizes;
     the [x | pe] @ [fc | wa1 | wa2] products over the rows the output
-    depends on, plus the aggregation."""
+    depends on, plus the aggregation (`gp` grandparent slots)."""
     b, n, din = x.shape
     hd = ops[0].shape[1]
     dh = hd // heads
@@ -552,7 +612,8 @@ def fwd_work(pooled: bool, x, ops, pe_pack, ngp, nsib, heads: int, *outs):
     ngp_sum = float(ngp.double().sum())
     if not pooled:
         rows = b * n                      # every slot is an output row
-        agg = heads * dh * (3 * b * MAG_S + 2 * (ngp_sum + b)) + b * n * hd
+        agg = (heads * dh * (3 * b * (n - gp - 1) + 2 * (ngp_sum + b))
+               + b * n * hd)
     else:
         # invalid slots contribute nothing to the pools
         rows = float((ngp + 1 + nsib).double().sum())
@@ -823,10 +884,10 @@ def pooled_star_alone(name: str, x, ops, ngp, nsib, heads: int,
            if k in train_kw}
     with torch.no_grad():
         proj = gk.gat_projection(x, *ops, **pkw)
-        got = gk.gat_pooled_star(proj, ngp, nsib, MAG_P, heads, store=store,
+        got = gk.gat_pooled_star(proj, ngp, nsib, GP_SLOTS, heads, store=store,
                                  **skw)
         torch.cuda.synchronize()
-        want = gk.gat_pooled_star_plain(proj, ngp, nsib, MAG_P, heads,
+        want = gk.gat_pooled_star_plain(proj, ngp, nsib, GP_SLOTS, heads,
                                         store_attn=store, **skw)
         res = compare_outputs(f"{name} pooled star pass", got, want)
     del proj, got, want
@@ -857,10 +918,10 @@ def gcn_star_alone(name: str, x, ops, ngp, nsib, alpha,
            if k in train_kw}
     with torch.no_grad():
         z = ck.gcn_projection(x, ops[0], ops[2], **pkw)
-        got = ck.gcn_star(z, ops[1], ngp, nsib, MAG_P, alpha)
+        got = ck.gcn_star(z, ops[1], ngp, nsib, GP_SLOTS, alpha)
         torch.cuda.synchronize()
         res = compare(f"{name} star pass", got,
-                      ck.gcn_star_plain(z, ops[1], ngp, nsib, MAG_P, alpha))
+                      ck.gcn_star_plain(z, ops[1], ngp, nsib, GP_SLOTS, alpha))
     del z, got
     return res
 
@@ -915,7 +976,10 @@ def phase_kernels(batch: int, device, drop: float,
     the pooled final layer at 2000 + 50 = 2050; no slot biases and no pe
     path, the feature dropout over all columns; entries
     "<wrapper>[concat]" and "<wrapper>[concat, bf16]"), without the store
-    forms."""
+    forms; with a CONFIG_PATHS path the same six forms at that
+    configuration's widths and egonet layout (entries "<wrapper>[wordnet]",
+    "[wordnet, bf16]", "[semeval_noun]", "[semeval_noun, bf16]",
+    "[synthetic]")."""
     import torch
     from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.ops import star
@@ -923,35 +987,37 @@ def phase_kernels(batch: int, device, drop: float,
     _cfg, model = path_model(path)
     bf16 = path in BF16_PATHS
     concat = path in CONCAT_PATHS
-    tags = [t for t, on in (("concat", concat), ("bf16", bf16)) if on]
+    tags = [t for t, on in ((CONFIG_TAGS.get(PATHS[path][0]), True),
+                            ("concat", concat), ("bf16", bf16)) if t and on]
     tag = f"[{', '.join(tags)}]" if tags else ""
     gen = torch.Generator().manual_seed(SEED)
     prop = model.propagate
     params = params_to(model.init(gen), device)["propagate"]
     feats, ngp, nsib = random_egonets(gen, batch, prop.layer_specs[0][0]
-                                      - prop.pos_dim, device)
+                                      - prop.pos_dim, device,
+                                      model.expand_factor)
     # the layer's input as the model makes it: pe columns appended under
     # concat, cast to the compute dtype
-    x0 = prop.layer_input(params, feats, 0, MAG_P)
+    x0 = prop.layer_input(params, feats, 0, GP_SLOTS)
     del feats
     n = x0.shape[1]
     # layer 0's dx: on where its input carries the trainable pe columns
     dx0 = prop.concat
-    ops0, _ = prop.operands(params, 0, n, MAG_P)
-    ops1, _ = prop.operands(params, 1, n, MAG_P)
+    ops0, _ = prop.operands(params, 0, n, GP_SLOTS)
+    ops1, _ = prop.operands(params, 1, n, GP_SLOTS)
     # train form: the pe rows and W_p tail rows as pe_pack, zero biases
-    tops0, pe0 = prop.operands(params, 0, n, MAG_P, pe_dropout=True)
-    tops1, pe1 = prop.operands(params, 1, n, MAG_P, pe_dropout=True)
+    tops0, pe0 = prop.operands(params, 0, n, GP_SLOTS, pe_dropout=True)
+    tops1, pe1 = prop.operands(params, 1, n, GP_SLOTS, pe_dropout=True)
     h0, h1 = prop.layer_specs[0][2], prop.layer_specs[1][2]
     tkw0 = dict(pe_pack=pe0, seed=11, feat_drop=drop, attn_drop=drop)
     tkw1 = dict(pe_pack=pe1, seed=12, feat_drop=drop, attn_drop=drop)
     with torch.no_grad():
         x1 = prop.layer_input(params, gk.gat_layer_fwd_plain(
-            x0, *ops0, ngp, nsib, MAG_P, h0, out_alpha=0.01), 1, MAG_P)
-        y0t = gk.gat_layer_train_plain(x0, *tops0, ngp, nsib, MAG_P, h0,
+            x0, *ops0, ngp, nsib, GP_SLOTS, h0, out_alpha=0.01), 1, GP_SLOTS)
+        y0t = gk.gat_layer_train_plain(x0, *tops0, ngp, nsib, GP_SLOTS, h0,
                                        out_alpha=0.01, **tkw0)
-        x1t = prop.layer_input(params, y0t, 1, MAG_P)
-    valid = star.node_mask(ngp, nsib, MAG_P, n)[..., None]
+        x1t = prop.layer_input(params, y0t, 1, GP_SLOTS)
+    valid = star.node_mask(ngp, nsib, GP_SLOTS, n)[..., None]
     # incoming grads as the train step gives them: layer 1's dx is zero on
     # invalid slots; the pool grads are dense. Layer 0 fuses leaky_relu
     # (0.01), whose derivative jumps 100x at 0: where the recomputed
@@ -959,7 +1025,7 @@ def phase_kernels(batch: int, device, drop: float,
     # kernel and the plain version on different sides, so g0 is 0 there
     # and the comparison stays well-posed
     with torch.no_grad():
-        pre = gk.gat_layer_train_plain(x0, *tops0, ngp, nsib, MAG_P, h0,
+        pre = gk.gat_layer_train_plain(x0, *tops0, ngp, nsib, GP_SLOTS, h0,
                                        **tkw0)
         away = pre.float().abs() > 1e-5
         near_kink_share = 1.0 - float(away.double().mean())
@@ -975,39 +1041,39 @@ def phase_kernels(batch: int, device, drop: float,
         "taxoexpan_torch/ops/csrc/gat_bwd.cu"
     cases = [
         ("gat_layer_fwd", fwd, False, x0, ops0, None, h0, None,
-         lambda: gk.gat_layer_fwd(x0, *ops0, ngp, nsib, MAG_P, h0,
+         lambda: gk.gat_layer_fwd(x0, *ops0, ngp, nsib, GP_SLOTS, h0,
                                   out_alpha=0.01),
-         lambda: gk.gat_layer_fwd_plain(x0, *ops0, ngp, nsib, MAG_P, h0,
+         lambda: gk.gat_layer_fwd_plain(x0, *ops0, ngp, nsib, GP_SLOTS, h0,
                                         out_alpha=0.01)),
         ("gat_layer_pooled_fwd", fwd, True, x1, ops1, None, h1, None,
-         lambda: gk.gat_layer_pooled_fwd(x1, *ops1, ngp, nsib, MAG_P, h1),
-         lambda: gk.gat_layer_pooled_fwd_plain(x1, *ops1, ngp, nsib, MAG_P,
+         lambda: gk.gat_layer_pooled_fwd(x1, *ops1, ngp, nsib, GP_SLOTS, h1),
+         lambda: gk.gat_layer_pooled_fwd_plain(x1, *ops1, ngp, nsib, GP_SLOTS,
                                                h1)),
         ("gat_layer_fwd_train", fwd, False, x0, tops0, pe0, h0, None,
-         lambda: gk.gat_layer_fwd_train(x0, *tops0, ngp, nsib, MAG_P, h0,
+         lambda: gk.gat_layer_fwd_train(x0, *tops0, ngp, nsib, GP_SLOTS, h0,
                                         out_alpha=0.01, **tkw0),
-         lambda: gk.gat_layer_train_plain(x0, *tops0, ngp, nsib, MAG_P, h0,
+         lambda: gk.gat_layer_train_plain(x0, *tops0, ngp, nsib, GP_SLOTS, h0,
                                           out_alpha=0.01, **tkw0)),
         ("gat_layer_pooled_fwd_train", fwd, True, x1t, tops1, pe1, h1, None,
          lambda: gk.gat_layer_pooled_fwd_train(x1t, *tops1, ngp, nsib,
-                                               MAG_P, h1, **tkw1),
-         lambda: gk.gat_layer_train_plain(x1t, *tops1, ngp, nsib, MAG_P, h1,
+                                               GP_SLOTS, h1, **tkw1),
+         lambda: gk.gat_layer_train_plain(x1t, *tops1, ngp, nsib, GP_SLOTS, h1,
                                           pooled=True, **tkw1)),
         # layer 0's backward in the train step: need_dx off for fixed input
         # features, on under concat; slot-bias grads off (zero biases on
         # the pe path and under concat)
         ("gat_layer_bwd", bwd, False, x0, tops0, pe0, h0, dx0,
-         lambda: gk.gat_layer_bwd(g0, x0, *tops0, ngp, nsib, MAG_P, h0,
+         lambda: gk.gat_layer_bwd(g0, x0, *tops0, ngp, nsib, GP_SLOTS, h0,
                                   out_alpha=0.01, need_dx=dx0,
                                   need_dbias=False, **tkw0),
-         lambda: gk.gat_layer_bwd_plain(g0, x0, *tops0, ngp, nsib, MAG_P, h0,
-                                        out_alpha=0.01, need_dx=dx0,
+         lambda: gk.gat_layer_bwd_plain(g0, x0, *tops0, ngp, nsib, GP_SLOTS,
+                                        h0, out_alpha=0.01, need_dx=dx0,
                                         **tkw0)),
         ("gat_layer_pooled_bwd", bwd, True, x1t, tops1, pe1, h1, True,
-         lambda: gk.gat_layer_pooled_bwd(g1, x1t, *tops1, ngp, nsib, MAG_P,
+         lambda: gk.gat_layer_pooled_bwd(g1, x1t, *tops1, ngp, nsib, GP_SLOTS,
                                          h1, need_dx=True, need_dbias=False,
                                          **tkw1),
-         lambda: gk.gat_layer_bwd_plain(g1, x1t, *tops1, ngp, nsib, MAG_P,
+         lambda: gk.gat_layer_bwd_plain(g1, x1t, *tops1, ngp, nsib, GP_SLOTS,
                                         h1, pooled=True, need_dx=True,
                                         **tkw1)),
     ]
@@ -1069,10 +1135,10 @@ def phase_kernels(batch: int, device, drop: float,
     # K7a: the store forms of both train forwards, same seeds, and the
     # stored backwards fed their weights (in bf16 at MTL's shapes only,
     # phase_mtl_kernels: MTL-bf16 is the bf16 path that stores attention;
-    # no concat path stores attention)
-    if bf16 or concat:
+    # no concat path and no CONFIG_PATHS path stores attention)
+    if bf16 or concat or path in CONFIG_PATHS:
         return records
-    args = (ngp, nsib, MAG_P)
+    args = (ngp, nsib, GP_SLOTS)
     records += store_entries("", "PGAT-stored", False, x0, tops0, pe0, h0,
                              g0, tkw0, 0.01, False, args)
     records += store_entries("", "PGAT-stored", True, x1t, tops1, pe1, h1,
@@ -1190,13 +1256,14 @@ def phase_mtl_kernels(batch: int, device, drop: float) -> list[dict]:
     params = params_to(model.init(gen), device)["propagate"]
     prop = model.propagate
     x0, ngp, nsib = random_egonets(gen, batch, prop.layer_specs[0][0]
-                                   - prop.pos_dim, device)
+                                   - prop.pos_dim, device,
+                                   model.expand_factor)
     n = x0.shape[1]
-    args = (ngp, nsib, MAG_P)
+    args = (ngp, nsib, GP_SLOTS)
     h0, h1 = prop.layer_specs[0][2], prop.layer_specs[1][2]
     tkw0 = dict(seed=30, feat_drop=drop, attn_drop=drop, dropout_bits=8)
     tkw1 = dict(seed=31, feat_drop=drop, attn_drop=drop, dropout_bits=8)
-    valid = star.node_mask(ngp, nsib, MAG_P, n)[..., None]
+    valid = star.node_mask(ngp, nsib, GP_SLOTS, n)[..., None]
     # the incoming grads, drawn once for both dtypes: layer 0's is zero on
     # invalid slots and where the pre-activation lies within 1e-5 of
     # leaky_relu's kink (as in phase_kernels); the readouts' grad reaches
@@ -1230,8 +1297,8 @@ def phase_mtl_kernels(batch: int, device, drop: float) -> list[dict]:
         p = prop if path == "MTL" else path_model(path)[1].propagate
         bf = ", bf16" if path in BF16_PATHS else ""
         xin = x0.to(p.dtype)
-        ops0, _ = p.operands(params, 0, n, MAG_P)
-        tops0, pe0 = p.operands(params, 0, n, MAG_P, pe_dropout=True)
+        ops0, _ = p.operands(params, 0, n, GP_SLOTS)
+        tops0, pe0 = p.operands(params, 0, n, GP_SLOTS, pe_dropout=True)
         # layer 0; its eval output is the final layer's input
         x1, rec = eval_entry(f"[mtl layer 0{bf}]", path, xin, ops0, h0, 0.01)
         records.append(rec)
@@ -1248,8 +1315,8 @@ def phase_mtl_kernels(batch: int, device, drop: float) -> list[dict]:
         torch.cuda.empty_cache()
 
         # the per-slot final layer
-        ops1, _ = p.operands(params, 1, n, MAG_P)
-        tops1, pe1 = p.operands(params, 1, n, MAG_P, pe_dropout=True)
+        ops1, _ = p.operands(params, 1, n, GP_SLOTS)
+        tops1, pe1 = p.operands(params, 1, n, GP_SLOTS, pe_dropout=True)
         got, rec = eval_entry(f"[mtl final{bf}]", path, x1, ops1, h1, None)
         records.append(rec)
         del got
@@ -1285,11 +1352,12 @@ def phase_tp_kernels(batch: int, device, drop: float) -> list[dict]:
     heads, mp = 4, 2
     local = heads // mp
     gen = torch.Generator().manual_seed(SEED + 2)
-    n = MAG_P + 1 + MAG_S
+    sib = slot_args(cfg)["expand_factor"]
+    n = GP_SLOTS + 1 + sib
     x0, ngp, nsib = random_egonets(gen, batch, cfg["arch"]["args"]["in_dim"],
-                                   device)
-    args = (ngp, nsib, MAG_P)
-    valid = star.node_mask(ngp, nsib, MAG_P, n)[..., None]
+                                   device, sib)
+    args = (ngp, nsib, GP_SLOTS)
+    valid = star.node_mask(ngp, nsib, GP_SLOTS, n)[..., None]
     tkw0 = dict(seed=40, feat_drop=drop, attn_drop=drop)
     tkw1 = dict(seed=41, feat_drop=drop, attn_drop=drop)
     dgen = torch.Generator(device=device).manual_seed(SEED + 2)
@@ -1305,15 +1373,14 @@ def phase_tp_kernels(batch: int, device, drop: float) -> list[dict]:
         arch = dict(cfg["arch"], args=dict(
             cfg["arch"]["args"], heads=[heads, heads],
             compute_dtype="bfloat16" if bf16 else "float32"))
-        prop = builders.build_model(arch, max_parents=MAG_P,
-                                    expand_factor=MAG_S).propagate
+        prop = builders.build_model(arch, **slot_args(cfg)).propagate
         if params is None:
             params = params_to(prop.init(gen), device)
         bf = ", bf16" if bf16 else ""
         xin = x0.to(prop.dtype)
 
         def shard(l, pe_dropout=False):
-            return head_shard(*prop.operands(params, l, n, MAG_P,
+            return head_shard(*prop.operands(params, l, n, GP_SLOTS,
                                              pe_dropout=pe_dropout),
                               heads, 0, mp)
         (ops0, _), (tops0, pe0) = shard(0), shard(0, True)
@@ -1342,7 +1409,7 @@ def phase_tp_kernels(batch: int, device, drop: float) -> list[dict]:
                                             out_alpha=0.01, need_dx=False,
                                             **kw0))]
         # the pooled TP form, on layer 0's whole eval output
-        ops0_all, _ = prop.operands(params, 0, n, MAG_P)
+        ops0_all, _ = prop.operands(params, 0, n, GP_SLOTS)
         with torch.no_grad():
             x1 = gk.gat_layer_fwd_plain(xin, *ops0_all, *args, heads,
                                         out_alpha=0.01)
@@ -1438,18 +1505,19 @@ def phase_gcn_kernels(batch: int, device,
         (spec[0] - (0 if concat else prop.pos_dim), *spec[1:])
         for spec in prop.layer_specs]
     x0, ngp, nsib = random_egonets(gen, batch, prop.layer_specs[0][0]
-                                   - prop.pos_dim, device)
+                                   - prop.pos_dim, device,
+                                   model.expand_factor)
     n = x0.shape[1]
 
     def with_pos(x, l):
         """A layer's input: the pe columns appended under concat."""
-        return concat_pos(x, params["pos_emb"][l]["emb"], MAG_P) \
+        return concat_pos(x, params["pos_emb"][l]["emb"], GP_SLOTS) \
             if concat else x
 
     def operands(l, din, pe_dropout):
         if concat:
             return gcn_layer_operands(params["layers"][l], None, din, n)
-        pe = slot_embeddings(params["pos_emb"][l]["emb"], MAG_P, n)
+        pe = slot_embeddings(params["pos_emb"][l]["emb"], GP_SLOTS, n)
         return gcn_layer_operands(params["layers"][l], pe, din, n,
                                   pe_dropout=pe_dropout)
 
@@ -1461,9 +1529,9 @@ def phase_gcn_kernels(batch: int, device,
     tkw1 = dict(pe_pack=pe1, seed=22, drop=drop1, alpha=a1)
     # incoming grads live on the valid slots: layer 1's dx and the
     # readout's grad are zero elsewhere
-    valid = star.node_mask(ngp, nsib, MAG_P, n)[..., None]
+    valid = star.node_mask(ngp, nsib, GP_SLOTS, n)[..., None]
     dgen = torch.Generator(device=device).manual_seed(SEED)
-    args = (ngp, nsib, MAG_P)
+    args = (ngp, nsib, GP_SLOTS)
     source = "taxoexpan_torch/ops/csrc/gcn.cu"
     bf16 = torch.bfloat16
     dx0 = concat     # layer 0's dx: on where its input has the pe columns
@@ -1543,12 +1611,12 @@ def phase_gcn_kernels(batch: int, device,
             got, nums = measure(name, kernel, plain, backward, matmul,
                                 f"{which}:{form}")
             if low:  # the two-pass form on the same inputs, beside it
-                rows = int((ngp.clamp(0, MAG_P) + 1
-                            + nsib.clamp(0, n - MAG_P - 1)).sum())
+                rows = int((ngp.clamp(0, GP_SLOTS) + 1
+                            + nsib.clamp(0, n - GP_SLOTS - 1)).sum())
                 nums.update(form=form, valid_rows=rows, all_rows=x.shape[0]
                             * n)
                 if not backward:
-                    nums["packed_rows"] = packed_rows(ngp, nsib, MAG_P, n)
+                    nums["packed_rows"] = packed_rows(ngp, nsib, GP_SLOTS, n)
                 with ck.bf16_form("two_pass"), torch.no_grad():
                     nums["parent_form"] = {
                         "form": "two_pass",
@@ -1620,13 +1688,16 @@ def phase_halo_kernels(device, num_nodes: int, batch: int,
     gen = np.random.default_rng(SEED)
     table = gen.normal(size=(num_nodes, dim)).astype(np.float32)
     full = torch.from_numpy(table).to(device)
+    # the dp path's egonets: config.mag.json's layout
+    slots = GP_SLOTS + 1 + slot_args(load_config(PATHS["PGAT"][0]))[
+        "expand_factor"]
     records = []
     for p in (2, 4):
         shards = [torch.from_numpy(s).to(device)
                   for s in shard_table(table, p)]
         rows = shards[0].shape[0]
         ids = gen.integers(0, num_nodes,
-                           size=(batch // p, MAG_P + 1 + MAG_S))
+                           size=(batch // p, slots))
         n = ids.size
         cap = bucket_capacity(n, p)
         req = plan_requests(torch.from_numpy(ids).to(device), p).req
@@ -1703,7 +1774,7 @@ def phase_serving(device, num_nodes: int, n_novel: int, seed: int,
                        "test_data_loader"):
             cfg[loader]["args"].update(
                 data_path=str(run / "synthetic.pickle.bin"),
-                max_parents=MAG_P, expand_factor=MAG_S)
+                **slot_args(cfg))
         (run / "config.json").write_text(json.dumps(cfg))
         ckpt = str(run / "model_random.ckpt")
         save_jax_checkpoint(ckpt, model.init(
@@ -1792,6 +1863,284 @@ def phase_serving(device, num_nodes: int, n_novel: int, seed: int,
     return res
 
 
+# MAG-Full, the reference's largest operating point (about 355k nodes,
+# evaluated over the whole catalog in 30000-anchor chunks; VERDICT.md:34,
+# :102-110): reference_scale_run's v2 data with only the node count raised
+MAG_FULL_DATA = dict(num_nodes=355000, dim=250, max_children=40, noise=1.0,
+                     seed=42)
+MAG_FULL_CHUNK = 30000
+
+
+@contextlib.contextmanager
+def captured_rankers():
+    """Every TaxonomyRanker made in the block, in the list the block gets."""
+    from taxoexpan_torch.evaluation.ranker import TaxonomyRanker
+    init, kept = TaxonomyRanker.__init__, []
+
+    def keep(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        kept.append(self)
+    TaxonomyRanker.__init__ = keep
+    try:
+        yield kept
+    finally:
+        TaxonomyRanker.__init__ = init
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name: str):
+    """The wall seconds of each call of `owner.name` in the block, in the
+    list the block gets."""
+    fn, seconds = getattr(owner, name), []
+
+    def timed(*args, **kwargs):
+        t0 = time.time()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            seconds.append(time.time() - t0)
+    setattr(owner, name, timed)
+    try:
+        yield seconds
+    finally:
+        setattr(owner, name, fn)
+
+
+def phase_mag_full(device) -> dict:
+    """Serving at MAG-Full scale through the entry points: a
+    `synthetic_taxonomy_v2` of MAG_FULL_DATA (355,000 nodes, dim 250;
+    319,446 train nodes, the candidates; 17,777 test queries; max_parents
+    "auto" gives 1 grandparent slot, N = 52), configs/config.mag.json as
+    published (float32 PGAT, WMR, BIM; path PGAT) with random weights from
+    seed 0 in the JAX checkpoint format, then `taxoexpan_torch.test_fast
+    -b 30000` (every test query against the whole catalog) and
+    `taxoexpan_torch.infer -b 30000` (N_NOVEL novel terms against every
+    node of the test working graph), the launch counters set to 0 just
+    before and read after each: K1 and K3 in eval form launched
+    ceil(candidates / 30000) times by each. Records the stages' wall clocks
+    (generation, pickling, the CLIs' data load and samplers, anchor arrays,
+    encode, query prep, rank), the peak device memory of each CLI and the
+    process's host max RSS; checks finite metrics, the case study's and
+    the predictions' lines, and the first 256 anchors' graph embeddings
+    against the CPU plain path."""
+    import math
+    import resource
+    import numpy as np
+    import torch
+    from taxoexpan_torch import builders
+    from taxoexpan_torch import infer as infer_cli
+    from taxoexpan_torch import test_fast as test_fast_cli
+    from taxoexpan_torch.data.synthetic import synthetic_taxonomy_v2
+    from taxoexpan_torch.weights import (load_jax_checkpoint,
+                                         restore_params, save_jax_checkpoint)
+
+    wrappers = _eval_wrappers("PGAT")
+    stages = {}
+    t0 = time.time()
+    taxonomy = synthetic_taxonomy_v2(**MAG_FULL_DATA)
+    stages["generation"] = time.time() - t0
+    # the params do not depend on the slot counts
+    cfg, model = path_model("PGAT")
+    dim = MAG_FULL_DATA["dim"]
+    rng = np.random.default_rng(SEED)
+    held = np.asarray(taxonomy.test_node_ids[:N_NOVEL], dtype=np.int64)
+    novel = taxonomy.features[held] + 0.1 * rng.normal(
+        size=(len(held), dim)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        run = Path(tmp)
+        data = run / "mag_full.pickle.bin"
+        t0 = time.time()
+        taxonomy.save(str(data))
+        stages["pickling"] = time.time() - t0
+        for loader in ("train_data_loader", "validation_data_loader",
+                       "test_data_loader"):
+            cfg[loader]["args"]["data_path"] = str(data)
+        (run / "config.json").write_text(json.dumps(cfg))
+        ckpt = str(run / "model_random.ckpt")
+        save_jax_checkpoint(ckpt, model.init(
+            torch.Generator().manual_seed(SEED)), cfg)
+        with open(run / "novel.txt", "w") as fout:
+            for i, row in enumerate(novel):
+                fout.write(f"novel term {i}\t{' '.join(map(str, row))}\n")
+        del taxonomy
+
+        # ---- the main path, with the launch counters around each CLI
+        runs = {}
+        for cli, argv in (
+                ("test_fast", ["-r", ckpt, "-b", str(MAG_FULL_CHUNK), "-c",
+                               str(run / "case.tsv")]),
+                ("infer", ["-r", ckpt, "-b", str(MAG_FULL_CHUNK), "-t",
+                           str(run / "novel.txt"), "-s",
+                           str(run / "predictions.tsv")])):
+            module = test_fast_cli if cli == "test_fast" else infer_cli
+            reset_counters()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.time()
+            with captured_rankers() as rankers, \
+                    timed_calls(builders, "build_taxonomy") as t_load, \
+                    timed_calls(builders, "build_sampler") as t_sampler:
+                out = module.main(module.parse_args(argv))
+            torch.cuda.synchronize()
+            ranker = rankers[0]
+            runs[cli] = {
+                "out": out, "seconds": time.time() - t0,
+                "candidates": len(ranker.candidates),
+                "launches": path_launches("PGAT", wrappers),
+                "max_memory_allocated_bytes":
+                    torch.cuda.max_memory_allocated(device),
+                "stages": {"data_load": sum(t_load),
+                           "sampler": sum(t_sampler), **ranker.timing}}
+            if cli == "test_fast":
+                test_ranker = ranker
+            del ranker, rankers[:]
+        metrics, preds = runs["test_fast"]["out"], runs["infer"]["out"]
+
+        # ---- checks: each CLI encodes its candidates in whole chunks
+        queries = len(test_ranker.sampler.node_list)
+        expected = {cli: math.ceil(runs[cli]["candidates"] / MAG_FULL_CHUNK)
+                    for cli in runs}
+        for cli in runs:
+            for name in wrappers:
+                got = runs[cli]["launches"][name]
+                if got != expected[cli]:
+                    raise AssertionError(
+                        f"MAG-Full {cli} launched {name} {got} times, "
+                        f"expected {expected[cli]}")
+        bad = {k: v for k, v in metrics.items() if not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f"non-finite MAG-Full metrics {bad}")
+        n_cases = len((run / "case.tsv").read_text().splitlines())
+        n_pred_lines = len((run / "predictions.tsv").read_text()
+                           .splitlines())
+        if n_cases != 1 + queries or n_pred_lines != 1 + N_NOVEL:
+            raise AssertionError(f"MAG-Full case study has {n_cases} lines, "
+                                 f"predictions {n_pred_lines}")
+        if len(preds) != N_NOVEL or any(
+                len(row) != 5 or not 0 <= min(row) <= max(row)
+                < MAG_FULL_DATA["num_nodes"] for row in preds):
+            raise AssertionError(f"malformed MAG-Full predictions {preds}")
+        state = load_jax_checkpoint(ckpt)
+    # the card's graph embeddings (the first chunk's first rows) against
+    # the CPU plain path
+    sampler, model = test_ranker.sampler, test_ranker.model
+    params = restore_params(state, model)
+    hg = test_ranker.encode_all_anchors()
+    node_ids, ngp, nsib = (a[:256] for a in test_ranker._anchor_arrays())
+    with torch.no_grad():
+        ngp_t, nsib_t = torch.from_numpy(ngp), torch.from_numpy(nsib)
+        feats = model.gather_feats(torch.from_numpy(sampler.node_features),
+                                   torch.from_numpy(node_ids).long(),
+                                   ngp_t, nsib_t)
+        want = model.encode(params, feats, ngp_t, nsib_t)
+    hg_check = compare("MAG-Full hg (card vs CPU plain path, first 256 "
+                       "anchors)", hg[:256].cpu(), want)
+    if not bool(torch.isfinite(hg).all()):
+        raise AssertionError("non-finite MAG-Full graph embeddings")
+    res = {"card": nvidia_smi_line(), **MAG_FULL_DATA,
+           "config": "configs/config.mag.json (float32)",
+           "encode_chunk": MAG_FULL_CHUNK, "queries": queries,
+           "candidates": {cli: runs[cli]["candidates"] for cli in runs},
+           "max_parents": sampler.max_parents,
+           "slots": sampler.max_parents + 1 + sampler.expand_factor,
+           "metrics": metrics, "predictions_head": preds[:2],
+           "stages_s": {"generation": stages["generation"],
+                        "pickling": stages["pickling"],
+                        **{f"{cli} {k}": v for cli in runs
+                           for k, v in runs[cli]["stages"].items()},
+                        **{f"{cli} in all": runs[cli]["seconds"]
+                           for cli in runs}},
+           "launches": {cli: runs[cli]["launches"] for cli in runs},
+           "expected_launches": expected,
+           "max_memory_allocated_bytes": {
+               cli: runs[cli]["max_memory_allocated_bytes"] for cli in runs},
+           "host_max_rss_kib": resource.getrusage(
+               resource.RUSAGE_SELF).ru_maxrss,
+           "hg_vs_cpu": hg_check}
+    del test_ranker, hg
+    torch.cuda.empty_cache()
+    emit("mag_full", **res)
+    return res
+
+
+def phase_mag_full_kernels(device) -> list[dict]:
+    """K1 and K3 in eval form at the shapes phase_mag_full gives them: one
+    MAG_FULL_CHUNK encode chunk of config.mag.json's float32 PGAT (30000
+    egonets, 1 grandparent slot, N = 52; layer 0 250 + 50 -> 4 x 500, the
+    pooled final layer 2000 + 50 -> 1 x 500), random egonets from seed 0.
+    Each egonet's output depends on its own rows only, so the kernel's
+    whole-chunk output is held to the plain version chunk by chunk (4096
+    egonets a call: the plain version's intermediates at 30000 egonets
+    take tens of GB); `plain_ms` is the sum of those calls."""
+    import torch
+    from taxoexpan_torch import builders
+    from taxoexpan_torch.ops import gat_kernels as gk
+    from taxoexpan_torch.weights import params_to
+    cfg = load_config(PATHS["PGAT"][0])
+    gp = 1                       # max_parents "auto" on MAG_FULL_DATA
+    model = builders.build_model(cfg["arch"], max_parents=gp,
+                                 expand_factor=slot_args(cfg)[
+                                     "expand_factor"])
+    gen = torch.Generator().manual_seed(SEED)
+    prop = model.propagate
+    params = params_to(model.init(gen), device)["propagate"]
+    batch = MAG_FULL_CHUNK
+    x0, ngp, nsib = random_egonets(gen, batch, prop.layer_specs[0][0]
+                                   - prop.pos_dim, device,
+                                   model.expand_factor, gp=gp)
+    n = x0.shape[1]
+    ops0, _ = prop.operands(params, 0, n, gp)
+    ops1, _ = prop.operands(params, 1, n, gp)
+    h0, h1 = prop.layer_specs[0][2], prop.layer_specs[1][2]
+    step = BATCH
+    with torch.no_grad():
+        x1 = gk.gat_layer_fwd(x0, *ops0, ngp, nsib, gp, h0, out_alpha=0.01)
+    records = []
+    for wrapper, pooled, x, ops, heads, alpha in (
+            ("gat_layer_fwd", False, x0, ops0, h0, 0.01),
+            ("gat_layer_pooled_fwd", True, x1, ops1, h1, None)):
+        kw = {} if pooled else {"out_alpha": alpha}
+        kernel_fn = getattr(gk, wrapper)
+        plain_fn = getattr(gk, wrapper + "_plain")
+
+        def kernel():
+            return kernel_fn(x, *ops, ngp, nsib, gp, heads, **kw)
+
+        def plain_chunks():
+            return [plain_fn(x[i:i + step], *ops, ngp[i:i + step],
+                             nsib[i:i + step], gp, heads, **kw)
+                    for i in range(0, batch, step)]
+        with torch.no_grad():
+            got = kernel()
+            torch.cuda.synchronize()
+            err = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+            for i, want in zip(range(0, batch, step), plain_chunks()):
+                res = compare(f"{wrapper}[mag_full] egonets {i}-"
+                              f"{min(i + step, batch)}", got[i:i + step],
+                              want)
+                for k in err:
+                    err[k] = max(err[k], res[k])
+                del want
+            nbytes, flops = fwd_work(pooled, x, ops, None, ngp, nsib, heads,
+                                     got, gp=gp)
+            x2 = x.reshape(-1, x.shape[-1])
+            nums = {**err, "rtol": RTOL, "atol": ATOL,
+                    "ms": time_ms(kernel, 3),
+                    "plain_ms": time_ms(lambda: plain_chunks(), 1),
+                    "plain_call": f"the plain version in {step}-egonet "
+                                  "chunks, summed",
+                    "matmul_ms": time_ms(lambda: x2 @ ops[0], 3),
+                    "passes_ms": pass_split(kernel, fwd_passes(x, pooled))}
+        rec = gat_record(f"{wrapper}[mag_full]", wrapper, "MAG-Full", False,
+                         x, ops[0], None, nums, (nbytes, flops),
+                         REPLACES[wrapper], max_parents=gp, slots=n)
+        records.append(rec)
+        del got
+        torch.cuda.empty_cache()
+    del x0, x1
+    torch.cuda.empty_cache()
+    return records
+
+
 def bf16_scores_vs_f32(cfg: dict, params: dict, sampler, hg16, device,
                        queries: int = 64) -> dict:
     """The bf16 model's scores (graph embeddings hg16 of the first anchors,
@@ -1804,8 +2153,9 @@ def bf16_scores_vs_f32(cfg: dict, params: dict, sampler, hg16, device,
     from taxoexpan_torch.evaluation.ranker import TaxonomyRanker
     args = {k: v for k, v in cfg["arch"]["args"].items()
             if k != "compute_dtype"}
-    m32 = builders.build_model({"args": args}, max_parents=MAG_P,
-                               expand_factor=MAG_S)
+    m32 = builders.build_model({"args": args},
+                               max_parents=sampler.max_parents,
+                               expand_factor=sampler.expand_factor)
     ranker = TaxonomyRanker(m32, params, sampler, sampler.node_features,
                             device=device)
     hg32 = ranker.encode_all_anchors()[:hg16.shape[0]]
@@ -2111,7 +2461,7 @@ def phase_training(device, num_nodes: int, epochs: int, seed: int,
                        "test_data_loader"):
             cfg[loader]["args"].update(
                 data_path=str(run / "synthetic.pickle.bin"),
-                max_parents=MAG_P, expand_factor=MAG_S)
+                **slot_args(cfg))
         cfg["trainer"].update(epochs=epochs, save_dir=str(run / "saved"),
                               full_validation_every=1, tensorboardX=False,
                               step_timing=True)
@@ -2335,8 +2685,7 @@ def phase_dp_training(device, num_nodes: int, seed: int,
             for loader in ("train_data_loader", "validation_data_loader",
                            "test_data_loader"):
                 cfg[loader]["args"].update(data_path=str(data),
-                                           max_parents=MAG_P,
-                                           expand_factor=MAG_S)
+                                           **slot_args(cfg))
             cfg["trainer"].update(epochs=1, save_dir=str(run / "saved"),
                                   full_validation_every=1,
                                   tensorboardX=False, step_timing=True)
@@ -2672,8 +3021,7 @@ def phase_tp_training(device, num_nodes: int, seed: int,
         for loader in ("train_data_loader", "validation_data_loader",
                        "test_data_loader"):
             cfg[loader]["args"].update(data_path=str(data),
-                                       max_parents=MAG_P,
-                                       expand_factor=MAG_S)
+                                       **slot_args(cfg))
         cfg["trainer"].update(epochs=1, full_validation_every=1,
                               tensorboardX=False, step_timing=True)
         params = model.init(torch.Generator().manual_seed(cfg.get("seed",
@@ -2900,7 +3248,8 @@ def phase_residual(device) -> dict:
     cfg, model, params = residual_model(device)
     a = cfg["arch"]["args"]
     gen = torch.Generator().manual_seed(SEED)
-    feats, ngp, nsib = random_egonets(gen, BATCH, a["in_dim"], device)
+    feats, ngp, nsib = random_egonets(gen, BATCH, a["in_dim"], device,
+                                      model.expand_factor)
 
     def counts():
         return {name: w.launches for name, w in gk.WRAPPERS.items()
@@ -2923,7 +3272,7 @@ def phase_residual(device) -> dict:
                                   seed=SEED)
     train_cfg = dict(cfg["train_data_loader"]["args"],
                      batch_size=RESIDUAL_GROUPS, num_workers=0,
-                     max_parents=MAG_P, expand_factor=MAG_S)
+                     **slot_args(cfg))
     sampler = builders.build_sampler(taxonomy, train_cfg, "train")
     batch = batch_to(next(iter(builders.build_loader(sampler, train_cfg))),
                      device)
@@ -3008,8 +3357,7 @@ def phase_tp_concat(device, seed: int) -> dict:
         for loader in ("train_data_loader", "validation_data_loader",
                        "test_data_loader"):
             cfg[loader]["args"].update(data_path=str(data),
-                                       max_parents=MAG_P,
-                                       expand_factor=MAG_S)
+                                       **slot_args(cfg))
         cfg["trainer"].update(epochs=1, full_validation_every=1,
                               tensorboardX=False, step_timing=True)
         params = model.init(torch.Generator().manual_seed(cfg.get("seed",
@@ -3300,8 +3648,8 @@ def phase_native_loader(device) -> dict:
             for loader in ("train_data_loader", "validation_data_loader",
                            "test_data_loader"):
                 cfg[loader]["args"].update(
-                    data_path=str(data), max_parents=MAG_P,
-                    expand_factor=MAG_S, backend=backend)
+                    data_path=str(data), backend=backend,
+                    **slot_args(cfg))
             cfg["trainer"].update(epochs=NATIVE_EPOCHS,
                                   save_dir=str(run / "saved"),
                                   full_validation_every=0,
@@ -3436,9 +3784,11 @@ def run_paths(device) -> list[dict]:
     cfg, _ = path_model("PGAT")
     drop = cfg["arch"]["args"]["feat_drop"]
     records = []
-    for path in ("PGAT", "PGAT-bf16", "PGAT-concat", "PGAT-concat-bf16"):
+    for path in ("PGAT", "PGAT-bf16", "PGAT-concat", "PGAT-concat-bf16",
+                 *CONFIG_PATHS):
+        path_drop = load_config(PATHS[path][0])["arch"]["args"]["feat_drop"]
         records += timed(f"kernels {path}", phase_kernels, BATCH, device,
-                         drop, path)
+                         path_drop, path)
     records += timed("kernels tp", phase_tp_kernels, BATCH, device, drop)
     for path in ("PGCN", "PGCN-concat"):
         records += timed(f"kernels {path}", phase_gcn_kernels, BATCH, device,
@@ -3448,8 +3798,14 @@ def run_paths(device) -> list[dict]:
                      mtl_cfg["arch"]["args"]["feat_drop"])
     records += timed("kernels halo", phase_halo_kernels, device, TRAIN_NODES,
                      BATCH, cfg["arch"]["args"]["in_dim"])
+    records += timed("kernels MAG-Full", phase_mag_full_kernels, device)
     serving = {path: timed(f"serving {path}", phase_serving, device, NODES,
                            N_NOVEL, SEED, path) for path in SERVING_PATHS}
+    # MAG-Full serving: its kernel entries read both CLIs' launches
+    mag_full = timed("mag_full", phase_mag_full, device)
+    serving["MAG-Full"] = {"launches": {
+        name: sum(by_cli[name] for by_cli in mag_full["launches"].values())
+        for name in mag_full["launches"]["test_fast"]}}
     training = {path: timed(f"training {path}", phase_training, device,
                             TRAIN_NODES, epochs, SEED, path)
                 for path, epochs in TRAINING_PATHS.items()}
@@ -3486,6 +3842,11 @@ def run_paths(device) -> list[dict]:
         path: training[path]["median_step_ms"]
         for path in ("PGAT", "PGAT-concat", "PGAT-bf16", "PGAT-concat-bf16",
                      "PGCN", "PGCN-concat")})
+    # the other configuration files' median train step (64 groups a step)
+    emit("config_steps", card=nvidia_smi_line(), median_step_ms={
+        path: training[path]["median_step_ms"] for path in CONFIG_PATHS},
+        egonets_per_step={path: training[path]["egonets_per_step"]
+                          for path in CONFIG_PATHS})
     emit("phase_seconds", **seconds)
     kernels = []
     for rec in records:

@@ -5,6 +5,8 @@ device raises instead of quietly running on the CPU.
 """
 from __future__ import annotations
 
+import resource
+
 import torch
 
 
@@ -24,3 +26,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
     return dev
+
+
+def memory_peaks(device: torch.device) -> str:
+    """The process's peak memory so far, as the CLIs log it: the device's
+    peak allocation (`torch.cuda.max_memory_allocated`; 0 on the CPU) and
+    the host's maximum resident set size (getrusage, KiB on Linux)."""
+    dev = torch.device(device)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    return f"peak device memory {peak} bytes, host max RSS {rss} KiB"

@@ -70,6 +70,11 @@ class TaxonomyRanker:
         self._anchor_cache = None
         self._query_cache = None
         self._table = torch.from_numpy(self.feature_table).to(self.device)
+        # wall seconds of the last run of each stage: "anchor_arrays" (the
+        # candidate egonets on the host), "encode" (their encoding, the
+        # anchor arrays excluded), "query_prep" (evaluate's host prep),
+        # "rank" (scoring and ranking every query)
+        self.timing: dict[str, float] = {}
 
     def refresh(self, params: dict) -> None:
         """Re-point the ranker at fresh parameters (per-epoch full-catalog
@@ -87,9 +92,11 @@ class TaxonomyRanker:
         """(node_ids, ngp, nsib) host arrays of every candidate egonet,
         built once in one vectorised CSR pass."""
         if self._anchor_cache is None:
+            t0 = time.time()
             ego = self.sampler.anchor_ego_batch(
                 np.asarray(self.candidates, dtype=np.int64))
             self._anchor_cache = (ego.node_ids, ego.ngp, ego.nsib)
+            self.timing["anchor_arrays"] = time.time() - t0
         return self._anchor_cache
 
     # ------------------------------------------------------------ phase 1
@@ -99,8 +106,8 @@ class TaxonomyRanker:
         ranker's device."""
         if self._hg is not None:
             return self._hg
-        t0 = time.time()
         node_ids, ngp, nsib = self._anchor_arrays()
+        t0 = time.time()
         n = len(node_ids)
         if self.dp is not None:
             # this rank's share of the candidates padded with empty egonets
@@ -126,8 +133,9 @@ class TaxonomyRanker:
             self._hg = distributed.all_gather_cat(self._hg, self.dp)[:n]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self.timing["encode"] = time.time() - t0
         logger.info("Encoded %d candidate positions in %.2fs",
-                    len(self.candidates), time.time() - t0)
+                    len(self.candidates), self.timing["encode"])
         return self._hg
 
     # ------------------------------------------------------------ phase 2
@@ -160,9 +168,13 @@ class TaxonomyRanker:
         queries = list(s.node_list)
         metric_fns = [metrics_mod.get_metric(m) for m in metric_names]
         n_cand = len(self.candidates)
+        self.encode_all_anchors()
+        t0 = time.time()
         qf, mask_pairs, pos_cols, pos_lists = self._query_prep()
+        t1 = time.time()
         ranks_all, top5_all = self._rank_on_device(
             qf, mask_pairs, pos_cols, rank_mode, prior_lambda=prior_lambda)
+        self.timing.update(query_prep=t1 - t0, rank=time.time() - t1)
 
         totals = np.zeros(len(metric_fns))
         cases: list[list[str]] = []
@@ -397,8 +409,12 @@ def _set_columns(mask: torch.Tensor, cols: torch.Tensor,
 
 def _stable_top(key: torch.Tensor, n: int) -> torch.Tensor:
     """Column indices of each row's n largest keys, ties lowest index first
-    (the order of `lax.top_k`)."""
-    return torch.sort(key, dim=1, descending=True, stable=True)[1][:, :n]
+    (the order of `lax.top_k`), in a tensor of their own: a slice of the
+    sort's [q, C] int64 indices would keep all of them alive while the
+    callers collect every query chunk's (45 GB over 17,777 queries x
+    319,446 candidates)."""
+    return torch.sort(key, dim=1, descending=True, stable=True)[1][
+        :, :n].clone()
 
 
 def _topk_mask(dist: torch.Tensor, k: int) -> torch.Tensor:

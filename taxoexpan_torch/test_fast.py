@@ -20,6 +20,7 @@ import time
 
 from . import builders
 from .config import load_run_config, setup_logging
+from .device import memory_peaks
 from .parallel import distributed, mesh
 from .evaluation.ranker import TaxonomyRanker
 from .weights import load_jax_checkpoint, restore_params
@@ -89,6 +90,9 @@ def main(args) -> dict:
     logger.info("stage timing: data+sampler %.1fs, checkpoint %.1fs, "
                 "encode %.1fs, rank %.1fs", t_data - t0, t_ckpt - t_data,
                 t_encode - t_ckpt, time.time() - t_encode)
+    logger.info("ranker stages: %s", ", ".join(
+        f"{k} {v:.2f}s" for k, v in ranker.timing.items()))
+    logger.info("%s", memory_peaks(device))
     if args.case and distributed.rank() == 0:
         # the metrics are the same on every process; one writes
         with open(args.case, "w") as fout:

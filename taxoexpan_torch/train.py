@@ -31,6 +31,7 @@ import torch
 
 from . import builders
 from .config import ConfigParser, CustomArg
+from .device import memory_peaks
 from .parallel import distributed, mesh
 from .training import Trainer
 from .tree import tree_leaves
@@ -121,10 +122,12 @@ def _parallel(config):
 
 def main(config: ConfigParser) -> dict:
     """Train as the config says; returns the last epoch's log."""
+    t0 = time.time()
     device = distributed.rank_device(config.args.device)
     layout, feature_mode = _parallel(config)
     taxonomy = builders.build_taxonomy(
         config["train_data_loader"]["args"]["data_path"])
+    t_data = time.time()
     train_cfg = config["train_data_loader"]["args"]
     train_sampler = builders.build_sampler(taxonomy, train_cfg, "train")
     train_loader = builders.build_loader(train_sampler, train_cfg)
@@ -143,6 +146,8 @@ def main(config: ConfigParser) -> dict:
             full_valid_sampler = builders.build_sampler(taxonomy, fv_cfg,
                                                         "validation")
 
+    logger.info("setup timing: data %.1fs, samplers %.1fs",
+                t_data - t0, time.time() - t_data)
     model = builders.build_model(
         config["arch"], max_parents=train_sampler.max_parents,
         expand_factor=train_sampler.expand_factor)
@@ -171,6 +176,7 @@ def main(config: ConfigParser) -> dict:
     start = time.time()
     log = trainer.train()
     logger.info("Finish training in %.1f seconds", time.time() - start)
+    logger.info("%s", memory_peaks(device))
     return log
 
 

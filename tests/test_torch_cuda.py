@@ -1470,6 +1470,83 @@ def test_concat_widths_match_plain(dev, kernel, dtype, b, small):
         assert float(got["x"][~valid].float().abs().max()) == 0.0
 
 
+# ----------------- the other configuration files' widths and slot counts
+
+CONFIG_CASES = {
+    # case: (p, s, din, heads, dh, pos, pooled)
+    "wordnet_layer0": (13, 40, 300, 4, 600, 50, False),       # N = 54
+    "wordnet_final": (13, 40, 2400, 1, 300, 50, True),
+    "semeval_noun_layer0": (13, 50, 300, 4, 600, 100, False),  # N = 64
+    "semeval_noun_final": (13, 50, 2400, 1, 600, 100, True),
+    "synthetic_layer0": (13, 16, 64, 4, 128, 32, False),      # N = 30
+    "synthetic_final": (13, 16, 512, 1, 128, 32, True),
+}
+
+
+@pytest.mark.parametrize("case", list(CONFIG_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,small", [(7, False), (2, True)])
+def test_config_widths_match_plain(dev, case, dtype, b, small):
+    """K1-K4 at the widths and slot counts of config.wordnet.json,
+    config.semeval_noun.json and config.synthetic.json (layer 0: 300 + pe
+    50 or 100 -> 4 x 600, 64 + 32 -> 4 x 128; the pooled final layer: 2400
+    + 50 -> 1 x 300, 2400 + 100 -> 1 x 600, 512 + 32 -> 1 x 128; N = 54,
+    64, 30), in float32 and bf16, against their plain versions: the eval
+    form, the train form (the pe path, dropout 0.1) and the backward (layer
+    0's with need_dx on and off, the pooled one's on), at a ragged B = 7
+    and at B = 2 with every egonet small (the valid rows below one 64-row
+    tile, B * N at most one 128-row tile); the bf16 forwards take the fused
+    form (per slot) and the valid-rows form (pooled)."""
+    p, s, din, heads, dh, pos, pooled = CONFIG_CASES[case]
+    n = p + 1 + s
+    low = dtype == torch.bfloat16
+    close = _assert_close_bf16 if low else (
+        lambda a, b_, name: torch.testing.assert_close(a, b_, **TOL))
+    grads = _assert_grads_bf16 if low else _assert_grads
+    t = _inputs(dev, b, p, s, din, heads, dh, seed=70)
+    if small:
+        _small_egonets(t, p, s)
+    if low:
+        t = _bf16(t)
+    pe = _pe_pack(dev, n, pos, heads, dh, seed=71)
+    kw = dict(pe_pack=pe, seed=72, feat_drop=0.1, attn_drop=0.1)
+    fwd = gk.gat_layer_pooled_fwd if pooled else gk.gat_layer_fwd
+    forms = dict(fwd.launches_by_form)
+    gen = torch.Generator(dev).manual_seed(73)
+    if pooled:  # the pools are float32 in either dtype
+        torch.testing.assert_close(
+            gk.gat_layer_pooled_fwd(*t, p, heads),
+            gk.gat_layer_pooled_fwd_plain(*t, p, heads), **TOL)
+        torch.testing.assert_close(
+            gk.gat_layer_pooled_fwd_train(*t, p, heads, **kw),
+            gk.gat_layer_train_plain(*t, p, heads, pooled=True, **kw), **TOL)
+        g = torch.randn((b, 3, dh), device=dev, generator=gen)
+    else:
+        kw["out_alpha"] = 0.01
+        close(gk.gat_layer_fwd(*t, p, heads, out_alpha=0.01),
+              gk.gat_layer_fwd_plain(*t, p, heads, 0.01), "eval")
+        close(gk.gat_layer_fwd_train(*t, p, heads, **kw),
+              gk.gat_layer_train_plain(*t, p, heads, **kw), "train")
+        g = torch.randn((b, n, heads * dh), device=dev, generator=gen) * 1e-2
+        # leaky' jumps at 0: no grad near the kink
+        pre = gk.gat_layer_train_plain(*t, p, heads,
+                                       **dict(kw, out_alpha=None))
+        g = (g * (pre.float().abs() > 1e-5)).to(dtype)
+    torch.cuda.synchronize()
+    if low:
+        form = "valid_rows" if pooled else "fused"
+        assert fwd.launches_by_form.get(form, 0) == forms.get(form, 0) + 1
+    bwd = gk.gat_layer_pooled_bwd if pooled else gk.gat_layer_bwd
+    for need_dx in (True,) if pooled else (True, False):
+        got = bwd(g, *t, p, heads, need_dx=need_dx, **kw)
+        torch.cuda.synchronize()
+        grads(got, gk.gat_layer_bwd_plain(g, *t, p, heads, pooled=pooled,
+                                          need_dx=need_dx, **kw))
+        if pooled:
+            valid = star.node_mask(t[7], t[8], p, n)
+            assert float(got["x"][~valid].float().abs().max()) == 0.0
+
+
 # -------------------------------------------- K5 bf16's valid-rows form
 
 def _gcn_egonets(ops, p, s, sizes):

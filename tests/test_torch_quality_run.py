@@ -51,13 +51,26 @@ def test_simple_parent_matches_jax(taxonomies):
         assert got[key] == value, key
 
 
+def test_simple_parent_in_query_chunks_matches_jax(taxonomies, monkeypatch):
+    """simple_parent holds [QUERY_CHUNK, C] distances at a time (at MAG-Full
+    scale the whole matrix is 17,777 x 319,446 float32, 22.7 GB): chunks
+    of 3 queries give the JAX baseline's unchunked metrics exactly."""
+    jt, tt = taxonomies
+    monkeypatch.setattr(t_parent, "QUERY_CHUNK", 3)
+    want, got = j_parent.evaluate(jt), t_parent.evaluate(tt)
+    assert len(tt.test_node_ids) > 3 * 3
+    for key, value in want.items():
+        assert got[key] == value, key
+
+
 def test_reference_scale_run_end_to_end_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
     out = tmp_path / "REPORT.md"
     res = reference_scale_run.main([
         "--device", "cpu", "--work", str(tmp_path / "work"), "--out",
         str(out), "--nodes", "150", "--dim", "16", "--hidden", "8", "--pos",
-        "4", "--batch_size", "16", "--epochs", "2", "--no_tensorboard"])
+        "4", "--batch_size", "16", "--epochs", "2", "--no_tensorboard",
+        "--eval_batch_size", "64"])
     assert [r["epoch"] for r in res["epochs"]] == [1, 2]
     for row in res["epochs"]:
         assert {"wait_s", "step_s", "sync_s", "valid_s", "checkpoint_s",
@@ -70,3 +83,15 @@ def test_reference_scale_run_end_to_end_on_cpu(tmp_path, monkeypatch):
     assert "| macro_mr | " in text and "1.0886075949367089" in text
     assert "- card: cpu (no card)" in text
     assert (tmp_path / "work" / "train.log").exists()
+    # the evaluation's anchor chunk passed through to test_fast, and every
+    # stage, memory peak and the checkpoint's size in the report
+    assert "test_fast -r model_best.ckpt -b 64" in text
+    stages = res["stages"]
+    assert {"data", "samplers"} == set(stages["train_setup"])
+    assert {"data", "checkpoint", "encode", "rank"} == set(
+        stages["eval_stages"])
+    for run in ("train_memory", "eval_memory"):
+        assert stages[run]["device_bytes"] == 0    # the CPU
+        assert stages[run]["host_rss_kib"] > 0
+    assert stages["ckpt_bytes"] > 0 and "not logged" not in text
+    assert res["simple_parent"]["num_queries"] > 0

@@ -129,3 +129,34 @@ def test_topk_mask_ties_and_short_rows():
         np.testing.assert_array_equal(
             t_topk_mask(torch.from_numpy(dist), k).numpy(),
             np.asarray(j_topk_mask(jnp.asarray(dist), k)))
+
+
+def test_rank_chunks_keep_only_their_top5(taxonomies, monkeypatch):
+    """evaluate collects each query chunk's top-5 columns; each must own
+    its [q, 5] storage, not be a slice of the chunk's sorted [q, C] int64
+    indices, which would keep every chunk's alive to the end of the
+    ranking (at MAG-Full scale 17,777 x 319,446 x 8 bytes = 45 GB, the
+    peak device memory of test_fast -b 30000 was 54.75 GB). Ranks and
+    predictions as before."""
+    from taxoexpan_torch.evaluation import ranker as ranker_mod
+    _, tt = taxonomies
+    ts = tbuilders.build_sampler(tt, CFG, "test")
+    tm = tbuilders.build_model({"args": ARCH}, max_parents=ts.max_parents,
+                               expand_factor=ts.expand_factor)
+    ranker = TRanker(tm, tm.init(torch.Generator().manual_seed(0)), ts,
+                     ts.node_features, device="cpu", query_chunk=2)
+    tops = []
+    top = ranker_mod._stable_top
+
+    def kept(key, n):
+        out = top(key, n)
+        tops.append((out, key.shape))
+        return out
+    monkeypatch.setattr(ranker_mod, "_stable_top", kept)
+    result, cases = ranker.evaluate(METRICS, 1, case_study=True)
+    assert len(tops) == -(-len(ts.node_list) // 2) > 1
+    for out, (q, c) in tops:
+        assert c > 5 and out.shape == (q, 5)
+        assert out.untyped_storage().nbytes() == q * 5 * 8
+    assert len(cases) == 1 + len(ts.node_list)
+    assert np.isfinite(result["macro_mr"])
