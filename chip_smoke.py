@@ -45,9 +45,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               (`matmul_ms`: x @ W for a forward, the dW product x^T @ D for
               a backward; not the layer, so the `library_ms` of the kernels
               line is null), beside the least time the card could take
-              (`bound_ms`, at the float32 rate; where the form's products
-              run on the tensor cores in 3xTF32, also `bound_3xtf32_ms`
-              at a third of the dense TF32 rate). Every form also gives
+              (`bound_ms`: the float32 forms' products run on the tensor
+              cores in 3xTF32, so at a third of the dense TF32 rate; also
+              `bound_fma_ms`, the same work at the float32 FMA rate
+              outside the tensor cores, which the kernels beat). Every
+              form also gives
               its time by pass (`passes_ms`, CUDA events the kernel library
               records between its launches: staging and packing, the
               projection, the star or pooled star pass; the head core or
@@ -57,7 +59,13 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               and the product with the star pass in its epilogue; the
               pooled valid-rows form's counting and compacted staging of
               the valid rows, the projection on them, the pooled star
-              pass). The pooled
+              pass; K4's first pass, in either dtype, counts and compacts
+              the valid rows). Every GAT form's entry also gives
+              `products` (`product_rates`): each product pass's rows (all
+              B*N, or K4's valid rows R), TFLOP/s (float32: float32-
+              equivalent, three TF32 products on the tensor cores a
+              float32 one) and one torch.matmul of its shape in the form's
+              dtype (float32 with TF32 off) as a yardstick. The pooled
               star pass of K3 and K5f's star pass are also held alone
               against their plain versions on the projection the card
               computes (`star_alone`).
@@ -259,11 +267,11 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# HBM bandwidth and float32 outside the tensor cores (the kernels compute
-# at float32 accuracy; plain TF32 would break parity with the plain
-# versions); the forms whose products run on the tensor cores in 3xTF32
-# (three TF32 products a float32 one) also get a bound at a third of the
-# dense TF32 rate
+# HBM bandwidth; the float32 forms compute at float32 accuracy with their
+# products on the tensor cores in 3xTF32 (three TF32 products a float32
+# one; plain TF32 would break parity with the plain versions), so they are
+# bounded at a third of the dense TF32 rate; the float32 FMA rate outside
+# the tensor cores is kept beside it as `bound_fma_ms`
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_3XTF32_FLOP_PER_S = 495e12 / 3
@@ -674,24 +682,27 @@ def gcn_bwd_work(x, ops, pe_pack, g, grads: dict, ngp, nsib, alpha):
 
 def _bound(nbytes: float, flops: float, tensor_cores: bool = False,
            bf16: bool = False) -> dict:
-    """The least time for the work at the float32 rate (`bound_ms`) and,
-    for a form whose products run on the tensor cores, at 3xTF32's
-    (`bound_3xtf32_ms`, all its operations counted at that rate); for a
-    bf16 form `bound_ms` at the dense bf16 tensor-core rate."""
+    """The least time for the work: its bytes at the HBM rate or its
+    operations at the peak rate of the units that run them, whichever is
+    longer (`bound_ms`). A bf16 form's operations run at the dense bf16
+    tensor-core rate; a float32 form whose products run on the tensor cores
+    in 3xTF32 (`tensor_cores`) at 3xTF32's, all its operations counted at
+    that rate, with the float32 FMA rate's figure beside it as
+    `bound_fma_ms`; any other form at the float32 FMA rate."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    res = {"bytes": nbytes, "operations": flops}
     if bf16:
-        t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
-        return {"bytes": nbytes, "operations": flops,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bound_rate": "bf16 989 TFLOP/s"}
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
-    res = {"bytes": nbytes, "operations": flops,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    if tensor_cores:
-        res["bound_3xtf32_ms"] = max(
-            t_bytes, flops / PEAK_3XTF32_FLOP_PER_S * 1e3)
+        rate, res["bound_rate"] = PEAK_BF16_FLOP_PER_S, "bf16 989 TFLOP/s"
+    elif tensor_cores:
+        rate = PEAK_3XTF32_FLOP_PER_S
+        res["bound_rate"] = "3xTF32 165 TFLOP/s"
+        res["bound_fma_ms"] = max(
+            t_bytes, flops / PEAK_F32_FLOP_PER_S * 1e3)
+    else:
+        rate, res["bound_rate"] = PEAK_F32_FLOP_PER_S, "float32 67 TFLOP/s"
+    t_ops = flops / rate * 1e3
+    res["bound_ms"] = max(t_bytes, t_ops)
+    res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return res
 
 
@@ -744,14 +755,16 @@ def fwd_passes(x, pooled: bool, store: bool = False) -> str:
 def product_rates(x, ops, pe_pack, heads: int, ngp, nsib, passes: dict,
                   backward: bool, pooled: bool, need_dx: bool,
                   store: bool = False) -> dict:
-    """The product passes of a bf16 star-GAT form (csrc/gemm_wgmma.cuh): for
-    the projection (the fused forward: pass A, a1 | a2, and the fused
-    product, ft with the star pass in its epilogue) and, in a backward, dW
-    (with its split reduction) and dx (with the dpe sums), the rows it runs
-    (all B*N, or the valid rows R of K4 and of the pooled forward's
-    valid-rows form), its operations, its TFLOP/s from its pass ms, and
-    one bf16 torch.matmul (cuBLAS) at the same shape on random operands as
-    a yardstick, not used by the port."""
+    """The product passes of a star-GAT form (csrc/gemm_wgmma.cuh: bf16, or
+    3xTF32 for float32): for the projection (the fused forward: pass A,
+    a1 | a2, and the fused product, ft with the star pass in its epilogue)
+    and, in a backward, dW (with its operand transposed into hi / lo
+    planes in float32, and its split reduction) and dx (with the dpe
+    sums), the rows it runs (all B*N, or the valid rows R of K4 and of the
+    pooled bf16 forward's valid-rows form), its operations, its TFLOP/s
+    (float32: float32-equivalent) from its pass ms, and one torch.matmul
+    (cuBLAS) at the same shape on random operands of x's dtype (float32:
+    full float32, TF32 off) as a yardstick, not used by the port."""
     import torch
     from taxoexpan_torch.ops import gat_kernels as gk
     b, n, din = x.shape
@@ -774,13 +787,12 @@ def product_rates(x, ops, pe_pack, heads: int, ngp, nsib, passes: dict,
         if cols:
             shapes["dx"] = ((rows, wd), (wd, cols), False)
     out = {"rows": rows, "valid_rows": valid, **({"form": form} if form
-                                                  else {})}
+                                                  else {}),
+           "matmul_dtype": str(x.dtype).replace("torch.", "")}
     gen = torch.Generator(device=x.device).manual_seed(SEED)
     for name, (sa, sb, trans) in shapes.items():
-        a = torch.randn(sa, generator=gen, device=x.device,
-                        dtype=torch.bfloat16)
-        w = torch.randn(sb, generator=gen, device=x.device,
-                        dtype=torch.bfloat16)
+        a = torch.randn(sa, generator=gen, device=x.device, dtype=x.dtype)
+        w = torch.randn(sb, generator=gen, device=x.device, dtype=x.dtype)
         mm, kk = (sa[1], sa[0]) if trans else sa
         flops = 2.0 * mm * kk * sb[1]
         lib_ms = time_ms((lambda: a.T @ w) if trans else (lambda: a @ w), 5)
@@ -1098,10 +1110,9 @@ def phase_kernels(batch: int, device, drop: float,
         got, nums = measure(name, kernel, plain, backward, matmul,
                             bwd_passes(x) if backward
                             else fwd_passes(x, pooled))
-        if bf16:
-            nums["products"] = product_rates(
-                x, ops, pe_pack, heads, ngp, nsib, nums["passes_ms"],
-                backward, pooled, bool(need_dx))
+        nums["products"] = product_rates(
+            x, ops, pe_pack, heads, ngp, nsib, nums["passes_ms"], backward,
+            pooled, bool(need_dx))
         if pooled and not backward:
             nums["star_alone"] = pooled_star_alone(
                 name, x, ops, ngp, nsib, heads,
@@ -1203,10 +1214,9 @@ def store_entries(tag: str, path: str, pooled: bool, x, ops, pe_pack,
     if pooled:
         nums["star_alone"] = pooled_star_alone(name + tag, x, ops, ngp, nsib,
                                                heads, train_kw, store=True)
-    if x.dtype == torch.bfloat16:
-        nums["products"] = product_rates(x, ops, pe_pack, heads, ngp, nsib,
-                                         nums["passes_ms"], False, pooled,
-                                         False, store=True)
+    nums["products"] = product_rates(x, ops, pe_pack, heads, ngp, nsib,
+                                     nums["passes_ms"], False, pooled,
+                                     False, store=True)
     records = [gat_record(
         name + tag, name, path, False, x, fc, pe_pack, nums,
         fwd_work(pooled, x, ops, pe_pack, ngp, nsib, heads, out, attn),
@@ -1222,10 +1232,9 @@ def store_entries(tag: str, path: str, pooled: bool, x, ops, pe_pack,
                                        stored_attn=attn, **bkw),
         True, lambda: x2.T @ d, bwd_passes(x))
     del d
-    if x.dtype == torch.bfloat16:
-        nums["products"] = product_rates(x, ops, pe_pack, heads, ngp, nsib,
-                                         nums["passes_ms"], True, pooled,
-                                         need_dx)
+    nums["products"] = product_rates(x, ops, pe_pack, heads, ngp, nsib,
+                                     nums["passes_ms"], True, pooled,
+                                     need_dx)
     rel = stored_vs_recompute(name + tag, grads, recompute_w(
         g, *ops_all, need_dbias=False, **bkw))
     records.append(gat_record(
@@ -1283,10 +1292,9 @@ def phase_mtl_kernels(batch: int, device, drop: float) -> list[dict]:
                                      out_alpha=out_alpha),
             lambda: gk.gat_layer_fwd_plain(x, *ops, *args, heads, out_alpha),
             False, lambda: x2 @ ops[0], fwd_passes(x, False))
-        if x.dtype == torch.bfloat16:
-            nums["products"] = product_rates(x, ops, None, heads, ngp, nsib,
-                                             nums["passes_ms"], False, False,
-                                             False)
+        nums["products"] = product_rates(x, ops, None, heads, ngp, nsib,
+                                         nums["passes_ms"], False, False,
+                                         False)
         return got, gat_record(
             f"{name}{tag}", name, path, False, x, ops[0], None, nums,
             fwd_work(False, x, ops, None, ngp, nsib, heads, got),

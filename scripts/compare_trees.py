@@ -42,8 +42,12 @@ def parse(stdout: str) -> dict:
         if phase == "kernel":
             res["kernels"].setdefault(rec["name"], {}).update(
                 ms=rec["ms"], plain_ms=rec["plain_ms"],
-                bound_ms=rec["bound_ms"],
-                bound_3xtf32_ms=rec.get("bound_3xtf32_ms"),
+                # an older chip_smoke.py gave the float32 FMA rate's bound
+                # as `bound_ms` and 3xTF32's as `bound_3xtf32_ms`
+                bound_ms=rec.get("bound_3xtf32_ms", rec["bound_ms"]),
+                bound_fma_ms=rec.get("bound_fma_ms",
+                                     rec["bound_ms"] if "bound_3xtf32_ms"
+                                     in rec else None),
                 passes_ms=rec.get("passes_ms"))
         elif phase == "training" and "median_step_ms" in rec:
             res["step_ms"][rec["path"]] = rec["median_step_ms"]

@@ -7,11 +7,14 @@
 //   stage_input_kernel     X once into a workspace (gemm_tf32.cuh), when the
 //                          layer has masks or a pe path or x's rows are not
 //                          16-byte multiples; else the products read x;
-//   pack_weights_kernel    W^T over the input columns the dx product needs;
-//   dW = X^T @ D           the tensor-core product (gemm_tf32.cuh's 3xTF32,
-//                          or in a bf16 layer gemm_wgmma.cuh's bf16 on D in
-//                          bf16), A read M-major, split-K over the rows,
-//                          float32 partial sums per split in a workspace;
+//   pack_weights_kernel    W^T over the input columns the dx product needs
+//                          (float32: W's rows, TF32 hi / lo planes);
+//   dW = X^T @ D           the tensor-core product (gemm_wgmma.cuh: 3xTF32,
+//                          or in a bf16 layer bf16 on D in bf16), A read
+//                          M-major (float32: B, the narrower of X and D,
+//                          transposed into planes, dw_operands), split-K
+//                          over the rows, float32 partial sums per split
+//                          in a workspace;
 //   reduce_scatter_kernel  adds the splits in a fixed order and scatters
 //                          the rows and column blocks into the weight grads
 //                          (the x rows' in the layer's element type, so
@@ -54,24 +57,26 @@ __global__ void colsum_partial_kernel(const float* __restrict__ src,
   part[blockIdx.y * rw + i] = sum;
 }
 
-// Adds nsplit partial [rows, cols] matrices in split order and scatters the
-// result into up to six outputs: row blocks [0, row_split) (o0-o2, of
-// element type O) and [row_split, rows) (o3-o5, float), column blocks
-// [0, c1), [c1, c2), [c2, c3); columns from c3 on (padding) are dropped.
+// Adds nsplit partial [rows, cols] matrices (trans: [cols, rows]) in split
+// order and scatters the result into up to six outputs: row blocks
+// [0, row_split) (o0-o2, of element type O) and [row_split, rows) (o3-o5,
+// float), column blocks [0, c1), [c1, c2), [c2, c3); columns from c3 on
+// (padding) are dropped.
 template <class O>
 __global__ void reduce_scatter_kernel(const float* __restrict__ part,
                                       int nsplit, long long rows, int cols,
                                       int row_split, int c1, int c2, int c3,
                                       O* o0, O* o1, O* o2, float* o3,
-                                      float* o4, float* o5) {
+                                      float* o4, float* o5, int trans = 0) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long total = rows * cols;
   if (i >= total) return;
   const long long r = i / cols;
   const int c = (int)(i % cols);
   if (c >= c3) return;
+  const long long at = trans ? c * rows + r : i;
   float sum = 0.f;
-  for (int s = 0; s < nsplit; ++s) sum += part[(size_t)s * total + i];
+  for (int s = 0; s < nsplit; ++s) sum += part[(size_t)s * total + at];
   const bool lower = r >= row_split;
   const long long rr = lower ? r - row_split : r;
   int blk, cc, width;
@@ -110,6 +115,69 @@ inline cudaError_t sum_over_egonets(const float* src, long long nb,
       part, chunks, rows, cols, (int)rows, width, width, width, out, nullptr,
       nullptr, nullptr, nullptr, nullptr);
   return cudaGetLastError();
+}
+
+// The dW product of a float32 layer, dW = X^T @ D over the batch's rows,
+// reads its B K-major (gemm_wgmma.cuh), neither X [rows][kx] nor D
+// [rows][wd] is, so B is the transpose of the narrower of the two, in hi /
+// lo planes [2][cols_p][ldr] (transpose_split_kernel: twice the bytes of
+// the narrower operand, written once; config.mag.json's layer 0 X^T, 2 x
+// 315 MB at B = 4096, its final layer D^T on the valid rows, 2 x 267 MB),
+// and A the other, read M-major as it lies. bx: B = X^T (kx <= wd), the
+// product then computes dW^T, which the reduction reads transposed.
+struct DwOperands {
+  bool bx;
+  int cols, cols_p;  // B's rows: X's or D's columns, and their padding
+  long long ldr;     // the planes' row stride: the rows rounded up to 4
+};
+
+inline DwOperands dw_operands(int kx, int kxp, int wd, int wdp,
+                              long long rows_alloc) {
+  DwOperands o;
+  o.bx = kx <= wd;
+  o.cols = o.bx ? kx : wd;
+  o.cols_p = o.bx ? kxp : wdp;
+  o.ldr = (rows_alloc + 3) / 4 * 4;
+  return o;
+}
+
+// dst [2][cols_p][ldr]: dst[c][r] = tf32(src[r][c]) (the hi plane,
+// rounded to nearest) and src[r][c] - hi (the lo plane, from cols_p * ldr
+// on), for rows r < R (*rows_dev, counted on the card, where given; else
+// `rows`) and columns c < cols, zero for the columns [cols, cols_p) and the
+// rows [R, R rounded up to 32) (the product's last K tile); rows past
+// those are not written (the product reads no further). 32 x 32 tiles
+// through shared memory, so that reads and writes are coalesced; bound by
+// bytes (one read, two writes).
+__global__ void transpose_split_kernel(const float* __restrict__ src,
+                                       long long lds, int cols, int cols_p,
+                                       long long rows,
+                                       const int* __restrict__ rows_dev,
+                                       long long ldr,
+                                       float* __restrict__ dst) {
+  __shared__ float tile[32][33];
+  const long long nr =
+      rows_dev != nullptr ? min((long long)*rows_dev, rows) : rows;
+  const long long r0 = (long long)blockIdx.x * 32;
+  if (r0 >= (nr + 31) / 32 * 32) return;
+  const int c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;  // 32 x 8 threads
+  for (int q = ty; q < 32; q += 8) {
+    const long long r = r0 + q;
+    const int c = c0 + tx;
+    tile[q][tx] = r < nr && c < cols ? src[r * lds + c] : 0.f;
+  }
+  __syncthreads();
+  const long long plane = (long long)cols_p * ldr;
+  for (int q = ty; q < 32; q += 8) {
+    const long long c = c0 + q, r = r0 + tx;
+    if (c < cols_p && r < ldr) {
+      const float v = tile[tx][q];
+      const float hi = __uint_as_float(tf32_bits(v));
+      dst[c * ldr + r] = hi;
+      dst[plane + c * ldr + r] = v - hi;
+    }
+  }
 }
 
 // Device events between a backward's passes (or a forward's launches),
@@ -153,6 +221,8 @@ struct ProductWorkT {
   E* wt;          // [wdp, ntp] W^T over the input columns [kbeg, din + pos)
   float* part_w;  // [splits, din + pos, wd]
   int kxp, wdp, ntp, splits;
+  float* bt = nullptr;  // float only: the dW product's B planes
+                        // (dw_operands), [2][kxp or wdp][ldr]
 };
 using ProductWork = ProductWorkT<float>;
 
@@ -177,8 +247,8 @@ inline cudaError_t stage_and_pack(const OperandT<E>& op, const TrainArgs& ta,
 }
 
 // ------------------------------------------------------- the valid rows
-// K3 bf16 (gat_fwd.cu) and K4 bf16 (gat_bwd.cu) run their products on the
-// valid rows of the batch alone, compacted in order (each egonet's
+// K3 bf16 (gat_fwd.cu) and K4 (gat_bwd.cu, both dtypes) run their products
+// on the valid rows of the batch alone, compacted in order (each egonet's
 // grandparents, anchor, siblings), counted and scanned on the card.
 
 // The slot of row r in egonet b's valid rows (0..ngp-1 the grandparents,
@@ -239,10 +309,11 @@ __global__ void valid_row_offsets_kernel(const int* __restrict__ ngp,
 // the keys of row r) into xc at its compacted row, which row_map records.
 // The backward (K4) also passes dx (need_dx) and pe_rows: an invalid row's
 // dx and pe-row grads are zeroed, the values the reference's formula
-// gives there; and d16. The kRowPad rows after the R valid ones are zero
-// in xc and, where given, d16, for the dW product's last K tile. The
-// forward (K3) passes null for all three.
-template <class E>
+// gives there; and dpad, the products' D (bf16 D, or float32 Dcat). The
+// kRowPad rows after the R valid ones are zero in xc and, where given,
+// dpad, for the dW product's last K tile. The forward (K3) passes null for
+// all three.
+template <class E, class D>
 __global__ void stage_valid_rows_kernel(OperandT<E> op, TrainArgs ta,
                                         const int* __restrict__ ngp,
                                         const int* __restrict__ nsib, int p,
@@ -251,7 +322,7 @@ __global__ void stage_valid_rows_kernel(OperandT<E> op, TrainArgs ta,
                                         int* __restrict__ row_map,
                                         E* __restrict__ dx,
                                         float* __restrict__ pe_rows,
-                                        bf16* __restrict__ d16, int wdp) {
+                                        D* __restrict__ dpad, int wdp) {
   const unsigned kf = stream_key(ta.seed, kStreamFeat);
   const unsigned kp = stream_key(ta.seed, kStreamPe);
   const int n = op.n;
@@ -263,9 +334,9 @@ __global__ void stage_valid_rows_kernel(OperandT<E> op, TrainArgs ta,
       const long long q = off[nb] + (r - m);
       for (int k = lane; k < kxp; k += 32)
         xc[q * kxp + k] = from_float<E>(0.f);
-      if (d16 != nullptr)
+      if (dpad != nullptr)
         for (int k = lane; k < wdp; k += 32)
-          d16[q * wdp + k] = from_float<bf16>(0.f);
+          dpad[q * wdp + k] = from_float<D>(0.f);
       continue;
     }
     const long long b = r / n;
@@ -287,13 +358,13 @@ __global__ void stage_valid_rows_kernel(OperandT<E> op, TrainArgs ta,
 }
 
 // The layer projection P = X @ W + the slot biases, [m, wdp] over all
-// m = b*n rows (X staged and W packed into wcat [kxp, wdp] by
-// stage_and_pack; X is x itself when xm is null): star-GAT W = [fc | wa1 |
+// m = b*n rows (X staged and W packed into wcat by stage_and_pack; X is
+// x itself when xm is null): star-GAT W = [fc | wa1 |
 // wa2; wp | wpa1 | wpa2] with bias_ft, bias_a1, bias_a2, the product the
 // GAT star passes and K2's head core read; star-GCN (gcn.cu) W = [W_h;
 // W_p] with z_bias alone (bias_a1, bias_a2 null), z. P is float32 in
-// either element type (pallas_gat.py:289-291). bf16 only: with `rows`, the
-// m allocated rows of xm hold *rows valid rows (counted on the card, K4's
+// either element type (pallas_gat.py:289-291). With `rows`, the m
+// allocated rows of xm hold *rows valid rows (counted on the card, K4's
 // compaction in gat_bwd.cu), the original row of each in row_map.
 template <class E>
 inline cudaError_t gat_projection(const OperandT<E>& op, const E* xm,
@@ -312,6 +383,10 @@ inline cudaError_t gat_projection(const OperandT<E>& op, const E* xm,
   g.lda = xm != nullptr ? kxp : op.din;
   g.b = wcat;
   g.ldb = wdp;
+  if constexpr (sizeof(E) == 4) {  // W^T planes [2][wdp][kxp]
+    g.b_lo = wcat + (long long)wdp * kxp;
+    g.ldb = kxp;
+  }
   g.c = proj;
   g.ldc = wdp;
   g.m = rows != nullptr ? m + kRowPad : m;
@@ -333,9 +408,9 @@ inline cudaError_t gat_projection(const OperandT<E>& op, const E* xm,
 //  - dx (need_dx) and the pe rows' grads pe_rows [m, pos] = (D @ W^T) *
 //    mask, then dpe [n, pos] = their sum over egonets via part_pe
 //    [chunks, n * pos].
-// bf16 only: with `rows`, X and D hold *rows valid rows of the m allocated
-// ones (zero rows after them up to a K tile), dx and pe_rows keep the
-// original rows (row_map) and are zero elsewhere (gat_bwd.cu).
+// With `rows`, X and D hold *rows valid rows of the m allocated ones (zero
+// rows after them up to a K tile), dx and pe_rows keep the original rows
+// (row_map) and are zero elsewhere (gat_bwd.cu).
 template <class E>
 inline cudaError_t product_grads(const OperandT<E>& op, const TrainArgs& ta,
                                  const E* d, int ldd, long long m,
@@ -349,26 +424,49 @@ inline cudaError_t product_grads(const OperandT<E>& op, const TrainArgs& ta,
   const int kx = op.din + ta.pos;
   const bool staged = work.xm != nullptr;
   const long long rows_alloc = rows != nullptr ? m + kRowPad : m;
+  const E* xs = staged ? work.xm : op.x;
+  const long long ldx = staged ? work.kxp : op.din;
   GemmArgsT<E> g = {};
-  g.a = staged ? work.xm : op.x;
-  g.lda = staged ? work.kxp : op.din;
-  g.b = d;
-  g.ldb = ldd;
   g.c = work.part_w;
-  g.ldc = op.wd;
   g.c_split = (long long)kx * op.wd;
-  g.m = kx;
-  g.n = op.wd;
   g.k = rows_alloc;
-  constexpr int bk = GemmTile<E, 4>::BK;
-  g.k_chunk = ((m + work.splits - 1) / work.splits + bk - 1) / bk * bk;
+  g.k_chunk = ((m + work.splits - 1) / work.splits + 63) / 64 * 64;
   g.rows = rows;
+  int trans = 0;
+  if constexpr (sizeof(E) == 4) {  // B = X^T or D^T in planes (DwOperands)
+    const DwOperands o =
+        dw_operands(kx, work.kxp, op.wd, work.wdp, rows_alloc);
+    if (work.bt == nullptr || (o.cols_p + 31) / 32 > 65535)
+      return cudaErrorInvalidValue;
+    transpose_split_kernel<<<dim3((unsigned)((rows_alloc + 31) / 32),
+                                  (unsigned)((o.cols_p + 31) / 32)),
+                             dim3(32, 8), 0, st>>>(
+        o.bx ? xs : d, o.bx ? ldx : ldd, o.cols, o.cols_p, rows_alloc, rows,
+        o.ldr, work.bt);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    g.a = o.bx ? d : xs;
+    g.lda = o.bx ? ldd : ldx;
+    g.b = work.bt;
+    g.b_lo = work.bt + (long long)o.cols_p * o.ldr;
+    g.ldb = o.ldr;
+    g.m = o.bx ? op.wd : kx;
+    g.n = o.bx ? kx : op.wd;
+    trans = o.bx;
+  } else {
+    g.a = xs;
+    g.lda = ldx;
+    g.b = d;
+    g.ldb = ldd;
+    g.m = kx;
+    g.n = op.wd;
+  }
+  g.ldc = g.n;
   err = product<false, kEpiStore>(g, ta, work.splits, st);
   if (err != cudaSuccess) return err;
   reduce_scatter_kernel<E><<<blocks_for((long long)kx * op.wd), kThreads, 0,
                              st>>>(work.part_w, work.splits, kx, op.wd,
                                    op.din, op.c1, op.c2, op.wd, dw[0], dw[1],
-                                   dw[2], dwp[0], dwp[1], dwp[2]);
+                                   dw[2], dwp[0], dwp[1], dwp[2], trans);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   mark(mk, st);
 
@@ -379,6 +477,10 @@ inline cudaError_t product_grads(const OperandT<E>& op, const TrainArgs& ta,
     x.lda = ldd;
     x.b = work.wt;
     x.ldb = work.ntp;
+    if constexpr (sizeof(E) == 4) {  // W's rows [kbeg, kx): [2][ntp][wdp]
+      x.b_lo = work.wt + (long long)work.ntp * work.wdp;
+      x.ldb = work.wdp;
+    }
     x.m = rows_alloc;
     x.n = kx - kbeg;
     x.k = ldd;

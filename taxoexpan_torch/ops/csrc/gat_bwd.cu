@@ -15,50 +15,62 @@
 // (pallas_gat.py:482-490).
 //
 // Passes, one C entry point (gat_layer_bwd_f32) launching them in order
-// (the products and sums of 0 and 2-4 are bwd_common.cuh's and
-// gemm_tf32.cuh's, shared with gcn.cu):
+// (the products and sums of 0 and 2-4 are bwd_common.cuh's, on
+// gemm_wgmma.cuh's 3xTF32 ring, shared with gcn.cu):
 //  0. the layer input X = [x*m | pe*m_pe] staged once (each mask bit hashed
 //     once) where the layer has masks or a pe path, W packed for the
-//     products; then the projection P = X @ [fc | wa1 | wa2; wp | wpa1 |
-//     wpa2] + the slot biases over all B*N rows ([B*N, wdp], wdp = H*Dh +
-//     2H rounded up to 4, zero in the padding columns) into the Dcat
-//     workspace: the forward's own product (gat_fwd.cu), so a1/a2 and the
-//     recomputed softmax are the forward's bits.
+//     products (W^T and W's rows as TF32 hi / lo planes); then the
+//     projection P = X @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot
+//     biases ([rows, wdp], wdp = H*Dh + 2H rounded up to 4, zero in the
+//     padding columns) into the Dcat workspace: the forward's own product
+//     (gat_fwd.cu), so a1/a2 and the recomputed softmax are the forward's
+//     bits. K2 runs it over all B*N rows; K4 over the valid rows alone, as
+//     K4 bf16 (below): valid_row_offsets_kernel counts and scans them on
+//     the card, stage_valid_rows_kernel stages them compacted with a row
+//     map (R of B*N, about half in the smoke's batch), zeroes dx and the
+//     pe-row grads of the invalid rows (the pool grads never reach them)
+//     and Dcat's kRowPad rows after the valid ones; no host sync.
 //  1. head core, one block per (egonet, head): a1/a2 from P and the softmax
 //     once, then per 128-column tile of the head the ft tile (read from P),
 //     the incoming grad tile (K2: g, chained through leaky'(pre) of the
 //     recomputed pre-activation when the layer fuses out_alpha; K4: the
 //     three pool rows broadcast over the VALID slots and scaled by
 //     1/heads), the dft tile (the aggregation transposed) and the per-edge
-//     d(attention) partial sums over the tile's columns. d(attention)
-//     reduces over the head's whole Dh, so da1/da2 (softmax Jacobian, leaky'
-//     of the logits, the closed-form scatter onto the star,
-//     pallas_gat.py:459-504) follow the tile loop. Writes Dcat = [dft | da1
-//     | da2] over P in place (each block reads its tile before it writes
-//     the same columns; the padding columns stay P's zeros).
-//  2. dW = X^T @ Dcat over all B*N rows, split-K on the tensor cores
-//     (3xTF32), partial sums per split in a workspace, then a second pass
-//     adds the splits in a fixed order and scatters the [din+pos, H*Dh+2H]
-//     result into dfc, dwa1, dwa2 and the pe tail grads dwp, dwpa1, dwpa2.
+//     d(attention) partial sums over the tile's columns, 4 columns a
+//     thread where the head's width allows. d(attention) reduces over the
+//     head's whole Dh, so da1/da2 (softmax Jacobian, leaky' of the
+//     logits, the closed-form scatter onto the star, pallas_gat.py:
+//     459-504) follow the tile loop. Writes Dcat = [dft | da1 | da2] over P
+//     in place (each block reads its tile before it writes the same
+//     columns; the padding columns stay P's zeros). K4 walks a chunk of
+//     egonets a block and adds D into per-chunk slot-bias partial sums
+//     (Dcat holds compacted rows, which no sum over egonets can read).
+//  2. dW = X^T @ Dcat over the rows, split-K by rows on the tensor cores:
+//     the narrower of X and Dcat transposed into TF32 hi / lo planes
+//     (bwd_common.cuh:transpose_split_kernel), the other read M-major;
+//     partial sums per split in a workspace, then a second pass adds the
+//     splits in a fixed order and scatters the [din+pos, H*Dh+2H] result
+//     into dfc, dwa1, dwa2 and the pe tail grads dwp, dwpa1, dwpa2.
 //     Deterministic: no atomics.
-//  3. slot-bias grads: Dcat summed over egonets (chunked partial sums, then
-//     the same fixed-order reduction) into dbias_ft, dbias_a1, dbias_a2.
+//  3. slot-bias grads: K2 sums Dcat over egonets (chunked partial sums,
+//     then the same fixed-order reduction), K4 reduces its head core's
+//     partials, into dbias_ft, dbias_a1, dbias_a2.
 //  4. dx: (Dcat @ [fc | wa1 | wa2; wp | wpa1 | wpa2]^T) * mask on the
 //     tensor cores, skipped for the x columns when need_dx = 0; the pe
 //     columns always, masked and summed over egonets into dpe
-//     (pallas_gat.py:662-677).
-// In the float32 form invalid slots are not skipped: every pass computes
-// the TPU kernel's formula on all N rows, so their grads are whatever the
-// formula gives (zero in K4, where the pool grads never reach them).
+//     (pallas_gat.py:662-677); K4's rows scattered through the row map.
+// K2 computes every row: its invalid slots' grads are whatever the TPU
+// kernel's formula gives there, and the plain version gives the same.
 //
-// What bounds it on an H100: the products. At the config.mag.json shapes
-// the projection is the forward's x @ fc (2 * B*64 * 300 * 2008 flop for
-// layer 0, 2 * B*64 * 2050 * 504 for the final layer), the dW product is as
-// large again and dx (K4) once more; bytes (x, P and Dcat once each, dx)
-// are a few GB. K2 and K4 run all three products on the tensor cores in
-// 3xTF32 (gemm_tf32.cuh), one product a layer instead of one per (egonet,
-// head, column tile); the head core reads P and writes Dcat, a pass bound
-// by bytes, at three blocks an SM for both.
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3 at 700 W, config.mag.
+// json at B = 4096, N = 64, chip_smoke.py's `passes_ms` and `products`):
+// the products, at 97-132 TFLOP/s float32-equivalent (gemm_wgmma.cuh says
+// what bounds them): K2 (250 + 50 -> 4 x 500, 315.8 GFLOP a product) 3.25
+// ms projection, 3.14 dW, 0.84 dx (the pe columns), and its head core,
+// 3.06 ms for 6.3 GB (P and g read, Dcat written: 61 % of 3.35 TB/s);
+// K4 (2000 + 50 -> 1 x 500 on R = 132,501 rows, 273 GFLOP a product)
+// 2.09 projection, 2.54 dW, 3.18 dx, its staging of the valid rows 1.37
+// (x read, X written, the invalid rows' dx zeroed: 3.2 GB).
 //
 // The bf16 form (pallas_gat.py with x in bf16; _bwd_kernel :507 and
 // _bwd_pool_kernel :680, their _bwd_head_core :442 and _bwd_epilogue
@@ -109,9 +121,10 @@ struct BwdArgsT {
   const int* nsib;
   const void* g;         // K2 [b, n, heads*dh] (E); K4 [b, 3, dh] (float)
   const float* attn;     // stored softmax [b, heads, 2n - p - 1], or null
-  float* dcat;           // workspace [b*n, wdp], wdp = heads*dh + 2*heads
-                         // rounded up to a 16-byte multiple of E: the
-                         // projection P, then (float32) Dcat over it
+  float* dcat;           // workspace [b*n (K4: + kRowPad), wdp], wdp =
+                         // heads*dh + 2*heads rounded up to a 16-byte
+                         // multiple of E: the projection P, then
+                         // (float32) Dcat over it
   float* part_w;         // workspace [splits, din+pos, wd]
   float* part_b;         // workspace [chunks, n, wdp] (need_dbias): the
                          // slot-bias partial sums
@@ -128,17 +141,21 @@ struct BwdArgsT {
   float* dwp;            // [pos, heads*dh]
   float* dwpa1;          // [pos, heads]
   float* dwpa2;
-  E* xm;                 // workspace [b*n (+ kRowPad), kxp]: X staged (K4
-                         // bf16: the valid rows, compacted), or null
-  E* wcat;               // workspace [kxp, wdp]: W for the projection
-  E* wt;                 // workspace [wdp, ntp]: W^T for the dx product
+  E* xm;                 // workspace [b*n (+ kRowPad), kxp]: X staged (K4:
+                         // the valid rows, compacted), or null
+  E* wcat;               // workspace: W for the projection, [kxp, wdp]
+                         // (float32: W^T planes [2, wdp, kxp])
+  E* wt;                 // workspace: W^T for the dx product, [wdp, ntp]
+                         // (float32: W's rows, planes [2, ntp, wdp])
   float* biascat;        // workspace [n, wdp]: the slot biases
   bf16* d16;             // bf16 only: workspace [b*n (+ kRowPad), wdp],
                          // D = [dft | da1 | da2] in bf16 for the products
-  int* row_off;          // K4 bf16 only, else null: workspace [b + 1], the
+  int* row_off;          // K4 only, else null: workspace [b + 1], the
                          // egonets' first valid rows; [b] = R
-  int* row_map;          // K4 bf16 only: workspace [b*n + kRowPad], the
+  int* row_map;          // K4 only: workspace [b*n + kRowPad], the
                          // original row of each valid row
+  float* bt;             // float32 only: workspace, the dW product's B
+                         // planes (bwd_common.cuh:dw_operands)
   int b, n, din, heads, dh, p;
   int pooled, need_dx, need_dbias, has_out_alpha, splits, chunks;
   int kxp, wdp, ntp;     // widths of the workspaces (16-byte multiples)
@@ -230,7 +247,7 @@ __device__ __forceinline__ void head_egonet(const BwdArgsT<E>& a,
     }
     __syncthreads();
   }
-  float* drow = a.dcat + (size_t)b * n * ldd;
+  const float* drow = a.dcat + (size_t)b * n * ldd;
 
   for (int r = tid; r < n; r += kThreads) {  // a1 / a2 of the head from P
     s.d_self[r] = s.d_anchor[r] = s.d_to_anchor[r] = 0.f;
@@ -248,9 +265,9 @@ __device__ __forceinline__ void head_egonet(const BwdArgsT<E>& a,
     const int ncols = min(kTileCols, dh - c0);
     const int col0 = h * dh + c0;
     // the ft tile from P (bias included) and the incoming grad tile: K2's
-    // g; K4's three pool rows over the valid slots, times 1/heads (the
-    // bf16 form 4 columns a thread where the head's width allows)
-    if (kD16 && dh % 4 == 0) {
+    // g; K4's three pool rows over the valid slots, times 1/heads (4
+    // columns a thread where the head's width allows)
+    if (dh % 4 == 0) {
 #pragma unroll 2
       for (int e = tid; e < n * (kTileCols / 4); e += kThreads) {
         const int r = e / (kTileCols / 4), c = 4 * (e % (kTileCols / 4));
@@ -269,7 +286,7 @@ __device__ __forceinline__ void head_egonet(const BwdArgsT<E>& a,
                   gpool + ((size_t)b * 3 + cls) * dh + c0 + c);
               gv.x *= inv_h, gv.y *= inv_h, gv.z *= inv_h, gv.w *= inv_h;
             }
-          } else {
+          } else if constexpr (kD16) {
             const uint2 u = *reinterpret_cast<const uint2*>(
                 gslot + ((size_t)b * n + r) * hd + col0 + c);
             const float2 lo = __bfloat1622float2(
@@ -277,6 +294,9 @@ __device__ __forceinline__ void head_egonet(const BwdArgsT<E>& a,
             const float2 hi = __bfloat1622float2(
                 *reinterpret_cast<const __nv_bfloat162*>(&u.y));
             gv = make_float4(lo.x, lo.y, hi.x, hi.y);
+          } else {
+            gv = *reinterpret_cast<const float4*>(
+                gslot + ((size_t)b * n + r) * hd + col0 + c);
           }
         }
         *reinterpret_cast<float4*>(s.ft + r * kTileCols + c) = f;
@@ -317,9 +337,9 @@ __device__ __forceinline__ void head_egonet(const BwdArgsT<E>& a,
     }
     const float* fa = s.ft + p * kTileCols;
 
-    // K2: the grad through leaky'(pre) of the fused activation (the bf16
-    // form 4 columns a thread where the head's width allows)
-    const bool quad = kD16 && dh % 4 == 0;
+    // K2: the grad through leaky'(pre) of the fused activation (4 columns
+    // a thread where the head's width allows)
+    const bool quad = dh % 4 == 0;
     if (!kPooled && a.has_out_alpha && quad) {
       for (int e = tid; e < n * (kTileCols / 4); e += kThreads) {
         const int r = e / (kTileCols / 4), c = 4 * (e % (kTileCols / 4));
@@ -380,7 +400,8 @@ __device__ __forceinline__ void head_egonet(const BwdArgsT<E>& a,
     // dft = the aggregation transposed
     const float* ga = s.g + p * kTileCols;
     if (quad) {
-      // four columns a thread, D written 8 bytes at a time
+      // four columns a thread, D written 8 bytes (bf16) or 16 bytes
+      // (float32, over P in place) at a time
       for (int e = tid; e < n * (kTileCols / 4); e += kThreads) {
         const int r = e / (kTileCols / 4), c = 4 * (e % (kTileCols / 4));
         if (c >= ncols) continue;
@@ -410,13 +431,19 @@ __device__ __forceinline__ void head_egonet(const BwdArgsT<E>& a,
         }
         const long long pr = kCompact ? rows[r] : b * n + r;
         if (pr >= 0) {
-          __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-          __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-          uint2 pack;
-          pack.x = *reinterpret_cast<unsigned*>(&lo);
-          pack.y = *reinterpret_cast<unsigned*>(&hi);
-          *reinterpret_cast<uint2*>(a.d16 + (size_t)pr * ldd + col0 + c) =
-              pack;
+          if constexpr (kD16) {
+            __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+            __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+            uint2 pack;
+            pack.x = *reinterpret_cast<unsigned*>(&lo);
+            pack.y = *reinterpret_cast<unsigned*>(&hi);
+            *reinterpret_cast<uint2*>(a.d16 + (size_t)pr * ldd + col0 + c) =
+                pack;
+          } else {
+            *reinterpret_cast<float4*>(a.dcat + (size_t)pr * ldd + col0 +
+                                       c) = make_float4(v[0], v[1], v[2],
+                                                        v[3]);
+          }
         }
         if constexpr (kPart) {
           float* q = part + (size_t)r * ldd + col0 + c;
@@ -482,7 +509,12 @@ __device__ __forceinline__ void head_egonet(const BwdArgsT<E>& a,
         } else {
           v = s.w_self[r] * s.g[r * kTileCols + c];
         }
-        drow[(size_t)r * ldd + col0 + c] = v;
+        const long long pr = kCompact ? rows[r] : b * n + r;
+        if (pr >= 0) a.dcat[(size_t)pr * ldd + col0 + c] = v;
+        if constexpr (kPart) {
+          float* q = part + (size_t)r * ldd + col0 + c;
+          *q = first ? v : *q + v;
+        }
       }
     }
 
@@ -579,8 +611,17 @@ __device__ __forceinline__ void head_egonet(const BwdArgsT<E>& a,
             first ? s.da2[r] : q[hd + heads + h] + s.da2[r];
       }
     } else {
-      drow[(size_t)r * ldd + hd + h] = s.da1[r];
-      drow[(size_t)r * ldd + hd + heads + h] = s.da2[r];
+      const long long pr = kCompact ? rows[r] : b * n + r;
+      if (pr >= 0) {
+        a.dcat[(size_t)pr * ldd + hd + h] = s.da1[r];
+        a.dcat[(size_t)pr * ldd + hd + heads + h] = s.da2[r];
+      }
+      if constexpr (kPart) {
+        float* q = part + (size_t)r * ldd;
+        q[hd + h] = first ? s.da1[r] : q[hd + h] + s.da1[r];
+        q[hd + heads + h] =
+            first ? s.da2[r] : q[hd + heads + h] + s.da2[r];
+      }
     }
   }
 }
@@ -592,8 +633,6 @@ __device__ __forceinline__ void head_egonet(const BwdArgsT<E>& a,
 template <bool kPooled, class E, bool kPart = false, bool kCompact = false>
 __global__ void __launch_bounds__(kThreads, 3)
 gat_bwd_head_kernel(BwdArgsT<E> a, TrainArgs ta) {
-  static_assert(sizeof(E) == 2 || !(kPart || kCompact),
-                "partial sums and compacted rows: the bf16 form only");
   extern __shared__ float4 smem4[];
   const int n = a.n, heads = a.heads, dh = a.dh;
   // kCompact: P's (and D's) row of each slot, or -1 (an invalid slot)
@@ -641,70 +680,67 @@ cudaError_t launch_bwd(const BwdArgsT<E>& a, const TrainArgs& ta,
                           hd,    hd + a.heads,
                           wd};
   const ProductWorkT<E> work = {a.xm,  a.wt,  a.part_w, a.kxp,
-                                a.wdp, a.ntp, a.splits};
-  // K4 bf16 runs its products on the valid rows alone (row_off set)
-  const bool compact = kD16 && a.row_off != nullptr;
+                                a.wdp, a.ntp, a.splits, a.bt};
+  // K4 runs its products on the valid rows alone (row_off set)
+  const bool compact = a.pooled && a.row_off != nullptr;
   const int* rows = compact ? a.row_off + a.b : nullptr;
   const int* row_map = compact ? a.row_map : nullptr;
   const int kbeg = a.need_dx ? 0 : a.din;
   cudaError_t err;
 
-  // 0. X staged (K4 bf16: the valid rows, compacted, with their row map)
-  // and W packed
+  // 0. X staged (K4: the valid rows, compacted, with their row map; the
+  // products' D zero on the kRowPad rows after them) and W packed
   mark(g_marks, st);
-  if constexpr (kD16) {
-    if (compact) {
-      if (a.xm == nullptr || m + kRowPad > 0x7fffffffLL)
-        return cudaErrorInvalidValue;
-      valid_row_offsets_kernel<<<1, 1024, 0, st>>>(a.ngp, a.nsib, a.b, a.n,
-                                                   a.p, a.row_off);
-      stage_valid_rows_kernel<E><<<grid_for((m + kRowPad) * 32), 256, 0,
-                                   st>>>(op, ta, a.ngp, a.nsib, a.p,
-                                         a.row_off, a.b, a.xm, a.kxp,
-                                         a.row_map,
-                                         a.need_dx ? a.dx : nullptr,
-                                         a.pe_rows, a.d16, a.wdp);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      ProductWorkT<E> pack = work;
-      pack.xm = nullptr;  // staged above
-      err = stage_and_pack(op, ta, m, pack, kbeg, a.wcat, st);
-    } else {
-      err = stage_and_pack(op, ta, m, work, kbeg, a.wcat, st);
-    }
+  if (compact) {
+    if (a.xm == nullptr || m + kRowPad > 0x7fffffffLL)
+      return cudaErrorInvalidValue;
+    valid_row_offsets_kernel<<<1, 1024, 0, st>>>(a.ngp, a.nsib, a.b, a.n,
+                                                 a.p, a.row_off);
+    using D = typename std::conditional<kD16, bf16, float>::type;
+    D* dpad;
+    if constexpr (kD16)
+      dpad = a.d16;
+    else
+      dpad = a.dcat;
+    stage_valid_rows_kernel<E, D><<<grid_for((m + kRowPad) * 32), 256, 0,
+                                    st>>>(op, ta, a.ngp, a.nsib, a.p,
+                                          a.row_off, a.b, a.xm, a.kxp,
+                                          a.row_map,
+                                          a.need_dx ? a.dx : nullptr,
+                                          a.pe_rows, dpad, a.wdp);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    ProductWorkT<E> pack = work;
+    pack.xm = nullptr;  // staged above
+    err = stage_and_pack(op, ta, m, pack, kbeg, a.wcat, st);
   } else {
     err = stage_and_pack(op, ta, m, work, kbeg, a.wcat, st);
   }
   if (err != cudaSuccess) return err;
   mark(g_marks, st);
-  // the projection into the Dcat workspace (K4 bf16: the valid rows)
+  // the projection into the Dcat workspace (K4: the valid rows)
   err = gat_projection(op, a.xm, a.kxp, a.wcat, a.wdp, a.bias_ft, a.bias_a1,
                        a.bias_a2, a.biascat, a.dcat, m, st, rows, row_map);
   if (err != cudaSuccess) return err;
   mark(g_marks, st);
 
-  // 1. the head core: a block an (egonet, head), or in the bf16 form with
-  // the slot-bias partial sums a (chunk of egonets, head)
-  // (K4 bf16: the slots' rows too)
+  // 1. the head core: a block an (egonet, head), or with the slot-bias
+  // partial sums (the bf16 form, and K4's valid rows) a (chunk of egonets,
+  // head) (K4: the slots' rows too)
   const size_t smem =
       sizeof(float) * (head_floats(a.n) + (compact ? row_floats(a.n) : 0));
-  const bool part = kD16 && a.need_dbias;
+  const bool part = (kD16 || compact) && a.need_dbias;
   const long long head_blocks = (part ? a.chunks : a.b) * (long long)a.heads;
   if (head_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const void* head;
-  if constexpr (kD16) {
-    if (compact)
-      head = part ? (const void*)gat_bwd_head_kernel<true, E, true, true>
-                  : (const void*)gat_bwd_head_kernel<true, E, false, true>;
-    else if (a.pooled)
-      head = part ? (const void*)gat_bwd_head_kernel<true, E, true>
-                  : (const void*)gat_bwd_head_kernel<true, E>;
-    else
-      head = part ? (const void*)gat_bwd_head_kernel<false, E, true>
-                  : (const void*)gat_bwd_head_kernel<false, E>;
-  } else {
-    head = a.pooled ? (const void*)gat_bwd_head_kernel<true, E>
-                    : (const void*)gat_bwd_head_kernel<false, E>;
-  }
+  if (compact)
+    head = part ? (const void*)gat_bwd_head_kernel<true, E, true, true>
+                : (const void*)gat_bwd_head_kernel<true, E, false, true>;
+  else if (a.pooled)
+    head = part ? (const void*)gat_bwd_head_kernel<true, E, true>
+                : (const void*)gat_bwd_head_kernel<true, E>;
+  else
+    head = part ? (const void*)gat_bwd_head_kernel<false, E, true>
+                : (const void*)gat_bwd_head_kernel<false, E>;
   err = prepare(head, smem);
   if (err != cudaSuccess) return err;
   void* params[] = {const_cast<BwdArgsT<E>*>(&a),
@@ -714,12 +750,12 @@ cudaError_t launch_bwd(const BwdArgsT<E>& a, const TrainArgs& ta,
   if (err != cudaSuccess) return err;
   mark(g_marks, st);
 
-  // the slot-bias grads: the float32 form sums Dcat over egonets; the bf16
-  // form's head core has summed D's float32 values by chunk; then the
-  // fixed-order reduction over the chunks
+  // the slot-bias grads: K2 float32 sums Dcat over egonets; the bf16
+  // forms' and K4's head core has summed D's float32 values by chunk; then
+  // the fixed-order reduction over the chunks
   if (a.need_dbias) {
     const long long rw = (long long)a.n * a.wdp;
-    if (!kD16) {
+    if (!part) {
       const long long chunk_b = (a.b + a.chunks - 1) / a.chunks;
       colsum_partial_kernel<<<dim3(blocks_for(rw), a.chunks), kThreads, 0,
                               st>>>(a.dcat, a.b, rw, chunk_b, a.part_b);
@@ -752,10 +788,10 @@ const char* gat_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The backward of one star-GAT layer (K2, or K4 with a->pooled): all
-// passes launched in order on `stream`. Outputs and workspaces are
-// allocated by the caller (ops/gat_kernels.py). Returns the first CUDA
-// error of a launch, or 0.
+// The backward of one star-GAT layer (K2, or K4 with a->pooled, which
+// also takes the row workspaces row_off and row_map): all passes launched
+// in order on `stream`. Outputs and workspaces are allocated by the caller
+// (ops/gat_kernels.py). Returns the first CUDA error of a launch, or 0.
 int gat_layer_bwd_f32(const BwdArgsT<float>* ap, const TrainArgs* tap,
                       void* stream) {
   return launch_bwd(*ap, *tap, (cudaStream_t)stream);
@@ -763,8 +799,7 @@ int gat_layer_bwd_f32(const BwdArgsT<float>* ap, const TrainArgs* tap,
 
 // The bf16 form: *ap with the bf16 fields of BwdArgsT<bf16> (x, fc, wa1,
 // wa2, K2's g, dx, dfc, dwa1, dwa2, the workspaces xm, wcat, wt and d16),
-// every other field as in the float32 form; K4 (a->pooled) also takes the
-// row workspaces row_off and row_map.
+// every other field as in the float32 form but bt (unused).
 int gat_layer_bwd_bf16(const BwdArgsT<bf16>* ap, const TrainArgs* tap,
                        void* stream) {
   return launch_bwd(*ap, *tap, (cudaStream_t)stream);
@@ -772,10 +807,11 @@ int gat_layer_bwd_bf16(const BwdArgsT<bf16>* ap, const TrainArgs* tap,
 
 // Pass timing: with `on`, the next gat_layer_bwd_* call records device
 // events between its passes; gat_bwd_pass_ms then gives their
-// milliseconds (stage and pack (K4 bf16: with the valid rows' offsets and
-// compaction), projection, head core, slot-bias sums (the bf16 form: the
-// reduction of the head core's partials alone), dW, dx) into out[6] and
-// returns their count.
+// milliseconds (stage and pack (K4: with the valid rows' offsets and
+// compaction), projection, head core, slot-bias sums (the bf16 forms and
+// K4: the reduction of the head core's partials alone), dW (float32: with
+// its operand's transposition into planes), dx) into out[6] and returns
+// their count.
 int gat_bwd_set_timing(int on) { return set_timing(g_marks, on); }
 
 // The bf16 product alone (gemm_wgmma.cuh), for tests and measurements:
@@ -803,6 +839,51 @@ int gat_product_bf16(const bf16* a, long long lda, int a_kmajor,
   const TrainArgs ta = {};
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
+  if (a_kmajor)
+    err = n <= kNarrowBN ? product<true, kEpiStore, true>(g, ta, splits, st)
+                         : product<true, kEpiStore>(g, ta, splits, st);
+  else
+    err = n <= kNarrowBN ? product<false, kEpiStore, true>(g, ta, splits, st)
+                         : product<false, kEpiStore>(g, ta, splits, st);
+  return (int)err;
+}
+
+// The float32 product alone (3xTF32 on gemm_wgmma.cuh's ring), for tests
+// and measurements: c [splits][m][n] = the split-K partials of A @ B, A
+// [m][k] row-major (a_kmajor) or A^T [k][m] row-major, B [k][n] row-major,
+// rows 16-byte multiples; bt a workspace [2][n rounded up to 4][k rounded
+// up to 4] for B's hi / lo planes (transpose_split_kernel, as the dW
+// product's B); the store epilogue.
+int gat_product_f32(const float* a, long long lda, int a_kmajor,
+                    const float* b, long long ldb, float* bt, float* c,
+                    long long m, int n, long long k, int splits,
+                    void* stream) {
+  using namespace gat;
+  if (m <= 0 || n <= 0) return 0;
+  if (k <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int np = (n + 3) / 4 * 4;
+  const long long ldr = (k + 3) / 4 * 4;
+  transpose_split_kernel<<<dim3((unsigned)((k + 31) / 32),
+                                (unsigned)((np + 31) / 32)),
+                           dim3(32, 8), 0, st>>>(b, ldb, n, np, k, nullptr,
+                                                 ldr, bt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  GemmArgsT<float> g = {};
+  g.a = a;
+  g.lda = lda;
+  g.b = bt;
+  g.b_lo = bt + (long long)np * ldr;
+  g.ldb = ldr;
+  g.c = c;
+  g.ldc = n;
+  g.c_split = m * n;
+  g.m = m;
+  g.n = n;
+  g.k = k;
+  g.k_chunk = ((k + splits - 1) / splits + 63) / 64 * 64;
+  const TrainArgs ta = {};
   if (a_kmajor)
     err = n <= kNarrowBN ? product<true, kEpiStore, true>(g, ta, splits, st)
                          : product<true, kEpiStore>(g, ta, splits, st);

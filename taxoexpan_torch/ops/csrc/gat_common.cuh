@@ -2,8 +2,8 @@
 // gcn.cu): the dropout bit generator, the train-form arguments, the star
 // softmax weights, the shared-memory arrays of the GAT star passes and
 // head core, and the element conversions of the bf16 forms. Every layer
-// product is a tensor-core product: gemm_tf32.cuh's (float32 layers) or
-// gemm_wgmma.cuh's (bf16 layers).
+// product is a tensor-core product on gemm_wgmma.cuh's ring: 3xTF32 for
+// float32 layers, bf16 for bf16 layers (dispatched by gemm_tf32.cuh).
 //
 // The train forms' dropout: the feature and pe masks over the layer input
 // X = [x*m | pe*m_pe], the reference's dropout over the concatenated input

@@ -26,9 +26,9 @@
 // weights before dropout, [B, H, 2N - P - 1] (layout in gat_common.cuh),
 // for the stored-attention backward (pallas_gat.py:231).
 //
-// The float32 forms (3xTF32 on the tensor cores, gemm_tf32.cuh) and the
-// bf16 forms (bf16 wgmma, gemm_wgmma.cuh) share the layer's arithmetic but
-// not its structure.
+// The float32 forms (3xTF32 wgmma on the tensor cores, gemm_wgmma.cuh)
+// and the bf16 forms (bf16 wgmma, the same file) share the layer's
+// arithmetic but not its structure.
 //
 // float32 forms: two launches (and two small preparations) a layer.
 //  1. The projection P = X @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot
@@ -523,10 +523,10 @@ cudaError_t launch_pooled_rows(const OperandT<bf16>& op, const TrainArgs& ta,
   mark(g_marks, st);
   valid_row_offsets_kernel<<<1, 1024, 0, st>>>(ngp, nsib, b, n, p,
                                                w.row_off);
-  stage_valid_rows_kernel<bf16><<<grid_for((m + kRowPad) * 32), 256, 0,
-                                  st>>>(op, ta, ngp, nsib, p, w.row_off, b,
-                                        w.xm, w.kxp, w.row_map, nullptr,
-                                        nullptr, nullptr, 0);
+  stage_valid_rows_kernel<bf16, bf16>
+      <<<grid_for((m + kRowPad) * 32), 256, 0, st>>>(
+          op, ta, ngp, nsib, p, w.row_off, b, w.xm, w.kxp, w.row_map,
+          nullptr, nullptr, nullptr, 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const ProductWorkT<bf16> pack = {nullptr, nullptr, nullptr, w.kxp, w.wdp,

@@ -24,7 +24,7 @@
 //     (else the product reads x), and W = [W_h; W_p] packed; then the
 //     projection z = X @ W + z_bias over all B*N rows into a workspace
 //     [B*N, ldd] (ldd = dout rounded up to 4, zero in the padding
-//     columns), on the tensor cores in 3xTF32 (gemm_tf32.cuh, shared with
+//     columns), on the tensor cores in 3xTF32 (gemm_wgmma.cuh, shared with
 //     K1-K4: bwd_common.cuh:gat_projection with W alone and z_bias as the
 //     slot bias).
 //  2. The star pass, one block per (egonet, 128-column tile), each thread
@@ -106,8 +106,8 @@
 // config.mag.json's PGCN shapes (N = 64, 4096 egonets) layer 0's train
 // forward projects 2 * 262,144 * 300 * 500 = 78.6 GFLOP (the final layer's
 // 144 GFLOP), against 0.8-1.1 GB of x, z and out; the 3xTF32 product runs
-// these shallow products (K 250-550) at 42-48 TFLOP/s of float32 work on an
-// NVIDIA H100 80GB HBM3 at 700 W (PERF.md). The star passes are bound by
+// these shallow products (K 250-550) at 84-112 TFLOP/s of float32 work on
+// an NVIDIA H100 80GB HBM3 at 700 W (PERF.md). The star passes are bound by
 // bytes: the valid rows of z read and out written, or g read and dz
 // written over z, 0.8-1.3 GB each, at 2.1-2.4 TB/s there. The projection
 // runs over all B*N rows, as the TPU kernel does, while only the valid ones
@@ -163,10 +163,12 @@ struct GcnArgsT {
   float* dpe;           // [n, pos] (pos > 0)
   float* dwp;           // [pos, dout] (pos > 0)
   E* xm;                // [b*n, kxp] the layer input staged, or null
-  E* wcat;              // [kxp, ldd] W for the projection, or null (the
-                        // backward of a layer without activation)
+  E* wcat;              // [kxp, ldd] W for the projection (float32: W^T
+                        // planes [2, ldd, kxp]), or null (the backward of
+                        // a layer without activation)
   float* biascat;       // [n, ldd] z_bias in the projection's layout
   E* wt;                // [ldd, ntp] W^T over the dx product's columns
+                        // (float32: W's rows, planes [2, ntp, ldd])
   E* dz16;              // [b*n, ldd] dz cast to bf16 (the bf16 backward;
                         // the valid-rows form: [b*n + kRowPad, ldd], dz
                         // of the valid rows, compacted)
@@ -176,6 +178,8 @@ struct GcnArgsT {
   int* row_map;         // [rows + kRowPad] the original row of each
   int* row_info;        // forward: [rows + kRowPad] StarArgs::row_info
   float* dzf;           // backward with need_dzb: [b*n, ldd] float32 dz
+  float* bt;            // float32 backward: the dW product's B planes
+                        // (bwd_common.cuh:dw_operands)
   int b, n, din, dout, p, has_alpha, need_dx, need_dzb, splits, chunks;
   int kxp, ldd, ntp;    // ldd: z's row stride, dout rounded up to a
                         // 16-byte multiple of E
@@ -695,12 +699,10 @@ cudaError_t layer_bwd_rows(const GcnArgsT<bf16>& a, const TrainArgs& ta,
   mark(g_bwd_marks, st);
   valid_row_offsets_kernel<<<1, 1024, 0, st>>>(a.ngp, a.nsib, a.b, a.n, a.p,
                                                a.row_off);
-  stage_valid_rows_kernel<bf16><<<grid_for((m + kRowPad) * 32), 256, 0,
-                                  st>>>(op, ta, a.ngp, a.nsib, a.p,
-                                        a.row_off, a.b, a.xm, a.kxp,
-                                        a.row_map,
-                                        a.need_dx ? a.dx : nullptr,
-                                        a.pe_rows, a.dz16, a.ldd);
+  stage_valid_rows_kernel<bf16, bf16>
+      <<<grid_for((m + kRowPad) * 32), 256, 0, st>>>(
+          op, ta, a.ngp, a.nsib, a.p, a.row_off, a.b, a.xm, a.kxp,
+          a.row_map, a.need_dx ? a.dx : nullptr, a.pe_rows, a.dz16, a.ldd);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ProductWorkT<bf16> pack = work;
   pack.xm = nullptr;  // staged above
@@ -757,8 +759,8 @@ cudaError_t layer_bwd(const GcnArgsT<E>& a, const TrainArgs& ta,
   }
   const bool act = a.has_alpha != 0;
   const OperandT<E> op = layer_operand(a, ta);
-  const ProductWorkT<E> work = {a.xm, a.wt, a.part_w, a.kxp, a.ldd, a.ntp,
-                                a.splits};
+  const ProductWorkT<E> work = {a.xm,  a.wt,  a.part_w, a.kxp,
+                                a.ldd, a.ntp, a.splits, a.bt};
   cudaError_t err;
 
   mark(g_bwd_marks, st);

@@ -1,48 +1,35 @@
-// The layer products of the star kernels on Hopper's tensor cores, at
-// float32 accuracy: 3xTF32 (split precision). Each float32 operand a is
-// split as a = a_hi + a_lo, a_hi = tf32(a), a_lo = a - a_hi (the tensor
-// core reads its TF32 bits), and a * b ~ a_hi * b_hi + a_hi * b_lo +
-// a_lo * b_hi, each term an mma.sync.m16n8k8 TF32 product with float32
-// accumulation (a_lo * b_lo, about 2^-22 of a * b, is dropped).
+// The layer products' arguments, epilogues, dispatch and operand
+// preparation, shared by every layer kernel (gat_fwd.cu, gat_bwd.cu,
+// gcn.cu). Both element types run on the TMA-fed, warp-specialised wgmma
+// ring of gemm_wgmma.cuh: bf16 layers on bf16 wgmma, float32 layers at
+// float32 accuracy in 3xTF32 (split precision). Each float32 operand a is
+// split as a = a_hi + a_lo, a_hi = tf32(a) (round to nearest), a_lo = a -
+// a_hi (the tensor core reads its TF32 bits), and a * b ~ a_hi * b_hi +
+// a_hi * b_lo + a_lo * b_hi, each term a TF32 wgmma with float32
+// accumulation (a_lo * b_lo, about 2^-22 of a * b, is dropped). Every
+// float32 caller of product<> (the projections of K1-K5, the dW and dx
+// products of K2, K4 and K5b) runs it; the mma.sync pipeline that served
+// them before is gone.
 //
-// What bounds it on an H100: the tensor cores and the path that feeds
-// them. Three TF32 products a float32 one put the data sheet's ceiling at
-// 495 / 3 = 165 TFLOP/s against 67 TFLOP/s for float32 FMAs outside the
-// tensor cores; mma.sync itself reaches less of the TF32 rate than wgmma
-// (scripts/tf32_probe.py measures both on the card). The products are
-// large (for the config.mag.json layer 0, 262,144 rows x 300 x 2008), so
-// device-memory bytes do not bound them: each operand tile is read once
-// and reused from shared memory across a 128 x 128 output tile. What is
-// left is the work around each MMA: the fragment loads from shared memory,
-// the hi / lo split, the K tile's sum (below), with two warps a scheduler,
-// and feeding shared memory from L2 (PERF.md has the measured split).
-//
-// Accuracy: the tensor cores add the products of one mma into the
+// Accuracy: the tensor cores add the products of one wgmma into the
 // accumulator with truncation, not round-to-nearest, a bias that grows
 // with the depth of the sum (up to 65,536 rows a split in the split-K dW
-// sums). Each 64-deep K tile is therefore summed into a fresh register
-// tile and added to the running sum with a float32 FADD (round to
-// nearest): the truncation reaches only 64-deep partial sums.
+// sums). Each 64 deep slice of K (two 32-deep K tiles in float32, one K
+// tile in bf16) is therefore summed into a fresh register tile and added
+// to the running sum with a float32 FADD (round to nearest): the
+// truncation reaches only those 64-deep partial sums.
 //
-// Design: one block of 256 threads (8 warps, 2 x 4, each 64 x 32 of the
-// output) per 128 x 128 output tile, K tiles of 64 copied into shared
-// memory by cp.async (16-byte chunks) in a 3-stage ring, so two tiles are
-// in flight while one is multiplied; the operands are split into hi / lo
-// as their fragments are read from shared memory. A is read either K-major
-// (row-major [M][K]) or M-major (A^T stored row-major, [K][M]: the dW
-// product X^T @ D reads X so); B is row-major [K][N]. Every stride and the
-// reduction depth are multiples of a chunk, with zeros in the padding, so
-// a 16-byte chunk is either wholly inside or wholly outside the operand
-// and is zero-filled outside. The epilogue goes through shared memory, so
-// that the output rows are written 16 bytes a thread, coalesced. Split-K
-// over blockIdx.z (the dW product over the batch's rows) writes one partial
-// product per split; the caller adds them in a fixed order
-// (bwd_common.cuh). Deterministic: no atomics.
+// What this file prepares for the float32 product, and what it costs: TF32
+// wgmma reads its shared-memory operand K-major only, so B comes as B^T in
+// a hi and a lo plane. pack_weights_kernel writes W^T (the projection's
+// B) and W's rows (the dx product's B) so, twice the bytes of W, once a
+// call (W is at most 2052 x 2008 floats, 16 MB a plane); the dW product's
+// B, X^T or D^T (bwd_common.cuh), twice the bytes of the narrower of the
+// two. A is read raw and split in registers.
 //
 // The argument struct, the epilogues' meaning and the operand preparation
 // (staging, packing) are templated on E (float, or bf16 for a bf16 layer's
-// X, W and dx); product<> runs this file's 3xTF32 pipeline for float and
-// gemm_wgmma.cuh's TMA-fed wgmma kernel for bf16.
+// X, W and dx).
 //
 // The kernels live in namespace gat (see bwd_common.cuh on nvcc's stubs).
 #pragma once
@@ -53,34 +40,9 @@
 
 namespace gat {
 
-// A tile shape in element type E: 8 warps, 2 x 4, each 4 x NI fragments
-// of 16 x 8 (an output tile of 128 x 32 NI), K tiles of 64 in a 3-deep
-// ring; a 16-byte chunk holds CHUNK elements (4 floats, 8 bf16). The rows
-// of a K-major A tile are padded by a chunk, the others by 8 elements, so
-// that the rows a warp reads at once fall on distinct banks. The C tile
-// [BM][BN + 4] floats reuses the ring after the last K tile.
-template <class E, int NI_>
-struct GemmTile {
-  static constexpr int MI = 4, NI = NI_, WARPS_M = 2, WARPS_N = 4;
-  static constexpr int STAGES = 3;
-  static constexpr int BM = WARPS_M * MI * 16, BN = WARPS_N * NI * 8,
-                       BK = 64;
-  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-  static constexpr int CHUNK = 16 / (int)sizeof(E);
-  static constexpr int A_STRIDE_K = BK + CHUNK;  // K-major A [BM][BK + C]
-  static constexpr int A_STRIDE_M = BM + 8;      // M-major A [BK][BM + 8]
-  static constexpr int B_STRIDE = BN + 8;        // B tile [BK][BN + 8]
-  static constexpr int A_STAGE =
-      BM * A_STRIDE_K > BK * A_STRIDE_M ? BM * A_STRIDE_K : BK * A_STRIDE_M;
-  static constexpr int B_STAGE = BK * B_STRIDE;
-  static constexpr size_t RING = sizeof(E) * STAGES * (A_STAGE + B_STAGE);
-  static constexpr size_t CTILE = sizeof(float) * BM * (BN + 4);
-  static constexpr size_t SMEM = RING > CTILE ? RING : CTILE;
-};
-
-// the tiles the layers use: 128 x 128, and 128 x 64 for narrow products
-// (the pe columns' dx alone)
-constexpr int kNarrowBN = GemmTile<float, 2>::BN;
+// The narrow product tile's columns (the pe columns' dx alone): 64, the
+// wide one's 128.
+constexpr int kNarrowBN = 64;
 
 // What the epilogue does with the product's element (i, j):
 enum GemmEpi {
@@ -102,8 +64,9 @@ template <class E>
 struct GemmArgsT {
   const E* a;          // K-major: (i, k) at a[i * lda + k]; M-major:
   long long lda;       //   a[k * lda + i], i < lda
-  const E* b;          // (k, j) at b[k * ldb + j], j < ldb
-  long long ldb;
+  const E* b;          // bf16: (k, j) at b[k * ldb + j], j < ldb; float:
+  const E* b_lo;       //   B^T, (j, k) at b[j * ldb + k] rounded to TF32
+  long long ldb;       //   and its rest at b_lo[j * ldb + k] (gemm_wgmma.cuh)
   float* c;            // output, row stride ldc; split z at c + z * c_split
   long long ldc;
   long long c_split;
@@ -184,301 +147,27 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi,
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a,
-                                         const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The epilogue's second half: the C tile cs [BM][BN + 4] (shared memory)
-// out to the rows [i0, i0 + BM) and columns [j0, j0 + BN) of the product,
-// 4 columns a thread, neighbouring threads on neighbouring columns.
-template <int BM, int BN, int THREADS, int kEpi, class E>
-__device__ __forceinline__ void gemm_store_tile(const GemmArgsT<E>& g,
-                                                const TrainArgs& ta,
-                                                const float* cs, long long i0,
-                                                int j0) {
-  constexpr int CS = BN + 4;
-  float* c = g.c + (long long)blockIdx.z * g.c_split;
-  const bool vec = g.ldc % 4 == 0;
-  const int bias_base = kEpi == kEpiRowBias ? (int)(i0 % g.bias_rows) : 0;
-  unsigned kf = 0, kp = 0;
-  if (kEpi == kEpiDx) {
-    kf = stream_key(ta.seed, kStreamFeat);
-    kp = stream_key(ta.seed, kStreamPe);
-  }
-  for (int e = threadIdx.x; e < BM * BN / 4; e += THREADS) {
-    const int r = e / (BN / 4), c4 = (e % (BN / 4)) * 4;
-    const long long i = i0 + r;
-    const int j = j0 + c4;
-    if (i >= g.m || j >= g.n) continue;
-    const float4 v4 = *reinterpret_cast<const float4*>(&cs[r * CS + c4]);
-    float v[4] = {v4.x, v4.y, v4.z, v4.w};
-    if (kEpi == kEpiDx) {
-      const unsigned rkf = row_key(kf, (unsigned)i);
-      const unsigned rkp = row_key(kp, (unsigned)i);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = g.kbeg + j + q;
-        if (j + q >= g.n) break;
-        if (k < g.din) {
-          if (ta.feat_on)
-            v[q] *= keep_at(ta, rkf, (unsigned)k, ta.feat_thresh,
-                            ta.feat_scale);
-          g.dx[i * g.din + k] = from_float<E>(v[q]);
-        } else {
-          const int kp2 = k - g.din;
-          if (ta.feat_on)
-            v[q] *= keep_at(ta, rkp, (unsigned)kp2, ta.feat_thresh,
-                            ta.feat_scale);
-          g.pe_rows[i * ta.pos + kp2] = v[q];
-        }
-      }
-      continue;
-    }
-    float* out = c + i * g.ldc + j;
-    const bool full = vec && j + 3 < g.n;
-    if (kEpi == kEpiRowBias) {
-      const float* bb =
-          g.bias + (long long)((bias_base + r) % g.bias_rows) * g.ldc + j;
-      if (full) {
-        const float4 b4 = *reinterpret_cast<const float4*>(bb);
-        v[0] += b4.x, v[1] += b4.y, v[2] += b4.z, v[3] += b4.w;
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (j + q < g.n) v[q] += bb[q];
-      }
-    }
-    if (full) {
-      *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (j + q < g.n) out[q] = v[q];
-    }
-  }
-}
-
-// One K tile of A and B into stage buffers As / Bs (rows of the reduction
-// [k0, k0 + BK) of this block's split, which ends at k_end), a 16-byte
-// chunk (T::CHUNK elements) a cp.async.
-template <class T, bool kAKMajor, class E>
-__device__ __forceinline__ void gemm_load_tile(const GemmArgsT<E>& g,
-                                               long long i0, int j0,
-                                               long long k0, long long k_end,
-                                               E* As, E* Bs) {
-  constexpr int C = T::CHUNK;
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int q = 0; q < T::BM * T::BK / C / T::THREADS; ++q) {
-    const int e = t + q * T::THREADS;
-    if (kAKMajor) {  // [BM rows][BK / C chunks]
-      const int r = e / (T::BK / C), cc = (e % (T::BK / C)) * C;
-      const long long i = i0 + r, kk = k0 + cc;
-      const bool ok = i < g.m && kk < k_end;
-      cp_async16(As + r * T::A_STRIDE_K + cc, ok ? g.a + i * g.lda + kk : g.a,
-                 ok);
-    } else {  // [BK rows][BM / C chunks]
-      const int r = e / (T::BM / C), cc = (e % (T::BM / C)) * C;
-      const long long kk = k0 + r, i = i0 + cc;
-      const bool ok = kk < k_end && i < g.lda;
-      cp_async16(As + r * T::A_STRIDE_M + cc, ok ? g.a + kk * g.lda + i : g.a,
-                 ok);
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < T::BK * T::BN / C / T::THREADS; ++q) {
-    const int e = t + q * T::THREADS;
-    const int r = e / (T::BN / C), cc = (e % (T::BN / C)) * C;
-    const long long kk = k0 + r;
-    const int j = j0 + cc;
-    const bool ok = kk < k_end && j < g.ldb;
-    cp_async16(Bs + r * T::B_STRIDE + cc, ok ? g.b + kk * g.ldb + j : g.b, ok);
-  }
-}
-
-// A warp's products over one K tile in shared memory (as, bs), added into
-// part: 3xTF32.
-struct MmaStep {
-  // mma.sync.m16n8k8 TF32 fragments read from shared memory element by
-  // element (thread (gid, tig): rows +gid / +gid + 8, k +tig / +tig + 4),
-  // each split into hi / lo there.
-  template <class T, bool kAKMajor>
-  static __device__ __forceinline__ void tile(
-      const float* as, const float* bs, int wm, int wn, int lane,
-      float (&part)[T::MI][T::NI][4]) {
-    constexpr int MI = T::MI, NI = T::NI;
-    const int gid = lane >> 2, tig = lane & 3;
-#pragma unroll
-    for (int kk = 0; kk < T::BK; kk += 8) {
-      const int k = kk + tig;
-      unsigned bhi[NI][2], blo[NI][2];
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int col = wn * NI * 8 + ni * 8 + gid;
-        split_tf32(bs[k * T::B_STRIDE + col], bhi[ni][0], blo[ni][0]);
-        split_tf32(bs[(k + 4) * T::B_STRIDE + col], bhi[ni][1], blo[ni][1]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const int r = wm * MI * 16 + mi * 16 + gid;
-        float v[4];
-        if (kAKMajor) {
-          v[0] = as[r * T::A_STRIDE_K + k];
-          v[1] = as[(r + 8) * T::A_STRIDE_K + k];
-          v[2] = as[r * T::A_STRIDE_K + k + 4];
-          v[3] = as[(r + 8) * T::A_STRIDE_K + k + 4];
-        } else {
-          v[0] = as[k * T::A_STRIDE_M + r];
-          v[1] = as[k * T::A_STRIDE_M + r + 8];
-          v[2] = as[(k + 4) * T::A_STRIDE_M + r];
-          v[3] = as[(k + 4) * T::A_STRIDE_M + r + 8];
-        }
-        unsigned ahi[4], alo[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(v[q], ahi[q], alo[q]);
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) {  // the small terms first
-          mma_tf32(part[mi][ni], alo, bhi[ni]);
-          mma_tf32(part[mi][ni], ahi, blo[ni]);
-          mma_tf32(part[mi][ni], ahi, bhi[ni]);
-        }
-      }
-    }
-  }
-};
-
-// C = A @ B (+ the epilogue) over one BM x BN output tile a block; grid
-// (tiles of M x tiles of N, 1, splits), N tiles fastest so that blocks
-// running together share their A rows in L2.
-template <class E, class T, bool kAKMajor, int kEpi>
-__global__ void __launch_bounds__(T::THREADS, 1)
-gemm_kernel(GemmArgsT<E> g, TrainArgs ta) {
-  constexpr int MI = T::MI, NI = T::NI;
-  extern __shared__ float4 gemm_smem4[];
-  E* As = reinterpret_cast<E*>(gemm_smem4);
-  E* Bs = As + T::STAGES * T::A_STAGE;
-
-  const int ntiles = (g.n + T::BN - 1) / T::BN;
-  const long long i0 = (long long)(blockIdx.x / ntiles) * T::BM;
-  const int j0 = (blockIdx.x % ntiles) * T::BN;
-  const long long k_beg = (long long)blockIdx.z * g.k_chunk;
-  const long long k_end = min(g.k, k_beg + g.k_chunk);
-  const int ktiles =
-      k_end > k_beg ? (int)((k_end - k_beg + T::BK - 1) / T::BK) : 0;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
-  const int gid = lane >> 2, tig = lane & 3;
-
-  float acc[MI][NI][4];
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < T::STAGES - 1; ++s) {
-    if (s < ktiles)
-      gemm_load_tile<T, kAKMajor>(g, i0, j0, k_beg + s * T::BK, k_end,
-                                  As + s * T::A_STAGE, Bs + s * T::B_STAGE);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<T::STAGES - 2>();
-    __syncthreads();  // tile kt landed; stage (kt - 1) % S is free
-    {
-      const int nk = kt + T::STAGES - 1;
-      if (nk < ktiles) {
-        const int st = nk % T::STAGES;
-        gemm_load_tile<T, kAKMajor>(g, i0, j0,
-                                    k_beg + (long long)nk * T::BK, k_end,
-                                    As + st * T::A_STAGE,
-                                    Bs + st * T::B_STAGE);
-      }
-      cp_async_commit();
-    }
-
-    float part[MI][NI][4];  // this K tile's products, summed apart
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) part[mi][ni][q] = 0.f;
-    MmaStep::template tile<T, kAKMajor>(
-        As + (kt % T::STAGES) * T::A_STAGE, Bs + (kt % T::STAGES) * T::B_STAGE,
-        wm, wn, lane, part);
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          acc[mi][ni][q] = __fadd_rn(acc[mi][ni][q], part[mi][ni][q]);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: it holds the C tile next
-
-  // epilogue: the accumulators through shared memory (thread (gid, tig)
-  // holds rows +gid / +gid + 8 and columns +2 tig / +2 tig + 1 of each
-  // 16 x 8 fragment, in either element type), then rows of the tile out,
-  // 4 columns a thread and neighbouring threads on neighbouring columns
-  constexpr int CS = T::BN + 4;
-  float* cs = reinterpret_cast<float*>(gemm_smem4);
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int r = wm * MI * 16 + mi * 16 + gid + h * 8;
-        const int col = wn * NI * 8 + ni * 8 + 2 * tig;
-        *reinterpret_cast<float2*>(&cs[r * CS + col]) =
-            make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      }
-  __syncthreads();
-
-  gemm_store_tile<T::BM, T::BN, T::THREADS, kEpi>(g, ta, cs, i0, j0);
-}
-
 template <bool kAKMajor, int kEpi, int BN>
 inline cudaError_t product_wgmma(const GemmArgsT<bf16>& g,
                                  const TrainArgs& ta, int splits,
                                  const StarArgs& sa, cudaStream_t st);
+template <bool kAKMajor, int kEpi, int BN>
+inline cudaError_t product_wgmma_f32(const GemmArgsT<float>& g,
+                                     const TrainArgs& ta, int splits,
+                                     cudaStream_t st);
 
-// The layer product in the layer's element type E (3xTF32 for float here;
-// bf16: gemm_wgmma.cuh) on `st`: A K-major (kAKMajor) or M-major, the
-// epilogue kEpi, `splits` partial products over blockIdx.z; kNarrow takes
-// the 128 x 64 tile.
+// The layer product in the layer's element type E on `st`, on the TMA-fed
+// wgmma ring of gemm_wgmma.cuh: 3xTF32 for float, bf16 for bf16. A K-major
+// (kAKMajor) or M-major, the epilogue kEpi, `splits` partial products over
+// the K range; kNarrow takes the 128 x 64 tile.
 template <bool kAKMajor, int kEpi, bool kNarrow = false, class E>
 inline cudaError_t product(const GemmArgsT<E>& g, const TrainArgs& ta,
                            int splits, cudaStream_t st) {
-  if constexpr (sizeof(E) == 2) {
-    return product_wgmma<kAKMajor, kEpi, kNarrow ? 64 : 128>(
-        g, ta, splits, StarArgs{}, st);
-  } else {
-    using T = GemmTile<E, kNarrow ? 2 : 4>;
-    if (g.m <= 0 || g.n <= 0) return cudaSuccess;
-    const void* kernel = (const void*)gemm_kernel<E, T, kAKMajor, kEpi>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
-    if (err != cudaSuccess) return err;
-    const long long tiles = ((g.m + T::BM - 1) / T::BM) *
-                            (long long)((g.n + T::BN - 1) / T::BN);
-    if (tiles > 0x7fffffffLL || splits > 65535) return cudaErrorInvalidValue;
-    gemm_kernel<E, T, kAKMajor, kEpi>
-        <<<dim3((unsigned)tiles, 1, splits), T::THREADS, T::SMEM, st>>>(g,
-                                                                       ta);
-    return cudaGetLastError();
-  }
+  constexpr int BN = kNarrow ? kNarrowBN : 128;
+  if constexpr (sizeof(E) == 2)
+    return product_wgmma<kAKMajor, kEpi, BN>(g, ta, splits, StarArgs{}, st);
+  else
+    return product_wgmma_f32<kAKMajor, kEpi, BN>(g, ta, splits, st);
 }
 
 // ------------------------------------------------- operand preparation
@@ -602,10 +291,14 @@ __global__ void stage_input_kernel(OperandT<E> op, TrainArgs ta,
     stage_row(op, ta, kf, kp, r, xm + r * kxp, kxp, lane);
 }
 
-// The weight rows in the products' layouts, zero-padded: wcat_out
-// [kxp][wdp] = W (the projection's B), wt [wdp][ntp] = W^T restricted to
-// the input columns [kbeg, kbeg + ntp) (the dx product's B). Either may be
-// null. A bf16 layer's W_p rows are rounded to bf16 (pallas_gat.py:298).
+// The weight rows in the products' B layouts, zero-padded; either output
+// may be null. bf16 (row-major B, gemm_wgmma.cuh reads it transposed):
+// wcat_out [kxp][wdp] = W (the projection's B), wt [wdp][ntp] = W^T
+// restricted to the input columns [kbeg, kbeg + ntp) (the dx product's B);
+// a bf16 layer's W_p rows are rounded to bf16 (pallas_gat.py:298). float
+// (TF32 wgmma reads B K-major only): B^T in two planes, hi = tf32(w) and
+// lo = w - hi: wcat_out [2][wdp][kxp] = W^T, wt [2][ntp][wdp] = W's rows
+// [kbeg, kbeg + ntp).
 template <class E>
 __global__ void pack_weights_kernel(OperandT<E> op, TrainArgs ta,
                                     E* __restrict__ wcat_out, int kxp,
@@ -617,10 +310,23 @@ __global__ void pack_weights_kernel(OperandT<E> op, TrainArgs ta,
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
     const int k = (int)(e / wdp), j = (int)(e % wdp);
-    const E v = from_float<E>((k < kx && j < op.wd) ? wcat(op, k, j) : 0.f);
-    if (wcat_out != nullptr && k < kxp) wcat_out[(size_t)k * wdp + j] = v;
-    if (wt != nullptr && k >= kbeg && k < kbeg + ntp)
-      wt[(size_t)j * ntp + (k - kbeg)] = v;
+    const float w = (k < kx && j < op.wd) ? wcat(op, k, j) : 0.f;
+    if constexpr (sizeof(E) == 4) {
+      const float hi = __uint_as_float(tf32_bits(w)), lo = w - hi;
+      if (wcat_out != nullptr && k < kxp) {
+        wcat_out[(size_t)j * kxp + k] = hi;
+        wcat_out[(size_t)(wdp + j) * kxp + k] = lo;
+      }
+      if (wt != nullptr && k >= kbeg && k < kbeg + ntp) {
+        wt[(size_t)(k - kbeg) * wdp + j] = hi;
+        wt[(size_t)(ntp + k - kbeg) * wdp + j] = lo;
+      }
+    } else {
+      const E v = from_float<E>(w);
+      if (wcat_out != nullptr && k < kxp) wcat_out[(size_t)k * wdp + j] = v;
+      if (wt != nullptr && k >= kbeg && k < kbeg + ntp)
+        wt[(size_t)j * ntp + (k - kbeg)] = v;
+    }
   }
 }
 

@@ -1,11 +1,13 @@
-// The layer products of a bf16 star layer on Hopper: TMA loads into a
-// shared-memory ring, warp-specialised, wgmma on bf16 operands with
-// float32 accumulation. They replace the products of the bf16 Pallas
-// kernels (pallas_gat.py:283-305, and _bwd_epilogue :607-651 of
-// _bwd_kernel :507 / _bwd_pool_kernel :680: jnp.dot(..., preferred_
-// element_type=float32) on bf16 operands), and serve every bf16 caller of
-// product<> (gemm_tf32.cuh): the projections of K1-K4 and K5 and the dW
-// and dx products of K2, K4 and K5b.
+// The layer products of the star layers on Hopper: TMA loads into a
+// shared-memory ring, warp-specialised, wgmma with float32 accumulation,
+// on bf16 operands (this first kernel) or in 3xTF32 on float32 operands
+// (wgmma_f32_kernel, the second half of this file). They replace the
+// products of the Pallas kernels (pallas_gat.py:283-305, and
+// _bwd_epilogue :607-651 of _bwd_kernel :507 / _bwd_pool_kernel :680:
+// jnp.dot(..., preferred_element_type=float32); pallas_gcn.py's), and
+// serve every caller of product<> (gemm_tf32.cuh): the projections of
+// K1-K4 and K5 and the dW and dx products of K2, K4 and K5b, in either
+// dtype.
 //
 // What bounds it on an H100: the tensor cores (989 TFLOP/s dense bf16 on
 // the data sheet) where the reduction is deep (the dW product over 262,144
@@ -368,8 +370,8 @@ struct WgSchedule {
   long long total;    // (M group, N tile, split)s
 };
 
-template <class T, bool kAKMajor>
-__device__ __forceinline__ WgSchedule wg_schedule(const GemmArgsT<bf16>& g,
+template <class T, bool kAKMajor, class E>
+__device__ __forceinline__ WgSchedule wg_schedule(const GemmArgsT<E>& g,
                                                   int splits, int bm) {
   WgSchedule s;
   s.bm = bm;
@@ -432,9 +434,9 @@ __device__ __forceinline__ void wg_prefetch_bias(const GemmArgsT<bf16>& g,
 
 // One 4-column chunk q of a consumer warpgroup's C tile cs [64][BN + 4]
 // (shared memory; the row-bias epilogue's biases already added) out to
-// the output: row i0 + r, columns j0 + c4 .. + 3 (gemm_tf32.cuh:
-// gemm_store_tile, with the split's output c, the rows m counted on the
-// card and the row map of the dx epilogue).
+// the output (gemm_tf32.cuh:GemmEpi): row i0 + r, columns j0 + c4 .. + 3,
+// with the split's output c, the rows m counted on the card and the row
+// map of the dx epilogue.
 template <int BN, int kEpi>
 __device__ __forceinline__ void wg_store_chunk(const GemmArgsT<bf16>& g,
                                                const TrainArgs& ta,
@@ -989,6 +991,421 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
   cluster_sync();
 }
 
+// ------------------------------------------------ float32: 3xTF32 on wgmma
+// The float32 layers' products (gemm_tf32.cuh:product dispatches here):
+// the same warp-specialised ring as the bf16 kernel above, with TF32
+// wgmma. TF32 wgmma reads its shared-memory operand K-major only, so:
+//  - B comes K-major, in two planes prepared before the product: hi =
+//    tf32(b) (round to nearest) and lo = b - hi, each [N][K] row-major
+//    (GemmArgs::b, b_lo): the projection's W^T and the dx product's W are
+//    packed so once a call (gemm_tf32.cuh:pack_weights_kernel), the dW
+//    product's X^T or D^T by bwd_common.cuh:transpose_split_kernel;
+//  - A (X, D, or X^T / D^T for dW) comes as it lies in device memory, raw
+//    float32, K-major or M-major, and is read from the ring into registers
+//    (ldmatrix K-major, single loads M-major), split there into hi / lo;
+//    wgmma takes A from registers.
+// Per k8 step three wgmma m64nBNk8: a_lo b_hi, a_hi b_lo, a_hi b_hi (the
+// small terms first); a_lo b_lo (about 2^-22 of a b) is dropped.
+// K tiles of 32 (one 128-byte swizzled row of floats), 4 stages of A
+// (16 KB), B hi and B lo (16 KB each at BN = 128); clusters of two CTAs
+// share each B tile (each loads half its rows, multicast). Each 64-deep
+// partial sum (two K tiles) is accumulated into a fresh register tile and
+// added to the running sum with an FADD (round to nearest), as the bf16
+// kernel does. A consumer loads the next K tile's A fragments while the
+// current tile's products run (two register sets of 32); no C tile: the
+// epilogue writes from registers, 8 bytes a thread (a TMA store through a
+// shared C tile, tried, was 5 % slower on the 300-deep projection).
+//
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
+// `products`, config.mag.json at B = 4096): deep products run at 100-135
+// TFLOP/s float32-equivalent, 63-84 % of the 3xTF32 ceiling (481.7 / 3 =
+// 160.6, scripts/tf32_probe.py): the projection of the 2050-wide final
+// layer 130-135, the dW products 101-108 (M-major A; K2's 300 columns fill
+// 3 tiles of 128, 22 % of their work padding). A 32-deep K tile of a CTA
+// moves about 160 KB through shared memory (48 KB of TMA writes, 96 KB of
+// B read by the 24 wgmmas, 16 KB of A fragments), near the port's 128
+// bytes a clock against the tensor cores' time for the tile: shared-memory
+// bandwidth, not the tensor cores, is the ceiling of 3xTF32 here. Shallow
+// products pay a fixed cost a tile (about 2.7 us at 262,144 x 2008, the
+// output's write): K2's 300-deep projection 97 TFLOP/s, its pe-column dx
+// (50 columns, BN = 64) 62.
+template <int BN_>
+struct WgTileF32 {
+  static constexpr int BM = 128, BN = BN_, BK = 32, STAGES = 4;
+  static constexpr int CONSUMERS = 2, CLUSTER = 2;
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  static constexpr int A_BYTES = BM * BK * 4;
+  static constexpr int B_BYTES = BN * BK * 4;  // one plane
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * B_BYTES;
+  static constexpr int REGS = BN / 2;
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+};
+
+#define GAT_WG_R8(i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (+)= A @ B over one k8 step, a warpgroup's 64 x BN tile: A from
+// registers (a thread's 4 TF32 values of the 16 x 8 fragment of its warp),
+// B K-major in shared memory; scale = 0 starts a fresh sum
+template <int BN>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[BN / 2],
+                                           const unsigned (&a)[4],
+                                           uint64_t db, int scale);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64],
+                                                const unsigned (&a)[4],
+                                                uint64_t db, int scale) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : GAT_WG_R8(0), GAT_WG_R8(8), GAT_WG_R8(16), GAT_WG_R8(24),
+        GAT_WG_R8(32), GAT_WG_R8(40), GAT_WG_R8(48), GAT_WG_R8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32],
+                                               const unsigned (&a)[4],
+                                               uint64_t db, int scale) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : GAT_WG_R8(0), GAT_WG_R8(8), GAT_WG_R8(16), GAT_WG_R8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale));
+}
+
+#undef GAT_WG_R8
+
+__device__ __forceinline__ void fence_ureg(unsigned& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// The row of the M tile that row p (of 64) of a consumer warpgroup's
+// fragments holds: p itself for K-major A; for M-major A a permutation
+// under which the single loads of lds_a_f32 fall on 32 distinct banks: a
+// warp's rows gid (gid + 8) are rows 0-3 and 16-19 (4-7 and 20-23) of its
+// 32-row group, whose 16-byte chunks 0, 4 (1, 5) the swizzle's XOR with
+// k % 8 keeps apart.
+template <bool kAKMajor>
+__device__ __forceinline__ int a_row(int p) {
+  if constexpr (kAKMajor) return p;
+  const int w = p >> 4, g = p & 7, half = (p >> 3) & 1;
+  return 32 * (w >> 1) + 8 * (w & 1) + 16 * (g >> 2) + (g & 3) + 4 * half;
+}
+
+// A thread's fragment of K step kk (8 deep) of a warp's 16 rows from row0
+// (a multiple of 16) of the ring's A tile, raw float32: K-major [128
+// rows][32 k] by ldmatrix (four 8 x 16-byte matrices: rows +0 / +8, k +0 /
+// +4), or M-major as four [32 k][32 m] boxes by single loads, the rows
+// permuted (a_row); rows gid / gid + 8, k tig / tig + 4 (the 128-byte
+// swizzle: 16-byte chunk XOR row % 8).
+template <bool kAKMajor>
+__device__ __forceinline__ void lds_a_f32(unsigned (&v)[4], uint32_t tile,
+                                          int row0, int kk, int lane) {
+  if constexpr (kAKMajor) {
+    const int j = lane >> 3, r = row0 + (j & 1) * 8 + (lane & 7);
+    const uint32_t at =
+        tile + r * 128 + (((2 * kk + (j >> 1)) ^ (r & 7)) << 4);
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+        : "r"(at)
+        : "memory");
+  } else {
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int m = (row0 & ~63) + a_row<false>((row0 & 63) + gid +
+                                                (q & 1) * 8);
+      const int k = kk * 8 + tig + (q >> 1) * 4;
+      const uint32_t at = tile + (m >> 5) * 4096 + k * 128 +
+                          ((((m & 31) >> 2) ^ (k & 7)) << 4) + ((m & 3) << 2);
+      asm volatile("ld.shared.b32 %0, [%1];\n"
+                   : "=r"(v[q])
+                   : "r"(at)
+                   : "memory");
+    }
+  }
+}
+
+// A thread's accumulators of one output row i (half h of its fragment:
+// columns 8 q + 2 (lane % 4) (+ 1) of each 8-column block q from j0, at
+// acc[4 q + 2 h] (+ 1)) out to the product's output (gemm_tf32.cuh:
+// GemmEpi): the split's c (kEpiStore), P with its slot biases
+// (kEpiRowBias), or the masked dx and pe-row grads (kEpiDx); the row map
+// of the counted rows where set. The row's addresses, bias row and mask
+// keys once a row, 8 bytes a store; the slot biases of the row are loaded
+// all at once, before the first add (no early exit, so that their L2
+// latencies overlap).
+template <int BN, int kEpi>
+__device__ __forceinline__ void f32_store_row(const GemmArgsT<float>& g,
+                                              const TrainArgs& ta, float* c,
+                                              long long i, int j0,
+                                              const float (&acc)[BN / 2],
+                                              int h, int lane, unsigned kf,
+                                              unsigned kp) {
+  const long long row = g.row_map != nullptr ? g.row_map[i] : i;
+  float* out = c + i * g.ldc;
+  const bool pairs = g.ldc % 2 == 0;
+  const int jt = j0 + 2 * (lane % 4);  // the thread's first column
+  float v[BN / 4];
+#pragma unroll
+  for (int q = 0; q < BN / 8; ++q) {
+    v[2 * q] = acc[4 * q + 2 * h];
+    v[2 * q + 1] = acc[4 * q + 2 * h + 1];
+  }
+  if constexpr (kEpi == kEpiRowBias) {
+    const float* bias = g.bias + (row % g.bias_rows) * g.ldc;
+    float bv[BN / 4];
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q) {
+      const int j = jt + q * 8;
+      if (pairs && j + 1 < g.n) {
+        const float2 b2 = *reinterpret_cast<const float2*>(bias + j);
+        bv[2 * q] = b2.x, bv[2 * q + 1] = b2.y;
+      } else {
+        bv[2 * q] = j < g.n ? bias[j] : 0.f;
+        bv[2 * q + 1] = j + 1 < g.n ? bias[j + 1] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BN / 4; ++u) v[u] += bv[u];
+  }
+  if constexpr (kEpi == kEpiDx) {
+    const unsigned rkf = row_key(kf, (unsigned)row);
+    const unsigned rkp = row_key(kp, (unsigned)row);
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = jt + q * 8 + u;
+        if (j >= g.n) continue;
+        const int k = g.kbeg + j;
+        float w = v[2 * q + u];
+        if (k < g.din) {
+          if (ta.feat_on)
+            w *= keep_at(ta, rkf, (unsigned)k, ta.feat_thresh,
+                         ta.feat_scale);
+          g.dx[row * g.din + k] = w;
+        } else {
+          const int kp2 = k - g.din;
+          if (ta.feat_on)
+            w *= keep_at(ta, rkp, (unsigned)kp2, ta.feat_thresh,
+                         ta.feat_scale);
+          g.pe_rows[row * ta.pos + kp2] = w;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q) {
+      const int j = jt + q * 8;
+      if (pairs && j + 1 < g.n) {
+        *reinterpret_cast<float2*>(out + j) =
+            make_float2(v[2 * q], v[2 * q + 1]);
+      } else {
+        if (j < g.n) out[j] = v[2 * q];
+        if (j + 1 < g.n) out[j + 1] = v[2 * q + 1];
+      }
+    }
+  }
+}
+
+template <class T, bool kAKMajor, int kEpi>
+__global__ void __launch_bounds__(T::THREADS, 1)
+wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
+                 const __grid_constant__ CUtensorMap tm_a,
+                 const __grid_constant__ CUtensorMap tm_bh,
+                 const __grid_constant__ CUtensorMap tm_bl) {
+  extern __shared__ uint8_t wg_smem_raw[];
+  const uint32_t raw = smem_u32(wg_smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const uint32_t bars = ring + T::STAGES * T::STAGE_BYTES;
+  // full[s] at bars + 8 s, empty[s] at bars + 8 (STAGES + s), as the bf16
+  // kernel's
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (T::STAGES + s), T::CONSUMERS * T::CLUSTER);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  const WgSchedule sc = wg_schedule<T, kAKMajor>(g, splits, T::BM);
+  const int per_split = sc.mgroups * sc.ntiles;
+  const int wg = threadIdx.x / 128;
+  const uint32_t rank = cluster_rank();
+  const long long cid = blockIdx.x / T::CLUSTER;
+  const long long clusters = gridDim.x / T::CLUSTER;
+
+  if (wg == 0) {  // ------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      uint32_t it = 0;
+      for (long long tile = cid; tile < sc.total; tile += clusters) {
+        const int z = (int)(tile / per_split);
+        const int rem = (int)(tile % per_split);
+        const int i0 = ((rem / sc.ntiles) * T::CLUSTER + (int)rank) * T::BM;
+        const int j0 = (rem % sc.ntiles) * T::BN;
+        const long long k_beg = (long long)z * sc.k_chunk;
+        const long long k_end = min(sc.k, k_beg + sc.k_chunk);
+        const int ktiles =
+            k_end > k_beg ? (int)((k_end - k_beg + T::BK - 1) / T::BK) : 0;
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const uint32_t s = it % T::STAGES, ph = (it / T::STAGES) & 1;
+          const uint32_t full = bars + 8 * s;
+          mbar_wait(bars + 8 * (T::STAGES + s), ph ^ 1);
+          mbar_expect_tx(full, T::STAGE_BYTES);
+          const uint32_t a = ring + s * T::STAGE_BYTES;
+          const int k0 = (int)(k_beg + (long long)kt * T::BK);
+          if (kAKMajor) {
+            tma_load(a, &tm_a, full, k0, i0);  // [128 rows][32 k]
+          } else {                             // [32 k][32 m], four times
+#pragma unroll
+            for (int q = 0; q < T::BM / 32; ++q)
+              tma_load(a + q * 4096, &tm_a, full, i0 + 32 * q, k0);
+          }
+          // this CTA's half of the B tile's rows (N), both planes, to both
+          // CTAs
+          const uint32_t half = rank * (T::BN / 2) * 128;
+          const int n0 = j0 + (int)rank * (T::BN / 2);
+          tma_load_multicast(a + T::A_BYTES + half, &tm_bh, full, k0, n0,
+                             (1u << T::CLUSTER) - 1);
+          tma_load_multicast(a + T::A_BYTES + T::B_BYTES + half, &tm_bl,
+                             full, k0, n0, (1u << T::CLUSTER) - 1);
+        }
+      }
+    }
+    cluster_sync();  // the partner's last arrivals and copies are done
+    return;
+  }
+
+  // ------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int c = wg - 1, t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  const int row0 = c * 64 + warp * 16;  // the warp's rows in the M tile
+  constexpr int KS = T::BK / 8;         // k8 steps a K tile
+  float acc[T::REGS], part[T::REGS];
+  unsigned h0[KS][4], l0[KS][4], h1[KS][4], l1[KS][4];
+  // K tile k (the ring's k-th): its A fragments into (h, l), split
+  auto load = [&](unsigned(&h)[KS][4], unsigned(&l)[KS][4], uint32_t k) {
+    const uint32_t s = k % T::STAGES, ph = (k / T::STAGES) & 1;
+    mbar_wait(bars + 8 * s, ph);
+    const uint32_t a = ring + s * T::STAGE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      unsigned v[4];
+      lds_a_f32<kAKMajor>(v, a, row0, kk, lane);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(v[q]), h[kk][q],
+                                             l[kk][q]);
+    }
+  };
+  // K tile k's products into the partial (fresh: starting it)
+  auto issue = [&](unsigned(&h)[KS][4], unsigned(&l)[KS][4], uint32_t k,
+                   bool fresh) {
+    const uint32_t s = k % T::STAGES;
+    const uint32_t bh = ring + s * T::STAGE_BYTES + T::A_BYTES;
+    const uint32_t bl = bh + T::B_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      // K-major: 8 k a step = 32 bytes along the swizzled row
+      const uint64_t dh = sw128_desc(bh + kk * 32, 16, 1024);
+      const uint64_t dl = sw128_desc(bl + kk * 32, 16, 1024);
+      wgmma_tf32<T::BN>(part, l[kk], dh, kk > 0 || !fresh);
+      wgmma_tf32<T::BN>(part, h[kk], dl, 1);
+      wgmma_tf32<T::BN>(part, h[kk], dh, 1);
+    }
+    wgmma_commit();
+  };
+  // K tile k's products are done (the caller's wait): its A registers are
+  // free, its stage is freed in both CTAs
+  auto release = [&](unsigned(&h)[KS][4], unsigned(&l)[KS][4], uint32_t k) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        fence_ureg(h[kk][q]);
+        fence_ureg(l[kk][q]);
+      }
+    if (t == 0)
+      for (uint32_t cta = 0; cta < T::CLUSTER; ++cta)
+        mbar_arrive_cluster(bars + 8 * (T::STAGES + k % T::STAGES), cta);
+  };
+  const unsigned kf = kEpi == kEpiDx ? stream_key(ta.seed, kStreamFeat) : 0;
+  const unsigned kp = kEpi == kEpiDx ? stream_key(ta.seed, kStreamPe) : 0;
+  uint32_t it = 0;
+  for (long long tile = cid; tile < sc.total; tile += clusters) {
+    const int z = (int)(tile / per_split);
+    const int rem = (int)(tile % per_split);
+    const long long i0 =
+        (long long)((rem / sc.ntiles) * T::CLUSTER + (int)rank) * T::BM;
+    const int j0 = (rem % sc.ntiles) * T::BN;
+    const long long k_beg = (long long)z * sc.k_chunk;
+    const long long k_end = min(sc.k, k_beg + sc.k_chunk);
+    const int ktiles =
+        k_end > k_beg ? (int)((k_end - k_beg + T::BK - 1) / T::BK) : 0;
+#pragma unroll
+    for (int v = 0; v < T::REGS; ++v) acc[v] = 0.f;
+    // a partial sum of two K tiles (64 deep) at a time: the second tile's
+    // A fragments load while the first's products run, the next pair's
+    // first while the second's run; then the partial into acc (FADD)
+    if (ktiles > 0) load(h0, l0, it);
+    for (int kt = 0; kt < ktiles; kt += 2) {
+      issue(h0, l0, it + kt, true);
+      if (kt + 1 < ktiles) {
+        load(h1, l1, it + kt + 1);
+        issue(h1, l1, it + kt + 1, false);
+        wgmma_wait<1>();
+        release(h0, l0, it + kt);
+        if (kt + 2 < ktiles) load(h0, l0, it + kt + 2);
+        wgmma_wait<0>();
+        release(h1, l1, it + kt + 1);
+      } else {
+        wgmma_wait<0>();
+        release(h0, l0, it + kt);
+      }
+#pragma unroll
+      for (int v = 0; v < T::REGS; ++v) {
+        fence_reg(part[v]);
+        acc[v] = __fadd_rn(acc[v], part[v]);
+      }
+    }
+    it += ktiles;
+    // epilogue from the registers: thread (warp, lane) holds fragment rows
+    // warp * 16 + lane / 4 (+ 8) (rows a_row of them) and columns 8 q + 2
+    // (lane % 4) (+ 1) of each 8-column block q
+    float* cz = g.c + (long long)z * g.c_split;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long i =
+          i0 + c * 64 + a_row<kAKMajor>(warp * 16 + lane / 4 + 8 * h);
+      if (i < sc.m)
+        f32_store_row<T::BN, kEpi>(g, ta, cz, i, j0, acc, h, lane, kf, kp);
+    }
+  }
+  cluster_sync();
+}
+
 // ------------------------------------------------------ host side
 
 typedef CUresult (*TensorMapEncodeTiled)(
@@ -1134,6 +1551,64 @@ inline cudaError_t product_wgmma(const GemmArgsT<bf16>& g,
   cfg.gridDim = dim3((unsigned)(clusters * T::CLUSTER));
   err = cudaLaunchKernelEx(&cfg, kernel, g, ta, splits, sa, tm_a, tm_b,
                            tm_c);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The float32 product (gemm_tf32.cuh:product dispatches here): A K-major
+// (kAKMajor) or M-major, raw float32; B as its hi and lo planes, each
+// [N][K] row-major (g.b, g.b_lo, row stride g.ldb); the epilogue kEpi;
+// `splits` partial products; BN 128 or 64 columns a tile.
+template <bool kAKMajor, int kEpi, int BN>
+inline cudaError_t product_wgmma_f32(const GemmArgsT<float>& g,
+                                     const TrainArgs& ta, int splits,
+                                     cudaStream_t st) {
+  using T = WgTileF32<BN>;
+  static_assert(kEpi == kEpiStore || kEpi == kEpiRowBias || kEpi == kEpiDx,
+                "the float32 product's epilogues");
+  if (g.m <= 0 || g.n <= 0) return cudaSuccess;
+  if (g.b_lo == nullptr || g.k <= 0 || splits < 1)
+    return cudaErrorInvalidValue;
+  constexpr CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap tm_a, tm_bh, tm_bl;
+  cudaError_t err =
+      kAKMajor ? tensor_map(&tm_a, f32, 4, g.a, g.k, g.m, g.lda, T::BK, T::BM)
+               : tensor_map(&tm_a, f32, 4, g.a, g.m, g.k, g.lda, 32, T::BK);
+  if (err != cudaSuccess) return err;
+  err = tensor_map(&tm_bh, f32, 4, g.b, g.k, g.n, g.ldb, T::BK, T::BN / 2);
+  if (err != cudaSuccess) return err;
+  err = tensor_map(&tm_bl, f32, 4, g.b_lo, g.k, g.n, g.ldb, T::BK,
+                   T::BN / 2);
+  if (err != cudaSuccess) return err;
+  auto kernel = wgmma_f32_kernel<T, kAKMajor, kEpi>;
+  err = cudaFuncSetAttribute((const void*)kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)T::SMEM);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = T::CLUSTER;
+  attr[0].val.clusterDim.y = attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(T::THREADS);
+  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static int resident = 0;
+  if (resident == 0) {
+    cfg.gridDim = dim3(T::CLUSTER * sm_count());
+    err = cudaOccupancyMaxActiveClusters(&resident, (const void*)kernel,
+                                         &cfg);
+    if (err != cudaSuccess) return err;
+    if (resident < 1) return cudaErrorInvalidConfiguration;
+  }
+  const long long groups = ((g.m + T::BM - 1) / T::BM + T::CLUSTER - 1) /
+                           T::CLUSTER *
+                           (long long)((g.n + T::BN - 1) / T::BN) * splits;
+  const long long clusters = groups < resident ? groups : resident;
+  cfg.gridDim = dim3((unsigned)(clusters * T::CLUSTER));
+  err = cudaLaunchKernelEx(&cfg, kernel, g, ta, splits, tm_a, tm_bh, tm_bl);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

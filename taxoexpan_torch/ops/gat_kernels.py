@@ -19,10 +19,13 @@ The forwards are `ops/csrc/gat_fwd.cu`, the backwards `ops/csrc/gat_bwd.cu`;
 their headers state what bounds them on an H100 and what the design does
 about it. Each computes the layer's product once, the projection [ft | a1 |
 a2] = [x*m | pe*m_pe] @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot
-biases, on the tensor cores (float32 layers in 3xTF32,
-`ops/csrc/gemm_tf32.cuh`; bf16 layers below). The backwards and the
-float32 forwards write it for all B*N rows into a workspace P that the
-star pass (K1), the pooled star pass (K3) or the head core (K2, K4) reads.
+biases, on the tensor cores (float32 layers in 3xTF32 on the TMA-fed
+wgmma ring of `ops/csrc/gemm_wgmma.cuh`, `f32_product` runs it alone;
+bf16 layers below). The float32 forwards and K2 write it for all B*N
+rows into a workspace P that the star pass (K1), the pooled star pass (K3)
+or the head core (K2) reads; K4, in either dtype, for the valid rows
+alone, compacted on the card (its dx is zero at the invalid slots, as the
+reference gives it).
 The bf16 forwards take one of three forms by shape (`fwd_form`, each
 form's launches also counted in `<wrapper>.launches_by_form`): "fused"
 (the per-slot layer at N <= 64: a1 | a2 first, then ft with the star pass
@@ -61,9 +64,7 @@ product's tile of ft in shared memory, the pooled eval and train forwards
 their product on the valid rows. The backwards keep the head core in
 float32; it writes its grads D once, in bf16, for the dW and dx products
 (_bwd_epilogue :607-651) and sums D's float32 values for the slot-bias
-grads itself;
-K4's products run on the valid rows alone (compacted on the card; dx is
-zero at the invalid slots, as the reference gives it). They return dx
+grads itself. They return dx
 (times its float32 mask), dfc, dwa1 and dwa2 in bf16 (:651, :1097, :1289),
 the slot-bias and pe grads in float32. The plain versions compute the
 same roundings: bf16-exact operands upcast and multiplied in float32
@@ -95,7 +96,7 @@ from .launch import (F as _F, I as _I, P as _P, TrainArgs as _TrainArgs,
                      bf16_operands, check_operands, check_star, chunk_elems,
                      count_launch, is_bf16, needs_staging, on_cuda,
                      pass_times, product_splits, product_work, raise_on,
-                     round_bf16, round_up, stream, train_args)
+                     round_bf16, round_up, stream, train_args, weight_work)
 
 LEAKY_ALPHA = 0.2   # attention logits (GATLayer default); the inter-layer
                     # activation fused through `out_alpha` is 0.01
@@ -105,7 +106,8 @@ _BWD_POINTERS = ("x", "fc", "wa1", "wa2", "bias_ft", "bias_a1", "bias_a2",
                  "ngp", "nsib", "g", "attn", "dcat", "part_w", "part_b",
                  "pe_rows", "part_pe", "dx", "dfc", "dwa1", "dwa2", "dbias_ft",
                  "dbias_a1", "dbias_a2", "dpe", "dwp", "dwpa1", "dwpa2", "xm",
-                 "wcat", "wt", "biascat", "d16", "row_off", "row_map")
+                 "wcat", "wt", "biascat", "d16", "row_off", "row_map",
+                 "bt")
 _BWD_INTS = ("b", "n", "din", "heads", "dh", "p", "pooled", "need_dx",
              "need_dbias", "has_out_alpha", "splits", "chunks", "kxp", "wdp",
              "ntp")
@@ -163,6 +165,10 @@ BWD_SIGNATURES = {
     "gat_product_bf16": ([_P, ctypes.c_longlong, _I, _P, ctypes.c_longlong,
                           _P, ctypes.c_longlong, _I, ctypes.c_longlong, _I,
                           _P], _I),
+    # a, lda, a_kmajor, b, ldb, bt, c, m, n, k, splits, stream
+    "gat_product_f32": ([_P, ctypes.c_longlong, _I, _P, ctypes.c_longlong,
+                         _P, _P, ctypes.c_longlong, _I, ctypes.c_longlong,
+                         _I, _P], _I),
     "gat_bwd_set_timing": ([_I], _I),
     "gat_bwd_pass_ms": ([_P], _I),
     "gat_bwd_error_string": ([_I], ctypes.c_char_p),
@@ -171,9 +177,11 @@ BWD_SIGNATURES = {
 # form (`fwd_form`; the fused form's pass A computes a1 | a2, its weights
 # pass the star softmax, its fused product ft with the aggregation in the
 # epilogue; the valid-rows form's first pass counts and compacts the valid
-# rows); the bf16 backwards' head core writes D in bf16 with the slot-bias
-# partials, so their fourth pass is the partials' reduction alone (no cast
-# of D), and K4 bf16's first pass counts and compacts the valid rows
+# rows); the bf16 backwards' and K4's head core adds D into the slot-bias
+# partials (writing D in bf16 in a bf16 layer), so their fourth pass is the
+# partials' reduction alone, K4's first pass counts and compacts the valid
+# rows, and a float32 layer's dW pass transposes its B operand into planes
+# first
 FWD_PASSES = {"two_pass": ("stage_pack", "projection", "star"),
               "fused": ("stage_pack", "pass_a", "weights", "fused_product"),
               "valid_rows": ("stage_rows_pack", "projection_rows", "star")}
@@ -695,7 +703,7 @@ def _fwd_work(x, heads: int, dh: int, feat_drop: float, ta,
     i32 = torch.int32
     t = {"proj": None if fused else empty(m, wdp),
          "xm": empty(rows, kxp, dtype=x.dtype) if staged else None,
-         "wcat": empty(kxp, wdp, dtype=x.dtype), "biascat": empty(n, wdp),
+         "wcat": weight_work(x, kxp, wdp), "biascat": empty(n, wdp),
          "wa": empty(kxp, wap, dtype=x.dtype) if fused else None,
          "biasa": empty(n, lda) if fused else None,
          "a12": empty(m, lda) if fused else None,
@@ -864,25 +872,25 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
     wd = hd + 2 * heads
     kx = din + pos
     bf16 = is_bf16(x)
-    # K4 bf16 runs its products on the valid rows, compacted: X always
-    # staged, kRowPad zero rows after the valid ones in X and D
-    compact = bf16 and pooled
+    # K4 runs its products on the valid rows, compacted: X always staged,
+    # kRowPad zero rows after the valid ones in X and D
+    compact = pooled
     rows = m + ROW_PAD if compact else m
     if compact and rows >= 1 << 31:
         raise ValueError("B * N + 64 must stay below 2**31 (int32 row map)")
     splits = product_splits(x, m, kx, wd)
-    chunks = _bwd_chunks(x, b, heads)
+    chunks = _bwd_chunks(x, b, heads, pooled)
     pw = product_work(x, rows, kx, wd,
                       compact or needs_staging(x, feat_drop, pos),
                       0 if need_dx else din, splits)
     wdp = pw["wdp"]
-    work = {"dcat": empty(m, wdp), "part_w": pw["part_w"],
+    work = {"dcat": empty(rows, wdp), "part_w": pw["part_w"],
             "part_b": empty(chunks, n, wdp) if need_dbias else None,
             "pe_rows": empty(m, pos) if pos else None,
             "part_pe": empty(chunks, n, pos) if pos else None,
-            "xm": pw["xm"], "wt": pw["wt"],
+            "xm": pw["xm"], "wt": pw["wt"], "bt": pw["bt"],
             # the projection's W and slot biases
-            "wcat": empty(pw["kxp"], wdp, dtype=dt), "biascat": empty(n, wdp),
+            "wcat": weight_work(x, pw["kxp"], wdp), "biascat": empty(n, wdp),
             # the products' D in bf16, written by the head core
             "d16": empty(rows, wdp, dtype=dt) if bf16 else None,
             "row_off": (empty(b + 1, dtype=torch.int32) if compact
@@ -918,11 +926,11 @@ def _bwd_cuda(pooled: bool, g, x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2,
     return grads
 
 
-def _bwd_chunks(x, b: int, heads: int) -> int:
-    """Chunks of egonets of the slot-bias and dpe sums: 64 in the float32
-    form; in the bf16 form, where a head-core block walks a chunk for its
+def _bwd_chunks(x, b: int, heads: int, pooled: bool) -> int:
+    """Chunks of egonets of the slot-bias and dpe sums: 64 in K2 float32;
+    in the bf16 forms and K4, where a head-core block walks a chunk for its
     head, about three blocks an SM."""
-    if not is_bf16(x):
+    if not is_bf16(x) and not pooled:
         return min(b, 64)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     return min(b, max(64, 3 * sms // heads))
@@ -1150,6 +1158,55 @@ def bf16_product(a, b, *, a_kmajor: bool = True,
 
 
 bf16_product.launches = 0
+
+
+def f32_product(a, b, *, a_kmajor: bool = True,
+                splits: int = 1) -> torch.Tensor:
+    """C = A @ B on the float32 layers' product kernel alone (3xTF32 on
+    csrc/gemm_wgmma.cuh's ring, the store epilogue), B's hi / lo planes
+    made as the dW product makes its B (csrc/bwd_common.cuh:
+    transpose_split_kernel): A [M, K] (a_kmajor) or A^T given as [K, M]; B
+    [K, N]; float32. Rows whose width is not a multiple of 4 are copied
+    into zero-padded rows first. Returns [M, N], the split-K partials
+    (splits > 1) summed over the splits. For the card tests; no layer
+    calls it. The plain version on the CPU (the float32 product); on the
+    card the kernel, counted in `f32_product.launches`."""
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError("a and b must be matrices")
+    m, k = (a.shape if a_kmajor else a.shape[::-1])
+    if b.shape[0] != k:
+        raise ValueError(f"inner dimensions differ: {k} and {b.shape[0]}")
+    if not on_cuda(a, "f32_product"):
+        return (a if a_kmajor else a.T) @ b
+    n = b.shape[1]
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.float32 or t.device != a.device:
+            raise ValueError(f"{name} must be float32 on {a.device}")
+
+    def padded(t):
+        width = round_up(t.shape[1], 4)
+        if width == t.shape[1] and t.is_contiguous() and \
+                t.data_ptr() % 16 == 0:
+            return t
+        out = t.new_zeros((t.shape[0], width))
+        out[:, :t.shape[1]] = t
+        return out
+    a, b = padded(a), padded(b)
+    bt = torch.empty((2, round_up(n, 4), round_up(k, 4)),
+                     dtype=torch.float32, device=a.device)
+    part = torch.empty((splits, m, n), dtype=torch.float32, device=a.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(a.device):
+        rc = lib.gat_product_f32(a.data_ptr(), a.shape[1], int(a_kmajor),
+                                 b.data_ptr(), b.shape[1], bt.data_ptr(),
+                                 part.data_ptr(), m, n, k, splits, stream(a))
+    raise_on(lib, rc, "f32_product", "gat_bwd_error_string")
+    if m and n:
+        f32_product.launches += 1
+    return part[0] if splits == 1 else part.sum(dim=0)
+
+
+f32_product.launches = 0
 
 
 WRAPPERS = {w.__name__: w for w in (

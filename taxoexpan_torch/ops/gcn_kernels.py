@@ -63,12 +63,12 @@ from .launch import (F, I, P, TrainArgs, bf16_operands, check_operands,
                      check_star, chunk_elems, count_launch, is_bf16,
                      needs_staging, on_cuda, pass_times, product_splits,
                      product_work, raise_on, round_bf16, round_up, stream,
-                     train_args)
+                     train_args, weight_work)
 
 _POINTERS = ("x", "w", "bias", "z_bias", "ngp", "nsib", "g", "out", "z",
              "g2sum", "part_w", "part_b", "pe_rows", "part_pe", "dx", "dw",
              "db", "dzb", "dpe", "dwp", "xm", "wcat", "biascat", "wt",
-             "dz16", "row_off", "row_map", "row_info", "dzf")
+             "dz16", "row_off", "row_map", "row_info", "dzf", "bt")
 _INTS = ("b", "n", "din", "dout", "p", "has_alpha", "need_dx", "need_dzb",
          "splits", "chunks", "kxp", "ldd", "ntp", "rows")
 
@@ -326,7 +326,7 @@ def _projection_work(x, dout: int, drop: float,
                       0)
     ldd = pw["wdp"]
     ptrs = {"z": _empty(x, bsz * n, ldd), "xm": pw["xm"],
-            "wcat": _empty(x, pw["kxp"], ldd, dtype=x.dtype),
+            "wcat": weight_work(x, pw["kxp"], ldd),
             "biascat": _empty(x, n, ldd)}
     return ptrs, {"kxp": pw["kxp"], "ldd": ldd}
 
@@ -446,7 +446,7 @@ def _bwd_cuda(g, x, w, b, z_bias, ngp, nsib, p, pe_pack, seed, drop, alpha,
     i32 = torch.int32
     work = {"g": g, "z": empty(m, ldd) if act or not compact else None,
             "g2sum": empty(bsz, dout),
-            "wcat": empty(pw["kxp"], ldd, dtype=x.dtype) if act else None,
+            "wcat": weight_work(x, pw["kxp"], ldd) if act else None,
             "biascat": empty(n, ldd) if act else None,
             "part_w": pw["part_w"], "part_b": empty(chunks, n * ldd),
             "pe_rows": empty(m, pos) if pos else None,
@@ -454,6 +454,7 @@ def _bwd_cuda(g, x, w, b, z_bias, ngp, nsib, p, pe_pack, seed, drop, alpha,
             "dx": grads["x"], "dw": grads["w"], "db": grads["b"],
             "dzb": grads["z_bias"], "dpe": grads.get("pe"),
             "dwp": grads.get("wp"), "xm": pw["xm"], "wt": pw["wt"],
+            "bt": pw["bt"],
             # the products' dz in bf16 (bf16 layers)
             "dz16": empty(rows, ldd, dtype=x.dtype) if is_bf16(x) else None,
             "row_off": empty(bsz + 1, dtype=i32) if compact else None,

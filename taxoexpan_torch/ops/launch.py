@@ -168,16 +168,18 @@ def round_up(v: int, k: int) -> int:
 
 
 def product_splits(x: torch.Tensor, m: int, kx: int, wd: int) -> int:
-    """Split-K count of the dW product (csrc/bwd_common.cuh) over m rows.
-    float32: about four waves of its 128 x 128 output tiles (one block an
-    SM), at least 4096 rows a split. bf16 (csrc/gemm_wgmma.cuh, a
-    persistent grid of one block an SM): the fewest splits, at least 2048
-    rows each, whose tiles fill the SMs' last round to 95 %, else the best
-    fill."""
+    """Split-K count of the dW product (csrc/bwd_common.cuh) over m rows,
+    on the persistent grid of one block an SM (csrc/gemm_wgmma.cuh).
+    float32: by the rows alone, one split a 2048 rows up to 16 (16,384
+    rows a split at config.mag.json's 262,144), so that a head shard's dW
+    under tensor parallelism sums each element over the same row chunks,
+    in the same order, as the whole layer's: equal bits. bf16: the fewest
+    splits, at least 2048 rows each, whose 128 x 128 tiles fill the SMs'
+    last round to 95 %, else the best fill."""
+    if not is_bf16(x):
+        return max(1, min(16, -(-m // 2048)))
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     tiles = -(-wd // 128) * -(-kx // 128)
-    if not is_bf16(x):
-        return max(1, min(-(-4 * sms // tiles), -(-m // 4096)))
     best, best_fill = 1, 0.0
     for s in range(1, max(1, min(64, m // 2048)) + 1):
         fill = tiles * s / (-(-tiles * s // sms) * sms)
@@ -198,20 +200,35 @@ def needs_staging(x: torch.Tensor, feat_drop: float, pos: int) -> bool:
 
 def product_work(x: torch.Tensor, m: int, kx: int, wd: int, staged: bool,
                  kbeg: int, splits: int) -> dict:
-    """Workspaces of the product passes (csrc/bwd_common.cuh:ProductWork):
-    xm [m, kxp] (staged only), wt [wdp, ntp] (the dx product's W^T over
-    the input columns [kbeg, kx)), both in x's dtype, part_w [splits, kx,
-    wd] float32 (splits > 0: the dW product), and the widths (16-byte
-    multiples of x's dtype)."""
+    """Workspaces of the product passes (csrc/bwd_common.cuh:ProductWork)
+    over m rows: xm [m, kxp] (staged only), wt (the dx product's B over
+    the input columns [kbeg, kx): W^T [wdp, ntp] in bf16, W's rows as hi /
+    lo planes [2, ntp, wdp] in float32), both in x's dtype, part_w [splits,
+    kx, wd] float32 (splits > 0: the dW product) and, float32 only, bt
+    (the dW product's B: X^T or D^T, whichever is narrower, as hi / lo
+    planes [2, kxp or wdp, m rounded up to 4]; csrc/bwd_common.cuh:
+    dw_operands), and the widths (16-byte multiples of x's dtype)."""
     c = chunk_elems(x)
     kxp, wdp, ntp = round_up(kx, c), round_up(wd, c), round_up(kx - kbeg, c)
+    kxp = kxp if staged else kx
+    f32 = not is_bf16(x)
     empty = lambda *shape, dtype=x.dtype: torch.empty(  # noqa: E731
         shape, dtype=dtype, device=x.device)
     return {"xm": empty(m, kxp) if staged else None,
-            "wt": empty(wdp, ntp) if ntp else None,
+            "wt": ((empty(2, ntp, wdp) if f32 else empty(wdp, ntp))
+                   if ntp else None),
+            "bt": (empty(2, kxp if kx <= wd else wdp, round_up(m, 4))
+                   if f32 and splits else None),
             "part_w": (empty(splits, kx, wd, dtype=torch.float32)
                        if splits else None),
-            "kxp": kxp if staged else kx, "wdp": wdp, "ntp": ntp}
+            "kxp": kxp, "wdp": wdp, "ntp": ntp}
+
+
+def weight_work(x: torch.Tensor, kxp: int, wdp: int) -> torch.Tensor:
+    """The projection's packed W (csrc/gemm_tf32.cuh:pack_weights_kernel):
+    [kxp, wdp] in bf16; W^T as hi / lo planes [2, wdp, kxp] in float32."""
+    shape = (kxp, wdp) if is_bf16(x) else (2, wdp, kxp)
+    return torch.empty(shape, dtype=x.dtype, device=x.device)
 
 
 def pass_times(lib, prefix: str, call) -> list[float]:

@@ -24,6 +24,13 @@ and train forward, backward) around its projection at B = 1, N = 70 with
 B*N not a multiple of the 128-row tile, Dout 130 (rows of 132 floats), din
 33 / 250 and a batch of empty egonets (dz and dx exactly 0 on invalid
 rows), and the projection and the star pass alone;
+the float32 product alone (3xTF32 on the wgmma ring) against a float64
+product at depths 300 / 504 / 2050 and widths 50 / 300 / 2008, K-major and
+M-major A, split-K, within the bound the mma.sync pipeline it replaced
+met, equal bits twice; K4 float32 on the valid rows (B = 1, R ragged,
+several splits, the final layer's widths, R below one K tile; empty and
+full egonets, large x at the invalid slots, dx exactly 0 there, need_dx
+both ways, dropout on and off, stored and recompute equal bits);
 for K6 the halo gather at P = 1 to 4 in float32 and bf16 (exact), empty
 buckets, and two rank processes sharing the card through CUDA IPC; the
 bf16 forms of K1-K4 (compute_dtype "bfloat16": the products on the
@@ -992,6 +999,87 @@ def test_wgmma_product_matches_float32(dev, k, n):
         assert torch.equal(again, got)      # no atomics: equal bits
 
 
+# the float32 product alone (3xTF32 on csrc/gemm_wgmma.cuh's ring): K-major
+# A (the projection, the dx product) at the layers' depths and widths,
+# M-major A (the dW product) over many rows with split-K; ragged M, N, K
+@pytest.mark.parametrize("k", [300, 504, 2050])
+@pytest.mark.parametrize("n", [50, 300, 2008])
+def test_f32_product_matches_float64(dev, k, n):
+    """A @ B of float32 operands against their float64 product. Bound, the
+    mma.sync pipeline's it replaces, which split both operands the same
+    way and truncated 64-deep partial sums as this one does: each
+    product's split error (a_lo and b_lo read as TF32, a_lo b_lo dropped)
+    is below 2**-20 of |a b|, each 64-deep partial sum is accumulated by
+    the tensor cores with truncation (64 adds of 2**-23 relative) before
+    its float32 FADD, so |err| <= 2**-17 (|A| @ |B|) elementwise, taken as
+    1e-5 (|A| @ |B|) plus 1e-6."""
+    gen = torch.Generator(dev).manual_seed(k + n)
+    for m, kmajor, splits in ((1000 + 3, True, 1), (129, True, 2),
+                              (300, False, 1), (2050, False, 3)):
+        kk = k if kmajor else 40 * k + 17   # dW: the rows are the depth
+        a = torch.randn((m, kk) if kmajor else (kk, m), generator=gen,
+                        device=dev)
+        b = torch.randn((kk, n), generator=gen, device=dev)
+        before = gk.f32_product.launches
+        got = gk.f32_product(a, b, a_kmajor=kmajor, splits=splits)
+        torch.cuda.synchronize()
+        assert gk.f32_product.launches == before + 1
+        af = a.double() if kmajor else a.double().T
+        want = af @ b.double()
+        bound = 1e-5 * (af.abs() @ b.double().abs()) + 1e-6
+        err = (got.double() - want).abs()
+        assert got.shape == (m, n) and bool(torch.isfinite(got).all())
+        assert bool((err <= bound).all()), (m, kmajor, float(err.max()))
+        again = gk.f32_product(a, b, a_kmajor=kmajor, splits=splits)
+        assert torch.equal(again, got)      # no atomics: equal bits
+
+
+K4_F32_SHAPES = [
+    # b, p, s, din, heads, dh, pos
+    (1, 13, 50, 250, 1, 500, 50),      # B = 1
+    (7, 5, 20, 33, 3, 200, 7),         # R ragged, heads 3
+    (130, 3, 30, 40, 2, 24, 5),        # several split-K splits of R rows
+    (3, 13, 50, 2000, 1, 500, 50),     # the PGAT final layer's widths
+    (2, 13, 2, 30, 1, 500, 2),         # R below one 32-row K tile
+]
+
+
+@pytest.mark.parametrize("b,p,s,din,heads,dh,pos", K4_F32_SHAPES)
+@pytest.mark.parametrize("drop", [0.0, 0.1])
+def test_f32_k4_valid_rows_match_plain(dev, b, p, s, din, heads, dh, pos,
+                                       drop):
+    """K4 float32 on the valid rows alone: grads against the plain version
+    (all rows) at GTOL, dx exactly 0 at the invalid slots (also with large
+    x there), need_dx on and off, empty egonets among the first, the
+    stored form equal bits with the recompute one, two calls equal
+    bits."""
+    t = _inputs(dev, b, p, s, din, heads, dh, seed=45)
+    valid = _edge_egonets(t, p, s, big=True)
+    n = p + 1 + s
+    kw = dict(pe_pack=_pe_pack(dev, n, pos, heads, dh) if drop else None,
+              seed=46, feat_drop=drop, attn_drop=drop)
+    out, attn = gk.gat_layer_pooled_fwd_train_store(*t, p, heads, **kw)
+    g = torch.randn((b, 3, dh), device=dev,
+                    generator=torch.Generator(dev).manual_seed(47))
+    for need_dx in (True, False):
+        bkw = dict(kw, need_dx=need_dx)
+        before = gk.gat_layer_pooled_bwd.launches
+        got = gk.gat_layer_pooled_bwd(g, *t, p, heads, **bkw)
+        torch.cuda.synchronize()
+        assert gk.gat_layer_pooled_bwd.launches == before + 1
+        _assert_grads(got, gk.gat_layer_bwd_plain(
+            g, *t, p, heads, pooled=True, **bkw))
+        if need_dx and bool((~valid).any()):
+            assert float(got["x"][~valid].abs().max()) == 0.0
+        again = gk.gat_layer_pooled_bwd(g, *t, p, heads, **bkw)
+        stored = gk.gat_layer_pooled_bwd_stored(g, *t, p, heads, attn, **bkw)
+        torch.cuda.synchronize()
+        for name, a in got.items():
+            for other in (again, stored):
+                assert (a is None) == (other[name] is None), name
+                assert a is None or torch.equal(a, other[name]), name
+
+
 K4_BF16_SHAPES = [
     # b, p, s, din, heads, dh, pos
     (1, 13, 50, 250, 1, 500, 50),      # B = 1
@@ -1658,7 +1746,8 @@ def test_train_step_makes_no_host_sync(dev, tmp_path):
     32 candidates, AMSGrad) after a warm-up step raises nothing under
     torch.cuda.set_sync_debug_mode("error"): no operation of the step waits
     for the device (AMSGrad's bias corrections are filled in on the card,
-    the slot codes of the position embeddings too)."""
+    the slot codes of the position embeddings too; K4 counts and compacts
+    its valid rows there, and its products read the count there)."""
     import json
 
     from taxoexpan_torch import builders
