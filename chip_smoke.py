@@ -540,12 +540,25 @@ def path_launches(path: str, wrappers: dict) -> dict:
     BF16_PATHS path also the forwards' launches by form under
     "<name>[<form>]" (`gk.fwd_form`): at N = 64 every per-slot forward
     must take the fused form and the pooled eval and train forms the
-    valid-rows form (raises otherwise)."""
+    valid-rows form (raises otherwise). On a GCN path K5's launches by
+    form (`ck.form`) under "<name>[<form>]": at N = 64 every K5 call must
+    take the valid-rows form (raises otherwise)."""
     from taxoexpan_torch.ops import gat_kernels as gk
     if path not in BF16_PATHS:
-        return {name: w.launches for name, w in wrappers.items()} | {
+        res = {name: w.launches for name, w in wrappers.items()} | {
             f"{name}[bf16]": w.launches_bf16
             for name, w in wrappers.items()}
+        if PATHS[path][1] in ("GCN", "PGCN"):
+            forms = {f"{name}[{form}]": count
+                     for name, w in wrappers.items()
+                     for form, count in w.launches_by_form.items()}
+            other = {key: count for key, count in forms.items()
+                     if not key.endswith("[valid_rows]")}
+            if other:
+                raise AssertionError(f"the path {path} launched K5 forms "
+                                     f"{other}")
+            res |= forms
+        return res
     f32 = {name: w.launches for name, w in gk.WRAPPERS.items() if w.launches}
     if f32:
         raise AssertionError(f"the bf16 path {path} launched float32 "
@@ -719,11 +732,11 @@ def pass_split(kernel, which: str, calls: int = 3) -> dict:
     head core, slot-bias sums, dW, dx), "gat_bwd_bf16" (their bf16 forms:
     stage and pack, with K4's valid rows counted and compacted; projection;
     the head core writing D in bf16; the reduction of its slot-bias
-    partials; dW; dx), "gcn_fwd[:<form>]" (K5f by its form, `ck.form`:
-    "two_pass", the default, stage and pack, projection, star pass;
-    "valid_rows" the packed rows' offsets and tables, the rows staged and W
-    packed, the product with the star epilogue) or "gcn_bwd[:<form>]"
-    (K5b: stage and pack, or the valid
+    partials; dW; dx), "gcn_fwd[:<form>]" (K5f by its form, `ck.form`, in
+    either dtype: "two_pass", the default, stage and pack, projection, star
+    pass; "valid_rows" the packed rows' offsets and tables, the rows staged
+    and W packed, the product with the star epilogue) or
+    "gcn_bwd[:<form>]" (K5b, either dtype: stage and pack, or the valid
     rows compacted and staged; projection; the dz pass; the db / d z_bias
     sums; dW; dx)."""
     from taxoexpan_torch.ops import gat_kernels as gk
@@ -765,7 +778,6 @@ def product_rates(x, ops, pe_pack, heads: int, ngp, nsib, passes: dict,
     (float32: float32-equivalent) from its pass ms, and one torch.matmul
     (cuBLAS) at the same shape on random operands of x's dtype (float32:
     full float32, TF32 off) as a yardstick, not used by the port."""
-    import torch
     from taxoexpan_torch.ops import gat_kernels as gk
     b, n, din = x.shape
     hd = ops[0].shape[1]
@@ -787,8 +799,18 @@ def product_rates(x, ops, pe_pack, heads: int, ngp, nsib, passes: dict,
         if cols:
             shapes["dx"] = ((rows, wd), (wd, cols), False)
     out = {"rows": rows, "valid_rows": valid, **({"form": form} if form
-                                                  else {}),
-           "matmul_dtype": str(x.dtype).replace("torch.", "")}
+                                                  else {})}
+    return out | matmul_rates(x, shapes, passes)
+
+
+def matmul_rates(x, shapes: dict, passes: dict) -> dict:
+    """For each product pass `name` of `shapes` ({name: (A's shape, B's
+    shape, A read transposed)}): its operations, its TFLOP/s from its pass
+    ms in `passes`, and one torch.matmul at the same shape on random
+    operands of x's dtype (float32: TF32 off) as a yardstick, not used by
+    the port."""
+    import torch
+    out = {"matmul_dtype": str(x.dtype).replace("torch.", "")}
     gen = torch.Generator(device=x.device).manual_seed(SEED)
     for name, (sa, sb, trans) in shapes.items():
         a = torch.randn(sa, generator=gen, device=x.device, dtype=x.dtype)
@@ -916,6 +938,32 @@ def packed_rows(ngp, nsib, p: int, n: int, tile: int = 64) -> int:
             tiles, pos = tiles + 1, 0
         pos += c
     return tiles * tile + pos
+
+
+def gcn_product_rates(x, dout: int, pos: int, rows: int, passes: dict,
+                      backward: bool, need_dx: bool, form: str,
+                      alpha) -> dict:
+    """The product passes of a K5 form (csrc/gemm_wgmma.cuh: 3xTF32 for
+    float32, bf16 for bf16) beside one torch.matmul of each shape
+    (`matmul_rates`): the forward's product over the rows it runs (the
+    valid-rows form: the packed rows, with the star pass in its epilogue;
+    the two-pass form: all B*N rows, the projection into z); in a
+    backward, over `rows` rows (the valid rows R, or all B*N rows), the
+    recompute of z where the layer has an activation, dW (with its operand
+    transposed into hi / lo planes in float32, and its split reduction)
+    and dx (with the dpe sums)."""
+    kx = x.shape[2] + pos
+    if not backward:
+        name = "product_star" if form == "valid_rows" else "projection"
+        shapes = {name: ((rows, kx), (kx, dout), False)}
+    else:
+        shapes = {"projection": ((rows, kx), (kx, dout), False)} \
+            if alpha is not None else {}
+        shapes["dw"] = ((rows, kx), (rows, dout), True)   # X^T @ dz
+        cols = (x.shape[2] if need_dx else 0) + pos
+        if cols:
+            shapes["dx"] = ((rows, dout), (dout, cols), False)
+    return {"rows": rows, "form": form} | matmul_rates(x, shapes, passes)
 
 
 def gcn_star_alone(name: str, x, ops, ngp, nsib, alpha,
@@ -1489,14 +1537,16 @@ def phase_gcn_kernels(batch: int, device,
     (path PGCN) and in bf16 (x and W_h in bf16, the final layer fed the
     bf16 layer 0's output; reached by a direct call only, since PGCN runs
     float32 under any compute dtype, so its launches are the PGCN path's
-    bf16 launches; each bf16 entry gives its form (`ck.form`: the
-    valid-rows form at N = 64), its passes, the valid rows R and, for the
-    forwards, the packed rows, and beside them `parent_form`: the ms and
-    passes of the two-pass form, the design before the valid-rows form, on
-    the same inputs). With path "PGCN-concat" the forms pos_mode "concat"
-    gives them, float32 only: the pe columns in x (layer 0 at 300 input
-    columns, its K5b with need_dx on; the final layer at 550), no z_bias
-    and no pe path (entries "<wrapper>[<layer>, concat]")."""
+    bf16 launches). Each entry, of either dtype, gives its form
+    (`ck.form`: the valid-rows form at N = 64), its passes, the valid rows
+    R and all B*N rows and, for the forwards, the packed rows; `products`
+    (each product pass's TFLOP/s beside one torch.matmul of its shape in
+    the entry's dtype, TF32 off); and beside them `parent_form`: the ms
+    and passes of the two-pass form, the design before the valid-rows
+    form, on the same inputs. With path "PGCN-concat" the forms pos_mode
+    "concat" gives them, float32 only: the pe columns in x (layer 0 at 300
+    input columns, its K5b with need_dx on; the final layer at 550), no
+    z_bias and no pe path (entries "<wrapper>[<layer>, concat]")."""
     import torch
     from taxoexpan_torch.models.propagation import (concat_pos,
                                                     gcn_layer_operands,
@@ -1618,19 +1668,25 @@ def phase_gcn_kernels(batch: int, device,
             form = ck.form(x)
             got, nums = measure(name, kernel, plain, backward, matmul,
                                 f"{which}:{form}")
-            if low:  # the two-pass form on the same inputs, beside it
-                rows = int((ngp.clamp(0, GP_SLOTS) + 1
-                            + nsib.clamp(0, n - GP_SLOTS - 1)).sum())
-                nums.update(form=form, valid_rows=rows, all_rows=x.shape[0]
-                            * n)
-                if not backward:
-                    nums["packed_rows"] = packed_rows(ngp, nsib, GP_SLOTS, n)
-                with ck.bf16_form("two_pass"), torch.no_grad():
-                    nums["parent_form"] = {
-                        "form": "two_pass",
-                        "ms": time_ms(kernel, 5 if backward else 10),
-                        "passes_ms": pass_split(kernel,
-                                                f"{which}:two_pass")}
+            # the rows each form runs, its products' rates, and the
+            # two-pass form on the same inputs beside it
+            rows = int((ngp.clamp(0, GP_SLOTS) + 1
+                        + nsib.clamp(0, n - GP_SLOTS - 1)).sum())
+            all_rows = x.shape[0] * n
+            nums.update(form=form, valid_rows=rows, all_rows=all_rows)
+            if not backward:
+                nums["packed_rows"] = packed_rows(ngp, nsib, GP_SLOTS, n)
+            need_dx = (dx0 if layer == "layer0" else True) and backward
+            run_rows = all_rows if form != "valid_rows" else \
+                rows if backward else nums["packed_rows"]
+            nums["products"] = gcn_product_rates(
+                x, w.shape[1], pe_pack[0].shape[1] if pe_pack else 0,
+                run_rows, nums["passes_ms"], backward, need_dx, form, alpha)
+            with ck.use_form("two_pass"), torch.no_grad():
+                nums["parent_form"] = {
+                    "form": "two_pass",
+                    "ms": time_ms(kernel, 5 if backward else 10),
+                    "passes_ms": pass_split(kernel, f"{which}:two_pass")}
             kw = (tkw0 if layer == "layer0" else tkw1) \
                 if wrapper != "gcn_layer_fwd" else {}
             if backward:
@@ -3764,7 +3820,8 @@ def main() -> int:
 
 
 def reset_counters() -> None:
-    """Every kernel wrapper's launch count to 0."""
+    """Every kernel wrapper's launch counts to 0: by dtype, by heads and by
+    form (K1-K5, either dtype)."""
     from taxoexpan_torch.ops import gat_kernels as gk
     from taxoexpan_torch.ops import gcn_kernels as ck
     from taxoexpan_torch.ops import halo_kernels as hk

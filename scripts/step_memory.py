@@ -15,7 +15,12 @@ candidates = 4096 egonets. After two warm-up steps it resets the
 allocator's peak, runs three steps, and prints one JSON line:
 `torch.cuda.max_memory_allocated` above the memory held before the steps
 (the step's own workspaces, activations and grads), the mean step time
-(CUDA events), and the card's nvidia-smi line. Needs a CUDA device.
+(CUDA events), and the card's nvidia-smi line; then three more steps
+under torch.profiler, read back by the checkout's own
+`chip_smoke.trace_split`: their device-busy ms a step (the union of the
+kernels' intervals), the device's idle share and the kernel launches a
+step (the profiler slows the host, so these steps are not the timed
+ones). Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -67,14 +72,33 @@ with tempfile.TemporaryDirectory() as tmp:
         tr.train_step(b, 2 + i)
     end.record()
     torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / 3
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    # three more steps traced, for the device's busy time and idle share
+    from pathlib import Path
+    from chip_smoke import trace_split
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(3):
+            tr.train_step(b, 5 + i)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(tmp + "/trace.json")
+    split = trace_split(Path(tmp) / "trace.json")
 card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                        "--format=csv,noheader"], capture_output=True,
                       text=True).stdout.strip().splitlines()[0]
 print(json.dumps({"checkout": sys.argv[1], "path": sys.argv[2],
                   "egonets": int(batch.labels.size),
-                  "step_peak_bytes": torch.cuda.max_memory_allocated(dev)
-                  - base, "held_before_bytes": base,
-                  "step_ms": start.elapsed_time(end) / 3, "card": card}))
+                  "step_peak_bytes": peak, "held_before_bytes": base,
+                  "step_ms": step_ms,
+                  "traced_device_busy_ms_per_step":
+                  split["device_busy_ms"] / 3,
+                  "traced_wall_ms_per_step": split["wall_ms"] / 3,
+                  "traced_device_idle_share": split["device_idle_share"],
+                  "traced_kernel_launches_per_step":
+                  split["kernel_launches"] / 3,
+                  "card": card}))
 """
 
 

@@ -18,100 +18,99 @@
 // columns of the layer input X) with the counter-based bits of
 // ops/dropout.py, rows b*n + slot, streams STREAM_FEAT / STREAM_PE.
 //
-// Forward, two launches and a small preparation (as gat_fwd.cu runs K1):
+// Each call takes a form by shape (gcn_kernels.form), in either element
+// type:
+//  - The valid-rows form (n <= 64; every configuration: N = 64).
+//  - The two-pass form (n > 64): the projection over all rows into z in
+//    device memory, then a star pass.
+//
+// What bounds K5 on an H100, at config.mag.json's PGCN shapes (4096
+// egonets of N = 64, 250 + 50 -> 500 with the leaky, 500 + 50 -> 500
+// without; pos_mode "concat": 300 and 550 input columns): the layer's
+// products and its bytes are of one size. Of the B*N = 262,144 rows only
+// the valid ones reach the output (R = 132,501 in the smoke's batch,
+// PERF.md), so layer 0's float32 train forward needs 2 R 300 500 = 39.8
+// GFLOP, 0.24 ms at the 3xTF32 rate, against 0.23 ms for x read and out
+// written (0.79 GB at 3.35 TB/s). The two-pass form spends more than twice
+// that: the projection over all B*N rows, z [B*N, 500] written and read
+// back in float32 (1.05 GB, 0.31 ms), and in the backward the dz pass, dW
+// and dx over all rows too. The valid-rows form does only the needed work:
+//
+// Forward, two passes:
+//  rows + stage  the valid rows of whole egonets packed into 64-row tiles
+//                in egonet order (packed_row_offsets_kernel: next fit, so
+//                no egonet straddles a tile; about 0.69 of B*N in the
+//                smoke's batch), staged with their own masks, each packed
+//                row's original row and (slot, ngp, the egonet's first row
+//                in the tile) recorded (stage_packed_rows_kernel), the
+//                invalid rows' output act(b) written; W and z_bias packed;
+//  product       X @ W on the packed rows (counted on the card: no host
+//                sync) with the star pass in its epilogue
+//                (gemm_wgmma.cuh:kEpiGcn): each consumer warpgroup's tile
+//                holds whole egonets' products; the epilogue adds z_bias
+//                by slot, takes the closed-form norms, the anchor's gp sum
+//                and the siblings' anchor term, the bias and the leaky, and
+//                writes the output once, at the original rows. z never
+//                reaches device memory. bf16 runs it on its C tile; the
+//                float32 ring (3xTF32) has room beside its four stages for
+//                a 64-column half of the z tile only, so its consumers
+//                stage z a half at a time through 16 KB of shared memory
+//                (gemm_wgmma.cuh says why not fewer stages). The output
+//                has the two-pass form's bits.
+// Backward: the valid rows counted and compacted on the card (K4's
+// valid_row_offsets_kernel and stage_valid_rows_kernel: dx and the pe
+// rows' grads zeroed on the invalid rows, zero rows after the R valid
+// ones), W packed; z recomputed on the R rows where leaky' needs it; the
+// dz pass (gcn_star_bwd_rows_kernel, a thread a column) writing dz once,
+// in E, compacted, with the per-egonet g2 sums for db; db and d z_bias
+// from fixed-order chunked partials (bf16: the float32 dz the pass also
+// writes in the original layout; float32: the compacted dz itself, summed
+// by slot in the two-pass form's chunks and order,
+// colsum_valid_rows_kernel); dW and dx on the R rows (dx scattered through
+// the row map). dx, db and d z_bias have the two-pass form's bits; dW sums
+// its rows in other split-K groups.
+//
+// The two-pass form, two launches and a small preparation (as gat_fwd.cu
+// runs K1):
 //  1. X staged once into a workspace, each mask bit hashed once, where the
 //     layer has masks or a pe path or x's rows are not 16-byte multiples
 //     (else the product reads x), and W = [W_h; W_p] packed; then the
 //     projection z = X @ W + z_bias over all B*N rows into a workspace
-//     [B*N, ldd] (ldd = dout rounded up to 4, zero in the padding
-//     columns), on the tensor cores in 3xTF32 (gemm_wgmma.cuh, shared with
+//     [B*N, ldd] (ldd = dout rounded up to a 16-byte multiple, zero in the
+//     padding columns), on the tensor cores (gemm_wgmma.cuh, shared with
 //     K1-K4: bwd_common.cuh:gat_projection with W alone and z_bias as the
 //     slot bias).
 //  2. The star pass, one block per (egonet, 128-column tile), each thread
 //     a column: the star sum with the closed-form norms, the bias and the
 //     activation, out written once for all N rows; only the valid rows of
 //     z are read (an invalid row's output is act(b)).
-//
-// Backward, one C entry point launching in order:
-//  1. X staged and W packed once: W^T for the dx product and, where the
-//     layer has an activation, W for the projection;
-//  2. with an activation, z recomputed by the forward's own projection on
-//     the same X, so leaky' is taken at the forward's pre-activation, bit
-//     for bit (the final layer's backward needs no z and skips it);
-//  3. the dz star pass, blocks as the forward's star pass: g2 = g
-//     times leaky'(pre + b), dz = norm * copy_src_sum^T(norm * g2) written
-//     over the z workspace in place (each thread reads and writes its own
-//     column only; zero in the padding columns and on invalid rows), and
-//     the per-egonet column sums of g2 for db;
-//  4. db and d z_bias: sums over egonets, chunked partial sums then a
-//     fixed-order reduction (bwd_common.cuh);
-//  5. dW = X^T @ dz split-K, dx = (dz @ W_h^T) * m (need_dx) and dpe = sum
-//     over egonets of (dz @ W_p^T) * m_pe: the tensor-core products of
-//     bwd_common.cuh (3xTF32).
-// Deterministic: no atomics.
+// Its backward, one C entry point launching in order: X staged and W
+// packed (W^T for the dx product and, with an activation, W for the
+// projection); with an activation z recomputed by the forward's own
+// projection on the same X, so leaky' is taken at the forward's
+// pre-activation, bit for bit; the dz star pass (g2 = g times leaky'(pre +
+// b), dz = norm * copy_src_sum^T(norm * g2) written over the z workspace
+// in place, zero in the padding columns and on invalid rows, and the
+// per-egonet column sums of g2 for db); db and d z_bias (bwd_common.cuh's
+// chunked sums); dW = X^T @ dz split-K, dx = (dz @ W_h^T) * m (need_dx)
+// and dpe = sum over egonets of (dz @ W_p^T) * m_pe (bwd_common.cuh).
+// Deterministic in every form: no atomics.
 //
 // The bf16 form (fused_gcn_layer with x in bf16; `*_bf16` entry points):
 // x, W_h, the output, the incoming grad g, dx and dW in bf16, with the
 // reference's roundings (pallas_gcn.py:69-78, :124-126, :163, :209-223): X
 // staged as x times its mask rounded to bf16, the pe rows times their
 // float32 mask rounded to bf16, W_p packed in bf16; the products on bf16
-// wgmma with float32 accumulation (gemm_wgmma.cuh), so z is float32 (the
-// backward's recompute reruns the product on the same staged X, so leaky'
-// is taken at the forward's bits); the star passes in float32, the output
-// rounded to bf16; g upcast; dz rounded to bf16 after the float32 db /
-// d z_bias sums, for dW = X^T @ dz (the x rows rounded to bf16, the pe
-// rows' dW_p float32) and dX = dz @ W^T (dx times its float32 mask,
-// rounded to bf16; the pe columns' grads float32). Rows of z, W and dz
-// hold 8 bf16 a 16-byte chunk: ldd, kxp and ntp round to 8. Each shape
-// takes a form (gcn_kernels.form):
-//  - The valid-rows form (n <= 64, every configuration: N = 64). What held
-//    the two-pass form back at config.mag.json's PGCN shapes (4096
-//    egonets, 250 + 50 -> 500 and 500 + 50 -> 500; NVIDIA H100 80GB HBM3 at
-//    700 W, PERF.md): the projection over all B*N rows while only the valid
-//    ones (about half) reach the output, z written and read back in float32
-//    (0.5 GB), and in the backward dz written in float32 and cast to bf16
-//    by a pass of its own.
-//    Forward, two passes:
-//     rows + stage  the valid rows of whole egonets packed into 64-row
-//                   tiles in egonet order (packed_row_offsets_kernel: next
-//                   fit, so no egonet straddles a tile; about 0.69 of B*N
-//                   in the smoke's batch), staged with their own masks,
-//                   each packed row's original row and (slot, ngp, the
-//                   egonet's first row in the tile) recorded
-//                   (stage_packed_rows_kernel), the invalid rows' output
-//                   act(b) written; W and z_bias packed;
-//     product       X @ W on the packed rows (counted on the card: no host
-//                   sync) with the star pass in its epilogue
-//                   (gemm_wgmma.cuh:kEpiGcn): each consumer warpgroup's C
-//                   tile holds whole egonets' products, the epilogue adds
-//                   z_bias by slot, takes the closed-form norms, the
-//                   anchor's gp sum and the siblings' anchor term, the bias
-//                   and the leaky, and writes the output once, in bf16, at
-//                   the original rows. z never reaches device memory; the
-//                   output has the two-pass form's bits.
-//    Backward: the valid rows compacted (K4 bf16's valid_row_offsets_kernel
-//    and stage_valid_rows_kernel: dx and the pe rows' grads zeroed on the
-//    invalid rows, zero rows after the R valid ones), W packed; z
-//    recomputed on the R rows; the dz pass (gcn_star_bwd_rows_kernel, a
-//    thread a column) writing dz once, in bf16, compacted, with the
-//    per-egonet g2 sums for db and, for d z_bias, the float32 dz; the sums;
-//    dW and dx on the R rows (dx scattered through the row map). No cast
-//    pass; dx, db and d z_bias have the two-pass form's bits.
-//  - The two-pass form (n > 64): the passes of the float32 form at element
-//    type bf16, z in device memory; the backward writes dz over z in
-//    float32 and casts it to bf16 once (as K2's cast of D) for the
-//    products.
-//
-// What bounds the float32 form on an H100: the products. At
-// config.mag.json's PGCN shapes (N = 64, 4096 egonets) layer 0's train
-// forward projects 2 * 262,144 * 300 * 500 = 78.6 GFLOP (the final layer's
-// 144 GFLOP), against 0.8-1.1 GB of x, z and out; the 3xTF32 product runs
-// these shallow products (K 250-550) at 84-112 TFLOP/s of float32 work on
-// an NVIDIA H100 80GB HBM3 at 700 W (PERF.md). The star passes are bound by
-// bytes: the valid rows of z read and out written, or g read and dz
-// written over z, 0.8-1.3 GB each, at 2.1-2.4 TB/s there. The projection
-// runs over all B*N rows, as the TPU kernel does, while only the valid ones
-// (about half in the smoke's batch) reach out.
+// wgmma with float32 accumulation, so z is float32 (the backward's
+// recompute reruns the product on the same staged X, so leaky' is taken at
+// the forward's bits); the star passes in float32, the output rounded to
+// bf16; g upcast; dz rounded to bf16 after the float32 db / d z_bias sums,
+// for dW = X^T @ dz (the x rows rounded to bf16, the pe rows' dW_p
+// float32) and dX = dz @ W^T (dx times its float32 mask, rounded to bf16;
+// the pe columns' grads float32); the two-pass form casts its float32 dz
+// to bf16 once (as K2's cast of D). Rows of z, W and dz hold 8 bf16 a
+// 16-byte chunk: ldd, kxp and ntp round to 8. The float32 form's products
+// run in 3xTF32 on the same ring (gemm_tf32.cuh).
 
 #include "bwd_common.cuh"
 
@@ -138,7 +137,7 @@ __global__ void cast_bf16_kernel(const float* __restrict__ src,
 
 // Mirrored field by field by gcn_kernels._GcnArgs. E: the layer's element
 // type (float, or bf16: x, w, g, out, dx, dw and the workspaces xm, wcat,
-// wt, dz16).
+// wt, dzp).
 template <class E>
 struct GcnArgsT {
   const E* x;           // [b, n, din]
@@ -169,15 +168,17 @@ struct GcnArgsT {
   float* biascat;       // [n, ldd] z_bias in the projection's layout
   E* wt;                // [ldd, ntp] W^T over the dx product's columns
                         // (float32: W's rows, planes [2, ntp, ldd])
-  E* dz16;              // [b*n, ldd] dz cast to bf16 (the bf16 backward;
-                        // the valid-rows form: [b*n + kRowPad, ldd], dz
-                        // of the valid rows, compacted)
-  // bf16 only, the valid-rows form (null: the two-pass form):
+  E* dzp;               // the products' dz: the valid-rows form's
+                        // [b*n + kRowPad, ldd], dz of the valid rows,
+                        // compacted; the bf16 two-pass form's [b*n, ldd],
+                        // dz cast to bf16; else null (the products read z)
+  // the valid-rows form (null: the two-pass form):
   int* row_off;         // [b + 1] each egonet's first valid row, the rows'
                         // count last
   int* row_map;         // [rows + kRowPad] the original row of each
   int* row_info;        // forward: [rows + kRowPad] StarArgs::row_info
-  float* dzf;           // backward with need_dzb: [b*n, ldd] float32 dz
+  float* dzf;           // bf16 backward with need_dzb: [b*n, ldd] float32
+                        // dz
   float* bt;            // float32 backward: the dW product's B planes
                         // (bwd_common.cuh:dw_operands)
   int b, n, din, dout, p, has_alpha, need_dx, need_dzb, splits, chunks;
@@ -406,14 +407,14 @@ packed_row_offsets_kernel(const int* __restrict__ ngp,
 // at its packed row off[b] + q (q: its place among the egonet's valid
 // rows), which row_map (r) and row_info (slot | ngp << 8 | the egonet's
 // first row in its tile << 16) record; an invalid row's output act(b)
-// (norm 0), in bf16.
-template <bool kAct>
+// (norm 0), in E.
+template <bool kAct, class E>
 __global__ void stage_packed_rows_kernel(
-    OperandT<bf16> op, TrainArgs ta, const int* __restrict__ ngp,
+    OperandT<E> op, TrainArgs ta, const int* __restrict__ ngp,
     const int* __restrict__ nsib, int p, const int* __restrict__ off, int nb,
-    bf16* __restrict__ xp, int kxp, int* __restrict__ row_map,
+    E* __restrict__ xp, int kxp, int* __restrict__ row_map,
     int* __restrict__ row_info, const float* __restrict__ bias,
-    bf16* __restrict__ out, int dout, float alpha) {
+    E* __restrict__ out, int dout, float alpha) {
   const unsigned kf = stream_key(ta.seed, kStreamFeat);
   const unsigned kp = stream_key(ta.seed, kStreamPe);
   const int n = op.n;
@@ -426,14 +427,14 @@ __global__ void stage_packed_rows_kernel(
     const int g = min(max(ngp[b], 0), p);
     const int q = valid_pos(slot, g, min(max(nsib[b], 0), n - p - 1), p);
     if (q < 0) {
-      bf16* o = out + r * dout;
-      if (dout % 2 == 0) {
+      E* o = out + r * dout;
+      if (sizeof(E) == 2 && dout % 2 == 0) {
         for (int k = 2 * lane; k < dout; k += 64)
           *reinterpret_cast<__nv_bfloat162*>(o + k) = __floats2bfloat162_rn(
               act<kAct>(bias[k], alpha), act<kAct>(bias[k + 1], alpha));
       } else {
         for (int k = lane; k < dout; k += 32)
-          o[k] = from_float<bf16>(act<kAct>(bias[k], alpha));
+          o[k] = from_float<E>(act<kAct>(bias[k], alpha));
       }
       continue;
     }
@@ -449,20 +450,21 @@ __global__ void stage_packed_rows_kernel(
 
 // The valid-rows backward's dz pass: blocks as gcn_star_bwd_kernel's, the
 // same arithmetic in the same order, with z read from the compacted valid
-// rows (row_off) and dz written there once in bf16 (zero in the padding
-// columns); the column sums of g2 over all rows into g2sum; with dzf the
-// float32 dz in the original layout (zero on invalid rows) for d z_bias.
-// A thread a column: four columns a thread (8- and 16-byte loads) took
-// 10-25 % longer on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
-template <bool kAct>
+// rows (row_off) and dz written there once in E (zero in the padding
+// columns), g of element type E upcast; the column sums of g2 over all
+// rows into g2sum; with dzf (bf16) the float32 dz in the original layout
+// (zero on invalid rows) for d z_bias. A thread a column: four columns a
+// thread (8- and 16-byte loads) took 10-25 % longer in bf16 on an NVIDIA
+// H100 80GB HBM3 at 700 W (PERF.md).
+template <bool kAct, class E>
 __global__ void __launch_bounds__(kStarCols)
 gcn_star_bwd_rows_kernel(const float* __restrict__ z, int ldd,
-                         const bf16* __restrict__ g,
+                         const E* __restrict__ g,
                          const float* __restrict__ bias,
                          const int* __restrict__ ngp_arr,
                          const int* __restrict__ nsib_arr,
                          const int* __restrict__ row_off,
-                         bf16* __restrict__ dz16, float* __restrict__ g2sum,
+                         E* __restrict__ dzc, float* __restrict__ g2sum,
                          float* __restrict__ dzf, int n, int dout, int p,
                          float alpha) {
   const int ntiles = (ldd + kStarCols - 1) / kStarCols;
@@ -472,22 +474,22 @@ gcn_star_bwd_rows_kernel(const float* __restrict__ z, int ldd,
   const int ngp = min(max(ngp_arr[b], 0), p);
   const int nsib = min(max(nsib_arr[b], 0), n - p - 1);
   const long long base = row_off[b];
-  bf16* dc = dz16 + base * ldd + c;              // valid row q
+  E* dc = dzc + base * ldd + c;                  // valid row q
   float* fc = dzf != nullptr ? dzf + (size_t)b * n * ldd + c : nullptr;
   if (c >= dout) {  // the padding columns the products read
     for (int q = 0; q < ngp + 1 + nsib; ++q)
-      dc[(size_t)q * ldd] = from_float<bf16>(0.f);
+      dc[(size_t)q * ldd] = from_float<E>(0.f);
     if (fc != nullptr)
       for (int r = 0; r < n; ++r) fc[(size_t)r * ldd] = 0.f;
     return;
   }
   const float na = rsqrtf(1.f + (float)ngp), ns = rsqrtf(2.f);
   const float* zc = z + base * ldd + c;
-  const bf16* gc = g + (size_t)b * n * dout + c;
+  const E* gc = g + (size_t)b * n * dout + c;
   const auto grow = [&](int r) { return to_float(gc[(size_t)r * dout]); };
   const auto zrow = [&](int q) { return zc[(size_t)q * ldd]; };
   const auto put = [&](int q, int r, float v) {  // valid row q, slot r
-    dc[(size_t)q * ldd] = from_float<bf16>(v);
+    dc[(size_t)q * ldd] = from_float<E>(v);
     if (fc != nullptr) fc[(size_t)r * ldd] = v;
   };
   const auto zero = [&](int r) {
@@ -537,6 +539,33 @@ gcn_star_bwd_rows_kernel(const float* __restrict__ z, int ldd,
   g2sum[b * dout + c] = sum;
 }
 
+// part[c][s * ldd + col] = the sum over the egonets of chunk c, in order,
+// of column col of slot s's dz row, read from the compacted valid rows
+// (row_off; the invalid slots skipped): colsum_partial_kernel's sum over
+// dz in the original layout, where those rows hold +0, bit for bit (a sum
+// from +0 never becomes -0, so adding +0 changes no bit).
+__global__ void colsum_valid_rows_kernel(const float* __restrict__ dz,
+                                         int ldd, const int* __restrict__ ngp,
+                                         const int* __restrict__ nsib,
+                                         const int* __restrict__ row_off,
+                                         long long nb, int n, int p,
+                                         long long chunk_b,
+                                         float* __restrict__ part) {
+  const long long rw = (long long)n * ldd;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rw) return;
+  const int s = (int)(i / ldd), col = (int)(i % ldd);
+  const long long b0 = blockIdx.y * chunk_b;
+  const long long b1 = min(nb, b0 + chunk_b);
+  float sum = 0.f;
+  for (long long bb = b0; bb < b1; ++bb) {
+    const int q = valid_pos(s, min(max(ngp[bb], 0), p),
+                            min(max(nsib[bb], 0), n - p - 1), p);
+    if (q >= 0) sum += dz[((long long)row_off[bb] + q) * ldd + col];
+  }
+  part[blockIdx.y * rw + i] = sum;
+}
+
 // The layer's product operands: x and W_h, the pe rows from ta.
 template <class E>
 OperandT<E> layer_operand(const GcnArgsT<E>& a, const TrainArgs& ta) {
@@ -578,21 +607,21 @@ cudaError_t star_fwd(const float* z, int ldz, const float* bias,
   return cudaGetLastError();
 }
 
-cudaError_t layer_fwd_rows(const GcnArgsT<bf16>& a, const TrainArgs& ta,
+template <class E>
+cudaError_t layer_fwd_rows(const GcnArgsT<E>& a, const TrainArgs& ta,
                            cudaStream_t st);
-cudaError_t layer_bwd_rows(const GcnArgsT<bf16>& a, const TrainArgs& ta,
+template <class E>
+cudaError_t layer_bwd_rows(const GcnArgsT<E>& a, const TrainArgs& ta,
                            cudaStream_t st);
 
-// The forward: the projection, then the star pass (the bf16 valid-rows
-// form: layer_fwd_rows).
+// The forward: the projection, then the star pass (the valid-rows form:
+// layer_fwd_rows).
 template <class E>
 cudaError_t layer_fwd(const GcnArgsT<E>& a, const TrainArgs& ta,
                       cudaStream_t st) {
   const long long m = (long long)a.b * a.n;
   if (m == 0) return cudaSuccess;
-  if constexpr (sizeof(E) == 2) {
-    if (a.row_off != nullptr) return layer_fwd_rows(a, ta, st);
-  }
+  if (a.row_off != nullptr) return layer_fwd_rows(a, ta, st);
   cudaError_t err = project(a, ta, m, st);
   if (err != cudaSuccess) return err;
   err = star_fwd(a.z, a.ldd, a.bias, a.ngp, a.nsib, a.out, a.b, a.n, a.dout,
@@ -610,18 +639,20 @@ cudaError_t projection(const GcnArgsT<E>& a, const TrainArgs& ta,
   return project(a, ta, m, st);
 }
 
-// The bf16 forward's valid-rows form: the packed rows' offsets and
-// tables; the rows staged, the invalid rows' outputs, W and z_bias packed;
-// the product over the packed rows with the star pass in its epilogue
-// (gemm_wgmma.cuh:kEpiGcn). Marks before, between and after.
-cudaError_t layer_fwd_rows(const GcnArgsT<bf16>& a, const TrainArgs& ta,
+// The forward's valid-rows form: the packed rows' offsets and tables; the
+// rows staged, the invalid rows' outputs, W and z_bias packed; the product
+// over the packed rows with the star pass in its epilogue
+// (gemm_wgmma.cuh:kEpiGcn, on the bf16 or the 3xTF32 kernel). Marks
+// before, between and after.
+template <class E>
+cudaError_t layer_fwd_rows(const GcnArgsT<E>& a, const TrainArgs& ta,
                            cudaStream_t st) {
   const long long m = (long long)a.b * a.n;
   if (a.xm == nullptr || a.wcat == nullptr || a.biascat == nullptr ||
       a.row_map == nullptr || a.row_info == nullptr || a.n > kPackTile ||
       (long long)a.rows + kRowPad > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const OperandT<bf16> op = layer_operand(a, ta);
+  const OperandT<E> op = layer_operand(a, ta);
   const size_t table = sizeof(int) * ((size_t)a.rows + kRowPad);
   mark(g_fwd_marks, st);
   packed_row_offsets_kernel<<<1, 1024, 0, st>>>(a.ngp, a.nsib, a.b, a.n, a.p,
@@ -632,15 +663,15 @@ cudaError_t layer_fwd_rows(const GcnArgsT<bf16>& a, const TrainArgs& ta,
   mark(g_fwd_marks, st);
   const unsigned grid = grid_for(m * 32);  // 8 rows a block of 256 threads
   if (a.has_alpha)
-    stage_packed_rows_kernel<true><<<grid, 256, 0, st>>>(
+    stage_packed_rows_kernel<true, E><<<grid, 256, 0, st>>>(
         op, ta, a.ngp, a.nsib, a.p, a.row_off, a.b, a.xm, a.kxp, a.row_map,
         a.row_info, a.bias, a.out, a.dout, a.alpha);
   else
-    stage_packed_rows_kernel<false><<<grid, 256, 0, st>>>(
+    stage_packed_rows_kernel<false, E><<<grid, 256, 0, st>>>(
         op, ta, a.ngp, a.nsib, a.p, a.row_off, a.b, a.xm, a.kxp, a.row_map,
         a.row_info, a.bias, a.out, a.dout, a.alpha);
-  const ProductWorkT<bf16> pack = {nullptr, nullptr, nullptr, a.kxp, a.ldd,
-                                   0,       1};  // X staged above
+  const ProductWorkT<E> pack = {nullptr, nullptr, nullptr, a.kxp, a.ldd,
+                                0,       1};  // X staged above
   err = stage_and_pack(op, ta, m, pack, 0, a.wcat, st);
   if (err != cudaSuccess) return err;
   pack_bias_kernel<<<grid_for((long long)a.n * a.ldd), 256, 0, st>>>(
@@ -648,11 +679,15 @@ cudaError_t layer_fwd_rows(const GcnArgsT<bf16>& a, const TrainArgs& ta,
       a.biascat);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   mark(g_fwd_marks, st);
-  GemmArgsT<bf16> g = {};
+  GemmArgsT<E> g = {};
   g.a = a.xm;
   g.lda = a.kxp;
   g.b = a.wcat;
   g.ldb = a.ldd;
+  if constexpr (sizeof(E) == 4) {  // W^T planes [2][ldd][kxp]
+    g.b_lo = a.wcat + (long long)a.ldd * a.kxp;
+    g.ldb = a.kxp;
+  }
   g.ldc = a.ldd;  // z_bias's row stride
   g.m = (long long)a.rows + kRowPad;
   g.n = a.dout;
@@ -664,7 +699,6 @@ cudaError_t layer_fwd_rows(const GcnArgsT<bf16>& a, const TrainArgs& ta,
   g.row_map = a.row_map;
   StarArgs sa = {};
   sa.ngp = a.ngp;
-  sa.out = a.out;
   sa.b = a.b;
   sa.n = a.n;
   sa.p = a.p;
@@ -672,39 +706,46 @@ cudaError_t layer_fwd_rows(const GcnArgsT<bf16>& a, const TrainArgs& ta,
   sa.has_out_alpha = a.has_alpha;
   sa.row_info = a.row_info;
   sa.bias = a.bias;
-  err = product_wgmma<true, kEpiGcn, 128>(g, TrainArgs{}, 1, sa, st);
+  if constexpr (sizeof(E) == 2) {
+    sa.out = a.out;
+    err = product_wgmma<true, kEpiGcn, 128>(g, TrainArgs{}, 1, sa, st);
+  } else {
+    sa.out_f = a.out;
+    err = product_wgmma_f32<true, kEpiGcn, 128>(g, TrainArgs{}, 1, sa, st);
+  }
   mark(g_fwd_marks, st);
   return err;
 }
 
-// The bf16 backward's valid-rows form: the valid rows counted, compacted
-// and staged (dx and the pe rows' grads zeroed on the invalid rows, the
+// The backward's valid-rows form: the valid rows counted, compacted and
+// staged (dx and the pe rows' grads zeroed on the invalid rows, the
 // kRowPad rows after them zero in X and dz), W packed; z recomputed on
-// them; the dz pass into bf16 dz; the db / d z_bias sums; dW and dx on the
+// them; the dz pass into dz of E; the db / d z_bias sums; dW and dx on the
 // valid rows. Marks before and after each.
-cudaError_t layer_bwd_rows(const GcnArgsT<bf16>& a, const TrainArgs& ta,
+template <class E>
+cudaError_t layer_bwd_rows(const GcnArgsT<E>& a, const TrainArgs& ta,
                            cudaStream_t st) {
+  constexpr bool kBf16 = sizeof(E) == 2;
   const long long m = (long long)a.b * a.n;
   const bool act = a.has_alpha != 0;
-  if (a.xm == nullptr || a.dz16 == nullptr || a.row_map == nullptr ||
-      (act && a.z == nullptr) || (a.need_dzb && a.dzf == nullptr) ||
+  if (a.xm == nullptr || a.dzp == nullptr || a.row_map == nullptr ||
+      (act && a.z == nullptr) || (kBf16 && a.need_dzb && a.dzf == nullptr) ||
       m + kRowPad > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const OperandT<bf16> op = layer_operand(a, ta);
-  const ProductWorkT<bf16> work = {a.xm, a.wt, a.part_w, a.kxp, a.ldd, a.ntp,
-                                   a.splits};
+  const OperandT<E> op = layer_operand(a, ta);
+  const ProductWorkT<E> work = {a.xm,  a.wt,  a.part_w, a.kxp,
+                                a.ldd, a.ntp, a.splits, a.bt};
   const int* rows = a.row_off + a.b;
   cudaError_t err;
 
   mark(g_bwd_marks, st);
   valid_row_offsets_kernel<<<1, 1024, 0, st>>>(a.ngp, a.nsib, a.b, a.n, a.p,
                                                a.row_off);
-  stage_valid_rows_kernel<bf16, bf16>
-      <<<grid_for((m + kRowPad) * 32), 256, 0, st>>>(
-          op, ta, a.ngp, a.nsib, a.p, a.row_off, a.b, a.xm, a.kxp,
-          a.row_map, a.need_dx ? a.dx : nullptr, a.pe_rows, a.dz16, a.ldd);
+  stage_valid_rows_kernel<E, E><<<grid_for((m + kRowPad) * 32), 256, 0, st>>>(
+      op, ta, a.ngp, a.nsib, a.p, a.row_off, a.b, a.xm, a.kxp, a.row_map,
+      a.need_dx ? a.dx : nullptr, a.pe_rows, a.dzp, a.ldd);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ProductWorkT<bf16> pack = work;
+  ProductWorkT<E> pack = work;
   pack.xm = nullptr;  // staged above
   err = stage_and_pack(op, ta, m, pack, a.need_dx ? 0 : a.din,
                        act ? a.wcat : nullptr, st);
@@ -719,14 +760,16 @@ cudaError_t layer_bwd_rows(const GcnArgsT<bf16>& a, const TrainArgs& ta,
 
   const unsigned blocks = star_blocks(a.b, a.ldd);
   if (blocks == 0) return cudaErrorInvalidValue;
-  float* dzf = a.need_dzb ? a.dzf : nullptr;
+  // bf16: the float32 dz for d z_bias beside the bf16 one; float32 sums
+  // the compacted dz itself
+  float* dzf = kBf16 && a.need_dzb ? a.dzf : nullptr;
   if (act)
-    gcn_star_bwd_rows_kernel<true><<<blocks, kStarCols, 0, st>>>(
-        a.z, a.ldd, a.g, a.bias, a.ngp, a.nsib, a.row_off, a.dz16, a.g2sum,
+    gcn_star_bwd_rows_kernel<true, E><<<blocks, kStarCols, 0, st>>>(
+        a.z, a.ldd, a.g, a.bias, a.ngp, a.nsib, a.row_off, a.dzp, a.g2sum,
         dzf, a.n, a.dout, a.p, a.alpha);
   else
-    gcn_star_bwd_rows_kernel<false><<<blocks, kStarCols, 0, st>>>(
-        a.z, a.ldd, a.g, a.bias, a.ngp, a.nsib, a.row_off, a.dz16, a.g2sum,
+    gcn_star_bwd_rows_kernel<false, E><<<blocks, kStarCols, 0, st>>>(
+        a.z, a.ldd, a.g, a.bias, a.ngp, a.nsib, a.row_off, a.dzp, a.g2sum,
         dzf, a.n, a.dout, a.p, a.alpha);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   mark(g_bwd_marks, st);
@@ -735,28 +778,38 @@ cudaError_t layer_bwd_rows(const GcnArgsT<bf16>& a, const TrainArgs& ta,
                          a.part_b, a.db, st);
   if (err != cudaSuccess) return err;
   if (a.need_dzb) {
-    err = sum_over_egonets(a.dzf, a.b, a.n, a.ldd, a.dout, a.chunks,
-                           a.part_b, a.dzb, st);
+    if constexpr (kBf16) {
+      err = sum_over_egonets(a.dzf, a.b, a.n, a.ldd, a.dout, a.chunks,
+                             a.part_b, a.dzb, st);
+    } else {  // the two-pass form's chunks and order over the valid rows
+      const long long rw = (long long)a.n * a.ldd;
+      colsum_valid_rows_kernel<<<dim3(blocks_for(rw), a.chunks), kThreads,
+                                 0, st>>>(
+          a.dzp, a.ldd, a.ngp, a.nsib, a.row_off, a.b, a.n, a.p,
+          (a.b + a.chunks - 1) / a.chunks, a.part_b);
+      reduce_scatter_kernel<float><<<blocks_for(rw), kThreads, 0, st>>>(
+          a.part_b, a.chunks, a.n, a.ldd, a.n, a.dout, a.dout, a.dout, a.dzb,
+          nullptr, nullptr, nullptr, nullptr, nullptr);
+      err = cudaGetLastError();
+    }
     if (err != cudaSuccess) return err;
   }
   mark(g_bwd_marks, st);
-  bf16* const dw[3] = {a.dw, nullptr, nullptr};
+  E* const dw[3] = {a.dw, nullptr, nullptr};
   float* const dwp[3] = {a.dwp, nullptr, nullptr};
-  return product_grads(op, ta, (const bf16*)a.dz16, a.ldd, m, work,
-                       a.chunks, dw, dwp, a.need_dx, a.dx, a.pe_rows,
-                       a.part_pe, a.dpe, g_bwd_marks, st, rows, a.row_map);
+  return product_grads(op, ta, (const E*)a.dzp, a.ldd, m, work, a.chunks,
+                       dw, dwp, a.need_dx, a.dx, a.pe_rows, a.part_pe,
+                       a.dpe, g_bwd_marks, st, rows, a.row_map);
 }
 
-// The backward: every pass in order on st (the bf16 valid-rows form:
+// The backward: every pass in order on st (the valid-rows form:
 // layer_bwd_rows).
 template <class E>
 cudaError_t layer_bwd(const GcnArgsT<E>& a, const TrainArgs& ta,
                       cudaStream_t st) {
   const long long m = (long long)a.b * a.n;
   if (m == 0) return cudaSuccess;
-  if constexpr (sizeof(E) == 2) {
-    if (a.row_off != nullptr) return layer_bwd_rows(a, ta, st);
-  }
+  if (a.row_off != nullptr) return layer_bwd_rows(a, ta, st);
   const bool act = a.has_alpha != 0;
   const OperandT<E> op = layer_operand(a, ta);
   const ProductWorkT<E> work = {a.xm,  a.wt,  a.part_w, a.kxp,
@@ -799,10 +852,10 @@ cudaError_t layer_bwd(const GcnArgsT<E>& a, const TrainArgs& ta,
   // the products' dz: z itself, or in a bf16 layer dz cast to bf16
   const E* d;
   if constexpr (sizeof(E) == 2) {
-    cast_bf16_kernel<<<grid_for(m * a.ldd / 4), 256, 0, st>>>(a.z, a.dz16,
+    cast_bf16_kernel<<<grid_for(m * a.ldd / 4), 256, 0, st>>>(a.z, a.dzp,
                                                              m * a.ldd);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    d = a.dz16;
+    d = a.dzp;
   } else {
     d = a.z;
   }
@@ -868,7 +921,7 @@ int gcn_layer_bwd_f32(const GcnArgsT<float>* ap, const TrainArgs* tap,
 }
 
 // The bf16 form: *ap with the bf16 fields of GcnArgsT<bf16> (x, w, g, dx,
-// dw and the workspaces xm, wcat, wt, dz16), every other field as in the
+// dw and the workspaces xm, wcat, wt, dzp), every other field as in the
 // float32 form.
 int gcn_layer_bwd_bf16(const GcnArgsT<bf16>* ap, const TrainArgs* tap,
                        void* stream) {

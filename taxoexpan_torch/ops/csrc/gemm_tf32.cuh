@@ -54,10 +54,10 @@ enum GemmEpi {
   kEpiStar = 3,     // bf16 only (gemm_wgmma.cuh): ft = v + the slot bias
                     // as kEpiRowBias, never stored; the star pass of the
                     // per-slot layer on it (StarArgs), out in bf16
-  kEpiGcn = 4,      // bf16 only (gemm_wgmma.cuh): z = v + z_bias as
-                    // kEpiRowBias through the row map, never stored; the
-                    // star-GCN pass on it (StarArgs: the packed rows of
-                    // gcn.cu), out in bf16
+  kEpiGcn = 4,      // (gemm_wgmma.cuh) z = v + z_bias as kEpiRowBias
+                    // through the row map, never stored; the star-GCN
+                    // pass on it (StarArgs: the packed rows of gcn.cu),
+                    // out in the layer's element type
 };
 
 template <class E>
@@ -79,10 +79,10 @@ struct GemmArgsT {
   E* dx;               // kEpiDx (rounded to E)
   float* pe_rows;
   int din, kbeg;
-  // bf16 only (gemm_wgmma.cuh), null otherwise: the rows of the row
-  // operand counted on the card (M of a K-major A, the reduction of an
-  // M-major A; m or k is then the allocated rows), and the original row
-  // of each output row (the row-bias and dx epilogues)
+  // or null: the rows of the row operand counted on the card (M of a
+  // K-major A, the reduction of an M-major A; m or k is then the
+  // allocated rows), and the original row of each output row (the
+  // row-bias, dx and star-GCN epilogues)
   const int* rows;
   const int* row_map;
   long long c_rows;    // rows allocated for c (0: m), bf16 only
@@ -91,10 +91,10 @@ struct GemmArgsT {
 // The star pass of kEpiStar (gat_fwd.cu's fused per-slot forward): the
 // product's m rows are whole egonets of n slots, rows_wg = floor(64 / n) * n
 // of them a consumer warpgroup's tile; its columns are ft, heads * dh.
-// kEpiGcn (gcn.cu's bf16 forward) reads ngp, out, n, p, out_alpha (the
-// leaky's slope), has_out_alpha, row_info and bias: its rows are the valid
-// rows of whole egonets packed into 64-row warpgroup tiles, the original
-// row of each in GemmArgs::row_map.
+// kEpiGcn (gcn.cu's valid-rows forward) reads ngp, out (bf16) or out_f
+// (float32), n, p, out_alpha (the leaky's slope), has_out_alpha, row_info
+// and bias: its rows are the valid rows of whole egonets packed into
+// 64-row warpgroup tiles, the original row of each in GemmArgs::row_map.
 struct StarArgs {
   const float4* wts;   // [m][heads] each row's star weights (after dropout):
                        //   w_self, w_anchor, w_to_anchor (gp rows), 0
@@ -110,6 +110,7 @@ struct StarArgs {
                         //   egonet's ngp << 8 | the egonet's first row in
                         //   the warpgroup tile << 16, or -1 (no row)
   const float* bias;    // kEpiGcn: [dout] the layer bias
+  float* out_f;         // kEpiGcn in float32: [b * n][dout]
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -154,7 +155,7 @@ inline cudaError_t product_wgmma(const GemmArgsT<bf16>& g,
 template <bool kAKMajor, int kEpi, int BN>
 inline cudaError_t product_wgmma_f32(const GemmArgsT<float>& g,
                                      const TrainArgs& ta, int splits,
-                                     cudaStream_t st);
+                                     const StarArgs& sa, cudaStream_t st);
 
 // The layer product in the layer's element type E on `st`, on the TMA-fed
 // wgmma ring of gemm_wgmma.cuh: 3xTF32 for float, bf16 for bf16. A K-major
@@ -167,7 +168,8 @@ inline cudaError_t product(const GemmArgsT<E>& g, const TrainArgs& ta,
   if constexpr (sizeof(E) == 2)
     return product_wgmma<kAKMajor, kEpi, BN>(g, ta, splits, StarArgs{}, st);
   else
-    return product_wgmma_f32<kAKMajor, kEpi, BN>(g, ta, splits, st);
+    return product_wgmma_f32<kAKMajor, kEpi, BN>(g, ta, splits,
+                                                 StarArgs{}, st);
 }
 
 // ------------------------------------------------- operand preparation

@@ -73,11 +73,12 @@
 //      threads), never __syncthreads(): the producer warp does not take
 //      part in the epilogue.
 //    kEpiGcn: the star-GCN layer's pass on the tile (wg_gcn_tile, gcn.cu's
-//      bf16 forward): the product's rows are the valid rows of whole
+//      valid-rows forward): the product's rows are the valid rows of whole
 //      egonets packed into 64-row warpgroup tiles; the tile's row tables
 //      (StarArgs::row_info, the row map) copied in by cp.async while its
 //      products run; z_bias added by slot; the output in bf16 at the
-//      original rows, z never stored.
+//      original rows, z never stored (the float32 kernel's form of it:
+//      f32_gcn_half, below).
 //    No atomics: two calls give equal bits.
 //
 // Accuracy: the tensor cores add the products of one wgmma into the
@@ -1029,6 +1030,30 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
 // products pay a fixed cost a tile (about 2.7 us at 262,144 x 2008, the
 // output's write): K2's 300-deep projection 97 TFLOP/s, its pe-column dx
 // (50 columns, BN = 64) 62.
+//
+// kEpiGcn (gcn.cu's float32 valid-rows forward; the bf16 kernel's
+// contract: whole egonets' packed rows a warpgroup tile, z_bias by slot,
+// the output written once at the original rows through the row map, z
+// never stored). The star pass reads other rows of the tile (the anchor's
+// z, the grandparents' sum), so z has to pass through shared memory, and
+// the 4-stage ring (193 KB) leaves 34 KB of the block's 227 KB: not the
+// two 32 KB C tiles the bf16 kernel's star epilogue uses. Three ways were
+// open: fewer stages (3 of 48 KB would leave the tiles room, at a quarter
+// less of the TMA lead that keeps these shallow products fed), a drained
+// ring stage as the C tile (the producer is then already filling the
+// stages with the next tile's K tiles: the epilogue would stall it), or a
+// smaller tile through shared memory. The last is taken: each consumer
+// stages its z tile one 64-column half at a time ([64][64] floats, 16 KB,
+// z_bias added as it is written), and after a named barrier its threads
+// run the star pass on that half (f32_gcn_half); the ring keeps its four
+// stages and the producer its lead. Two halves cost two more named
+// barriers a tile and no global traffic. Measured (NVIDIA H100 80GB HBM3,
+// 700 W, config.mag.json's PGCN at B = 4096, PERF.md): the packed product
+// with this epilogue runs at 65-71 TFLOP/s float32-equivalent at depth
+// 252-300 and 92-97 at 500-552, where the plain projection over all rows
+// ran at 78 and 105: the epilogue, which both consumers reach together,
+// costs about 2 us a 128 x 128 tile. ptxas spills a few dozen bytes in
+// this instance (168 registers), none in the others.
 template <int BN_>
 struct WgTileF32 {
   static constexpr int BM = 128, BN = BN_, BK = 32, STAGES = 4;
@@ -1227,9 +1252,125 @@ __device__ __forceinline__ void f32_store_row(const GemmArgsT<float>& g,
   }
 }
 
+// kEpiGcn in float32: a consumer warpgroup's z half tile [64 rows][64]
+// floats (kGcnHalf columns), then its row tables (row_info, the row map:
+// 64 ints each), after the mbarriers.
+constexpr int kGcnHalf = 64;
+constexpr int kGcnF32Floats = 64 * kGcnHalf + 2 * 64;
+
+// Element (r, c) of a z half tile: 16-byte chunk c / 4 of row r at chunk
+// c / 4 XOR 2 (r % 4), so that the fragments' float2 writes (a half warp:
+// rows r..r + 3, two chunks each) and the star pass's float4 reads (a
+// quarter warp: one row, 8 chunks) each fall on 32 distinct banks.
+__device__ __forceinline__ int gcn_zat(int r, int c) {
+  return (r << 6) + (((c >> 2) ^ ((r & 3) << 1)) << 2) + (c & 3);
+}
+
+// The accumulators of columns [64 kHalf, 64 kHalf + 64) of a consumer
+// warpgroup's tile (rows warp * 16 + lane / 4 (+ 8), columns 8 q + 2
+// (lane % 4) (+ 1)) plus the row's z_bias (g.bias [slot][ldc]; a row with
+// no table entry gets none) into zs: z, the two-pass form's projection
+// bits (kEpiRowBias adds the same two values).
+template <int kHalf, int BN>
+__device__ __forceinline__ void f32_gcn_stage(const GemmArgsT<float>& g,
+                                              float* zs, const int* tab,
+                                              const float (&acc)[BN / 2],
+                                              int warp, int lane, int j0) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + lane / 4 + 8 * h;
+    const int info = tab[r];
+    const float* zb =
+        info >= 0 ? g.bias + (long long)(info & 255) * g.ldc : nullptr;
+#pragma unroll
+    for (int qq = 0; qq < kGcnHalf / 8; ++qq) {
+      const int q = kHalf * (kGcnHalf / 8) + qq;
+      const int cl = qq * 8 + 2 * (lane % 4);
+      const int j = j0 + kHalf * kGcnHalf + cl;
+      float2 v = make_float2(acc[4 * q + 2 * h], acc[4 * q + 2 * h + 1]);
+      if (zb != nullptr && j < g.ldc) {  // ldc: a multiple of 4
+        const float2 b = *reinterpret_cast<const float2*>(zb + j);
+        v.x += b.x, v.y += b.y;
+      }
+      *reinterpret_cast<float2*>(&zs[gcn_zat(r, cl)]) = v;
+    }
+  }
+}
+
+// kEpiGcn in float32: the star-GCN pass on a z half tile zs (columns
+// [jh, jh + 64) of the warpgroup's packed rows [0, rows)), as wg_gcn_tile
+// runs it on the bf16 kernel's C tile: a half warp a row (rows t / 16, +
+// 8, ...), a lane a 4-column chunk; a gp row its own z, the anchor itself
+// and the valid gps in order, a sibling itself and the anchor, with the
+// closed-form norms, then the bias and the leaky (has_out_alpha), float32
+// into sa.out_f at the original row (16 bytes a store where dout allows).
+// The expressions are gcn.cu:gcn_star_fwd_kernel's on the two-pass form's
+// z, so the two forms give equal bits. No barriers: the caller's named
+// barrier frees zs.
+__device__ __forceinline__ void f32_gcn_half(const StarArgs& sa, int dout,
+                                             const float* zs,
+                                             const int* tab, const int* rmap,
+                                             int t, int rows, int jh) {
+  const int c4 = (t & 15) * 4, j = jh + c4;
+  if (j >= dout) return;
+  const int p = sa.p;
+  const float ns = rsqrtf(2.f);
+  float bc[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) bc[u] = j + u < dout ? sa.bias[j + u] : 0.f;
+  const bool vec = dout % 4 == 0 && j + 3 < dout;
+  auto zat = [&](int r) {
+    return *reinterpret_cast<const float4*>(&zs[gcn_zat(r, c4)]);
+  };
+#pragma unroll 2
+  for (int r = t >> 4; r < rows; r += 8) {
+    const int info = tab[r];
+    if (info < 0) continue;
+    const int slot = info & 255, ngp = (info >> 8) & 255, fr = info >> 16;
+    const float4 z4 = zat(r);
+    const float z[4] = {z4.x, z4.y, z4.z, z4.w};
+    float v[4];
+    if (slot < p) {  // a valid gp: norm 1
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = z[u] + bc[u];
+    } else {
+      const float na = rsqrtf(1.f + (float)ngp);
+      if (slot == p) {  // the anchor: itself and the valid gps, in order
+        float acc[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[u] = z[u] * na;
+        for (int jj = 0; jj < ngp; ++jj) {  // gp jj: tile row fr + jj
+          const float4 gz = zat(fr + jj);
+          acc[0] += gz.x, acc[1] += gz.y, acc[2] += gz.z, acc[3] += gz.w;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = acc[u] * na + bc[u];
+      } else {  // a valid sibling: itself and the anchor
+        const float4 a4 = zat(fr + ngp);
+        const float za[4] = {a4.x * na, a4.y * na, a4.z * na, a4.w * na};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = (z[u] * ns + za[u]) * ns + bc[u];
+      }
+    }
+    if (sa.has_out_alpha) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = leaky(v[u], sa.out_alpha);
+    }
+    float* dst = sa.out_f + (long long)rmap[r] * dout + j;
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (j + u < dout) dst[u] = v[u];
+    }
+  }
+}
+
 template <class T, bool kAKMajor, int kEpi>
 __global__ void __launch_bounds__(T::THREADS, 1)
 wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
+                 const StarArgs sa,
                  const __grid_constant__ CUtensorMap tm_a,
                  const __grid_constant__ CUtensorMap tm_bh,
                  const __grid_constant__ CUtensorMap tm_bl) {
@@ -1302,6 +1443,13 @@ wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
   const int c = wg - 1, t = threadIdx.x % 128;
   const int warp = t / 32, lane = t % 32;
   const int row0 = c * 64 + warp * 16;  // the warp's rows in the M tile
+  // kEpiGcn: the warpgroup's z half tile and row tables after the
+  // mbarriers (16-byte aligned: the ring is 1024-byte aligned)
+  constexpr bool kGcn = kEpi == kEpiGcn;
+  float* zs = reinterpret_cast<float*>(wg_smem_raw + (bars - raw) +
+                                       2 * T::STAGES * 8) +
+              c * kGcnF32Floats;
+  int* gtab = reinterpret_cast<int*>(zs + 64 * kGcnHalf);
   constexpr int KS = T::BK / 8;         // k8 steps a K tile
   float acc[T::REGS], part[T::REGS];
   unsigned h0[KS][4], l0[KS][4], h1[KS][4], l1[KS][4];
@@ -1366,6 +1514,16 @@ wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
         k_end > k_beg ? (int)((k_end - k_beg + T::BK - 1) / T::BK) : 0;
 #pragma unroll
     for (int v = 0; v < T::REGS; ++v) acc[v] = 0.f;
+    if constexpr (kGcn) {  // the last tile's star pass has read the tables
+      named_sync(1 + c, 128);
+      if (t < 32) {  // 16 chunks of row_info, 16 of the row map
+        const int* src = t < 16 ? sa.row_info : g.row_map;
+        const long long i = i0 + 64 * c + 4 * (t & 15);
+        const bool ok = i + 3 < g.m;
+        cp_async16(gtab + 4 * t, ok ? src + i : src, ok);
+      }
+      cp_async_commit();
+    }
     // a partial sum of two K tiles (64 deep) at a time: the second tile's
     // A fragments load while the first's products run, the next pair's
     // first while the second's run; then the partial into acc (FADD)
@@ -1394,13 +1552,28 @@ wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
     // epilogue from the registers: thread (warp, lane) holds fragment rows
     // warp * 16 + lane / 4 (+ 8) (rows a_row of them) and columns 8 q + 2
     // (lane % 4) (+ 1) of each 8-column block q
-    float* cz = g.c + (long long)z * g.c_split;
+    if constexpr (kGcn) {  // z through shared memory, a half at a time
+      const long long iw = i0 + 64 * c;
+      const int rows = (int)max(0LL, min(64LL, sc.m - iw));
+      cp_async_wait<0>();
+      named_sync(1 + c, 128);  // the tables
+      f32_gcn_stage<0, T::BN>(g, zs, gtab, acc, warp, lane, j0);
+      named_sync(1 + c, 128);
+      f32_gcn_half(sa, g.n, zs, gtab, gtab + 64, t, rows, j0);
+      named_sync(1 + c, 128);  // half 0 read
+      f32_gcn_stage<1, T::BN>(g, zs, gtab, acc, warp, lane, j0);
+      named_sync(1 + c, 128);
+      f32_gcn_half(sa, g.n, zs, gtab, gtab + 64, t, rows, j0 + kGcnHalf);
+    } else {
+      float* cz = g.c + (long long)z * g.c_split;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long i =
-          i0 + c * 64 + a_row<kAKMajor>(warp * 16 + lane / 4 + 8 * h);
-      if (i < sc.m)
-        f32_store_row<T::BN, kEpi>(g, ta, cz, i, j0, acc, h, lane, kf, kp);
+      for (int h = 0; h < 2; ++h) {
+        const long long i =
+            i0 + c * 64 + a_row<kAKMajor>(warp * 16 + lane / 4 + 8 * h);
+        if (i < sc.m)
+          f32_store_row<T::BN, kEpi>(g, ta, cz, i, j0, acc, h, lane, kf,
+                                     kp);
+      }
     }
   }
   cluster_sync();
@@ -1558,16 +1731,26 @@ inline cudaError_t product_wgmma(const GemmArgsT<bf16>& g,
 // The float32 product (gemm_tf32.cuh:product dispatches here): A K-major
 // (kAKMajor) or M-major, raw float32; B as its hi and lo planes, each
 // [N][K] row-major (g.b, g.b_lo, row stride g.ldb); the epilogue kEpi;
-// `splits` partial products; BN 128 or 64 columns a tile.
+// `splits` partial products; BN 128 or 64 columns a tile; sa: the
+// star-GCN epilogue's arguments (kEpiGcn: A K-major, one split, BN 128;
+// else unread).
 template <bool kAKMajor, int kEpi, int BN>
 inline cudaError_t product_wgmma_f32(const GemmArgsT<float>& g,
                                      const TrainArgs& ta, int splits,
-                                     cudaStream_t st) {
+                                     const StarArgs& sa, cudaStream_t st) {
   using T = WgTileF32<BN>;
-  static_assert(kEpi == kEpiStore || kEpi == kEpiRowBias || kEpi == kEpiDx,
+  static_assert(kEpi == kEpiStore || kEpi == kEpiRowBias ||
+                    kEpi == kEpiDx || kEpi == kEpiGcn,
                 "the float32 product's epilogues");
+  constexpr bool kGcn = kEpi == kEpiGcn;
+  static_assert(!kGcn || BN == 2 * kGcnHalf, "two z halves a tile");
   if (g.m <= 0 || g.n <= 0) return cudaSuccess;
   if (g.b_lo == nullptr || g.k <= 0 || splits < 1)
+    return cudaErrorInvalidValue;
+  if (kGcn && (!kAKMajor || splits != 1 || sa.n < 1 || sa.n > 64 ||
+               sa.p < 0 || sa.p >= sa.n || g.rows == nullptr ||
+               g.row_map == nullptr || sa.row_info == nullptr ||
+               sa.out_f == nullptr || g.bias == nullptr || g.ldc % 4 != 0))
     return cudaErrorInvalidValue;
   constexpr CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap tm_a, tm_bh, tm_bl;
@@ -1581,9 +1764,11 @@ inline cudaError_t product_wgmma_f32(const GemmArgsT<float>& g,
                    T::BN / 2);
   if (err != cudaSuccess) return err;
   auto kernel = wgmma_f32_kernel<T, kAKMajor, kEpi>;
+  const size_t smem =
+      T::SMEM + (kGcn ? sizeof(float) * T::CONSUMERS * kGcnF32Floats : 0);
   err = cudaFuncSetAttribute((const void*)kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)T::SMEM);
+                             (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1591,7 +1776,7 @@ inline cudaError_t product_wgmma_f32(const GemmArgsT<float>& g,
   attr[0].val.clusterDim.y = attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(T::THREADS);
-  cfg.dynamicSmemBytes = T::SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -1608,7 +1793,8 @@ inline cudaError_t product_wgmma_f32(const GemmArgsT<float>& g,
                            (long long)((g.n + T::BN - 1) / T::BN) * splits;
   const long long clusters = groups < resident ? groups : resident;
   cfg.gridDim = dim3((unsigned)(clusters * T::CLUSTER));
-  err = cudaLaunchKernelEx(&cfg, kernel, g, ta, splits, tm_a, tm_bh, tm_bl);
+  err = cudaLaunchKernelEx(&cfg, kernel, g, ta, splits, sa, tm_a, tm_bh,
+                           tm_bl);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

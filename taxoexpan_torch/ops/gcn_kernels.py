@@ -9,9 +9,7 @@ launch counters and the autograd Function around them.
                           _bwd_kernel :129)
 
 All three are `ops/csrc/gcn.cu`, whose header states what bounds them on an
-H100 and what the design does about it: the layer's product runs once as a
-projection on the tensor cores (`gcn_projection` alone), then a star pass
-(`gcn_star` alone; neither is in WRAPPERS). One layer is
+H100 and what the design does about it. One layer is
 
     z   = [x*m | pe*m_pe] @ [W_h; W_p] + z_bias
     out = act(norm * copy_src_sum(norm * z) + b)
@@ -33,18 +31,24 @@ the star passes float32, the output rounded to bf16; g upcast, dz cast to
 bf16 for dW and dx, dx times its float32 mask, rounded to bf16. The plain
 versions compute the same roundings (`launch.bf16_operands`,
 `_bwd_plain_bf16`). No model path reaches it: the JAX TaxoExpan passes no
-dtype to GCN, nor does the port's; a direct call does. On the card a bf16
-call takes a form by shape (`form`): at N <= 64 the valid-rows form (the
-forward packs the valid rows of whole egonets into 64-row tiles and runs
-the star pass in the product's epilogue, so z never reaches device memory;
-the backward compacts the valid rows and writes dz once in bf16), else the
-two-pass form; `bf16_form` picks one for timing and comparison. Both give
-the same outputs, dx, db and d z_bias bits.
+dtype to GCN, nor does the port's; a direct call does.
+
+On the card a call of either dtype takes a form by shape (`form`): at N <=
+64 (every configuration) the valid-rows form (the forward packs the valid
+rows of whole egonets into 64-row tiles and runs the star pass in the
+product's epilogue, so z never reaches device memory; the backward
+compacts the valid rows, recomputes z on them and writes dz once,
+compacted, for dW and dx on those rows), else the two-pass form (the
+layer's product as a projection over all B*N rows into z, `gcn_projection`
+alone, then a star pass, `gcn_star` alone; neither is in WRAPPERS).
+`use_form` picks one for timing and comparison. Both give the same
+outputs, dx, db and d z_bias bits.
 
 Dispatch is by the device of the tensors: on the CPU a wrapper runs its
 plain version; on CUDA it launches the kernel or raises. Each wrapper
 counts its launches in `<wrapper>.launches` (the float32 kernel) and
-`<wrapper>.launches_bf16` (the bf16 kernel), incremented only where that
+`<wrapper>.launches_bf16` (the bf16 kernel), and by form in
+`<wrapper>.launches_by_form` (both dtypes), incremented only where that
 kernel is launched. `gcn_layer` is the differentiable layer (the port of
 the `fused_gcn_layer` custom_vjp): it saves the layer inputs and the seed,
 and its backward replays the masks and recomputes z where leaky' needs it.
@@ -68,7 +72,7 @@ from .launch import (F, I, P, TrainArgs, bf16_operands, check_operands,
 _POINTERS = ("x", "w", "bias", "z_bias", "ngp", "nsib", "g", "out", "z",
              "g2sum", "part_w", "part_b", "pe_rows", "part_pe", "dx", "dw",
              "db", "dzb", "dpe", "dwp", "xm", "wcat", "biascat", "wt",
-             "dz16", "row_off", "row_map", "row_info", "dzf", "bt")
+             "dzp", "row_off", "row_map", "row_info", "dzf", "bt")
 _INTS = ("b", "n", "din", "dout", "p", "has_alpha", "need_dx", "need_dzb",
          "splits", "chunks", "kxp", "ldd", "ntp", "rows")
 
@@ -100,36 +104,34 @@ FWD_PASSES = {"two_pass": ("stage_pack", "projection", "star"),
               "valid_rows": ("rows", "stage_pack", "product_star")}
 BWD_PASSES = {"two_pass": ("stage_pack", "projection", "dz", "dbias", "dw",
                            "dx"),
-              "valid_rows": ("rows_stage_pack", "projection", "dz16",
+              "valid_rows": ("rows_stage_pack", "projection", "dz_rows",
                              "dbias", "dw", "dx")}
 # rows after the valid ones, zero in X and dz (csrc/bwd_common.cuh:kRowPad)
 ROW_PAD = 64
 # rows of the forward's packed tiles (csrc/gcn.cu:kPackTile): the
 # valid-rows form takes N <= PACK_TILE
 PACK_TILE = 64
-_FORCED: list = []   # `bf16_form`'s choice, innermost last
+_FORCED: list = []   # `use_form`'s choice, innermost last
 
 
 def form(x: torch.Tensor) -> str:
-    """The form of a K5 layer call (forward or backward) on the card:
-    "valid_rows" for a bf16 layer at N <= PACK_TILE (the forward packs the
+    """The form of a K5 layer call (forward or backward) on the card, for
+    either dtype: "valid_rows" at N <= PACK_TILE (the forward packs the
     valid rows of whole egonets into 64-row tiles and runs the star pass in
-    the product's epilogue; the backward compacts them, K4 bf16's way),
+    the product's epilogue; the backward compacts them, K4's way),
     "two_pass" otherwise (the projection over all B*N rows into z, then the
-    star pass). Inside `bf16_form(name)` a bf16 call takes `name`."""
-    if not is_bf16(x):
-        return "two_pass"
+    star pass). Inside `use_form(name)` a call takes `name`."""
     if _FORCED:
         return _FORCED[-1]
     return "valid_rows" if x.shape[1] <= PACK_TILE else "two_pass"
 
 
 @contextlib.contextmanager
-def bf16_form(name: str):
-    """The bf16 K5 calls inside take the form `name`: "two_pass" (the form
-    of every shape before the valid-rows form existed, so that both can be
-    timed and their results compared on the same inputs) or "valid_rows"
-    (N <= PACK_TILE)."""
+def use_form(name: str):
+    """The K5 calls inside, of either dtype, take the form `name`:
+    "two_pass" (the form of every shape before the valid-rows form
+    existed, so that both can be timed and their results compared on the
+    same inputs) or "valid_rows" (N <= PACK_TILE)."""
     if name not in FWD_PASSES:
         raise ValueError(f"unknown K5 form {name!r}")
     _FORCED.append(name)
@@ -332,19 +334,21 @@ def _projection_work(x, dout: int, drop: float,
 
 
 def _packed_work(x, dout: int, pos: int) -> tuple[dict, dict]:
-    """Workspaces of the bf16 forward's valid-rows form (csrc/gcn.cu), as
-    (pointers, widths): X packed [rows + ROW_PAD, kxp], W [kxp, ldd],
-    z_bias [N, ldd], the egonets' first packed rows [B + 1] and the packed
-    rows' tables [rows + ROW_PAD] (original row, slot and egonet), where
-    rows bounds the packed rows: next fit into 64-row tiles needs fewer
-    than 64 B and fewer than 2 B*N + 64."""
+    """Workspaces of the forward's valid-rows form (csrc/gcn.cu), as
+    (pointers, widths): X packed [rows + ROW_PAD, kxp] in x's dtype, W in
+    the product's layout (`weight_work`: [kxp, ldd] in bf16, W^T as hi /
+    lo planes in float32), z_bias [N, ldd], the egonets' first packed rows
+    [B + 1] and the packed rows' tables [rows + ROW_PAD] (original row,
+    slot and egonet), where rows bounds the packed rows: next fit into
+    64-row tiles needs fewer than 64 B and fewer than 2 B*N + 64. No z
+    workspace: the product's epilogue runs the star pass."""
     bsz, n, din = x.shape
     c = chunk_elems(x)
     kxp, ldd = round_up(din + pos, c), round_up(dout, c)
     rows = min(PACK_TILE * bsz, 2 * bsz * n + PACK_TILE)
     i32 = torch.int32
     ptrs = {"xm": _empty(x, rows + ROW_PAD, kxp, dtype=x.dtype),
-            "wcat": _empty(x, kxp, ldd, dtype=x.dtype),
+            "wcat": weight_work(x, kxp, ldd),
             "biascat": _empty(x, n, ldd),
             "row_off": _empty(x, bsz + 1, dtype=i32),
             "row_map": _empty(x, rows + ROW_PAD, dtype=i32),
@@ -455,11 +459,16 @@ def _bwd_cuda(g, x, w, b, z_bias, ngp, nsib, p, pe_pack, seed, drop, alpha,
             "dzb": grads["z_bias"], "dpe": grads.get("pe"),
             "dwp": grads.get("wp"), "xm": pw["xm"], "wt": pw["wt"],
             "bt": pw["bt"],
-            # the products' dz in bf16 (bf16 layers)
-            "dz16": empty(rows, ldd, dtype=x.dtype) if is_bf16(x) else None,
+            # the products' dz: compacted (the valid-rows form) or cast to
+            # bf16 (the bf16 two-pass form); the float32 two-pass form's
+            # products read z
+            "dzp": (empty(rows, ldd, dtype=x.dtype)
+                    if compact or is_bf16(x) else None),
             "row_off": empty(bsz + 1, dtype=i32) if compact else None,
             "row_map": empty(rows, dtype=i32) if compact else None,
-            "dzf": empty(m, ldd) if compact and need_dzb else None}
+            # the bf16 valid-rows form's float32 dz for d z_bias
+            "dzf": (empty(m, ldd)
+                    if compact and need_dzb and is_bf16(x) else None)}
     args = _args(x, w, b, z_bias, ngp, nsib, p, alpha, work,
                  need_dx=int(need_dx), need_dzb=int(need_dzb),
                  splits=splits, chunks=chunks, kxp=pw["kxp"], ldd=ldd,

@@ -54,7 +54,12 @@ column tiles straddle heads, B = 1, only-anchor egonets, an empty batch,
 out_alpha on and off, dropout 0 and 0.1 with 32- and 8-bit masks, the
 store form, stored and recompute K2 equal bits), its two-pass form at
 N = 70, and K3's eval and train forms on the valid rows (R below one
-tile, ragged, only anchors; equal bits with the all-rows store form); the
+tile, ragged, only anchors; equal bits with the all-rows store form); K5's
+valid-rows form in float32 (the star pass in the 3xTF32 product's
+epilogue; egonets straddling a tile, B = 1, N = 12 with holes, only empty
+egonets, the concat widths 300 / 550, need_dx both ways, the pe path with
+dropout) against the plain versions and the two-pass form (equal bits but
+dW, held to twice the float32 product's bound), and an empty batch; the
 shapes head tensor parallelism
 over mp = 2 gives K1-K4 (config.mag.json's layer 0 at 2 of its 4 heads,
 a pooled layer at 2 of 4 heads), in float32 and bf16; one train step
@@ -1695,7 +1700,7 @@ def test_bf16_gcn_valid_rows_form(dev, b, p, s, din, dout, pos, sizes,
 
     assert ck.form(ops[0]) == "valid_rows"
     rows = run()
-    with ck.bf16_form("two_pass"):
+    with ck.use_form("two_pass"):
         two = run()
     _assert_close_bf16(rows[0], ck.gcn_layer_fwd_plain(*ops, p, alpha),
                        "eval")
@@ -1738,6 +1743,125 @@ def test_bf16_gcn_valid_rows_empty_batch(dev):
     for name, t in got.items():
         assert t is None or float(t.float().abs().sum()) == 0.0, name
     assert {k: (w.launches_bf16, dict(w.launches_by_form))
+            for k, w in ck.WRAPPERS.items()} == before
+
+
+# ----------------------------------------- K5 float32's valid-rows form
+
+K5_F32_ROWS_CASES = K5_ROWS_CASES + [
+    # pos_mode "concat": the pe columns in x, no pe path (PGCN's layer 0
+    # at 250 + 50 and its final layer at 500 + 50 input columns)
+    (5, 13, 50, 300, 500, 0, [(13, 26)] * 3),
+    (3, 13, 50, 550, 500, 0, [(13, 50), (0, 0)]),
+]
+
+
+def _dw_bound(g, ops, p, kw):
+    """Twice the float32 product's bound (test_f32_product_matches_float64:
+    1e-5 (|A| @ |B|) + 1e-6) for dW = X^T dz and, on the pe path, dW_p:
+    the two forms' dW, each within it of the exact product of the same X
+    and dz bits, in float64; |X| bounded by |x| / (1 - drop) (a kept
+    element is scaled by that), dz from the plain version's autograd."""
+    x, w, bias, zb, ngp, nsib = ops
+    z = ck.gcn_projection_plain(x, w, zb, pe_pack=kw["pe_pack"],
+                                seed=kw["seed"], drop=kw["drop"])
+    z = z.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = ck.gcn_star_plain(z, bias, ngp, nsib, p, kw["alpha"])
+        dz = torch.autograd.grad(out, z, g.float())[0]
+    dza = dz.abs().double().reshape(-1, dz.shape[-1])
+    scale = 1.0 / (1.0 - kw["drop"])
+    bounds = {"w": x.abs().double().reshape(-1, x.shape[-1]) * scale}
+    if kw["pe_pack"] is not None:
+        pe = kw["pe_pack"][0]
+        bounds["wp"] = (pe.abs().double()[None].expand(x.shape[0], -1, -1)
+                        .reshape(-1, pe.shape[-1]) * scale)
+    return {k: 2e-5 * (a.T @ dza) + 2e-6 for k, a in bounds.items()}
+
+
+@pytest.mark.parametrize("b,p,s,din,dout,pos,sizes", K5_F32_ROWS_CASES)
+@pytest.mark.parametrize("alpha", [0.01, None])
+def test_f32_gcn_valid_rows_form(dev, b, p, s, din, dout, pos, sizes,
+                                 alpha):
+    """K5 float32's valid-rows form (the forward's rows packed into 64-row
+    tiles with the star pass in the 3xTF32 product's epilogue, z staged a
+    64-column half at a time; the backward on the compacted rows, dz
+    written once in float32) against the plain versions at TOL / GTOL and
+    against the two-pass form on the same inputs: the eval and train
+    outputs, dx, db, d z_bias and dpe equal bits, dW and dW_p within twice
+    the float32 product's bound (`_dw_bound`: their rows are summed in
+    other split-K groups); need_dx on and off, the pe path with dropout
+    where pos > 0, the concat widths 300 / 550; dx exactly 0 at the
+    invalid slots; launches counted under the form."""
+    ops, pe_pack = _gcn_inputs(dev, b, p, s, din, dout, pos, seed=74)
+    ops = list(ops)
+    valid = _gcn_egonets(ops, p, s, sizes)
+    n = p + 1 + s
+    kw = dict(pe_pack=pe_pack, seed=75, drop=0.1, alpha=alpha)
+    g = torch.randn((b, n, dout), device=dev,
+                    generator=torch.Generator(dev).manual_seed(76)) * 1e-2
+    if alpha is not None:   # leaky' jumps at 0: no grad near the kink
+        pre = ck.gcn_layer_train_plain(*ops, p, **dict(kw, alpha=None))
+        g = g * (pre.abs() > 1e-5)
+    before = {k: dict(w.launches_by_form) for k, w in ck.WRAPPERS.items()}
+
+    def run():
+        out = [ck.gcn_layer_fwd(*ops, p, alpha=alpha),
+               ck.gcn_layer_fwd_train(*ops, p, **kw)]
+        for need_dx in (True, False):
+            out.append(ck.gcn_layer_bwd(g, *ops, p, need_dx=need_dx,
+                                        need_dzb=need_dx, **kw))
+        torch.cuda.synchronize()
+        return out
+
+    assert ck.form(ops[0]) == "valid_rows"
+    rows = run()
+    with ck.use_form("two_pass"):
+        two = run()
+    torch.testing.assert_close(rows[0], ck.gcn_layer_fwd_plain(
+        *ops, p, alpha), **TOL)
+    torch.testing.assert_close(rows[1], ck.gcn_layer_train_plain(
+        *ops, p, **kw), **TOL)
+    assert torch.equal(rows[0], two[0]) and torch.equal(rows[1], two[1])
+    bound = _dw_bound(g, ops, p, kw)
+    for i, need_dx in ((2, True), (3, False)):
+        bkw = dict(kw, need_dx=need_dx, need_dzb=need_dx)
+        _assert_grads(rows[i], ck.gcn_layer_bwd_plain(g, *ops, p, **bkw))
+        assert set(rows[i]) == set(two[i])
+        for name, a in rows[i].items():
+            assert (a is None) == (two[i][name] is None), name
+            if name in bound:
+                err = (a.double() - two[i][name].double()).abs()
+                assert bool((err <= bound[name]).all()), \
+                    (name, float(err.max()))
+            elif a is not None:
+                assert torch.equal(a, two[i][name]), name
+        if need_dx and bool((~valid).any()):
+            assert float(rows[i]["x"][~valid].abs().max()) == 0.0
+    after = {k: dict(w.launches_by_form) for k, w in ck.WRAPPERS.items()}
+    added = {k: {f: after[k].get(f, 0) - before[k].get(f, 0)
+                 for f in after[k]} for k in after}
+    assert added == {"gcn_layer_fwd": {"valid_rows": 1, "two_pass": 1},
+                     "gcn_layer_fwd_train": {"valid_rows": 1,
+                                             "two_pass": 1},
+                     "gcn_layer_bwd": {"valid_rows": 2, "two_pass": 2}}
+
+
+def test_f32_gcn_valid_rows_empty_batch(dev):
+    """An empty batch at PGCN's widths in float32: empty outputs, zero
+    grads, no launch counted, by dtype or by form."""
+    ops, pe_pack = _gcn_inputs(dev, 0, 13, 50, 250, 500, 50)
+    before = {k: (w.launches, dict(w.launches_by_form))
+              for k, w in ck.WRAPPERS.items()}
+    assert ck.form(ops[0]) == "valid_rows"
+    assert ck.gcn_layer_fwd(*ops, 13, alpha=0.01).shape == (0, 64, 500)
+    assert ck.gcn_layer_fwd_train(*ops, 13, pe_pack=pe_pack, seed=1,
+                                  drop=0.1).shape == (0, 64, 500)
+    got = ck.gcn_layer_bwd(torch.zeros((0, 64, 500), device=dev), *ops, 13,
+                           pe_pack=pe_pack, seed=1, drop=0.1, alpha=0.01)
+    for name, t in got.items():
+        assert t is None or float(t.abs().sum()) == 0.0, name
+    assert {k: (w.launches, dict(w.launches_by_form))
             for k, w in ck.WRAPPERS.items()} == before
 
 

@@ -254,22 +254,22 @@ def test_float32_plain_versions_unchanged(alpha):
 
 def test_card_form_by_shape():
     """The form a K5 call takes on the card (`ck.form`): the valid-rows
-    form for bf16 at N <= 64, the two-pass form for float32 and for bf16
-    above 64 slots; `bf16_form` picks one for bf16 calls only, nests, and
+    form at N <= 64 and the two-pass form above 64 slots, for float32 and
+    bf16 alike; `use_form` picks one for calls of either dtype, nests, and
     refuses an unknown name."""
     def x(n, dtype):
         return torch.zeros((1, n, 4), dtype=dtype)
 
-    bf16 = torch.bfloat16
-    assert ck.form(x(64, bf16)) == "valid_rows"
-    assert ck.form(x(65, bf16)) == "two_pass"
-    assert ck.form(x(64, torch.float32)) == "two_pass"
-    with ck.bf16_form("two_pass"):
-        assert ck.form(x(64, bf16)) == "two_pass"
-        with ck.bf16_form("valid_rows"):
-            assert ck.form(x(64, bf16)) == "valid_rows"
+    for dtype in (torch.bfloat16, torch.float32):
+        assert ck.form(x(64, dtype)) == "valid_rows"
+        assert ck.form(x(65, dtype)) == "two_pass"
+    with ck.use_form("two_pass"):
+        assert ck.form(x(64, torch.bfloat16)) == "two_pass"
         assert ck.form(x(64, torch.float32)) == "two_pass"
-    assert ck.form(x(64, bf16)) == "valid_rows"
+        with ck.use_form("valid_rows"):
+            assert ck.form(x(64, torch.float32)) == "valid_rows"
+        assert ck.form(x(64, torch.float32)) == "two_pass"
+    assert ck.form(x(64, torch.float32)) == "valid_rows"
     with pytest.raises(ValueError):
-        with ck.bf16_form("fused"):
+        with ck.use_form("fused"):
             pass
