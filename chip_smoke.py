@@ -53,14 +53,22 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               its time by pass (`passes_ms`, CUDA events the kernel library
               records between its launches: staging and packing, the
               projection, the star or pooled star pass; the head core or
-              K5b's dz pass, the slot-bias or db sums, dW, dx; the bf16
-              forwards by their form, `gat_kernels.fwd_form`: the fused
+              K5b's dz pass, the slot-bias or db sums, dW, dx; the
+              forwards of either dtype by their form,
+              `gat_kernels.fwd_form`: the fused
               per-slot form's staging, pass A (a1 | a2), the star weights
               and the product with the star pass in its epilogue; the
               pooled valid-rows form's counting and compacted staging of
               the valid rows, the projection on them, the pooled star
               pass; K4's first pass, in either dtype, counts and compacts
-              the valid rows). Every GAT form's entry also gives
+              the valid rows). Every GAT forward's entry gives its
+              `form`; PGAT's float32 K1, K3, K1t and K3t entries also
+              `parent_form`: the two-pass form on the same inputs
+              (`gat_kernels.use_form`, the form every float32 forward took
+              before the fused and valid-rows forms; it still serves
+              N > 64 and the pooled store form) held to the plain version,
+              its largest difference from the entry's form, its ms and
+              passes. Every GAT form's entry also gives
               `products` (`product_rates`): each product pass's rows (all
               B*N, or K4's valid rows R), TFLOP/s (float32: float32-
               equivalent, three TF32 products on the tensor cores a
@@ -169,9 +177,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               pass's rows (all B*N, or the valid rows R of K4 and of the
               pooled forward's valid-rows form), TFLOP/s and one cuBLAS bf16
               matmul of its shape (the fused forward: pass A and the fused
-              product); every bf16 path must launch the fused form for each
-              per-slot forward and the valid-rows form for the pooled eval
-              and train forms (`path_launches`); serving and training of
+              product); every GAT path, bf16 or float32, must launch the
+              fused form for each per-slot forward, the valid-rows form for
+              the pooled eval and train forms and the two-pass form for
+              the pooled store form (`path_launches`, at N <= 64: every
+              path's egonet); serving and training of
               PGAT-bf16 (config.mag.json with the key) and MTL-bf16
               (config.semeval_verb_mtl.json with the key, its switches) as
               above, launches read from the wrappers' `launches_bf16` (a
@@ -238,6 +248,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
               each CLI's peak device memory and the host's max RSS; and
               K1 / K3 in eval form at one 30000-egonet chunk of these
               shapes against their plain versions (`[mag_full]` entries,
+              each with its two-pass form's ms and passes beside it,
               the plain version run 4096 egonets a call).
 11. a `phase_seconds` line (each phase's wall time) and a `{"kernels":
    [...]}` line (eval-form launches from the serving phase
@@ -531,49 +542,51 @@ def _eval_wrappers(path: str) -> dict:
             "gat_layer_pooled_fwd": gk.gat_layer_pooled_fwd}
 
 
-def path_launches(path: str, wrappers: dict) -> dict:
+def path_launches(path: str, wrappers: dict, slots: int | None = None
+                  ) -> dict:
     """The launch counts of `wrappers` in the path's compute dtype: their
     bf16 kernels' on a BF16_PATHS path (which then must have launched no
     float32 GAT kernel: raises), else their float32 kernels', and their
     bf16 kernels' under "<name>[bf16]" (K5's bf16 form has no path of its
-    own: PGCN's count of it is its count on the main paths). On a
-    BF16_PATHS path also the forwards' launches by form under
-    "<name>[<form>]" (`gk.fwd_form`): at N = 64 every per-slot forward
-    must take the fused form and the pooled eval and train forms the
-    valid-rows form (raises otherwise). On a GCN path K5's launches by
-    form (`ck.form`) under "<name>[<form>]": at N = 64 every K5 call must
-    take the valid-rows form (raises otherwise)."""
+    own: PGCN's count of it is its count on the main paths). Also the
+    launches by form under "<name>[<form>]", each of which must be the form
+    the path's shape takes (raises otherwise): on a GAT path, of either
+    dtype, the forwards' (`gk.fwd_form` at N = `slots`, by default the
+    path's egonet, GP_SLOTS + 1 + its expand_factor: every per-slot forward
+    the fused form, the pooled eval and train forms the valid-rows form,
+    the pooled store form the two-pass form); on a GCN path K5's
+    (`ck.form`: at N <= 64 every K5 call the valid-rows form)."""
+    import torch
     from taxoexpan_torch.ops import gat_kernels as gk
-    if path not in BF16_PATHS:
+    bf16 = path in BF16_PATHS
+    if bf16:
+        f32 = {name: w.launches for name, w in gk.WRAPPERS.items()
+               if w.launches}
+        if f32:
+            raise AssertionError(f"the bf16 path {path} launched float32 "
+                                 f"kernels {f32}")
+        res = {name: w.launches_bf16 for name, w in wrappers.items()}
+    else:
         res = {name: w.launches for name, w in wrappers.items()} | {
             f"{name}[bf16]": w.launches_bf16
             for name, w in wrappers.items()}
-        if PATHS[path][1] in ("GCN", "PGCN"):
-            forms = {f"{name}[{form}]": count
-                     for name, w in wrappers.items()
-                     for form, count in w.launches_by_form.items()}
-            other = {key: count for key, count in forms.items()
-                     if not key.endswith("[valid_rows]")}
-            if other:
-                raise AssertionError(f"the path {path} launched K5 forms "
-                                     f"{other}")
-            res |= forms
-        return res
-    f32 = {name: w.launches for name, w in gk.WRAPPERS.items() if w.launches}
-    if f32:
-        raise AssertionError(f"the bf16 path {path} launched float32 "
-                             f"kernels {f32}")
     forms = {f"{name}[{form}]": count for name, w in wrappers.items()
              for form, count in getattr(w, "launches_by_form", {}).items()}
-    expected = {name: "two_pass" if name.endswith("pooled_fwd_train_store")
-                else "valid_rows" if "pooled_fwd" in name else "fused"
-                for name in wrappers if "_fwd" in name}
+    if PATHS[path][1] in ("GCN", "PGCN"):
+        expected = lambda name: "valid_rows"  # noqa: E731
+    else:
+        if slots is None:
+            slots = GP_SLOTS + 1 + slot_args(load_config(PATHS[path][0]))[
+                "expand_factor"]
+        shape = torch.empty((1, slots, 1),
+                            dtype=torch.bfloat16 if bf16 else torch.float32)
+        expected = lambda name: gk.fwd_form(  # noqa: E731
+            shape, "pooled" in name, name.endswith("_store"))
     other = {key: count for key, count in forms.items()
-             if key != f"{key.split('[')[0]}[{expected[key.split('[')[0]]}]"}
+             if key.split("[")[1][:-1] != expected(key.split("[")[0])}
     if other:
-        raise AssertionError(f"the bf16 path {path} launched forward forms "
-                             f"{other}")
-    return {name: w.launches_bf16 for name, w in wrappers.items()} | forms
+        raise AssertionError(f"the path {path} launched forms {other}")
+    return res | forms
 
 
 def _train_wrappers(path: str) -> tuple[dict, tuple]:
@@ -774,7 +787,7 @@ def product_rates(x, ops, pe_pack, heads: int, ngp, nsib, passes: dict,
     and, in a backward, dW (with its operand transposed into hi / lo
     planes in float32, and its split reduction) and dx (with the dpe
     sums), the rows it runs (all B*N, or the valid rows R of K4 and of the
-    pooled bf16 forward's valid-rows form), its operations, its TFLOP/s
+    pooled forward's valid-rows form), its operations, its TFLOP/s
     (float32: float32-equivalent) from its pass ms, and one torch.matmul
     (cuBLAS) at the same shape on random operands of x's dtype (float32:
     full float32, TF32 off) as a yardstick, not used by the port."""
@@ -902,6 +915,31 @@ def measure(name: str, kernel, plain, backward: bool, matmul,
         if passes is not None:
             times["passes_ms"] = pass_split(kernel, passes)
     return got, {**err, **times}
+
+
+def two_pass_form(name: str, kernel, got, plain=None,
+                  iters: int = 10) -> dict:
+    """The two-pass form of a star-GAT forward call (`gk.use_form`), the
+    form its shape took before the fused and valid-rows forms: held to the
+    plain version where `plain` is given, its largest difference from the
+    shape's own form's result `got` (0: equal bits), its ms and passes."""
+    import torch
+    from taxoexpan_torch.ops import gat_kernels as gk
+    with gk.use_form("two_pass"), torch.no_grad():
+        two = kernel()
+        torch.cuda.synchronize()
+        res = {"form": "two_pass"}
+        if plain is not None:
+            want = plain()
+            res.update(compare_outputs(f"{name} two-pass form", two, want))
+            del want
+        pairs = zip(two, got) if isinstance(got, tuple) else ((two, got),)
+        res["max_diff_vs_form"] = max(float((a - b).abs().max())
+                                      for a, b in pairs)
+        del two
+        res["ms"] = time_ms(kernel, iters)
+        res["passes_ms"] = pass_split(kernel, "gat_fwd:two_pass")
+    return res
 
 
 def pooled_star_alone(name: str, x, ops, ngp, nsib, heads: int,
@@ -1161,6 +1199,10 @@ def phase_kernels(batch: int, device, drop: float,
         nums["products"] = product_rates(
             x, ops, pe_pack, heads, ngp, nsib, nums["passes_ms"], backward,
             pooled, bool(need_dx))
+        if not backward:
+            nums["form"] = gk.fwd_form(x, pooled)
+            if path == "PGAT":  # the float32 two-pass form, held here
+                nums["parent_form"] = two_pass_form(name, kernel, got, plain)
         if pooled and not backward:
             nums["star_alone"] = pooled_star_alone(
                 name, x, ops, ngp, nsib, heads,
@@ -1217,7 +1259,10 @@ def gat_record(name: str, wrapper: str, path: str, backward: bool, x, fc,
            "replaces": replaces, "batch": x.shape[0],
            "x_shape": list(x.shape), "fc_shape": list(fc.shape),
            "dtype": str(x.dtype).replace("torch.", ""),
-           "pe": pe_pack is not None, **extra, **nums,
+           "pe": pe_pack is not None, **extra,
+           # a forward's form (`gk.fwd_form`)
+           **({"form": nums["products"]["form"]}
+              if "form" in nums.get("products", {}) else {}), **nums,
            # no single PyTorch call computes the star-GAT layer or its
            # backward; one product alone is timed as a yardstick
            "library_ms": None,
@@ -1508,6 +1553,7 @@ def phase_tp_kernels(batch: int, device, drop: float) -> list[dict]:
                 work = bwd_work(x, ops, pe_pack, g1 if pooled else g0, got,
                                 ngp, nsib, local)
             else:
+                nums["form"] = gk.fwd_form(x, pooled)
                 work = fwd_work(pooled, x, ops, pe_pack, ngp, nsib, local,
                                 got)
             records.append(gat_record(
@@ -2049,7 +2095,9 @@ def phase_mag_full(device) -> dict:
             runs[cli] = {
                 "out": out, "seconds": time.time() - t0,
                 "candidates": len(ranker.candidates),
-                "launches": path_launches("PGAT", wrappers),
+                "launches": path_launches(
+                    "PGAT", wrappers, slots=ranker.sampler.max_parents + 1
+                    + ranker.sampler.expand_factor),
                 "max_memory_allocated_bytes":
                     torch.cuda.max_memory_allocated(device),
                 "stages": {"data_load": sum(t_load),
@@ -2188,12 +2236,17 @@ def phase_mag_full_kernels(device) -> list[dict]:
                                      got, gp=gp)
             x2 = x.reshape(-1, x.shape[-1])
             nums = {**err, "rtol": RTOL, "atol": ATOL,
+                    "form": gk.fwd_form(x, pooled),
                     "ms": time_ms(kernel, 3),
                     "plain_ms": time_ms(lambda: plain_chunks(), 1),
                     "plain_call": f"the plain version in {step}-egonet "
                                   "chunks, summed",
                     "matmul_ms": time_ms(lambda: x2 @ ops[0], 3),
-                    "passes_ms": pass_split(kernel, fwd_passes(x, pooled))}
+                    "passes_ms": pass_split(kernel, fwd_passes(x, pooled)),
+                    # both forms at N = 52: the fused form computes 64
+                    # rows a warpgroup for 52
+                    "parent_form": two_pass_form(
+                        f"{wrapper}[mag_full]", kernel, got, iters=3)}
         rec = gat_record(f"{wrapper}[mag_full]", wrapper, "MAG-Full", False,
                          x, ops[0], None, nums, (nbytes, flops),
                          REPLACES[wrapper], max_parents=gp, slots=n)
@@ -3924,7 +3977,8 @@ def run_paths(device) -> list[dict]:
             "name", "route", "source", "replaces")} | {
             "launches": phase["launches"][rec.get("launch_key", wrapper)],
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}})
+                                   "bound_ms", "bound_by", "library_ms")},
+            **({"form": rec["form"]} if "form" in rec else {})})
     return kernels
 
 

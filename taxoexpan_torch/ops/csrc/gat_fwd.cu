@@ -26,50 +26,28 @@
 // weights before dropout, [B, H, 2N - P - 1] (layout in gat_common.cuh),
 // for the stored-attention backward (pallas_gat.py:231).
 //
-// The float32 forms (3xTF32 wgmma on the tensor cores, gemm_wgmma.cuh)
-// and the bf16 forms (bf16 wgmma, the same file) share the layer's
-// arithmetic but not its structure.
-//
-// float32 forms: two launches (and two small preparations) a layer.
-//  1. The projection P = X @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot
-//     biases over all B*N rows, [B*N, wdp] (wdp = H*Dh + 2H rounded up to
-//     4: 2008 for config.mag.json's layer 0, 504 for its final layer),
-//     one product a layer, W's tiles reused across 128 rows (two egonets)
-//     a block. X is x itself, or, where the layer has masks or a pe path
-//     or x's rows are not 16-byte multiples, x staged once into a
-//     workspace with each mask bit hashed once
-//     (gemm_tf32.cuh:stage_input_kernel). The backward (gat_bwd.cu) runs
-//     the same product on the same inputs, so its a1/a2 and softmax are
-//     these bits.
-//  2. Per-slot layer: the star pass (gat_star_fwd_kernel), one block per
-//     (egonet, head): a1/a2 from P, the star softmax once (with attention
-//     dropout, and the stored weights written where attn is not null),
-//     then the aggregation, the optional out_alpha leaky and the output,
-//     each thread a column of the head. Pooled layer: the pooled star pass
-//     (gat_pooled_star_kernel), one block per egonet looping over heads:
-//     the same softmax once per (egonet, head), then per column the
-//     valid-gp sum, the anchor and the valid-sib sum, averaged over heads
-//     in shared memory, the pools written once; it reads the valid rows of
-//     P only, the projection computes all B*N rows, as the TPU kernel does.
-//  What bounds them on an H100: the 3xTF32 products; P is 4 * B*N*wdp
-//  bytes (2.1 GB at config.mag.json's layer 0, B = 4096; 0.53 GB at its
-//  final layer; 3.8 GB at the MTL configuration's layer 0), written and
-//  read once, and X staged adds 4 * B*N*kxp bytes.
-//
-// The bf16 forms (compute_dtype "bfloat16"; the Pallas kernels with x in
-// bf16): x, fc, wa1, wa2 in bf16, the slot biases and the pe path's rows
-// float32; X staged and W packed in bf16 (gemm_tf32.cuh:stage_input_kernel,
-// pack_weights_kernel, 8 elements a 16-byte chunk: kxp and wdp rounded up
-// to 8), the products on bf16 wgmma with float32 accumulation, so ft, a1,
-// a2, the softmax and the aggregation stay float32 (pallas_gat.py:283-291);
-// the per-slot output is rounded to bf16 after the fused leaky (:359-362),
-// the pools stay float32 (:1148). Each form by shape:
-//  - Per-slot layer at n <= 64 (every configuration: N = 64), the fused
-//    form, four launches and two preparations; P never reaches device
-//    memory:
+// Both element types take the same three forms, chosen by shape on the
+// host (gat_kernels.fwd_form) and named to these entry points by the
+// workspaces the caller passes (FwdWorkT: wa set for the fused form,
+// row_off for the valid-rows form, else the two-pass form). The products
+// run on the TMA-fed wgmma ring of gemm_wgmma.cuh: 3xTF32 for float32
+// layers (float32-accurate on the tensor cores), bf16 wgmma with float32
+// accumulation for bf16 layers (x, fc, wa1, wa2 in bf16, the slot biases
+// and the pe path's rows float32; X staged and W packed in bf16, 8
+// elements a 16-byte chunk, so kxp and wdp round up to 8; ft, a1, a2, the
+// softmax and the aggregation float32, pallas_gat.py:283-291; the per-slot
+// output rounded to bf16 after the fused leaky, :359-362; the pools
+// float32, :1148). X is x itself, or, where the layer has masks or a pe
+// path or x's rows are not 16-byte multiples, x staged once into a
+// workspace with each mask bit hashed once
+// (gemm_tf32.cuh:stage_input_kernel).
+//  - Per-slot layer at n <= kFusedMaxSlots (64; every configuration: N =
+//    64, 54, 52 or 30), the fused form, four launches and two
+//    preparations; P never reaches device memory:
 //     stage + pack  X staged where needed; W split into [fc; wp] (wcat,
-//                   wdp = H*Dh rounded up to 8) and [wa1 | wa2; wpa1 |
-//                   wpa2] (wa), their slot biases packed alike;
+//                   wdp = H*Dh rounded up to a chunk) and [wa1 | wa2; wpa1
+//                   | wpa2] (wa), their slot biases packed alike (float32:
+//                   W^T as TF32 hi / lo planes);
 //     pass A        [a1 | a2] = X @ wa + their slot biases, float32 [B*N,
 //                   lda] (lda = 2H rounded up to 4; 8.4 MB at layer 0), on
 //                   the product's narrow tile: the same K order and 64-deep
@@ -80,22 +58,27 @@
 //                   weights), each row's weights into wts (16.8 MB);
 //     pass B        X @ [fc; wp] with the star epilogue (gemm_wgmma.cuh:
 //                   kEpiStar): each consumer warpgroup holds floor(64 / n)
-//                   whole egonets of ft (+ its slot biases) in its C tile,
-//                   the weights of the heads its columns touch copied in
-//                   while the products run, aggregates there and writes
-//                   the output, after the leaky, in bf16. The softmax stays
-//                   out of the epilogue: the anchor's is a serial chain of
+//                   whole egonets of ft (+ its slot biases), the weights of
+//                   the heads its columns touch copied in while the
+//                   products run, aggregates them and writes the output,
+//                   after the leaky, once. bf16: the whole 64 x 128 C tile
+//                   in shared memory. float32: the 3xTF32 ring's four
+//                   48 KB stages leave 34 KB of the block's 227 KB, so each
+//                   consumer stages its ft a 32-column quarter at a time
+//                   (8 KB) beside its 4 KB of weights (f32_star_stage,
+//                   f32_star_quarter). The softmax stays out of the
+//                   epilogue: the anchor's is a serial chain of
 //                   exponentials that would stall the tensor cores once
 //                   per column tile.
 //    What bounds it: the product (X read from L2 once per 128-column
-//    tile) with the epilogue, which the tensor cores wait for, and the
-//    bf16 output (1.05 GB at layer 0), where the two-pass form also wrote
-//    and read 2.1 GB of float32 P.
-//  - Per-slot layer at n > 64: the two-pass form of the float32 forms, the
-//    projection on wgmma (gemm_wgmma.cuh, kEpiRowBias) and the star pass
-//    gat_star_fwd_kernel<.., bf16>, a warpgroup's 64 rows holding no whole
-//    egonet. The wrappers count its launches as the form "two_pass"
-//    (gat_kernels.fwd_form).
+//    tile) with its epilogue, which the tensor cores wait for, and the
+//    output (float32 2.1 GB at config.mag.json's layer 0, B = 4096; bf16
+//    1.05 GB), where the two-pass form also wrote and read P (float32
+//    2.1 GB there). At n < 64 a warpgroup computes 64 rows for floor(64 /
+//    n) * n (52 of 64 at MAG-Full's N = 52). The float32 output has the
+//    two-pass form's bits: ft is the projection's bits (same K order,
+//    same tile columns) and the star pass's FMA chains are written alike
+//    in both forms.
 //  - Pooled layer, eval and train forms, the valid-rows form: the valid
 //    rows alone are counted and scanned on the card
 //    (bwd_common.cuh:valid_row_offsets_kernel), staged compacted with
@@ -105,11 +88,30 @@
 //    and the pooled star pass reads them through the egonets' row offsets.
 //    Bound by the staging's bytes and the product on R rows. A row's
 //    wgmma result does not depend on its place in the tile, so the pools
-//    have the bits of the all-rows form, and K4 bf16 (which compacts the
-//    same rows) recomputes this softmax.
-//  - Pooled layer, store form: the two-pass form over all rows, since it
-//    stores the invalid siblings' formula weights too, which need those
-//    rows' a1 / a2.
+//    have the bits of the all-rows form, and K4 (which compacts the same
+//    rows) recomputes this softmax.
+//  - Otherwise, the two-pass form: the per-slot layer at n > 64 (a
+//    warpgroup's 64 rows hold no whole egonet) and the pooled store form
+//    (it stores the invalid siblings' formula weights too, which need those
+//    rows' a1 / a2):
+//     1. the projection P = X @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the
+//        slot biases over all B*N rows, float32 [B*N, wdp] (wdp = H*Dh +
+//        2H rounded up: 2008 at config.mag.json's layer 0, 504 at its
+//        final layer), kEpiRowBias; the backward (gat_bwd.cu) runs the
+//        same product on the same inputs, so its a1 / a2 and softmax are
+//        these bits;
+//     2. per-slot layer: the star pass (gat_star_fwd_kernel), one block
+//        per (egonet, head): a1 / a2 from P, the star softmax once (with
+//        attention dropout, the stored weights written where attn is not
+//        null), then the aggregation, the optional out_alpha leaky and the
+//        output, each thread a column of the head. Pooled layer: the
+//        pooled star pass (gat_pooled_star_kernel), one block per egonet
+//        looping over heads: the same softmax once per (egonet, head), then
+//        per column the valid-gp sum, the anchor and the valid-sib sum,
+//        averaged over heads in shared memory, the pools written once.
+//    Bound by P's bytes, written and read once (4 * B*N*wdp: 2.1 GB at
+//    config.mag.json's layer 0, 3.8 GB at the MTL configuration's), and
+//    the product.
 
 #include "bwd_common.cuh"
 
@@ -124,19 +126,21 @@ struct FwdWorkT {
                    // valid-rows form's R rows first)
   E* xm;           // [b*n, kxp] X staged, or null (the products read x);
                    // the valid-rows form: [b*n + kRowPad, kxp], compacted
-  E* wcat;         // [kxp, wdp] W (the fused form: [fc; wp] alone)
+  E* wcat;         // [kxp, wdp] W (the fused form: [fc; wp] alone);
+                   // float32: W^T as hi / lo planes [2, wdp, kxp]
   float* biascat;  // [n, wdp] the slot biases of wcat's columns
   E* wa;           // the fused form: [kxp, wap] [wa1 | wa2; wpa1 | wpa2]
+                   // (float32: planes [2, wap, kxp]), or null
   float* biasa;    // the fused form: [n, lda] bias_a1 | bias_a2
   float* a12;      // the fused form: [b*n, lda] pass A's a1 | a2
   float* wts;      // the fused form: [b*n, heads, 4] the star weights
-  int* row_off;    // the valid-rows form: [b + 1] (bwd_common.cuh)
+  int* row_off;    // the valid-rows form: [b + 1] (bwd_common.cuh), or null
   int* row_map;    // the valid-rows form: [b*n + kRowPad]
   int kxp, wdp, wap, lda;
 };
 
-// The largest n of the bf16 per-slot fused form: a consumer warpgroup's 64
-// rows hold whole egonets.
+// The largest n of the per-slot fused form: a consumer warpgroup's 64 rows
+// hold whole egonets.
 constexpr int kFusedMaxSlots = 64;
 using FwdWork = FwdWorkT<float>;
 
@@ -183,24 +187,31 @@ gat_star_fwd_kernel(const float* __restrict__ proj, int ldp,
   const float* fb = pb + (size_t)h * dh;
   OutT* ob = out + (size_t)b * n * hd + (size_t)h * dh;
   // each thread a column; the row loops unrolled so that several rows'
-  // loads are in flight at once
+  // loads are in flight at once. Every row is w_self f + (w_anchor fa + the
+  // valid gps' weighted ft at the anchor), w_anchor being 0 on the gp rows
+  // and the anchor (and w_self 1 on the gp rows of the eval form): the FMA
+  // chain of the float32 fused form's epilogue
+  // (gemm_wgmma.cuh:f32_star_quarter), so that the two forms give equal bits
   for (int c = threadIdx.x; c < dh; c += kThreads) {
     const float fa = fb[(size_t)p * ldp + c];
     float acc = 0.f;
 #pragma unroll 4
     for (int r = 0; r < p; ++r) {  // gp rows: their own ft
       const float f = fb[(size_t)r * ldp + c];
-      if (r < ngp) acc += s.w_to_anchor[r] * f;
-      float v = kTrain ? f * s.w_self[r] : f;  // the dropped gp self-loop
+      if (r < ngp) acc = __fmaf_rn(s.w_to_anchor[r], f, acc);
+      // times the gp self-loop's mask in the train form
+      float v = __fmaf_rn(s.w_self[r], f, __fmaf_rn(s.w_anchor[r], fa, 0.f));
       if (has_out_alpha) v = leaky(v, out_alpha);
       ob[(size_t)r * hd + c] = from_float<OutT>(v);
     }
-    float va = acc + s.w_self[p] * fa;  // anchor: valid gps and self
+    // anchor: the valid gps, then itself
+    float va = __fmaf_rn(s.w_self[p], fa, __fmaf_rn(s.w_anchor[p], fa, acc));
     if (has_out_alpha) va = leaky(va, out_alpha);
     ob[(size_t)p * hd + c] = from_float<OutT>(va);
 #pragma unroll 4
     for (int r = p + 1; r < n; ++r) {  // sib rows: anchor and self
-      float v = s.w_anchor[r] * fa + s.w_self[r] * fb[(size_t)r * ldp + c];
+      float v = __fmaf_rn(s.w_self[r], fb[(size_t)r * ldp + c],
+                          __fmaf_rn(s.w_anchor[r], fa, 0.f));
       if (has_out_alpha) v = leaky(v, out_alpha);
       ob[(size_t)r * hd + c] = from_float<OutT>(v);
     }
@@ -291,8 +302,8 @@ gat_pooled_star_kernel(const float* __restrict__ proj, int ldp,
 // a thread a slot (n <= 64): a1 / a2 of the head from pass A's a12, the
 // star softmax with the attention masks (star_weights_row; the stored
 // weights written where attn is not null), then each row's (w_self,
-// w_anchor, w_to_anchor, 0) into wts [b*n, heads] float4s for the product's
-// star epilogue. The softmax is computed once per (egonet, head), as the
+// w_anchor, w_to_anchor, and at the anchor the egonet's valid gp count)
+// into wts [b*n, heads] float4s for the product's star epilogue. The softmax is computed once per (egonet, head), as the
 // two-pass form's star pass computes it.
 __global__ void __launch_bounds__(64)
 star_weights_kernel(const float* __restrict__ a12, int lda,
@@ -321,8 +332,9 @@ star_weights_kernel(const float* __restrict__ a12, int lda,
                         : nullptr);
   __syncthreads();  // the anchor's slot wrote w_to_anchor of every gp
   if (r < n)
-    wts[row * heads + h] = make_float4(s.w_self[r], s.w_anchor[r],
-                                       r < p ? s.w_to_anchor[r] : 0.f, 0.f);
+    wts[row * heads + h] = make_float4(
+        s.w_self[r], s.w_anchor[r], r < p ? s.w_to_anchor[r] : 0.f,
+        r == p ? (float)min(max(ngp_arr[b], 0), p) : 0.f);
 }
 
 // The dropout generator alone (words, or the 8-bit mode's bytes), for
@@ -368,36 +380,37 @@ cudaError_t project(const OperandT<E>& op, const TrainArgs& ta, long long m,
   return err;
 }
 
-// The bf16 per-slot layer's fused form (n <= kFusedMaxSlots): stage and
-// pack, pass A (a1 | a2), the star weights, pass B (the product with the
-// star epilogue); pass marks before, between and after. The eval form
-// takes a zeroed ta.
-cudaError_t launch_fused(const bf16* x, const bf16* fc, const bf16* wa1,
-                         const bf16* wa2, const float* bias_ft,
-                         const float* bias_a1, const float* bias_a2,
-                         const int* ngp, bf16* out, int b, int n, int din,
-                         int heads, int dh, int p, float alpha,
-                         float out_alpha, int has_out_alpha,
+// The per-slot layer's fused form (n <= kFusedMaxSlots): stage and pack,
+// pass A (a1 | a2), the star weights, pass B (the product with the star
+// epilogue); pass marks before, between and after. The eval form takes a
+// zeroed ta.
+template <class E>
+cudaError_t launch_fused(const E* x, const E* fc, const E* wa1, const E* wa2,
+                         const float* bias_ft, const float* bias_a1,
+                         const float* bias_a2, const int* ngp, E* out, int b,
+                         int n, int din, int heads, int dh, int p,
+                         float alpha, float out_alpha, int has_out_alpha,
                          const TrainArgs& ta, float* attn,
-                         const FwdWorkT<bf16>& w, cudaStream_t st) {
+                         const FwdWorkT<E>& w, cudaStream_t st) {
   if (w.wa == nullptr || w.biasa == nullptr || w.a12 == nullptr ||
-      w.wts == nullptr || (long long)b * heads > 0x7fffffffLL)
+      w.wts == nullptr || n > kFusedMaxSlots ||
+      (long long)b * heads > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const long long m = (long long)b * n;
   const int hd = heads * dh;
   // W's column blocks: ft's alone (c1 = c2 = wd = hd), and a1 | a2's
-  const OperandT<bf16> opf = {
+  const OperandT<E> opf = {
       x, {fc, fc, fc}, {ta.wp, ta.wp, ta.wp}, n, din, hd, hd, hd};
-  const OperandT<bf16> opa = {x,     {wa1, wa1, wa2},
-                              {ta.wpa1, ta.wpa1, ta.wpa2},
-                              n,     din,
-                              0,     heads,
-                              2 * heads};
+  const OperandT<E> opa = {x,     {wa1, wa1, wa2},
+                           {ta.wpa1, ta.wpa1, ta.wpa2},
+                           n,     din,
+                           0,     heads,
+                           2 * heads};
   // X staged with the first packing (xm set), W's two parts packed
-  const ProductWorkT<bf16> work_f = {w.xm, nullptr, nullptr, w.kxp,
-                                     w.wdp, 0, 1};
-  const ProductWorkT<bf16> work_a = {nullptr, nullptr, nullptr, w.kxp,
-                                     w.wap, 0, 1};
+  const ProductWorkT<E> work_f = {w.xm, nullptr, nullptr, w.kxp,
+                                  w.wdp, 0, 1};
+  const ProductWorkT<E> work_a = {nullptr, nullptr, nullptr, w.kxp,
+                                  w.wap, 0, 1};
   mark(g_marks, st);
   cudaError_t err = stage_and_pack(opf, ta, m, work_f, 0, w.wcat, st);
   if (err != cudaSuccess) return err;
@@ -411,12 +424,15 @@ cudaError_t launch_fused(const bf16* x, const bf16* fc, const bf16* wa1,
   mark(g_marks, st);
 
   // A. [a1 | a2] of every row (invalid sibling slots keep their formula
-  // value, as in the TPU kernel)
-  GemmArgsT<bf16> g = {};
+  // value, as in the TPU kernel); float32: W^T as hi / lo planes [2][wap]
+  // [kxp] (gemm_tf32.cuh:pack_weights_kernel)
+  constexpr bool kF32 = sizeof(E) == 4;
+  GemmArgsT<E> g = {};
   g.a = w.xm != nullptr ? w.xm : x;
   g.lda = w.xm != nullptr ? w.kxp : din;
   g.b = w.wa;
-  g.ldb = w.wap;
+  g.ldb = kF32 ? g.lda : w.wap;
+  if (kF32) g.b_lo = w.wa + (long long)w.wap * g.lda;
   g.c = w.a12;
   g.ldc = w.lda;
   g.m = m;
@@ -440,14 +456,21 @@ cudaError_t launch_fused(const bf16* x, const bf16* fc, const bf16* wa1,
 
   // B. ft and the star pass behind it
   g.b = w.wcat;
-  g.ldb = w.wdp;
+  g.ldb = kF32 ? g.lda : w.wdp;
+  if (kF32) g.b_lo = w.wcat + (long long)w.wdp * g.lda;
   g.c = nullptr;
   g.ldc = w.wdp;  // the slot biases' row stride
   g.n = hd;
   g.bias = w.biascat;
-  const StarArgs sa = {wts, ngp, out, b, n, p, heads, dh,
-                       kFusedMaxSlots / n * n, out_alpha, has_out_alpha};
-  err = product_wgmma<true, kEpiStar, 128>(g, ta, 1, sa, st);
+  StarArgs sa = {wts, ngp, nullptr, b, n, p, heads, dh,
+                 kFusedMaxSlots / n * n, out_alpha, has_out_alpha};
+  if constexpr (kF32) {
+    sa.out_f = out;
+    err = product_wgmma_f32<true, kEpiStar, 128>(g, ta, 1, sa, st);
+  } else {
+    sa.out = out;
+    err = product_wgmma<true, kEpiStar, 128>(g, ta, 1, sa, st);
+  }
   mark(g_marks, st);
   return err;
 }
@@ -463,12 +486,10 @@ cudaError_t launch_fwd(const E* x, const E* fc, const E* wa1, const E* wa2,
   const cudaStream_t st = (cudaStream_t)stream;
   const long long m = (long long)b * n;
   if (m == 0) return cudaSuccess;
-  if constexpr (sizeof(E) == 2) {
-    if (n <= kFusedMaxSlots)
-      return launch_fused(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp,
-                          out, b, n, din, heads, dh, p, alpha, out_alpha,
-                          has_out_alpha, ta, attn, w, st);
-  }
+  if (w.wa != nullptr)  // the caller's workspaces name the form
+    return launch_fused(x, fc, wa1, wa2, bias_ft, bias_a1, bias_a2, ngp, out,
+                        b, n, din, heads, dh, p, alpha, out_alpha,
+                        has_out_alpha, ta, attn, w, st);
   cudaError_t err =
       project(layer_operand(x, fc, wa1, wa2, n, din, heads, dh, ta), ta, m, w,
               bias_ft, bias_a1, bias_a2, st);
@@ -505,32 +526,32 @@ cudaError_t pooled_star(const float* proj, int ldp, const int* ngp,
   return cudaGetLastError();
 }
 
-// The bf16 pooled layer's valid-rows form (eval and train forms): the
-// valid rows counted and staged compacted, W packed; the projection over
-// the R valid rows; the pooled star pass on them. Pass marks before,
-// between and after.
-template <bool kTrain>
-cudaError_t launch_pooled_rows(const OperandT<bf16>& op, const TrainArgs& ta,
+// The pooled layer's valid-rows form (eval and train forms): the valid
+// rows counted and staged compacted, W packed; the projection over the R
+// valid rows; the pooled star pass on them. Pass marks before, between and
+// after.
+template <bool kTrain, class E>
+cudaError_t launch_pooled_rows(const OperandT<E>& op, const TrainArgs& ta,
                                const float* bias_ft, const float* bias_a1,
                                const float* bias_a2, const int* ngp,
                                const int* nsib, float* pools, int b, int n,
                                int heads, int dh, int p, float alpha,
-                               const FwdWorkT<bf16>& w, cudaStream_t st) {
+                               float* attn, const FwdWorkT<E>& w,
+                               cudaStream_t st) {
   const long long m = (long long)b * n;
   if (w.xm == nullptr || w.proj == nullptr || w.row_off == nullptr ||
-      w.row_map == nullptr || m + kRowPad > 0x7fffffffLL)
+      w.row_map == nullptr || attn != nullptr || m + kRowPad > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   mark(g_marks, st);
   valid_row_offsets_kernel<<<1, 1024, 0, st>>>(ngp, nsib, b, n, p,
                                                w.row_off);
-  stage_valid_rows_kernel<bf16, bf16>
-      <<<grid_for((m + kRowPad) * 32), 256, 0, st>>>(
-          op, ta, ngp, nsib, p, w.row_off, b, w.xm, w.kxp, w.row_map,
-          nullptr, nullptr, nullptr, 0);
+  stage_valid_rows_kernel<E, E><<<grid_for((m + kRowPad) * 32), 256, 0, st>>>(
+      op, ta, ngp, nsib, p, w.row_off, b, w.xm, w.kxp, w.row_map, nullptr,
+      nullptr, nullptr, 0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const ProductWorkT<bf16> pack = {nullptr, nullptr, nullptr, w.kxp, w.wdp,
-                                   0,       1};  // X staged above
+  const ProductWorkT<E> pack = {nullptr, nullptr, nullptr, w.kxp, w.wdp,
+                                0,       1};  // X staged above
   err = stage_and_pack(op, ta, m, pack, 0, w.wcat, st);
   if (err != cudaSuccess) return err;
   mark(g_marks, st);
@@ -558,12 +579,10 @@ cudaError_t launch_pooled(const E* x, const E* fc, const E* wa1,
   const long long m = (long long)b * n;
   if (m == 0) return cudaSuccess;
   const OperandT<E> op = layer_operand(x, fc, wa1, wa2, n, din, heads, dh, ta);
-  if constexpr (sizeof(E) == 2) {
-    if (attn == nullptr)
-      return launch_pooled_rows<kTrain>(op, ta, bias_ft, bias_a1, bias_a2,
-                                        ngp, nsib, pools, b, n, heads, dh, p,
-                                        alpha, w, st);
-  }
+  if (w.row_off != nullptr)  // the caller's workspaces name the form
+    return launch_pooled_rows<kTrain>(op, ta, bias_ft, bias_a1, bias_a2, ngp,
+                                      nsib, pools, b, n, heads, dh, p, alpha,
+                                      attn, w, st);
   cudaError_t err = project(op, ta, m, w, bias_ft, bias_a1, bias_a2, st);
   if (err != cudaSuccess) return err;
   err = pooled_star<kTrain>(w.proj, w.wdp, ngp, nsib, pools, b, n, heads, dh,

@@ -51,9 +51,10 @@ enum GemmEpi {
   kEpiDx = 2,       // column k = kbeg + j of the layer input's grad: times
                     // its dropout mask, into dx [i][din] (k < din) or
                     // pe_rows [i][pos] (k >= din)
-  kEpiStar = 3,     // bf16 only (gemm_wgmma.cuh): ft = v + the slot bias
-                    // as kEpiRowBias, never stored; the star pass of the
-                    // per-slot layer on it (StarArgs), out in bf16
+  kEpiStar = 3,     // (gemm_wgmma.cuh) ft = v + the slot bias as
+                    // kEpiRowBias, never stored; the star pass of the
+                    // per-slot layer on it (StarArgs), out in the layer's
+                    // element type
   kEpiGcn = 4,      // (gemm_wgmma.cuh) z = v + z_bias as kEpiRowBias
                     // through the row map, never stored; the star-GCN
                     // pass on it (StarArgs: the packed rows of gcn.cu),
@@ -90,14 +91,16 @@ struct GemmArgsT {
 
 // The star pass of kEpiStar (gat_fwd.cu's fused per-slot forward): the
 // product's m rows are whole egonets of n slots, rows_wg = floor(64 / n) * n
-// of them a consumer warpgroup's tile; its columns are ft, heads * dh.
+// of them a consumer warpgroup's tile; its columns are ft, heads * dh; the
+// output out (bf16) or out_f (float32).
 // kEpiGcn (gcn.cu's valid-rows forward) reads ngp, out (bf16) or out_f
 // (float32), n, p, out_alpha (the leaky's slope), has_out_alpha, row_info
 // and bias: its rows are the valid rows of whole egonets packed into
 // 64-row warpgroup tiles, the original row of each in GemmArgs::row_map.
 struct StarArgs {
   const float4* wts;   // [m][heads] each row's star weights (after dropout):
-                       //   w_self, w_anchor, w_to_anchor (gp rows), 0
+                       //   w_self, w_anchor, w_to_anchor (gp rows),
+                       //   the valid gp count (the anchor's row) or 0
   const int* ngp;      // [b]
   bf16* out;           // [m][heads * dh] the per-slot output (kEpiGcn:
                        //   [b * n][dout])
@@ -110,7 +113,8 @@ struct StarArgs {
                         //   egonet's ngp << 8 | the egonet's first row in
                         //   the warpgroup tile << 16, or -1 (no row)
   const float* bias;    // kEpiGcn: [dout] the layer bias
-  float* out_f;         // kEpiGcn in float32: [b * n][dout]
+  float* out_f;         // float32: [b * n][heads * dh] (kEpiStar),
+                        //   [b * n][dout] (kEpiGcn)
 };
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {

@@ -60,7 +60,8 @@
 //      bwd_common.cuh), 16 bytes a thread;
 //    kEpiDx: the float32 mask, x columns rounded to bf16, pe columns
 //      float32, rows scattered through GemmArgs::row_map where set;
-//    kEpiStar: the per-slot layer's star pass on the tile (wg_star_tile):
+//    kEpiStar: the per-slot layer's star pass on the tile (wg_star_tile; the
+//      float32 kernel's form of it: f32_star_quarter, below):
 //      ft with its slot biases as kEpiRowBias, the star weights of the
 //      tile's heads (computed once per egonet and head before the product,
 //      gat_fwd.cu) copied by cp.async into the warpgroup's own shared
@@ -1054,6 +1055,25 @@ wgmma_gemm_kernel(const GemmArgsT<bf16> g, const TrainArgs ta, int splits,
 // ran at 78 and 105: the epilogue, which both consumers reach together,
 // costs about 2 us a 128 x 128 tile. ptxas spills a few dozen bytes in
 // this instance (168 registers), none in the others.
+//
+// kEpiStar (gat_fwd.cu's float32 fused forward; the bf16 kernel's
+// contract: two warpgroup tiles of whole egonets an M tile, each loaded as
+// a 64-row box, ft + the slot biases never stored, the output written once
+// after the star pass). The 34 KB the ring leaves hold neither two 32 KB C
+// tiles nor two 16 KB halves beside each consumer's 4 KB of star weights,
+// so each consumer stages its ft a 32-column quarter at a time (8 KB,
+// f32_star_stage), each quarter's slot biases loaded into registers while
+// the quarter before runs (f32_star_bias; the first quarter's during the
+// last K pair), and runs the star pass on the quarter (f32_star_quarter):
+// eight named barriers a tile. Variants timed on the card and dropped: the
+// bf16 kernel's form (three stages and whole C tiles, one pass a tile),
+// whose main loop alone lost more to the shorter ring than the single pass
+// saved; a branch by slot in the star pass (its warps' rows diverge). The
+// output's stores and the biases' loads, once pipelined, cost nothing the
+// card showed. The epilogue, which both consumers reach together, keeps
+// the tensor cores idle while it runs (PERF.md: the fused product's ms
+// beside the two-pass form's projection and star pass). ptxas spills a few
+// dozen bytes here too.
 template <int BN_>
 struct WgTileF32 {
   static constexpr int BM = 128, BN = BN_, BK = 32, STAGES = 4;
@@ -1367,6 +1387,179 @@ __device__ __forceinline__ void f32_gcn_half(const StarArgs& sa, int dout,
   }
 }
 
+// kEpiStar in float32: a consumer warpgroup's ft quarter tile [64 rows][32]
+// floats (kStarQuarter columns), then the star weights of up to kStarHeads
+// heads ([head][64 rows] float4s, prefetched), then its row table (64
+// ints: slot, egonet in the tile, the egonet's first row), after the
+// mbarriers.
+constexpr int kStarQuarter = 32;
+constexpr int kStarF32Floats = 64 * kStarQuarter + kStarHeads * 64 * 4 + 64;
+
+// Element (r, c) of a ft quarter: 16-byte chunk c / 4 of row r at chunk
+// c / 4 XOR 2 (r % 4), so that the fragments' float2 writes (a warp: rows
+// r..r + 7, two chunks each) and the star pass's float4 reads (a warp:
+// four rows, 8 chunks each) fall on 32 distinct banks a wavefront.
+__device__ __forceinline__ int star_qat(int r, int c) {
+  return (r << 5) + (((c >> 2) ^ ((r & 3) << 1)) << 2) + (c & 3);
+}
+
+// The slot biases of a thread's fragment in quarter kQ of a consumer
+// warpgroup's tile (rows warp * 16 + lane / 4 (+ 8), columns 8 q + 2
+// (lane % 4) (+ 1) of quarter kQ's four 8-column blocks q; g.bias
+// [slot][ldc], the slot from the row table) into registers, so that their
+// loads are in flight while the quarter before runs (the epilogue's
+// latency is on the tensor cores' path: both consumers reach it
+// together).
+template <int kQ>
+__device__ __forceinline__ void f32_star_bias(const GemmArgsT<float>& g,
+                                              const int* tab,
+                                              float2 (&bq)[2][4], int warp,
+                                              int lane, int j0) {
+  static_assert(kStarQuarter == 32, "four 8-column blocks a quarter");
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + lane / 4 + 8 * h;
+    const float* bias = g.bias + (long long)(tab[r] & 255) * g.ldc;
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const int j = j0 + kQ * kStarQuarter + qq * 8 + 2 * (lane % 4);
+      bq[h][qq] = j < g.ldc  // ldc: a multiple of 4
+                      ? *reinterpret_cast<const float2*>(bias + j)
+                      : make_float2(0.f, 0.f);
+    }
+  }
+}
+
+// The accumulators of quarter kQ of the tile plus their slot biases bq
+// into fs: ft, the two-pass form's projection bits (f32_store_row's
+// kEpiRowBias adds the same two values).
+template <int kQ, int BN>
+__device__ __forceinline__ void f32_star_stage(float* fs,
+                                               const float2 (&bq)[2][4],
+                                               const float (&acc)[BN / 2],
+                                               int warp, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + lane / 4 + 8 * h;
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const int q = kQ * 4 + qq;
+      const int cl = qq * 8 + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(&fs[star_qat(r, cl)]) =
+          make_float2(acc[4 * q + 2 * h] + bq[h][qq].x,
+                      acc[4 * q + 2 * h + 1] + bq[h][qq].y);
+    }
+  }
+}
+
+// kEpiStar in float32: the star pass of the per-slot layer (gat_fwd.cu) on
+// a ft quarter fs, columns [jq, jq + 32) of the warpgroup's rows [iw, iw +
+// 64) (whole egonets from iw; j0 the tile's first column, whose head is
+// sw's first). A quarter warp a row (rows t / 8, + 16, ...), a lane a
+// 4-column chunk. Every row is w_self f + (w_anchor fa + the valid gps'
+// weighted ft in order, at the anchor alone; their count in its weights'
+// fourth float), w_anchor being 0 on the gp rows and the anchor: one FMA
+// chain a row, without a branch by slot (slower on the card: a warp's
+// rows diverge), that gat_star_fwd_kernel computes alike, so that
+// the two forms give equal bits (invalid sib slots keep their formula
+// value, as the TPU kernel's); then the optional out_alpha leaky, float32
+// into sa.out_f (16 bytes a store where hd allows). Rows past the
+// warpgroup's whole egonets or past the batch are dropped. No barriers: the
+// caller's named barrier frees fs and sw.
+__device__ __forceinline__ void f32_star_quarter(const StarArgs& sa, int hd,
+                                                 const float* fs,
+                                                 const float4* sw,
+                                                 const int* tab, int t,
+                                                 long long iw, int j0,
+                                                 int jq) {
+  const int n = sa.n, dh = sa.dh, p = sa.p;
+  const int c4 = (t & 7) * 4, j = jq + c4;
+  if (j >= hd) return;
+  const long long b0 = iw / n;
+  const long long egos = min((long long)(sa.rows_wg / n), sa.b - b0);
+  const int rows = egos > 0 ? (int)egos * n : 0;
+  const int h_lo = j0 / dh;
+  int hs[4];  // each column's head, from h_lo (-1: past the output)
+#pragma unroll
+  for (int u = 0; u < 4; ++u) hs[u] = j + u < hd ? (j + u) / dh - h_lo : -1;
+  auto fat = [&](int r) {
+    return *reinterpret_cast<const float4*>(&fs[star_qat(r, c4)]);
+  };
+  const bool vec = hs[3] >= 0 && hd % 4 == 0;
+  // the optional out_alpha leaky, then float32 into row r of sa.out_f
+  auto store = [&](int r, float(&v)[4]) {
+    if (sa.has_out_alpha) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = leaky(v[u], sa.out_alpha);
+    }
+    float* dst = sa.out_f + (iw + r) * hd + j;
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (hs[u] >= 0) dst[u] = v[u];
+    }
+  };
+  if (hs[3] == hs[0] && hs[0] < kStarHeads) {
+    // the chunk in one prefetched head: its weights from shared memory
+    // alone; every row w_self f + (w_anchor fa + the gps' sum)
+    const float4* w = sw + hs[0] * 64;
+#pragma unroll 2
+    for (int r = t >> 3; r < rows; r += 16) {
+      const int info = tab[r];
+      const int slot = info & 255, rb = info >> 16;
+      const float4 f = fat(r), fa = fat(rb + p), wr = w[r];
+      float g[4] = {0.f, 0.f, 0.f, 0.f};
+      if (slot == p) {  // the anchor: the valid gps first
+        const int ngp = (int)wr.w;  // star_weights_kernel put it there
+#pragma unroll 4
+        for (int jj = 0; jj < ngp; ++jj) {
+          const float wj = w[rb + jj].z;
+          const float4 fj = fat(rb + jj);
+          g[0] = __fmaf_rn(wj, fj.x, g[0]), g[1] = __fmaf_rn(wj, fj.y, g[1]);
+          g[2] = __fmaf_rn(wj, fj.z, g[2]), g[3] = __fmaf_rn(wj, fj.w, g[3]);
+        }
+      }
+      float v[4] = {__fmaf_rn(wr.x, f.x, __fmaf_rn(wr.y, fa.x, g[0])),
+                    __fmaf_rn(wr.x, f.y, __fmaf_rn(wr.y, fa.y, g[1])),
+                    __fmaf_rn(wr.x, f.z, __fmaf_rn(wr.y, fa.z, g[2])),
+                    __fmaf_rn(wr.x, f.w, __fmaf_rn(wr.y, fa.w, g[3]))};
+      store(r, v);
+    }
+    return;
+  }
+  // a head boundary inside the chunk, or a head past sw (Dh < BN / 3): the
+  // weights of each column's head, prefetched or read from the cache
+  auto weight = [&](int h, int r) {
+    return h < kStarHeads ? sw[h * 64 + r]
+                          : sa.wts[(iw + r) * sa.heads + h_lo + h];
+  };
+  for (int r = t >> 3; r < rows; r += 16) {
+    const int info = tab[r];
+    const int slot = info & 255, rb = info >> 16;
+    const float4 f4 = fat(r), a4 = fat(rb + p);
+    const float f[4] = {f4.x, f4.y, f4.z, f4.w};
+    const float fa[4] = {a4.x, a4.y, a4.z, a4.w};
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      v[u] = 0.f;
+      if (hs[u] < 0) continue;
+      const float4 w = weight(hs[u], r);
+      float g = 0.f;
+      const int ngp = slot == p ? (int)w.w : 0;
+      for (int jj = 0; jj < ngp; ++jj) {
+        const float4 fj = fat(rb + jj);
+        const float fju[4] = {fj.x, fj.y, fj.z, fj.w};
+        g = __fmaf_rn(weight(hs[u], rb + jj).z, fju[u], g);
+      }
+      v[u] = __fmaf_rn(w.x, f[u], __fmaf_rn(w.y, fa[u], g));
+    }
+    store(r, v);
+  }
+}
+
 template <class T, bool kAKMajor, int kEpi>
 __global__ void __launch_bounds__(T::THREADS, 1)
 wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
@@ -1389,7 +1582,12 @@ wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
   }
   cluster_sync();
 
-  const WgSchedule sc = wg_schedule<T, kAKMajor>(g, splits, T::BM);
+  // kEpiStar: an M tile is two warpgroup tiles of whole egonets, loaded
+  // as two 64-row boxes (the bf16 kernel's contract)
+  constexpr bool kStar = kEpi == kEpiStar;
+  const WgSchedule sc =
+      wg_schedule<T, kAKMajor>(g, splits, kStar ? 2 * sa.rows_wg : T::BM);
+  const int wg_rows = sc.bm / 2;
   const int per_split = sc.mgroups * sc.ntiles;
   const int wg = threadIdx.x / 128;
   const uint32_t rank = cluster_rank();
@@ -1403,7 +1601,7 @@ wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
       for (long long tile = cid; tile < sc.total; tile += clusters) {
         const int z = (int)(tile / per_split);
         const int rem = (int)(tile % per_split);
-        const int i0 = ((rem / sc.ntiles) * T::CLUSTER + (int)rank) * T::BM;
+        const int i0 = ((rem / sc.ntiles) * T::CLUSTER + (int)rank) * sc.bm;
         const int j0 = (rem % sc.ntiles) * T::BN;
         const long long k_beg = (long long)z * sc.k_chunk;
         const long long k_end = min(sc.k, k_beg + sc.k_chunk);
@@ -1416,7 +1614,10 @@ wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
           mbar_expect_tx(full, T::STAGE_BYTES);
           const uint32_t a = ring + s * T::STAGE_BYTES;
           const int k0 = (int)(k_beg + (long long)kt * T::BK);
-          if (kAKMajor) {
+          if (kStar) {  // [64 rows][32 k] of each warpgroup's egonets
+            tma_load(a, &tm_a, full, k0, i0);
+            tma_load(a + T::A_BYTES / 2, &tm_a, full, k0, i0 + wg_rows);
+          } else if (kAKMajor) {
             tma_load(a, &tm_a, full, k0, i0);  // [128 rows][32 k]
           } else {                             // [32 k][32 m], four times
 #pragma unroll
@@ -1444,12 +1645,20 @@ wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
   const int warp = t / 32, lane = t % 32;
   const int row0 = c * 64 + warp * 16;  // the warp's rows in the M tile
   // kEpiGcn: the warpgroup's z half tile and row tables after the
-  // mbarriers (16-byte aligned: the ring is 1024-byte aligned)
+  // mbarriers (16-byte aligned: the ring is 1024-byte aligned); kEpiStar:
+  // its ft quarter, star weights and row table there (the table, the same
+  // for every tile, written once)
   constexpr bool kGcn = kEpi == kEpiGcn;
   float* zs = reinterpret_cast<float*>(wg_smem_raw + (bars - raw) +
                                        2 * T::STAGES * 8) +
-              c * kGcnF32Floats;
+              c * (kStar ? kStarF32Floats : kGcnF32Floats);
   int* gtab = reinterpret_cast<int*>(zs + 64 * kGcnHalf);
+  float* sw = zs + 64 * kStarQuarter;
+  int* stab = reinterpret_cast<int*>(sw + kStarHeads * 64 * 4);
+  if (kStar && t < 64) {
+    const int q = t / sa.n;
+    stab[t] = (t - q * sa.n) | (q << 8) | ((q * sa.n) << 16);
+  }
   constexpr int KS = T::BK / 8;         // k8 steps a K tile
   float acc[T::REGS], part[T::REGS];
   unsigned h0[KS][4], l0[KS][4], h1[KS][4], l1[KS][4];
@@ -1506,7 +1715,8 @@ wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
     const int z = (int)(tile / per_split);
     const int rem = (int)(tile % per_split);
     const long long i0 =
-        (long long)((rem / sc.ntiles) * T::CLUSTER + (int)rank) * T::BM;
+        (long long)((rem / sc.ntiles) * T::CLUSTER + (int)rank) * sc.bm;
+    const long long iw = i0 + (long long)wg_rows * c;  // this warpgroup's
     const int j0 = (rem % sc.ntiles) * T::BN;
     const long long k_beg = (long long)z * sc.k_chunk;
     const long long k_end = min(sc.k, k_beg + sc.k_chunk);
@@ -1514,6 +1724,11 @@ wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
         k_end > k_beg ? (int)((k_end - k_beg + T::BK - 1) / T::BK) : 0;
 #pragma unroll
     for (int v = 0; v < T::REGS; ++v) acc[v] = 0.f;
+    if constexpr (kStar) {  // the last tile's star pass has read fs and sw
+      named_sync(1 + c, 128);
+      wg_prefetch_weights(sa, sw, t, sc.m, iw, j0, min(j0 + T::BN, g.n));
+      cp_async_commit();
+    }
     if constexpr (kGcn) {  // the last tile's star pass has read the tables
       named_sync(1 + c, 128);
       if (t < 32) {  // 16 chunks of row_info, 16 of the row map
@@ -1526,10 +1741,14 @@ wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
     }
     // a partial sum of two K tiles (64 deep) at a time: the second tile's
     // A fragments load while the first's products run, the next pair's
-    // first while the second's run; then the partial into acc (FADD)
+    // first while the second's run; then the partial into acc (FADD).
+    // kEpiStar: quarter 0's slot biases load while the last pair's run
+    float2 bq[2][4];
     if (ktiles > 0) load(h0, l0, it);
     for (int kt = 0; kt < ktiles; kt += 2) {
       issue(h0, l0, it + kt, true);
+      if (kStar && kt + 2 >= ktiles)
+        f32_star_bias<0>(g, stab, bq, warp, lane, j0);
       if (kt + 1 < ktiles) {
         load(h1, l1, it + kt + 1);
         issue(h1, l1, it + kt + 1, false);
@@ -1552,8 +1771,31 @@ wgmma_f32_kernel(const GemmArgsT<float> g, const TrainArgs ta, int splits,
     // epilogue from the registers: thread (warp, lane) holds fragment rows
     // warp * 16 + lane / 4 (+ 8) (rows a_row of them) and columns 8 q + 2
     // (lane % 4) (+ 1) of each 8-column block q
-    if constexpr (kGcn) {  // z through shared memory, a half at a time
-      const long long iw = i0 + 64 * c;
+    if constexpr (kStar) {  // ft through shared memory, a quarter at a
+      // time, each quarter's slot biases loaded while the one before runs
+      const float4* w4 = reinterpret_cast<const float4*>(sw);
+      cp_async_wait<0>();
+      f32_star_stage<0, T::BN>(zs, bq, acc, warp, lane);
+      f32_star_bias<1>(g, stab, bq, warp, lane, j0);
+      named_sync(1 + c, 128);  // the quarter and the weights
+      f32_star_quarter(sa, g.n, zs, w4, stab, t, iw, j0, j0);
+      named_sync(1 + c, 128);  // quarter 0 read
+      f32_star_stage<1, T::BN>(zs, bq, acc, warp, lane);
+      f32_star_bias<2>(g, stab, bq, warp, lane, j0);
+      named_sync(1 + c, 128);
+      f32_star_quarter(sa, g.n, zs, w4, stab, t, iw, j0, j0 + kStarQuarter);
+      named_sync(1 + c, 128);
+      f32_star_stage<2, T::BN>(zs, bq, acc, warp, lane);
+      f32_star_bias<3>(g, stab, bq, warp, lane, j0);
+      named_sync(1 + c, 128);
+      f32_star_quarter(sa, g.n, zs, w4, stab, t, iw, j0,
+                       j0 + 2 * kStarQuarter);
+      named_sync(1 + c, 128);
+      f32_star_stage<3, T::BN>(zs, bq, acc, warp, lane);
+      named_sync(1 + c, 128);
+      f32_star_quarter(sa, g.n, zs, w4, stab, t, iw, j0,
+                       j0 + 3 * kStarQuarter);
+    } else if constexpr (kGcn) {  // z through shared memory, a half at a time
       const int rows = (int)max(0LL, min(64LL, sc.m - iw));
       cp_async_wait<0>();
       named_sync(1 + c, 128);  // the tables
@@ -1731,8 +1973,8 @@ inline cudaError_t product_wgmma(const GemmArgsT<bf16>& g,
 // The float32 product (gemm_tf32.cuh:product dispatches here): A K-major
 // (kAKMajor) or M-major, raw float32; B as its hi and lo planes, each
 // [N][K] row-major (g.b, g.b_lo, row stride g.ldb); the epilogue kEpi;
-// `splits` partial products; BN 128 or 64 columns a tile; sa: the
-// star-GCN epilogue's arguments (kEpiGcn: A K-major, one split, BN 128;
+// `splits` partial products; BN 128 or 64 columns a tile; sa: the star
+// epilogues' arguments (kEpiStar, kEpiGcn: A K-major, one split, BN 128;
 // else unread).
 template <bool kAKMajor, int kEpi, int BN>
 inline cudaError_t product_wgmma_f32(const GemmArgsT<float>& g,
@@ -1740,10 +1982,12 @@ inline cudaError_t product_wgmma_f32(const GemmArgsT<float>& g,
                                      const StarArgs& sa, cudaStream_t st) {
   using T = WgTileF32<BN>;
   static_assert(kEpi == kEpiStore || kEpi == kEpiRowBias ||
-                    kEpi == kEpiDx || kEpi == kEpiGcn,
+                    kEpi == kEpiDx || kEpi == kEpiGcn || kEpi == kEpiStar,
                 "the float32 product's epilogues");
   constexpr bool kGcn = kEpi == kEpiGcn;
+  constexpr bool kStar = kEpi == kEpiStar;
   static_assert(!kGcn || BN == 2 * kGcnHalf, "two z halves a tile");
+  static_assert(!kStar || BN == 4 * kStarQuarter, "four ft quarters a tile");
   if (g.m <= 0 || g.n <= 0) return cudaSuccess;
   if (g.b_lo == nullptr || g.k <= 0 || splits < 1)
     return cudaErrorInvalidValue;
@@ -1752,10 +1996,17 @@ inline cudaError_t product_wgmma_f32(const GemmArgsT<float>& g,
                g.row_map == nullptr || sa.row_info == nullptr ||
                sa.out_f == nullptr || g.bias == nullptr || g.ldc % 4 != 0))
     return cudaErrorInvalidValue;
+  if (kStar && (!kAKMajor || splits != 1 || sa.n < 1 || sa.n > 64 ||
+                sa.p < 0 || sa.p >= sa.n || sa.rows_wg != 64 / sa.n * sa.n ||
+                sa.dh < 1 || sa.wts == nullptr || sa.out_f == nullptr ||
+                g.bias == nullptr || g.ldc % 4 != 0 || g.rows != nullptr))
+    return cudaErrorInvalidValue;
+  const int bm = kStar ? 2 * sa.rows_wg : T::BM;
   constexpr CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   CUtensorMap tm_a, tm_bh, tm_bl;
   cudaError_t err =
-      kAKMajor ? tensor_map(&tm_a, f32, 4, g.a, g.k, g.m, g.lda, T::BK, T::BM)
+      kAKMajor ? tensor_map(&tm_a, f32, 4, g.a, g.k, g.m, g.lda, T::BK,
+                            kStar ? 64 : T::BM)
                : tensor_map(&tm_a, f32, 4, g.a, g.m, g.k, g.lda, 32, T::BK);
   if (err != cudaSuccess) return err;
   err = tensor_map(&tm_bh, f32, 4, g.b, g.k, g.n, g.ldb, T::BK, T::BN / 2);
@@ -1765,7 +2016,8 @@ inline cudaError_t product_wgmma_f32(const GemmArgsT<float>& g,
   if (err != cudaSuccess) return err;
   auto kernel = wgmma_f32_kernel<T, kAKMajor, kEpi>;
   const size_t smem =
-      T::SMEM + (kGcn ? sizeof(float) * T::CONSUMERS * kGcnF32Floats : 0);
+      T::SMEM + sizeof(float) * T::CONSUMERS *
+                    (kGcn ? kGcnF32Floats : kStar ? kStarF32Floats : 0);
   err = cudaFuncSetAttribute((const void*)kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
@@ -1788,7 +2040,7 @@ inline cudaError_t product_wgmma_f32(const GemmArgsT<float>& g,
     if (err != cudaSuccess) return err;
     if (resident < 1) return cudaErrorInvalidConfiguration;
   }
-  const long long groups = ((g.m + T::BM - 1) / T::BM + T::CLUSTER - 1) /
+  const long long groups = ((g.m + bm - 1) / bm + T::CLUSTER - 1) /
                            T::CLUSTER *
                            (long long)((g.n + T::BN - 1) / T::BN) * splits;
   const long long clusters = groups < resident ? groups : resident;

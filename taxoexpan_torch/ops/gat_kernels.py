@@ -21,18 +21,18 @@ about it. Each computes the layer's product once, the projection [ft | a1 |
 a2] = [x*m | pe*m_pe] @ [fc | wa1 | wa2; wp | wpa1 | wpa2] + the slot
 biases, on the tensor cores (float32 layers in 3xTF32 on the TMA-fed
 wgmma ring of `ops/csrc/gemm_wgmma.cuh`, `f32_product` runs it alone;
-bf16 layers below). The float32 forwards and K2 write it for all B*N
-rows into a workspace P that the star pass (K1), the pooled star pass (K3)
-or the head core (K2) reads; K4, in either dtype, for the valid rows
-alone, compacted on the card (its dx is zero at the invalid slots, as the
-reference gives it).
-The bf16 forwards take one of three forms by shape (`fwd_form`, each
-form's launches also counted in `<wrapper>.launches_by_form`): "fused"
-(the per-slot layer at N <= 64: a1 | a2 first, then ft with the star pass
-in the product's epilogue, so P never reaches device memory),
-"valid_rows" (the pooled eval and train forms: the valid rows alone,
-compacted on the card, as K4 bf16 runs) or "two_pass" (the float32
-structure: the per-slot layer at N > 64, the pooled store form). `gat_projection` and
+bf16 layers below). K2 writes it for all B*N rows into a workspace P that
+its head core reads; K4 for the valid rows alone, compacted on the card
+(its dx is zero at the invalid slots, as the reference gives it).
+The forwards, in either dtype, take one of three forms by shape
+(`fwd_form`, each form's launches also counted in
+`<wrapper>.launches_by_form`): "fused" (the per-slot layer at N <= 64:
+a1 | a2 first, then ft with the star pass in the product's epilogue, so P
+never reaches device memory), "valid_rows" (the pooled eval and train
+forms: the valid rows alone, compacted on the card, as K4 runs) or
+"two_pass" (P over all B*N rows, then the star pass or the pooled star
+pass: the per-slot layer at N > 64, the pooled store form); `use_form`
+picks one for timing and comparison. `gat_projection` and
 `gat_pooled_star` run the projection and the pooled star pass alone, for
 tests. `fwd_pass_ms` / `bwd_pass_ms` time one call's passes. Dropout bits
 come from `ops/dropout.py`, whose generator the kernels share, so a plain
@@ -85,6 +85,7 @@ path never writes them, pallas_gat.py:1295-1299).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 from dataclasses import dataclass
@@ -191,23 +192,57 @@ BWD_PASSES_BF16 = ("stage_pack", "projection", "head_d16", "dbias_reduce",
 # zero rows after a compacted operand's valid rows (csrc/bwd_common.cuh:
 # kRowPad)
 ROW_PAD = 64
-# the largest N of the bf16 per-slot fused form (csrc/gat_fwd.cu:
+# the largest N of the per-slot fused form (csrc/gat_fwd.cu:
 # kFusedMaxSlots): a warpgroup's 64 rows of the product hold whole egonets
 FUSED_MAX_SLOTS = 64
+_FORCED: list = []   # `use_form`'s choice, innermost last
+
+
+def _serves(form: str, n: int, pooled: bool, store: bool) -> bool:
+    """Whether `form` can run a forward of N = n slots: "two_pass" every
+    one, "fused" the per-slot layer at N <= FUSED_MAX_SLOTS, "valid_rows"
+    the pooled eval and train forms."""
+    if form == "fused":
+        return not pooled and n <= FUSED_MAX_SLOTS
+    if form == "valid_rows":
+        return pooled and not store
+    return form == "two_pass"
 
 
 def fwd_form(x: torch.Tensor, pooled: bool, store: bool = False) -> str:
-    """The form a forward kernel takes for x (csrc/gat_fwd.cu's header):
-    "fused" for a bf16 per-slot layer with N <= FUSED_MAX_SLOTS,
-    "valid_rows" for a bf16 pooled layer's eval and train forms, else
-    "two_pass" (every float32 form, the bf16 per-slot layer at larger N,
-    the bf16 pooled store form)."""
-    if is_bf16(x):
-        if not pooled and x.shape[1] <= FUSED_MAX_SLOTS:
-            return "fused"
-        if pooled and not store:
-            return "valid_rows"
+    """The form a forward kernel takes for x, in either dtype
+    (csrc/gat_fwd.cu's header): "fused" for a per-slot layer with N <=
+    FUSED_MAX_SLOTS, "valid_rows" for a pooled layer's eval and train
+    forms, else "two_pass" (the per-slot layer at larger N, the pooled
+    store form). Inside `use_form(name)` a call takes `name` (ValueError
+    where that form cannot run it)."""
+    n = x.shape[1]
+    if _FORCED:
+        if not _serves(_FORCED[-1], n, pooled, store):
+            raise ValueError(f"the {_FORCED[-1]} form cannot run this "
+                             f"forward (N = {n}, pooled {pooled}, store "
+                             f"{store})")
+        return _FORCED[-1]
+    for form in ("fused", "valid_rows"):
+        if _serves(form, n, pooled, store):
+            return form
     return "two_pass"
+
+
+@contextlib.contextmanager
+def use_form(name: str):
+    """The star-GAT forwards inside, of either dtype, take the form `name`
+    (FWD_PASSES' keys): "two_pass" (the form of every shape before the
+    fused and valid-rows forms existed, so that the forms can be timed and
+    their results compared on the same inputs), "fused" or "valid_rows"
+    where they serve the call."""
+    if name not in FWD_PASSES:
+        raise ValueError(f"unknown star-GAT forward form {name!r}")
+    _FORCED.append(name)
+    try:
+        yield
+    finally:
+        _FORCED.pop()
 
 
 def _lib() -> ctypes.CDLL:
@@ -677,14 +712,15 @@ def _fwd_work(x, heads: int, dh: int, feat_drop: float, ta,
     """A forward's workspaces (gat_fwd.cu:FwdWork) for its `form`, in the
     products' layouts (widths 16-byte multiples): X staged where needed
     (the valid-rows form: always, compacted, ROW_PAD rows more) and W in
-    x's dtype, the slot biases float32; the two-pass and valid-rows forms
-    the projection P [B*N, wdp] float32 (wdp = H*Dh + 2H rounded up); the
-    fused form no P, but W split into [fc; wp] (wdp = H*Dh rounded up) and
-    [wa1 | wa2; wpa1 | wpa2] (wap = 2H rounded up) with their slot biases,
-    pass A's a1 | a2 [B*N, lda] float32 (lda = 2H rounded up to 4) and the
-    star weights [B*N, H, 4] float32;
-    the valid-rows form its row offsets [B + 1] and row map [B*N +
-    ROW_PAD], int32."""
+    x's dtype (`weight_work`: float32 as W^T's hi / lo planes), the slot
+    biases float32; the two-pass and valid-rows forms the projection P
+    [B*N, wdp] float32 (wdp = H*Dh + 2H rounded up); the fused form no P,
+    but W split into [fc; wp] (wdp = H*Dh rounded up) and [wa1 | wa2; wpa1
+    | wpa2] (wap = 2H rounded up) with their slot biases, pass A's a1 | a2
+    [B*N, lda] float32 (lda = 2H rounded up to 4) and the star weights
+    [B*N, H, 4] float32; the valid-rows form its row offsets [B + 1] and
+    row map [B*N + ROW_PAD], int32. The kernel takes the form these
+    workspaces name."""
     b, n, din = x.shape
     m, hd = b * n, heads * dh
     pos = ta.pos if ta is not None else 0
@@ -704,7 +740,7 @@ def _fwd_work(x, heads: int, dh: int, feat_drop: float, ta,
     t = {"proj": None if fused else empty(m, wdp),
          "xm": empty(rows, kxp, dtype=x.dtype) if staged else None,
          "wcat": weight_work(x, kxp, wdp), "biascat": empty(n, wdp),
-         "wa": empty(kxp, wap, dtype=x.dtype) if fused else None,
+         "wa": weight_work(x, kxp, wap) if fused else None,
          "biasa": empty(n, lda) if fused else None,
          "a12": empty(m, lda) if fused else None,
          "wts": empty(m, heads, 4) if fused else None,
@@ -764,10 +800,10 @@ def _train_fwd(wrapper, pooled: bool, store: bool, ops, out_alpha, pe_pack,
 
 
 def _count_fwd(wrapper, x, heads: int, form: str) -> None:
-    """A forward launch on `wrapper` (`count_launch`), and of a bf16 kernel
-    also under its form in `wrapper.launches_by_form`."""
+    """A forward launch on `wrapper` (`count_launch`), also under its form
+    in `wrapper.launches_by_form` (either dtype)."""
     count_launch(wrapper, x, heads)
-    if x.shape[0] and is_bf16(x):
+    if x.shape[0]:
         counts = wrapper.launches_by_form
         counts[form] = counts.get(form, 0) + 1
 

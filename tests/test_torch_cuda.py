@@ -60,6 +60,13 @@ epilogue; egonets straddling a tile, B = 1, N = 12 with holes, only empty
 egonets, the concat widths 300 / 550, need_dx both ways, the pe path with
 dropout) against the plain versions and the two-pass form (equal bits but
 dW, held to twice the float32 product's bound), and an empty batch; the
+float32 forms of K1 and K3 (the fused per-slot forward at N 64 / 54 / 30
+/ 16, heads straddling column tiles and heads past the four prefetched
+ones, 4-column chunks straddling heads, the eval, train, 8-bit and store
+forms, pos_mode "concat", out_alpha on and off, only-anchor egonets and
+an empty batch; K3's eval and train forms on the valid rows), each equal
+bits with its two-pass form, and the store form's softmax weights equal
+bits with those recomputed from K2's projection; the
 shapes head tensor parallelism
 over mp = 2 gives K1-K4 (config.mag.json's layer 0 at 2 of its 4 heads,
 a pooled layer at 2 of 4 heads), in float32 and bf16; one train step
@@ -1376,6 +1383,207 @@ def test_bf16_k3_valid_rows_match_plain(dev, b, p, s, din, heads, dh, pos,
         == (forms[0] + 2, forms[1] + 1)
 
 
+# ---------- the float32 forwards' forms: K1 fused, K3 on the valid rows
+
+F32_FUSED_SHAPES = [
+    # b, p, s, din, heads, dh, pos
+    (5, 13, 50, 250, 4, 500, 50),    # N = 64, config.mag.json layer 0:
+                                     # 128-column tiles straddle heads
+    (7, 13, 40, 300, 1, 600, 50),    # N = 54 (WordNet's slots), 1 x 600
+    (9, 13, 16, 64, 2, 128, 32),     # N = 30: two egonets a warpgroup
+                                     # tile (60 of its 64 rows), 2 x 128
+    (2, 13, 50, 300, 4, 900, 100),   # MTL layer 0's widths, small B
+    (3, 13, 50, 3600, 1, 600, 100),  # the MTL per-slot final layer's
+    (5, 2, 13, 40, 8, 20, 8),        # N = 16, Dh 20: seven heads a
+                                     # column tile, three past the four
+                                     # prefetched ones
+    (4, 5, 10, 33, 3, 130, 7),       # N = 16, Dh 130: 4-column chunks
+                                     # straddle heads, rows of 390 floats,
+                                     # din 33 staged
+]
+
+
+def _f32_fused_case(dev, b, p, s, din, heads, dh, pos, mode, seed):
+    """Inputs and keyword arguments of a float32 fused-form case: "eval",
+    "train" (the pe path, dropout 0.1, 32-bit masks), "train8" (8-bit
+    masks) or "concat" (pos_mode "concat": no slot biases, no pe path,
+    the feature dropout over every input column); the first egonets only
+    the anchor, no gp, no sibs, full."""
+    t = _inputs(dev, b, p, s, din, heads, dh, seed=seed)
+    _edge_egonets(t, p, s, big=False)
+    if mode == "concat":
+        for i in (4, 5, 6):
+            t[i] = torch.zeros_like(t[i])
+    kw = {}
+    if mode != "eval":
+        kw = dict(pe_pack=None if mode == "concat" else
+                  _pe_pack(dev, p + 1 + s, pos, heads, dh, seed=seed + 1),
+                  seed=seed + 2, feat_drop=0.1, attn_drop=0.1,
+                  dropout_bits=8 if mode == "train8" else 32)
+    return t, kw
+
+
+@pytest.mark.parametrize("b,p,s,din,heads,dh,pos", F32_FUSED_SHAPES)
+@pytest.mark.parametrize("mode", ["eval", "train", "train8", "concat"])
+@pytest.mark.parametrize("out_alpha", [0.01, None])
+def test_f32_fused_k1_matches_plain(dev, b, p, s, din, heads, dh, pos, mode,
+                                    out_alpha):
+    """The float32 per-slot forward in the fused form (pass A, the star
+    weights, the 3xTF32 product with the star pass in its epilogue, ft a
+    32-column quarter at a time through shared memory): the eval form or
+    the train form and its store form (output and softmax weights) against
+    the plain version at TOL, equal bits with the two-pass form
+    (`use_form`) on the same inputs (ft has the projection's bits and both
+    star passes run the same FMA chains), the store form's output equal
+    bits with the train form's, two calls equal bits, the launches counted
+    under each form."""
+    t, kw = _f32_fused_case(dev, b, p, s, din, heads, dh, pos, mode, 81)
+    assert gk.fwd_form(t[0], False) == "fused"
+    names = ("gat_layer_fwd", "gat_layer_fwd_train",
+             "gat_layer_fwd_train_store")
+    before = {k: dict(gk.WRAPPERS[k].launches_by_form) for k in names}
+    train = mode != "eval"
+    if train:
+        kw["out_alpha"] = out_alpha
+        call = lambda: gk.gat_layer_fwd_train(*t, p, heads, **kw)  # noqa
+        store = lambda: gk.gat_layer_fwd_train_store(  # noqa: E731
+            *t, p, heads, **kw)
+        out = call()
+        out_s, attn = store()
+        want, want_attn = gk.gat_layer_train_plain(*t, p, heads,
+                                                   store_attn=True, **kw)
+        torch.testing.assert_close(attn, want_attn, **TOL)
+        with gk.use_form("two_pass"):
+            two, (two_s, two_attn) = call(), store()
+        torch.cuda.synchronize()
+        assert torch.equal(out_s, out)
+        assert torch.equal(two, out) and torch.equal(two_s, out_s)
+        assert torch.equal(two_attn, attn)
+    else:
+        call = lambda: gk.gat_layer_fwd(  # noqa: E731
+            *t, p, heads, out_alpha=out_alpha)
+        out = call()
+        want = gk.gat_layer_fwd_plain(*t, p, heads, out_alpha)
+        with gk.use_form("two_pass"):
+            two = call()
+        torch.cuda.synchronize()
+        assert torch.equal(two, out)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, want, **TOL)
+    assert torch.equal(call(), out)
+    torch.cuda.synchronize()
+    # (fused, two-pass) launches of each wrapper
+    calls = {"gat_layer_fwd": (0, 0) if train else (2, 1),
+             "gat_layer_fwd_train": (2, 1) if train else (0, 0),
+             "gat_layer_fwd_train_store": (1, 1) if train else (0, 0)}
+    for k in names:
+        got = gk.WRAPPERS[k].launches_by_form
+        assert tuple(got.get(f, 0) - before[k].get(f, 0)
+                     for f in ("fused", "two_pass")) == calls[k], k
+
+
+@pytest.mark.parametrize("b,p,s,din,heads,dh,pos", F32_FUSED_SHAPES[:3])
+@pytest.mark.parametrize("bits", [32, 8])
+def test_f32_fused_pass_a_bits_equal_k2(dev, b, p, s, din, heads, dh, pos,
+                                        bits):
+    """Pass A's bits: the softmax weights that K1t's store form writes
+    (computed from pass A's a1 | a2 on the narrow tile) equal bit for bit
+    those recomputed from the projection K2 runs (`gat_projection`, the
+    same product over [fc | wa1 | wa2]; the weights by the pooled star
+    pass's store form, which writes every slot's), and the stored K2 fed
+    them gives the recompute K2's grads bit for bit (need_dx on and off)."""
+    t, kw = _f32_fused_case(dev, b, p, s, din, heads, dh, pos,
+                            "train8" if bits == 8 else "train", 91)
+    out, attn = gk.gat_layer_fwd_train_store(*t, p, heads, out_alpha=0.01,
+                                             **kw)
+    proj = gk.gat_projection(*t[:7], pe_pack=kw["pe_pack"], seed=kw["seed"],
+                             feat_drop=kw["feat_drop"], dropout_bits=bits)
+    _, recomputed = gk.gat_pooled_star(proj, t[7], t[8], p, heads,
+                                       seed=kw["seed"],
+                                       attn_drop=kw["attn_drop"],
+                                       dropout_bits=bits, store=True)
+    torch.cuda.synchronize()
+    assert torch.equal(attn, recomputed)
+    g = torch.randn(out.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(92)) * 1e-2
+    pre = gk.gat_layer_train_plain(*t, p, heads, **kw)
+    g = g * (pre.abs() > 1e-5)   # leaky' jumps at 0: no grad near it
+    for need_dx in (True, False):
+        bkw = dict(kw, need_dx=need_dx, out_alpha=0.01)
+        got = gk.gat_layer_bwd(g, *t, p, heads, **bkw)
+        stored = gk.gat_layer_bwd_stored(g, *t, p, heads, attn, **bkw)
+        torch.cuda.synchronize()
+        for name, a in stored.items():
+            assert (a is None) == (got[name] is None), name
+            assert a is None or torch.equal(a, got[name]), name
+
+
+def test_f32_fused_k1_empty_egonets_and_batch(dev):
+    """The float32 fused form on a batch of egonets that hold only their
+    anchor (every sibling slot invalid, still written with its formula
+    value; two egonets a warpgroup tile) and on an empty batch (no
+    launch)."""
+    b, p, s, din, heads, dh = 9, 3, 12, 24, 2, 72
+    t = _inputs(dev, b, p, s, din, heads, dh, seed=94)
+    _empty_egonets(t, p, s)
+    for out_alpha in (0.01, None):
+        got = gk.gat_layer_fwd(*t, p, heads, out_alpha=out_alpha)
+        torch.testing.assert_close(got, gk.gat_layer_fwd_plain(
+            *t, p, heads, out_alpha), **TOL)
+        with gk.use_form("two_pass"):
+            assert torch.equal(gk.gat_layer_fwd(*t, p, heads,
+                                                out_alpha=out_alpha), got)
+    e = [a[:0] if i in (0, 7, 8) else a for i, a in enumerate(t)]
+    before = dict(gk.gat_layer_fwd.launches_by_form)
+    assert gk.gat_layer_fwd(*e, p, heads).shape == (0, p + 1 + s,
+                                                    heads * dh)
+    assert gk.gat_layer_fwd.launches_by_form == before
+
+
+@pytest.mark.parametrize("b,p,s,din,heads,dh,pos", VALID_ROWS_SHAPES)
+@pytest.mark.parametrize("empty", [False, True])
+@pytest.mark.parametrize("bits", [32, 8])
+def test_f32_k3_valid_rows_match_plain(dev, b, p, s, din, heads, dh, pos,
+                                       empty, bits):
+    """K3 float32's eval and train forms on the valid rows alone
+    (only-anchor, no-gp, no-sib and full egonets leading, large x at the
+    invalid slots; or every egonet only its anchor, R = B) against their
+    plain versions, equal bits with the two-pass form over all rows
+    (`use_form`; the store form takes it by shape), two calls equal bits,
+    the launches counted under their forms."""
+    t = _inputs(dev, b, p, s, din, heads, dh, seed=96)
+    if empty:
+        _empty_egonets(t, p, s)
+    else:
+        _edge_egonets(t, p, s, big=True)
+    n = p + 1 + s
+    assert gk.fwd_form(t[0], True) == "valid_rows"
+    assert gk.fwd_form(t[0], True, store=True) == "two_pass"
+    kw = dict(pe_pack=_pe_pack(dev, n, pos, heads, dh), seed=97,
+              feat_drop=0.1, attn_drop=0.1, dropout_bits=bits)
+    forms = (dict(gk.gat_layer_pooled_fwd.launches_by_form),
+             dict(gk.gat_layer_pooled_fwd_train.launches_by_form))
+    got = gk.gat_layer_pooled_fwd(*t, p, heads)
+    torch.testing.assert_close(got, gk.gat_layer_pooled_fwd_plain(
+        *t, p, heads), **TOL)
+    out = gk.gat_layer_pooled_fwd_train(*t, p, heads, **kw)
+    torch.testing.assert_close(out, gk.gat_layer_train_plain(
+        *t, p, heads, pooled=True, **kw), **TOL)
+    out_s, _ = gk.gat_layer_pooled_fwd_train_store(*t, p, heads, **kw)
+    again = gk.gat_layer_pooled_fwd(*t, p, heads)
+    with gk.use_form("two_pass"):
+        two = gk.gat_layer_pooled_fwd(*t, p, heads)
+        two_t = gk.gat_layer_pooled_fwd_train(*t, p, heads, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out_s, out) and torch.equal(two_t, out)
+    assert torch.equal(again, got) and torch.equal(two, got)
+    after = (gk.gat_layer_pooled_fwd.launches_by_form,
+             gk.gat_layer_pooled_fwd_train.launches_by_form)
+    for form, more in (("valid_rows", (2, 1)), ("two_pass", (1, 1))):
+        assert tuple(a.get(form, 0) - f.get(form, 0)
+                     for a, f in zip(after, forms)) == more, form
+
+
 GCN_BF16_SHAPES = [
     # b, p, s, din, dout, pos, only empty egonets
     (37, 5, 64, 33, 130, 7, False),    # N = 70, 2590 rows, Dout 130
@@ -1588,8 +1796,8 @@ def test_config_widths_match_plain(dev, case, dtype, b, small):
     form, the train form (the pe path, dropout 0.1) and the backward (layer
     0's with need_dx on and off, the pooled one's on), at a ragged B = 7
     and at B = 2 with every egonet small (the valid rows below one 64-row
-    tile, B * N at most one 128-row tile); the bf16 forwards take the fused
-    form (per slot) and the valid-rows form (pooled)."""
+    tile, B * N at most one 128-row tile); the forwards of either dtype
+    take the fused form (per slot) and the valid-rows form (pooled)."""
     p, s, din, heads, dh, pos, pooled = CONFIG_CASES[case]
     n = p + 1 + s
     low = dtype == torch.bfloat16
@@ -1626,9 +1834,8 @@ def test_config_widths_match_plain(dev, case, dtype, b, small):
                                        **dict(kw, out_alpha=None))
         g = (g * (pre.float().abs() > 1e-5)).to(dtype)
     torch.cuda.synchronize()
-    if low:
-        form = "valid_rows" if pooled else "fused"
-        assert fwd.launches_by_form.get(form, 0) == forms.get(form, 0) + 1
+    form = "valid_rows" if pooled else "fused"
+    assert fwd.launches_by_form.get(form, 0) == forms.get(form, 0) + 1
     bwd = gk.gat_layer_pooled_bwd if pooled else gk.gat_layer_bwd
     for need_dx in (True,) if pooled else (True, False):
         got = bwd(g, *t, p, heads, need_dx=need_dx, **kw)
